@@ -1,4 +1,4 @@
-"""Drive dj_tpu_torch's main path on one CUDA card and check it.
+"""Drive dj_tpu_torch's paths on one CUDA card and check them.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -13,14 +13,26 @@ Phases, each printing its own line(s):
      the global-memory search is held to the plain version; S not a
      multiple of the scan tile; join_scans also with 1M probe rows on one
      key, where csum wraps) and (c) an all-miss input;
-  4. main path: generate 100M build x 100M probe int64 rows (selectivity
-     0.3, unique build keys), shard, distributed_inner_join at
-     over_decom_factor 1 and 4; every flag False, total equal to the
+  4. unprepared path: generate 100M build x 100M probe int64 rows
+     (selectivity 0.3, unique build keys), shard, distributed_inner_join
+     at over_decom_factor 1 and 4; every flag False, total equal to the
      generator's expected count, every output row checked against the
      inputs, and both kernels launched by the join itself;
-  5. timings: median join wall over warm runs, peak memory, a profiler
-     breakdown of one warm join by kernel, and the `kernels` JSON line (kernel, plain-version and library times beside
-     each kernel's bound).
+  5. prepared path: at odf 1 and 4, prepare_join_side on the build table,
+     then distributed_inner_join with the PreparedSide under each merge
+     tier (sort, merge, probe); each query checked as in 4, with the
+     same row multiset as the unprepared join, and its tier's kernels
+     launched by the query itself; median walls of warm prepares and
+     queries, peak memory, a profiler breakdown per tier at odf 1;
+  6. kernels vs plain: merge_sorted_u64 and expand_ranks against their
+     plain versions, exact equality, on the prepared path's own inputs at
+     full size and on edge cases (cross-operand duplicates with sentinel
+     tails, empty and length-1 operands, lengths off the tile, one operand
+     wholly above the other; sparse matches whose expand_ranks windows
+     exceed the shared stage, one row with 1M matches, all-miss, n_out
+     below and above the total);
+  7. timings: the `kernels` JSON line (kernel, plain-version and library
+     times beside each kernel's bound, launches per query on each path).
 The last line is {"ok": true, "device": {...}}. With no CUDA device, or
 without the package beside it, the script fails before printing any
 result. ``--rows N`` shrinks the main path (for a quick first check).
@@ -30,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -153,7 +166,7 @@ def compare_kernels(case: str, sp, lc, rc, tag_bits, L, R, n_out, timing: bool,
     return scan_err, exp_err, t
 
 
-def profile_join(odf: int, run) -> None:
+def profile_join(run, **labels) -> None:
     """Device time of one warm join by kernel (torch.profiler), and the
     device's idle share of the join's wall."""
     from torch.profiler import ProfilerActivity, profile
@@ -170,7 +183,7 @@ def profile_join(odf: int, run) -> None:
         by_name[e.name] = (ms + e.device_time_total / 1e3, n + 1)
     busy_ms = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    log("profile", odf=odf, wall_ms=wall_ms, device_busy_ms=busy_ms,
+    log("profile", **labels, wall_ms=wall_ms, device_busy_ms=busy_ms,
         idle_share=(1 - busy_ms / wall_ms) if busy_ms else "not measured",
         top=[{"kernel": k[:90], "ms": ms, "calls": n} for k, (ms, n) in top])
 
@@ -191,6 +204,110 @@ def check_rows(out, counts, build, probe, expected: int) -> None:
         raise AssertionError("a probe row appears in two output rows")
 
 
+TIERS = ("sort", "merge", "probe")
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    from dj_tpu_torch.ops import expand, merge, scan
+
+    scan.launches = expand.launches = expand.ranks_launches = merge.launches = 0
+
+
+def read_launches() -> dict:
+    from dj_tpu_torch.ops import expand, merge, scan
+
+    return {"join_scans": scan.launches, "expand_values": expand.launches,
+            "merge_sorted_u64": merge.launches, "expand_ranks": expand.ranks_launches}
+
+
+def sorted_rows(out, counts):
+    """The valid output rows (key, probe row, build row) ordered by probe
+    row: build keys are unique, so the probe row identifies a row."""
+    n = int(counts[0])
+    k, lp, rp = (c.data[:n] for c in out.columns)
+    order = torch.sort(lp).indices
+    return k[order], lp[order], rp[order]
+
+
+def check_same_rows(got, want, what: str) -> None:
+    for g, w, name in zip(got, want, ("key", "probe row", "build row")):
+        if g.shape != w.shape or not torch.equal(g, w):
+            raise AssertionError(f"{what}: the {name} column differs from the unprepared join's")
+
+
+def probe_tier_inputs(prep, left, lcnt):
+    """At odf 1 the query's probe batch is the probe shard itself: its
+    resident words, the probe words packed under the plan, and the
+    probe tier's int32 csum, as the query computes them."""
+    from dj_tpu_torch.ops.join import _anchored_pack_word, _probe_counts
+
+    pwords, _, pcnt = prep.batches[0]
+    w_l, _ = _anchored_pack_word(left.with_count(lcnt[0]), [0], prep.plan, pwords.shape[0])
+    _, cnt = _probe_counts(pwords, w_l, lcnt[0], pcnt[0], prep.plan.tag_bits)
+    return pwords, w_l, torch.cumsum(cnt, 0, dtype=torch.int64).to(torch.int32)
+
+
+def compare_merge(case: str, a, b, timing: bool = False):
+    """merge_sorted_u64 against its plain version, every word equal;
+    returns the max |kernel - plain| (0, or it raises) and, with
+    ``timing``, the kernel's, plain version's and library sort's times."""
+    from dj_tpu_torch.ops import merge
+
+    got = merge.merge_sorted_u64(a, b)
+    want = merge.merge_sorted_u64_plain(a, b)
+    torch.cuda.synchronize()
+    bad = torch.nonzero(got != want).flatten()
+    if bad.numel():
+        i = int(bad[0])
+        raise AssertionError(f"{case}: merge_sorted_u64 differs at {bad.numel()} of {got.numel()} "
+                             f"words, first at {i}: {int(got[i]):#x} vs {int(want[i]):#x}")
+    S = a.numel() + b.numel()
+    log("kernels_vs_plain", case=case, kernel="merge_sorted_u64", R=a.numel(), L=b.numel(),
+        S_mod_tile=S % merge.TILE, max_abs_err=0, words_equal=S)
+    del got, want
+    if not timing:
+        return 0
+    flipped = torch.cat([a, b]) ^ (-(2**63))
+    t = {"ms": cuda_ms(lambda: merge.merge_sorted_u64(a, b), 5),
+         "plain_ms": cuda_ms(lambda: merge.merge_sorted_u64_plain(a, b), 2),
+         "library_ms": cuda_ms(lambda: torch.sort(flipped), 3), "S": S}
+    return 0, t
+
+
+def compare_ranks(case: str, csum, n_out: int, timing: bool = False,
+                  need_global_windows: bool = False):
+    """expand_ranks against its plain version on every slot; returns
+    the max |kernel - plain| and, with ``timing``, times."""
+    from dj_tpu_torch.ops import expand
+
+    got = expand.expand_ranks(csum, n_out)
+    want = expand.expand_ranks_plain(csum, n_out)
+    torch.cuda.synchronize()
+    err = max_abs_diff([(got, want)])
+    if err:
+        i = int(torch.nonzero(got != want)[0])
+        raise AssertionError(f"{case}: expand_ranks differs first at {i}: {int(got[i])} vs "
+                             f"{int(want[i])} (max |err| {err})")
+    total = int(csum[-1]) if csum.numel() else 0
+    widest, n_global = block_windows(csum, n_out, total)
+    if need_global_windows and not n_global:
+        raise AssertionError(f"{case}: no expand_ranks window is wider than {expand.WIN} "
+                             f"(widest {widest}); the global-memory search was not exercised")
+    log("kernels_vs_plain", case=case, kernel="expand_ranks", S=csum.numel(), n_out=n_out,
+        total=total, max_abs_err=err, slots_compared=n_out, widest_window=widest,
+        blocks_over_win=n_global)
+    del got, want
+    if not timing:
+        return err
+    j = torch.arange(n_out, dtype=torch.int32, device=csum.device)
+    t = {"ms": cuda_ms(lambda: expand.expand_ranks(csum, n_out), 5),
+         "plain_ms": cuda_ms(lambda: expand.expand_ranks_plain(csum, n_out), 2),
+         "library_ms": cuda_ms(lambda: torch.searchsorted(csum, j, right=True, out_int32=True), 5),
+         "S": csum.numel(), "n_out": n_out}
+    return err, t
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=100_000_000,
@@ -201,8 +318,16 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this check runs only on the card", file=sys.stderr)
         return 1
     import dj_tpu_torch as dj
-    from dj_tpu_torch.ops import cuda_build, expand, scan
-    from dj_tpu_torch.parallel.dist_join import batch_sizing
+    from dj_tpu_torch.ops import cuda_build
+    from dj_tpu_torch.ops.join import (
+        _anchored_pack_word,
+        _probe_counts,
+        plan_prepared_pack,
+        prepare_packed_batch,
+        prepared_effective_plan,
+    )
+    from dj_tpu_torch.ops.merge import sort_u64
+    from dj_tpu_torch.parallel.dist_join import _prepared_query_sizing, batch_sizing
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -279,26 +404,29 @@ def main() -> int:
     del miss, mb, mp
     torch.cuda.empty_cache()
 
-    # 4. main path through the user's entry points
+    # 4. unprepared path through the user's entry points
     topo = dj.make_topology()
     left, lcnt = dj.shard_table(topo, probe)
     right, rcnt = dj.shard_table(topo, build)
-    main_launches = {}
+    launch_table = {"unprepared": {}}
     walls = {}
     peaks = {}
+    ref = None
     for odf in (1, 4):
         cfg = dj.JoinConfig(over_decom_factor=odf)
-        scan.launches = expand.launches = 0
+        reset_launches()
         out, counts, info = dj.distributed_inner_join(topo, left, lcnt, right, rcnt, [0], [0], cfg)
         torch.cuda.synchronize()
-        launches = {"join_scans": scan.launches, "expand_values": expand.launches}
+        launches = read_launches()
         set_flags = [k for k, v in info.items() if bool(v.any())]
         if set_flags:
             raise AssertionError(f"odf={odf}: flags set: {set_flags}")
         check_rows(out, counts, build, probe, expected)
-        if min(launches.values()) < 1:
+        if min(launches["join_scans"], launches["expand_values"]) < 1:
             raise AssertionError(f"odf={odf}: a kernel was not launched: {launches}")
-        main_launches[odf] = launches
+        launch_table["unprepared"][odf] = launches
+        if ref is None:
+            ref = sorted_rows(out, counts)
         del out, counts, info
         runs = []
         torch.cuda.reset_peak_memory_stats()
@@ -313,21 +441,141 @@ def main() -> int:
         log("main_path", odf=odf, rows=rows, total=expected, flags="all False",
             rows_checked=expected, launches=launches, wall_ms=walls[odf],
             wall_ms_runs=runs, peak_bytes=peaks[odf])
-        profile_join(odf, lambda: dj.distributed_inner_join(
-            topo, left, lcnt, right, rcnt, [0], [0], cfg))
+        profile_join(lambda: dj.distributed_inner_join(
+            topo, left, lcnt, right, rcnt, [0], [0], cfg), path="unprepared", odf=odf)
 
-    # 5. timings
+    # 5. prepared path: prepare once, query under each merge tier
+    prep_walls, query_walls = {}, {}
+    for odf in (1, 4):
+        cfg = dj.JoinConfig(over_decom_factor=odf, key_range=(0, 2 * rows))
+        torch.cuda.reset_peak_memory_stats()
+        runs = []
+        for _ in range(4):  # the first warms up, the next three are timed
+            prep = None  # free the previous side before building the next
+            t0 = time.perf_counter()
+            prep = dj.prepare_join_side(topo, right, rcnt, [0], cfg, left_capacity=rows)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        prep_walls[odf] = statistics.median(runs[1:])
+        log("prepare", odf=odf, rows=rows, wall_ms=prep_walls[odf], wall_ms_runs=runs,
+            peak_bytes=torch.cuda.max_memory_allocated(), tag_bits=prep.plan.tag_bits,
+            resident_rows_per_batch=prep.batches[0][0].shape[0])
+        for tier in TIERS:
+            os.environ["DJT_JOIN_MERGE"] = tier
+
+            def query():
+                return dj.distributed_inner_join(topo, left, lcnt, prep, None, [0], None, cfg)
+
+            reset_launches()
+            out, counts, info = query()
+            torch.cuda.synchronize()
+            launches = read_launches()
+            what = f"prepared odf={odf} tier={tier}"
+            set_flags = [k for k, v in info.items() if bool(v.any())]
+            if set_flags:
+                raise AssertionError(f"{what}: flags set: {set_flags}")
+            check_rows(out, counts, build, probe, expected)
+            check_same_rows(sorted_rows(out, counts), ref, what)
+            missing = [k for k in prepared_effective_plan(tier) if launches[k] < 1]
+            if missing:
+                raise AssertionError(f"{what}: kernels not launched by the query: {missing} ({launches})")
+            launch_table.setdefault(f"prepared_{tier}", {})[odf] = launches
+            del out, counts, info
+            runs = []
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(3):
+                t0 = time.perf_counter()
+                res = query()
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t0) * 1e3)
+                del res
+            query_walls[(odf, tier)] = statistics.median(runs)
+            log("prepared_path", odf=odf, tier=tier, rows=rows, total=expected,
+                flags="all False", rows_checked=expected, same_rows_as_unprepared=True,
+                launches=launches, wall_ms=query_walls[(odf, tier)], wall_ms_runs=runs,
+                peak_bytes=torch.cuda.max_memory_allocated())
+            if odf == 1:
+                profile_join(query, path=f"prepared_{tier}", odf=odf)
+        os.environ.pop("DJT_JOIN_MERGE")
+        if odf == 1:
+            # 6a. the new kernels on the prepared path's own inputs
+            out_cap = _prepared_query_sizing(topo, cfg, rows, prep)[3]
+            pwords, w_l, csum = probe_tier_inputs(prep, left, lcnt)
+            merge_err, merge_timing = compare_merge("main_path", pwords, sort_u64(w_l), timing=True)
+            del w_l
+            ranks_err, ranks_timing = compare_ranks("main_path", csum, out_cap, timing=True)
+            del pwords, csum
+        del prep
+        torch.cuda.empty_cache()
+    del ref
+
+    # 6b. the new kernels on edge cases
+    merge_errs, ranks_errs = [merge_err], [ranks_err]
+
+    def sorted_words(n, lo, hi, sentinels=0):
+        x = torch.randint(lo, hi, (n,), generator=gen, device=dev)
+        if sentinels:
+            x[-sentinels:] = -1  # the all-ones padding
+        return sort_u64(x)
+
+    merge_errs.append(compare_merge("cross_duplicates_sentinel_tails",
+                                    sorted_words(3_000_000, 0, 50, 1_000_000),
+                                    sorted_words(2_000_017, 0, 50, 333)))
+    empty = torch.empty(0, dtype=torch.int64, device=dev)
+    merge_errs.append(compare_merge("empty_a", empty, sorted_words(1000, 0, 2**62)))
+    merge_errs.append(compare_merge("empty_b", sorted_words(1000, 0, 2**62), empty))
+    merge_errs.append(compare_merge("length_one", torch.tensor([-5], device=dev),
+                                    torch.tensor([7], device=dev)))
+    merge_errs.append(compare_merge("lengths_off_tile", sorted_words(4097, 0, 2**62),
+                                    sorted_words(12_345, 0, 2**62)))
+    # Negative int64 words have the top bit set: as u64 all lie above b.
+    merge_errs.append(compare_merge("a_wholly_above_b", sorted_words(300_001, -(2**62), -1),
+                                    sorted_words(700_003, 0, 2**62)))
+
+    sk = 1_000_000
+    sb, spr = dj.generate_build_probe_tables(gen, 10 * sk, 10 * sk, 0.001, 20 * sk, True)
+    splan = plan_prepared_pack((0, 20 * sk), [torch.int64], 20 * sk)
+    swords, _, _ = prepare_packed_batch(sb, [0], splan)
+    sw_l, _ = _anchored_pack_word(spr, [0], splan, swords.shape[0])
+    _, scnt = _probe_counts(swords, sw_l, spr.count(), sb.count(), splan.tag_bits)
+    scsum = torch.cumsum(scnt, 0, dtype=torch.int64).to(torch.int32)
+    ranks_errs.append(compare_ranks("sparse_sel_0.001", scsum, 10 * sk, need_global_windows=True))
+    del sb, spr, swords, sw_l, scnt, scsum
+    hot = torch.zeros(5 * sk, dtype=torch.int32, device=dev)
+    hot[5 * sk // 2] = sk
+    ranks_errs.append(compare_ranks("one_row_1M_matches", torch.cumsum(hot, 0, dtype=torch.int32), sk + 5))
+    ranks_errs.append(compare_ranks("all_miss", torch.zeros(3 * sk, dtype=torch.int32, device=dev), sk))
+    dense = torch.cumsum(torch.randint(0, 3, (4 * sk,), generator=gen, device=dev), 0).to(torch.int32)
+    total = int(dense[-1])
+    ranks_errs.append(compare_ranks("n_out_below_total", dense, total // 2 + 3))
+    ranks_errs.append(compare_ranks("n_out_above_total", dense, total + 4097))
+    del hot, dense
+
+    # 7. timings
     S, n_out = timing["S"], timing["n_out"]
     scan_bytes = 8 * S + 4 * 4 * S
     expand_bytes = 4 * 4 * S + 2 * 4 * n_out
+    merge_bytes = 16 * merge_timing["S"]
+    ranks_bytes = 4 * ranks_timing["S"] + 4 * ranks_timing["n_out"]
     log("timings", join_wall_ms_odf1=walls[1], join_wall_ms_odf4=walls[4],
         peak_bytes_odf1=peaks[1], peak_bytes_odf4=peaks[4], sort_ms=timing["sort_ms"],
-        sort_S=S, card=smi)
+        sort_S=S, prepare_wall_ms=prep_walls,
+        prepared_query_wall_ms={f"{t}_odf{o}": v for (o, t), v in query_walls.items()},
+        merge_S=merge_timing["S"], ranks_S=ranks_timing["S"], ranks_n_out=ranks_timing["n_out"],
+        card=smi)
+
+    def per_query(name):
+        return {path: {f"odf{odf}": c[name] for odf, c in by_odf.items()}
+                for path, by_odf in launch_table.items()
+                if any(c[name] for c in by_odf.values())}
+
     kernels = [
         {
             "name": "join_scans", "route": "cuda", "source": "dj_tpu_torch/csrc/join_scans.cu",
             "replaces": "dj_tpu/ops/pallas_scan.py:237",
-            "launches": main_launches[1]["join_scans"], "launches_odf4": main_launches[4]["join_scans"],
+            "launches": launch_table["unprepared"][1]["join_scans"],
+            "launches_odf4": launch_table["unprepared"][4]["join_scans"],
+            "launches_per_query": per_query("join_scans"),
             "max_abs_err": max(e[0] for e in errs), "ms": timing["scan_ms"],
             "plain_ms": timing["scan_plain_ms"],
             "bound_ms": scan_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
@@ -336,12 +584,39 @@ def main() -> int:
         {
             "name": "expand_values", "route": "cuda", "source": "dj_tpu_torch/csrc/expand_values.cu",
             "replaces": "dj_tpu/ops/pallas_expand.py:841",
-            "launches": main_launches[1]["expand_values"], "launches_odf4": main_launches[4]["expand_values"],
+            "launches": launch_table["unprepared"][1]["expand_values"],
+            "launches_odf4": launch_table["unprepared"][4]["expand_values"],
+            "launches_per_query": per_query("expand_values"),
             "max_abs_err": max(e[1] for e in errs), "ms": timing["expand_ms"],
             "plain_ms": timing["expand_plain_ms"],
             "bound_ms": expand_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": timing["searchsorted_ms"],
             "library_call": "torch.searchsorted(csum, arange(n_out), right=True)",
+        },
+        {
+            "name": "merge_sorted_u64", "route": "cuda",
+            "source": "dj_tpu_torch/csrc/merge_sorted_u64.cu",
+            "replaces": "dj_tpu/ops/pallas_merge.py:200",
+            "launches": launch_table["prepared_merge"][1]["merge_sorted_u64"],
+            "launches_odf4": launch_table["prepared_merge"][4]["merge_sorted_u64"],
+            "launches_per_query": per_query("merge_sorted_u64"),
+            "max_abs_err": max(merge_errs), "ms": merge_timing["ms"],
+            "plain_ms": merge_timing["plain_ms"],
+            "bound_ms": merge_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": merge_timing["library_ms"],
+            "library_call": "torch.sort(concat(a, b) ^ 2^63)",
+        },
+        {
+            "name": "expand_ranks", "route": "cuda", "source": "dj_tpu_torch/csrc/expand_ranks.cu",
+            "replaces": "dj_tpu/ops/pallas_expand.py:451",
+            "launches": launch_table["prepared_probe"][1]["expand_ranks"],
+            "launches_odf4": launch_table["prepared_probe"][4]["expand_ranks"],
+            "launches_per_query": per_query("expand_ranks"),
+            "max_abs_err": max(ranks_errs), "ms": ranks_timing["ms"],
+            "plain_ms": ranks_timing["plain_ms"],
+            "bound_ms": ranks_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": ranks_timing["library_ms"],
+            "library_call": "torch.searchsorted(csum, arange(n_out), right=True, out_int32=True)",
         },
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

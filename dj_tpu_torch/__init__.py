@@ -1,14 +1,16 @@
 """dj_tpu_torch: the distributed inner join on PyTorch and CUDA.
 
 A port of the JAX package ``dj_tpu`` to an NVIDIA H100 (Hopper). Plain
-tensor code is PyTorch; the two TPU kernels on the main path have
-hand-written CUDA counterparts (``csrc/join_scans.cu``,
-``csrc/expand_values.cu``), built with nvcc at first use. Entry points
-run on the current CUDA device unless given CPU tensors or a CPU
+tensor code is PyTorch; each TPU kernel on the ported paths has a
+hand-written CUDA counterpart in ``csrc/`` (join_scans, expand_values,
+merge_sorted_u64, expand_ranks), built with nvcc at first use. Entry
+points run on the current CUDA device unless given CPU tensors or a CPU
 topology, where each kernel's plain PyTorch version runs instead.
 
-This slice covers the unprepared inner join on a single-int key over a
-one-rank world: generate -> shard -> distributed_inner_join.
+Ported so far, over a one-rank world: the unprepared inner join on int
+keys (generate -> shard -> distributed_inner_join), and the prepared
+build side (prepare_join_side once, then distributed_inner_join with the
+PreparedSide per query, under the sort, merge or probe tier).
 """
 
 from .core import dtypes
@@ -17,12 +19,20 @@ from .data.generator import generate_build_probe_tables
 from .ops.join import inner_join
 from .ops.partition import hash_partition
 from .parallel.api import shard_table, unshard_table
-from .parallel.dist_join import JoinConfig, distributed_inner_join
+from .parallel.dist_join import (
+    JoinConfig,
+    PreparedSide,
+    distributed_inner_join,
+    prepare_join_side,
+)
 from .parallel.topology import Topology, make_topology
+from .resilience.errors import PreparedPlanMismatch
 
 __all__ = [
     "Column",
     "JoinConfig",
+    "PreparedPlanMismatch",
+    "PreparedSide",
     "Table",
     "Topology",
     "concatenate",
@@ -33,6 +43,7 @@ __all__ = [
     "hash_partition",
     "inner_join",
     "make_topology",
+    "prepare_join_side",
     "shard_table",
     "unshard_table",
 ]

@@ -1,10 +1,14 @@
-"""Carry tables and join configs between dj_tpu and dj_tpu_torch.
+"""Carry tables, join configs and prepared sides between dj_tpu and
+dj_tpu_torch.
 
 The two packages share no code, so the meeting point is plain data: a
 table as a list of numpy column arrays, their logical dtype names and a
-valid row count; a config as its field values. This module imports
-neither JAX nor dj_tpu; the caller converts dj_tpu arrays with
-``np.asarray`` and builds dj_tpu tables from the arrays it gets back.
+valid row count; a config as its field values; a prepared side as its
+plan fields and its batches' arrays. This module imports neither JAX nor
+dj_tpu; the caller converts dj_tpu arrays with ``np.asarray`` and builds
+dj_tpu tables from the arrays it gets back, and ``prepared_side_from``
+reads a dj_tpu PreparedSide by attribute name, converting each array
+with ``np.asarray``.
 """
 
 from __future__ import annotations
@@ -17,7 +21,9 @@ import torch
 
 from .core import dtypes as dt
 from .core.table import Column, Table
-from .parallel.dist_join import JoinConfig
+from .ops.join import PreparedPackPlan
+from .parallel.dist_join import BatchSizing, JoinConfig, PreparedSide
+from .parallel.topology import Topology
 
 
 def table_from_numpy(
@@ -32,7 +38,7 @@ def table_from_numpy(
     cols = []
     for a, name in zip(arrays, dtype_names, strict=True):
         d = dt.by_name(name)
-        a = np.ascontiguousarray(np.asarray(a, dtype=d.physical))
+        a = np.array(a, dtype=d.physical)  # a writable copy
         cols.append(Column(torch.from_numpy(a).to(device), d))
     vc = None
     if valid_count is not None:
@@ -53,4 +59,45 @@ def join_config_from(config) -> JoinConfig:
     read by name from another config object (dj_tpu's JoinConfig)."""
     return JoinConfig(
         **{f.name: getattr(config, f.name) for f in dataclasses.fields(JoinConfig)}
+    )
+
+
+def prepared_side_from(prepared, topology: Topology) -> PreparedSide:
+    """The port's PreparedSide holding the state of a dj_tpu
+    PreparedSide (its shuffle tier) on ``topology``'s device: the plan
+    fields, sizes and config by name, the sorted words (u64, kept as
+    their int64 bit patterns), payload tables and counts of every batch
+    through ``np.asarray``."""
+    tier = getattr(prepared, "tier", "shuffle")
+    if tier != "shuffle":
+        raise NotImplementedError(f"prepared tier {tier!r} comes with a later slice")
+    dev = topology.device
+
+    def tensor(a, dtype=None):
+        a = np.asarray(a)
+        return torch.from_numpy(np.array(a if dtype is None else a.view(dtype))).to(dev)
+
+    def table(t) -> Table:
+        return table_from_numpy(
+            [np.asarray(c.data) for c in t.columns], [c.dtype.name for c in t.columns],
+            device=dev,
+        )
+
+    batches = tuple(
+        (tensor(words, np.int64), table(payload), tensor(counts))
+        for words, payload, counts in prepared.batches
+    )
+    return PreparedSide(
+        topology=topology,
+        config=join_config_from(prepared.config),
+        right_on=tuple(prepared.right_on),
+        key_range=tuple((int(lo), int(hi)) for lo, hi in prepared.key_range),
+        plan=PreparedPackPlan(*prepared.plan),
+        n=int(prepared.n),
+        sizing=BatchSizing(*(int(v) for v in prepared.sizing)),
+        l_cap=int(prepared.l_cap),
+        r_cap=int(prepared.r_cap),
+        batches=batches,
+        right=table(prepared.right),
+        right_counts=tensor(prepared.right_counts),
     )

@@ -97,6 +97,13 @@ def from_torch(dtype: torch.dtype) -> DType:
     return _BY_NAME[str(dtype).removeprefix("torch.")]
 
 
+def numpy_dtype(dtype) -> np.dtype:
+    """The numpy dtype of a torch dtype, or of anything np.dtype takes."""
+    if isinstance(dtype, torch.dtype):
+        return np.dtype(str(dtype).removeprefix("torch."))
+    return np.dtype(dtype)
+
+
 def is_integer(d: DType) -> bool:
     return d.kind in ("int", "uint", "timestamp", "duration")
 

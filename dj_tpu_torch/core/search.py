@@ -1,9 +1,12 @@
-"""Rank queries of ``arange(length)`` against a sorted vector.
+"""Rank queries against a sorted vector.
 
-Counterpart of ``dj_tpu/core/search.py:25-50``. The JAX package builds
-these from a scatter-add histogram because XLA's searchsorted is a slow
-gather loop on a TPU; here ``torch.searchsorted`` is the direct form.
-Both require ``sorted_vals`` ascending and non-negative.
+Counterpart of ``dj_tpu/core/search.py:25-50, 97-174``. The JAX package
+builds the ``arange`` queries from a scatter-add histogram and the run
+ranks from an unrolled gather loop, because XLA's searchsorted is a
+slow gather loop on a TPU; here ``torch.searchsorted`` is the direct
+form of both. Every function requires its sorted operand ascending
+under the tensor's own (signed) order: a caller holding u64 words as
+int64 bit patterns maps them to an order-preserving image first.
 """
 
 from __future__ import annotations
@@ -27,3 +30,32 @@ def count_lt_arange(sorted_vals: torch.Tensor, length: int) -> torch.Tensor:
     return torch.searchsorted(
         sorted_vals, _queries(sorted_vals, length), right=False, out_int32=True
     )
+
+
+def rank_in_run(
+    sorted_ref: torch.Tensor, queries: torch.Tensor, side: str = "left"
+) -> torch.Tensor:
+    """Insertion rank of each query in a sorted run, int32:
+    ``side="left"`` is the first index with ref >= q, ``side="right"``
+    the first with ref > q. Queries need not be sorted."""
+    if side not in ("left", "right"):
+        raise ValueError(f"side must be 'left' or 'right', got {side!r}")
+    if sorted_ref.shape[0] == 0:
+        return torch.zeros(queries.shape, dtype=torch.int32, device=queries.device)
+    return torch.searchsorted(
+        sorted_ref, queries, right=side == "right", out_int32=True
+    )
+
+
+def run_bounds(
+    sorted_ref: torch.Tensor, queries: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(lo, hi) = (side-left, side-right) ranks of each query in the
+    sorted run; ``hi - lo`` is each query's match count."""
+    return rank_in_run(sorted_ref, queries, "left"), rank_in_run(sorted_ref, queries, "right")
+
+
+def segment_index_arange(csum: torch.Tensor, length: int) -> torch.Tensor:
+    """out[j] = #{k : csum[k] <= j} for j in [0, length), for a sorted
+    (non-decreasing) csum: the rank form of ``count_leq_arange``."""
+    return rank_in_run(csum, _queries(csum, length), "right")

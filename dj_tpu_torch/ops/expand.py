@@ -1,11 +1,16 @@
-"""The join's duplicate expansion: (stag_j, rpos) for each output slot.
+"""The join's duplicate expansion: which row makes each output slot.
 
-Counterpart of ``dj_tpu/ops/pallas_expand.py::expand_values``.
-``expand_values`` launches the CUDA kernel ``csrc/expand_values.cu`` for
-tensors on the card and takes the plain version, ``expand_values_plain``,
-for tensors on the CPU. For output slot j, with src = clip(#{csum <= j},
-0, S - 1): stag_j = stag[src] and rpos = run_start[src] + j - (csum[src]
-- cnt[src]) in int32. Slots j >= total are unspecified.
+Counterpart of ``dj_tpu/ops/pallas_expand.py::expand_values`` and
+``expand_ranks``. Each launches its CUDA kernel (``csrc/expand_values.cu``,
+``csrc/expand_ranks.cu``) for tensors on the card and takes its plain
+version (``expand_values_plain``, ``expand_ranks_plain``) for tensors on
+the CPU.
+
+- ``expand_values``: for output slot j, with src = clip(#{csum <= j}, 0,
+  S - 1): stag_j = stag[src] and rpos = run_start[src] + j - (csum[src]
+  - cnt[src]) in int32. Slots j >= total are unspecified.
+- ``expand_ranks``: out[j] = #{csum <= j} for every slot j < n_out (the
+  probe tier's src before its clip).
 """
 
 from __future__ import annotations
@@ -18,8 +23,10 @@ from ..core.search import count_leq_arange
 from . import cuda_build
 
 launches = 0  # kernel launches made by expand_values
-# The kernel's geometry (csrc/expand_values.cu): output slots per block,
-# and the widest window of merged positions it stages in shared memory.
+ranks_launches = 0  # kernel launches made by expand_ranks
+# The geometry of both kernels (csrc/expand_values.cu,
+# csrc/expand_ranks.cu): output slots per block, and the widest window of
+# csum positions a block stages in shared memory.
 ETILE = 1024
 WIN = 8192
 
@@ -83,3 +90,44 @@ def expand_values(
     )
     cuda_build.check(rc, "expand_values")
     return stag_j, rpos
+
+
+def expand_ranks_plain(csum: torch.Tensor, n_out: int) -> torch.Tensor:
+    """Plain PyTorch formulation: ``count_leq_arange`` (the ``xla_path``
+    of ``_expand_ranks_jit``, dj_tpu/ops/pallas_expand.py:502-503)."""
+    return count_leq_arange(csum, n_out)
+
+
+def expand_ranks(csum: torch.Tensor, n_out: int) -> torch.Tensor:
+    """out[j] = #{i : csum[i] <= j} for j in [0, n_out), int32, for a
+    sorted non-negative int32 or int64 csum; the CUDA kernel on the
+    card, the plain version on the CPU."""
+    if csum.dim() != 1 or csum.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"csum must be 1-D int32 or int64, got {csum.dtype} {tuple(csum.shape)}")
+    if not 0 <= n_out < 2**31 - 1:
+        raise ValueError(f"n_out {n_out} outside the int32 slot domain")
+    dev = csum.device
+    if dev.type == "cpu":
+        return expand_ranks_plain(csum, n_out)
+    if dev.type != "cuda":
+        raise ValueError(f"expand_ranks: unsupported device {dev}")
+    if not csum.is_contiguous():
+        raise ValueError("expand_ranks: csum must be contiguous")
+    if csum.dtype == torch.int64:
+        # Every slot is below 2^31 - 1, so clamping keeps every count
+        # (the _csum32 of the JAX package).
+        csum = csum.clamp_max(2**31 - 1).to(torch.int32)
+    out = torch.empty(n_out, dtype=torch.int32, device=dev)
+    if n_out == 0:
+        return out
+    fn = cuda_build.load("expand_ranks").dj_expand_ranks
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    global ranks_launches
+    ranks_launches += 1
+    rc = fn(
+        csum.data_ptr(), out.data_ptr(), csum.shape[0], n_out,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    cuda_build.check(rc, "expand_ranks")
+    return out

@@ -10,8 +10,8 @@ caller can detect overflow.
 1. Key and row tag pack into one u64 word, ``(key - min) << tag_bits |
    tag``, refs (right rows) tagged 0..R-1 before queries (left rows)
    R..R+L-1; padding rows pack to all-ones. One ``torch.sort`` orders
-   the words (as int64 with the top bit flipped, which is unsigned
-   order under a signed compare).
+   the words (``ops.merge.sort_u64``: as int64 with the top bit
+   flipped, which is unsigned order under a signed compare).
 2. ``ops.scan.join_scans`` (CUDA kernel) turns the sorted words into
    (stag, run_start, cnt, csum).
 3. ``ops.expand.expand_values`` (CUDA kernel) gives each output slot
@@ -21,18 +21,33 @@ caller can detect overflow.
 Multi-key joins, carry modes and keys that the packed word cannot hold
 (float keys, mixed key dtypes, uint64 keys, a key range too wide) raise
 NotImplementedError: they come with later slices.
+
+The prepared build side (``dj_tpu/ops/join.py:1861-2497``) shares the
+scans and expansion: ``plan_prepared_pack`` anchors the pack to a key
+range so that words packed at different times compare,
+``prepare_packed_batch`` sorts a build batch once, and each query joins
+a probe batch against it with ``inner_join_prepared`` under one of three
+merge tiers (``DJT_JOIN_MERGE``): "sort" re-sorts the concatenation,
+"merge" sorts the probe words alone and merges them in one pass
+(``ops.merge.merge_sorted_u64``, CUDA kernel), "probe"
+(``inner_join_probe``) sorts nothing and binary-searches each probe key
+in the resident run, expanding with ``ops.expand.expand_ranks`` (CUDA
+kernel).
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..core import dtypes as dt
-from ..core.table import Column, Table, take_fill
-from .expand import expand_values
+from ..core.search import run_bounds
+from ..core.table import Column, Table
+from .expand import expand_ranks, expand_values
+from .merge import merge_sorted_u64, sort_u64
 from .scan import join_scans
 
 INT64_MIN = -(2**63)
@@ -204,12 +219,31 @@ def _packed_sorted_words(
     word.bitwise_left_shift_(tag_bits)
     word.bitwise_or_(torch.arange(S, dtype=torch.int64, device=dev))
     word.masked_fill_(~valid, -1)
-    # Sort u64 words as int64: flipping the top bit maps unsigned order
-    # onto signed order, and back after the sort.
-    word.bitwise_xor_(INT64_MIN)
-    sp = torch.sort(word).values
-    del word
-    return sp.bitwise_xor_(INT64_MIN), pack_ovf
+    return sort_u64(word), pack_ovf
+
+
+def _expand_matches(
+    words: list, l_count, r_count, tag_bits: int, L: int, R: int, out_capacity: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(li, rrow, total) from the sorted packed words of a merged L + R
+    operand: the scans and the vmeta expansion. Output slot j joins left
+    row li[j] (L past the total) with right row rrow[j] (R past it);
+    ``total`` is the exact int64 match count. ``words`` is a one-element
+    list whose tensor this function takes, so the words are freed once
+    the scans have read them."""
+    S = L + R
+    stag, run_start, cnt, csum = join_scans(words.pop(), l_count, r_count, tag_bits, L, R)
+    total = cnt.sum(dtype=torch.int64)
+    stag_j, rpos = expand_values(csum, cnt, stag, run_start, out_capacity)
+    del csum, cnt, run_start
+
+    valid_out = torch.arange(out_capacity, device=stag.device) < total
+    li = torch.where(valid_out, stag_j, L)
+    rpos = torch.where(valid_out, rpos, S)
+    in_range = (rpos >= 0) & (rpos < S)
+    rtag = torch.where(in_range, stag[rpos.clamp(0, S - 1)], L)
+    rrow = torch.where(valid_out, rtag - L, R)
+    return li, rrow, total
 
 
 def inner_join(
@@ -289,20 +323,9 @@ def inner_join(
         static_fit = plan_key_pack(key_range, [np.dtype(left.columns[left_on[0]].dtype.physical)], S).fits
     sp, pack_ovf = _packed_sorted_words(lk, rk, l_count, r_count, tag_bits, static_fit)
     flags["pack_range_overflow"] = pack_ovf
-
-    stag, run_start, cnt, csum = join_scans(sp, l_count, r_count, tag_bits, L, R)
+    words = [sp]
     del sp
-    total = cnt.sum(dtype=torch.int64)
-    stag_j, rpos = expand_values(csum, cnt, stag, run_start, out_capacity)
-    del csum, cnt, run_start
-
-    valid_out = torch.arange(out_capacity, device=dev) < total
-    li = torch.where(valid_out, stag_j, L)
-    rpos = torch.where(valid_out, rpos, S)
-    in_range = (rpos >= 0) & (rpos < S)
-    rtag = torch.where(in_range, stag[rpos.clamp(0, S - 1)], L)
-    rrow = torch.where(valid_out, rtag - L, R)
-    del stag_j, rpos, in_range, rtag, stag
+    li, rrow, total = _expand_matches(words, l_count, r_count, tag_bits, L, R, out_capacity)
 
     cols = [c.take(li) for c in left.columns] + [
         c.take(rrow) for i, c in enumerate(right.columns) if i != right_on[0]
@@ -310,3 +333,269 @@ def inner_join(
     count = torch.minimum(total, torch.tensor(out_capacity, device=dev)).to(torch.int32)
     result = (Table(tuple(cols), count), total)
     return result + (flags,) if return_flags else result
+
+
+# --- prepared build side ----------------------------------------------
+
+
+class PreparedPackPlan(NamedTuple):
+    """Anchored pack plan of a prepared build side: each key's field is
+    ``key_uo - anchor`` (``anchors`` are the unsigned-order images of the
+    range's lows, python ints), so words packed at different times under
+    one plan compare directly. ``tag_bits`` is fixed by the merged
+    capacity the plan was built for; ``key_dtypes`` pins the physical key
+    dtypes (numpy names)."""
+
+    anchors: tuple[int, ...]
+    widths: tuple[int, ...]
+    shifts: tuple[int, ...]
+    tag_bits: int
+    rel_bits: int
+    key_dtypes: tuple[str, ...]
+
+
+def plan_prepared_pack(key_range, dtypes, S: int) -> Optional[PreparedPackPlan]:
+    """Anchored pack plan for keys bounded by ``key_range``, or None when
+    the canonical widths do not pack into the 64-bit word. The fit is
+    judged on the full canonical spans (2^w - 1), so any data inside the
+    anchors packs strictly below the all-ones sentinel."""
+    dtypes = [dt.numpy_dtype(d) for d in dtypes]
+    kr = normalize_key_range(key_range, len(dtypes))
+    anchors, widths = [], []
+    for (lo, hi), d in zip(kr, dtypes):
+        anchors.append(_unsigned_order_int(lo, d))
+        widths.append((_unsigned_order_int(hi, d) - anchors[-1]).bit_length())
+    canonical = tuple((0, (1 << w) - 1) for w in widths)
+    base = plan_key_pack(canonical, dtypes, S)
+    if not base.fits:
+        return None
+    return PreparedPackPlan(
+        tuple(anchors), base.widths, base.shifts, max(1, int(S).bit_length()),
+        sum(base.widths), tuple(str(d) for d in dtypes),
+    )
+
+
+def _as_int64_bits(v: int) -> int:
+    """The int64 holding the u64 bit pattern of ``v`` in [0, 2^64)."""
+    return v - (1 << 64) if v >= 1 << 63 else v
+
+
+def _anchored_pack_word(
+    table: Table, on: Sequence[int], plan: PreparedPackPlan, tag_offset: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(words, ok): each row's key fields ``key_uo - anchor`` shifted
+    above ``plan.tag_bits`` tag bits holding ``tag_offset + row``,
+    padding rows all-ones. ``ok`` is False iff a valid key falls outside
+    its [anchor, anchor + 2^width) window; an empty side never flags.
+    Unsigned compares are signed compares of the top-bit-flipped image."""
+    cap = table.capacity
+    cnt = table.count()
+    dev = table.device
+    valid = torch.arange(cap, device=dev) < cnt
+    rel = torch.zeros(cap, dtype=torch.int64, device=dev)
+    ok = _flag(True, dev)
+    for c_idx, anchor, w, sh in zip(on, plan.anchors, plan.widths, plan.shifts):
+        u = _to_unsigned_order(table.columns[c_idx].data)
+        a = _as_int64_bits(anchor)
+        if cap:
+            uf = u ^ INT64_MIN
+            umin_f = torch.where(valid, uf, INT64_MAX).min()
+            umax = torch.where(valid, uf, INT64_MIN).max() ^ INT64_MIN
+            span = umax - a  # (umax - anchor) mod 2^64; 2^w - 1 < 2^63
+            ok = ok & (umin_f >= (a ^ INT64_MIN)) & (span >= 0) & (span <= (1 << w) - 1)
+        rel |= (u - a) << sh
+    ok = ok | (cnt == 0)
+    tags = torch.arange(tag_offset, tag_offset + cap, dtype=torch.int64, device=dev)
+    words = ((rel << plan.tag_bits) | tags).masked_fill_(~valid, -1)
+    return words, ok
+
+
+def prepare_packed_batch(
+    right: Table, right_on: Sequence[int], plan: PreparedPackPlan
+) -> tuple[torch.Tensor, Table, torch.Tensor]:
+    """One-time preparation of a shuffled build batch: pack under the
+    anchored ``plan`` (ref tags 0..R-1), sort once, and re-tag the sorted
+    words by their rank, so a matched ref's tag indexes the sorted
+    payload table directly.
+
+    Returns (words, payload, ok): the ascending words (padding an
+    all-ones tail), the non-key columns in sorted order (zero past the
+    valid count, which the table carries) and the pack-fit flag. Valid
+    words are distinct, so the sort's permutation of the valid prefix is
+    unique and the payload gather equals the JAX package's sort carrying
+    them. Only fixed-width payloads exist in the port."""
+    R = right.capacity
+    r_count = right.count()
+    words, ok = _anchored_pack_word(right, right_on, plan, 0)
+    sw, perm = torch.sort(words.bitwise_xor_(INT64_MIN))
+    del words
+    sw.bitwise_xor_(INT64_MIN)
+    mask = (1 << plan.tag_bits) - 1
+    rank = torch.arange(R, device=sw.device)
+    invalid = rank >= r_count  # valid words sort below the sentinel
+    words_out = ((sw & ~mask) | rank).masked_fill_(invalid, -1)
+    cols = tuple(
+        Column(c.data[perm].masked_fill_(invalid, 0), c.dtype)
+        for i, c in enumerate(right.columns) if i not in set(right_on)
+    )
+    return words_out, Table(cols, r_count), ok
+
+
+MERGE_IMPLS = ("sort", "merge", "probe")
+
+
+def resolve_merge_impl() -> str:
+    """The prepared join's merge tier: ``DJT_JOIN_MERGE`` ("sort", the
+    default; "merge"; or "probe")."""
+    impl = os.environ.get("DJT_JOIN_MERGE", "sort")
+    if impl not in MERGE_IMPLS:
+        raise ValueError(f"DJT_JOIN_MERGE={impl!r}: expected one of {MERGE_IMPLS}")
+    return impl
+
+
+def prepared_effective_plan(merge_impl: str) -> tuple[str, ...]:
+    """The CUDA kernels a prepared join runs on the card under
+    ``merge_impl``. The expansion is always vmeta on the merged tiers
+    (``prepared_effective_plan``, dj_tpu/ops/join.py:1871-1892, which
+    degrades the carry families) and the rank kernel on the probe tier
+    (``DJ_JOIN_EXPAND=pallas``, the TPU plan)."""
+    return {
+        "sort": ("join_scans", "expand_values"),
+        "merge": ("merge_sorted_u64", "join_scans", "expand_values"),
+        "probe": ("expand_ranks",),
+    }[merge_impl]
+
+
+def _gather_prepared_output(
+    left: Table, right_payload: Table, li: torch.Tensor, rrow: torch.Tensor
+) -> list:
+    """Every left column at ``li`` (left row ids, L past the total) and
+    every prepared payload column at ``rrow`` (sorted ranks in the
+    resident table, R past it); out-of-range ids gather zeros."""
+    return [c.take(li) for c in left.columns] + [c.take(rrow) for c in right_payload.columns]
+
+
+def _check_prepared_geometry(L: int, R: int, plan: PreparedPackPlan) -> None:
+    S = L + R
+    if S >= 2**31 - 1 or plan.tag_bits >= 32:
+        raise ValueError(f"merged size {S} outside the int32 position domain")
+    if plan.tag_bits != max(1, S.bit_length()):
+        raise ValueError(
+            f"prepared plan tag_bits {plan.tag_bits} incompatible with S={S} "
+            f"(bit_length {max(1, S.bit_length())}): re-prepare for the new "
+            f"batch sizing"
+        )
+
+
+def inner_join_prepared(
+    left: Table,
+    left_on: Sequence[int],
+    pwords: torch.Tensor,
+    right_payload: Table,
+    plan: PreparedPackPlan,
+    out_capacity: int,
+    merge_impl: Optional[str] = None,
+) -> tuple[Table, torch.Tensor, dict]:
+    """Join a probe batch against a prepared build batch
+    (``prepare_packed_batch``'s words and payload table).
+
+    ``merge_impl`` (None reads ``DJT_JOIN_MERGE``) picks how the merged
+    operand is made: "sort" sorts the concatenation; "merge" sorts the
+    probe words alone and merges them with the resident run
+    (``merge_sorted_u64``); "probe" delegates to ``inner_join_probe``.
+    The scans and the vmeta expansion follow, and the right payload is
+    gathered from the sorted resident table directly (its words' tags
+    are sorted ranks).
+
+    Returns (result, total, flags): result = every left column, then the
+    payload columns, with capacity ``out_capacity``; ``total`` the exact
+    int64 match count (total > out_capacity condemns every row); flags
+    holds ``prepared_plan_mismatch`` (left keys outside the anchors: the
+    output is unspecified).
+    """
+    L, R = left.capacity, pwords.shape[0]
+    _check_prepared_geometry(L, R, plan)
+    if merge_impl is None:
+        merge_impl = resolve_merge_impl()
+    if merge_impl not in MERGE_IMPLS:
+        raise ValueError(f"merge_impl {merge_impl!r}: expected one of {MERGE_IMPLS}")
+    if merge_impl == "probe":
+        return inner_join_probe(left, left_on, pwords, right_payload, plan, out_capacity)
+    l_count, r_count = left.count(), right_payload.count()
+    w_l, ok = _anchored_pack_word(left, left_on, plan, R)
+    flags = {"prepared_plan_mismatch": ~(ok | (r_count == 0))}
+    if merge_impl == "merge":
+        words = [merge_sorted_u64(pwords, sort_u64(w_l))]
+    else:
+        words = [sort_u64(torch.cat([pwords, w_l]))]
+    del w_l
+    li, rrow, total = _expand_matches(words, l_count, r_count, plan.tag_bits, L, R, out_capacity)
+    cols = _gather_prepared_output(left, right_payload, li, rrow)
+    count = torch.minimum(total, torch.tensor(out_capacity, device=total.device)).to(torch.int32)
+    return Table(tuple(cols), count), total, flags
+
+
+def _probe_counts(
+    pwords: torch.Tensor, w_l: torch.Tensor, l_count, r_count, tag_bits: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(lo, cnt) int32 per probe row: the first resident rank with the
+    row's key and the row's match count (0 for padding rows). Keys are
+    compared as the words' key fields under a logical shift, which keeps
+    unsigned order in non-negative int64 and puts the all-ones sentinel
+    last."""
+    key_mask = (1 << (64 - tag_bits)) - 1
+    lo, hi = run_bounds((pwords >> tag_bits) & key_mask, (w_l >> tag_bits) & key_mask)
+    hi = torch.minimum(hi, r_count.to(torch.int32))
+    valid = torch.arange(w_l.shape[0], device=w_l.device) < l_count
+    cnt = torch.where(valid, (hi - lo).clamp_min_(0), 0).to(torch.int32)
+    return lo, cnt
+
+
+def inner_join_probe(
+    left: Table,
+    left_on: Sequence[int],
+    pwords: torch.Tensor,
+    right_payload: Table,
+    plan: PreparedPackPlan,
+    out_capacity: int,
+) -> tuple[Table, torch.Tensor, dict]:
+    """The probe tier of ``inner_join_prepared``: no sort of any size.
+
+    Each probe row's key field is binary-searched in the resident run's
+    key fields (lo = side-left rank, hi = side-right rank, count hi - lo).
+    csum = cumsum(count) in probe-row order is sorted by construction, so
+    output slot j comes from row src = #{csum <= j} (``expand_ranks``,
+    CUDA kernel on the card) at offset t = j - (csum - cnt)[src] within
+    the row's run of slots, and its matched ref's sorted rank is
+    ``lo[src] + t``. csum is int32 and wraps past 2^31 as the JAX
+    package's does; total then exceeds out_capacity and condemns the
+    output. The same (result, total, flags) contract as
+    ``inner_join_prepared``.
+    """
+    L, R = left.capacity, pwords.shape[0]
+    _check_prepared_geometry(L, R, plan)
+    l_count, r_count = left.count(), right_payload.count()
+    dev = pwords.device
+    w_l, ok = _anchored_pack_word(left, left_on, plan, R)
+    flags = {"prepared_plan_mismatch": ~(ok | (r_count == 0))}
+    j = torch.arange(out_capacity, dtype=torch.int32, device=dev)
+    if L == 0 or R == 0:
+        # A capacity-0 side joins empty.
+        total = torch.zeros((), dtype=torch.int64, device=dev)
+        li = torch.full((out_capacity,), L, dtype=torch.int32, device=dev)
+        rrow = torch.full((out_capacity,), R, dtype=torch.int32, device=dev)
+    else:
+        lo, cnt = _probe_counts(pwords, w_l, l_count, r_count, plan.tag_bits)
+        del w_l
+        # int64 cumsum cut to int32: the int32 wraparound of jnp.cumsum.
+        csum = torch.cumsum(cnt, 0, dtype=torch.int64).to(torch.int32)
+        total = cnt.sum(dtype=torch.int64)
+        src = expand_ranks(csum, out_capacity).clamp_(0, L - 1)
+        t = j - (csum - cnt)[src]
+        del csum, cnt
+        valid_out = j < total
+        li = torch.where(valid_out, src, L)
+        rrow = torch.where(valid_out, lo[src] + t, R)
+    cols = _gather_prepared_output(left, right_payload, li, rrow)
+    count = torch.minimum(total, torch.tensor(out_capacity, device=dev)).to(torch.int32)
+    return Table(tuple(cols), count), total, flags

@@ -27,6 +27,17 @@ def _count(c, device) -> torch.Tensor:
     return torch.as_tensor(c, device=device).reshape(()).to(torch.int32)
 
 
+def decode_packed_tags(sp: torch.Tensor, tag_bits: int, L: int, R: int) -> torch.Tensor:
+    """Merged-convention row tags of packed words, int32: refs (raw tag
+    < R) -> L + raw, queries -> raw - R, padding -> L + R
+    (``_decode_packed_tags``, dj_tpu/ops/join.py:2085-2096)."""
+    S = L + R
+    raw = (sp & ((1 << tag_bits) - 1)).to(torch.int32)
+    return torch.where(
+        raw < R, raw + L, torch.where(raw < S, raw - R, torch.full_like(raw, S))
+    )
+
+
 def join_scans_plain(
     sp: torch.Tensor, l_count, r_count, tag_bits: int, L: int, R: int
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -34,10 +45,7 @@ def join_scans_plain(
     ``_match_scans_xla`` (dj_tpu/ops/join.py:535-562, 780-825)."""
     S = L + R
     dev = sp.device
-    raw = (sp & ((1 << tag_bits) - 1)).to(torch.int32)
-    stag = torch.where(
-        raw < R, raw + L, torch.where(raw < S, raw - R, torch.full_like(raw, S))
-    )
+    stag = decode_packed_tags(sp, tag_bits, L, R)
     # Equal keys <=> equal top bits: the arithmetic shift of the int64
     # view keeps that equivalence.
     key = sp >> tag_bits

@@ -1,6 +1,7 @@
 """Table shuffle through one communication epoch.
 
-Counterpart of ``dj_tpu/parallel/all_to_all.py::shuffle_tables``. This
+Counterpart of ``dj_tpu/parallel/all_to_all.py::shuffle_tables`` and its
+one-table view ``shuffle_table``. This
 slice covers the one-peer group, where the shuffle is the self-copy of
 ``_single_peer_shuffle`` (dj_tpu/parallel/all_to_all.py:204-249): the
 partition's rows are contiguous, so each column is one slice copy into
@@ -84,3 +85,19 @@ def shuffle_tables(
         _single_peer_shuffle(tables[t], part_starts[t], part_counts[t], out_capacity[t])
         for t in range(nt)
     ]
+
+
+def shuffle_table(
+    comm: Communicator,
+    table: Table,
+    part_starts: torch.Tensor,
+    part_counts: torch.Tensor,
+    bucket_rows: int,
+    out_capacity: int,
+) -> tuple[Table, torch.Tensor, torch.Tensor, dict]:
+    """Shuffle one hash-partitioned table: the one-table view of
+    ``shuffle_tables``, with the same (table, total_recv_rows, overflow,
+    stats) result."""
+    return shuffle_tables(
+        comm, [table], [part_starts], [part_counts], [bucket_rows], [out_capacity]
+    )[0]

@@ -15,9 +15,15 @@ The key range is probed on the host once per call (two reductions per
 key column) unless the config declares it, so the pack decision is
 static exactly as in JAX. PyTorch runs eagerly, so the batches run in
 order; the JAX package's prefetch of batch b+1's exchange only
-reorders its traced program. Prepared build sides, the skew-adaptive
-plans, shape bucketing, the roofline phases, the degradation guard and
-the auto/heal wrapper come with later slices.
+reorders its traced program.
+
+The prepared build side (``prepare_join_side``, ``PreparedSide``) pays
+the build table's partition, exchange, pack and sort once; each query
+(``distributed_inner_join`` with a PreparedSide as ``right``) partitions,
+exchanges and joins only the probe side. Its shuffle tier is ported; the
+broadcast and salted tiers, the heal loop and the ledger come with later
+slices, as do the skew-adaptive plans, shape bucketing, the roofline
+phases, the degradation guard and the auto/heal wrapper.
 """
 
 from __future__ import annotations
@@ -25,13 +31,22 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple, Optional, Sequence
 
-import numpy as np
 import torch
 
+from ..core import dtypes as dt
 from ..core.table import Table, concatenate
-from ..ops.join import canonical_key_range, inner_join, normalize_key_range
+from ..ops.join import (
+    PreparedPackPlan,
+    canonical_key_range,
+    inner_join,
+    inner_join_prepared,
+    normalize_key_range,
+    plan_prepared_pack,
+    prepare_packed_batch,
+)
 from ..ops.partition import hash_partition
-from .all_to_all import shuffle_tables
+from ..resilience.errors import CapacityExhausted, PreparedPlanMismatch
+from .all_to_all import shuffle_table, shuffle_tables
 from .communicator import SingleRankCommunicator, make_communicator
 from .topology import Topology
 
@@ -186,7 +201,7 @@ def _resolve_key_range(
         if mx < mn:
             return None
         ranges.append((mn, mx))
-        dtypes.append(np.dtype(str(a.dtype).removeprefix("torch.")))
+        dtypes.append(dt.numpy_dtype(a.dtype))
     return canonical_key_range(tuple(ranges), dtypes)
 
 
@@ -194,10 +209,10 @@ def distributed_inner_join(
     topology: Topology,
     left: Table,
     left_counts: torch.Tensor,
-    right: Table,
-    right_counts: torch.Tensor,
+    right,
+    right_counts: Optional[torch.Tensor] = None,
     left_on: Sequence[int] = (),
-    right_on: Sequence[int] = (),
+    right_on: Optional[Sequence[int]] = None,
     config: Optional[JoinConfig] = None,
 ) -> tuple[Table, torch.Tensor, dict]:
     """Join two sharded tables; result columns = left + (right - right_on).
@@ -208,9 +223,29 @@ def distributed_inner_join(
     shuffle_overflow / join_overflow / char_overflow /
     surrogate_collision / pack_range_overflow to a bool[world]; any True
     means that shard's output is unspecified.
+
+    ``right`` may instead be a :class:`PreparedSide` (pass
+    ``right_counts=None, right_on=None``): the query then does the probe
+    side's work only, and ``info`` holds the prepared flag keys
+    (prepared_plan_mismatch in place of surrogate_collision and
+    pack_range_overflow). A probe side structurally incompatible with the
+    prepared plan raises PreparedPlanMismatch.
     """
-    if not isinstance(right, Table):
-        raise NotImplementedError("prepared build sides come with a later slice")
+    if isinstance(right, PreparedSide):
+        if right_counts is not None or right_on is not None:
+            raise ValueError(
+                "a PreparedSide carries its own counts and key columns; "
+                "pass right_counts=None, right_on=None"
+            )
+        return _distributed_inner_join_prepared(
+            topology, left, left_counts, right, left_on, config
+        )
+    if right_counts is None or right_on is None:
+        raise TypeError(
+            "distributed_inner_join: right_counts and right_on are required "
+            "when `right` is a Table (they default to None only so a "
+            "PreparedSide can omit them)"
+        )
     if config is None:
         config = JoinConfig()
     w = topology.world_size
@@ -230,4 +265,303 @@ def distributed_inner_join(
         left.capacity // w, right.capacity // w, key_range,
     )
     info = {k: flags[k].reshape(1) for k in _FLAG_KEYS}
+    return out.with_count(None), out.count().reshape(1), info
+
+
+# --- prepared build side (shuffle tier) ----------------------------------
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PreparedSide:
+    """A build side shuffled, packed and sorted once, ready to serve
+    repeated joins (``prepare_join_side``).
+
+    ``batches`` holds, per odf batch, (sorted packed words [world * R],
+    sorted payload table, valid counts [world]). ``key_range``/``plan``
+    pin the anchored pack every probe side must satisfy; ``sizing``/``n``
+    pin the batch geometry the words' tag field was built for.
+    ``right``/``right_counts`` keep the source, so a caller can
+    re-prepare. This is the shuffle tier of dj_tpu's PreparedSide."""
+
+    topology: Topology
+    config: JoinConfig
+    right_on: tuple
+    key_range: tuple
+    plan: PreparedPackPlan
+    n: int
+    sizing: BatchSizing
+    l_cap: int
+    r_cap: int
+    batches: tuple
+    right: Table
+    right_counts: torch.Tensor
+
+
+def _main_group_sizing(
+    topology: Topology, config: JoinConfig, l_cap: int, r_cap: int
+) -> tuple[int, int, int]:
+    """(n, l_cap, r_cap) of the main join stage, shared by the prepare
+    and the query so their sizings cannot drift. A flat topology keeps
+    the capacities; two-level ones come with a later slice."""
+    return topology.world_group().size, l_cap, r_cap
+
+
+_PREP_FLAG_KEYS = (
+    "pre_shuffle_overflow",
+    "shuffle_overflow",
+    "prep_range_violation",
+)
+_PREPARED_FLAG_KEYS = (
+    "pre_shuffle_overflow",
+    "shuffle_overflow",
+    "join_overflow",
+    "char_overflow",
+    "prepared_plan_mismatch",
+)
+
+
+def _prepare_batches(
+    topology: Topology, config: JoinConfig, right: Table, right_on: tuple,
+    sizing: BatchSizing, plan: PreparedPackPlan,
+) -> tuple[tuple, dict]:
+    """One rank's preparation (the body of dj_tpu's _build_prepare_fn):
+    partition, then per batch a single-table shuffle and the anchored
+    pack + sort + re-tag. Returns (batches, flags by _PREP_FLAG_KEYS)."""
+    group = topology.world_group()
+    n = group.size
+    comm = make_communicator(SingleRankCommunicator, group, None)
+    r_part, r_offsets = hash_partition(right, right_on, sizing.m, seed=MAIN_JOIN_SEED)
+    no = torch.tensor(False, device=right.device)
+    shuffle_ovf = range_bad = no
+    outs = []
+    for b in range(config.over_decom_factor):
+        starts = r_offsets[b * n : (b + 1) * n]
+        counts = r_offsets[b * n + 1 : (b + 1) * n + 1] - starts
+        r_batch, _, ovf, _ = shuffle_table(comm, r_part, starts, counts, sizing.br, n * sizing.br)
+        shuffle_ovf = shuffle_ovf | ovf
+        words, payload, ok = prepare_packed_batch(r_batch, right_on, plan)
+        del r_batch
+        range_bad = range_bad | ~ok
+        outs.append((words, payload.with_count(None), payload.count().reshape(1)))
+    flags = {
+        "pre_shuffle_overflow": no,
+        "shuffle_overflow": shuffle_ovf,
+        "prep_range_violation": range_bad,
+    }
+    return tuple(outs), flags
+
+
+def _probe_side_range(table: Table, counts: torch.Tensor, on, w: int):
+    """Per-key (min, max) physical bounds of one side's valid rows, or
+    None when the side is empty."""
+    ranges = []
+    for c in on:
+        mn, mx = _masked_minmax(table.columns[c].data, counts, w)
+        if mx < mn:
+            return None
+        ranges.append((mn, mx))
+    return tuple(ranges)
+
+
+def prepare_join_side(
+    topology: Topology,
+    right: Table,
+    right_counts: torch.Tensor,
+    right_on: Sequence[int],
+    config: Optional[JoinConfig] = None,
+    *,
+    left_capacity: Optional[int] = None,
+    key_range=None,
+    tier: Optional[str] = None,
+) -> PreparedSide:
+    """Shuffle, pack and sort the build side once for repeated joins.
+
+    ``distributed_inner_join(topo, left, lc, prepared, None, left_on,
+    None, config)`` then serves each query with probe-side work only.
+    ``key_range`` (or config.key_range) declares the join keys' bounds;
+    undeclared keys are probed from the build side, so a probe key below
+    the build side's minimum raises the query's prepared_plan_mismatch
+    flag. ``left_capacity`` (global rows, default the build side's) sizes
+    the probe batches the tag field must hold; a later probe table whose
+    sizing needs another tag width raises PreparedPlanMismatch.
+
+    This is dj_tpu's prepare on its shuffle tier with one attempt: a
+    fired shuffle_overflow raises CapacityExhausted (prepare again with a
+    larger bucket_factor), build keys outside a declared key_range raise
+    PreparedPlanMismatch (prepare again with a wider or probed range).
+    The heal loop that does either by itself, its ledger, the broadcast
+    and salted tiers (``tier``) and shape bucketing come with later
+    slices.
+    """
+    if tier not in (None, "shuffle"):
+        raise NotImplementedError(
+            f"prepared tier {tier!r}: the broadcast and salted tiers come "
+            f"with a later slice; this slice prepares the shuffle tier"
+        )
+    if config is None:
+        config = JoinConfig()
+    w = topology.world_size
+    if right.capacity < w:
+        raise ValueError(
+            f"prepare_join_side: build-side capacity {right.capacity} < world "
+            f"size {w} leaves a shard with zero capacity; pad the table to "
+            f">= 1 row per shard"
+        )
+    r_cap = right.capacity // w
+    l_cap = max(1, left_capacity // w) if left_capacity is not None else r_cap
+    right_on = tuple(right_on)
+    dtypes = []
+    for c_idx in right_on:
+        col = right.columns[c_idx]
+        if not dt.is_integer(col.dtype):
+            raise ValueError(
+                "prepare_join_side requires fixed-width int join keys; use "
+                "the unprepared distributed_inner_join for other keys"
+            )
+        if col.data.dtype == torch.uint64:
+            raise NotImplementedError("uint64 join keys come with a later slice of the port")
+        dtypes.append(col.data.dtype)
+    declared = key_range if key_range is not None else config.key_range
+    if declared is None:
+        kr = _probe_side_range(right, right_counts, right_on, w)
+        if kr is None:
+            raise ValueError(
+                "prepare_join_side: cannot probe an empty build side's key "
+                "range; declare JoinConfig.key_range"
+            )
+    else:
+        kr = normalize_key_range(declared, len(right_on))
+    n, l_cap_m, r_cap_m = _main_group_sizing(topology, config, l_cap, r_cap)
+    sizing = batch_sizing(config, n, l_cap_m, r_cap_m)
+    S = n * (sizing.bl + sizing.br)
+    plan = plan_prepared_pack(kr, dtypes, S)
+    if plan is None:
+        raise ValueError(
+            f"prepare_join_side: key range {kr} does not pack into the "
+            f"64-bit word at batch size S={S}; use the unprepared join"
+        )
+    batches, flags = _prepare_batches(
+        topology, config, right.with_count(right_counts[0]), right_on, sizing, plan
+    )
+    fired = {k: bool(flags[k]) for k in _PREP_FLAG_KEYS}
+    if fired["prep_range_violation"]:
+        raise PreparedPlanMismatch(
+            f"prepare_join_side: prep_range_violation: build keys fall "
+            f"outside the declared key_range {kr}; prepare again with a "
+            f"wider or probed range"
+        )
+    if fired["shuffle_overflow"]:
+        raise CapacityExhausted(
+            f"prepare_join_side: shuffle_overflow at bucket_factor "
+            f"{config.bucket_factor}; prepare again with a larger one",
+            stage="prepare", attempts=1, flags=fired,
+        )
+    return PreparedSide(
+        topology=topology, config=config, right_on=right_on, key_range=kr,
+        plan=plan, n=n, sizing=sizing, l_cap=l_cap, r_cap=r_cap,
+        batches=batches, right=right, right_counts=right_counts,
+    )
+
+
+def _prepared_query_sizing(
+    topology: Topology, config: JoinConfig, l_cap: int, prepared: PreparedSide
+) -> tuple[int, int, int, int]:
+    """(n, l_cap_main, bl, out_cap) of a query against ``prepared``. The
+    left sizing follows the query's config; the right sizing is pinned
+    by the prepare. Raises PreparedPlanMismatch when the merged size
+    needs another tag width than the prepared words carry."""
+    n, l_cap_m, _ = _main_group_sizing(topology, config, l_cap, l_cap)
+    if n != prepared.n:
+        raise PreparedPlanMismatch(f"main-stage group size {n} != prepared {prepared.n}")
+    R = prepared.batches[0][0].shape[0] // topology.world_size
+    m = n * config.over_decom_factor
+    sl = max(1, int(l_cap_m * config.bucket_factor / m))
+    bl = l_cap_m if m == 1 else sl
+    S = n * bl + R
+    out_cap = max(1, int(config.join_out_factor * n * max(sl, prepared.sizing.sr)))
+    need = max(1, int(S).bit_length())
+    if need != prepared.plan.tag_bits:
+        raise PreparedPlanMismatch(
+            f"merged size S={S} needs tag_bits={need}, prepared words carry "
+            f"{prepared.plan.tag_bits}; re-prepare for the new batch sizing"
+        )
+    return n, l_cap_m, bl, out_cap
+
+
+def _distributed_inner_join_prepared(
+    topology: Topology,
+    left: Table,
+    left_counts: torch.Tensor,
+    prepared: PreparedSide,
+    left_on: Sequence[int],
+    config: Optional[JoinConfig] = None,
+) -> tuple[Table, torch.Tensor, dict]:
+    """The per-query half of the prepared join: partition the probe
+    side, then per batch a single-table shuffle and
+    ``inner_join_prepared`` against the resident run. No range probe:
+    the plan is pinned, and probe keys outside it raise the
+    prepared_plan_mismatch flag."""
+    if config is None:
+        config = prepared.config
+    if topology != prepared.topology:
+        raise PreparedPlanMismatch("query topology differs from the prepared side's")
+    odf = config.over_decom_factor
+    if odf != prepared.config.over_decom_factor:
+        raise PreparedPlanMismatch(
+            f"query over_decom_factor {odf} != prepared "
+            f"{prepared.config.over_decom_factor} (the batch count is baked "
+            f"into the prepared runs)"
+        )
+    left_on = tuple(left_on)
+    if len(left_on) != len(prepared.right_on):
+        raise ValueError(
+            f"left_on has {len(left_on)} keys, prepared side was built on "
+            f"{len(prepared.right_on)}"
+        )
+    for k, c_idx in enumerate(left_on):
+        if str(dt.numpy_dtype(left.columns[c_idx].data.dtype)) != prepared.plan.key_dtypes[k]:
+            raise PreparedPlanMismatch(
+                f"left key column {c_idx} dtype differs from the prepared "
+                f"plan's {prepared.plan.key_dtypes[k]}"
+            )
+    w = topology.world_size
+    if left.capacity < w:
+        raise ValueError(
+            f"distributed_inner_join(prepared): left capacity {left.capacity} "
+            f"< world size {w} leaves a shard with zero capacity; pad the "
+            f"table to >= 1 row per shard"
+        )
+    n, _, bl, out_cap = _prepared_query_sizing(topology, config, left.capacity // w, prepared)
+
+    group = topology.world_group()
+    comm = make_communicator(SingleRankCommunicator, group, None)
+    l_part, l_offsets = hash_partition(
+        left.with_count(left_counts[0]), left_on, n * odf, seed=MAIN_JOIN_SEED
+    )
+    no = torch.tensor(False, device=left.device)
+    shuffle_ovf = join_ovf = mismatch = no
+    batch_results = []
+    for b in range(odf):
+        starts = l_offsets[b * n : (b + 1) * n]
+        counts = l_offsets[b * n + 1 : (b + 1) * n + 1] - starts
+        l_batch, _, ovf, _ = shuffle_table(comm, l_part, starts, counts, bl, n * bl)
+        shuffle_ovf = shuffle_ovf | ovf
+        words_b, ptab_b, pcnt_b = prepared.batches[b]
+        result, total, jflags = inner_join_prepared(
+            l_batch, left_on, words_b, ptab_b.with_count(pcnt_b[0]), prepared.plan,
+            out_capacity=out_cap,
+        )
+        del l_batch
+        join_ovf = join_ovf | (total > out_cap)
+        mismatch = mismatch | jflags["prepared_plan_mismatch"]
+        batch_results.append(result)
+    out = batch_results[0] if odf == 1 else concatenate(batch_results)
+    flags = {
+        "pre_shuffle_overflow": no,
+        "shuffle_overflow": shuffle_ovf,
+        "join_overflow": join_ovf,
+        "char_overflow": no,
+        "prepared_plan_mismatch": mismatch,
+    }
+    info = {k: flags[k].reshape(1) for k in _PREPARED_FLAG_KEYS}
     return out.with_count(None), out.count().reshape(1), info

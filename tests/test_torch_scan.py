@@ -102,7 +102,7 @@ def test_kernel_sources_carry_their_note():
     """Each CUDA source names the TPU kernel it replaces, its bound on
     the card and its design."""
     names = {p.stem for p in cuda_build.sources()}
-    assert names == {"join_scans", "expand_values"}
+    assert names == {"join_scans", "expand_values", "merge_sorted_u64", "expand_ranks"}
     for p in cuda_build.sources():
         text = p.read_text()
         assert "Replaces the TPU kernel dj_tpu/ops/" in text
