@@ -18,6 +18,19 @@ Phases, each printing its own line(s):
      at over_decom_factor 1 and 4; every flag False, total equal to the
      generator's expected count, every output row checked against the
      inputs, and both kernels launched by the join itself;
+  4b. expansion modes: the same join under each other DJT_JOIN_EXPAND
+     mode (ranks, fused, join, vcarry, vfull) at odf 1 and 4, each
+     checked as in 4, with the same row multiset as the default (vmeta)
+     join and its mode's kernel launched by the join itself; median walls
+     of warm joins, peak memory, a profiler breakdown per mode at odf 1;
+  4c. kernels vs plain: expand_ranks (at the ranks mode's S and n_out),
+     expand_gather, expand_join, expand_carry and expand_vfull against
+     their plain versions, exact equality, on the main path's own inputs
+     at full size (the vcarry sort's scans, slots and keys, whose csum is
+     every mode's; n_out above and below the total) and on edge cases: one
+     hot key on 1M build rows (refs 1M positions below their queries)
+     amid sparse matches and selectivity 0.001, whose windows must pass
+     the shared stage; all-miss; a wrapped csum; 0 to 3 payload slots;
   5. prepared path: at odf 1 and 4, prepare_join_side on the build table,
      then distributed_inner_join with the PreparedSide under each merge
      tier (sort, merge, probe); each query checked as in 4, with the
@@ -205,20 +218,111 @@ def check_rows(out, counts, build, probe, expected: int) -> None:
 
 
 TIERS = ("sort", "merge", "probe")
+MODES = ("ranks", "fused", "join", "vcarry", "vfull")  # besides the default vmeta
+# Each kernel's launch counter in dj_tpu_torch.ops.expand.
+EXPAND_COUNTERS = {"expand_values": "launches", "expand_ranks": "ranks_launches",
+                   "expand_gather": "gather_launches", "expand_join": "join_launches",
+                   "expand_carry": "carry_launches", "expand_vfull": "vfull_launches"}
 
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
     from dj_tpu_torch.ops import expand, merge, scan
 
-    scan.launches = expand.launches = expand.ranks_launches = merge.launches = 0
+    scan.launches = merge.launches = 0
+    for counter in EXPAND_COUNTERS.values():
+        setattr(expand, counter, 0)
 
 
 def read_launches() -> dict:
     from dj_tpu_torch.ops import expand, merge, scan
 
-    return {"join_scans": scan.launches, "expand_values": expand.launches,
-            "merge_sorted_u64": merge.launches, "expand_ranks": expand.ranks_launches}
+    return {"join_scans": scan.launches, "merge_sorted_u64": merge.launches,
+            **{name: getattr(expand, c) for name, c in EXPAND_COUNTERS.items()}}
+
+
+def carry_inputs(build, probe, device):
+    """The mode kernels' inputs for probe JOIN build as inner_join makes
+    them under vcarry: (csum, cnt, stag, run_start, slots, key) from the
+    sort that carries every non-key column as a union u64 slot."""
+    from dj_tpu_torch.ops.join import _carry_sorted, _union_slots
+    from dj_tpu_torch.ops.scan import join_scans
+
+    lk, rk = probe.columns[0].data, build.columns[0].data
+    L, R = lk.shape[0], rk.shape[0]
+    tag_bits = max(1, (L + R).bit_length())
+    lc = torch.tensor(L, dtype=torch.int32, device=device)
+    rc = torch.tensor(R, dtype=torch.int32, device=device)
+    slots = _union_slots(list(enumerate(probe.columns))[1:], list(enumerate(build.columns))[1:],
+                         L, R, device)
+    sp, _, key, sslots = _carry_sorted(lk, rk, lc, rc, tag_bits, None, slots)
+    stag, run_start, cnt, csum = join_scans(sp, lc, rc, tag_bits, L, R)
+    return csum, cnt, stag, run_start, sslots, key
+
+
+def compare_modes(case: str, inputs, n_out: int, timing: bool = False,
+                  need_global_windows: bool = False, min_ref_distance: int = 0):
+    """expand_ranks (the ranks mode's src), expand_gather, expand_join,
+    expand_carry and expand_vfull against their plain versions on every
+    slot below min(total, n_out), expand_ranks on every slot (none when
+    csum wrapped past 2^31: every slot is then unspecified); returns
+    {kernel: max |kernel - plain|} (0, or it raises) and, with
+    ``timing``, each kernel's and plain version's times and the library
+    yardstick's."""
+    from dj_tpu_torch.ops import expand
+
+    csum, cnt, stag, run_start, slots, key = inputs
+    total = int(cnt.sum(dtype=torch.int64))
+    wrapped = total > 2**31 - 1
+    k = 0 if wrapped else min(total, n_out)
+    calls = {
+        "expand_ranks": (csum, n_out),
+        "expand_gather": (csum, stag, run_start, n_out),
+        "expand_join": (csum, stag, run_start, n_out),
+        "expand_carry": (csum, cnt, run_start, slots, n_out),
+        "expand_vfull": (csum, cnt, run_start, slots, key, n_out),
+    }
+    for name, a in calls.items():
+        got = getattr(expand, name)(*a)
+        want = getattr(expand, name + "_plain")(*a)
+        torch.cuda.synchronize()
+        if name == "expand_ranks":
+            # One output, specified on every slot (past the total it is S).
+            got, want, kn = (got,), (want,), 0 if wrapped else n_out
+        else:
+            kn = k
+        for i, (g, w) in enumerate(zip(got, want)):
+            bad = torch.nonzero(g[:kn] != w[:kn]).flatten()
+            if bad.numel():
+                b = int(bad[0])
+                raise AssertionError(f"{case}: {name} output {i} differs at {bad.numel()} of {kn} "
+                                     f"slots, first at {b}: {int(g[b])} vs {int(w[b])}")
+        del got, want
+    widest, n_global = (0, 0) if wrapped else block_windows(csum, n_out, total)
+    if need_global_windows and not n_global:
+        raise AssertionError(f"{case}: no window is wider than {expand.WIN} (widest {widest}); "
+                             f"the global-memory search was not exercised")
+    # How far below its query the farthest matched ref sits.
+    pos = torch.arange(csum.numel(), device=csum.device)
+    ref_distance = int(torch.where(cnt > 0, pos - run_start, 0).max())
+    if ref_distance < min_ref_distance:
+        raise AssertionError(f"{case}: farthest ref {ref_distance} below its query, "
+                             f"expected at least {min_ref_distance}")
+    log("kernels_vs_plain", case=case, kernels=sorted(calls), S=csum.numel(), n_out=n_out,
+        total=total, payload_slots=len(slots), max_abs_err=0,
+        slots_compared=k if not wrapped else "none: csum wrapped past 2^31, every slot unspecified",
+        widest_window=widest, blocks_over_win=n_global, farthest_ref=ref_distance)
+    errs = {name: 0 for name in calls}
+    if not timing:
+        return errs
+    t = {}
+    for name, a in calls.items():
+        fn, plain = getattr(expand, name), getattr(expand, name + "_plain")
+        t[name] = {"ms": cuda_ms(lambda: fn(*a), 5), "plain_ms": cuda_ms(lambda: plain(*a), 2)}
+    j = torch.arange(n_out, dtype=torch.int32, device=csum.device)
+    t["searchsorted_ms"] = cuda_ms(lambda: torch.searchsorted(csum, j, right=True, out_int32=True), 5)
+    t.update(S=csum.numel(), n_out=n_out, n_slots=len(slots))
+    return errs, t
 
 
 def sorted_rows(out, counts):
@@ -233,7 +337,8 @@ def sorted_rows(out, counts):
 def check_same_rows(got, want, what: str) -> None:
     for g, w, name in zip(got, want, ("key", "probe row", "build row")):
         if g.shape != w.shape or not torch.equal(g, w):
-            raise AssertionError(f"{what}: the {name} column differs from the unprepared join's")
+            raise AssertionError(f"{what}: the {name} column differs from the default join's "
+                                 f"(unprepared, vmeta)")
 
 
 def probe_tier_inputs(prep, left, lcnt):
@@ -320,6 +425,7 @@ def main() -> int:
     import dj_tpu_torch as dj
     from dj_tpu_torch.ops import cuda_build
     from dj_tpu_torch.ops.join import (
+        EXPAND_KERNELS,
         _anchored_pack_word,
         _probe_counts,
         plan_prepared_pack,
@@ -444,6 +550,103 @@ def main() -> int:
         profile_join(lambda: dj.distributed_inner_join(
             topo, left, lcnt, right, rcnt, [0], [0], cfg), path="unprepared", odf=odf)
 
+    # 4b. the unprepared path under each other expansion mode
+    mode_walls, mode_peaks = {}, {}
+    for mode in MODES:
+        os.environ["DJT_JOIN_EXPAND"] = mode
+        kernel = EXPAND_KERNELS[mode]
+        for odf in (1, 4):
+            cfg = dj.JoinConfig(over_decom_factor=odf)
+
+            def join():
+                return dj.distributed_inner_join(topo, left, lcnt, right, rcnt, [0], [0], cfg)
+
+            what = f"mode={mode} odf={odf}"
+            reset_launches()
+            out, counts, info = join()
+            torch.cuda.synchronize()
+            launches = read_launches()
+            set_flags = [k for k, v in info.items() if bool(v.any())]
+            if set_flags:
+                raise AssertionError(f"{what}: flags set: {set_flags}")
+            check_rows(out, counts, build, probe, expected)
+            check_same_rows(sorted_rows(out, counts), ref, what)
+            if min(launches["join_scans"], launches[kernel]) < 1:
+                raise AssertionError(f"{what}: {kernel} or join_scans not launched by the join: {launches}")
+            launch_table.setdefault(f"unprepared_{mode}", {})[odf] = launches
+            del out, counts, info
+            runs = []
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(3):
+                t0 = time.perf_counter()
+                res = join()
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t0) * 1e3)
+                del res
+            mode_walls[(mode, odf)] = statistics.median(runs)
+            mode_peaks[(mode, odf)] = torch.cuda.max_memory_allocated()
+            log("mode_path", mode=mode, odf=odf, rows=rows, total=expected, flags="all False",
+                rows_checked=expected, same_rows_as_vmeta=True, launches=launches,
+                wall_ms=mode_walls[(mode, odf)], wall_ms_runs=runs,
+                peak_bytes=mode_peaks[(mode, odf)])
+            if odf == 1:
+                profile_join(join, path=f"unprepared_{mode}", odf=odf)
+    os.environ.pop("DJT_JOIN_EXPAND")
+
+    # 4c. the mode kernels against their plain versions
+    main_in = carry_inputs(build, probe, dev)
+    mode_errs, mode_timing = compare_modes("main_path", main_in, out_cap, timing=True)
+    mode_errs = [mode_errs, compare_modes("main_path_n_out_below_total", main_in,
+                                          int(main_in[1].sum()) // 2)]
+    del main_in
+    torch.cuda.empty_cache()
+
+    def keyed_table(keys, n_pay):
+        """keys plus n_pay payload columns: full-range int64 bits, and
+        int32 ones with negative values (zero-extended in the slots)."""
+        n = keys.numel()
+        cols = [dj.Column(keys, dj.dtypes.int64)]
+        for p in range(n_pay):
+            if p % 2:
+                pay = torch.randint(-(2**31), 2**31 - 1, (n,), generator=gen, device=dev,
+                                    dtype=torch.int32)
+                cols.append(dj.Column(pay, dj.dtypes.int32))
+            else:
+                hi = torch.randint(-(2**31), 2**31, (n,), generator=gen, device=dev)
+                lo = torch.randint(0, 2**32, (n,), generator=gen, device=dev)
+                pay = hi * 2**32 + lo
+                cols.append(dj.Column(pay, dj.dtypes.int64))
+        return dj.Table(tuple(cols))
+
+    # The hot key of phase 3 (b): 1M refs, whose matches sit up to 1M
+    # merged positions below their queries, amid sparse matches.
+    b_keys = torch.cat([torch.full((sk,), hot_key, dtype=torch.int64, device=dev),
+                        torch.randint(0, 10**8, (sk + 12_345,), generator=gen, device=dev)])
+    p_keys = torch.cat([torch.full((3,), hot_key, dtype=torch.int64, device=dev),
+                        torch.randint(0, 10**8, (3 * sk + 777,), generator=gen, device=dev)])
+    mode_errs.append(compare_modes("skewed_hot_key_1M_refs",
+                                   carry_inputs(keyed_table(b_keys, 3), keyed_table(p_keys, 3), dev),
+                                   4 * sk, need_global_windows=True, min_ref_distance=sk))
+    del b_keys, p_keys
+    sb, spr = dj.generate_build_probe_tables(gen, 10 * sk, 10 * sk, 0.001, 20 * sk, True)
+    mode_errs.append(compare_modes(
+        "sparse_sel_0.001", carry_inputs(keyed_table(sb.columns[0].data, 2),
+                                         keyed_table(spr.columns[0].data, 2), dev),
+        10 * sk, need_global_windows=True))
+    del sb, spr
+    mb = torch.arange(0, 2 * 1_000_003, 2, dtype=torch.int64, device=dev)
+    mp = torch.arange(1, 2 * 999_999, 2, dtype=torch.int64, device=dev)
+    mode_errs.append(compare_modes("all_miss_no_payload",
+                                   carry_inputs(keyed_table(mb, 0), keyed_table(mp, 0), dev),
+                                   2_000_000))
+    del mb, mp
+    hot = torch.full((sk,), 7, dtype=torch.int64, device=dev)
+    mode_errs.append(compare_modes("skewed_1Mx1M_csum_wraps",
+                                   carry_inputs(keyed_table(hot, 1), keyed_table(hot.clone(), 1), dev),
+                                   sk))
+    del hot
+    torch.cuda.empty_cache()
+
     # 5. prepared path: prepare once, query under each merge tier
     prep_walls, query_walls = {}, {}
     for odf in (1, 4):
@@ -562,6 +765,9 @@ def main() -> int:
         sort_S=S, prepare_wall_ms=prep_walls,
         prepared_query_wall_ms={f"{t}_odf{o}": v for (o, t), v in query_walls.items()},
         merge_S=merge_timing["S"], ranks_S=ranks_timing["S"], ranks_n_out=ranks_timing["n_out"],
+        mode_join_wall_ms={f"{m}_odf{o}": v for (m, o), v in mode_walls.items()},
+        mode_peak_bytes={f"{m}_odf{o}": v for (m, o), v in mode_peaks.items()},
+        mode_kernels_S=mode_timing["S"], mode_kernels_n_out=mode_timing["n_out"],
         card=smi)
 
     def per_query(name):
@@ -612,13 +818,43 @@ def main() -> int:
             "launches": launch_table["prepared_probe"][1]["expand_ranks"],
             "launches_odf4": launch_table["prepared_probe"][4]["expand_ranks"],
             "launches_per_query": per_query("expand_ranks"),
-            "max_abs_err": max(ranks_errs), "ms": ranks_timing["ms"],
-            "plain_ms": ranks_timing["plain_ms"],
+            "max_abs_err": max(ranks_errs + [e["expand_ranks"] for e in mode_errs]),
+            "ms": ranks_timing["ms"], "plain_ms": ranks_timing["plain_ms"],
             "bound_ms": ranks_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": ranks_timing["library_ms"],
             "library_call": "torch.searchsorted(csum, arange(n_out), right=True, out_int32=True)",
+            # The same kernel at the unprepared ranks mode's S and n_out.
+            "ranks_mode": {"S": mode_timing["S"], "n_out": mode_timing["n_out"],
+                           "ms": mode_timing["expand_ranks"]["ms"],
+                           "plain_ms": mode_timing["expand_ranks"]["plain_ms"],
+                           "bound_ms": 4 * (mode_timing["S"] + mode_timing["n_out"])
+                           / HBM_BYTES_PER_S * 1e3,
+                           "library_ms": mode_timing["searchsorted_ms"]},
         },
     ]
+    # The mode kernels at the main path's S and n_out, with its slots.
+    mS, mn, npay = mode_timing["S"], mode_timing["n_out"], mode_timing["n_slots"]
+    mode_bytes = {
+        "expand_gather": 12 * mS + 12 * mn,
+        "expand_join": 12 * mS + 8 * mn,
+        "expand_carry": (12 + 8 * npay) * mS + (4 + 8 * npay) * mn,
+        "expand_vfull": (20 + 8 * npay) * mS + (8 + 16 * npay) * mn,
+    }
+    replaces = {"expand_gather": 508, "expand_join": 1380, "expand_carry": 923, "expand_vfull": 1245}
+    for name, b in mode_bytes.items():
+        mode = next(m for m in MODES if EXPAND_KERNELS[m] == name)
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"dj_tpu_torch/csrc/{name}.cu",
+            "replaces": f"dj_tpu/ops/pallas_expand.py:{replaces[name]}",
+            "launches": launch_table[f"unprepared_{mode}"][1][name],
+            "launches_odf4": launch_table[f"unprepared_{mode}"][4][name],
+            "launches_per_query": per_query(name),
+            "max_abs_err": max(e[name] for e in mode_errs), "ms": mode_timing[name]["ms"],
+            "plain_ms": mode_timing[name]["plain_ms"],
+            "bound_ms": b / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": mode_timing["searchsorted_ms"],
+            "library_call": "torch.searchsorted(csum, arange(n_out), right=True, out_int32=True), src only",
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

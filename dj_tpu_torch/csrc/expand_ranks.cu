@@ -16,7 +16,7 @@
 // memory rate of an H100 SXM.
 //
 // Design: the windowing of csrc/expand_values.cu, whose src output this
-// is. Each block owns ETILE consecutive output slots. Two binary searches
+// is, as csrc/expand_window.cuh shares it. Each block owns ETILE consecutive output slots. Two binary searches
 // of csum in global memory give the block's window of rows [lo, hi)
 // (every slot's answer lies in [lo, hi]); a slot at or past the total
 // (csum's last, largest value) ranks S without a search, so the blocks
@@ -29,57 +29,25 @@
 // answer) spreads over a thousand blocks instead of serialising one
 // thread.
 
-#include <cuda_runtime.h>
+#include "expand_window.cuh"
 
 namespace {
 
-constexpr int ET = 256;            // threads per block
-constexpr int EJ = 4;              // output slots per thread
-constexpr int ETILE = ET * EJ;     // output slots per block
-constexpr int WIN = 8192;          // csum entries staged in shared memory
-
-// First index in [lo, hi) whose value exceeds v (hi if none).
-__device__ __forceinline__ long long upper_bound(const int* a, long long lo,
-                                                 long long hi, long long v) {
-  while (lo < hi) {
-    const long long m = (lo + hi) >> 1;
-    if ((long long)a[m] <= v) lo = m + 1; else hi = m;
-  }
-  return lo;
-}
-
-// #{i < S : csum[i] <= v}; a v at or past csum's last value is S.
-__device__ __forceinline__ long long rank_of(const int* csum, long long S,
-                                             long long v) {
-  if (S == 0 || (long long)csum[S - 1] <= v) return S;
-  return upper_bound(csum, 0, S - 1, v);
-}
+using namespace dj_window;
 
 __global__ void expand_ranks_kernel(const int* csum, int* out, long long S,
                                     long long n_out) {
   __shared__ int win[WIN];
   __shared__ long long bounds[2];
-  const long long j0 = (long long)blockIdx.x * ETILE;
-  const long long j_last = min(j0 + ETILE, n_out) - 1;
-  if (threadIdx.x == 0) bounds[0] = rank_of(csum, S, j0);
-  if (threadIdx.x == 32) bounds[1] = rank_of(csum, S, j_last);
-  __syncthreads();
-  const long long lo = bounds[0];
   // A csum that is not sorted (wrapped past 2^31) only has to give a
   // valid range: the caller's overflow flag condemns those slots.
-  const long long width = max(bounds[1] - lo, 0LL);
-  const bool staged = width <= WIN;
-  if (staged) {
-    for (long long k = threadIdx.x; k < width; k += ET) win[k] = csum[lo + k];
-  }
-  __syncthreads();
+  const Window w = stage(csum, S, n_out, win, bounds);
+  const long long j0 = (long long)blockIdx.x * ETILE;
 #pragma unroll
   for (int e = 0; e < EJ; ++e) {
     const long long j = j0 + (long long)e * ET + threadIdx.x;
     if (j >= n_out) break;
-    const long long a = staged ? upper_bound(win, 0, width, j)
-                               : upper_bound(csum + lo, 0, width, j);
-    out[j] = (int)(lo + a);
+    out[j] = (int)rank(w, csum, win, j);
   }
 }
 
@@ -90,8 +58,7 @@ __global__ void expand_ranks_kernel(const int* csum, int* out, long long S,
 extern "C" int dj_expand_ranks(const int* csum, int* out, long long S,
                                long long n_out, void* stream) {
   if (n_out <= 0) return 0;
-  const long long nblocks = (n_out + ETILE - 1) / ETILE;
-  expand_ranks_kernel<<<(unsigned)nblocks, ET, 0, (cudaStream_t)stream>>>(
+  expand_ranks_kernel<<<blocks_for(n_out), ET, 0, (cudaStream_t)stream>>>(
       csum, out, S, n_out);
   return (int)cudaGetLastError();
 }

@@ -3,8 +3,9 @@
 Each ``dj_tpu_torch/csrc/<name>.cu`` has a plain C interface and is
 compiled by ``nvcc`` for ``sm_90a`` into its own shared library under
 ``dj_tpu_torch/_build/`` (listed in .gitignore), then loaded with
-ctypes. The library's file name carries a hash of its source, so an
-edited source rebuilds and an unchanged one is reused. The first call
+ctypes; ``csrc/*.cuh`` are headers the sources share. The library's
+file name carries a hash of its source and the headers, so an edited
+source rebuilds and an unchanged one is reused. The first call
 starts one ``nvcc`` per missing source, all at once, and waits for all;
 nothing is compiled when a module is imported.
 """
@@ -42,7 +43,11 @@ def sources() -> list[pathlib.Path]:
 
 
 def _lib_path(src: pathlib.Path) -> pathlib.Path:
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+    # The shared headers are part of every source they may be included in.
+    h = hashlib.sha1(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 
 

@@ -14,13 +14,33 @@ caller can detect overflow.
    flipped, which is unsigned order under a signed compare).
 2. ``ops.scan.join_scans`` (CUDA kernel) turns the sorted words into
    (stag, run_start, cnt, csum).
-3. ``ops.expand.expand_values`` (CUDA kernel) gives each output slot
-   its left row's merged tag and its matched ref's merged position.
+3. The duplicate expansion (``ops/expand.py``, one CUDA kernel per
+   mode) tells each output slot which rows it joins.
 4. Row gathers build the output columns.
 
-Multi-key joins, carry modes and keys that the packed word cannot hold
-(float keys, mixed key dtypes, uint64 keys, a key range too wide) raise
-NotImplementedError: they come with later slices.
+The expansion mode is ``DJT_JOIN_EXPAND`` (``resolve_expand_impl``),
+``dj_tpu``'s ``DJ_JOIN_EXPAND`` under the port's short names:
+
+- "vmeta" (default; ``pallas-vmeta``): ``expand_values`` gives (left
+  tag, matched ref's merged position) per slot;
+- "ranks" (``pallas``): ``expand_ranks`` gives src, then src's own run
+  starts give the within-run offset t (``_run_offsets``) and one gather
+  the (stag, run_start) metadata at src;
+- "fused" (``pallas-fused``): ``expand_gather`` gives src and that
+  metadata in one pass, t as in "ranks";
+- "join" (``pallas-join``): ``expand_join`` gives both row tags;
+- "vcarry" (``pallas-vcarry``): the payloads ride the sort as union u64
+  slots (``_union_slots``); ``expand_carry`` expands the left payloads
+  at src and gathers at the matched refs give the key and the right
+  payloads;
+- "vfull" (``pallas-vfull``): as "vcarry", but ``expand_vfull`` also
+  reads the key and the right payloads at the matched refs.
+
+``effective_plan`` applies ``dj_tpu``'s degrade rules (vcarry and vfull
+fall back to vmeta past three payload slots). Every mode gives the same
+rows. Multi-key joins, ``carry_payloads`` and keys that the packed word
+cannot hold (float keys, mixed key dtypes, uint64 keys, a key range too
+wide) raise NotImplementedError: they come with later slices.
 
 The prepared build side (``dj_tpu/ops/join.py:1861-2497``) shares the
 scans and expansion: ``plan_prepared_pack`` anchors the pack to a key
@@ -46,7 +66,14 @@ import torch
 from ..core import dtypes as dt
 from ..core.search import run_bounds
 from ..core.table import Column, Table
-from .expand import expand_ranks, expand_values
+from .expand import (
+    expand_carry,
+    expand_gather,
+    expand_join,
+    expand_ranks,
+    expand_values,
+    expand_vfull,
+)
 from .merge import merge_sorted_u64, sort_u64
 from .scan import join_scans
 
@@ -175,13 +202,49 @@ def _check_supported(left, right, left_on, right_on, carry_payloads):
         )
 
 
-def _packed_sorted_words(
+EXPAND_IMPLS = ("vmeta", "ranks", "fused", "join", "vcarry", "vfull")
+# The CUDA kernel each expansion mode runs (join_scans runs in every mode).
+EXPAND_KERNELS = {
+    "vmeta": "expand_values", "ranks": "expand_ranks", "fused": "expand_gather",
+    "join": "expand_join", "vcarry": "expand_carry", "vfull": "expand_vfull",
+}
+
+
+def resolve_expand_impl() -> str:
+    """The unprepared join's expansion mode: ``DJT_JOIN_EXPAND`` ("vmeta",
+    the default; "ranks", "fused", "join", "vcarry" or "vfull", which are
+    dj_tpu's ``DJ_JOIN_EXPAND`` = "pallas-vmeta", "pallas",
+    "pallas-fused", "pallas-join", "pallas-vcarry" and "pallas-vfull").
+    dj_tpu's "hist" has no kernel and is not a mode here."""
+    impl = os.environ.get("DJT_JOIN_EXPAND", "vmeta")
+    if impl not in EXPAND_IMPLS:
+        raise ValueError(f"DJT_JOIN_EXPAND={impl!r}: expected one of {EXPAND_IMPLS}")
+    return impl
+
+
+def effective_plan(n_payload: int) -> str:
+    """The expansion mode a join runs: ``DJT_JOIN_EXPAND`` after dj_tpu's
+    degrade rules (``effective_plan``, dj_tpu/ops/join.py:1055-1123).
+    vcarry and vfull need a single int key on the packed path, no strings
+    and at most three payload slots, and run vmeta otherwise. The port's
+    unprepared join is always single-key, packed and string-free
+    (``_check_supported`` raises on the rest), so ``n_payload``, the
+    larger number of non-key columns of the two sides, is the gate left.
+    The prepared join does not read this: see ``prepared_effective_plan``."""
+    expand = resolve_expand_impl()
+    if expand in ("vcarry", "vfull") and n_payload > 3:
+        return "vmeta"
+    return expand
+
+
+def _packed_words(
     lk: torch.Tensor, rk: torch.Tensor, l_count, r_count, tag_bits: int,
     static_fit: Optional[bool],
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """The ascending packed words (u64 bits in int64) and the
-    pack_range_overflow flag. ``_packed_merged_sort`` + ``_pack_sort_core``
-    of dj_tpu/ops/join.py:500-716, monolithic sort only."""
+) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """(words, pack_range_overflow, kmin): the unsorted packed words (u64
+    bits in int64), refs first, padding all-ones. ``kmin`` is the int64
+    minimum that 64-bit keys were packed relative to (None for narrower
+    keys, packed as their unsigned-order image)."""
     L, R = lk.shape[0], rk.shape[0]
     S = L + R
     dev = lk.device
@@ -192,6 +255,7 @@ def _packed_sorted_words(
         ]
     )
     pack_ovf = _flag(False, dev)
+    kmin = None
     if 8 * lk.element_size() + tag_bits <= 64:
         # Narrow keys: the unsigned-order image fits beside the tag as is.
         word = _to_unsigned_order(torch.cat([rk, lk]))
@@ -219,31 +283,162 @@ def _packed_sorted_words(
     word.bitwise_left_shift_(tag_bits)
     word.bitwise_or_(torch.arange(S, dtype=torch.int64, device=dev))
     word.masked_fill_(~valid, -1)
+    return word, pack_ovf, kmin
+
+
+def _packed_sorted_words(
+    lk: torch.Tensor, rk: torch.Tensor, l_count, r_count, tag_bits: int,
+    static_fit: Optional[bool],
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ascending packed words (u64 bits in int64) and the
+    pack_range_overflow flag. ``_packed_merged_sort`` + ``_pack_sort_core``
+    of dj_tpu/ops/join.py:500-716, monolithic sort only."""
+    word, pack_ovf, _ = _packed_words(lk, rk, l_count, r_count, tag_bits, static_fit)
     return sort_u64(word), pack_ovf
+
+
+_INT_OF_SIZE = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _to_u64(data: torch.Tensor) -> torch.Tensor:
+    """Any fixed-width column's bits, zero-extended to u64 (int64)."""
+    w = data.element_size()
+    bits = data.view(_INT_OF_SIZE[w])
+    return bits if w == 8 else bits.to(torch.int64) & ((1 << (8 * w)) - 1)
+
+
+def _from_u64(bits: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of _to_u64: the low bits of ``bits`` as ``dtype``."""
+    return bits.to(_INT_OF_SIZE[dtype.itemsize]).view(dtype)
+
+
+def _union_slots(l_carry, r_fixed, L: int, R: int, device) -> list:
+    """Union u64 sort operands (``_union_slots``, dj_tpu/ops/join.py:
+    946-964): slot k holds the right payload k on ref rows and the left
+    payload k on query rows, zero where a side has fewer columns."""
+    slots = []
+    for k in range(max(len(l_carry), len(r_fixed))):
+        parts = [
+            _to_u64(cols[k][1].data) if k < len(cols)
+            else torch.zeros(n, dtype=torch.int64, device=device)
+            for cols, n in ((r_fixed, R), (l_carry, L))
+        ]
+        slots.append(torch.cat(parts))
+    return slots
+
+
+def _carry_sorted(
+    lk: torch.Tensor, rk: torch.Tensor, l_count, r_count, tag_bits: int,
+    static_fit: Optional[bool], slots: list,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, list]:
+    """vcarry's sort (the ``carry_ops`` branch of ``_pack_sort_core``,
+    dj_tpu/ops/join.py:564-581): (sorted words, pack_range_overflow,
+    sorted keys, sorted slots). The slots are emptied as they are
+    gathered. ``torch.sort`` has no variadic form, so the words sort with
+    their permutation and each slot is gathered by it; valid words are
+    distinct, so the valid prefix's permutation is unique (padding slots
+    are unspecified and never read below the total). The key is recovered
+    from the sorted word as int64 (sign-extended for narrower signed
+    keys): the key field under a logical shift, plus kmin for 64-bit
+    keys, or less the unsigned-order bias for narrower signed ones."""
+    word, pack_ovf, kmin = _packed_words(lk, rk, l_count, r_count, tag_bits, static_fit)
+    sp, perm = torch.sort(word.bitwise_xor_(INT64_MIN))
+    del word
+    sp.bitwise_xor_(INT64_MIN)
+    sslots = []
+    while slots:
+        sslots.append(slots.pop(0)[perm])
+    del perm
+    key = (sp >> tag_bits).bitwise_and_((1 << (64 - tag_bits)) - 1)
+    if kmin is not None:
+        key.add_(kmin)
+    elif lk.dtype.is_signed:
+        key.sub_(1 << (8 * lk.element_size() - 1))
+    return sp, pack_ovf, key, sslots
+
+
+def _run_offsets(src: torch.Tensor) -> torch.Tensor:
+    """t = j - cummax(where(first, j, -1)) per slot, int32, where first
+    marks the slots whose src differs from the slot before: the
+    within-run offset from src's own run starts (dj_tpu/ops/join.py:
+    1660-1665). Slot 0 is always a start, so the cummax is the start of
+    j's run, found here as a cumsum (run id), a scatter of each start to
+    its run id and a gather: ``torch.cummax`` of one long row runs as a
+    single block (524 ms at 200M slots on an H100)."""
+    n = src.shape[0]
+    j = torch.arange(n, dtype=torch.int32, device=src.device)
+    first = torch.ones(n, dtype=torch.bool, device=src.device)
+    first[1:] = src[1:] != src[:-1]
+    run_id = torch.cumsum(first, 0).sub_(1)
+    # Non-start slots write to a spare last entry, which nothing reads.
+    starts = torch.empty(n + 1, dtype=torch.int32, device=src.device)
+    starts.scatter_(0, torch.where(first, run_id, n), j)
+    return j - starts[run_id]
 
 
 def _expand_matches(
     words: list, l_count, r_count, tag_bits: int, L: int, R: int, out_capacity: int,
+    mode: str = "vmeta",
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(li, rrow, total) from the sorted packed words of a merged L + R
-    operand: the scans and the vmeta expansion. Output slot j joins left
-    row li[j] (L past the total) with right row rrow[j] (R past it);
-    ``total`` is the exact int64 match count. ``words`` is a one-element
-    list whose tensor this function takes, so the words are freed once
-    the scans have read them."""
+    operand: the scans and the expansion under ``mode`` ("vmeta",
+    "ranks", "fused" or "join"). Output slot j joins left row li[j]
+    (L past the total) with right row rrow[j] (R past it); ``total`` is
+    the exact int64 match count. ``words`` is a one-element list whose
+    tensor this function takes, so the words are freed once the scans
+    have read them."""
     S = L + R
     stag, run_start, cnt, csum = join_scans(words.pop(), l_count, r_count, tag_bits, L, R)
     total = cnt.sum(dtype=torch.int64)
-    stag_j, rpos = expand_values(csum, cnt, stag, run_start, out_capacity)
+    valid_out = torch.arange(out_capacity, device=stag.device) < total
+    rtag = None
+    if mode == "vmeta":
+        stag_j, rpos = expand_values(csum, cnt, stag, run_start, out_capacity)
+    elif mode == "join":
+        stag_j, rtag = expand_join(csum, stag, run_start, out_capacity)
+    elif mode == "fused":
+        src, stag_j, rstart_j = expand_gather(csum, stag, run_start, out_capacity)
+        rpos = rstart_j + _run_offsets(src.clamp_(0, S - 1))
+    else:  # ranks, then the meta gather: (stag, run_start) at src
+        src = expand_ranks(csum, out_capacity).clamp_(0, S - 1)
+        stag_j = stag[src]
+        rpos = run_start[src] + _run_offsets(src)
     del csum, cnt, run_start
 
-    valid_out = torch.arange(out_capacity, device=stag.device) < total
     li = torch.where(valid_out, stag_j, L)
-    rpos = torch.where(valid_out, rpos, S)
-    in_range = (rpos >= 0) & (rpos < S)
-    rtag = torch.where(in_range, stag[rpos.clamp(0, S - 1)], L)
+    if rtag is None:
+        rpos = torch.where(valid_out, rpos, S)
+        in_range = (rpos >= 0) & (rpos < S)
+        rtag = torch.where(in_range, stag[rpos.clamp(0, S - 1)], L)
     rrow = torch.where(valid_out, rtag - L, R)
     return li, rrow, total
+
+
+def _carry_expand(
+    words: list, key: torch.Tensor, sslots: list, l_count, r_count, tag_bits: int,
+    L: int, R: int, out_capacity: int, vfull: bool,
+) -> tuple[torch.Tensor, list, list, torch.Tensor]:
+    """(key_j, left payload slots, right payload slots, total) per output
+    slot, from vcarry's sorted words (a one-element list this function
+    takes), keys and slots: the scans, then ``expand_carry`` (left slots
+    at src) and a gather of key and slots at the matched refs (``rpos``),
+    or ``expand_vfull`` (all of it in one kernel). Slots past the total
+    are unspecified. dj_tpu stacks the key and slots into one gather
+    (dj_tpu/ops/join.py:1699-1701); here each column is gathered alone:
+    PyTorch's gather of 16-byte rows took 121 ms at 200M slots on an
+    H100."""
+    S = L + R
+    stag, run_start, cnt, csum = join_scans(words.pop(), l_count, r_count, tag_bits, L, R)
+    del stag
+    total = cnt.sum(dtype=torch.int64)
+    n = len(sslots)
+    if vfull:
+        outs = expand_vfull(csum, cnt, run_start, sslots, key, out_capacity)
+        return outs[n], list(outs[:n]), list(outs[n + 1:]), total
+    rpos, *lpay = expand_carry(csum, cnt, run_start, sslots, out_capacity)
+    del csum, cnt, run_start
+    rpos = rpos.clamp_(0, S - 1)
+    return key[rpos], lpay, [s[rpos] for s in sslots], total
 
 
 def inner_join(
@@ -321,15 +516,41 @@ def inner_join(
     static_fit = None
     if key_range is not None:
         static_fit = plan_key_pack(key_range, [np.dtype(left.columns[left_on[0]].dtype.physical)], S).fits
-    sp, pack_ovf = _packed_sorted_words(lk, rk, l_count, r_count, tag_bits, static_fit)
+    l_carry = [(i, c) for i, c in enumerate(left.columns) if i != left_on[0]]
+    r_fixed = [(i, c) for i, c in enumerate(right.columns) if i != right_on[0]]
+    mode = effective_plan(max(len(l_carry), len(r_fixed)))
+    if mode in ("vcarry", "vfull"):
+        sp, pack_ovf, key, sslots = _carry_sorted(
+            lk, rk, l_count, r_count, tag_bits, static_fit,
+            _union_slots(l_carry, r_fixed, L, R, dev),
+        )
+        words = [sp]
+        del sp
+        key_j, lpay, rpay, total = _carry_expand(
+            words, key, sslots, l_count, r_count, tag_bits, L, R, out_capacity,
+            vfull=mode == "vfull",
+        )
+        # Slots past the total read 0 in every column, the key included
+        # (dj_tpu/ops/join.py:1703-1716); the column order is the
+        # contract's (1743-1751).
+        valid_out = torch.arange(out_capacity, device=dev) < total
+        bits = {left_on[0]: key_j} | {i: b for (i, _), b in zip(l_carry, lpay)}
+        cols = [
+            Column(_from_u64(torch.where(valid_out, bits[i], 0), c.data.dtype), c.dtype)
+            for i, c in enumerate(left.columns)
+        ] + [
+            Column(_from_u64(torch.where(valid_out, b, 0), c.data.dtype), c.dtype)
+            for (_, c), b in zip(r_fixed, rpay)
+        ]
+    else:
+        sp, pack_ovf = _packed_sorted_words(lk, rk, l_count, r_count, tag_bits, static_fit)
+        words = [sp]
+        del sp
+        li, rrow, total = _expand_matches(
+            words, l_count, r_count, tag_bits, L, R, out_capacity, mode
+        )
+        cols = [c.take(li) for c in left.columns] + [c.take(rrow) for _, c in r_fixed]
     flags["pack_range_overflow"] = pack_ovf
-    words = [sp]
-    del sp
-    li, rrow, total = _expand_matches(words, l_count, r_count, tag_bits, L, R, out_capacity)
-
-    cols = [c.take(li) for c in left.columns] + [
-        c.take(rrow) for i, c in enumerate(right.columns) if i != right_on[0]
-    ]
     count = torch.minimum(total, torch.tensor(out_capacity, device=dev)).to(torch.int32)
     result = (Table(tuple(cols), count), total)
     return result + (flags,) if return_flags else result

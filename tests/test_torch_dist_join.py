@@ -31,9 +31,7 @@ def _both(arrays, names):
     return jt, convert.table_from_numpy(arrays, names, device="cpu")
 
 
-@pytest.mark.parametrize("odf", [1, 4])
-@pytest.mark.parametrize("key_dtype", ["int64", "int32"])
-def test_distributed_join_matches_dj_tpu(odf, key_dtype):
+def _dist_compare(odf, key_dtype):
     rng = np.random.default_rng(odf)
     build, probe = host_build_probe_keys(3000, 4000, 0.3, rng, dtype=np.dtype(key_dtype))
     probe[:40] = build[:40]  # some guaranteed hits
@@ -59,6 +57,33 @@ def test_distributed_join_matches_dj_tpu(odf, key_dtype):
     for k in jinfo:
         assert tinfo[k].tolist() == np.asarray(jinfo[k]).tolist(), k
     assert _rows(tj.unshard_table(tout, tcounts)) == _rows(junshard(jout, jcounts))
+
+
+@pytest.mark.parametrize("odf", [1, 4])
+@pytest.mark.parametrize("key_dtype", ["int64", "int32"])
+def test_distributed_join_matches_dj_tpu(odf, key_dtype):
+    _dist_compare(odf, key_dtype)
+
+
+# The port's DJT_JOIN_EXPAND modes and dj_tpu's DJ_JOIN_EXPAND.
+EXPAND_MODES = {
+    "vmeta": "pallas-vmeta", "ranks": "pallas", "fused": "pallas-fused",
+    "join": "pallas-join", "vcarry": "pallas-vcarry", "vfull": "pallas-vfull",
+}
+
+
+@pytest.mark.parametrize("odf", [1, 4])
+@pytest.mark.parametrize("mode", sorted(EXPAND_MODES))
+def test_distributed_join_expand_modes_match_dj_tpu(mode, odf, tiny_pallas_geometry, monkeypatch):
+    """Each expansion mode through _local_join_pipeline, against dj_tpu's
+    Pallas kernels in interpret mode."""
+    from dj_tpu.ops import pallas_scan as psc
+
+    tiny_pallas_geometry(EXPAND_MODES[mode] + "-interpret")
+    monkeypatch.setattr(psc, "TILE", 256)
+    monkeypatch.setenv("DJ_JOIN_SCANS", "pallas-interpret")
+    monkeypatch.setenv("DJT_JOIN_EXPAND", mode)
+    _dist_compare(odf, "int64")
 
 
 def test_join_overflow_flag_matches():

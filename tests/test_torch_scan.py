@@ -102,7 +102,10 @@ def test_kernel_sources_carry_their_note():
     """Each CUDA source names the TPU kernel it replaces, its bound on
     the card and its design."""
     names = {p.stem for p in cuda_build.sources()}
-    assert names == {"join_scans", "expand_values", "merge_sorted_u64", "expand_ranks"}
+    assert names == {
+        "join_scans", "expand_values", "merge_sorted_u64", "expand_ranks",
+        "expand_gather", "expand_join", "expand_carry", "expand_vfull",
+    }
     for p in cuda_build.sources():
         text = p.read_text()
         assert "Replaces the TPU kernel dj_tpu/ops/" in text
