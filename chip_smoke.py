@@ -44,8 +44,23 @@ Phases, each printing its own line(s):
      wholly above the other; sparse matches whose expand_ranks windows
      exceed the shared stage, one row with 1M matches, all-miss, n_out
      below and above the total);
-  7. timings: the `kernels` JSON line (kernel, plain-version and library
-     times beside each kernel's bound, launches per query on each path).
+  7. timings: the `timings` line (walls, peaks and the main path's sort);
+  8. the hardware probes: `python -m dj_tpu_torch.hw.probe_sort` and
+     `... .probe_gather` through their main() at the JAX probes' shapes
+     (64 tiles of 32768 u32 words; N = 131072 int32), each printing
+     CORRECT and launching its kernel; then tile_sort at the join's
+     scale (6104 tiles, 200,015,872 words) against its plain version,
+     beside the flat sort of the same words;
+  8b. kernels vs plain: tile_sort and the cluster gather `run` against
+     their plain versions, exact equality, on the probes' shapes and on
+     edge cases (words >= 2^31, all equal to the padding, sorted,
+     reverse sorted, heavy duplicates, TILE 20000, 3 and 1; indices
+     negative and outside [-N, N), N not a multiple of the cluster, the
+     largest N the wrapper admits, N = 1), and each wrapper refusing a
+     size its kernel cannot hold;
+then the `kernels` JSON line (kernel, plain-version and library times
+beside each kernel's bound, launches per query on each path; the probes'
+launches are their main()'s, and no join path launches them).
 The last line is {"ok": true, "device": {...}}. With no CUDA device, or
 without the package beside it, the script fails before printing any
 result. ``--rows N`` shrinks the main path (for a quick first check).
@@ -54,6 +69,8 @@ result. ``--rows N`` shrinks the main path (for a quick first check).
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
 import statistics
@@ -413,6 +430,61 @@ def compare_ranks(case: str, csum, n_out: int, timing: bool = False,
     return err, t
 
 
+def run_probe(name: str, mod) -> dict:
+    """A hardware probe's own entry point on the card: its lines are
+    logged, and it must print CORRECT and launch its kernel. Returns its
+    results with the launches of the run."""
+    mod.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = mod.main([])
+    lines = buf.getvalue().splitlines()
+    res["launches"] = mod.launches
+    log("probe", probe=name, lines=lines, launches=mod.launches)
+    if "CORRECT" not in lines or mod.launches < 1:
+        raise AssertionError(f"{name}: no CORRECT line or no launch ({mod.launches}): {lines}")
+    return res
+
+
+def compare_tile_sort(case: str, x, tile: int) -> int:
+    """tile_sort against its plain version, every word equal; returns the
+    max |kernel - plain| (0, or it raises)."""
+    from dj_tpu_torch.hw import probe_sort
+
+    got = probe_sort.tile_sort(x, tile).view(torch.int32)
+    want = probe_sort.tile_sort_plain(x, tile).view(torch.int32)
+    torch.cuda.synchronize()
+    bad = torch.nonzero(got != want).flatten()
+    if bad.numel():
+        i = int(bad[0])
+        raise AssertionError(f"{case}: tile_sort differs at {bad.numel()} of {got.numel()} words, "
+                             f"first at {i}: {int(got[i]) & 0xFFFFFFFF:#x} vs {int(want[i]) & 0xFFFFFFFF:#x}")
+    log("kernels_vs_plain", case=case, kernel="tile_sort", NT=x.numel() // tile, TILE=tile,
+        max_abs_err=0, words_equal=x.numel())
+    return 0
+
+
+def compare_gather(case: str, vals, idx) -> int:
+    """The cluster gather ``run`` against its plain version, every word
+    equal; returns the max |kernel - plain| (0, or it raises)."""
+    from dj_tpu_torch.hw import probe_gather
+
+    got = probe_gather.run(vals, idx)
+    want = probe_gather.run_plain(vals, idx)
+    torch.cuda.synchronize()
+    bad = torch.nonzero(got != want).flatten()
+    if bad.numel():
+        i = int(bad[0])
+        raise AssertionError(f"{case}: run differs at {bad.numel()} of {got.numel()} words, first at "
+                             f"{i} (index {int(idx[i])}): {int(got[i])} vs {int(want[i])}")
+    n = vals.numel()
+    log("kernels_vs_plain", case=case, kernel="run", N=n, N_mod_cluster=n % probe_gather.CLUSTER,
+        in_range=int(((idx >= 0) & (idx < n)).sum()),
+        negative_wrapped=int(((idx >= -n) & (idx < 0)).sum()),
+        outside=int(((idx < -n) | (idx >= n)).sum()), max_abs_err=0, words_equal=n)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=100_000_000,
@@ -770,6 +842,77 @@ def main() -> int:
         mode_kernels_S=mode_timing["S"], mode_kernels_n_out=mode_timing["n_out"],
         card=smi)
 
+    # 8. the hardware probes through their entry points, and a tile pass
+    # at the join's scale beside the flat sort of the same words
+    from dj_tpu_torch.hw import probe_gather, probe_sort
+
+    sort_probe = run_probe("probe_sort", probe_sort)
+    gather_probe = run_probe("probe_gather", probe_gather)
+    T = probe_sort.TILE
+
+    def words(n, lo=-(2**31), hi=2**31):
+        """n u32 words, drawn as int32 in [lo, hi) (negative ones are >= 2^31)."""
+        return torch.randint(lo, hi, (n,), dtype=torch.int32, generator=gen,
+                             device=dev).view(torch.uint32)
+
+    nt_join = 6104
+    xj = words(nt_join * T)
+    sort_errs = [compare_tile_sort("join_scale", xj, T)]
+    flipped = xj.view(torch.int32) ^ probe_sort.INT32_MIN
+    join_scale = {"NT": nt_join, "TILE": T, "S": xj.numel(),
+                  "ms": cuda_ms(lambda: probe_sort.tile_sort(xj, T), 3),
+                  "library_ms": cuda_ms(lambda: torch.sort(flipped.view(nt_join, T), dim=1), 3),
+                  "flat_sort_ms": cuda_ms(lambda: torch.sort(flipped), 3),
+                  "bound_ms": 8 * xj.numel() / HBM_BYTES_PER_S * 1e3,
+                  "main_path_u64_sort_ms": timing["sort_ms"], "main_path_sort_S": S}
+    log("tile_pass_join_scale", **join_scale)
+    del xj, flipped
+
+    # 8b. the probe kernels against their plain versions on edge cases
+    sort_errs.append(compare_tile_sort("probe_shape", words(probe_sort.NT * T), T))
+    sort_errs.append(compare_tile_sort("words_ge_2^31", words(16 * T, hi=0), T))
+    sort_errs.append(compare_tile_sort("all_equal_to_padding", words(8 * T, -1, 0), T))
+    sorted_tiles = probe_sort.tile_sort_plain(words(8 * T), T)
+    sort_errs.append(compare_tile_sort("already_sorted", sorted_tiles, T))
+    reverse = sorted_tiles.view(torch.int32).view(8, T).flip(1).reshape(-1).view(torch.uint32)
+    sort_errs.append(compare_tile_sort("reverse_sorted", reverse, T))
+    dup_set = torch.tensor([0, 1, 2**31 - 1, -(2**31), -1], dtype=torch.int32, device=dev)
+    dups = dup_set[torch.randint(0, 5, (16 * T,), generator=gen, device=dev)].view(torch.uint32)
+    sort_errs.append(compare_tile_sort("heavy_duplicates", dups, T))
+    for tile, nt in ((20_000, 7), (3, 1001), (1, 1000)):
+        sort_errs.append(compare_tile_sort(f"tile_{tile}", words(tile * nt), tile))
+    del sorted_tiles, reverse, dups
+
+    def indices(n, lo, hi):
+        """n int32 indices in [lo, hi), the first ones 0, N - 1, -N, N and
+        the int32 extremes."""
+        idx = torch.randint(lo, hi, (n,), generator=gen, device=dev).clamp_(-(2**31), 2**31 - 1)
+        edge = [0, n - 1, -n, n, -(2**31), 2**31 - 1][:n]
+        idx[: len(edge)] = torch.tensor(edge, device=dev)
+        return idx.to(torch.int32)
+
+    N = probe_gather.N
+    gather_errs = [compare_gather("probe_shape", words(N, 0, 2**30).view(torch.int32),
+                                  words(N, 0, N).view(torch.int32))]
+    for case, n in (("negative_and_outside", N), ("N_not_multiple_of_cluster", 100_003),
+                    ("largest_N", probe_gather.MAX_N), ("N_7", 7), ("N_1", 1)):
+        gather_errs.append(compare_gather(case, words(n).view(torch.int32), indices(n, -3 * n, 3 * n)))
+    too_big = torch.zeros(probe_gather.MAX_N + 1, dtype=torch.int32, device=dev)
+    for what, call in (("tile_sort at TILE 32769", lambda: probe_sort.tile_sort(words(32_769), 32_769)),
+                       ("run at N = MAX_N + 1", lambda: probe_gather.run(too_big, too_big))):
+        try:
+            call()
+        except ValueError as e:
+            log("refuses", call=what, error=str(e))
+            continue
+        raise AssertionError(f"{what} was not refused")
+    del too_big
+    x_probe = words(probe_sort.NT * T)
+    sort_plain_ms = cuda_ms(lambda: probe_sort.tile_sort_plain(x_probe, T), 2)
+    gv, gi = words(N, 0, 2**30).view(torch.int32), words(N, 0, N).view(torch.int32)
+    gather_plain_ms = probe_gather.graph_ms(lambda: probe_gather.run_plain(gv, gi), 20)
+    del x_probe, gv, gi
+
     def per_query(name):
         return {path: {f"odf{odf}": c[name] for odf, c in by_odf.items()}
                 for path, by_odf in launch_table.items()
@@ -855,6 +998,28 @@ def main() -> int:
             "library_ms": mode_timing["searchsorted_ms"],
             "library_call": "torch.searchsorted(csum, arange(n_out), right=True, out_int32=True), src only",
         })
+    kernels.append({
+        "name": "tile_sort", "route": "cuda", "source": "dj_tpu_torch/csrc/tile_sort.cu",
+        "replaces": "scripts/hw/probe_sort.py:25",
+        "launches": sort_probe["launches"], "launches_per_query": {},
+        "max_abs_err": max(sort_errs), "ms": sort_probe["ms"], "plain_ms": sort_plain_ms,
+        "bound_ms": 8 * sort_probe["n"] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": sort_probe["library_ms"],
+        "library_call": "torch.sort(x.view(NT, TILE), dim=1) of the int32 view, top bit flipped",
+        "flat_sort_ms": sort_probe["flat_ms"], "NT": sort_probe["nt"], "TILE": sort_probe["tile"],
+        "join_scale": join_scale,
+    })
+    kernels.append({
+        "name": "run", "route": "cuda", "source": "dj_tpu_torch/csrc/cluster_gather.cu",
+        "replaces": "scripts/hw/probe_gather.py:26", "also_replaces": "scripts/hw/probe_gather.py:59",
+        "launches": gather_probe["launches"], "launches_per_query": {},
+        "max_abs_err": max(gather_errs), "ms": gather_probe["ms"],
+        "slope_ms": gather_probe["slope_ms"], "plain_ms": gather_plain_ms,
+        "bound_ms": 12 * gather_probe["n"] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": gather_probe["library_ms"],
+        "library_slope_ms": gather_probe["library_slope_ms"],
+        "library_call": "vals[idx] (torch.take)", "N": gather_probe["n"],
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

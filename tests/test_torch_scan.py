@@ -105,9 +105,11 @@ def test_kernel_sources_carry_their_note():
     assert names == {
         "join_scans", "expand_values", "merge_sorted_u64", "expand_ranks",
         "expand_gather", "expand_join", "expand_carry", "expand_vfull",
+        "tile_sort", "cluster_gather",
     }
     for p in cuda_build.sources():
         text = p.read_text()
-        assert "Replaces the TPU kernel dj_tpu/ops/" in text
+        assert ("Replaces the TPU kernel dj_tpu/ops/" in text
+                or "Replaces the TPU kernel scripts/hw/" in text)
         assert "Bound on this card" in text and "Design:" in text
         assert "extern \"C\" int dj_" in text
