@@ -12,7 +12,10 @@ Phases, each printing its own line(s):
      give expand_values windows wider than its shared-memory stage, so
      the global-memory search is held to the plain version; S not a
      multiple of the scan tile; join_scans also with 1M probe rows on one
-     key, where csum wraps) and (c) an all-miss input;
+     key, where csum wraps, and twice in a row on the skewed input) and
+     (c) an all-miss input; then (d) join_scans alone at S = 4097, 4096,
+     4095 (its tile of 4096 positions, +- 1), 31 and 1, each right after
+     a call on a larger S, each call logging how far its look-backs read;
   4. unprepared path: generate 100M build x 100M probe int64 rows
      (selectivity 0.3, unique build keys), shard, distributed_inner_join
      at over_decom_factor 1 and 4; every flag False, total equal to the
@@ -48,16 +51,19 @@ Phases, each printing its own line(s):
   8. the hardware probes: `python -m dj_tpu_torch.hw.probe_sort` and
      `... .probe_gather` through their main() at the JAX probes' shapes
      (64 tiles of 32768 u32 words; N = 131072 int32), each printing
-     CORRECT and launching its kernel; then tile_sort at the join's
+     CORRECT and launching its kernels (the gather: the L2 gather `run`
+     and the cluster gather `run_cluster`); then tile_sort at the join's
      scale (6104 tiles, 200,015,872 words) against its plain version,
      beside the flat sort of the same words;
-  8b. kernels vs plain: tile_sort and the cluster gather `run` against
-     their plain versions, exact equality, on the probes' shapes and on
-     edge cases (words >= 2^31, all equal to the padding, sorted,
-     reverse sorted, heavy duplicates, TILE 20000, 3 and 1; indices
-     negative and outside [-N, N), N not a multiple of the cluster, the
-     largest N the wrapper admits, N = 1), and each wrapper refusing a
-     size its kernel cannot hold;
+  8b. kernels vs plain: tile_sort, `run` and `run_cluster` against their
+     plain versions, exact equality, on the probes' shapes and on edge
+     cases (words >= 2^31, all equal to the padding, sorted, reverse
+     sorted, heavy duplicates, TILE 20000, 3 and 1; indices negative and
+     outside [-N, N), N not a multiple of the cluster, the largest N
+     `run_cluster` admits, N = 1; `run` alone past that N, at N =
+     10,000,003, at N not a multiple of 4 and with idx off 16-byte
+     alignment), and tile_sort and `run_cluster` refusing a size their
+     kernels cannot hold;
 then the `kernels` JSON line (kernel, plain-version and library times
 beside each kernel's bound, launches per query on each path; the probes'
 launches are their main()'s, and no join path launches them).
@@ -135,22 +141,46 @@ def block_windows(csum, n_out: int, total: int) -> tuple[int, int]:
     return int(width.max()), int((width > WIN).sum())
 
 
+def check_scans(case: str, got, want) -> None:
+    """Every slot of join_scans' four outputs equal to the plain version's."""
+    for name, g, w in zip(("stag", "run_start", "cnt", "csum"), got, want):
+        bad = torch.nonzero(g != w).flatten()
+        if bad.numel():
+            b = int(bad[0])
+            raise AssertionError(f"{case}: join_scans {name} differs at {bad.numel()} of {g.numel()} "
+                                 f"positions, first at {b}: {int(g[b])} vs {int(w[b])}")
+
+
+def compare_scans(case: str, sp, lc, rc, tag_bits, L, R, calls: int = 1):
+    """join_scans against its plain version, every slot of every output
+    equal, over ``calls`` calls in a row on the same input (each must
+    equal the plain version: stale look-back state would not); logs the
+    deepest look-back of the last call and returns (its outputs, 0)."""
+    from dj_tpu_torch.ops import scan
+
+    want = scan.join_scans_plain(sp, lc, rc, tag_bits, L, R)
+    for i in range(calls):
+        got = scan.join_scans(sp, lc, rc, tag_bits, L, R)
+        torch.cuda.synchronize()
+        check_scans(f"{case} (call {i + 1} of {calls})", got, want)
+    depth = scan.lookback_depth()
+    for k in ("run_max", "csum_max"):
+        LOOKBACK[k] = max(LOOKBACK[k], depth[k])
+    log("scans_vs_plain", case=case, S=L + R, tiles=-(-(L + R) // scan.TILE), calls=calls,
+        max_abs_err=0, positions_equal=L + R, lookback_tiles=depth)
+    return got, 0
+
+
+LOOKBACK = {"run_max": 0, "csum_max": 0}  # the deepest look-backs of any compared call
+
+
 def compare_kernels(case: str, sp, lc, rc, tag_bits, L, R, n_out, timing: bool,
                     need_global_windows: bool = False):
     """join_scans and expand_values against their plain versions; returns
     the two kernels' max |kernel - plain| and, with ``timing``, times."""
     from dj_tpu_torch.ops import expand, scan
 
-    got = scan.join_scans(sp, lc, rc, tag_bits, L, R)
-    want = scan.join_scans_plain(sp, lc, rc, tag_bits, L, R)
-    torch.cuda.synchronize()
-    scan_err = max_abs_diff(zip(got, want))
-    if scan_err:
-        for name, g, w in zip(("stag", "run_start", "cnt", "csum"), got, want):
-            if bool((g != w).any()):
-                bad = int(torch.nonzero(g != w)[0])
-                raise AssertionError(f"{case}: join_scans {name} differs first at {bad}: {int(g[bad])} vs {int(w[bad])} (max |err| {scan_err})")
-    del want
+    got, scan_err = compare_scans(case, sp, lc, rc, tag_bits, L, R)
     stag, run_start, cnt, csum = got
     total = int(cnt.sum(dtype=torch.int64))
     sj, rp = expand.expand_values(csum, cnt, stag, run_start, n_out)
@@ -173,7 +203,7 @@ def compare_kernels(case: str, sp, lc, rc, tag_bits, L, R, n_out, timing: bool,
                              f"{expand.WIN} (widest {widest}); the global-memory search was not exercised")
     S = L + R
     log("kernels_vs_plain", case=case, S=S, n_out=n_out, total=total,
-        S_mod_tile=S % 4096, join_scans_max_abs_err=scan_err,
+        S_mod_tile=S % scan.TILE, join_scans_max_abs_err=scan_err,
         expand_values=f"max |err| {exp_err} on {k} slots" if not wrapped
         else "not compared: csum wrapped past 2^31, every slot unspecified",
         widest_window=widest, blocks_over_win=n_global)
@@ -189,6 +219,9 @@ def compare_kernels(case: str, sp, lc, rc, tag_bits, L, R, n_out, timing: bool,
     j = torch.arange(n_out, dtype=torch.int32, device=sp.device)
     t["searchsorted_ms"] = cuda_ms(lambda: torch.searchsorted(csum, j, right=True, out_int32=True), reps)
     del j
+    # What one single-pass scan of S int32 takes on this card (a
+    # yardstick, not the same function).
+    t["cumsum_ms"] = cuda_ms(lambda: torch.cumsum(cnt, 0, dtype=torch.int32), reps)
     word = sp.clone()
     t["sort_ms"] = cuda_ms(lambda: torch.sort(word), 3)
     del word
@@ -430,19 +463,22 @@ def compare_ranks(case: str, csum, n_out: int, timing: bool = False,
     return err, t
 
 
-def run_probe(name: str, mod) -> dict:
+def run_probe(name: str, mod, counters=("launches",)) -> dict:
     """A hardware probe's own entry point on the card: its lines are
-    logged, and it must print CORRECT and launch its kernel. Returns its
-    results with the launches of the run."""
-    mod.launches = 0
+    logged, and it must print CORRECT and launch each of its kernels
+    (one launch counter each). Returns its results with each counter's
+    launches in the run."""
+    for c in counters:
+        setattr(mod, c, 0)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         res = mod.main([])
     lines = buf.getvalue().splitlines()
-    res["launches"] = mod.launches
-    log("probe", probe=name, lines=lines, launches=mod.launches)
-    if "CORRECT" not in lines or mod.launches < 1:
-        raise AssertionError(f"{name}: no CORRECT line or no launch ({mod.launches}): {lines}")
+    counts = {c: getattr(mod, c) for c in counters}
+    res.update(counts)
+    log("probe", probe=name, lines=lines, **counts)
+    if "CORRECT" not in lines or min(counts.values()) < 1:
+        raise AssertionError(f"{name}: no CORRECT line or a kernel not launched ({counts}): {lines}")
     return res
 
 
@@ -464,21 +500,24 @@ def compare_tile_sort(case: str, x, tile: int) -> int:
     return 0
 
 
-def compare_gather(case: str, vals, idx) -> int:
-    """The cluster gather ``run`` against its plain version, every word
-    equal; returns the max |kernel - plain| (0, or it raises)."""
+def compare_gather(case: str, vals, idx, kernels=("run", "run_cluster")) -> int:
+    """Each gather kernel (the L2 gather ``run``, the cluster gather
+    ``run_cluster``) against the plain version, every word equal; returns
+    the max |kernel - plain| (0, or it raises)."""
     from dj_tpu_torch.hw import probe_gather
 
-    got = probe_gather.run(vals, idx)
     want = probe_gather.run_plain(vals, idx)
-    torch.cuda.synchronize()
-    bad = torch.nonzero(got != want).flatten()
-    if bad.numel():
-        i = int(bad[0])
-        raise AssertionError(f"{case}: run differs at {bad.numel()} of {got.numel()} words, first at "
-                             f"{i} (index {int(idx[i])}): {int(got[i])} vs {int(want[i])}")
+    for kernel in kernels:
+        got = getattr(probe_gather, kernel)(vals, idx)
+        torch.cuda.synchronize()
+        bad = torch.nonzero(got != want).flatten()
+        if bad.numel():
+            i = int(bad[0])
+            raise AssertionError(f"{case}: {kernel} differs at {bad.numel()} of {got.numel()} words, "
+                                 f"first at {i} (index {int(idx[i])}): {int(got[i])} vs {int(want[i])}")
     n = vals.numel()
-    log("kernels_vs_plain", case=case, kernel="run", N=n, N_mod_cluster=n % probe_gather.CLUSTER,
+    log("kernels_vs_plain", case=case, kernels=list(kernels), N=n, N_mod_4=n % 4,
+        N_mod_cluster=n % probe_gather.CLUSTER, idx_offset_mod_16=idx.data_ptr() % 16,
         in_range=int(((idx >= 0) & (idx < n)).sum()),
         negative_wrapped=int(((idx >= -n) & (idx < 0)).sum()),
         outside=int(((idx < -n) | (idx >= n)).sum()), max_abs_err=0, words_equal=n)
@@ -557,6 +596,9 @@ def main() -> int:
                            dj.Table((dj.Column(p_keys, dj.dtypes.int64),)), dev)
     errs.append(compare_kernels("skewed", *args_b, n_out=4 * sk, timing=False,
                                 need_global_windows=True))
+    # Two calls in a row on one input: statuses or a tile counter left
+    # from the last call would give wrong carries.
+    scan_errs = [compare_scans("skewed_two_calls_in_a_row", *args_b, calls=2)[1]]
     del args_b, b_keys, p_keys
     # (b2) sparse matches at selectivity 0.001: ~2000 merged positions
     # per match, so every block below total searches global memory.
@@ -580,6 +622,19 @@ def main() -> int:
                          dj.Table((dj.Column(mp, dj.dtypes.int64),)), dev)
     errs.append(compare_kernels("all_miss", *miss, n_out=2_000_000, timing=False))
     del miss, mb, mp
+
+    # (d) look-back edge cases: S one scan tile + 1, one tile, one tile
+    # - 1, 31 and 1, each right after a call on a larger S (stale scratch
+    # would show), keys in [0, 8) so runs cross threads and tiles.
+    def small_keys(n):
+        return dj.Table((dj.Column(torch.randint(0, 8, (n,), generator=gen, device=dev),
+                                   dj.dtypes.int64),))
+
+    from dj_tpu_torch.ops.scan import TILE as ST
+    for S_small, n_build in ((ST + 1, 1), (ST, ST // 2), (ST - 1, ST // 2), (31, 15), (1, 1)):
+        small = packed_inputs(small_keys(n_build), small_keys(S_small - n_build), dev)
+        scan_errs.append(compare_scans(f"S_{S_small}", *small)[1])
+    del small
     torch.cuda.empty_cache()
 
     # 4. unprepared path through the user's entry points
@@ -847,7 +902,7 @@ def main() -> int:
     from dj_tpu_torch.hw import probe_gather, probe_sort
 
     sort_probe = run_probe("probe_sort", probe_sort)
-    gather_probe = run_probe("probe_gather", probe_gather)
+    gather_probe = run_probe("probe_gather", probe_gather, ("launches", "cluster_launches"))
     T = probe_sort.TILE
 
     def words(n, lo=-(2**31), hi=2**31):
@@ -897,9 +952,20 @@ def main() -> int:
     for case, n in (("negative_and_outside", N), ("N_not_multiple_of_cluster", 100_003),
                     ("largest_N", probe_gather.MAX_N), ("N_7", 7), ("N_1", 1)):
         gather_errs.append(compare_gather(case, words(n).view(torch.int32), indices(n, -3 * n, 3 * n)))
+    # The L2 gather alone: past the cluster's cap, large, N off the
+    # 4-index vectors, and idx 4 bytes off 16-byte alignment (scalar path).
+    for case, n in (("past_cluster_cap", probe_gather.MAX_N + 1), ("N_10000003", 10_000_003),
+                    ("N_not_multiple_of_4", N + 3)):
+        gather_errs.append(compare_gather(case, words(n).view(torch.int32),
+                                          indices(n, -3 * n, 3 * n), kernels=("run",)))
+    shifted = indices(N + 1, -3 * N, 3 * N)[1:]
+    gather_errs.append(compare_gather("idx_not_16_byte_aligned", words(N).view(torch.int32), shifted,
+                                      kernels=("run",)))
+    del shifted
     too_big = torch.zeros(probe_gather.MAX_N + 1, dtype=torch.int32, device=dev)
     for what, call in (("tile_sort at TILE 32769", lambda: probe_sort.tile_sort(words(32_769), 32_769)),
-                       ("run at N = MAX_N + 1", lambda: probe_gather.run(too_big, too_big))):
+                       ("run_cluster at N = MAX_N + 1",
+                        lambda: probe_gather.run_cluster(too_big, too_big))):
         try:
             call()
         except ValueError as e:
@@ -911,6 +977,7 @@ def main() -> int:
     sort_plain_ms = cuda_ms(lambda: probe_sort.tile_sort_plain(x_probe, T), 2)
     gv, gi = words(N, 0, 2**30).view(torch.int32), words(N, 0, N).view(torch.int32)
     gather_plain_ms = probe_gather.graph_ms(lambda: probe_gather.run_plain(gv, gi), 20)
+    gather_bound_ms = 12 * gather_probe["n"] / HBM_BYTES_PER_S * 1e3
     del x_probe, gv, gi
 
     def per_query(name):
@@ -925,10 +992,13 @@ def main() -> int:
             "launches": launch_table["unprepared"][1]["join_scans"],
             "launches_odf4": launch_table["unprepared"][4]["join_scans"],
             "launches_per_query": per_query("join_scans"),
-            "max_abs_err": max(e[0] for e in errs), "ms": timing["scan_ms"],
+            "max_abs_err": max([e[0] for e in errs] + scan_errs), "ms": timing["scan_ms"],
             "plain_ms": timing["scan_plain_ms"],
             "bound_ms": scan_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": None,
+            "scan_yardstick_ms": timing["cumsum_ms"],
+            "scan_yardstick": "torch.cumsum of S int32 (one single-pass scan, not the same function)",
+            "lookback_tiles": LOOKBACK,
         },
         {
             "name": "expand_values", "route": "cuda", "source": "dj_tpu_torch/csrc/expand_values.cu",
@@ -1009,17 +1079,22 @@ def main() -> int:
         "flat_sort_ms": sort_probe["flat_ms"], "NT": sort_probe["nt"], "TILE": sort_probe["tile"],
         "join_scale": join_scale,
     })
-    kernels.append({
-        "name": "run", "route": "cuda", "source": "dj_tpu_torch/csrc/cluster_gather.cu",
-        "replaces": "scripts/hw/probe_gather.py:26", "also_replaces": "scripts/hw/probe_gather.py:59",
-        "launches": gather_probe["launches"], "launches_per_query": {},
-        "max_abs_err": max(gather_errs), "ms": gather_probe["ms"],
-        "slope_ms": gather_probe["slope_ms"], "plain_ms": gather_plain_ms,
-        "bound_ms": 12 * gather_probe["n"] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "library_ms": gather_probe["library_ms"],
-        "library_slope_ms": gather_probe["library_slope_ms"],
-        "library_call": "vals[idx] (torch.take)", "N": gather_probe["n"],
-    })
+    for name, src, prefix, counter in (("run", "take_gather", "", "launches"),
+                                       ("run_cluster", "cluster_gather", "cluster_",
+                                        "cluster_launches")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"dj_tpu_torch/csrc/{src}.cu",
+            "replaces": "scripts/hw/probe_gather.py:26",
+            "also_replaces": "scripts/hw/probe_gather.py:59",
+            "launches": gather_probe[counter], "launches_per_query": {},
+            "max_abs_err": max(gather_errs), "ms": gather_probe[prefix + "ms"],
+            "slope_ms": gather_probe[prefix + "slope_ms"], "plain_ms": gather_plain_ms,
+            "bound_ms": gather_bound_ms, "bound_by": "bytes",
+            "library_ms": gather_probe["library_ms"],
+            "library_slope_ms": gather_probe["library_slope_ms"],
+            "library_call": "vals[idx] (torch.take)", "N": gather_probe["n"],
+            **({} if name == "run" else {"on_path": "none: the study of hw/gather_variants.py"}),
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -27,6 +27,11 @@
 // so that more than C SMs work: as many as need a thread per index, at
 // most as many as can be resident at once. N is at most C * 227 KB / 4
 // = 464896 words.
+//
+// Entry point: hw/probe_gather.py::run_cluster, on no path. The probe's
+// run takes csrc/take_gather.cu, a plain gather through L2, which is
+// faster on this card; this kernel stays as the subject of
+// hw/gather_variants.py.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>

@@ -15,23 +15,41 @@
 //
 // Design: the TPU kernel carries its prefix state (query count, run
 // carries, csum) in SMEM across a grid that runs in order. Hopper blocks
-// run in no order, so the carry becomes a reduce-then-scan:
-//   1. scan_reduce: each block of TILE positions writes its query count,
-//      the position of its last run boundary, and the queries before
-//      that boundary within the block;
-//   2. scan_blocks_runs: one block scans those aggregates into each
-//      block's carried query count and carried (run_start, run_lo);
-//   3. scan_cnt: each block rewrites its positions with the carries and
-//      writes stag, run_start and cnt, and its cnt sum;
-//   4. scan_blocks_sum: one block scans the cnt sums;
-//   5. scan_csum: each block writes csum from cnt and its carry.
-// run_start and run_lo are max-scans (both grow along the positions)
-// and the counts are sum-scans, so each block-level carry is one
-// associative scan. The boundary test at a thread's first position reads
-// the previous word from global memory. The passes read the words twice
-// and cnt once more: about 32 B per position instead of the bound's 24.
-// Each thread owns ITEMS consecutive positions, loaded and stored as
-// 16-byte vectors.
+// run in no order, so the carry becomes one single-pass scan with
+// decoupled look-back (Merrill and Garland, "Single-pass Parallel Prefix
+// Scan with Decoupled Look-back", NVIDIA 2016), in one launch:
+//   1. each block takes the next tile of TILE positions from a global
+//      counter, so every tile before it has started and the look-back
+//      cannot wait on a tile that is not resident;
+//   2. it decodes its words and scans, across the block, the run state
+//      of a segment (Run: query count, last run boundary, queries before
+//      that boundary; composing two segments is associative). It
+//      publishes the tile's aggregate with status AGGREGATE, then one
+//      warp walks back over the earlier tiles' records, composing them
+//      until it meets one with status PREFIX, and publishes the tile's
+//      inclusive prefix with status PREFIX;
+//   3. from that carry it writes stag, run_start and cnt, keeps cnt in
+//      registers, and runs the same look-back on the int32 cnt sums
+//      (status and sum packed in one 64-bit word), so csum is written
+//      without reading cnt back.
+// The words are read once (plus one word before each tile), 16 B are
+// written: the bound's 24 B a position. Loads and stores go through
+// shared memory (consecutive threads on consecutive words, 256 B a warp
+// instruction; each thread then works on ITEMS consecutive positions),
+// which measured far faster on an H100 than loading each thread's
+// positions directly (a warp instruction then spans 4 KB); 16-byte vector
+// loads and stores, other tile shapes, and reading several windows of 32
+// tiles a look-back measured slower or no faster. Every record carries
+// its status in the same 64-bit word as its value (a run record is two
+// such words, taken only when both carry one status), so no fence orders
+// a value before its status, which also measured faster. The
+// records and the tile counter are zeroed by one cudaMemsetAsync on the
+// stream before every launch.
+//
+// Scratch (int32): [0] tile counter, [1] and [2] the most tiles any run
+// and csum look-back read, [3] the run records all look-backs read (three
+// diagnostics), then two u64 run words a tile, then one u64 csum record
+// a tile.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -43,50 +61,171 @@ typedef unsigned long long u64;
 constexpr int THREADS = 256;
 constexpr int ITEMS = 16;
 constexpr int TILE = THREADS * ITEMS;
-constexpr int SCAN_THREADS = 1024;
 constexpr int NEG = INT_MIN;
+constexpr int HEADER = 4;                 // ints before the tiles' records
+constexpr int AGGREGATE = 1, PREFIX = 2;  // status of a tile's record
+constexpr unsigned BACKOFF_MIN = 16, BACKOFF_MAX = 128;  // ns a look-back sleeps, doubling
+constexpr unsigned FULL = 0xffffffffu;
 
+// Run state of a segment of positions: its query count, its last run
+// boundary (-1: none) and the queries before that boundary within it.
+struct Run {
+  int nq, lastb, qb;
+};
+
+__device__ __forceinline__ Run run_identity() { return Run{0, -1, 0}; }
+
+// Segment x followed by segment y.
+__device__ __forceinline__ Run compose(const Run& x, const Run& y) {
+  if (y.lastb >= 0) return Run{x.nq + y.nq, y.lastb, x.nq + y.qb};
+  return Run{x.nq + y.nq, x.lastb, x.qb};
+}
+
+struct Compose {
+  __device__ Run operator()(const Run& x, const Run& y) const { return compose(x, y); }
+};
 struct Add {
   __device__ int operator()(int a, int b) const {
     return (int)((unsigned)a + (unsigned)b);  // int32 wraparound
   }
 };
-struct Max {
-  __device__ int operator()(int a, int b) const { return a > b ? a : b; }
-};
 
-template <class Op>
-__device__ __forceinline__ int warp_inclusive(int v, Op op) {
+__device__ __forceinline__ int shfl_up(int v, int d) { return __shfl_up_sync(FULL, v, d); }
+__device__ __forceinline__ Run shfl_up(const Run& v, int d) {
+  return Run{shfl_up(v.nq, d), shfl_up(v.lastb, d), shfl_up(v.qb, d)};
+}
+__device__ __forceinline__ Run shfl_down(const Run& v, int d) {
+  return Run{__shfl_down_sync(FULL, v.nq, d), __shfl_down_sync(FULL, v.lastb, d),
+             __shfl_down_sync(FULL, v.qb, d)};
+}
+__device__ __forceinline__ Run shfl0(const Run& v) {
+  return Run{__shfl_sync(FULL, v.nq, 0), __shfl_sync(FULL, v.lastb, 0), __shfl_sync(FULL, v.qb, 0)};
+}
+
+template <class T, class Op>
+__device__ __forceinline__ T warp_inclusive(T v, Op op) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    int y = __shfl_up_sync(0xffffffffu, v, d);
+    T y = shfl_up(v, d);
     if (lane >= d) v = op(y, v);
   }
   return v;
 }
 
-// Exclusive scan of one value per thread across the block; ``total``
-// receives the block aggregate. ``buf`` holds >= 32 ints of shared memory.
-template <class Op>
-__device__ int block_exclusive(int v, Op op, int identity, int* buf, int& total) {
+// Exclusive scan of one value per thread across the block, in thread
+// order (op need not commute); ``total`` receives the block aggregate.
+// ``buf`` holds >= 32 values of shared memory.
+template <class T, class Op>
+__device__ T block_exclusive(T v, Op op, T identity, T* buf, T& total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
-  int incl = warp_inclusive(v, op);
+  T incl = warp_inclusive(v, op);
   if (lane == 31) buf[warp] = incl;
   __syncthreads();
   if (warp == 0) {
-    int w = lane < nw ? buf[lane] : identity;
+    T w = lane < nw ? buf[lane] : identity;
     w = warp_inclusive(w, op);
     if (lane < nw) buf[lane] = w;
   }
   __syncthreads();
-  int before_warp = warp == 0 ? identity : buf[warp - 1];
+  T before_warp = warp == 0 ? identity : buf[warp - 1];
   total = buf[nw - 1];
-  int excl = __shfl_up_sync(0xffffffffu, incl, 1);
+  T excl = shfl_up(incl, 1);
   if (lane == 0) excl = identity;
   __syncthreads();  // buf may be reused by the next call
   return op(before_warp, excl);
+}
+
+__device__ __forceinline__ u64 ld_volatile(const u64* p) { return *(const volatile u64*)p; }
+__device__ __forceinline__ void st_volatile(u64* p, u64 v) { *(volatile u64*)p = v; }
+
+constexpr u64 MASK31 = (1ull << 31) - 1;
+
+// A tile's run record: two words, each with the status in its top two
+// bits: status << 62 | nq << 31 | (lastb + 1), and status << 62 | qb.
+// Each word is written and read whole (an aligned 64-bit access is
+// single-copy atomic), and a reader takes a pair only when both words
+// carry one status, so the two halves always come from one publication.
+// No fence is needed between them: a word's value travels with its
+// status.
+__device__ __forceinline__ void publish_run(u64* recs, int t, const Run& r, u64 s) {
+  st_volatile(recs + 2 * t, s << 62 | (u64)r.nq << 31 | (u64)(r.lastb + 1));
+  st_volatile(recs + 2 * t + 1, s << 62 | (u64)r.qb);
+}
+
+__device__ __forceinline__ bool run_pending(u64 x, u64 y) {
+  return (x >> 62) == 0 || (x >> 62) != (y >> 62);
+}
+
+// Run state of every position before tile t > 0, by one warp: lane i
+// reads tile base - i, waits (sleeping BACKOFF_MIN to BACKOFF_MAX ns)
+// until all 32 tiles have a status, and the warp composes its window back
+// to the nearest PREFIX record, or moves 32 tiles further back if it met
+// none. Lanes past tile 0 read the identity as a PREFIX record.
+// ``walked`` receives the number of records composed.
+__device__ Run look_back_runs(int t, const u64* recs, int& walked) {
+  const int lane = threadIdx.x & 31;
+  Run excl = run_identity();
+  walked = 0;
+  for (int base = t - 1;; base -= 32) {
+    const int j = base - lane;
+    u64 x = (u64)PREFIX << 62, y = x;
+    if (j >= 0) {
+      x = ld_volatile(recs + 2 * j);
+      y = ld_volatile(recs + 2 * j + 1);
+    }
+    for (unsigned ns = BACKOFF_MIN; __any_sync(FULL, run_pending(x, y));
+         ns = ns < BACKOFF_MAX ? 2 * ns : ns) {
+      __nanosleep(ns);
+      if (run_pending(x, y)) {
+        x = ld_volatile(recs + 2 * j);
+        y = ld_volatile(recs + 2 * j + 1);
+      }
+    }
+    Run r{(int)((x >> 31) & MASK31), (int)(x & MASK31) - 1, (int)(y & MASK31)};
+    const unsigned pm = __ballot_sync(FULL, (int)(x >> 62) == PREFIX);
+    const int stop = pm ? __ffs(pm) - 1 : 31;  // lanes 0..stop are composed
+    if (lane > stop) r = run_identity();
+    // Lane i + d holds earlier tiles than lane i: compose it first.
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const Run o = shfl_down(r, d);
+      if (lane + d < 32) r = compose(o, r);
+    }
+    excl = compose(shfl0(r), excl);
+    walked += min(stop + 1, base + 1);
+    if (pm) return excl;
+  }
+}
+
+__device__ __forceinline__ u64 csum_record(int s, int sum) {
+  return ((u64)s << 32) | (unsigned)sum;
+}
+
+// The int32 cnt sum of every position before tile t > 0, by one warp,
+// as look_back_runs; a record is (status << 32 | sum) in one word.
+__device__ int look_back_csum(int t, const u64* recs, int& walked) {
+  const int lane = threadIdx.x & 31;
+  int excl = 0;
+  walked = 0;
+  for (int base = t - 1;; base -= 32) {
+    const int j = base - lane;
+    u64 w = j >= 0 ? ld_volatile(recs + j) : csum_record(PREFIX, 0);
+    for (unsigned ns = BACKOFF_MIN; __any_sync(FULL, (w >> 32) == 0);
+         ns = ns < BACKOFF_MAX ? 2 * ns : ns) {
+      __nanosleep(ns);
+      if ((w >> 32) == 0) w = ld_volatile(recs + j);
+    }
+    const unsigned pm = __ballot_sync(FULL, (int)(w >> 32) == PREFIX);
+    const int stop = pm ? __ffs(pm) - 1 : 31;
+    int v = lane <= stop ? (int)(unsigned)w : 0;
+#pragma unroll
+    for (int d = 16; d; d >>= 1) v = Add()(v, __shfl_xor_sync(FULL, v, d));
+    excl = Add()(excl, v);
+    walked += min(stop + 1, base + 1);
+    if (pm) return excl;
+  }
 }
 
 struct Geometry {
@@ -100,246 +239,200 @@ __device__ __forceinline__ int decode_tag(u64 w, const Geometry& g) {
   return raw < g.R ? raw + g.L : (raw < S ? raw - g.R : S);
 }
 
-// This thread's ITEMS words (all-ones past S) and the word before them.
-__device__ __forceinline__ void load_words(const u64* sp, long long S, long long g0,
-                                           u64 (&w)[ITEMS], u64& prev) {
-  if (g0 + ITEMS <= S) {
-    const ulonglong2* v = reinterpret_cast<const ulonglong2*>(sp + g0);
-#pragma unroll
-    for (int k = 0; k < ITEMS / 2; ++k) {
-      ulonglong2 x = v[k];
-      w[2 * k] = x.x;
-      w[2 * k + 1] = x.y;
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < ITEMS; ++k) w[k] = g0 + k < S ? sp[g0 + k] : ~0ull;
-  }
-  prev = g0 > 0 && g0 <= S ? sp[g0 - 1] : 0ull;
-}
+// Shared-memory index of tile position i: one pad word every 32 keeps
+// a thread's ITEMS consecutive positions off each other's banks.
+__device__ __forceinline__ int padded(int i) { return i + (i >> 5); }
+constexpr int STAGE = TILE + TILE / 32;  // padded positions of a tile
 
-__device__ __forceinline__ void store_ints(int* out, long long S, long long g0,
-                                           const int (&v)[ITEMS]) {
-  if (g0 + ITEMS <= S) {
-    int4* o = reinterpret_cast<int4*>(out + g0);
-#pragma unroll
-    for (int k = 0; k < ITEMS / 4; ++k)
-      o[k] = make_int4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
-  } else {
-#pragma unroll
-    for (int k = 0; k < ITEMS; ++k)
-      if (g0 + k < S) out[g0 + k] = v[k];
-  }
-}
-
-// Per position: decoded tag, whether it starts a key run.
-__device__ __forceinline__ void decode_items(const u64* sp, const Geometry& geo,
-                                             long long g0, int (&stag)[ITEMS],
-                                             bool (&bnd)[ITEMS]) {
-  u64 w[ITEMS], prev;
-  load_words(sp, geo.S, g0, w, prev);
-  const int tb = geo.tag_bits;
+// The tile's words from base (all-ones past S), loaded coalesced
+// (consecutive threads, consecutive words) into ``stage``; returns this
+// thread's ITEMS consecutive words and the word before them.
+__device__ __forceinline__ void load_tile(const u64* sp, long long S, long long base,
+                                          u64* stage, u64 (&w)[ITEMS], u64& prev) {
+  __shared__ u64 s_before;
 #pragma unroll
   for (int k = 0; k < ITEMS; ++k) {
-    const long long g = g0 + k;
+    const int i = k * THREADS + threadIdx.x;
+    stage[padded(i)] = base + i < S ? sp[base + i] : ~0ull;
+  }
+  if (threadIdx.x == 0) s_before = base > 0 ? sp[base - 1] : 0ull;
+  __syncthreads();
+  const int i0 = threadIdx.x * ITEMS;
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) w[k] = stage[padded(i0 + k)];
+  prev = threadIdx.x ? stage[padded(i0 - 1)] : s_before;
+}
+
+// This thread's ITEMS consecutive ints into ``stage``; the caller syncs,
+// then store_staged writes the tile coalesced.
+__device__ __forceinline__ void stage_ints(int* stage, const int (&v)[ITEMS]) {
+  const int i0 = threadIdx.x * ITEMS;
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) stage[padded(i0 + k)] = v[k];
+}
+
+__device__ __forceinline__ void store_staged(int* out, long long S, long long base,
+                                             const int* stage) {
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    const int i = k * THREADS + threadIdx.x;
+    if (base + i < S) out[base + i] = stage[padded(i)];
+  }
+}
+
+struct Outputs {
+  int *stag, *run_start, *cnt, *csum;
+};
+
+__global__ void __launch_bounds__(THREADS)
+join_scans_kernel(const u64* sp, Geometry geo, const int* counts, Outputs out, int* header,
+                  u64* run_recs, u64* csum_recs) {
+  // The tile's words, then (once every thread holds its own) two int
+  // stages of the outputs.
+  __shared__ u64 stage_words[STAGE];
+  __shared__ Run run_buf[32];
+  __shared__ int sum_buf[32];
+  __shared__ int s_tile, s_csum;
+  __shared__ Run s_run;
+  int* stage0 = reinterpret_cast<int*>(stage_words);
+  int* stage1 = stage0 + STAGE;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) s_tile = atomicAdd(header, 1);
+  __syncthreads();
+  const int t = s_tile;
+  const int l_count = counts[0], r_count = counts[1];
+  const long long base = (long long)t * TILE;
+  const long long g0 = base + (long long)threadIdx.x * ITEMS;
+  u64 w[ITEMS], prev;
+  load_tile(sp, geo.S, base, stage_words, w, prev);
+
+  // Per position: decoded tag, whether it starts a key run.
+  int stag[ITEMS];
+  bool bnd[ITEMS];
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
     const u64 before = k == 0 ? prev : w[k - 1];
     stag[k] = decode_tag(w[k], geo);
-    bnd[k] = g < geo.S && (g == 0 || (w[k] >> tb) != (before >> tb));
+    bnd[k] = g0 + k < geo.S && (g0 + k == 0 || (w[k] >> geo.tag_bits) != (before >> geo.tag_bits));
   }
-}
 
-__global__ void scan_reduce(const u64* sp, Geometry geo, int* blk_q,
-                            int* blk_lastb, int* blk_qb) {
-  __shared__ int buf[32];
-  const long long g0 = (long long)blockIdx.x * TILE + (long long)threadIdx.x * ITEMS;
-  int stag[ITEMS];
-  bool bnd[ITEMS];
-  decode_items(sp, geo, g0, stag, bnd);
-  int nq = 0, lastb = -1, qb = 0;
+  // Run state: this thread's segment, the block's scan, the tile's carry.
+  Run mine = run_identity();
 #pragma unroll
   for (int k = 0; k < ITEMS; ++k) {
     if (bnd[k]) {
-      lastb = (int)(g0 + k);
-      qb = nq;
+      mine.lastb = (int)(g0 + k);
+      mine.qb = mine.nq;
     }
-    nq += (g0 + k < geo.S && stag[k] < geo.L) ? 1 : 0;
+    mine.nq += stag[k] < geo.L ? 1 : 0;
   }
-  int q_total, b_total;
-  const int q_before = block_exclusive(nq, Add(), 0, buf, q_total);
-  block_exclusive(lastb, Max(), -1, buf, b_total);
-  if (threadIdx.x == 0) {
-    blk_q[blockIdx.x] = q_total;
-    blk_lastb[blockIdx.x] = b_total;
+  Run tile_run;
+  const Run before = block_exclusive(mine, Compose(), run_identity(), run_buf, tile_run);
+  if (threadIdx.x < 32) {
+    Run excl = run_identity();
+    if (t == 0) {
+      if (lane == 0) publish_run(run_recs, 0, tile_run, PREFIX);
+    } else {
+      if (lane == 0) publish_run(run_recs, t, tile_run, AGGREGATE);
+      int walked;
+      excl = look_back_runs(t, run_recs, walked);
+      if (lane == 0) {
+        publish_run(run_recs, t, compose(excl, tile_run), PREFIX);
+        atomicMax(header + 1, walked);
+        atomicAdd(header + 3, walked);
+      }
+    }
+    if (lane == 0) s_run = excl;
   }
-  if (lastb >= 0 && lastb == b_total) blk_qb[blockIdx.x] = q_before + qb;
-}
+  __syncthreads();
 
-// One block: carried query count and carried (run_start, run_lo) of every
-// tile. run_lo at a boundary b is ref_before(b) = b - q_before(b).
-__global__ void scan_blocks_runs(int nb, const int* blk_q, const int* blk_lastb,
-                                 const int* blk_qb, int* q_in, int* rs_in,
-                                 int* rl_in) {
-  __shared__ int buf[32];
-  const int per = (nb + SCAN_THREADS - 1) / SCAN_THREADS;
-  const int b0 = threadIdx.x * per;
-  const int b1 = min(nb, b0 + per);
-  int qsum = 0;
-  for (int b = b0; b < b1; ++b) qsum += blk_q[b];
-  int total;
-  int q = block_exclusive(qsum, Add(), 0, buf, total);
-  int rs_max = NEG, rl_max = NEG;
-  for (int b = b0; b < b1; ++b) {
-    q_in[b] = q;
-    if (blk_lastb[b] >= 0) {
-      rs_max = blk_lastb[b];
-      rl_max = blk_lastb[b] - (q + blk_qb[b]);
-    }
-    q += blk_q[b];
-  }
-  int rs = block_exclusive(rs_max, Max(), NEG, buf, total);
-  int rl = block_exclusive(rl_max, Max(), NEG, buf, total);
-  for (int b = b0; b < b1; ++b) {
-    rs_in[b] = rs;
-    rl_in[b] = rl;
-    if (blk_lastb[b] >= 0) {
-      rs = blk_lastb[b];
-      rl = blk_lastb[b] - (q_in[b] + blk_qb[b]);
-    }
-  }
-}
-
-__global__ void scan_cnt(const u64* sp, Geometry geo, const int* counts,
-                         const int* q_in, const int* rs_in, const int* rl_in,
-                         int* stag_out, int* rstart_out, int* cnt_out,
-                         int* blk_c) {
-  __shared__ int buf[32];
-  const long long g0 = (long long)blockIdx.x * TILE + (long long)threadIdx.x * ITEMS;
-  const int l_count = counts[0], r_count = counts[1];
-  int stag[ITEMS];
-  bool bnd[ITEMS];
-  decode_items(sp, geo, g0, stag, bnd);
-  int nq = 0;
-#pragma unroll
-  for (int k = 0; k < ITEMS; ++k) nq += stag[k] < geo.L ? 1 : 0;
-  int total;
-  int q = q_in[blockIdx.x] + block_exclusive(nq, Add(), 0, buf, total);
-  // Per position: ref_before and the run values a boundary there sets.
-  int ref_before[ITEMS];
-  int rs_local = NEG, rl_local = NEG;
-#pragma unroll
-  for (int k = 0; k < ITEMS; ++k) {
-    ref_before[k] = (int)(g0 + k) - q;
-    q += stag[k] < geo.L ? 1 : 0;
-    if (bnd[k]) {
-      rs_local = (int)(g0 + k);
-      rl_local = ref_before[k];
-    }
-  }
-  int rs = max(rs_in[blockIdx.x], block_exclusive(rs_local, Max(), NEG, buf, total));
-  int rl = max(rl_in[blockIdx.x], block_exclusive(rl_local, Max(), NEG, buf, total));
+  // run_start and cnt from the carried (query count, run_start, run_lo);
+  // run_lo at a boundary b is ref_before(b) = b - q_before(b).
+  const Run at = compose(s_run, before);
+  int q = at.nq;
+  int rs = at.lastb >= 0 ? at.lastb : NEG;
+  int rl = at.lastb >= 0 ? at.lastb - at.qb : NEG;
   int run_start[ITEMS], cnt[ITEMS];
   int csum_local = 0;
 #pragma unroll
   for (int k = 0; k < ITEMS; ++k) {
+    const int ref_before = (int)(g0 + k) - q;
+    q += stag[k] < geo.L ? 1 : 0;
     if (bnd[k]) {
       rs = (int)(g0 + k);
-      rl = ref_before[k];
+      rl = ref_before;
     }
     run_start[k] = rs;
-    const int hi = min(ref_before[k], r_count);
+    const int hi = min(ref_before, r_count);
     cnt[k] = stag[k] < l_count ? max(hi - rl, 0) : 0;
     if (g0 + k < geo.S) csum_local = Add()(csum_local, cnt[k]);
   }
-  store_ints(stag_out, geo.S, g0, stag);
-  store_ints(rstart_out, geo.S, g0, run_start);
-  store_ints(cnt_out, geo.S, g0, cnt);
-  block_exclusive(csum_local, Add(), 0, buf, total);
-  if (threadIdx.x == 0) blk_c[blockIdx.x] = total;
-}
+  int tile_sum;
+  const int sum_before = block_exclusive(csum_local, Add(), 0, sum_buf, tile_sum);
+  if (threadIdx.x == 0)
+    st_volatile(csum_recs + t, csum_record(t == 0 ? PREFIX : AGGREGATE, tile_sum));
+  // The block scan's barriers have passed every thread's reads of the
+  // words: their stage holds stag and run_start now.
+  stage_ints(stage0, stag);
+  stage_ints(stage1, run_start);
+  __syncthreads();
+  store_staged(out.stag, geo.S, base, stage0);
+  store_staged(out.run_start, geo.S, base, stage1);
 
-__global__ void scan_blocks_sum(int nb, const int* blk_c, int* c_in) {
-  __shared__ int buf[32];
-  const int per = (nb + SCAN_THREADS - 1) / SCAN_THREADS;
-  const int b0 = threadIdx.x * per;
-  const int b1 = min(nb, b0 + per);
-  int s = 0;
-  for (int b = b0; b < b1; ++b) s = Add()(s, blk_c[b]);
-  int total;
-  int c = block_exclusive(s, Add(), 0, buf, total);
-  for (int b = b0; b < b1; ++b) {
-    c_in[b] = c;
-    c = Add()(c, blk_c[b]);
-  }
-}
-
-__global__ void scan_csum(long long S, const int* cnt, const int* c_in, int* csum) {
-  __shared__ int buf[32];
-  const long long g0 = (long long)blockIdx.x * TILE + (long long)threadIdx.x * ITEMS;
-  int v[ITEMS];
-  if (g0 + ITEMS <= S) {
-    const int4* p = reinterpret_cast<const int4*>(cnt + g0);
-#pragma unroll
-    for (int k = 0; k < ITEMS / 4; ++k) {
-      int4 x = p[k];
-      v[4 * k] = x.x;
-      v[4 * k + 1] = x.y;
-      v[4 * k + 2] = x.z;
-      v[4 * k + 3] = x.w;
+  // csum: the second look-back, over the tiles' cnt sums.
+  if (threadIdx.x < 32) {
+    int excl = 0;
+    if (t > 0) {
+      int walked;
+      excl = look_back_csum(t, csum_recs, walked);
+      if (lane == 0) {
+        st_volatile(csum_recs + t, csum_record(PREFIX, Add()(excl, tile_sum)));
+        atomicMax(header + 2, walked);
+      }
     }
-  } else {
-#pragma unroll
-    for (int k = 0; k < ITEMS; ++k) v[k] = g0 + k < S ? cnt[g0 + k] : 0;
+    if (lane == 0) s_csum = excl;
   }
-  int s = 0;
-#pragma unroll
-  for (int k = 0; k < ITEMS; ++k) s = Add()(s, v[k]);
-  int total;
-  int c = Add()(c_in[blockIdx.x], block_exclusive(s, Add(), 0, buf, total));
+  __syncthreads();
+  int c = Add()(s_csum, sum_before);
+  int csum[ITEMS];
 #pragma unroll
   for (int k = 0; k < ITEMS; ++k) {
-    c = Add()(c, v[k]);
-    v[k] = c;
+    c = Add()(c, cnt[k]);
+    csum[k] = c;
   }
-  store_ints(csum, S, g0, v);
+  stage_ints(stage0, cnt);
+  stage_ints(stage1, csum);
+  __syncthreads();
+  store_staged(out.cnt, geo.S, base, stage0);
+  store_staged(out.csum, geo.S, base, stage1);
 }
 
 int num_tiles(long long S) { return (int)((S + TILE - 1) / TILE); }
 
 }  // namespace
 
+// The header, then two u64 run words and one u64 csum record a tile.
 extern "C" long long dj_join_scans_scratch_ints(long long S) {
-  return 8LL * num_tiles(S);
+  return HEADER + 6LL * num_tiles(S);
 }
 
 // sp: S words; counts: device int32 [l_count, r_count]; outputs: S int32
-// each; scratch: dj_join_scans_scratch_ints(S) int32. Returns the first
-// CUDA error of the launches, 0 when all were accepted.
+// each; scratch: dj_join_scans_scratch_ints(S) int32, 16-byte aligned.
+// Zeroes the scratch (counter, diagnostics and every record) on the
+// stream, then launches the kernel. Returns the first CUDA error, 0 when
+// both were accepted.
 extern "C" int dj_join_scans(const u64* sp, const int* counts, int* stag,
                              int* run_start, int* cnt, int* csum, int* scratch,
                              long long S, int L, int R, int tag_bits, void* stream) {
   if (S <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   const int nb = num_tiles(S);
-  int* blk_q = scratch;
-  int* blk_lastb = scratch + nb;
-  int* blk_qb = scratch + 2 * nb;
-  int* q_in = scratch + 3 * nb;
-  int* rs_in = scratch + 4 * nb;
-  int* rl_in = scratch + 5 * nb;
-  int* blk_c = scratch + 6 * nb;
-  int* c_in = scratch + 7 * nb;
+  cudaError_t e = cudaMemsetAsync(
+      scratch, 0, (size_t)dj_join_scans_scratch_ints(S) * sizeof(int), st);
+  if (e != cudaSuccess) return (int)e;
   Geometry geo{S, L, R, tag_bits};
-  cudaError_t e;
-  scan_reduce<<<nb, THREADS, 0, st>>>(sp, geo, blk_q, blk_lastb, blk_qb);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  scan_blocks_runs<<<1, SCAN_THREADS, 0, st>>>(nb, blk_q, blk_lastb, blk_qb, q_in,
-                                               rs_in, rl_in);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  scan_cnt<<<nb, THREADS, 0, st>>>(sp, geo, counts, q_in, rs_in, rl_in, stag,
-                                   run_start, cnt, blk_c);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  scan_blocks_sum<<<1, SCAN_THREADS, 0, st>>>(nb, blk_c, c_in);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  scan_csum<<<nb, THREADS, 0, st>>>(S, cnt, c_in, csum);
+  u64* run_recs = reinterpret_cast<u64*>(scratch + HEADER);
+  join_scans_kernel<<<nb, THREADS, 0, st>>>(sp, geo, counts, Outputs{stag, run_start, cnt, csum},
+                                            scratch, run_recs, run_recs + 2 * nb);
   return (int)cudaGetLastError();
 }

@@ -3,7 +3,8 @@
 Builds variants of ``csrc/cluster_gather.cu`` (each one change to its
 text: block size, cluster size, how many clusters, the staging loop, the
 remote reads) and a plain gather kernel with no cluster, and times each
-beside ``vals[idx]`` at the probe's N: one launch and one iteration of
+beside ``run`` (the L2 gather of ``csrc/take_gather.cu``) and
+``vals[idx]`` at the probe's N: one launch and one iteration of
 the slope loop from CUDA graphs (``probe_gather.graph_ms``), and the
 kernels' own device time from ``torch.profiler``. Variants marked
 "timing only" give wrong values and are not compared.
@@ -159,6 +160,7 @@ def main(argv=None) -> dict:
     sources = _sources(SOURCE.read_text())
     libs = _build(sources)
     variants = {name: (_gather(libs[name]), right) for name, (_, right) in sources.items()}
+    variants["run: L2 gather (csrc/take_gather.cu)"] = (probe_gather.run, True)
     variants["vals[idx]"] = (lambda v, i: v[i], True)
     res = {}
     for name, (gather, right) in variants.items():

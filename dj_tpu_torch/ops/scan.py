@@ -1,8 +1,9 @@
 """The join's match-range scans over the sorted packed words.
 
 Counterpart of ``dj_tpu/ops/pallas_scan.py``. ``join_scans`` launches
-the CUDA kernel ``csrc/join_scans.cu`` for a tensor on the card and
-takes the plain version, ``join_scans_plain``, for a tensor on the CPU.
+the CUDA kernel ``csrc/join_scans.cu`` (one single-pass scan with
+decoupled look-back) for a tensor on the card and takes the plain
+version, ``join_scans_plain``, for a tensor on the CPU.
 
 The packed words are u64 bit patterns held in an int64 tensor (PyTorch
 has little uint64 coverage): ascending in unsigned order,
@@ -20,7 +21,9 @@ import torch
 
 from . import cuda_build
 
+TILE = 4096  # positions a block of csrc/join_scans.cu scans (THREADS x ITEMS)
 launches = 0  # kernel launches made by join_scans
+_last_scratch = None  # the scratch of the last launch, for lookback_depth
 
 
 def _count(c, device) -> torch.Tensor:
@@ -94,11 +97,14 @@ def join_scans(
     dev = sp.device
     counts = torch.stack([_count(l_count, dev), _count(r_count, dev)])
     outs = [torch.empty(S, dtype=torch.int32, device=dev) for _ in range(4)]
+    # The look-back's tile counter, diagnostics and records; the C entry
+    # zeroes it on the stream at every call.
     scratch = torch.empty(
         max(1, lib.dj_join_scans_scratch_ints(S)), dtype=torch.int32, device=dev
     )
-    global launches
+    global launches, _last_scratch
     launches += 1
+    _last_scratch = scratch
     rc = fn(
         sp.data_ptr(), counts.data_ptr(), *(o.data_ptr() for o in outs),
         scratch.data_ptr(), S, L, R, tag_bits,
@@ -106,3 +112,15 @@ def join_scans(
     )
     cuda_build.check(rc, "join_scans")
     return tuple(outs)
+
+
+def lookback_depth() -> dict | None:
+    """How far the last launch's look-backs reached: the most tiles any
+    run and csum look-back read, and the mean over tiles of the run
+    look-back's (scratch ints 1-3, written by the kernel); None before
+    the first launch. Reading it waits for that launch."""
+    if _last_scratch is None:
+        return None
+    run_max, csum_max, run_total = _last_scratch[1:4].tolist()
+    tiles = (_last_scratch.numel() - 4) // 6  # 4 header ints, 6 ints a tile
+    return {"run_max": run_max, "csum_max": csum_max, "run_mean": run_total / tiles}

@@ -105,8 +105,25 @@ def test_run_plain_matches_pallas(n, kind):
     jmod = _jax_probe("probe_gather", N=n)
     want = np.asarray(jmod.run(jnp.asarray(vals), jnp.asarray(idx)))
     tv, ti = torch.from_numpy(vals), torch.from_numpy(idx)
-    for got in (probe_gather.run(tv, ti), probe_gather.run_plain(tv, ti)):
+    for got in (probe_gather.run(tv, ti), probe_gather.run_cluster(tv, ti),
+                probe_gather.run_plain(tv, ti)):
         assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("kind", ["in_range", "mixed"])
+@pytest.mark.parametrize("n", [probe_gather.MAX_N + 1, probe_gather.MAX_N + 3])
+def test_run_past_the_cluster_cap_matches_numpy(n, kind):
+    """run has no cap on N (vals is read through L2, not staged in a
+    cluster's shared memory): past run_cluster's MAX_N it still equals
+    run_plain and numpy's take with wrap and fill."""
+    rng = np.random.default_rng(n)
+    vals = rng.integers(INT32_MIN, INT32_MAX, n, dtype=np.int32)
+    idx = _indices(kind, n, rng)
+    i64 = idx.astype(np.int64)
+    want = np.where((i64 >= -n) & (i64 < n), vals[np.remainder(i64, n)], INT32_MIN)
+    tv, ti = torch.from_numpy(vals), torch.from_numpy(idx)
+    for got in (probe_gather.run(tv, ti), probe_gather.run_plain(tv, ti)):
         np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -128,6 +145,7 @@ def test_loop_matches_pallas_loop(n, k, kind):
     (probe_sort, ["--tile", "1000", "--nt", "3", "--seed", "5"]),
     (probe_gather, ["--n", "1024"]),
     (probe_gather, ["--n", "7", "--seed", "3"]),
+    (probe_gather, ["--n", str(probe_gather.MAX_N + 1)]),  # run alone: past run_cluster's cap
 ])
 def test_main_on_cpu_prints_correct(probe, argv, capsys):
     res = probe.main(["--device", "cpu", *argv])
@@ -177,15 +195,17 @@ RUN_BAD = {
 
 
 @pytest.mark.parametrize("case", sorted(RUN_BAD))
-def test_run_rejects(case):
+@pytest.mark.parametrize("gather", ["run", "run_cluster"])
+def test_run_rejects(gather, case):
     vals, idx = RUN_BAD[case]
     with pytest.raises(ValueError):
-        probe_gather.run(vals, idx)
+        getattr(probe_gather, gather)(vals, idx)
 
 
 def test_largest_gather_fits_the_cluster():
-    """N words of vals fit across a cluster's shared memory (227 KB per
-    CTA) up to MAX_N; the kernel's share of the largest N is 227 KB."""
+    """run_cluster's N words of vals fit across a cluster's shared memory
+    (227 KB per CTA) up to MAX_N; the kernel's share of the largest N is
+    227 KB."""
     share = -(-probe_gather.MAX_N // probe_gather.CLUSTER)
     assert share * 4 == 232_448
     assert -(-(probe_gather.MAX_N + 1) // probe_gather.CLUSTER) * 4 > 232_448

@@ -38,6 +38,11 @@ CASES = {
     "all_padding": (0, 0, 200, 100, 3),
     "empty_ref_side": (9, 0, 16, 16, 3),
     "S_not_tile_multiple": (333, 211, 345, 222, 20),
+    # S at 1 and at the 256-position tile of the Pallas kernel, +- 1
+    "S_is_1": (0, 1, 0, 1, 3),
+    "S_is_tile_minus_1": (100, 155, 100, 155, 7),
+    "S_is_tile": (128, 128, 128, 128, 7),
+    "S_is_tile_plus_1": (129, 128, 129, 128, 7),
 }
 
 
@@ -105,7 +110,7 @@ def test_kernel_sources_carry_their_note():
     assert names == {
         "join_scans", "expand_values", "merge_sorted_u64", "expand_ranks",
         "expand_gather", "expand_join", "expand_carry", "expand_vfull",
-        "tile_sort", "cluster_gather",
+        "tile_sort", "cluster_gather", "take_gather",
     }
     for p in cuda_build.sources():
         text = p.read_text()
