@@ -33,20 +33,28 @@ Phases, each printing its own line(s):
      every mode's; n_out above and below the total) and on edge cases: one
      hot key on 1M build rows (refs 1M positions below their queries)
      amid sparse matches and selectivity 0.001, whose windows must pass
-     the shared stage; all-miss; a wrapped csum; 0 to 3 payload slots;
+     the shared stage; all-miss; a wrapped csum (expand_ranks must still
+     run and keep every slot in [0, S]); 0 to 3 payload slots;
   5. prepared path: at odf 1 and 4, prepare_join_side on the build table,
      then distributed_inner_join with the PreparedSide under each merge
      tier (sort, merge, probe); each query checked as in 4, with the
      same row multiset as the unprepared join, and its tier's kernels
      launched by the query itself; median walls of warm prepares and
      queries, peak memory, a profiler breakdown per tier at odf 1;
+  5b. unsigned columns: a uint16-key and a uint32-key table (keys past
+     the signed range) with uint64 payloads (top bit set), about 1M probe
+     rows, joined under every DJT_JOIN_EXPAND mode and queried through
+     every prepared tier at odf 1 and 4; each result's rows equal, bit for
+     bit, those of the int64 join of the same values, and each row's keys
+     are checked against the inputs;
   6. kernels vs plain: merge_sorted_u64 and expand_ranks against their
      plain versions, exact equality, on the prepared path's own inputs at
      full size and on edge cases (cross-operand duplicates with sentinel
      tails, empty and length-1 operands, lengths off the tile, one operand
-     wholly above the other; sparse matches whose expand_ranks windows
-     exceed the shared stage, one row with 1M matches, all-miss, n_out
-     below and above the total);
+     wholly above the other; sparse matches whose blocks of slots span
+     more than one stage, one row with 1M matches, all-miss, n_out below
+     and above the total; for expand_ranks' merge path also S = 0, n_out
+     = 0 and 1, and S + n_out at one CTA's items and one either side);
   7. timings: the `timings` line (walls, peaks and the main path's sort);
   8. the hardware probes: `python -m dj_tpu_torch.hw.probe_sort` and
      `... .probe_gather` through their main() at the JAX probes' shapes
@@ -58,15 +66,17 @@ Phases, each printing its own line(s):
   8b. kernels vs plain: tile_sort, `run` and `run_cluster` against their
      plain versions, exact equality, on the probes' shapes and on edge
      cases (words >= 2^31, all equal to the padding, sorted, reverse
-     sorted, heavy duplicates, TILE 20000, 3 and 1; indices negative and
-     outside [-N, N), N not a multiple of the cluster, the largest N
-     `run_cluster` admits, N = 1; `run` alone past that N, at N =
-     10,000,003, at N not a multiple of 4 and with idx off 16-byte
+     sorted, heavy duplicates, TILE 20000, 1025, 1024, 1023, 33, 32, 31,
+     3 and 1, around a thread's 32 words and a warp's 1024; indices
+     negative and outside [-N, N), N not a multiple of the cluster, the
+     largest N `run_cluster` admits, N = 1; `run` alone past that N, at
+     N = 10,000,003, at N not a multiple of 4 and with idx off 16-byte
      alignment), and tile_sort and `run_cluster` refusing a size their
      kernels cannot hold;
 then the `kernels` JSON line (kernel, plain-version and library times
-beside each kernel's bound, launches per query on each path; the probes'
-launches are their main()'s, and no join path launches them).
+beside each kernel's bound, launches per query on each path, and each
+kernel's registers and spills from ptxas; the probes' launches are their
+main()'s, and no join path launches them).
 The last line is {"ok": true, "device": {...}}. With no CUDA device, or
 without the package beside it, the script fails before printing any
 result. ``--rows N`` shrinks the main path (for a quick first check).
@@ -79,6 +89,7 @@ import contextlib
 import io
 import json
 import os
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -339,6 +350,9 @@ def compare_modes(case: str, inputs, n_out: int, timing: bool = False,
         if name == "expand_ranks":
             # One output, specified on every slot (past the total it is S).
             got, want, kn = (got,), (want,), 0 if wrapped else n_out
+            if wrapped and not bool(((got[0] >= 0) & (got[0] <= csum.numel())).all()):
+                raise AssertionError(f"{case}: expand_ranks wrote a slot outside [0, S] "
+                                     f"on the wrapped csum")
         else:
             kn = k
         for i, (g, w) in enumerate(zip(got, want)):
@@ -445,10 +459,11 @@ def compare_ranks(case: str, csum, n_out: int, timing: bool = False,
         raise AssertionError(f"{case}: expand_ranks differs first at {i}: {int(got[i])} vs "
                              f"{int(want[i])} (max |err| {err})")
     total = int(csum[-1]) if csum.numel() else 0
-    widest, n_global = block_windows(csum, n_out, total)
+    widest, n_global = block_windows(csum, n_out, total) if n_out else (0, 0)
     if need_global_windows and not n_global:
-        raise AssertionError(f"{case}: no expand_ranks window is wider than {expand.WIN} "
-                             f"(widest {widest}); the global-memory search was not exercised")
+        raise AssertionError(f"{case}: no block of {expand.ETILE} slots spans more than "
+                             f"{expand.WIN} rows (widest {widest}); the case no longer spans "
+                             f"more than one stage")
     log("kernels_vs_plain", case=case, kernel="expand_ranks", S=csum.numel(), n_out=n_out,
         total=total, max_abs_err=err, slots_compared=n_out, widest_window=widest,
         blocks_over_win=n_global)
@@ -461,6 +476,121 @@ def compare_ranks(case: str, csum, n_out: int, timing: bool = False,
          "library_ms": cuda_ms(lambda: torch.searchsorted(csum, j, right=True, out_int32=True), 5),
          "S": csum.numel(), "n_out": n_out}
     return err, t
+
+
+def unsigned_tables(dj, gen, dev, n: int, key_dtype):
+    """(build, probe, key_range, int64 build, int64 probe) for a join on
+    ``key_dtype`` keys past the signed range (uint16: 40,000 unique
+    build keys in [25536, 65536); uint32: n unique build keys in
+    [2^32 - 2n, 2^32)), about half the n probe keys matching, and one
+    uint64 payload a side holding the row index plus 2^63. The int64
+    tables carry the same values (payloads as the same bits)."""
+    span = 40_000 if key_dtype == torch.uint16 else 2 * n
+    lo = (1 << (8 * torch.empty((), dtype=key_dtype).element_size())) - span
+    n_build = min(n, span)
+    bk = lo + torch.randperm(span, generator=gen, device=dev)[:n_build]
+    pk = lo + torch.randint(0, span, (n,), generator=gen, device=dev)
+    udt = dj.dtypes.uint16 if key_dtype == torch.uint16 else dj.dtypes.uint32
+    tables = []
+    for keys in (bk, pk):
+        pay = torch.arange(keys.numel(), device=dev) ^ (-(2**63))
+        tables.append((dj.Table((dj.Column(keys.to(key_dtype), udt),
+                                 dj.Column(pay.view(torch.uint64), dj.dtypes.uint64))),
+                       dj.Table((dj.Column(keys, dj.dtypes.int64), dj.Column(pay, dj.dtypes.int64)))))
+    (build, build64), (probe, probe64) = tables
+    return build, probe, (lo, lo + span - 1), build64, probe64
+
+
+def unsigned_rows(out, counts):
+    """The valid output rows (key, probe payload, build payload) as int64
+    bits, ordered by the probe payload (unique per probe row)."""
+    n = int(counts[0])
+    k, lp, rp = (c.data[:n] for c in out.columns)
+    lp, rp = lp.view(torch.int64), rp.view(torch.int64)
+    order = torch.sort(lp).indices
+    return k.to(torch.int64)[order], lp[order], rp[order]
+
+
+def check_unsigned_path(dj, topo, gen, dev, n: int) -> None:
+    """Phase 5b: unsigned keys and payloads through every expansion mode
+    and every prepared tier, each result equal to the int64 join."""
+    results = []
+    for key_dtype in (torch.uint16, torch.uint32):
+        build, probe, key_range, build64, probe64 = unsigned_tables(dj, gen, dev, n, key_dtype)
+        right, rcnt = dj.shard_table(topo, build)
+        left, lcnt = dj.shard_table(topo, probe)
+        r64, rc64 = dj.shard_table(topo, build64)
+        l64, lc64 = dj.shard_table(topo, probe64)
+        out, counts, _ = dj.distributed_inner_join(topo, l64, lc64, r64, rc64, [0], [0], dj.JoinConfig())
+        ref = unsigned_rows(out, counts)
+        k, lp, rp = ref
+        bkeys, pkeys = build64.columns[0].data, probe64.columns[0].data
+        expected = int(torch.isin(pkeys, bkeys).sum())
+        if k.numel() != expected:
+            raise AssertionError(f"{key_dtype} int64 join: {k.numel()} rows, expected {expected}")
+        if not (bool((pkeys[lp ^ (-(2**63))] == k).all())
+                and bool((bkeys[rp ^ (-(2**63))] == k).all())):
+            raise AssertionError(f"{key_dtype} int64 join: a row's keys differ from its inputs")
+        del out, counts, l64, lc64, r64, rc64
+
+        def check(what, out, counts, info):
+            set_flags = [f for f, v in info.items() if bool(v.any())]
+            if set_flags:
+                raise AssertionError(f"{what}: flags set: {set_flags}")
+            if [c.data.dtype for c in out.columns] != [key_dtype, torch.uint64, torch.uint64]:
+                raise AssertionError(f"{what}: column dtypes {[c.data.dtype for c in out.columns]}")
+            got = unsigned_rows(out, counts)
+            for g, w, name in zip(got, ref, ("key", "probe payload", "build payload")):
+                if g.shape != w.shape or not torch.equal(g, w):
+                    raise AssertionError(f"{what}: the {name} column differs from the int64 join's")
+            results.append(what)
+
+        for odf in (1, 4):
+            cfg = dj.JoinConfig(over_decom_factor=odf)
+            for mode in ("vmeta",) + MODES:
+                os.environ["DJT_JOIN_EXPAND"] = mode
+                check(f"{key_dtype} mode={mode} odf={odf}",
+                      *dj.distributed_inner_join(topo, left, lcnt, right, rcnt, [0], [0], cfg))
+            os.environ.pop("DJT_JOIN_EXPAND")
+            pcfg = dj.JoinConfig(over_decom_factor=odf, key_range=key_range)
+            prep = dj.prepare_join_side(topo, right, rcnt, [0], pcfg, left_capacity=n)
+            for tier in TIERS:
+                os.environ["DJT_JOIN_MERGE"] = tier
+                check(f"{key_dtype} prepared tier={tier} odf={odf}",
+                      *dj.distributed_inner_join(topo, left, lcnt, prep, None, [0], None, pcfg))
+            os.environ.pop("DJT_JOIN_MERGE")
+            del prep
+        log("unsigned_path", key=str(key_dtype), payload="torch.uint64", probe_rows=n,
+            build_rows=build.capacity, total=expected, key_range=list(key_range),
+            same_rows_as_int64_join=[r for r in results if r.startswith(str(key_dtype))])
+        del build, probe, build64, probe64, left, lcnt, right, rcnt, ref, k, lp, rp
+
+
+def ptxas_resources(source: str) -> dict:
+    """Registers and spill bytes of each kernel in one CUDA source, from
+    the ``-Xptxas -v`` output its build kept: {kernel: {...}}."""
+    from dj_tpu_torch.ops import cuda_build
+
+    path = cuda_build.BUILD_DIR / f"{pathlib.Path(source).stem}.ptxas.txt"
+    if not path.exists():
+        return {"not recorded": str(path)}
+    out, kernel = {}, None
+    for line in path.read_text().splitlines():
+        if "Compiling entry function" in line:
+            # The last name of the Itanium nested name _ZN<len><name>...E.
+            mangled, i = line.split("'")[1], 3
+            while i < len(mangled) and mangled[i].isdigit():
+                j = i
+                while mangled[j].isdigit():
+                    j += 1
+                kernel, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+            out[kernel] = {}
+        elif kernel and "spill stores" in line:
+            n = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            out[kernel].update(stack_bytes=n[0], spill_store_bytes=n[1], spill_load_bytes=n[2])
+        elif kernel and "Used" in line and "registers" in line:
+            out[kernel]["registers"] = int(line.split("Used")[1].split()[0])
+    return out
 
 
 def run_probe(name: str, mod, counters=("launches",)) -> dict:
@@ -839,6 +969,10 @@ def main() -> int:
         torch.cuda.empty_cache()
     del ref
 
+    # 5b. unsigned keys and payloads
+    check_unsigned_path(dj, topo, gen, dev, min(rows, 1_000_000))
+    torch.cuda.empty_cache()
+
     # 6b. the new kernels on edge cases
     merge_errs, ranks_errs = [merge_err], [ranks_err]
 
@@ -879,6 +1013,15 @@ def main() -> int:
     total = int(dense[-1])
     ranks_errs.append(compare_ranks("n_out_below_total", dense, total // 2 + 3))
     ranks_errs.append(compare_ranks("n_out_above_total", dense, total + 4097))
+    # The merge path's edges: no rows, no or one slot, and rows plus slots
+    # at one CTA's merged items and one either side.
+    from dj_tpu_torch.ops.expand import RANKS_NV
+    ranks_errs.append(compare_ranks("S_0", torch.zeros(0, dtype=torch.int32, device=dev), 4097))
+    ranks_errs.append(compare_ranks("n_out_0", dense, 0))
+    ranks_errs.append(compare_ranks("n_out_1", dense, 1))
+    for extra in (-1, 0, 1):
+        ranks_errs.append(compare_ranks(f"S_plus_n_out_is_NV{extra:+d}", dense[:1000],
+                                        RANKS_NV - 1000 + extra))
     del hot, dense
 
     # 7. timings
@@ -934,7 +1077,8 @@ def main() -> int:
     dup_set = torch.tensor([0, 1, 2**31 - 1, -(2**31), -1], dtype=torch.int32, device=dev)
     dups = dup_set[torch.randint(0, 5, (16 * T,), generator=gen, device=dev)].view(torch.uint32)
     sort_errs.append(compare_tile_sort("heavy_duplicates", dups, T))
-    for tile, nt in ((20_000, 7), (3, 1001), (1, 1000)):
+    for tile, nt in ((20_000, 7), (1025, 40), (1024, 40), (1023, 40), (33, 500), (32, 500),
+                     (31, 500), (3, 1001), (1, 1000)):
         sort_errs.append(compare_tile_sort(f"tile_{tile}", words(tile * nt), tile))
     del sorted_tiles, reverse, dups
 
@@ -1095,6 +1239,8 @@ def main() -> int:
             "library_call": "vals[idx] (torch.take)", "N": gather_probe["n"],
             **({} if name == "run" else {"on_path": "none: the study of hw/gather_variants.py"}),
         })
+    for k in kernels:
+        k["ptxas"] = ptxas_resources(k["source"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

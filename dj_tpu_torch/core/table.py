@@ -34,6 +34,30 @@ class Column:
         return Column(take_fill(self.data, indices), self.dtype)
 
 
+# The same-width signed dtype of each unsigned dtype wider than a byte.
+_SIGNED_OF = {torch.uint16: torch.int16, torch.uint32: torch.int32, torch.uint64: torch.int64}
+
+
+def signed_view(data: torch.Tensor) -> torch.Tensor:
+    """``data`` itself, or for a 16/32/64-bit unsigned tensor its
+    same-width signed view. PyTorch implements few ops for those dtypes
+    (none of indexing, ``masked_fill_``, ``where`` or comparisons on the
+    card), so gathers move their bits through this view."""
+    signed = _SIGNED_OF.get(data.dtype)
+    return data if signed is None else data.view(signed)
+
+
+def gather(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``data[idx]`` for any fixed-width dtype, bit for bit."""
+    return signed_view(data)[idx].view(data.dtype)
+
+
+def gather_fill(data: torch.Tensor, idx: torch.Tensor, fill: torch.Tensor) -> torch.Tensor:
+    """``data[idx]`` with 0 wherever ``fill`` is set, for any fixed-width
+    dtype, bit for bit."""
+    return signed_view(data)[idx].masked_fill_(fill, 0).view(data.dtype)
+
+
 def take_fill(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``data[idx]`` with 0 wherever ``idx`` is outside [0, len(data)) —
     the ``mode="fill"`` gather the JAX package uses throughout."""
@@ -41,7 +65,7 @@ def take_fill(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if n == 0:
         return torch.zeros(idx.shape, dtype=data.dtype, device=data.device)
     bad = (idx < 0) | (idx >= n)
-    return data[idx.clamp(0, n - 1)].masked_fill_(bad, 0)
+    return gather_fill(data, idx.clamp(0, n - 1), bad)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,10 +2,12 @@
 
 Counterpart of ``scripts/hw/probe_sort.py``. That probe asks whether a
 tile sort inside a TPU kernel is cheap enough to build the join's sort
-from; here the tile sits in an SM's shared memory. ``tile_sort``
+from; here the tile sits in an SM's registers and shared memory, the
+short strides of its bitonic network in registers and warp shuffles and
+the long ones in shared memory. ``tile_sort``
 launches the CUDA kernel ``csrc/tile_sort.cu`` for a tensor on the card
-and takes the plain version, ``tile_sort_plain`` (the kernel's bitonic
-network in PyTorch), for a tensor on the CPU.
+and takes the plain version, ``tile_sort_plain`` (a bitonic network in
+PyTorch), for a tensor on the CPU.
 
 The words are uint32, as in the JAX probe. PyTorch has no uint32
 kernel for ``minimum`` or ``maximum`` (on the CPU or the card) nor for
@@ -52,9 +54,11 @@ def _check(x: torch.Tensor, tile: int) -> int:
 
 
 def tile_sort_plain(x: torch.Tensor, tile: int) -> torch.Tensor:
-    """Plain PyTorch formulation: the kernel's bitonic network over each
-    tile padded to a power of two P with 0xFFFFFFFF, one vectorised
-    compare-exchange per stage on the (NT, P) view."""
+    """Plain PyTorch formulation: a bitonic network over each tile padded
+    to a power of two P with 0xFFFFFFFF, one vectorised compare-exchange
+    per stage on the (NT, P) view. It is the network with direction bits;
+    the kernel's compares mirrors instead and pads to at least 1024
+    words, and both give the sorted tile."""
     nt = _check(x, tile)
     p = 1 << (tile - 1).bit_length()
     # Flipped words: 0xFFFFFFFF becomes INT32_MAX, the largest.

@@ -37,14 +37,17 @@ gather_launches = 0  # kernel launches made by expand_gather
 join_launches = 0  # kernel launches made by expand_join
 carry_launches = 0  # kernel launches made by expand_carry
 vfull_launches = 0  # kernel launches made by expand_vfull
-# The geometry of every expansion kernel (csrc/expand_values.cu,
-# csrc/expand_ranks.cu, csrc/expand_window.cuh): output slots per block,
-# and the widest window of csum positions a block stages in shared memory.
+# The geometry of the five expansion kernels on csrc/expand_window.cuh
+# (every one but expand_ranks): output slots per block, and the widest
+# window of csum positions a block stages in shared memory.
 ETILE = 1024
 WIN = 8192
 # Payload slots expand_carry and expand_vfull take (the join's vcarry
 # gate, n_payload <= 3).
 MAX_SLOTS = 3
+# Merged items (csum rows plus output slots) per CTA of expand_ranks'
+# merge-path kernel (NV of csrc/expand_ranks.cu).
+RANKS_NV = 3328
 
 _P, _LL = ctypes.c_void_p, ctypes.c_longlong
 
@@ -160,11 +163,15 @@ def expand_ranks(csum: torch.Tensor, n_out: int) -> torch.Tensor:
         # Every slot is below 2^31 - 1, so clamping keeps every count
         # (the _csum32 of the JAX package).
         csum = csum.clamp_max(2**31 - 1).to(torch.int32)
+    S = csum.shape[0]
     out = torch.empty(n_out, dtype=torch.int32, device=csum.device)
     if n_out:
+        # One merge-path split per CTA boundary (the kernel's scratch).
+        splits = torch.empty(-(-(S + n_out) // RANKS_NV) + 1, dtype=torch.int64,
+                             device=csum.device)
         global ranks_launches
         ranks_launches += 1
-        _run("expand_ranks", [_P] * 2 + [_LL, _LL], csum, out, csum.shape[0], n_out)
+        _run("expand_ranks", [_P] * 3 + [_LL, _LL], csum, out, splits, S, n_out)
     return out
 
 

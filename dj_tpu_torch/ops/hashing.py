@@ -113,7 +113,12 @@ def hash_columns(
             )
     if hash_function == HASH_IDENTITY:
         assert len(columns) == 1, "identity hash takes one column"
-        return _bits64(columns[0].data) & M32
+        data = columns[0].data
+        if data.is_floating_point():
+            # The value converted to uint32 (dj_tpu's astype(uint32)):
+            # truncation toward zero, for values in [0, 2^31).
+            return data.to(torch.int64) & M32
+        return _bits64(data) & M32
     h = murmur3_32(columns[0].data, seed)
     for col in columns[1:]:
         h = hash_combine(h, murmur3_32(col.data, seed))

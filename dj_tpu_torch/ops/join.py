@@ -65,7 +65,7 @@ import torch
 
 from ..core import dtypes as dt
 from ..core.search import run_bounds
-from ..core.table import Column, Table
+from ..core.table import Column, Table, gather_fill
 from .expand import (
     expand_carry,
     expand_gather,
@@ -656,7 +656,7 @@ def prepare_packed_batch(
     invalid = rank >= r_count  # valid words sort below the sentinel
     words_out = ((sw & ~mask) | rank).masked_fill_(invalid, -1)
     cols = tuple(
-        Column(c.data[perm].masked_fill_(invalid, 0), c.dtype)
+        Column(gather_fill(c.data, perm, invalid), c.dtype)
         for i, c in enumerate(right.columns) if i not in set(right_on)
     )
     return words_out, Table(cols, r_count), ok

@@ -13,7 +13,7 @@ from typing import Sequence
 
 import torch
 
-from ..core.table import Column, Table, sizes_to_offsets
+from ..core.table import Column, Table, gather, sizes_to_offsets
 from . import hashing
 
 
@@ -45,7 +45,7 @@ def partition_by_ids(
     ``pid == npartitions``). Returns (table, offsets[npartitions+1])."""
     offsets = sizes_to_offsets(partition_counts_from_ids(pid, npartitions))
     perm = torch.sort(pid, stable=True).indices
-    cols = tuple(Column(c.data[perm], c.dtype) for c in table.columns)
+    cols = tuple(Column(gather(c.data, perm), c.dtype) for c in table.columns)
     return Table(cols, table.count()), offsets
 
 

@@ -166,6 +166,8 @@ def _masked_minmax(data: torch.Tensor, counts: torch.Tensor, w: int):
     cap = data.shape[0] // w
     if cap == 0:
         return info.max, info.min
+    if data.dtype in (torch.uint16, torch.uint32):
+        data = data.to(torch.int64)  # no min or where for these dtypes
     valid = torch.arange(cap, device=data.device)[None, :] < counts[:, None]
     d2 = data.reshape(w, cap)
     return (

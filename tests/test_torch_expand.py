@@ -7,15 +7,18 @@ skewed input whose window overflows the span, where JAX takes its XLA
 fallback branch.
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from dj_tpu.core import search as jsearch
+from dj_tpu.ops.pallas_expand import expand_ranks as jax_expand_ranks
 from dj_tpu.ops.pallas_expand import expand_values as jax_expand_values
 from dj_tpu_torch.core import search as tsearch
-from dj_tpu_torch.ops import expand
+from dj_tpu_torch.ops import cuda_build, expand
 
 GEO = dict(t_j=256, span=1024, blk=64, lane=128, interpret=True)
 
@@ -97,3 +100,43 @@ def test_arange_rank_queries_match(fn, length):
     got = getattr(tsearch, fn)(torch.from_numpy(vals), length)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _ranks_case(name):
+    """(csum, n_out) at the edge sizes of expand_ranks' merge-path kernel."""
+    rng = np.random.default_rng(len(name))
+    if name == "S_0":
+        return np.zeros(0, np.int32), 5
+    if name == "n_out_1":
+        return np.cumsum(rng.integers(0, 3, 700)).astype(np.int32), 1
+    if name == "n_out_below_total":
+        csum = np.cumsum(rng.integers(0, 4, 3000)).astype(np.int32)
+        return csum, int(csum[-1]) // 3
+    if name == "one_row_many_matches":  # one row's run of slots spans many CTAs
+        cnt = np.zeros(2000, np.int64)
+        cnt[1234] = 3 * expand.RANKS_NV
+        cnt[1500] = 1
+        return np.cumsum(cnt).astype(np.int32), 3 * expand.RANKS_NV + 50
+    if name == "n_out_plus_S_is_one_cta":
+        csum = np.cumsum(rng.integers(0, 2, 1000)).astype(np.int32)
+        return csum, expand.RANKS_NV - 1000
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("case", ["S_0", "n_out_1", "n_out_below_total", "one_row_many_matches",
+                                  "n_out_plus_S_is_one_cta"])
+def test_expand_ranks_plain_matches_pallas_at_edge_sizes(case):
+    csum, n_out = _ranks_case(case)
+    want = np.asarray(jax_expand_ranks(jnp.asarray(csum), n_out, **GEO))
+    got = expand.expand_ranks(torch.from_numpy(csum), n_out)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(want, np.searchsorted(csum, np.arange(n_out), "right"))
+
+
+def test_ranks_geometry_matches_the_kernel_source():
+    """The wrapper sizes the kernel's scratch with RANKS_NV = NT * VT."""
+    text = (cuda_build.CSRC / "expand_ranks.cu").read_text()
+    nt = int(re.search(r"constexpr int NT = (\d+);", text).group(1))
+    vt = int(re.search(r"constexpr int VT = (\d+);", text).group(1))
+    assert expand.RANKS_NV == nt * vt

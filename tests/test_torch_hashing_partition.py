@@ -56,6 +56,24 @@ def test_hash_columns_bit_exact(hash_function):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_identity_hash_of_floats_is_the_value(dtype):
+    """The identity hash of a float column is its value converted to
+    uint32 (dj_tpu's astype), truncated toward zero, not its bits. Only
+    values in [0, 2^31) are tested: XLA's float-to-uint32 convert of a
+    negative value or one past 2^32 is not a contract to copy."""
+    rng = np.random.default_rng(6)
+    x = (rng.random(1000) * 2.0**31).astype(dtype)
+    x[:6] = [0.0, -0.0, 0.5, 3.0, 7.5, 1e6]
+    x = np.minimum(x, np.nextafter(dtype(2.0**31), dtype(0)))
+    jcol = [JColumn(jnp.asarray(x), jdt.from_jnp(x.dtype))]
+    want = np.asarray(jhash.hash_columns(jcol, 0, jhash.HASH_IDENTITY)).astype(np.int64)
+    tt = convert.table_from_numpy([x], [x.dtype.name], device="cpu")
+    got = thash.hash_columns(tt.columns, 0, thash.HASH_IDENTITY).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[:6], [0, 0, 0, 3, 7, 1_000_000])
+
+
 @pytest.mark.parametrize("npartitions", [1, 4, 7])
 @pytest.mark.parametrize("valid", [1000, 731, 0])
 def test_hash_partition_matches(npartitions, valid):

@@ -19,9 +19,12 @@ from dj_tpu_torch import convert
 from dj_tpu_torch.ops import join as tjoin
 
 
-def _tables(lk, rk, l_valid, r_valid, l_cap=None, r_cap=None):
-    """(jax left, jax right, torch left, torch right): key + int64
-    payload (left) / key + two payloads (right), padded to capacity."""
+def _tables(lk, rk, l_valid, r_valid, l_cap=None, r_cap=None, pay="int64"):
+    """(jax left, jax right, torch left, torch right): key + one payload
+    (left) / key + two payloads (right) of dtype ``pay``, padded to
+    capacity. Unsigned payloads have their top bit set, where the bits
+    of a signed and an unsigned view differ."""
+    top = 2 ** (np.iinfo(pay).bits - 1) if np.dtype(pay).kind == "u" else 0
     out = []
     for keys, valid, cap, npay, base in (
         (lk, l_valid, l_cap, 1, 0), (rk, r_valid, r_cap, 2, 10_000),
@@ -30,9 +33,10 @@ def _tables(lk, rk, l_valid, r_valid, l_cap=None, r_cap=None):
         kd = np.zeros(cap, keys.dtype)
         kd[: len(keys)] = keys
         arrays = [kd] + [
-            np.arange(cap, dtype=np.int64) + base + 100_000 * p for p in range(npay)
+            (np.arange(cap) + base + 100_000 * p).astype(pay) + np.array(top, pay)
+            for p in range(npay)
         ]
-        names = [kd.dtype.name] + ["int64"] * npay
+        names = [kd.dtype.name] + [pay] * npay
         jt = JTable(
             tuple(JColumn(jnp.asarray(a), dj_tpu.dtypes.by_name(n)) for a, n in zip(arrays, names)),
             jnp.int32(valid),
@@ -80,16 +84,28 @@ def _case(name, rng):
         return rng.integers(0, 9, 50), np.zeros(0, np.int64), 50, 0, None, None, 64
     if name == "overflow":
         return rng.integers(0, 5, 200), rng.integers(0, 5, 200), 200, 200, None, None, 100
+    if name == "uint16_keys":  # keys past the int16 range
+        return (rng.integers(65_000, 65_536, 300).astype(np.uint16),
+                rng.integers(65_000, 65_536, 250).astype(np.uint16), 290, 250, 320, None, 2048)
+    if name == "uint32_keys":  # keys past the int32 range
+        return (rng.integers(2**32 - 500, 2**32, 300).astype(np.uint32),
+                rng.integers(2**32 - 500, 2**32, 280).astype(np.uint32), 300, 270, None, 300, 1024)
+    if name == "uint64_payload":
+        return rng.integers(0, 60, 300), rng.integers(0, 60, 280), 300, 280, None, None, 4096
     raise KeyError(name)
 
 
-CASES = ["dups_int64", "negative_int64", "int32_keys", "empty_left", "empty_right_capacity", "overflow"]
+# Each case's payload dtype, where it is not int64.
+PAYLOADS = {"uint32_keys": "uint32", "uint64_payload": "uint64"}
+
+CASES = ["dups_int64", "negative_int64", "int32_keys", "empty_left", "empty_right_capacity", "overflow",
+         "uint16_keys", "uint32_keys", "uint64_payload"]
 
 
 @pytest.mark.parametrize("case", CASES)
 def test_inner_join_matches_cpu_defaults(case):
     lk, rk, lv, rv, lcap, rcap, out_cap = _case(case, np.random.default_rng(len(case)))
-    total, _ = _compare(*_tables(lk, rk, lv, rv, lcap, rcap), out_cap)
+    total, _ = _compare(*_tables(lk, rk, lv, rv, lcap, rcap, PAYLOADS.get(case, "int64")), out_cap)
     if case == "overflow":
         assert total > out_cap
     if case.startswith("empty"):
@@ -102,7 +118,7 @@ def test_inner_join_matches_pallas_interpret(case, tiny_pallas_geometry, monkeyp
     monkeypatch.setenv("DJ_JOIN_SCANS", "pallas-interpret")
     monkeypatch.setattr(psc, "TILE", 256)
     lk, rk, lv, rv, lcap, rcap, out_cap = _case(case, np.random.default_rng(len(case)))
-    _compare(*_tables(lk, rk, lv, rv, lcap, rcap), out_cap)
+    _compare(*_tables(lk, rk, lv, rv, lcap, rcap, PAYLOADS.get(case, "int64")), out_cap)
 
 
 def test_declared_range_and_pack_overflow_flag():

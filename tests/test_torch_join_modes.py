@@ -75,6 +75,10 @@ def _payloads(rng, n, names):
             a[::5] = -1
         elif name == "float64":
             a = rng.standard_normal(n)
+        elif name.startswith("uint"):
+            # Full range: the top bit, where the signed view differs, is set in half.
+            a = rng.integers(0, np.iinfo(name).max, n, dtype=name, endpoint=True)
+            a[::5] = np.iinfo(name).max
         else:
             a = rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64, endpoint=True)
             a[::5] = -(2**40)
@@ -120,6 +124,16 @@ def _case(name):
         lk, rk = rng.integers(0, 5, 200), rng.integers(0, 5, 200)
         lp, rp = ["int64"], ["int64"]
         lv, rv, out_cap = 200, 200, 100
+    elif name == "uint16_keys":  # keys past the int16 range, unsigned payloads
+        lk = rng.integers(65_000, 65_536, 300).astype(np.uint16)
+        rk = rng.integers(65_000, 65_536, 260).astype(np.uint16)
+        lp, rp = ["uint64", "uint16"], ["uint32"]
+        lv, rv, out_cap = 290, 260, 2048
+    elif name == "uint32_keys":  # keys past the int32 range, unsigned payloads
+        lk = rng.integers(2**32 - 400, 2**32, 300).astype(np.uint32)
+        rk = rng.integers(2**32 - 400, 2**32, 250).astype(np.uint32)
+        lp, rp = ["uint32"], ["uint64", "uint16", "int64"]
+        lv, rv, out_cap = 300, 240, 2048
     elif name == "four_payloads_degrade":
         lk, rk = rng.integers(0, 60, 300), rng.integers(0, 60, 300)
         lp, rp = ["int64"] * 4, ["int32"]
@@ -138,7 +152,8 @@ def _case(name):
 
 
 CASES = ["dups_int64", "negative_int64", "int32_keys", "three_payloads_each", "key_only_left",
-         "empty_left", "duplicate_heavy", "overflow", "four_payloads_degrade"]
+         "empty_left", "duplicate_heavy", "overflow", "four_payloads_degrade", "uint16_keys",
+         "uint32_keys"]
 
 
 def _compare(left, right, r_on, out_cap, key_range=None):

@@ -127,6 +127,30 @@ def test_prepared_join_matches_dj_tpu(odf, declared, jax_tier, monkeypatch):
         assert _rows(tt) == _rows(jt), tier
 
 
+@pytest.mark.parametrize("tier", TIERS)
+def test_prepared_unsigned_columns_match_dj_tpu(tier, monkeypatch):
+    """uint32 keys past 2^31 with a uint64 build payload and a uint16
+    probe payload, each with its top bit set; the key range is probed."""
+    build, probe, _, want = _tables(31, nb=600, nl=900, key_dtype=np.int64)
+    shift = 2**32 - 3 * 600
+    build[0] = (build[0] + shift).astype(np.uint32)
+    probe[0] = (probe[0] + shift).astype(np.uint32)
+    build[1] = build[1].astype(np.uint64) + np.uint64(2**63)
+    probe[1] = probe[1].astype(np.uint16) + np.uint16(2**15)
+    w = _World(build, probe)
+    cfg = dj_tpu.JoinConfig(over_decom_factor=2)
+    jprep = w.jprepare(cfg, left_capacity=len(probe[0]))
+    tprep = w.tprepare(cfg, left_capacity=len(probe[0]))
+    assert tuple(tprep.plan) == tuple(jprep.plan)
+    jt, jcounts, _ = w.jquery(jprep, cfg)
+    monkeypatch.setenv("DJT_JOIN_MERGE", tier)
+    tt, tcounts, tinfo = w.tquery(tprep, cfg)
+    assert int(tcounts[0]) == int(np.asarray(jcounts)[0]) == want
+    assert not any(bool(v.any()) for v in tinfo.values())
+    assert [c.data.dtype for c in tt.columns] == [torch.uint32, torch.uint16, torch.uint64]
+    assert _rows(tt) == _rows(jt)
+
+
 def test_probe_keys_outside_plan_flag_in_both(monkeypatch):
     build, probe, kr, _ = _tables(3)
     probe[0][::7] += 10**6  # outside the declared range

@@ -81,6 +81,19 @@ def test_tile_sort_plain_matches_pallas(tile, nt, pattern):
         np.testing.assert_array_equal(probe_sort.to_numpy_u32(got), want)
 
 
+@pytest.mark.parametrize("pattern", ["random", "duplicates"])
+@pytest.mark.parametrize("tile", [31, 32, 33, 1023, 1024, 1025])
+def test_tile_sort_plain_matches_pallas_around_a_warp(tile, pattern):
+    """Tiles around the kernel's register and warp geometry: a thread
+    holds 32 words and the smallest padded tile is one warp's 1024."""
+    rng = np.random.default_rng(tile)
+    x = _words(pattern, 2 * tile, rng)
+    want = np.asarray(_jax_probe("probe_sort", TILE=tile, NT=2).tile_sort(jnp.asarray(x)))
+    np.testing.assert_array_equal(want.reshape(2, tile), np.sort(x.reshape(2, tile), axis=1))
+    got = probe_sort.tile_sort_plain(_u32(x), tile)
+    np.testing.assert_array_equal(probe_sort.to_numpy_u32(got), want)
+
+
 def _indices(kind: str, n: int, rng) -> np.ndarray:
     if kind == "in_range":
         return rng.integers(0, n, n, dtype=np.int32)
