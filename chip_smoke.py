@@ -35,6 +35,20 @@ Phases, each printing its own line(s):
      amid sparse matches and selectivity 0.001, whose windows must pass
      the shared stage; all-miss; a wrapped csum (expand_ranks must still
      run and keep every slot in [0, S]); 0 to 3 payload slots;
+  4d. a 4-rank world on one card: make_topology(["cuda:0"] * 4), the same
+     100M x 100M tables sharded over 4 ranks (25M + 25M rows a rank), each
+     rank's pipeline on a thread of its own with the bucketed all-to-all
+     shuffle between them; distributed_inner_join at odf 1 and 4 (vmeta)
+     and at odf 1 under each other expansion mode, then prepare_join_side
+     at odf 1 and a query under each merge tier. Each run: every flag of
+     every shard False, counts summing to the generator's expected count,
+     every row checked against the inputs and co-located (a row on shard r
+     has murmur3(key, 12345678) % (4 odf) % 4 == r), the row multiset
+     equal to phase 4's, and each expected kernel launched 4 odf times by
+     the rank threads; median walls of warm runs, peak memory, and each
+     rank's device time by phase (partition, bucketize, the exchange's
+     copies, compact, join; CUDA events on the shared stream) beside a
+     profiler breakdown by kernel at odf 1;
   5. prepared path: at odf 1 and 4, prepare_join_side on the build table,
      then distributed_inner_join with the PreparedSide under each merge
      tier (sort, merge, probe); each query checked as in 4, with the
@@ -74,8 +88,8 @@ Phases, each printing its own line(s):
      alignment), and tile_sort and `run_cluster` refusing a size their
      kernels cannot hold;
 then the `kernels` JSON line (kernel, plain-version and library times
-beside each kernel's bound, launches per query on each path, and each
-kernel's registers and spills from ptxas; the probes' launches are their
+beside each kernel's bound, launches per query on each path and in the
+4-rank world, and each kernel's registers and spills from ptxas; the probes' launches are their
 main()'s, and no join path launches them).
 The last line is {"ok": true, "device": {...}}. With no CUDA device, or
 without the package beside it, the script fails before printing any
@@ -654,6 +668,169 @@ def compare_gather(case: str, vals, idx, kernels=("run", "run_cluster")) -> int:
     return 0
 
 
+WORLD = 4  # ranks of phase 4d's world
+
+
+def check_colocated(what: str, out, counts, odf: int) -> None:
+    """Every valid row of shard r has murmur3(key, MAIN_JOIN_SEED) %
+    (WORLD * odf) % WORLD == r: its key's partition went to rank r."""
+    from dj_tpu_torch.core.table import Column, Table
+    from dj_tpu_torch.core import dtypes
+    from dj_tpu_torch.ops import hashing
+    from dj_tpu_torch.parallel.dist_join import MAIN_JOIN_SEED
+
+    cap = out.capacity // WORLD
+    for r, n in enumerate(counts.tolist()):
+        keys = out.columns[0].data[r * cap : r * cap + n]
+        h = hashing.hash_table(Table((Column(keys, dtypes.int64),)), [0], MAIN_JOIN_SEED)
+        if not bool((h % (WORLD * odf) % WORLD == r).all()):
+            raise AssertionError(f"{what}: a row on shard {r} hashes to another rank")
+
+
+def warm_walls(fn, reps: int = 3):
+    """(median wall ms, the walls, peak bytes) of ``reps`` calls of fn,
+    each ending in a synchronize."""
+    runs = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+        del res
+    return statistics.median(runs), runs, torch.cuda.max_memory_allocated()
+
+
+def world_phases(fn) -> dict:
+    """One call of fn with each rank's device time by phase (CUDA events
+    on the stream the ranks share), summed over the ranks."""
+    from dj_tpu_torch.parallel import spmd
+
+    with spmd.record_phases() as runs:
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    del res
+    by_rank = runs[-1]
+    total: dict = {}
+    for phases in by_rank:
+        for k, v in phases.items():
+            total[k] = total.get(k, 0.0) + v
+    busy = sum(total.values())
+    return {"wall_ms": wall, "phase_ms": total, "in_phases_ms": busy,
+            "outside_phases_ms": wall - busy, "phase_ms_by_rank": by_rank}
+
+
+def run_world(dj, dev, build, probe, expected: int, ref, rows: int, smi: str):
+    """Phase 4d: the main path over a 4-rank world on the one card.
+    Returns {path: {odf: launches}}."""
+    from dj_tpu_torch.ops.join import EXPAND_KERNELS, prepared_effective_plan
+
+    topo = dj.make_topology([dev] * WORLD)
+    left, lcnt = dj.shard_table(topo, probe)
+    right, rcnt = dj.shard_table(topo, build)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    launch_table: dict = {}
+
+    def check(what, res, odf, kernels):
+        out, counts, info = res
+        torch.cuda.synchronize()
+        launches = read_launches()
+        set_flags = [k for k, v in info.items() if bool(v.any())]
+        if set_flags:
+            raise AssertionError(f"{what}: flags set on a shard: {set_flags}")
+        if tuple(counts.shape) != (WORLD,) or int(counts.sum()) != expected:
+            raise AssertionError(f"{what}: counts {counts.tolist()} do not sum to {expected}")
+        check_colocated(what, out, counts, odf)
+        flat = dj.unshard_table(out, counts)
+        flat_counts = torch.tensor([flat.capacity])
+        check_rows(flat, flat_counts, build, probe, expected)
+        check_same_rows(sorted_rows(flat, flat_counts), ref, what)
+        wrong = {k: launches[k] for k in kernels if launches[k] != WORLD * odf}
+        if wrong:
+            raise AssertionError(f"{what}: each of {kernels} must launch {WORLD * odf} times "
+                                 f"(once a rank and batch): {wrong}")
+        return launches, counts.tolist()
+
+    summary: dict = {}
+    for odf in (1, 4):
+        cfg = dj.JoinConfig(over_decom_factor=odf)
+
+        def join():
+            return dj.distributed_inner_join(topo, left, lcnt, right, rcnt, [0], [0], cfg)
+
+        what = f"world of {WORLD}, odf={odf}"
+        reset_launches()
+        launches, counts = check(what, join(), odf, ("join_scans", "expand_values"))
+        launch_table.setdefault("unprepared", {})[odf] = launches
+        wall, runs, peak = warm_walls(join)
+        summary[f"unprepared_odf{odf}"] = {"wall_ms": wall, "wall_ms_runs": runs, "peak_bytes": peak}
+        log("world_path", ranks=WORLD, odf=odf, rows=rows, counts=counts, total=expected,
+            flags="all False", rows_checked=expected, colocated=True, same_rows_as_one_rank=True,
+            launches=launches, wall_ms=wall, wall_ms_runs=runs, peak_bytes=peak,
+            resident_bytes=resident)
+        if odf == 1:
+            profile_join(join, path="world4_unprepared", odf=odf)
+            summary["unprepared_odf1"]["phases"] = world_phases(join)
+            log("world_phases", path="unprepared", odf=odf, **summary["unprepared_odf1"]["phases"])
+    for mode in MODES:
+        os.environ["DJT_JOIN_EXPAND"] = mode
+        cfg = dj.JoinConfig()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = dj.distributed_inner_join(topo, left, lcnt, right, rcnt, [0], [0], cfg)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches, counts = check(f"world of {WORLD}, mode={mode}", res, 1,
+                                 ("join_scans", EXPAND_KERNELS[mode]))
+        del res
+        launch_table.setdefault(f"unprepared_{mode}", {})[1] = launches
+        summary[f"{mode}_odf1"] = {"wall_ms_one_run": wall}
+        log("world_path", ranks=WORLD, mode=mode, odf=1, counts=counts, total=expected,
+            flags="all False", rows_checked=expected, colocated=True, same_rows_as_one_rank=True,
+            launches=launches, wall_ms_one_run=wall)
+    os.environ.pop("DJT_JOIN_EXPAND")
+
+    cfg = dj.JoinConfig(key_range=(0, 2 * rows))
+    prep_runs = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(4):  # the first warms up, the next three are timed
+        prep = None
+        t0 = time.perf_counter()
+        prep = dj.prepare_join_side(topo, right, rcnt, [0], cfg, left_capacity=rows)
+        torch.cuda.synchronize()
+        prep_runs.append((time.perf_counter() - t0) * 1e3)
+    summary["prepare_odf1"] = {"wall_ms": statistics.median(prep_runs[1:]), "wall_ms_runs": prep_runs,
+                               "peak_bytes": torch.cuda.max_memory_allocated()}
+    log("world_prepare", ranks=WORLD, odf=1, **summary["prepare_odf1"],
+        resident_rows_per_rank_batch=prep.batches[0][0].shape[0] // WORLD)
+    for tier in TIERS:
+        os.environ["DJT_JOIN_MERGE"] = tier
+
+        def query():
+            return dj.distributed_inner_join(topo, left, lcnt, prep, None, [0], None, cfg)
+
+        reset_launches()
+        launches, counts = check(f"world of {WORLD}, prepared tier={tier}", query(), 1,
+                                 prepared_effective_plan(tier))
+        launch_table.setdefault(f"prepared_{tier}", {})[1] = launches
+        wall, runs, peak = warm_walls(query)
+        phases = world_phases(query)
+        summary[f"prepared_{tier}_odf1"] = {"wall_ms": wall, "wall_ms_runs": runs, "peak_bytes": peak,
+                                            "phase_ms": phases["phase_ms"]}
+        log("world_path", ranks=WORLD, prepared_tier=tier, odf=1, counts=counts, total=expected,
+            flags="all False", rows_checked=expected, colocated=True, same_rows_as_one_rank=True,
+            launches=launches, wall_ms=wall, wall_ms_runs=runs, peak_bytes=peak)
+        log("world_phases", path=f"prepared_{tier}", odf=1, **phases)
+    os.environ.pop("DJT_JOIN_MERGE")
+    del prep
+    log("world", ranks=WORLD, device=str(dev), rows_per_rank=rows // WORLD, resident_bytes=resident,
+        **summary, card=smi)
+    return launch_table
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=100_000_000,
@@ -904,6 +1081,10 @@ def main() -> int:
     del hot
     torch.cuda.empty_cache()
 
+    # 4d. the main path over a 4-rank world on this card
+    world_launches = run_world(dj, dev, build, probe, expected, ref, rows, smi)
+    torch.cuda.empty_cache()
+
     # 5. prepared path: prepare once, query under each merge tier
     prep_walls, query_walls = {}, {}
     for odf in (1, 4):
@@ -1124,9 +1305,9 @@ def main() -> int:
     gather_bound_ms = 12 * gather_probe["n"] / HBM_BYTES_PER_S * 1e3
     del x_probe, gv, gi
 
-    def per_query(name):
+    def per_query(name, table=launch_table):
         return {path: {f"odf{odf}": c[name] for odf, c in by_odf.items()}
-                for path, by_odf in launch_table.items()
+                for path, by_odf in table.items()
                 if any(c[name] for c in by_odf.values())}
 
     kernels = [
@@ -1240,6 +1421,7 @@ def main() -> int:
             **({} if name == "run" else {"on_path": "none: the study of hw/gather_variants.py"}),
         })
     for k in kernels:
+        k["launches_world4"] = per_query(k["name"], world_launches) if k["launches_per_query"] else {}
         k["ptxas"] = ptxas_resources(k["source"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,10 +7,12 @@ merge_sorted_u64, expand_ranks), built with nvcc at first use. Entry
 points run on the current CUDA device unless given CPU tensors or a CPU
 topology, where each kernel's plain PyTorch version runs instead.
 
-Ported so far, over a one-rank world: the unprepared inner join on int
-keys (generate -> shard -> distributed_inner_join), and the prepared
-build side (prepare_join_side once, then distributed_inner_join with the
-PreparedSide per query, under the sort, merge or probe tier).
+Ported so far: the unprepared inner join on int keys (generate -> shard
+-> distributed_inner_join), and the prepared build side
+(prepare_join_side once, then distributed_inner_join with the
+PreparedSide per query, under the sort, merge or probe tier), over a
+world of one rank or of several ranks on one device, run as threads of
+this process: ``make_topology(["cuda:0"] * 4)`` makes a 4-rank world.
 """
 
 from .core import dtypes

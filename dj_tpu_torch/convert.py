@@ -70,7 +70,7 @@ def prepared_side_from(prepared, topology: Topology) -> PreparedSide:
     through ``np.asarray``."""
     tier = getattr(prepared, "tier", "shuffle")
     if tier != "shuffle":
-        raise NotImplementedError(f"prepared tier {tier!r} comes with a later slice")
+        raise NotImplementedError(f"prepared tier {tier!r} comes with ROADMAP queue 1 item 7")
     dev = topology.device
 
     def tensor(a, dtype=None):

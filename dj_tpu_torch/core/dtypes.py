@@ -87,7 +87,7 @@ TORCH_BY_NUMPY = {
 def by_name(name: str) -> DType:
     if name == "string":
         raise NotImplementedError(
-            "string columns come with a later slice of the port"
+            "string columns come with ROADMAP queue 1 item 6 (strings)"
         )
     return _BY_NAME[name]
 

@@ -1,6 +1,6 @@
 """Rank queries against a sorted vector.
 
-Counterpart of ``dj_tpu/core/search.py:25-50, 97-174``. The JAX package
+Counterpart of ``dj_tpu/core/search.py:25-60, 97-174``. The JAX package
 builds the ``arange`` queries from a scatter-add histogram and the run
 ranks from an unrolled gather loop, because XLA's searchsorted is a
 slow gather loop on a TPU; here ``torch.searchsorted`` is the direct
@@ -30,6 +30,13 @@ def count_lt_arange(sorted_vals: torch.Tensor, length: int) -> torch.Tensor:
     return torch.searchsorted(
         sorted_vals, _queries(sorted_vals, length), right=False, out_int32=True
     )
+
+
+def interval_of_arange(offsets: torch.Tensor, length: int, n: int) -> torch.Tensor:
+    """out[j] = clip(count_leq_arange(offsets, length) - 1, 0, n - 1): the
+    interval of an ascending offsets vector with a leading 0 that holds
+    position j, for j in [0, length)."""
+    return torch.clamp(count_leq_arange(offsets, length) - 1, 0, n - 1)
 
 
 def rank_in_run(

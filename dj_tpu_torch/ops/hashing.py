@@ -109,7 +109,7 @@ def hash_columns(
     for col in columns:
         if not isinstance(col, Column):
             raise NotImplementedError(
-                "string columns come with a later slice of the port"
+                "string columns come with ROADMAP queue 1 item 6 (strings)"
             )
     if hash_function == HASH_IDENTITY:
         assert len(columns) == 1, "identity hash takes one column"

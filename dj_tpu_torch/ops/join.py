@@ -182,12 +182,12 @@ def _flag(value: bool, device) -> torch.Tensor:
 def _check_supported(left, right, left_on, right_on, carry_payloads):
     if carry_payloads:
         raise NotImplementedError(
-            "carry_payloads (payloads riding the sort) comes with a later "
-            "slice of the port"
+            "carry_payloads (payloads riding the sort) comes with ROADMAP "
+            "queue 1 item 5"
         )
     if len(left_on) != 1:
         raise NotImplementedError(
-            "multi-key joins come with a later slice of the port"
+            "multi-key joins come with ROADMAP queue 1 item 5"
         )
     a, b = left.columns[left_on[0]], right.columns[right_on[0]]
     if not (
@@ -198,7 +198,7 @@ def _check_supported(left, right, left_on, right_on, carry_payloads):
         raise NotImplementedError(
             "keys that are not one signed or <= 32-bit unsigned integer "
             "dtype on both sides take the unpacked sort, which comes with "
-            "a later slice of the port"
+            "ROADMAP queue 1 item 5"
         )
 
 
@@ -263,7 +263,7 @@ def _packed_words(
         if static_fit is False:
             raise NotImplementedError(
                 "a declared key range wider than the packed word takes the "
-                "unpacked sort, which comes with a later slice of the port"
+                "unpacked sort, which comes with ROADMAP queue 1 item 5"
             )
         # 64-bit keys: signed order of the key is unsigned order of its
         # image, and (key - kmin) in wrapping int64 is the u64 span.
@@ -277,7 +277,7 @@ def _packed_words(
         if static_fit is None and bool(pack_ovf):
             raise NotImplementedError(
                 "keys whose observed range does not fit the packed word take "
-                "the unpacked sort, which comes with a later slice of the port"
+                "the unpacked sort, which comes with ROADMAP queue 1 item 5"
             )
         word = word - kmin
     word.bitwise_left_shift_(tag_bits)

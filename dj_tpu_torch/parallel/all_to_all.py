@@ -1,21 +1,35 @@
-"""Table shuffle through one communication epoch.
+"""Bucketed all-to-all table shuffle: plan, exchange, compact.
 
-Counterpart of ``dj_tpu/parallel/all_to_all.py::shuffle_tables`` and its
-one-table view ``shuffle_table``. This
-slice covers the one-peer group, where the shuffle is the self-copy of
-``_single_peer_shuffle`` (dj_tpu/parallel/all_to_all.py:204-249): the
-partition's rows are contiguous, so each column is one slice copy into
-an output of static capacity. The bucketed exchange across peers comes
-with the NCCL communicator.
+Counterpart of ``dj_tpu/parallel/all_to_all.py`` for fixed-width
+columns. Each partition is padded into a bucket of static size
+(``bucketize``), one ``Communicator.exchange`` moves every bucket of
+the epoch, and a gather concatenates the received valid prefixes
+(``compact``). ``shuffle_tables`` shuffles several tables through one
+epoch, as a join batch's left and right tables do:
+
+1. one batched size exchange: every table's per-peer row counts form
+   one [n, T] int32 matrix that rides the 4-byte class of the data
+   exchange;
+2. one exchange for all data: per (width, table) the equal-width
+   columns stack, as same-width signed integer views, into one
+   [n, B, k] buffer (``ShufflePlan``), and fuse-capable communicators
+   move each width class across the tables with one collective;
+3. ``compact`` per received buffer into the table's output.
+
+A one-peer group shuffles by the self-copy of ``_single_peer_shuffle``
+(dj_tpu/parallel/all_to_all.py:204-249). String columns and the
+compressed wire come with later slices.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
 import torch
 
-from ..core.table import Column, Table
+from ..core.search import interval_of_arange
+from ..core.table import Column, Table, gather_fill, sizes_to_offsets
 from .communicator import Communicator
 
 # Split-overflow stat keys: OVF_BUCKET is a send bucket that was too
@@ -23,6 +37,93 @@ from .communicator import Communicator
 # was exceeded (heals by out_factor growth).
 OVF_BUCKET = "bucket_overflow"
 OVF_OUT = "out_overflow"
+
+# The same-width signed integer dtype each column travels as (PyTorch's
+# card build has no unsigned indexing or masked fills).
+_INT_OF_SIZE = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _gather_columns(cols, idx: torch.Tensor, fill: torch.Tensor) -> list:
+    """``c[idx]`` (0 where ``fill``) for each 1-D column ``c``. The
+    shuffle gathers column by column: on an H100 its bucketize and
+    compact took 6.7 times as long when they gathered whole 16-byte rows
+    of a [rows, 2] buffer (``chip_smoke.py`` phase 4d)."""
+    return [gather_fill(c, idx, fill) for c in cols]
+
+
+def _bucket_index(
+    starts: torch.Tensor, counts: torch.Tensor, bucket_rows: int, rows: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """bucketize's [nparts, bucket_rows] source rows and fill mask."""
+    j = torch.arange(bucket_rows, dtype=torch.int64, device=starts.device)
+    idx = starts.to(torch.int64)[:, None] + j[None, :]
+    valid = (j[None, :] < counts[:, None]) & (idx < rows)
+    return torch.where(valid, idx, 0), ~valid
+
+
+def bucketize(
+    data: torch.Tensor, starts: torch.Tensor, counts: torch.Tensor, bucket_rows: int
+) -> torch.Tensor:
+    """Gather partitions [starts[p], starts[p] + counts[p]) into padded
+    buckets of shape [nparts, bucket_rows, ...]; rows past a partition's
+    count are 0."""
+    idx, fill = _bucket_index(starts, counts, bucket_rows, data.shape[0])
+    cols = _gather_columns(data.reshape(data.shape[0], -1).unbind(1), idx, fill)
+    return torch.stack(cols, dim=-1).reshape(idx.shape + data.shape[1:])
+
+
+def _compact_index(
+    recv_counts: torch.Tensor, n: int, bucket: int, out_capacity: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """compact's [out_capacity] source rows in the flat [n * bucket]
+    buckets, its fill mask and the total."""
+    recv_offsets = sizes_to_offsets(recv_counts)
+    total = recv_offsets[-1]
+    k = torch.arange(out_capacity, dtype=torch.int64, device=recv_counts.device)
+    p = interval_of_arange(recv_offsets, out_capacity, n).to(torch.int64)
+    idx = p * bucket + k - recv_offsets[p]
+    # The JAX package's fill index (n * bucket) is past the end: mask it.
+    valid = (k < total) & (idx < n * bucket)
+    return torch.where(valid, idx, 0), ~valid, total
+
+
+def compact(
+    buckets: torch.Tensor, recv_counts: torch.Tensor, out_capacity: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Concatenate the valid prefix of each received bucket. Returns
+    (data[out_capacity, ...], total): slots past the total are 0, and
+    total is the true row count (it may exceed out_capacity)."""
+    n, bucket = buckets.shape[0], buckets.shape[1]
+    idx, fill, total = _compact_index(recv_counts, n, bucket, out_capacity)
+    cols = _gather_columns(buckets.reshape(n * bucket, -1).unbind(1), idx, fill)
+    return torch.stack(cols, dim=-1).reshape((out_capacity,) + buckets.shape[2:]), total
+
+
+Slot = tuple[int, int]  # (table, column)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShufflePlan:
+    """Which columns ride which collective: one (element width, slots)
+    group per width across every table of the epoch when fused, one per
+    column otherwise (dj_tpu/parallel/all_to_all.py:127-195, without its
+    string and compressed slots)."""
+
+    width_groups: tuple[tuple[int, tuple[Slot, ...]], ...]
+
+    @staticmethod
+    def for_tables(tables: Sequence[Table], fuse: bool) -> "ShufflePlan":
+        slots = [
+            (col.data.element_size(), (t, i))
+            for t, table in enumerate(tables)
+            for i, col in enumerate(table.columns)
+        ]
+        if not fuse:
+            return ShufflePlan(tuple((w, (s,)) for w, s in slots))
+        groups: dict[int, list[Slot]] = {}
+        for w, s in slots:
+            groups.setdefault(w, []).append(s)
+        return ShufflePlan(tuple((w, tuple(ss)) for w, ss in sorted(groups.items())))
 
 
 def _single_peer_shuffle(
@@ -62,9 +163,12 @@ def shuffle_tables(
     bucket_rows: Sequence[int],
     out_capacity: Sequence[int],
 ) -> list[tuple[Table, torch.Tensor, torch.Tensor, dict]]:
-    """Shuffle hash-partitioned tables: partition p of every table goes
-    to group peer p. Returns one (table, total_recv_rows, overflow,
-    stats) per table; ``overflow`` is the OR of the stats' split bits."""
+    """Shuffle hash-partitioned tables through one epoch: partition p of
+    every table goes to group peer p. Returns one (table,
+    total_recv_rows, overflow, stats) per table; ``stats`` holds the
+    split bits OVF_BUCKET (a send bucket was too small) and OVF_OUT (the
+    output capacity was exceeded), ``overflow`` their OR. Every rank of
+    the group calls it with the same static sizes."""
     nt = len(tables)
     n = comm.size
     for seq, name in (
@@ -76,15 +180,55 @@ def shuffle_tables(
     for t in range(nt):
         if part_starts[t].shape != (n,) or part_counts[t].shape != (n,):
             raise ValueError(f"table {t}: part_starts/part_counts must have shape ({n},)")
-    if n != 1:
-        raise NotImplementedError(
-            "the multi-peer bucketed exchange comes with the NCCL "
-            "communicator slice"
-        )
-    return [
-        _single_peer_shuffle(tables[t], part_starts[t], part_counts[t], out_capacity[t])
+    if n == 1:
+        return [
+            _single_peer_shuffle(tables[t], part_starts[t], part_counts[t], out_capacity[t])
+            for t in range(nt)
+        ]
+
+    comm.phase("a2a_bucketize")
+    plan = ShufflePlan.for_tables(tables, comm.fuse_columns)
+    send_ovf = [(part_counts[t] > bucket_rows[t]).any() for t in range(nt)]
+    sent = [part_counts[t].clamp_max(bucket_rows[t]).to(torch.int32) for t in range(nt)]
+    buffers = [torch.stack(sent, dim=1)]  # the [n, T] size matrix
+    send_index = [
+        _bucket_index(part_starts[t], sent[t], bucket_rows[t], tables[t].capacity)
         for t in range(nt)
     ]
+    metas: list[tuple[int, tuple[Slot, ...]]] = []
+    for width, slots in plan.width_groups:
+        by_table: dict[int, list[Slot]] = {}
+        for s in slots:
+            by_table.setdefault(s[0], []).append(s)
+        for t, tslots in by_table.items():
+            cols = [tables[t].columns[i].data.view(_INT_OF_SIZE[width]) for _, i in tslots]
+            buffers.append(torch.stack(_gather_columns(cols, *send_index[t]), dim=-1))  # [n, B, k]
+            metas.append((t, tuple(tslots)))
+    del send_index
+
+    comm.phase("a2a_exchange")
+    received = comm.exchange(buffers)
+    del buffers
+
+    comm.phase("a2a_compact")
+    recv_mat = received[0]
+    recv_index = [_compact_index(recv_mat[:, t], n, bucket_rows[t], out_capacity[t])
+                  for t in range(nt)]
+    totals = [total for _, _, total in recv_index]
+    out_cols: list[list] = [[None] * tables[t].num_columns for t in range(nt)]
+    for buf, (t, tslots) in zip(received[1:], metas):
+        idx, fill, _ = recv_index[t]
+        data = _gather_columns(buf.reshape(n * bucket_rows[t], -1).unbind(1), idx, fill)
+        for d, (_, i) in zip(data, tslots):
+            col = tables[t].columns[i]
+            out_cols[t][i] = Column(d.view(col.data.dtype), col.dtype)
+    results = []
+    for t in range(nt):
+        out_ovf = totals[t] > out_capacity[t]
+        count = totals[t].clamp_max(out_capacity[t]).to(torch.int32)
+        stats = {OVF_BUCKET: send_ovf[t], OVF_OUT: out_ovf}
+        results.append((Table(tuple(out_cols[t]), count), totals[t], send_ovf[t] | out_ovf, stats))
+    return results
 
 
 def shuffle_table(

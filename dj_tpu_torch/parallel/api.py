@@ -1,14 +1,15 @@
 """Moving tables onto and off a topology.
 
 Counterpart of ``dj_tpu/parallel/api.py::shard_table`` and
-``unshard_table`` for a one-rank world: the sharded form of a table is
-the table padded to its per-shard capacity, plus an int32 [world]
-vector of valid rows per shard.
+``unshard_table`` for fixed-width columns: the sharded form of a table
+over a world of w ranks is one [w * cap] column per column, shard r in
+rows [r * cap, (r + 1) * cap) padded with zeros past its rows, plus an
+int32 [w] vector of valid rows per shard.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -19,24 +20,54 @@ from .topology import Topology
 def shard_table(
     topology: Topology, table: Table, capacity_per_shard: Optional[int] = None
 ) -> tuple[Table, torch.Tensor]:
-    """Place an exact table on the topology's device, padded to
-    ``capacity_per_shard`` rows. Returns (table, counts[world])."""
+    """Split an exact table row-balanced across the topology's ranks, on
+    its device: shard r takes the next contiguous block of rows, the
+    first ``nrows % w`` shards one row more than the others
+    (dj_tpu/parallel/api.py:38-44), each padded to
+    ``capacity_per_shard`` rows (default: the largest shard). Returns
+    (table, counts[world])."""
     if table.valid_count is not None:
         raise ValueError("shard_table takes exact tables (valid_count None)")
-    if topology.world_size != 1:
-        raise NotImplementedError("sharding over several ranks comes with the NCCL slice")
-    n = table.capacity
-    cap = n if capacity_per_shard is None else capacity_per_shard
-    if cap < n:
-        raise ValueError(f"capacity {cap} < needed {n}")
+    w = topology.world_size
+    nrows = table.capacity
+    counts = [nrows // w + (r < nrows % w) for r in range(w)]
+    starts = [sum(counts[:r]) for r in range(w)]
+    pieces = [_slice_rows(table, starts[r], counts[r]) for r in range(w)]
+    return shard_table_pieces(topology, pieces, capacity_per_shard)
+
+
+def _slice_rows(table: Table, start: int, count: int) -> Table:
+    """Rows [start, start + count) of an exact table (views)."""
+    return Table(tuple(Column(c.data[start : start + count], c.dtype) for c in table.columns))
+
+
+def shard_table_pieces(
+    topology: Topology, pieces: Sequence[Table], capacity_per_shard: Optional[int] = None
+) -> tuple[Table, torch.Tensor]:
+    """Place one exact table per rank on the topology's device: piece r
+    becomes shard r's rows, padded to ``capacity_per_shard`` rows
+    (default: the largest piece). Returns (table, counts[world])."""
+    w = topology.world_size
+    if len(pieces) != w:
+        raise ValueError(f"need {w} pieces, got {len(pieces)}")
+    schema = [(c.dtype, c.data.dtype) for c in pieces[0].columns]
+    for p in pieces:
+        if p.valid_count is not None:
+            raise ValueError("pieces must be exact tables (valid_count None)")
+        if [(c.dtype, c.data.dtype) for c in p.columns] != schema:
+            raise TypeError("piece schema mismatch")
+    counts = [p.capacity for p in pieces]
+    cap = max(counts) if capacity_per_shard is None else capacity_per_shard
+    if cap < max(counts):
+        raise ValueError(f"capacity {cap} < needed {max(counts)}")
     dev = topology.device
     cols = []
-    for c in table.columns:
-        data = torch.zeros(cap, dtype=c.data.dtype, device=dev)
-        data[:n] = c.data
-        cols.append(Column(data, c.dtype))
-    counts = torch.tensor([n], dtype=torch.int32, device=dev)
-    return Table(tuple(cols)), counts
+    for j, (dtype, tdtype) in enumerate(schema):
+        data = torch.zeros(w * cap, dtype=tdtype, device=dev)
+        for r, p in enumerate(pieces):
+            data[r * cap : r * cap + counts[r]] = p.columns[j].data
+        cols.append(Column(data, dtype))
+    return Table(tuple(cols)), torch.tensor(counts, dtype=torch.int32, device=dev)
 
 
 def unshard_table(table: Table, counts: torch.Tensor) -> Table:

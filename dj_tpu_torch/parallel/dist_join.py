@@ -3,7 +3,9 @@
 Counterpart of ``dj_tpu/parallel/dist_join.py`` for the unprepared join
 on a flat topology (``JoinConfig``, ``batch_sizing``,
 ``_local_join_pipeline``, ``_masked_minmax``, ``_resolve_key_range``,
-``distributed_inner_join``):
+``distributed_inner_join``). Each rank of the world runs the pipeline
+on its own shard (``parallel.spmd.run_spmd``, the counterpart of
+dj_tpu's ``shard_map``), with a communicator over the world:
 
 1. hash-partition both tables into world * over_decom_factor parts
    (seed 12345678, the reference's);
@@ -12,10 +14,10 @@ on a flat topology (``JoinConfig``, ``batch_sizing``,
 3. concatenate the batch results.
 
 The key range is probed on the host once per call (two reductions per
-key column) unless the config declares it, so the pack decision is
-static exactly as in JAX. PyTorch runs eagerly, so the batches run in
-order; the JAX package's prefetch of batch b+1's exchange only
-reorders its traced program.
+key column, over every shard) unless the config declares it, so the
+pack decision is static exactly as in JAX. PyTorch runs eagerly, so the
+batches run in order; the JAX package's prefetch of batch b+1's
+exchange only reorders its traced program.
 
 The prepared build side (``prepare_join_side``, ``PreparedSide``) pays
 the build table's partition, exchange, pack and sort once; each query
@@ -47,7 +49,8 @@ from ..ops.join import (
 from ..ops.partition import hash_partition
 from ..resilience.errors import CapacityExhausted, PreparedPlanMismatch
 from .all_to_all import shuffle_table, shuffle_tables
-from .communicator import SingleRankCommunicator, make_communicator
+from .communicator import Communicator
+from .spmd import run_spmd
 from .topology import Topology
 
 MAIN_JOIN_SEED = 12345678
@@ -105,15 +108,15 @@ def batch_sizing(config: JoinConfig, n: int, l_cap: int, r_cap: int) -> BatchSiz
 
 
 def _local_join_pipeline(
-    left: Table, right: Table, left_on: Sequence[int], right_on: Sequence[int],
-    topology: Topology, config: JoinConfig, l_cap: int, r_cap: int,
+    comm: Communicator, left: Table, right: Table, left_on: Sequence[int],
+    right_on: Sequence[int], config: JoinConfig, l_cap: int, r_cap: int,
     key_range: Optional[tuple] = None,
 ):
-    """One rank's pipeline: partition, then exchange + join per batch."""
-    group = topology.world_group()
-    n = group.size
-    comm = make_communicator(SingleRankCommunicator, group, None)
+    """One rank's pipeline: partition, then exchange + join per batch,
+    over the world's communicator ``comm``."""
+    n = comm.size
     m, _, _, bl, br, batch_out_cap = batch_sizing(config, n, l_cap, r_cap)
+    comm.phase("dj_partition")
     l_part, l_offsets = hash_partition(left, left_on, m, seed=MAIN_JOIN_SEED)
     r_part, r_offsets = hash_partition(right, right_on, m, seed=MAIN_JOIN_SEED)
 
@@ -127,6 +130,7 @@ def _local_join_pipeline(
         lo, hi = b * n, (b + 1) * n
         l_starts = l_offsets[lo:hi]
         r_starts = r_offsets[lo:hi]
+        comm.phase("dj_exchange")
         (l_batch, _, l_ovf, _), (r_batch, _, r_ovf, _) = shuffle_tables(
             comm,
             [l_part, r_part],
@@ -136,6 +140,7 @@ def _local_join_pipeline(
             [n * bl, n * br],
         )
         shuffle_ovf = shuffle_ovf | l_ovf | r_ovf
+        comm.phase("dj_join")
         result, total, jflags = inner_join(
             l_batch, r_batch, left_on, right_on,
             out_capacity=batch_out_cap,
@@ -147,6 +152,7 @@ def _local_join_pipeline(
         coll = coll | jflags["surrogate_collision"]
         pack_ovf = pack_ovf | jflags["pack_range_overflow"]
         batch_results.append(result)
+    comm.phase("dj_concat")
     out = batch_results[0] if len(batch_results) == 1 else concatenate(batch_results)
     flags = {
         "pre_shuffle_overflow": no,
@@ -221,7 +227,9 @@ def distributed_inner_join(
 
     ``left``/``right`` are sharded tables ([world * cap] columns) with
     int32 [world] valid-row counts. Returns (result, result_counts[world],
-    info), where ``info`` maps each of pre_shuffle_overflow /
+    info): the result is sharded ([world * over_decom_factor * out_cap]
+    columns, shard r the rows rank r joined), and ``info`` maps each of
+    pre_shuffle_overflow /
     shuffle_overflow / join_overflow / char_overflow /
     surrogate_collision / pack_range_overflow to a bool[world]; any True
     means that shard's output is unspecified.
@@ -261,13 +269,28 @@ def distributed_inner_join(
     key_range = _resolve_key_range(
         config, left, left_counts, right, right_counts, left_on, right_on, w
     )
-    out, flags = _local_join_pipeline(
-        left.with_count(left_counts[0]), right.with_count(right_counts[0]),
-        tuple(left_on), tuple(right_on), topology, config,
-        left.capacity // w, right.capacity // w, key_range,
-    )
-    info = {k: flags[k].reshape(1) for k in _FLAG_KEYS}
-    return out.with_count(None), out.count().reshape(1), info
+    left_on, right_on = tuple(left_on), tuple(right_on)
+    l_cap, r_cap = left.capacity // w, right.capacity // w
+
+    def run(comm, lt, lc, rt, rc):
+        out, flags = _local_join_pipeline(
+            comm, lt.with_count(lc[0]), rt.with_count(rc[0]), left_on, right_on, config,
+            l_cap, r_cap, key_range,
+        )
+        return out.with_count(None), out.count().reshape(1), _flag_row(flags, _FLAG_KEYS)
+
+    out, counts, flag_mat = run_spmd(topology, run, left, left_counts, right, right_counts)
+    return out, counts, _flag_info(flag_mat, _FLAG_KEYS)
+
+
+def _flag_row(flags: dict, keys) -> torch.Tensor:
+    """One rank's flags as a bool [1, len(keys)] row."""
+    return torch.stack([flags[k] for k in keys]).reshape(1, len(keys))
+
+
+def _flag_info(flag_mat: torch.Tensor, keys) -> dict:
+    """{key: bool[world]} from the ranks' stacked flag rows."""
+    return {k: flag_mat[:, i] for i, k in enumerate(keys)}
 
 
 # --- prepared build side (shuffle tier) ----------------------------------
@@ -323,15 +346,14 @@ _PREPARED_FLAG_KEYS = (
 
 
 def _prepare_batches(
-    topology: Topology, config: JoinConfig, right: Table, right_on: tuple,
+    comm: Communicator, config: JoinConfig, right: Table, right_on: tuple,
     sizing: BatchSizing, plan: PreparedPackPlan,
 ) -> tuple[tuple, dict]:
     """One rank's preparation (the body of dj_tpu's _build_prepare_fn):
     partition, then per batch a single-table shuffle and the anchored
     pack + sort + re-tag. Returns (batches, flags by _PREP_FLAG_KEYS)."""
-    group = topology.world_group()
-    n = group.size
-    comm = make_communicator(SingleRankCommunicator, group, None)
+    n = comm.size
+    comm.phase("dj_partition")
     r_part, r_offsets = hash_partition(right, right_on, sizing.m, seed=MAIN_JOIN_SEED)
     no = torch.tensor(False, device=right.device)
     shuffle_ovf = range_bad = no
@@ -339,8 +361,10 @@ def _prepare_batches(
     for b in range(config.over_decom_factor):
         starts = r_offsets[b * n : (b + 1) * n]
         counts = r_offsets[b * n + 1 : (b + 1) * n + 1] - starts
+        comm.phase("dj_exchange")
         r_batch, _, ovf, _ = shuffle_table(comm, r_part, starts, counts, sizing.br, n * sizing.br)
         shuffle_ovf = shuffle_ovf | ovf
+        comm.phase("dj_prepare")
         words, payload, ok = prepare_packed_batch(r_batch, right_on, plan)
         del r_batch
         range_bad = range_bad | ~ok
@@ -398,7 +422,7 @@ def prepare_join_side(
     if tier not in (None, "shuffle"):
         raise NotImplementedError(
             f"prepared tier {tier!r}: the broadcast and salted tiers come "
-            f"with a later slice; this slice prepares the shuffle tier"
+            f"with ROADMAP queue 1 item 7; the shuffle tier is ported"
         )
     if config is None:
         config = JoinConfig()
@@ -421,7 +445,7 @@ def prepare_join_side(
                 "the unprepared distributed_inner_join for other keys"
             )
         if col.data.dtype == torch.uint64:
-            raise NotImplementedError("uint64 join keys come with a later slice of the port")
+            raise NotImplementedError("uint64 join keys come with ROADMAP queue 1 item 5")
         dtypes.append(col.data.dtype)
     declared = key_range if key_range is not None else config.key_range
     if declared is None:
@@ -442,10 +466,14 @@ def prepare_join_side(
             f"prepare_join_side: key range {kr} does not pack into the "
             f"64-bit word at batch size S={S}; use the unprepared join"
         )
-    batches, flags = _prepare_batches(
-        topology, config, right.with_count(right_counts[0]), right_on, sizing, plan
-    )
-    fired = {k: bool(flags[k]) for k in _PREP_FLAG_KEYS}
+    def run(comm, rt, rc):
+        batches, flags = _prepare_batches(
+            comm, config, rt.with_count(rc[0]), right_on, sizing, plan
+        )
+        return batches, _flag_row(flags, _PREP_FLAG_KEYS)
+
+    batches, flag_mat = run_spmd(topology, run, right, right_counts)
+    fired = {k: bool(v.any()) for k, v in _flag_info(flag_mat, _PREP_FLAG_KEYS).items()}
     if fired["prep_range_violation"]:
         raise PreparedPlanMismatch(
             f"prepare_join_side: prep_range_violation: build keys fall "
@@ -534,29 +562,47 @@ def _distributed_inner_join_prepared(
             f"table to >= 1 row per shard"
         )
     n, _, bl, out_cap = _prepared_query_sizing(topology, config, left.capacity // w, prepared)
+    plan = prepared.plan
 
-    group = topology.world_group()
-    comm = make_communicator(SingleRankCommunicator, group, None)
-    l_part, l_offsets = hash_partition(
-        left.with_count(left_counts[0]), left_on, n * odf, seed=MAIN_JOIN_SEED
-    )
+    def run(comm, lt, lc, batches):
+        out, flags = _prepared_query(comm, lt.with_count(lc[0]), left_on, batches, plan,
+                                     odf, bl, out_cap)
+        return out.with_count(None), out.count().reshape(1), _flag_row(flags, _PREPARED_FLAG_KEYS)
+
+    out, counts, flag_mat = run_spmd(topology, run, left, left_counts, prepared.batches)
+    return out, counts, _flag_info(flag_mat, _PREPARED_FLAG_KEYS)
+
+
+def _prepared_query(
+    comm: Communicator, left: Table, left_on: tuple, batches: tuple,
+    plan: PreparedPackPlan, odf: int, bl: int, out_cap: int,
+) -> tuple[Table, dict]:
+    """One rank's query (the body of dj_tpu's _build_prepared_query_fn):
+    partition the probe side, then per batch a single-table shuffle and
+    ``inner_join_prepared`` against the rank's resident run."""
+    n = comm.size
+    comm.phase("dj_partition")
+    l_part, l_offsets = hash_partition(left, left_on, n * odf, seed=MAIN_JOIN_SEED)
     no = torch.tensor(False, device=left.device)
     shuffle_ovf = join_ovf = mismatch = no
     batch_results = []
     for b in range(odf):
         starts = l_offsets[b * n : (b + 1) * n]
         counts = l_offsets[b * n + 1 : (b + 1) * n + 1] - starts
+        comm.phase("dj_exchange")
         l_batch, _, ovf, _ = shuffle_table(comm, l_part, starts, counts, bl, n * bl)
         shuffle_ovf = shuffle_ovf | ovf
-        words_b, ptab_b, pcnt_b = prepared.batches[b]
+        words_b, ptab_b, pcnt_b = batches[b]
+        comm.phase("dj_join")
         result, total, jflags = inner_join_prepared(
-            l_batch, left_on, words_b, ptab_b.with_count(pcnt_b[0]), prepared.plan,
+            l_batch, left_on, words_b, ptab_b.with_count(pcnt_b[0]), plan,
             out_capacity=out_cap,
         )
         del l_batch
         join_ovf = join_ovf | (total > out_cap)
         mismatch = mismatch | jflags["prepared_plan_mismatch"]
         batch_results.append(result)
+    comm.phase("dj_concat")
     out = batch_results[0] if odf == 1 else concatenate(batch_results)
     flags = {
         "pre_shuffle_overflow": no,
@@ -565,5 +611,4 @@ def _distributed_inner_join_prepared(
         "char_overflow": no,
         "prepared_plan_mismatch": mismatch,
     }
-    info = {k: flags[k].reshape(1) for k in _PREPARED_FLAG_KEYS}
-    return out.with_count(None), out.count().reshape(1), info
+    return out, flags

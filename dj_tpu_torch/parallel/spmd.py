@@ -1,0 +1,180 @@
+"""run_spmd: one body per rank of a world, all in this process.
+
+Counterpart of the ``shard_map`` that dj_tpu wraps around each rank's
+pipeline (``dj_tpu/utils/compat.py:24``; ``run`` in
+``dj_tpu/parallel/dist_join.py:862-876``). Every positional argument is
+sharded as ``in_specs=spec`` shards it: a [w * cap] column, a [w] count
+vector, a Table or a tuple of them splits into w equal row blocks, and
+rank r's body gets block r. The bodies' results join the same way, as
+``out_specs=spec`` does: their tensors and tables are concatenated in
+rank order ([w * cap_out] tables, [w] counts, [w, k] flag matrices).
+
+A world of one rank runs its body on the caller's thread with a
+``SingleRankCommunicator``. A world of w > 1 ranks on one device runs
+each rank's body on a thread of its own with an
+``InProcessCommunicator``:
+
+- a rank holds the world lock while it runs and releases it only while
+  it waits at a collective, so one rank issues work at a time: the
+  module-level launch counters stay exact, and only one rank's working
+  set between two collectives is live besides the resident shards;
+- every rank launches on the device's current stream (the default
+  stream of a new thread), so all ranks' kernels run in issue order on
+  one stream, and a peer's send buffer is read after it was written;
+- a rank that raises aborts the world: every rank waiting at a
+  collective wakes with ``WorldAborted``, and the caller gets the first
+  failing rank's exception. A collective that cannot complete (a rank
+  returned, or ``RENDEZVOUS_TIMEOUT_S`` passed) raises as well.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import threading
+from typing import Callable, Optional
+
+import torch
+
+from ..core.table import Column, Table
+from .communicator import (
+    Communicator,
+    InProcessCommunicator,
+    InProcessWorld,
+    PhaseClock,
+    SingleRankCommunicator,
+    WorldAborted,
+)
+from .topology import Topology
+
+RENDEZVOUS_TIMEOUT_S = 600.0  # the longest one rank waits at one collective
+
+_phase_runs: contextvars.ContextVar[Optional[list]] = contextvars.ContextVar(
+    "dj_tpu_torch_phase_runs", default=None
+)
+
+
+@contextlib.contextmanager
+def record_phases():
+    """Time every rank's phases in the run_spmd calls made inside the
+    block: yields a list that gets, per call, one {phase: ms} per rank
+    (``Communicator.phase`` names the phases; on the card the times are
+    the device's, from CUDA events on the shared stream)."""
+    runs: list = []
+    token = _phase_runs.set(runs)
+    try:
+        yield runs
+    finally:
+        _phase_runs.reset(token)
+
+
+def _split(x, w: int) -> list:
+    """Rank r's block of a sharded argument, for r in range(w)."""
+    if isinstance(x, torch.Tensor):
+        if x.dim() == 0 or x.shape[0] % w:
+            raise ValueError(f"run_spmd: a sharded tensor of shape {tuple(x.shape)} "
+                             f"does not split into {w} row blocks")
+        blocks = x.reshape(w, x.shape[0] // w, *x.shape[1:])
+        return [blocks[r] for r in range(w)]
+    if isinstance(x, Table):
+        if x.valid_count is not None:
+            raise ValueError("run_spmd: shard a table's counts as their own [w] argument")
+        cols = [_split(c.data, w) for c in x.columns]
+        return [Table(tuple(Column(cols[j][r], c.dtype) for j, c in enumerate(x.columns)))
+                for r in range(w)]
+    if isinstance(x, (tuple, list)):
+        parts = [_split(e, w) for e in x]
+        return [type(x)(p[r] for p in parts) for r in range(w)]
+    raise TypeError(f"run_spmd: cannot shard a {type(x).__name__}")
+
+
+def _concat(parts: list):
+    """The rank results of one output joined in rank order."""
+    x = parts[0]
+    if len(parts) == 1:
+        return x
+    if isinstance(x, torch.Tensor):
+        return torch.cat(parts)
+    if isinstance(x, Table):
+        if any(p.valid_count is not None for p in parts):
+            raise ValueError("run_spmd: return a table's counts as their own [1] output")
+        return Table(tuple(
+            Column(torch.cat([p.columns[j].data for p in parts]), c.dtype)
+            for j, c in enumerate(x.columns)
+        ))
+    if isinstance(x, (tuple, list)):
+        return type(x)(_concat([p[i] for p in parts]) for i in range(len(x)))
+    raise TypeError(f"run_spmd: cannot join rank results of type {type(x).__name__}")
+
+
+def _stop(comm: Communicator) -> None:
+    """End the rank's last phase."""
+    if comm.clock is not None:
+        comm.clock.pause()
+
+
+def _on_device(dev: torch.device):
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+
+def run_spmd(topology: Topology, body: Callable, *sharded, fuse_columns: bool = True):
+    """``body(comm, *blocks)`` once per rank of ``topology``, where
+    ``comm`` is the rank's Communicator over the world group and
+    ``blocks`` the rank's blocks of ``sharded``; returns the ranks'
+    results joined in rank order. ``fuse_columns`` is the
+    communicator's: one collective per dtype class in an exchange, or
+    one per buffer."""
+    w = topology.world_size
+    dev = topology.device
+    group = topology.world_group()
+    blocks = [_split(a, w) for a in sharded]
+    runs = _phase_runs.get()
+    clocks = [PhaseClock(dev) if runs is not None else None for _ in range(w)]
+    if w == 1:
+        comm: Communicator = SingleRankCommunicator(group, fuse_columns)
+        comm.clock = clocks[0]
+        out = body(comm, *(b[0] for b in blocks))
+        _stop(comm)
+    else:
+        out = _run_threads(topology, body, blocks, clocks, fuse_columns)
+    if runs is not None:
+        runs.append([c.ms() for c in clocks])
+    return out
+
+
+def _run_threads(topology, body, blocks, clocks, fuse_columns):
+    w = topology.world_size
+    dev = topology.device
+    group = topology.world_group()
+    world = InProcessWorld(w, RENDEZVOUS_TIMEOUT_S)
+    results: list = [None] * w
+    errors: list = []
+
+    def rank_main(r: int) -> None:
+        comm = InProcessCommunicator(group, world, r, fuse_columns)
+        comm.clock = clocks[r]
+        with world.cond:
+            try:
+                with _on_device(dev):
+                    results[r] = body(comm, *(b[r] for b in blocks))
+                    _stop(comm)
+            except BaseException as e:  # re-raised in the caller below
+                errors.append((r, e))
+                world.abort(e)
+            else:
+                world.rank_returned(r)
+
+    threads = [
+        threading.Thread(target=rank_main, args=(r,), name=f"dj_tpu_torch-rank-{r}", daemon=True)
+        for r in range(w)
+    ]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        # The first failure is the cause; the ranks it woke raise WorldAborted.
+        r, e = next(((r, e) for r, e in errors if not isinstance(e, WorldAborted)), errors[0])
+        e.add_note(f"raised on rank {r} of {w}")
+        raise e
+    return _concat(results)

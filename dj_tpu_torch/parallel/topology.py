@@ -3,9 +3,11 @@
 Counterpart of ``dj_tpu/parallel/topology.py`` for a flat world. The JAX
 package names a mesh axis; here a topology is the ordered list of
 devices, one per rank, and a communication group is the rank axis and
-its size. This slice runs a world of one rank (the current CUDA
-device); multi-rank worlds and the two-level (inter, intra)
-factorization come with the NCCL communicator.
+its size. The ranks of a world run in one process (``parallel.spmd``),
+so they share one device: a repeated device (``["cuda:0"] * 4``, or
+``["cpu"] * 8`` in the tests) makes a world of that many ranks. Ranks
+on several devices (one process per GPU, ROADMAP queue 1 item 3) and
+the two-level (inter, intra) factorization (item 8) raise.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ class CommunicationGroup:
 
 @dataclasses.dataclass(frozen=True)
 class Topology:
-    """Ranks of a flat world, one device each."""
+    """Ranks of a flat world, one entry of ``devices`` each."""
 
     devices: tuple[torch.device, ...]
     axis_name: str = "ranks"
@@ -37,11 +39,18 @@ class Topology:
 
     @property
     def device(self) -> torch.device:
-        """This process's device (rank 0 of a one-rank world)."""
+        """The device every rank of the world runs on."""
         return self.devices[0]
 
     def world_group(self) -> CommunicationGroup:
         return CommunicationGroup(self.axis_name, self.world_size)
+
+
+def _device(d) -> torch.device:
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
 
 
 def make_topology(
@@ -49,18 +58,25 @@ def make_topology(
     intra_size: Optional[int] = None,
     axis_name: str = "ranks",
 ) -> Topology:
-    """A flat topology over ``devices`` (default: the current CUDA
-    device). Pass ``devices=["cpu"]`` to run on the CPU."""
+    """A flat topology with one rank per entry of ``devices`` (default:
+    one rank on the current CUDA device). Pass ``devices=["cpu"]`` to run
+    on the CPU, and repeat a device for a world of several ranks in this
+    process: ``make_topology(["cuda:0"] * 4)``."""
     if devices is None:
         devices = [torch.device("cuda", torch.cuda.current_device())]
-    devices = tuple(torch.device(d) for d in devices)
+    devices = tuple(_device(d) for d in devices)
+    if not devices:
+        raise ValueError("make_topology: a world needs at least one rank")
     if intra_size is not None and intra_size < len(devices):
         raise NotImplementedError(
-            "two-level (inter, intra) topologies come with a later slice"
+            "two-level (inter, intra) topologies come with ROADMAP queue 1 "
+            "item 8 (shuffle_on, the codec and the two-level topology)"
         )
-    if len(devices) != 1:
+    if len(set(devices)) != 1:
         raise NotImplementedError(
-            "multi-rank worlds come with the NCCL communicator slice; "
-            "this slice runs one rank"
+            f"ranks on several devices {sorted(set(map(str, devices)))} need "
+            f"one process per device, which comes with ROADMAP queue 1 item 3 "
+            f"(torch.distributed ranks); a world in one process runs every "
+            f"rank on one device"
         )
     return Topology(devices, axis_name)

@@ -162,7 +162,7 @@ def test_convert_roundtrip_and_shard():
     u = tj.unshard_table(s, counts)
     np.testing.assert_array_equal(u.columns[0].data.numpy(), arrays[0])
     with pytest.raises(NotImplementedError):
-        tj.make_topology(["cpu", "cpu"])
+        tj.make_topology(["cpu", "cpu"], intra_size=1)
 
 
 def test_single_rank_communicator():

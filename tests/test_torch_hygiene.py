@@ -36,7 +36,7 @@ def _run(args, cwd, timeout=120):
 def test_importing_every_module_loads_no_jax():
     mods = list(_modules())
     for m in ("ops.scan", "convert", "ops.merge", "ops.expand", "resilience.errors",
-              "hw.probe_sort", "hw.probe_gather"):
+              "hw.probe_sort", "hw.probe_gather", "parallel.spmd", "parallel.communicator"):
         assert f"dj_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
