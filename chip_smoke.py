@@ -61,6 +61,24 @@ Phases, each printing its own line(s):
      every prepared tier at odf 1 and 4; each result's rows equal, bit for
      bit, those of the int64 join of the same values, and each row's keys
      are checked against the inputs;
+  6a. a process world of one (one rank per process) over NCCL:
+     init_distributed on a localhost store, make_topology(), then phase
+     4's join at odf 1 and 4 with the default backend and at odf 1 with
+     RingCommunicator and BufferedCommunicator, and one prepared query
+     per merge tier at odf 1; each result's rows equal phase 4's, every
+     flag False, each kernel launched once a batch; median walls of warm
+     runs and peaks; then the NCCL transport itself on the card's tensors
+     (all_to_all, fused and unfused exchange under each backend, the
+     chunked all-to-all, shift, all_gather, all_reduce);
+  6b. four processes on this card over gloo (NCCL refuses two ranks on
+     one GPU), each generating phase 4's tables from the seed and joining
+     its 25M + 25M row block at odf 1 through torch.distributed: each
+     process's shard digest (rows and an order-free row hash) equals rank
+     r's in phase 4d, the flag matrices are equal on all four; walls and
+     each rank's device time by phase (the exchange's among them);
+  6c. an NCCL world of one process per card at phase 4d's rows a rank,
+     on a machine with 2 or more cards; with one card, one line saying
+     that it did not start and why;
   6. kernels vs plain: merge_sorted_u64 and expand_ranks against their
      plain versions, exact equality, on the prepared path's own inputs at
      full size and on edge cases (cross-operand duplicates with sentinel
@@ -89,7 +107,7 @@ Phases, each printing its own line(s):
      kernels cannot hold;
 then the `kernels` JSON line (kernel, plain-version and library times
 beside each kernel's bound, launches per query on each path and in the
-4-rank world, and each kernel's registers and spills from ptxas; the probes' launches are their
+4-rank world and the process worlds, and each kernel's registers and spills from ptxas; the probes' launches are their
 main()'s, and no join path launches them).
 The last line is {"ok": true, "device": {...}}. With no CUDA device, or
 without the package beside it, the script fails before printing any
@@ -104,10 +122,13 @@ import io
 import json
 import os
 import pathlib
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from typing import Optional
 
 import torch
 
@@ -724,7 +745,8 @@ def world_phases(fn) -> dict:
 
 def run_world(dj, dev, build, probe, expected: int, ref, rows: int, smi: str):
     """Phase 4d: the main path over a 4-rank world on the one card.
-    Returns {path: {odf: launches}}."""
+    Returns ({path: {odf: launches}}, the shard digests of the default
+    join at odf 1)."""
     from dj_tpu_torch.ops.join import EXPAND_KERNELS, prepared_effective_plan
 
     topo = dj.make_topology([dev] * WORLD)
@@ -763,7 +785,11 @@ def run_world(dj, dev, build, probe, expected: int, ref, rows: int, smi: str):
 
         what = f"world of {WORLD}, odf={odf}"
         reset_launches()
-        launches, counts = check(what, join(), odf, ("join_scans", "expand_values"))
+        res = join()
+        launches, counts = check(what, res, odf, ("join_scans", "expand_values"))
+        if odf == 1:
+            digests = shard_digests(res[0], res[1])
+        del res
         launch_table.setdefault("unprepared", {})[odf] = launches
         wall, runs, peak = warm_walls(join)
         summary[f"unprepared_odf{odf}"] = {"wall_ms": wall, "wall_ms_runs": runs, "peak_bytes": peak}
@@ -827,7 +853,333 @@ def run_world(dj, dev, build, probe, expected: int, ref, rows: int, smi: str):
     os.environ.pop("DJT_JOIN_MERGE")
     del prep
     log("world", ranks=WORLD, device=str(dev), rows_per_rank=rows // WORLD, resident_bytes=resident,
-        **summary, card=smi)
+        **summary, card=smi, shard_digests_odf1=digests)
+    return launch_table, digests
+
+
+# --- process worlds (phases 6a-6c) ---------------------------------------
+
+ROOT = pathlib.Path(__file__).resolve().parent
+
+
+def free_port() -> int:
+    """A free TCP port on localhost for a process group's store."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn_world(world: int, argv: list, *, timeout: float, local_ranks: bool = False,
+                env: Optional[dict] = None, cwd=ROOT) -> list:
+    """Start ``world`` processes of ``python argv``, process r with the
+    DJT_* variables of rank r of a process world on a localhost store
+    (and LOCAL_RANK r when ``local_ranks``, else 0: every rank on card
+    0). Waits for all; at ``timeout`` seconds kills every one left and
+    raises. Returns (returncode, stdout, stderr) per rank."""
+    port = free_port()
+    procs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for r in range(world):
+            e = dict(os.environ, **(env or {}), DJT_COORDINATOR_ADDRESS=f"localhost:{port}",
+                     DJT_NUM_PROCESSES=str(world), DJT_PROCESS_ID=str(r),
+                     LOCAL_RANK=str(r if local_ranks else 0))
+            out = open(pathlib.Path(tmp) / f"out{r}", "w+")
+            err = open(pathlib.Path(tmp) / f"err{r}", "w+")
+            procs.append((subprocess.Popen([sys.executable, *argv], cwd=cwd, env=e, stdout=out,
+                                           stderr=err, text=True), out, err))
+        deadline = time.monotonic() + timeout
+        try:
+            for p, _, _ in procs:
+                p.wait(timeout=max(0.1, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"a world of {world} processes did not end within {timeout} s")
+        finally:
+            for p, _, _ in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        results = []
+        for p, out, err in procs:
+            out.seek(0)
+            err.seek(0)
+            results.append((p.returncode, out.read(), err.read()))
+            out.close()
+            err.close()
+    return results
+
+
+MIX = (0x9E3779B97F4A7C15 - 2**64, 0xBF58476D1CE4E5B9 - 2**64, 0x94D049BB133111EB - 2**64)
+
+
+def shard_digest(table, count: int) -> list:
+    """[rows, order-free hash] of a shard's first ``count`` rows: the
+    wrapping int64 sum of one mixed word per row (int64 arithmetic, the
+    same on the card and the CPU)."""
+    h = torch.zeros(count, dtype=torch.int64, device=table.device)
+    for j, c in enumerate(table.columns):
+        x = c.data[:count]
+        x = x.view(torch.int64) if x.element_size() == 8 else x.to(torch.int64)
+        h = (h ^ x) * MIX[j % 3]
+        h = h ^ (h >> 29)
+    return [count, int(h.sum())]
+
+
+def shard_digests(out, counts) -> list:
+    """shard_digest of every shard of a sharded result."""
+    cap = out.capacity // counts.shape[0]
+    from dj_tpu_torch.core.table import Column, Table
+
+    return [shard_digest(Table(tuple(Column(c.data[r * cap : (r + 1) * cap], c.dtype)
+                                     for c in out.columns)), n)
+            for r, n in enumerate(counts.tolist())]
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def world_rank(spec_json: str) -> int:
+    """One process of a process world (phases 6b and 6c): join phase 4's
+    tables, of which every process makes the same global copy from the
+    seed and keeps its own block, and print this rank's result as a
+    ``RESULT {json}`` line: its shard's digest, every rank's flags, the
+    generator's count, the kernels' launches, walls and the phase times
+    of one more run."""
+    spec = json.loads(spec_json)
+    import dj_tpu_torch as dj
+    from dj_tpu_torch.parallel import bootstrap, spmd
+    from dj_tpu_torch.parallel.communicator import DistTransport
+
+    dj.init_distributed(backend=spec["backend"], device=spec["device"])
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        dev = torch.device("cuda", bootstrap.local_device_index())
+        torch.cuda.set_device(dev)
+    try:
+        topo = dj.make_topology([dev])
+        rows = spec["rows"]
+        gen = torch.Generator(device=dev).manual_seed(spec["seed"])
+        build, probe, expected = dj.generate_build_probe_tables(
+            gen, rows, rows, 0.3, 2 * rows, True, return_expected_matches=True)
+        left, lcnt = dj.shard_table(topo, probe)
+        right, rcnt = dj.shard_table(topo, build)
+        del build, probe, gen
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        cfg = dj.JoinConfig(over_decom_factor=spec["odf"])
+
+        def join():
+            return dj.distributed_inner_join(topo, left, lcnt, right, rcnt, [0], [0], cfg)
+
+        reset_launches()
+        out, counts, info = join()
+        _sync(dev)
+        launches = read_launches()
+        transport = DistTransport(dev)
+        result = {
+            "rank": topo.rank, "world": topo.world_size, "device": str(dev),
+            "transport": transport.name, "host_staged_calls": list(transport.host_staged),
+            "digest": shard_digest(out, int(counts[0])), "expected": int(expected),
+            "flags": {k: v.tolist() for k, v in info.items()}, "launches": launches,
+        }
+        del out, counts, info
+        runs = []
+        for _ in range(spec["reps"]):
+            t0 = time.perf_counter()
+            res = join()
+            _sync(dev)
+            runs.append((time.perf_counter() - t0) * 1e3)
+            del res
+        result["wall_ms_runs"] = runs
+        result["wall_ms"] = statistics.median(runs) if runs else None
+        if dev.type == "cuda":
+            result["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        with spmd.record_phases() as phase_runs:
+            join()
+            _sync(dev)
+        result["phase_ms"] = phase_runs[-1][0]
+        print("RESULT " + json.dumps(result), flush=True)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_process_world(world: int, backend: str, device: str, rows: int, seed: int, *,
+                      odf: int = 1, reps: int = 3, timeout: float = 600.0,
+                      local_ranks: bool = False) -> list:
+    """Phases 6b and 6c: ``world`` processes of ``world_rank``; returns
+    their RESULT objects by rank. Every process must end with code 0 and
+    print one; the flag matrices must be equal on all."""
+    spec = json.dumps({"backend": backend, "device": device, "rows": rows, "seed": seed,
+                       "odf": odf, "reps": reps})
+    code = "import sys, chip_smoke; sys.exit(chip_smoke.world_rank(sys.argv[1]))"
+    outs = spawn_world(world, ["-c", code, spec], timeout=timeout, local_ranks=local_ranks)
+    results = []
+    for r, (rc, out, err) in enumerate(outs):
+        lines = [ln[len("RESULT "):] for ln in out.splitlines() if ln.startswith("RESULT ")]
+        if rc != 0 or len(lines) != 1:
+            raise AssertionError(f"process {r} of {world} ended with {rc}:\n{out[-3000:]}\n"
+                                 f"{err[-3000:]}")
+        results.append(json.loads(lines[0]))
+    if [res["rank"] for res in results] != list(range(world)):
+        raise AssertionError(f"ranks {[res['rank'] for res in results]}")
+    if any(res["flags"] != results[0]["flags"] for res in results):
+        raise AssertionError("the flag matrices differ between processes")
+    return results
+
+
+def check_process_world(what: str, results: list, want_digests: Optional[list],
+                        expected: int, launches: int) -> None:
+    """Each process's flags False, its shard's digest equal to rank r's
+    of the world in one process (when given), the shard rows summing to
+    the generator's count, and join_scans and expand_values launched
+    ``launches`` times on every process (once a batch on the card)."""
+    set_flags = [k for k, v in results[0]["flags"].items() if any(v)]
+    if set_flags:
+        raise AssertionError(f"{what}: flags set: {set_flags}")
+    if any(res["expected"] != expected for res in results):
+        raise AssertionError(f"{what}: a process generated other tables")
+    digests = [res["digest"] for res in results]
+    if want_digests is not None and digests != want_digests:
+        raise AssertionError(f"{what}: shard digests {digests} != the in-process world's "
+                             f"{want_digests}")
+    if sum(d[0] for d in digests) != expected:
+        raise AssertionError(f"{what}: shard rows {[d[0] for d in digests]} do not sum to "
+                             f"{expected}")
+    for res in results:
+        bad = {k: res["launches"][k] for k in ("join_scans", "expand_values")
+               if res["launches"][k] != launches}
+        if bad:
+            raise AssertionError(f"{what}: rank {res['rank']} launched {bad}, not {launches} each")
+
+
+def check_transport(dj, dev) -> dict:
+    """The process world's transport on the device's tensors (a world of
+    one, phase 6a): all_to_all, fused and unfused exchange, shift, the
+    chunked (Buffered) and the ring all-to-all, all_gather and the
+    reductions, each equal to its input (what a world of one returns)."""
+    from dj_tpu_torch.core.table import signed_view
+    from dj_tpu_torch.parallel.communicator import DistTransport
+
+    def same(a, b):
+        return a.dtype == b.dtype and torch.equal(signed_view(a), signed_view(b))
+
+    topo = dj.make_topology([dev])
+    group = topo.world_group()
+    transport = DistTransport(dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    bufs = [torch.randint(-(2**62), 2**62, (1, 50, 3), generator=g, device=dev),
+            torch.randint(-(2**31), 2**31 - 1, (1, 40), generator=g, device=dev).to(torch.int32),
+            torch.randint(0, 2**62, (1, 33), generator=g, device=dev).view(torch.uint64),
+            torch.randint(-(2**15), 2**15 - 1, (1, 17, 2), generator=g, device=dev).to(torch.int16),
+            torch.rand((1, 9), generator=g, device=dev) < 0.5,
+            torch.rand((1, 21), generator=g, device=dev)]
+    checked = []
+    for cls, kw in ((dj.XlaCommunicator, {}), (dj.BufferedCommunicator, {"chunk_rows": 7}),
+                    (dj.RingCommunicator, {})):
+        for fuse in (True, False):
+            comm = cls(group, transport, fuse_columns=fuse, **kw)
+            for name, got in (("all_to_all", [comm.all_to_all(b) for b in bufs]),
+                              ("exchange", comm.exchange(bufs))):
+                for b, o in zip(bufs, got):
+                    if not same(o, b):
+                        raise AssertionError(f"{cls.__name__} fuse={fuse} {name}: {b.dtype} differs")
+            checked.append(f"{cls.__name__}(fuse={fuse})")
+    for b in bufs:
+        if not same(transport.shift_start(b[0], 1).wait(), b[0]):
+            raise AssertionError(f"shift of {b.dtype} differs")
+        if not same(transport.all_gather(b[0]), b):
+            raise AssertionError(f"all_gather of {b.dtype} differs")
+    for x in (bufs[0][0], bufs[2][0], bufs[5][0]):
+        for op in ("max", "sum"):
+            if not same(transport.all_reduce(x, op), x):
+                raise AssertionError(f"all_reduce {op} of {x.dtype} differs")
+    return {"transport": transport.name, "backends": checked,
+            "dtypes": [str(b.dtype) for b in bufs],
+            "calls": ["all_to_all", "exchange", "shift", "all_gather", "all_reduce"]}
+
+
+def process_world_of_one(dj, dev, backend: str, build, probe, expected: int, ref, rows: int,
+                         smi: str, reps: int = 3) -> dict:
+    """Phase 6a: a process world of one on this process, under
+    ``backend`` (NCCL on the card): phase 4's join at odf 1 and 4 with
+    the default backend and at odf 1 with Ring and Buffered, and one
+    prepared query per tier at odf 1, each checked as in phase 4 and
+    against its rows, with one launch of each kernel per batch; then the
+    transport itself (``check_transport``). Returns {path: {odf:
+    launches}}."""
+    from dj_tpu_torch.ops.join import prepared_effective_plan
+
+    dj.init_distributed(f"localhost:{free_port()}", 1, 0, backend=backend, device=dev.type)
+    try:
+        topo = dj.make_topology() if dev.type == "cuda" else dj.make_topology([dev])
+        if not topo.is_process_world or topo.world_size != 1:
+            raise AssertionError(f"not a process world of one: {topo}")
+        left, lcnt = dj.shard_table(topo, probe)
+        right, rcnt = dj.shard_table(topo, build)
+        launch_table: dict = {}
+
+        def check(what, res, kernels, odf):
+            out, counts, info = res
+            _sync(dev)
+            launches = read_launches()
+            set_flags = [k for k, v in info.items() if bool(v.any())]
+            if set_flags:
+                raise AssertionError(f"{what}: flags set: {set_flags}")
+            check_rows(out, counts, build, probe, expected)
+            check_same_rows(sorted_rows(out, counts), ref, what)
+            wrong = {k: launches[k] for k in kernels if launches[k] != odf}
+            if wrong:
+                raise AssertionError(f"{what}: each of {kernels} must launch {odf} times: {wrong}")
+            return launches
+
+        runs = (("unprepared", 1, dj.XlaCommunicator), ("unprepared", 4, dj.XlaCommunicator),
+                ("unprepared_ring", 1, dj.RingCommunicator),
+                ("unprepared_buffered", 1, dj.BufferedCommunicator))
+        summary = {}
+        for path, odf, cls in runs:
+            cfg = dj.JoinConfig(over_decom_factor=odf, communicator_cls=cls)
+
+            def join():
+                return dj.distributed_inner_join(topo, left, lcnt, right, rcnt, [0], [0], cfg)
+
+            reset_launches()
+            launches = check(f"process world of 1, {path} odf={odf}", join(),
+                             ("join_scans", "expand_values"), odf)
+            launch_table.setdefault(path, {})[odf] = launches
+            wall, walls, peak = warm_walls(join, reps) if dev.type == "cuda" else (None, [], None)
+            summary[f"{path}_odf{odf}"] = {"wall_ms": wall, "wall_ms_runs": walls, "peak_bytes": peak}
+            log("process_world_path", smoke_phase="6a", backend=backend, ranks=1, path=path, odf=odf,
+                communicator=cls.__name__, rows=rows, total=expected, flags="all False",
+                rows_checked=expected, same_rows_as_phase_4=True, launches=launches,
+                wall_ms=wall, wall_ms_runs=walls, peak_bytes=peak, card=smi)
+        cfg = dj.JoinConfig(key_range=(0, 2 * rows))
+        prep = dj.prepare_join_side(topo, right, rcnt, [0], cfg, left_capacity=rows)
+        for tier in TIERS:
+            os.environ["DJT_JOIN_MERGE"] = tier
+
+            def query():
+                return dj.distributed_inner_join(topo, left, lcnt, prep, None, [0], None, cfg)
+
+            reset_launches()
+            launches = check(f"process world of 1, prepared tier={tier}", query(),
+                             prepared_effective_plan(tier), 1)
+            launch_table.setdefault(f"prepared_{tier}", {})[1] = launches
+            wall, walls, peak = warm_walls(query, reps) if dev.type == "cuda" else (None, [], None)
+            summary[f"prepared_{tier}_odf1"] = {"wall_ms": wall, "wall_ms_runs": walls,
+                                                "peak_bytes": peak}
+            log("process_world_path", smoke_phase="6a", backend=backend, ranks=1, prepared_tier=tier,
+                odf=1, rows=rows, total=expected, flags="all False", rows_checked=expected,
+                same_rows_as_phase_4=True, launches=launches, wall_ms=wall, wall_ms_runs=walls,
+                peak_bytes=peak, card=smi)
+        os.environ.pop("DJT_JOIN_MERGE")
+        del prep
+        log("process_world_transport", smoke_phase="6a", backend=backend, **check_transport(dj, dev))
+        log("process_world", smoke_phase="6a", backend=backend, ranks=1, **summary, card=smi)
+    finally:
+        os.environ.pop("DJT_JOIN_MERGE", None)
+        torch.distributed.destroy_process_group()
     return launch_table
 
 
@@ -1082,7 +1434,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 4d. the main path over a 4-rank world on this card
-    world_launches = run_world(dj, dev, build, probe, expected, ref, rows, smi)
+    world_launches, world_digests = run_world(dj, dev, build, probe, expected, ref, rows, smi)
     torch.cuda.empty_cache()
 
     # 5. prepared path: prepare once, query under each merge tier
@@ -1139,7 +1491,7 @@ def main() -> int:
                 profile_join(query, path=f"prepared_{tier}", odf=odf)
         os.environ.pop("DJT_JOIN_MERGE")
         if odf == 1:
-            # 6a. the new kernels on the prepared path's own inputs
+            # 6. the prepared path's kernels on its own inputs
             out_cap = _prepared_query_sizing(topo, cfg, rows, prep)[3]
             pwords, w_l, csum = probe_tier_inputs(prep, left, lcnt)
             merge_err, merge_timing = compare_merge("main_path", pwords, sort_u64(w_l), timing=True)
@@ -1148,13 +1500,52 @@ def main() -> int:
             del pwords, csum
         del prep
         torch.cuda.empty_cache()
-    del ref
 
     # 5b. unsigned keys and payloads
     check_unsigned_path(dj, topo, gen, dev, min(rows, 1_000_000))
     torch.cuda.empty_cache()
 
-    # 6b. the new kernels on edge cases
+    # 6a. a process world of one over NCCL
+    process1_launches = process_world_of_one(dj, dev, "nccl", build, probe, expected, ref, rows, smi)
+    del ref
+    torch.cuda.empty_cache()
+
+    # 6b. four processes on this card over gloo, phase 4d's blocks
+    process4 = run_process_world(WORLD, "gloo", "cuda", rows, args.seed)
+    check_process_world("6b", process4, world_digests, expected, 1)
+    log("process_world", smoke_phase="6b", backend="gloo", ranks=WORLD, device=str(dev),
+        transport=process4[0]["transport"], host_staged_calls=process4[0]["host_staged_calls"],
+        rows_per_rank=rows // WORLD, odf=1, flags="all False", total=expected,
+        digests=[res["digest"] for res in process4], digests_equal_phase_4d=True,
+        wall_ms_by_rank=[res["wall_ms"] for res in process4],
+        wall_ms_runs_by_rank=[res["wall_ms_runs"] for res in process4],
+        exchange_ms_by_rank=[res["phase_ms"].get("a2a_exchange") for res in process4],
+        phase_ms_by_rank=[res["phase_ms"] for res in process4],
+        peak_bytes_by_rank=[res["peak_bytes"] for res in process4],
+        launches_by_rank=[res["launches"] for res in process4], card=smi)
+
+    # 6c. an NCCL world of one process per card, phase 4d's rows a rank
+    cards = torch.cuda.device_count()
+    process_n = None
+    if cards >= 2:
+        process_n = run_process_world(cards, "nccl", "cuda", cards * (rows // WORLD), args.seed,
+                                      local_ranks=True)
+        check_process_world("6c", process_n, world_digests if cards == WORLD else None,
+                            process_n[0]["expected"], 1)
+        log("process_world", smoke_phase="6c", backend="nccl", ranks=cards,
+            transport=process_n[0]["transport"], rows_per_rank=rows // WORLD, odf=1,
+            flags="all False", total=process_n[0]["expected"],
+            digests=[res["digest"] for res in process_n],
+            wall_ms_by_rank=[res["wall_ms"] for res in process_n],
+            exchange_ms_by_rank=[res["phase_ms"].get("a2a_exchange") for res in process_n],
+            phase_ms_by_rank=[res["phase_ms"] for res in process_n],
+            peak_bytes_by_rank=[res["peak_bytes"] for res in process_n], card=smi)
+    else:
+        log("process_world", smoke_phase="6c", started=False,
+            why=f"this machine has {cards} card; an NCCL world of one process per card needs "
+                f"2 or more (NCCL refuses two ranks on one GPU)")
+
+    # 6. the prepared path's kernels on edge cases
     merge_errs, ranks_errs = [merge_err], [ranks_err]
 
     def sorted_words(n, lo, hi, sentinels=0):
@@ -1421,7 +1812,14 @@ def main() -> int:
             **({} if name == "run" else {"on_path": "none: the study of hw/gather_variants.py"}),
         })
     for k in kernels:
-        k["launches_world4"] = per_query(k["name"], world_launches) if k["launches_per_query"] else {}
+        on_path = bool(k["launches_per_query"])
+        k["launches_world4"] = per_query(k["name"], world_launches) if on_path else {}
+        k["launches_process1_nccl"] = per_query(k["name"], process1_launches) if on_path else {}
+        k["launches_process4_gloo_by_rank"] = (
+            [res["launches"][k["name"]] for res in process4] if on_path else [])
+        if process_n is not None:
+            k["launches_process_nccl_by_rank"] = (
+                [res["launches"][k["name"]] for res in process_n] if on_path else [])
         k["ptxas"] = ptxas_resources(k["source"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,16 +11,28 @@ Ported so far: the unprepared inner join on int keys (generate -> shard
 -> distributed_inner_join), and the prepared build side
 (prepare_join_side once, then distributed_inner_join with the
 PreparedSide per query, under the sort, merge or probe tier), over a
-world of one rank or of several ranks on one device, run as threads of
-this process: ``make_topology(["cuda:0"] * 4)`` makes a 4-rank world.
+world of one rank, of several ranks on one device run as threads of this
+process (``make_topology(["cuda:0"] * 4)`` makes a 4-rank world), or of
+one rank per process: a process world. Every process of a process world
+calls ``init_distributed()`` (arguments, ``DJT_COORDINATOR_ADDRESS`` /
+``DJT_NUM_PROCESSES`` / ``DJT_PROCESS_ID``, or torchrun's variables;
+NCCL on the card, gloo for CPU ranks), then ``make_topology()``, which
+gives one rank per process on ``cuda:LOCAL_RANK``; every process passes
+the same global tables to ``shard_table`` and gets back its own block,
+and each entry point returns this rank's block with every rank's flags.
+The collectives' backend is ``JoinConfig.communicator_cls``:
+``XlaCommunicator`` (the default), ``BufferedCommunicator`` or
+``RingCommunicator``, as in dj_tpu.
 """
 
 from .core import dtypes
 from .core.table import Column, Table, concatenate, from_arrays
-from .data.generator import generate_build_probe_tables
+from .data.generator import generate_build_probe_tables, generate_tables_distributed
 from .ops.join import inner_join
 from .ops.partition import hash_partition
 from .parallel.api import shard_table, unshard_table
+from .parallel.bootstrap import init_distributed, process_count, process_index
+from .parallel.communicator import BufferedCommunicator, RingCommunicator, XlaCommunicator
 from .parallel.dist_join import (
     JoinConfig,
     PreparedSide,
@@ -31,21 +43,28 @@ from .parallel.topology import Topology, make_topology
 from .resilience.errors import PreparedPlanMismatch
 
 __all__ = [
+    "BufferedCommunicator",
     "Column",
     "JoinConfig",
     "PreparedPlanMismatch",
     "PreparedSide",
+    "RingCommunicator",
     "Table",
     "Topology",
+    "XlaCommunicator",
     "concatenate",
     "distributed_inner_join",
     "dtypes",
     "from_arrays",
     "generate_build_probe_tables",
+    "generate_tables_distributed",
     "hash_partition",
+    "init_distributed",
     "inner_join",
     "make_topology",
     "prepare_join_side",
+    "process_count",
+    "process_index",
     "shard_table",
     "unshard_table",
 ]

@@ -22,6 +22,7 @@ import torch
 from .core import dtypes as dt
 from .core.table import Column, Table
 from .ops.join import PreparedPackPlan
+from .parallel import communicator
 from .parallel.dist_join import BatchSizing, JoinConfig, PreparedSide
 from .parallel.topology import Topology
 
@@ -56,10 +57,11 @@ def table_to_numpy(table: Table) -> tuple[list[np.ndarray], list[str], Optional[
 
 def join_config_from(config) -> JoinConfig:
     """A JoinConfig with the same values of every field this port has,
-    read by name from another config object (dj_tpu's JoinConfig)."""
-    return JoinConfig(
-        **{f.name: getattr(config, f.name) for f in dataclasses.fields(JoinConfig)}
-    )
+    read by name from another config object (dj_tpu's JoinConfig). The
+    communicator class maps to the port's class of the same name."""
+    fields = {f.name: getattr(config, f.name) for f in dataclasses.fields(JoinConfig)}
+    fields["communicator_cls"] = getattr(communicator, fields["communicator_cls"].__name__)
+    return JoinConfig(**fields)
 
 
 def prepared_side_from(prepared, topology: Topology) -> PreparedSide:

@@ -1,7 +1,8 @@
 """Dataset generation with exact selectivity semantics, on the device.
 
-Counterpart of ``dj_tpu/data/generator.py:41-159`` (the reference's
-generate_build_probe_tables): build keys drawn from [0, rand_max]
+Counterpart of ``dj_tpu/data/generator.py:41-255`` (the reference's
+generate_build_probe_tables, and its distributed form
+``generate_tables_distributed``): build keys drawn from [0, rand_max]
 (optionally unique), probe keys drawn from the build keys with
 probability ``selectivity`` and from their complement otherwise; both
 tables carry an iota payload column. Unique build keys and their
@@ -18,6 +19,8 @@ import torch
 
 from ..core import dtypes as dt
 from ..core.table import Column, Table
+from ..parallel.spmd import run_spmd
+from ..parallel.topology import Topology
 
 
 def host_build_probe_keys(
@@ -93,3 +96,67 @@ def generate_build_probe_tables(
     if return_expected_matches:
         return build, probe, hit.sum(dtype=torch.int64)
     return build, probe
+
+
+def rank_seed(seed: int, rank: int) -> int:
+    """The seed of rank ``rank``'s generator in
+    ``generate_tables_distributed``: (seed, rank) mixed by numpy's
+    SeedSequence, so every rank draws an independent stream."""
+    return int(np.random.SeedSequence((seed, rank)).generate_state(1, np.uint64)[0])
+
+
+def generate_tables_distributed(
+    topology: Topology,
+    build_nrows_per_shard: int,
+    probe_nrows_per_shard: int,
+    selectivity: float,
+    rand_max_per_shard: int,
+    uniq_build_tbl_keys: bool,
+    seed: int = 0,
+    key_dtype: dt.DType = dt.int64,
+    payload_dtype: dt.DType = dt.int64,
+) -> tuple[Table, torch.Tensor, Table, torch.Tensor]:
+    """Generate build/probe tables distributed over the topology's ranks.
+
+    Each rank generates its shard's tables (``generate_build_probe_tables``
+    on a generator seeded by ``rank_seed(seed, rank)``) with keys in its
+    own range, shifted by ``rank * (rand_max_per_shard + 1)``, and
+    payloads shifted by ``rank * nrows_per_shard`` (globally unique row
+    ids); then equal chunks go all-to-all, so every shard holds a uniform
+    sample (dj_tpu/data/generator.py:162-255). Returns (build,
+    build_counts, probe, probe_counts) as sharded tables, every row valid;
+    in a process world, this rank's block. Keys are unique within a rank
+    when ``uniq_build_tbl_keys`` and disjoint across ranks, so the join's
+    total is the sum of the ranks' exact expected counts.
+    """
+    w = topology.world_size
+    if build_nrows_per_shard % w or probe_nrows_per_shard % w:
+        raise ValueError("per-shard row counts must divide by the world size for equal chunks")
+
+    def body(comm):
+        r = comm.rank()
+        gen = torch.Generator(device=topology.device).manual_seed(rank_seed(seed, r))
+        build, probe = generate_build_probe_tables(
+            gen, build_nrows_per_shard, probe_nrows_per_shard, selectivity,
+            rand_max_per_shard, uniq_build_tbl_keys, key_dtype, payload_dtype,
+        )
+        key_off = r * (rand_max_per_shard + 1)
+
+        def shifted(tbl, pay_off):
+            k, p = tbl.columns
+            return [k.data + key_off, p.data + pay_off]
+
+        cols = shifted(build, r * build_nrows_per_shard) + shifted(probe, r * probe_nrows_per_shard)
+        del build, probe
+        # Equal-chunk all-to-all: chunk j of shard i goes to shard j.
+        got = comm.exchange([c.reshape(w, -1) for c in cols])
+        bk, bp, pk, pp = (g.reshape(-1) for g in got)
+
+        def table(k, p):
+            return Table((Column(k, key_dtype), Column(p, payload_dtype)))
+
+        dev = topology.device
+        return (table(bk, bp), torch.full((1,), build_nrows_per_shard, dtype=torch.int32, device=dev),
+                table(pk, pp), torch.full((1,), probe_nrows_per_shard, dtype=torch.int32, device=dev))
+
+    return run_spmd(topology, body)

@@ -16,6 +16,12 @@ epoch, as a join batch's left and right tables do:
    move each width class across the tables with one collective;
 3. ``compact`` per received buffer into the table's output.
 
+``shuffle_tables_start`` issues steps 1 and 2 (bucketize, then
+``Communicator.exchange_start``) and returns a handle whose ``wait()``
+does step 3, so a pipeline can issue batch b+1's shuffle before it joins
+batch b (dj_tpu/parallel/dist_join.py:278-305); ``shuffle_tables`` is
+the two in a row.
+
 A one-peer group shuffles by the self-copy of ``_single_peer_shuffle``
 (dj_tpu/parallel/all_to_all.py:204-249). String columns and the
 compressed wire come with later slices.
@@ -30,7 +36,7 @@ import torch
 
 from ..core.search import interval_of_arange
 from ..core.table import Column, Table, gather_fill, sizes_to_offsets
-from .communicator import Communicator
+from .communicator import Communicator, Pending, done
 
 # Split-overflow stat keys: OVF_BUCKET is a send bucket that was too
 # small (heals by bucket_factor growth), OVF_OUT an output capacity that
@@ -169,6 +175,23 @@ def shuffle_tables(
     split bits OVF_BUCKET (a send bucket was too small) and OVF_OUT (the
     output capacity was exceeded), ``overflow`` their OR. Every rank of
     the group calls it with the same static sizes."""
+    return shuffle_tables_start(
+        comm, tables, part_starts, part_counts, bucket_rows, out_capacity
+    ).wait()
+
+
+def shuffle_tables_start(
+    comm: Communicator,
+    tables: Sequence[Table],
+    part_starts: Sequence[torch.Tensor],
+    part_counts: Sequence[torch.Tensor],
+    bucket_rows: Sequence[int],
+    out_capacity: Sequence[int],
+) -> Pending:
+    """Issue ``shuffle_tables``: bucketize and start the exchange. The
+    handle's ``wait()`` waits for the exchange, compacts and returns
+    what ``shuffle_tables`` returns. Every rank issues its shuffles in
+    the same order."""
     nt = len(tables)
     n = comm.size
     for seq, name in (
@@ -181,10 +204,10 @@ def shuffle_tables(
         if part_starts[t].shape != (n,) or part_counts[t].shape != (n,):
             raise ValueError(f"table {t}: part_starts/part_counts must have shape ({n},)")
     if n == 1:
-        return [
+        return done([
             _single_peer_shuffle(tables[t], part_starts[t], part_counts[t], out_capacity[t])
             for t in range(nt)
-        ]
+        ])
 
     comm.phase("a2a_bucketize")
     plan = ShufflePlan.for_tables(tables, comm.fuse_columns)
@@ -207,28 +230,35 @@ def shuffle_tables(
     del send_index
 
     comm.phase("a2a_exchange")
-    received = comm.exchange(buffers)
+    pending = comm.exchange_start(buffers)
     del buffers
+    schema = [[(c.data.dtype, c.dtype) for c in tb.columns] for tb in tables]
+    bucket_rows, out_capacity = list(bucket_rows), list(out_capacity)
 
-    comm.phase("a2a_compact")
-    recv_mat = received[0]
-    recv_index = [_compact_index(recv_mat[:, t], n, bucket_rows[t], out_capacity[t])
-                  for t in range(nt)]
-    totals = [total for _, _, total in recv_index]
-    out_cols: list[list] = [[None] * tables[t].num_columns for t in range(nt)]
-    for buf, (t, tslots) in zip(received[1:], metas):
-        idx, fill, _ = recv_index[t]
-        data = _gather_columns(buf.reshape(n * bucket_rows[t], -1).unbind(1), idx, fill)
-        for d, (_, i) in zip(data, tslots):
-            col = tables[t].columns[i]
-            out_cols[t][i] = Column(d.view(col.data.dtype), col.dtype)
-    results = []
-    for t in range(nt):
-        out_ovf = totals[t] > out_capacity[t]
-        count = totals[t].clamp_max(out_capacity[t]).to(torch.int32)
-        stats = {OVF_BUCKET: send_ovf[t], OVF_OUT: out_ovf}
-        results.append((Table(tuple(out_cols[t]), count), totals[t], send_ovf[t] | out_ovf, stats))
-    return results
+    def finish():
+        received = pending.wait()
+        comm.phase("a2a_compact")
+        recv_mat = received[0]
+        recv_index = [_compact_index(recv_mat[:, t], n, bucket_rows[t], out_capacity[t])
+                      for t in range(nt)]
+        totals = [total for _, _, total in recv_index]
+        out_cols: list[list] = [[None] * len(schema[t]) for t in range(nt)]
+        for buf, (t, tslots) in zip(received[1:], metas):
+            idx, fill, _ = recv_index[t]
+            data = _gather_columns(buf.reshape(n * bucket_rows[t], -1).unbind(1), idx, fill)
+            for d, (_, i) in zip(data, tslots):
+                tdtype, dtype = schema[t][i]
+                out_cols[t][i] = Column(d.view(tdtype), dtype)
+        results = []
+        for t in range(nt):
+            out_ovf = totals[t] > out_capacity[t]
+            count = totals[t].clamp_max(out_capacity[t]).to(torch.int32)
+            stats = {OVF_BUCKET: send_ovf[t], OVF_OUT: out_ovf}
+            results.append((Table(tuple(out_cols[t]), count), totals[t], send_ovf[t] | out_ovf,
+                            stats))
+        return results
+
+    return Pending(finish)
 
 
 def shuffle_table(
@@ -242,6 +272,21 @@ def shuffle_table(
     """Shuffle one hash-partitioned table: the one-table view of
     ``shuffle_tables``, with the same (table, total_recv_rows, overflow,
     stats) result."""
-    return shuffle_tables(
+    return shuffle_table_start(
+        comm, table, part_starts, part_counts, bucket_rows, out_capacity
+    ).wait()
+
+
+def shuffle_table_start(
+    comm: Communicator,
+    table: Table,
+    part_starts: torch.Tensor,
+    part_counts: torch.Tensor,
+    bucket_rows: int,
+    out_capacity: int,
+) -> Pending:
+    """Issue ``shuffle_table``; ``wait()`` gives its result."""
+    pending = shuffle_tables_start(
         comm, [table], [part_starts], [part_counts], [bucket_rows], [out_capacity]
-    )[0]
+    )
+    return Pending(lambda: pending.wait()[0])

@@ -5,6 +5,12 @@ Counterpart of ``dj_tpu/parallel/api.py::shard_table`` and
 over a world of w ranks is one [w * cap] column per column, shard r in
 rows [r * cap, (r + 1) * cap) padded with zeros past its rows, plus an
 int32 [w] vector of valid rows per shard.
+
+In a process world the same calls follow dj_tpu's SPMD input contract
+(``dj_tpu/parallel/api.py:100-104``): every process passes the same
+global table (or the same pieces), and each gets back only its own
+rank's block ([cap] columns) and count ([1]). ``unshard_table`` of such a
+block gives this rank's valid rows.
 """
 
 from __future__ import annotations
@@ -46,7 +52,8 @@ def shard_table_pieces(
 ) -> tuple[Table, torch.Tensor]:
     """Place one exact table per rank on the topology's device: piece r
     becomes shard r's rows, padded to ``capacity_per_shard`` rows
-    (default: the largest piece). Returns (table, counts[world])."""
+    (default: the largest piece). Returns (table, counts[world]); in a
+    process world, this rank's shard and its [1] count."""
     w = topology.world_size
     if len(pieces) != w:
         raise ValueError(f"need {w} pieces, got {len(pieces)}")
@@ -61,17 +68,20 @@ def shard_table_pieces(
     if cap < max(counts):
         raise ValueError(f"capacity {cap} < needed {max(counts)}")
     dev = topology.device
+    here = [topology.rank] if topology.is_process_world else range(w)
     cols = []
     for j, (dtype, tdtype) in enumerate(schema):
-        data = torch.zeros(w * cap, dtype=tdtype, device=dev)
-        for r, p in enumerate(pieces):
-            data[r * cap : r * cap + counts[r]] = p.columns[j].data
+        data = torch.zeros(len(here) * cap, dtype=tdtype, device=dev)
+        for i, r in enumerate(here):
+            data[i * cap : i * cap + counts[r]] = pieces[r].columns[j].data
         cols.append(Column(data, dtype))
-    return Table(tuple(cols)), torch.tensor(counts, dtype=torch.int32, device=dev)
+    return Table(tuple(cols)), torch.tensor([counts[r] for r in here], dtype=torch.int32,
+                                            device=dev)
 
 
 def unshard_table(table: Table, counts: torch.Tensor) -> Table:
-    """The valid rows of every shard, concatenated into an exact table."""
+    """The valid rows of every shard the table holds (one per entry of
+    ``counts``), concatenated into an exact table."""
     w = counts.shape[0]
     cap = table.capacity // w
     counts_h = counts.tolist()

@@ -1,16 +1,31 @@
-"""Communicator abstraction: swappable collective backends.
+"""Communicator abstraction: swappable collective backends over a transport.
 
-Counterpart of ``dj_tpu/parallel/communicator.py:34-168``. A
-communicator moves equal-size buckets between the ranks of one
-communication group. Every tensor argument has the group size as its
-leading axis: ``all_to_all`` sends ``buckets[p]`` to peer p and returns
-what each peer sent here. Two backends run here: the one-rank group,
-where every collective is the identity, and a group of ranks that run
-as threads of this process (``InProcessCommunicator``, the counterpart
-of dj_tpu's ``XlaCommunicator`` over a mesh of one process). A
-``torch.distributed`` backend implements the same methods with
-``all_to_all_single``, ``all_gather_into_tensor`` and ``all_reduce``.
+Counterpart of ``dj_tpu/parallel/communicator.py``. A communicator
+moves equal-size buckets between the ranks of one communication group.
+Every tensor argument has the group size as its leading axis:
+``all_to_all`` sends ``buckets[p]`` to peer p and returns what each peer
+sent here.
+
+Two layers. A *transport* is how this rank reaches its peers:
+
+- ``SingleRankTransport``: the world of one rank; every collective is
+  the identity (a copy);
+- ``InProcessTransport``: ranks that run as threads of this process
+  (``parallel.spmd``); each collective is a rendezvous of the world;
+- ``DistTransport``: one rank per process over ``torch.distributed``
+  (NCCL on the card, gloo on the CPU): ``all_to_all_single``,
+  ``all_gather_into_tensor``, ``all_reduce`` and ``batch_isend_irecv``.
+
+A *backend* is how an all-to-all is cut into transport calls, dj_tpu's
+three: ``XlaCommunicator`` (one call, the default), ``BufferedCommunicator``
+(the bucket axis in ``chunk_rows`` pieces) and ``RingCommunicator`` (n - 1
+rotation rounds of ``shift``). Any backend runs over any transport.
+``exchange_start`` issues an exchange and returns a handle whose
+``wait()`` gives the received buffers, so a caller can issue batch b+1's
+exchange before it joins batch b; over torch.distributed the transfer
+then runs on the backend's stream meanwhile.
 """
+
 
 from __future__ import annotations
 
@@ -18,9 +33,10 @@ import abc
 import functools
 import threading
 import time
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from .topology import CommunicationGroup
 
@@ -71,18 +87,199 @@ class PhaseClock:
         return out
 
 
-class Communicator(abc.ABC):
-    """Collective transport over one communication group."""
 
+
+class Pending:
+    """An issued collective: ``wait()`` returns its result, once. Until
+    then it holds the tensors the transfer reads and writes, so none is
+    freed or reused while a backend's stream still moves it."""
+
+    def __init__(self, finish: Callable[[], object], *keep: torch.Tensor):
+        self._finish: Optional[Callable[[], object]] = finish
+        self._keep = keep
+        self._value = None
+
+    def wait(self):
+        if self._finish is not None:
+            self._value = self._finish()
+            self._finish, self._keep = None, ()
+        return self._value
+
+
+def done(value) -> Pending:
+    """A handle whose collective has completed."""
+    return Pending(lambda: value)
+
+
+class Transport(abc.ABC):
+    """How one rank reaches the other ranks of its world."""
+
+    name: str
     clock: Optional[PhaseClock] = None  # set to time this rank's phases
 
-    def __init__(self, group: CommunicationGroup, fuse_columns: bool = True):
+    def __init__(self, size: int):
+        self.size = size
+
+    @abc.abstractmethod
+    def rank(self) -> int:
+        ...
+
+    @abc.abstractmethod
+    def all_to_all_start(self, buckets: torch.Tensor) -> Pending:
+        """Issue ``out[p] = what peer p sent to this rank``."""
+
+    @abc.abstractmethod
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        ...
+
+    @abc.abstractmethod
+    def all_reduce(self, x: torch.Tensor, op: str) -> torch.Tensor:
+        """The elementwise ``op`` ("max" or "sum") over the ranks."""
+
+    @abc.abstractmethod
+    def shift_start(self, x: torch.Tensor, s: int) -> Pending:
+        """Issue the send of ``x`` to rank (rank + s) % n; the handle
+        gives what rank (rank - s) % n sent."""
+
+
+class SingleRankTransport(Transport):
+    """The world of one rank: every collective returns a copy of its
+    input, so no caller sees its send buffer aliased by the receive side."""
+
+    name = "single"
+
+    def __init__(self):
+        super().__init__(1)
+
+    def rank(self) -> int:
+        return 0
+
+    def all_to_all_start(self, buckets: torch.Tensor) -> Pending:
+        return done(buckets.clone())
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        return x.unsqueeze(0).clone()
+
+    def all_reduce(self, x: torch.Tensor, op: str) -> torch.Tensor:
+        return x.clone()
+
+    def shift_start(self, x: torch.Tensor, s: int) -> Pending:
+        return done(x.clone())
+
+
+# The dtype whose elements carry each element width across a process
+# boundary: gloo and NCCL reject 16-bit integers, unsigned 16/32/64-bit
+# ones and (gloo) bool, so every tensor travels as the bits of one of
+# these and is viewed back on receipt (a 2-byte element as two bytes).
+_WIRE = {8: torch.int64, 4: torch.int32, 2: torch.uint8, 1: torch.uint8}
+# all_reduce needs values, not bits: the types each is reduced in.
+_REDUCE_AS = {torch.bool: torch.uint8, torch.int16: torch.int32, torch.uint16: torch.int32,
+              torch.uint32: torch.int64}
+_INT64_MIN = -(2**63)
+
+
+def _wire(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """``x``'s bits as a contiguous [rows, k] tensor of a wire dtype."""
+    return x.contiguous().reshape(rows, -1).view(_WIRE[x.element_size()])
+
+
+def _unwire(w: torch.Tensor, like: torch.Tensor, shape) -> torch.Tensor:
+    return w.view(like.dtype).reshape(shape)
+
+
+class DistTransport(Transport):
+    """This process's rank of a process world, over ``torch.distributed``'s
+    default process group. Under NCCL every call
+    takes the card's tensors as they are, and so do gloo's collectives.
+    gloo's point-to-point send on a CUDA tensor aborts the process (its
+    TCP pair writes from the device pointer: ``gloo::IoException ...
+    writev: Bad address``, torch 2.11), so a gloo transport on the card
+    moves ``shift`` through host copies; ``host_staged`` names the calls
+    it stages."""
+
+    def __init__(self, device: torch.device):
+        super().__init__(dist.get_world_size())
+        self.device = device
+        self._rank = dist.get_rank()
+        self.name = str(dist.get_backend())
+        cuda_gloo = self.name == "gloo" and device.type == "cuda"
+        self.host_staged = ("shift",) if cuda_gloo else ()
+
+    def rank(self) -> int:
+        return self._rank
+
+    def all_to_all_start(self, buckets: torch.Tensor) -> Pending:
+        send = _wire(buckets, buckets.shape[0])
+        recv = torch.empty_like(send)
+        work = dist.all_to_all_single(recv, send, async_op=True)
+
+        def finish():
+            work.wait()
+            return _unwire(recv, buckets, buckets.shape)
+
+        return Pending(finish, send, recv)
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        send = _wire(x, 1).reshape(-1)
+        recv = send.new_empty((self.size * send.numel(),))
+        dist.all_gather_into_tensor(recv, send)
+        return _unwire(recv, x, (self.size,) + tuple(x.shape))
+
+    def all_reduce(self, x: torch.Tensor, op: str) -> torch.Tensor:
+        rop = {"max": dist.ReduceOp.MAX, "sum": dist.ReduceOp.SUM}[op]
+        if x.dtype == torch.uint64:
+            # Order-preserving as int64 with the top bit flipped; a sum
+            # wraps the same in either view.
+            v = x.view(torch.int64)
+            y = v ^ _INT64_MIN if op == "max" else v.clone()
+            dist.all_reduce(y, rop)
+            return (y ^ _INT64_MIN if op == "max" else y).view(torch.uint64)
+        y = x.to(_REDUCE_AS.get(x.dtype, x.dtype), copy=True)
+        dist.all_reduce(y, rop)
+        return y.to(x.dtype)
+
+    def shift_start(self, x: torch.Tensor, s: int) -> Pending:
+        if s % self.size == 0 and self.name == "gloo":
+            return done(x.clone())  # gloo connects no rank to itself; NCCL does
+        staged = "shift" in self.host_staged
+        send = _wire(x, 1).cpu() if staged else _wire(x, 1)
+        recv = torch.empty_like(send)
+        r, n = self._rank, self.size
+        works = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, send, (r + s) % n),
+            dist.P2POp(dist.irecv, recv, (r - s) % n),
+        ])
+
+        def finish():
+            for w in works:
+                w.wait()
+            return _unwire(recv.to(self.device) if staged else recv, x, x.shape)
+
+        return Pending(finish, send, recv)
+
+
+class Communicator(abc.ABC):
+    """Collective backend over one communication group, on a transport."""
+
+    def __init__(self, group: CommunicationGroup, transport: Transport,
+                 fuse_columns: bool = True):
+        if transport.size != group.size:
+            raise ValueError(f"a transport of {transport.size} ranks for a group of {group.size}")
         self.group = group
+        self.transport = transport
         self.fuse_columns = fuse_columns
 
     @property
     def size(self) -> int:
         return self.group.size
+
+    @property
+    def clock(self) -> Optional[PhaseClock]:
+        return self.transport.clock
+
+    @clock.setter
+    def clock(self, clock: Optional[PhaseClock]) -> None:
+        self.transport.clock = clock
 
     def phase(self, label: str) -> None:
         """Start phase ``label`` of this rank's work (timed only when a
@@ -90,25 +287,32 @@ class Communicator(abc.ABC):
         if self.clock is not None:
             self.clock.mark(label)
 
-    @abc.abstractmethod
     def rank(self) -> int:
         """This rank's index in the group."""
+        return self.transport.rank()
+
+    def _check(self, buckets: torch.Tensor) -> None:
+        if buckets.dim() == 0 or buckets.shape[0] != self.size:
+            raise ValueError(f"leading axis of {tuple(buckets.shape)} != group size {self.size}")
 
     @abc.abstractmethod
+    def all_to_all_start(self, buckets: torch.Tensor) -> Pending:
+        """Issue the exchange of equal-size buckets: in[p] -> peer p;
+        ``wait()`` gives out[p] <- peer p."""
+
     def all_to_all(self, buckets: torch.Tensor) -> torch.Tensor:
         """Exchange equal-size buckets: in[p] -> peer p; out[p] <- peer p."""
+        return self.all_to_all_start(buckets).wait()
 
-    @abc.abstractmethod
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """Gather x from every peer along a new leading axis."""
+        return self.transport.all_gather(x)
 
-    @abc.abstractmethod
     def all_reduce_max(self, x: torch.Tensor) -> torch.Tensor:
-        ...
+        return self.transport.all_reduce(x, "max")
 
-    @abc.abstractmethod
     def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
-        ...
+        return self.transport.all_reduce(x, "sum")
 
     def communicate_sizes(self, send_counts: torch.Tensor) -> torch.Tensor:
         """Exchange per-peer element counts ([size] or [size, k] int32);
@@ -120,53 +324,129 @@ class Communicator(abc.ABC):
         Fuse-capable backends move each dtype class with one collective;
         the others issue one per buffer. Either way the result matches
         ``buffers`` in order, shape and dtype."""
+        return self.exchange_start(buffers).wait()
+
+    def exchange_start(self, buffers: Sequence[torch.Tensor]) -> Pending:
+        """Issue ``exchange(buffers)``; ``wait()`` on the handle returns
+        its result. Every rank issues its exchanges in the same order."""
         bufs = list(buffers)
         n = self.size
         for b in bufs:
             if b.shape[0] != n:
                 raise ValueError(f"exchange buffer leading axis {b.shape[0]} != group size {n}")
         if not self.fuse_columns or len(bufs) <= 1:
-            return [self.all_to_all(b) for b in bufs]
-        out: list[Optional[torch.Tensor]] = [None] * len(bufs)
+            pend = [self.all_to_all_start(b) for b in bufs]
+            return Pending(lambda: [p.wait() for p in pend])
         groups: dict = {}
         for j, b in enumerate(bufs):
             groups.setdefault(b.dtype, []).append(j)
+        issued = []
         for idxs in groups.values():
             if len(idxs) == 1:
-                out[idxs[0]] = self.all_to_all(bufs[idxs[0]])
+                issued.append((idxs, None, self.all_to_all_start(bufs[idxs[0]])))
                 continue
             flats = [bufs[j].reshape(n, -1) for j in idxs]
-            recv = self.all_to_all(torch.cat(flats, dim=1))
-            off = 0
-            for j, f in zip(idxs, flats):
-                out[j] = recv[:, off : off + f.shape[1]].reshape(bufs[j].shape)
-                off += f.shape[1]
-        return out  # type: ignore[return-value]
+            widths = [f.shape[1] for f in flats]
+            issued.append((idxs, widths, self.all_to_all_start(torch.cat(flats, dim=1))))
+        shapes = [b.shape for b in bufs]
+        del bufs
+
+        def finish():
+            out: list[Optional[torch.Tensor]] = [None] * len(shapes)
+            for idxs, widths, p in issued:
+                recv = p.wait()
+                if widths is None:
+                    out[idxs[0]] = recv
+                    continue
+                off = 0
+                for j, w in zip(idxs, widths):
+                    out[j] = recv[:, off : off + w].reshape(shapes[j])
+                    off += w
+            return out
+
+        return Pending(finish)
 
 
-class SingleRankCommunicator(Communicator):
-    """The one-rank group: every collective returns its input (a copy,
-    so no caller sees its send buffer aliased by the receive side)."""
+def make_communicator(cls, group: CommunicationGroup, transport: Transport, fuse_columns=None):
+    """Construct a backend on ``transport``, honoring its own fuse
+    default when ``fuse_columns`` is None (dj_tpu's make_communicator:
+    the default backend fuses, Ring and Buffered move one buffer per
+    collective, like the reference's NCCL and buffered backends); a bool
+    overrides."""
+    if fuse_columns is None:
+        return cls(group, transport)
+    return cls(group, transport, fuse_columns=fuse_columns)
+
+
+class XlaCommunicator(Communicator):
+    """The default backend: each all-to-all is one transport call (dj_tpu's
+    XlaCommunicator; the name is kept so a config names the same class in
+    both packages)."""
+
+    def all_to_all_start(self, buckets: torch.Tensor) -> Pending:
+        self._check(buckets)
+        return self.transport.all_to_all_start(buckets)
+
+
+class BufferedCommunicator(XlaCommunicator):
+    """All-to-all chunked through fixed-size sub-collectives (dj_tpu's
+    BufferedCommunicator, the reference's UCXBufferCommunicator): the
+    [n, B, ...] buckets split along B into ceil(B / chunk_rows) transport
+    calls, so no one transfer exceeds ``chunk_rows`` rows a peer. One
+    collective per buffer by default (fuse_columns=False)."""
+
+    def __init__(self, group: CommunicationGroup, transport: Transport,
+                 fuse_columns: bool = False, chunk_rows: int = 1 << 16):
+        super().__init__(group, transport, fuse_columns=fuse_columns)
+        if chunk_rows < 1:
+            raise ValueError(f"chunk_rows {chunk_rows} < 1")
+        self.chunk_rows = chunk_rows
+
+    def all_to_all_start(self, buckets: torch.Tensor) -> Pending:
+        self._check(buckets)
+        b = buckets.shape[1] if buckets.dim() > 1 else 0
+        if buckets.dim() < 2 or b <= self.chunk_rows:
+            return self.transport.all_to_all_start(buckets)
+        pend = [self.transport.all_to_all_start(buckets[:, lo : lo + self.chunk_rows])
+                for lo in range(0, b, self.chunk_rows)]
+        return Pending(lambda: torch.cat([p.wait() for p in pend], dim=1))
+
+
+class RingCommunicator(XlaCommunicator):
+    """All-to-all as n - 1 rotation rounds (dj_tpu's RingCommunicator,
+    the reference's point-to-point backends): in round s rank r sends its
+    bucket for peer (r + s) % n there and receives from (r - s) % n, one
+    ``shift`` of the transport (one ``batch_isend_irecv`` under
+    torch.distributed, so a round's send and receive cannot deadlock).
+    The self bucket never leaves the rank. One collective per buffer by
+    default (fuse_columns=False)."""
+
+    def __init__(self, group: CommunicationGroup, transport: Transport,
+                 fuse_columns: bool = False):
+        super().__init__(group, transport, fuse_columns=fuse_columns)
+
+    def all_to_all_start(self, buckets: torch.Tensor) -> Pending:
+        self._check(buckets)
+        n, r = self.size, self.rank()
+        rounds = [(s, self.transport.shift_start(buckets[(r + s) % n], s)) for s in range(1, n)]
+        out = torch.empty_like(buckets)
+        out[r] = buckets[r]
+
+        def finish():
+            for s, p in rounds:
+                out[(r - s) % n] = p.wait()
+            return out
+
+        return Pending(finish)
+
+
+class SingleRankCommunicator(XlaCommunicator):
+    """The default backend over the one-rank transport."""
 
     def __init__(self, group: CommunicationGroup, fuse_columns: bool = True):
         if group.size != 1:
             raise ValueError(f"SingleRankCommunicator needs a group of 1, got {group.size}")
-        super().__init__(group, fuse_columns)
-
-    def rank(self) -> int:
-        return 0
-
-    def all_to_all(self, buckets: torch.Tensor) -> torch.Tensor:
-        return buckets.clone()
-
-    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        return x.unsqueeze(0).clone()
-
-    def all_reduce_max(self, x: torch.Tensor) -> torch.Tensor:
-        return x.clone()
-
-    def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
-        return x.clone()
+        super().__init__(group, SingleRankTransport(), fuse_columns)
 
 
 class WorldAborted(RuntimeError):
@@ -248,21 +528,21 @@ class InProcessWorld:
             self._done = None
 
 
-class InProcessCommunicator(Communicator):
+class InProcessTransport(Transport):
     """One rank of a world whose ranks are threads of this process, all
     on one device (``parallel.spmd.run_spmd``). Each collective is a
     rendezvous of the world: rank r deposits its tensor, waits for every
-    peer's, and reads its own part of each; ``all_to_all`` gives
-    ``out[p] = sent_by_peer_p[r]``. The result is a new tensor, never a
-    view of a peer's buffer."""
+    peer's, and reads its own part of each (``all_to_all`` gives
+    ``out[p] = sent_by_peer_p[r]``), so every call completes when it
+    returns. The result is a new tensor, never a view of a peer's
+    buffer."""
 
-    def __init__(
-        self, group: CommunicationGroup, world: InProcessWorld, rank: int,
-        fuse_columns: bool = True,
-    ):
-        if world.size != group.size or not 0 <= rank < group.size:
-            raise ValueError(f"rank {rank} of a group of {group.size} in a world of {world.size}")
-        super().__init__(group, fuse_columns)
+    name = "in-process"
+
+    def __init__(self, world: InProcessWorld, rank: int):
+        if not 0 <= rank < world.size:
+            raise ValueError(f"rank {rank} of a world of {world.size}")
+        super().__init__(world.size)
         self.world = world
         self._rank = rank
 
@@ -279,17 +559,18 @@ class InProcessCommunicator(Communicator):
         self.world.read_done()
         return out
 
-    def all_to_all(self, buckets: torch.Tensor) -> torch.Tensor:
-        if buckets.shape[0] != self.size:
-            raise ValueError(f"leading axis {buckets.shape[0]} != group size {self.size}")
+    def all_to_all_start(self, buckets: torch.Tensor) -> Pending:
         r = self._rank
-        return self._collective(buckets, lambda d: torch.stack([sent[r] for sent in d]))
+        return done(self._collective(buckets, lambda d: torch.stack([sent[r] for sent in d])))
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         return self._collective(x, torch.stack)
 
-    def all_reduce_max(self, x: torch.Tensor) -> torch.Tensor:
-        return self._collective(x, lambda d: torch.stack(d).amax(0))
-
-    def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
+    def all_reduce(self, x: torch.Tensor, op: str) -> torch.Tensor:
+        if op == "max":
+            return self._collective(x, lambda d: torch.stack(d).amax(0))
         return self._collective(x, lambda d: functools.reduce(torch.add, d))
+
+    def shift_start(self, x: torch.Tensor, s: int) -> Pending:
+        src = (self._rank - s) % self.size
+        return done(self._collective(x, lambda d: d[src].clone()))

@@ -10,14 +10,21 @@ dj_tpu's ``shard_map``), with a communicator over the world:
 1. hash-partition both tables into world * over_decom_factor parts
    (seed 12345678, the reference's);
 2. per batch: exchange one batch of partitions (both tables in one
-   epoch), then the local inner join;
+   epoch), then the local inner join. Batch b+1's exchange is issued
+   before batch b's join and finished when its own join starts, as
+   dj_tpu's software pipeline orders it (``dist_join.py:278-305``):
+   under torch.distributed the transfer runs on the backend's stream
+   while batch b joins; on one stream the order only moves batch b+1's
+   buffers earlier;
 3. concatenate the batch results.
 
 The key range is probed on the host once per call (two reductions per
-key column, over every shard) unless the config declares it, so the
-pack decision is static exactly as in JAX. PyTorch runs eagerly, so the
-batches run in order; the JAX package's prefetch of batch b+1's
-exchange only reorders its traced program.
+key column over this process's shards, then, in a process world, one
+reduction over the processes) unless the config declares it, so the
+pack decision is static exactly as in JAX. ``JoinConfig.communicator_cls``
+names the backend of every collective (dj_tpu's XlaCommunicator,
+BufferedCommunicator or RingCommunicator) and ``fuse_columns`` its
+fusing (None: the backend's default).
 
 The prepared build side (``prepare_join_side``, ``PreparedSide``) pays
 the build table's partition, exchange, pack and sort once; each query
@@ -31,9 +38,10 @@ phases, the degradation guard and the auto/heal wrapper.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Type
 
 import torch
+import torch.distributed as dist
 
 from ..core import dtypes as dt
 from ..core.table import Table, concatenate
@@ -48,8 +56,8 @@ from ..ops.join import (
 )
 from ..ops.partition import hash_partition
 from ..resilience.errors import CapacityExhausted, PreparedPlanMismatch
-from .all_to_all import shuffle_table, shuffle_tables
-from .communicator import Communicator
+from .all_to_all import shuffle_table, shuffle_table_start, shuffle_tables_start
+from .communicator import Communicator, XlaCommunicator
 from .spmd import run_spmd
 from .topology import Topology
 
@@ -76,6 +84,10 @@ class JoinConfig:
       received batch capacity.
     char_out_factor: string payload char capacity (no strings yet).
     key_range: declared (min, max) key bounds; skips the range probe.
+    fuse_columns: one collective per dtype class in an exchange (True)
+      or one per buffer (False); None defers to the backend's default.
+    communicator_cls: the collective backend (XlaCommunicator,
+      BufferedCommunicator or RingCommunicator).
     """
 
     over_decom_factor: int = 1
@@ -83,6 +95,8 @@ class JoinConfig:
     join_out_factor: float = 1.0
     char_out_factor: float = 1.0
     key_range: Optional[tuple] = None
+    fuse_columns: Optional[bool] = None
+    communicator_cls: Type[Communicator] = XlaCommunicator
 
 
 class BatchSizing(NamedTuple):
@@ -120,18 +134,14 @@ def _local_join_pipeline(
     l_part, l_offsets = hash_partition(left, left_on, m, seed=MAIN_JOIN_SEED)
     r_part, r_offsets = hash_partition(right, right_on, m, seed=MAIN_JOIN_SEED)
 
-    dev = left.device
-    no = torch.tensor(False, device=dev)
-    shuffle_ovf = join_ovf = pack_ovf = coll = no
-    batch_results = []
-    for b in range(config.over_decom_factor):
+    def issue(b: int):
         # Batch b moves partitions [b*n, (b+1)*n); partition p lands on
         # group peer p - b*n.
         lo, hi = b * n, (b + 1) * n
         l_starts = l_offsets[lo:hi]
         r_starts = r_offsets[lo:hi]
         comm.phase("dj_exchange")
-        (l_batch, _, l_ovf, _), (r_batch, _, r_ovf, _) = shuffle_tables(
+        return shuffle_tables_start(
             comm,
             [l_part, r_part],
             [l_starts, r_starts],
@@ -139,6 +149,18 @@ def _local_join_pipeline(
             [bl, br],
             [n * bl, n * br],
         )
+
+    dev = left.device
+    no = torch.tensor(False, device=dev)
+    shuffle_ovf = join_ovf = pack_ovf = coll = no
+    batch_results = []
+    odf = config.over_decom_factor
+    inflight = issue(0)
+    for b in range(odf):
+        # Batch b+1's exchange is issued before batch b's join.
+        prefetch = issue(b + 1) if b + 1 < odf else None
+        (l_batch, _, l_ovf, _), (r_batch, _, r_ovf, _) = inflight.wait()
+        inflight = prefetch
         shuffle_ovf = shuffle_ovf | l_ovf | r_ovf
         comm.phase("dj_join")
         result, total, jflags = inner_join(
@@ -182,15 +204,30 @@ def _masked_minmax(data: torch.Tensor, counts: torch.Tensor, w: int):
     )
 
 
+def _world_minmax(topology: Optional[Topology], ranges: list) -> list:
+    """Per-column (min, max) over the world from this process's: in a
+    process world, a reduction over the processes (Python ints, so any
+    64-bit value survives); else ``ranges`` itself."""
+    if topology is None or not topology.is_process_world:
+        return ranges
+    every: list = [None] * topology.world_size
+    dist.all_gather_object(every, ranges)
+    return [(min(p[j][0] for p in every), max(p[j][1] for p in every))
+            for j in range(len(ranges))]
+
+
 def _resolve_key_range(
     config: JoinConfig, left: Table, left_counts: torch.Tensor,
     right: Table, right_counts: torch.Tensor,
     left_on: Sequence[int], right_on: Sequence[int], w: int,
+    topology: Optional[Topology] = None,
 ) -> Optional[tuple]:
     """The static key range the join plans with: the declared one, else
     the probed global range of a single 64-bit int key canonicalized to
     width form (0, 2^w - 1). None for narrower keys (they pack
-    statically), non-integer keys and two empty sides."""
+    statically), non-integer keys and two empty sides. ``w`` is the
+    number of shards the tables here hold; in a process world
+    (``topology``) the ranges of every process's shards are reduced."""
     if config.key_range is not None:
         return normalize_key_range(config.key_range, len(left_on))
     cols = []
@@ -201,16 +238,15 @@ def _resolve_key_range(
         cols.append((a, b))
     if len(cols) == 1 and cols[0][0].element_size() * 8 <= 32:
         return None
-    ranges, dtypes = [], []
+    local = []
     for a, b in cols:
         amn, amx = _masked_minmax(a, left_counts, w)
         bmn, bmx = _masked_minmax(b, right_counts, w)
-        mn, mx = min(amn, bmn), max(amx, bmx)
-        if mx < mn:
-            return None
-        ranges.append((mn, mx))
-        dtypes.append(dt.numpy_dtype(a.dtype))
-    return canonical_key_range(tuple(ranges), dtypes)
+        local.append((min(amn, bmn), max(amx, bmx)))
+    ranges = _world_minmax(topology, local)
+    if any(mx < mn for mn, mx in ranges):
+        return None
+    return canonical_key_range(tuple(ranges), [dt.numpy_dtype(a.dtype) for a, _ in cols])
 
 
 def distributed_inner_join(
@@ -232,7 +268,10 @@ def distributed_inner_join(
     pre_shuffle_overflow /
     shuffle_overflow / join_overflow / char_overflow /
     surrogate_collision / pack_range_overflow to a bool[world]; any True
-    means that shard's output is unspecified.
+    means that shard's output is unspecified. In a process world the
+    tables, counts and result are this rank's block ([cap] columns, [1]
+    counts), and ``info`` holds every rank's flags (bool[world]) on every
+    process.
 
     ``right`` may instead be a :class:`PreparedSide` (pass
     ``right_counts=None, right_on=None``): the query then does the probe
@@ -258,16 +297,16 @@ def distributed_inner_join(
         )
     if config is None:
         config = JoinConfig()
-    w = topology.world_size
+    w = topology.local_ranks
     if left.capacity < w or right.capacity < w:
         raise ValueError(
             f"distributed_inner_join: table capacity "
-            f"{min(left.capacity, right.capacity)} < world size {w} "
+            f"{min(left.capacity, right.capacity)} < {w} shards here "
             f"leaves at least one shard with zero capacity; pad the "
             f"table to >= 1 row per shard"
         )
     key_range = _resolve_key_range(
-        config, left, left_counts, right, right_counts, left_on, right_on, w
+        config, left, left_counts, right, right_counts, left_on, right_on, w, topology
     )
     left_on, right_on = tuple(left_on), tuple(right_on)
     l_cap, r_cap = left.capacity // w, right.capacity // w
@@ -279,8 +318,16 @@ def distributed_inner_join(
         )
         return out.with_count(None), out.count().reshape(1), _flag_row(flags, _FLAG_KEYS)
 
-    out, counts, flag_mat = run_spmd(topology, run, left, left_counts, right, right_counts)
+    out, counts, flag_mat = run_spmd(topology, run, left, left_counts, right, right_counts,
+                                     **_backend(config))
     return out, counts, _flag_info(flag_mat, _FLAG_KEYS)
+
+
+def _backend(config: JoinConfig, flags_at: int = 2) -> dict:
+    """run_spmd's communicator arguments from a config, with the body's
+    flag row (output ``flags_at``) gathered into the [w, k] matrix."""
+    return {"communicator_cls": config.communicator_cls, "fuse_columns": config.fuse_columns,
+            "gathered": (flags_at,)}
 
 
 def _flag_row(flags: dict, keys) -> torch.Tensor:
@@ -377,15 +424,14 @@ def _prepare_batches(
     return tuple(outs), flags
 
 
-def _probe_side_range(table: Table, counts: torch.Tensor, on, w: int):
-    """Per-key (min, max) physical bounds of one side's valid rows, or
-    None when the side is empty."""
-    ranges = []
-    for c in on:
-        mn, mx = _masked_minmax(table.columns[c].data, counts, w)
-        if mx < mn:
-            return None
-        ranges.append((mn, mx))
+def _probe_side_range(table: Table, counts: torch.Tensor, on, topology: Topology):
+    """Per-key (min, max) physical bounds of one side's valid rows over
+    the world, or None when the side is empty."""
+    ranges = _world_minmax(topology, [
+        _masked_minmax(table.columns[c].data, counts, topology.local_ranks) for c in on
+    ])
+    if any(mx < mn for mn, mx in ranges):
+        return None
     return tuple(ranges)
 
 
@@ -426,15 +472,16 @@ def prepare_join_side(
         )
     if config is None:
         config = JoinConfig()
-    w = topology.world_size
+    w = topology.local_ranks
     if right.capacity < w:
         raise ValueError(
-            f"prepare_join_side: build-side capacity {right.capacity} < world "
-            f"size {w} leaves a shard with zero capacity; pad the table to "
+            f"prepare_join_side: build-side capacity {right.capacity} < {w} "
+            f"shards here leaves a shard with zero capacity; pad the table to "
             f">= 1 row per shard"
         )
     r_cap = right.capacity // w
-    l_cap = max(1, left_capacity // w) if left_capacity is not None else r_cap
+    l_cap = (max(1, left_capacity // topology.world_size) if left_capacity is not None
+             else r_cap)
     right_on = tuple(right_on)
     dtypes = []
     for c_idx in right_on:
@@ -449,7 +496,7 @@ def prepare_join_side(
         dtypes.append(col.data.dtype)
     declared = key_range if key_range is not None else config.key_range
     if declared is None:
-        kr = _probe_side_range(right, right_counts, right_on, w)
+        kr = _probe_side_range(right, right_counts, right_on, topology)
         if kr is None:
             raise ValueError(
                 "prepare_join_side: cannot probe an empty build side's key "
@@ -472,7 +519,8 @@ def prepare_join_side(
         )
         return batches, _flag_row(flags, _PREP_FLAG_KEYS)
 
-    batches, flag_mat = run_spmd(topology, run, right, right_counts)
+    batches, flag_mat = run_spmd(topology, run, right, right_counts,
+                                 **_backend(config, flags_at=1))
     fired = {k: bool(v.any()) for k, v in _flag_info(flag_mat, _PREP_FLAG_KEYS).items()}
     if fired["prep_range_violation"]:
         raise PreparedPlanMismatch(
@@ -503,7 +551,7 @@ def _prepared_query_sizing(
     n, l_cap_m, _ = _main_group_sizing(topology, config, l_cap, l_cap)
     if n != prepared.n:
         raise PreparedPlanMismatch(f"main-stage group size {n} != prepared {prepared.n}")
-    R = prepared.batches[0][0].shape[0] // topology.world_size
+    R = prepared.batches[0][0].shape[0] // topology.local_ranks
     m = n * config.over_decom_factor
     sl = max(1, int(l_cap_m * config.bucket_factor / m))
     bl = l_cap_m if m == 1 else sl
@@ -554,11 +602,11 @@ def _distributed_inner_join_prepared(
                 f"left key column {c_idx} dtype differs from the prepared "
                 f"plan's {prepared.plan.key_dtypes[k]}"
             )
-    w = topology.world_size
+    w = topology.local_ranks
     if left.capacity < w:
         raise ValueError(
             f"distributed_inner_join(prepared): left capacity {left.capacity} "
-            f"< world size {w} leaves a shard with zero capacity; pad the "
+            f"< {w} shards here leaves a shard with zero capacity; pad the "
             f"table to >= 1 row per shard"
         )
     n, _, bl, out_cap = _prepared_query_sizing(topology, config, left.capacity // w, prepared)
@@ -569,7 +617,8 @@ def _distributed_inner_join_prepared(
                                      odf, bl, out_cap)
         return out.with_count(None), out.count().reshape(1), _flag_row(flags, _PREPARED_FLAG_KEYS)
 
-    out, counts, flag_mat = run_spmd(topology, run, left, left_counts, prepared.batches)
+    out, counts, flag_mat = run_spmd(topology, run, left, left_counts, prepared.batches,
+                                     **_backend(config))
     return out, counts, _flag_info(flag_mat, _PREPARED_FLAG_KEYS)
 
 
@@ -583,14 +632,23 @@ def _prepared_query(
     n = comm.size
     comm.phase("dj_partition")
     l_part, l_offsets = hash_partition(left, left_on, n * odf, seed=MAIN_JOIN_SEED)
-    no = torch.tensor(False, device=left.device)
-    shuffle_ovf = join_ovf = mismatch = no
-    batch_results = []
-    for b in range(odf):
+
+    def issue(b: int):
         starts = l_offsets[b * n : (b + 1) * n]
         counts = l_offsets[b * n + 1 : (b + 1) * n + 1] - starts
         comm.phase("dj_exchange")
-        l_batch, _, ovf, _ = shuffle_table(comm, l_part, starts, counts, bl, n * bl)
+        return shuffle_table_start(comm, l_part, starts, counts, bl, n * bl)
+
+    no = torch.tensor(False, device=left.device)
+    shuffle_ovf = join_ovf = mismatch = no
+    batch_results = []
+    inflight = issue(0)
+    for b in range(odf):
+        # Batch b+1's exchange is issued before batch b's join
+        # (dj_tpu/parallel/dist_join.py:1165-1183).
+        prefetch = issue(b + 1) if b + 1 < odf else None
+        l_batch, _, ovf, _ = inflight.wait()
+        inflight = prefetch
         shuffle_ovf = shuffle_ovf | ovf
         words_b, ptab_b, pcnt_b = batches[b]
         comm.phase("dj_join")

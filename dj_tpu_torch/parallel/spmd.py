@@ -1,4 +1,4 @@
-"""run_spmd: one body per rank of a world, all in this process.
+"""run_spmd: one body per rank of a world.
 
 Counterpart of the ``shard_map`` that dj_tpu wraps around each rank's
 pipeline (``dj_tpu/utils/compat.py:24``; ``run`` in
@@ -8,11 +8,13 @@ vector, a Table or a tuple of them splits into w equal row blocks, and
 rank r's body gets block r. The bodies' results join the same way, as
 ``out_specs=spec`` does: their tensors and tables are concatenated in
 rank order ([w * cap_out] tables, [w] counts, [w, k] flag matrices).
+Each body gets a communicator of the backend the caller names
+(``communicator_cls``, default ``XlaCommunicator``) over the world's
+transport.
 
-A world of one rank runs its body on the caller's thread with a
-``SingleRankCommunicator``. A world of w > 1 ranks on one device runs
-each rank's body on a thread of its own with an
-``InProcessCommunicator``:
+A world of one rank runs its body on the caller's thread over the
+``SingleRankTransport``. A world of w > 1 ranks on one device runs
+each rank's body on a thread of its own over an ``InProcessTransport``:
 
 - a rank holds the world lock while it runs and releases it only while
   it waits at a collective, so one rank issues work at a time: the
@@ -25,6 +27,15 @@ each rank's body on a thread of its own with an
   collective wakes with ``WorldAborted``, and the caller gets the first
   failing rank's exception. A collective that cannot complete (a rank
   returned, or ``RENDEZVOUS_TIMEOUT_S`` passed) raises as well.
+
+In a process world (``Topology.is_process_world``) every process calls
+run_spmd with its own block of each sharded argument; the body runs once,
+on this process's rank, over a ``DistTransport``, and run_spmd returns
+this rank's results. The outputs named by ``gathered`` are all-gathered
+instead, so every process holds the [w, ...] whole that one process's
+world returns (the flag matrix, which every rank must read alike). A
+rank that raises leaves its peers at their next collective until the
+process group's timeout fails them.
 """
 
 from __future__ import annotations
@@ -32,18 +43,21 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import threading
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 
 from ..core.table import Column, Table
 from .communicator import (
     Communicator,
-    InProcessCommunicator,
+    DistTransport,
+    InProcessTransport,
     InProcessWorld,
     PhaseClock,
-    SingleRankCommunicator,
+    SingleRankTransport,
     WorldAborted,
+    XlaCommunicator,
+    make_communicator,
 )
 from .topology import Topology
 
@@ -117,32 +131,54 @@ def _on_device(dev: torch.device):
     return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
-def run_spmd(topology: Topology, body: Callable, *sharded, fuse_columns: bool = True):
-    """``body(comm, *blocks)`` once per rank of ``topology``, where
-    ``comm`` is the rank's Communicator over the world group and
-    ``blocks`` the rank's blocks of ``sharded``; returns the ranks'
-    results joined in rank order. ``fuse_columns`` is the
-    communicator's: one collective per dtype class in an exchange, or
-    one per buffer."""
-    w = topology.world_size
+def run_spmd(topology: Topology, body: Callable, *sharded, communicator_cls=None,
+             fuse_columns: Optional[bool] = None, gathered: Sequence[int] = ()):
+    """``body(comm, *blocks)`` once per rank of ``topology`` that runs in
+    this process, where ``comm`` is the rank's communicator over the
+    world group and ``blocks`` the rank's blocks of ``sharded``; returns
+    the ranks' results joined in rank order. ``communicator_cls`` and
+    ``fuse_columns`` choose the backend and whether an exchange moves one
+    collective per dtype class or one per buffer (None: the backend's
+    own default). ``gathered`` indexes outputs of a tuple result that
+    every process of a process world gets whole."""
+    cls = XlaCommunicator if communicator_cls is None else communicator_cls
     dev = topology.device
     group = topology.world_group()
-    blocks = [_split(a, w) for a in sharded]
     runs = _phase_runs.get()
+    if topology.is_process_world:
+        comm = make_communicator(cls, group, DistTransport(dev), fuse_columns)
+        comm.clock = PhaseClock(dev) if runs is not None else None
+        with _on_device(dev):
+            out = body(comm, *sharded)
+            _stop(comm)
+            if gathered:
+                out = tuple(_gather(comm, x) if i in gathered else x for i, x in enumerate(out))
+        if runs is not None:
+            runs.append([comm.clock.ms()])
+        return out
+    w = topology.world_size
+    blocks = [_split(a, w) for a in sharded]
     clocks = [PhaseClock(dev) if runs is not None else None for _ in range(w)]
     if w == 1:
-        comm: Communicator = SingleRankCommunicator(group, fuse_columns)
+        comm = make_communicator(cls, group, SingleRankTransport(), fuse_columns)
         comm.clock = clocks[0]
         out = body(comm, *(b[0] for b in blocks))
         _stop(comm)
     else:
-        out = _run_threads(topology, body, blocks, clocks, fuse_columns)
+        out = _run_threads(topology, body, blocks, clocks, cls, fuse_columns)
     if runs is not None:
         runs.append([c.ms() for c in clocks])
     return out
 
 
-def _run_threads(topology, body, blocks, clocks, fuse_columns):
+def _gather(comm: Communicator, x: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``x`` joined in rank order, as one process's world
+    concatenates them."""
+    g = comm.all_gather(x)
+    return g.reshape((-1,) + tuple(g.shape[2:]))
+
+
+def _run_threads(topology, body, blocks, clocks, cls, fuse_columns):
     w = topology.world_size
     dev = topology.device
     group = topology.world_group()
@@ -151,7 +187,7 @@ def _run_threads(topology, body, blocks, clocks, fuse_columns):
     errors: list = []
 
     def rank_main(r: int) -> None:
-        comm = InProcessCommunicator(group, world, r, fuse_columns)
+        comm = make_communicator(cls, group, InProcessTransport(world, r), fuse_columns)
         comm.clock = clocks[r]
         with world.cond:
             try:

@@ -2,7 +2,8 @@
 
 Counterpart of the taxonomy in ``dj_tpu/resilience/errors.py``: retry
 with wider factors (:class:`CapacityExhausted`) or re-prepare the build
-side (:class:`PlanMismatch`). Each subclasses ``RuntimeError``. The
+side (:class:`PlanMismatch`), or restart the process group
+(:class:`BackendError`). Each subclasses ``RuntimeError``. The
 degradation ladder of that module has no counterpart yet: the port has
 no optional tier that could fail to build while a baseline works.
 """
@@ -39,6 +40,12 @@ class PlanMismatch(DJError):
     with a prepared plan: odf, key dtypes, a batch sizing whose tag
     width differs from the prepared words', or build keys outside a
     declared range. Heal by re-preparing."""
+
+
+class BackendError(DJError):
+    """The distributed backend failed past its retry budget (the
+    process group's bootstrap). Not healable by capacity growth or
+    re-preparation: restart or fail over."""
 
 
 # The name the prepared path raises under, as in dj_tpu.parallel.dist_join.

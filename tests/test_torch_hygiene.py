@@ -36,7 +36,8 @@ def _run(args, cwd, timeout=120):
 def test_importing_every_module_loads_no_jax():
     mods = list(_modules())
     for m in ("ops.scan", "convert", "ops.merge", "ops.expand", "resilience.errors",
-              "hw.probe_sort", "hw.probe_gather", "parallel.spmd", "parallel.communicator"):
+              "hw.probe_sort", "hw.probe_gather", "parallel.spmd", "parallel.communicator",
+              "parallel.bootstrap", "parallel.topology", "data.generator"):
         assert f"dj_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -52,7 +53,8 @@ def test_importing_every_module_loads_no_jax():
 
 
 def test_no_module_names_jax_or_dj_tpu():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "tests" / "torch_world_worker.py"]
     for p in files:
         for node in ast.walk(ast.parse(p.read_text(), filename=str(p))):
             names = []

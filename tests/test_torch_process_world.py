@@ -1,0 +1,372 @@
+"""dj_tpu_torch's process world (one rank per process, torch.distributed
+over gloo) vs numpy, dj_tpu and the world in one process.
+
+Worlds of 2 and 4 CPU processes are started once per module with
+``chip_smoke.spawn_world``; each process runs ``tests/torch_world_worker.py``
+(torch, numpy and dj_tpu_torch only, since a spawned child must not load
+JAX) and pickles its rank's results, and each test below reads them:
+the collectives and ``exchange`` under the three backends against numpy;
+``shuffle_tables`` leaf for leaf against dj_tpu's on the CPU mesh, for
+every fixed-width dtype; joins shard for shard against dj_tpu at odf 1
+and 4 (vmeta and ranks, and under Ring and Buffered); the prepared side
+at a world of 4 in each tier; ``generate_tables_distributed`` against
+the world in one process; the flag matrix on every process; and a rank
+that raises failing its world within the time limit. Then chip_smoke's
+own process-world helpers, rehearsed with gloo at a tiny size.
+"""
+
+import concurrent.futures
+import functools
+import importlib.util
+import json
+import pathlib
+import pickle
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import dj_tpu
+from dj_tpu.core import table as jT
+from dj_tpu.parallel import all_to_all as ja2a
+from dj_tpu.parallel import dist_join as jdist
+from dj_tpu.parallel.api import shard_table as jshard
+from dj_tpu.parallel.topology import make_topology as jmake_topology
+from dj_tpu.utils import compat
+import dj_tpu_torch as tj
+from dj_tpu_torch import convert
+from dj_tpu_torch.data import generator as tgen
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+WORKER = pathlib.Path(__file__).resolve().parent / "torch_world_worker.py"
+TIMEOUT_S = 120  # a world that runs longer is killed and fails its tests
+ENV = {"OMP_NUM_THREADS": "1"}
+
+
+def _load(name, path):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+W = _load("torch_world_worker", WORKER)
+chip_smoke = _load("chip_smoke", ROOT / "chip_smoke.py")
+
+WORLDS = (2, 4)
+CASES = {2: ["collectives", "exchange", "shuffle", "join", "generate"],
+         4: ["collectives", "exchange", "shuffle", "join", "prepared", "generate"]}
+
+
+class _Worlds:
+    """The spawned worlds, each read once on first use."""
+
+    def __init__(self, tmp_path_factory):
+        self.pool = concurrent.futures.ThreadPoolExecutor(len(WORLDS) + 1)
+        self.runs = {}
+        for key, w, spec, env in [(w, w, {"cases": CASES[w]}, ENV) for w in WORLDS] + [
+                ("fail", 2, {"cases": ["fail"]}, {**ENV, "DJT_COLLECTIVE_TIMEOUT_S": "30"})]:
+            d = tmp_path_factory.mktemp(f"world_{key}")
+            fut = self.pool.submit(chip_smoke.spawn_world, w,
+                                   [str(WORKER), json.dumps(spec), str(d)],
+                                   timeout=TIMEOUT_S, env=env, cwd=ROOT)
+            self.runs[key] = (d, fut)
+        self._loaded = {}
+
+    def outcome(self, key):
+        return self.runs[key][1].result()
+
+    def results(self, w) -> list:
+        if w not in self._loaded:
+            d, fut = self.runs[w]
+            for r, (rc, out, err) in enumerate(fut.result()):
+                assert rc == 0, f"rank {r} of {w} ended with {rc}:\n{out[-2000:]}\n{err[-4000:]}"
+            self._loaded[w] = [pickle.loads((d / f"rank{r}.pkl").read_bytes()) for r in range(w)]
+        return self._loaded[w]
+
+
+@pytest.fixture(scope="module")
+def worlds(tmp_path_factory):
+    ws = _Worlds(tmp_path_factory)
+    yield ws
+    ws.pool.shutdown(wait=True)
+
+
+def _bits(a) -> np.ndarray:
+    a = np.asarray(a)
+    return a.view(f"uint{8 * a.dtype.itemsize}") if a.dtype != np.bool_ else a
+
+
+@pytest.mark.parametrize("w", WORLDS)
+def test_process_world_collectives_match_numpy(w, worlds):
+    inp = W.collective_inputs(w)
+    x = inp["x"]
+    for r, res in enumerate(worlds.results(w)):
+        assert (res["rank"], res["world"]) == (r, w)
+        got = res["collectives"]
+        for backend in W.BACKENDS:
+            g = got[backend]
+            for k in ("x", "u64", "i16", "b"):
+                np.testing.assert_array_equal(_bits(g[k]), _bits(inp[k][:, r]),
+                                              err_msg=f"{backend} {k}")
+            np.testing.assert_array_equal(g["sizes"], inp["g"][:, r])
+        p = got["plain"]
+        assert p["rank"] == r and p["transport"] == "gloo"
+        np.testing.assert_array_equal(p["gather_g"], inp["g"])
+        np.testing.assert_array_equal(_bits(p["gather_u64"]), _bits(inp["u64r"]))
+        np.testing.assert_array_equal(p["gather_b"], inp["b"][:, 0])
+        np.testing.assert_array_equal(p["max_f"], inp["f"].max(0))
+        np.testing.assert_array_equal(p["sum_g"], inp["g"].sum(0, dtype=np.int32))
+        np.testing.assert_array_equal(p["max_u64"], inp["u64r"].max(0))
+        np.testing.assert_array_equal(p["sum_u64"], inp["u64r"].sum(0, dtype=np.uint64))
+        for s in range(w):
+            np.testing.assert_array_equal(p["shift"][s], x[(r - s) % w, 0])
+
+
+@pytest.mark.parametrize("w", WORLDS)
+def test_process_world_exchange_matches_numpy(w, worlds):
+    """exchange and exchange_start of mixed-dtype buffers (uint64, uint16
+    and bool among them) under each backend, fused and not: each result
+    is its buffer's all_to_all."""
+    bufs = W.exchange_buffers(w)
+    for r, res in enumerate(worlds.results(w)):
+        for (backend, fuse), (got, started) in res["exchange"].items():
+            for b, g, s in zip(bufs, got, started):
+                assert g.dtype == b.dtype == s.dtype
+                np.testing.assert_array_equal(_bits(g), _bits(b[:, r]),
+                                              err_msg=f"{backend} fuse={fuse}")
+                np.testing.assert_array_equal(_bits(s), _bits(b[:, r]))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_shuffle(n):
+    """dj_tpu's shuffle_tables of W.shuffle_inputs(n) on n devices of the
+    CPU mesh: per table, (column arrays, counts, totals, overflow,
+    bucket overflow, out overflow)."""
+    inp = W.shuffle_inputs(n)
+    jtopo = jmake_topology(jax.devices()[:n])
+    jcomm = dj_tpu.XlaCommunicator(jtopo.world_group())
+    spec = jtopo.row_spec()
+
+    def jtable(cols, names):
+        return jT.Table(tuple(jT.Column(jnp.asarray(c), dj_tpu.dtypes.by_name(nm))
+                              for c, nm in zip(cols, names)))
+
+    @jax.jit
+    @functools.partial(compat.shard_map, mesh=jtopo.mesh, in_specs=(spec,) * 6, out_specs=spec)
+    def jrun(lt, rt, a, b, c, d):
+        res = ja2a.shuffle_tables(jcomm, [lt, rt], [a, c], [b, d], inp["bucket_rows"],
+                                  inp["out_caps"])
+        return tuple(
+            (t.with_count(None), t.count()[None], tot[None], ovf[None],
+             st[ja2a.OVF_BUCKET][None], st[ja2a.OVF_OUT][None])
+            for t, tot, ovf, st in res
+        )
+
+    out = jrun(jtable(inp["left"], W.DTYPES), jtable(inp["right"], inp["right_names"]),
+               *(jnp.asarray(inp[k]) for k in ("ls", "lc", "rs", "rc")))
+    return [([np.asarray(c.data) for c in t.columns], *(np.asarray(v) for v in vec))
+            for t, *vec in out]
+
+
+@pytest.mark.parametrize("w", WORLDS)
+def test_process_world_shuffle_matches_dj_tpu(w, worlds):
+    """Each rank's shuffle_tables result, leaf for leaf (data with its
+    padding, count, total and both overflow bits), equals shard r of
+    dj_tpu's, under each backend."""
+    want = _jax_shuffle(w)
+    for r, res in enumerate(worlds.results(w)):
+        for run, got in res["shuffle"].items():
+            for t, (cols, count, total, ovf, b_ovf, o_ovf) in enumerate(got):
+                wcols, wcount, wtotal, wovf, wb, wo = want[t]
+                for g, c in zip(cols, wcols):
+                    cap = c.shape[0] // w
+                    np.testing.assert_array_equal(_bits(g), _bits(c[r * cap : (r + 1) * cap]),
+                                                  err_msg=f"{run} table {t}")
+                assert (count, total, ovf, b_ovf, o_ovf) == (
+                    wcount[r], wtotal[r], wovf[r], wb[r], wo[r]), (run, t)
+    bucket_ovf = [res["shuffle"][("xla", True)][0][4] for res in worlds.results(w)]
+    assert bucket_ovf[0] and not all(bucket_ovf)  # rank 0's bucket overflow only
+
+
+class _JaxWorld:
+    def __init__(self, w, build, probe):
+        self.jtopo = jmake_topology(jax.devices()[:w])
+        self.j = {}
+        for side, arrays in (("build", build), ("probe", probe)):
+            jt = dj_tpu.from_arrays(*[jnp.asarray(a) for a in arrays],
+                                    dtypes=[dj_tpu.dtypes.by_name(a.dtype.name) for a in arrays])
+            self.j[side] = jshard(self.jtopo, jt)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_join(w, odf):
+    world = _JaxWorld(w, *W.join_tables())
+    (jl, jlc), (jr, jrc) = world.j["probe"], world.j["build"]
+    out = dj_tpu.distributed_inner_join(world.jtopo, jl, jlc, jr, jrc, [0], [0],
+                                        dj_tpu.JoinConfig(over_decom_factor=odf))
+    return W._join_result((convert.table_from_numpy(
+        [np.asarray(c.data) for c in out[0].columns], [c.dtype.name for c in out[0].columns],
+        device="cpu"), torch.from_numpy(np.asarray(out[1])),
+        {k: torch.from_numpy(np.asarray(v)) for k, v in out[2].items()}))
+
+
+def _assert_shards(w, results, key, want):
+    """Rank r's counts, rows and the whole flag matrix equal shard r of
+    ``want``'s."""
+    for r, res in enumerate(results):
+        got = res[key[0]][key[1]] if isinstance(key, tuple) else res[key]
+        assert got["counts"] == [want["counts"][r]], (key, r)
+        assert got["rows"] == [want["rows"][r]], (key, r)
+        assert got["flags"] == want["flags"], (key, r)
+
+
+@pytest.mark.parametrize("odf,mode,backend", W.JOIN_RUNS)
+@pytest.mark.parametrize("w", WORLDS)
+def test_process_world_join_matches_dj_tpu(w, odf, mode, backend, worlds):
+    want = _jax_join(w, odf)
+    assert not any(any(v) for v in want["flags"].values())
+    _assert_shards(w, worlds.results(w), ("join", (odf, mode, backend)), want)
+
+
+@pytest.fixture
+def jax_query_cache_clear():
+    yield
+    jdist._build_prepared_query_fn.cache_clear()
+
+
+@pytest.mark.parametrize("odf", [1, 4])
+def test_process_world_prepared_matches_dj_tpu(odf, worlds, jax_query_cache_clear):
+    """A world of 4 processes: each rank's prepared batches equal shard r
+    of dj_tpu's shuffle tier, and each merge tier's query its rows."""
+    build, probe = W.prepared_tables(odf)
+    world = _JaxWorld(4, build, probe)
+    cfg = dj_tpu.JoinConfig(over_decom_factor=odf)
+    jr, jrc = world.j["build"]
+    jprep = jdist.prepare_join_side(world.jtopo, jr, jrc, [0], cfg, tier="shuffle",
+                                    left_capacity=len(probe[0]))
+    jl, jlc = world.j["probe"]
+    jout = dj_tpu.distributed_inner_join(world.jtopo, jl, jlc, jprep, None, [0], None, cfg)
+    want = W._join_result((
+        convert.table_from_numpy([np.asarray(c.data) for c in jout[0].columns],
+                                 [c.dtype.name for c in jout[0].columns], device="cpu"),
+        torch.from_numpy(np.asarray(jout[1])),
+        {k: torch.from_numpy(np.asarray(v)) for k, v in jout[2].items()}))
+    results = worlds.results(4)
+    for r, res in enumerate(results):
+        got = res["prepared"][(odf, "prepare")]
+        assert got["plan"] == tuple(jprep.plan) and got["sizing"] == tuple(jprep.sizing)
+        assert got["key_range"] == tuple(jprep.key_range)
+        for (tw, tp, tc), (jw, jp, jc) in zip(got["batches"], jprep.batches):
+            assert tc == [np.asarray(jc).tolist()[r]]
+            cap = tw.shape[0]
+            np.testing.assert_array_equal(tw, np.asarray(jw).view(np.int64)[r * cap : (r + 1) * cap])
+            for g, c in zip(tp, jp.columns):
+                pc = g.shape[0]
+                np.testing.assert_array_equal(g, np.asarray(c.data)[r * pc : (r + 1) * pc])
+    for tier in W.TIERS:
+        _assert_shards(4, results, ("prepared", (odf, tier)), want)
+
+
+@pytest.mark.parametrize("w", WORLDS)
+def test_process_world_generate_matches_the_world_in_one_process(w, worlds):
+    """generate_tables_distributed gives each process the block that rank
+    r gets in a world in one process, for the same seed; the join's total
+    is the sum of the ranks' exact expected counts."""
+    topo = tj.make_topology(["cpu"] * w)
+    b, bc, p, pc = tj.generate_tables_distributed(topo, **W.GENERATE)
+    nb, npr = W.GENERATE["build_nrows_per_shard"], W.GENERATE["probe_nrows_per_shard"]
+    for r, res in enumerate(worlds.results(w)):
+        got = res["generate"]
+        assert got["build_counts"] == [nb] and got["probe_counts"] == [npr]
+        for g, c in zip(got["build"], b.columns):
+            np.testing.assert_array_equal(g, c.data[r * nb : (r + 1) * nb].numpy())
+        for g, c in zip(got["probe"], p.columns):
+            np.testing.assert_array_equal(g, c.data[r * npr : (r + 1) * npr].numpy())
+    expected = 0
+    for r in range(w):
+        gen = torch.Generator().manual_seed(tgen.rank_seed(W.GENERATE["seed"], r))
+        expected += int(tj.generate_build_probe_tables(
+            gen, nb, npr, W.GENERATE["selectivity"], W.GENERATE["rand_max_per_shard"], True,
+            return_expected_matches=True)[2])
+    _, counts, info = tj.distributed_inner_join(topo, p, pc, b, bc, [0], [0])
+    assert int(counts.sum()) == expected > 0
+    assert not any(bool(v.any()) for v in info.values())
+    keys_b, keys_p = b.columns[0].data.numpy(), p.columns[0].data.numpy()
+    assert int(np.isin(keys_p, keys_b).sum()) == expected
+    assert np.unique(b.columns[1].data.numpy()).size == w * nb  # global row ids
+
+
+@pytest.mark.parametrize("w", WORLDS)
+def test_process_world_flag_matrix_is_the_same_on_every_process(w, worlds):
+    """A join whose flags fire on some ranks only: every process holds
+    the whole [w] flag vectors, equal to the world in one process's."""
+    topo = tj.make_topology(["cpu"] * w)
+    build, probe = W.join_tables()
+    (tl, tlc), (tr, trc) = W._sharded(topo, probe), W._sharded(topo, build)
+    want = W._join_result(tj.distributed_inner_join(topo, tl, tlc, tr, trc, [0], [0],
+                                                    tj.JoinConfig(**W.FLAGS_CONFIG)))
+    mixed = [v for v in want["flags"].values() if any(v) and not all(v)]
+    assert mixed, want["flags"]
+    _assert_shards(w, worlds.results(w), ("join", "flags"), want)
+
+
+def test_a_rank_that_raises_fails_its_world(worlds):
+    """Rank 1 raises before the join; rank 0, waiting in the join's first
+    collective, fails too, and both processes end within the time limit
+    (spawn_world raises past it) instead of hanging."""
+    (rc0, _, err0), (rc1, _, err1) = worlds.outcome("fail")
+    assert rc1 != 0 and "rank 1 fails on purpose" in err1
+    assert rc0 != 0 and "Traceback" in err0
+
+
+def _counting(monkeypatch):
+    """Make the kernel wrappers that ops.join calls count their plain
+    calls, as their CUDA launches count on the card."""
+    from dj_tpu_torch.ops import expand, join, merge, scan
+
+    def wrap(name, mod, counter):
+        fn = getattr(join, name)
+
+        def counted(*a, **k):
+            setattr(mod, counter, getattr(mod, counter) + 1)
+            return fn(*a, **k)
+
+        monkeypatch.setattr(join, name, counted)
+
+    wrap("join_scans", scan, "launches")
+    wrap("merge_sorted_u64", merge, "launches")
+    for name, counter in chip_smoke.EXPAND_COUNTERS.items():
+        wrap(name, expand, counter)
+
+
+def test_chip_smoke_process_world_helpers_rehearse_with_gloo(monkeypatch):
+    """chip_smoke's phases 6a and 6b at a tiny size on the CPU: a gloo
+    world of one in this process (every path, the transport checks) and
+    four worker processes whose shard digests equal the world in one
+    process's."""
+    rows = 4000
+    gen = torch.Generator().manual_seed(0)
+    build, probe, expected = tj.generate_build_probe_tables(
+        gen, rows, rows, 0.3, 2 * rows, True, return_expected_matches=True)
+    expected = int(expected)
+    topo = tj.make_topology(["cpu"] * 4)
+    (l, lc), (r, rc) = tj.shard_table(topo, probe), tj.shard_table(topo, build)
+    out, counts, _ = tj.distributed_inner_join(topo, l, lc, r, rc, [0], [0])
+    digests = chip_smoke.shard_digests(out, counts)
+    res = chip_smoke.run_process_world(4, "gloo", "cpu", rows, 0, reps=1, timeout=TIMEOUT_S)
+    chip_smoke.check_process_world("rehearsal", res, digests, expected, 0)
+    assert [x["transport"] for x in res] == ["gloo"] * 4
+    assert all("a2a_exchange" in x["phase_ms"] for x in res)
+
+    one = tj.make_topology(["cpu"])
+    (l1, lc1), (r1, rc1) = tj.shard_table(one, probe), tj.shard_table(one, build)
+    ref = chip_smoke.sorted_rows(*tj.distributed_inner_join(one, l1, lc1, r1, rc1, [0], [0])[:2])
+    _counting(monkeypatch)
+    launches = chip_smoke.process_world_of_one(tj, torch.device("cpu"), "gloo", build, probe,
+                                               expected, ref, rows, "cpu")
+    assert launches["unprepared"][4]["join_scans"] == 4
+    assert launches["prepared_probe"][1]["expand_ranks"] == 1
+    assert not torch.distributed.is_initialized()

@@ -160,6 +160,23 @@ def test_shuffle_tables_match_dj_tpu(n, fuse):
     under shard_map on n devices, leaf for leaf. Rank 0 sends most of its
     left rows to peer 1 (bucket_overflow), and the right output capacity
     is a third of its input's (out_overflow)."""
+    _shuffle_parity(n, fuse, dj_tpu.XlaCommunicator, tj.XlaCommunicator, {})
+
+
+@pytest.mark.parametrize("backend", ["ring", "buffered"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_shuffle_tables_ring_buffered_match_dj_tpu(n, backend):
+    """The same epoch under dj_tpu's RingCommunicator and
+    BufferedCommunicator (chunks of 5 rows, so every bucket splits)
+    against the port's, each with its backend's own fuse default."""
+    jcls, tcls, kw = {
+        "ring": (dj_tpu.RingCommunicator, tj.RingCommunicator, {}),
+        "buffered": (dj_tpu.BufferedCommunicator, tj.BufferedCommunicator, {"chunk_rows": 5}),
+    }[backend]
+    _shuffle_parity(n, False, jcls, tcls, kw)
+
+
+def _shuffle_parity(n, fuse, jcls, tcls, kw):
     rng = np.random.default_rng(100 + n + fuse)
     l_cap, r_cap = 48, 30
     bl, br = l_cap * 3 // (2 * n), r_cap * 3 // n
@@ -184,7 +201,7 @@ def test_shuffle_tables_match_dj_tpu(n, fuse):
     out_caps = [n * bl, r_cap // 3]
 
     jtopo = jmake_topology(jax.devices()[:n])
-    jcomm = dj_tpu.XlaCommunicator(jtopo.world_group(), fuse_columns=fuse)
+    jcomm = jcls(jtopo.world_group(), fuse_columns=fuse, **kw)
     spec = jtopo.row_spec()
 
     def jtable(cols, names):
@@ -218,7 +235,8 @@ def test_shuffle_tables_match_dj_tpu(n, fuse):
         ttopo, body,
         convert.table_from_numpy(left_cols, DTYPES, device="cpu"),
         convert.table_from_numpy(right_cols, right_names, device="cpu"),
-        *(torch.from_numpy(v) for v in (ls, lc, rs, rc)), fuse_columns=fuse,
+        *(torch.from_numpy(v) for v in (ls, lc, rs, rc)),
+        communicator_cls=functools.partial(tcls, **kw), fuse_columns=fuse,
     )
     for t, names in ((0, DTYPES), (1, right_names)):
         gtab, *gvec = got[t]
@@ -315,7 +333,47 @@ def test_record_phases_times_each_part(w):
 
 def test_make_topology_limits():
     assert tj.make_topology(["cpu"] * 5).world_size == 5
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(NotImplementedError, match="process world"):
         tj.make_topology(["cpu", "cuda:0"])
     with pytest.raises(NotImplementedError, match="item 8"):
         tj.make_topology(["cpu"] * 2, intra_size=1)
+
+
+@pytest.mark.parametrize("w", [1, 2])
+def test_pipeline_issues_next_exchange_before_the_join(w, monkeypatch):
+    """Batch b+1's exchange is issued before batch b's join (dj_tpu's
+    software pipeline), on the unprepared join and the prepared query;
+    the rows are those of dj_tpu's serial reference, the world in one
+    rank at odf 1."""
+    from dj_tpu_torch.parallel.communicator import Communicator
+
+    order = []
+    real = Communicator.phase
+
+    def phase(self, label):
+        if self.rank() == 0 and label in ("dj_exchange", "dj_join"):
+            order.append(label)
+        real(self, label)
+
+    monkeypatch.setattr(Communicator, "phase", phase)
+    rng = np.random.default_rng(11)
+    keys = rng.permutation(3000)[:1200]
+    t = convert.table_from_numpy([keys, np.arange(1200)], ["int64", "int64"], device="cpu")
+    topo = tj.make_topology(["cpu"] * w)
+    s, c = tj.shard_table(topo, t)
+    want = tj.distributed_inner_join(tj.make_topology(["cpu"]), *tj.shard_table(
+        tj.make_topology(["cpu"]), t), *tj.shard_table(tj.make_topology(["cpu"]), t), [0], [0])
+    order.clear()
+    cfg = tj.JoinConfig(over_decom_factor=3, key_range=(0, 3000))
+    out, counts, _ = tj.distributed_inner_join(topo, s, c, s, c, [0], [0], cfg)
+    pipelined = ["dj_exchange", "dj_exchange", "dj_join", "dj_exchange", "dj_join", "dj_join"]
+    assert order == pipelined
+    got = sorted(map(tuple, np.stack([col.data.numpy() for col in
+                                      tj.unshard_table(out, counts).columns], 1).tolist()))
+    ref = sorted(map(tuple, np.stack([col.data.numpy() for col in
+                                      tj.unshard_table(want[0], want[1]).columns], 1).tolist()))
+    assert got == ref and len(got) == 1200
+    prep = tj.prepare_join_side(topo, s, c, [0], cfg)
+    order.clear()
+    tj.distributed_inner_join(topo, s, c, prep, None, [0], None, cfg)
+    assert order == pipelined

@@ -1,0 +1,318 @@
+"""One process of a dj_tpu_torch process world, for the tests.
+
+Run as ``python tests/torch_world_worker.py <spec json> <out dir>`` with
+the DJT_* variables of a process world (``chip_smoke.spawn_world`` sets
+them). The process joins a gloo world of CPU ranks, runs the cases the
+spec names and pickles its rank's results to ``<out dir>/rank<r>.pkl``;
+``tests/test_torch_process_world.py`` reads them. It imports torch,
+numpy and dj_tpu_torch only: a spawned child must not load JAX. The
+inputs come from the functions below, made from fixed seeds with numpy,
+so the test builds the same ones for dj_tpu and for a world in one
+process.
+"""
+
+from __future__ import annotations
+
+import functools
+import json
+import os
+import pathlib
+import pickle
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+import dj_tpu_torch as dj  # noqa: E402
+from dj_tpu_torch import convert  # noqa: E402
+from dj_tpu_torch.data.generator import host_build_probe_keys  # noqa: E402
+from dj_tpu_torch.parallel import all_to_all as a2a  # noqa: E402
+from dj_tpu_torch.parallel import spmd  # noqa: E402
+
+# Every fixed-width dtype a Column takes.
+DTYPES = ("int8", "uint8", "int16", "uint16", "int32", "uint32", "float32", "float64", "int64",
+          "uint64")
+BACKENDS = {"xla": dj.XlaCommunicator, "buffered": dj.BufferedCommunicator,
+            "ring": dj.RingCommunicator}
+CHUNK_ROWS = 2  # the Buffered backend's chunk in the collective cases
+# The backends of the collective cases: Buffered cut into CHUNK_ROWS rows.
+SMALL_BACKENDS = {**BACKENDS, "buffered": functools.partial(dj.BufferedCommunicator,
+                                                            chunk_rows=CHUNK_ROWS)}
+# (backend, fuse_columns) of the shuffle case; None is the backend's default.
+SHUFFLE_RUNS = (("xla", True), ("xla", False), ("ring", None), ("buffered", None))
+# (odf, DJT_JOIN_EXPAND mode, backend) of the join case.
+JOIN_RUNS = tuple((odf, mode, "xla") for odf in (1, 4) for mode in ("vmeta", "ranks")) + tuple(
+    (odf, "vmeta", b) for odf in (1, 4) for b in ("ring", "buffered"))
+TIERS = ("sort", "merge", "probe")
+
+
+def bits(rng, name: str, size) -> np.ndarray:
+    """Random bit patterns of ``name``'s width (negative, top-bit-set,
+    any float bits)."""
+    d = np.dtype(dj.dtypes.by_name(name).physical)
+    u = np.dtype(f"uint{8 * d.itemsize}")
+    return rng.integers(0, np.iinfo(u).max, size, dtype=u, endpoint=True).view(d)
+
+
+def collective_inputs(n: int) -> dict:
+    """[n, ...] arrays, rank r's part at index r: ``x`` rank r sends x[r, p]
+    to peer p; the others feed all_gather and all_reduce."""
+    rng = np.random.default_rng(n)
+    return {
+        "x": rng.integers(-(2**40), 2**40, (n, n, 5, 3)),
+        "u64": bits(rng, "uint64", (n, n, 4)),
+        "i16": bits(rng, "int16", (n, n, 3, 2)),
+        "b": rng.random((n, n, 7)) < 0.5,
+        "g": rng.integers(-100, 100, (n, 9)).astype(np.int32),
+        "f": rng.standard_normal((n, 4)),
+        "u64r": bits(rng, "uint64", (n, 6)),
+    }
+
+
+def exchange_buffers(n: int) -> list:
+    rng = np.random.default_rng(10 + n)
+    return [
+        rng.integers(-(2**62), 2**62, (n, n, 6)),
+        rng.integers(-(2**31), 2**31, (n, n, 4, 3)).astype(np.int32),
+        bits(rng, "uint64", (n, n, 2)),
+        rng.standard_normal((n, n, 5)).astype(np.float32),
+        bits(rng, "uint16", (n, n, 3)),
+        rng.random((n, n, 1)) < 0.5,
+        rng.integers(0, 2**15, (n, n, 1)).astype(np.int32),
+    ]
+
+
+def shuffle_inputs(n: int) -> dict:
+    """Two tables through one epoch: every fixed-width dtype on the left,
+    three columns on the right; rank 0 sends most of its left rows to
+    peer 1 (bucket_overflow) and the right output capacity is a third of
+    its input's (out_overflow)."""
+    rng = np.random.default_rng(100 + n)
+    l_cap, r_cap = 48, 30
+    right_names = ("int64", "uint32", "float32")
+
+    def parts(cap, skew):
+        starts, counts = [], []
+        for r in range(n):
+            p = np.full(n, 1.0 / n)
+            if skew and r == 0:
+                p = np.full(n, 0.02 / (n - 1))
+                p[1] = 0.98
+            c = rng.multinomial(cap - int(rng.integers(0, 4)), p).astype(np.int32)
+            counts.append(c)
+            starts.append(np.concatenate([[0], np.cumsum(c)[:-1]]).astype(np.int32))
+        return np.concatenate(starts), np.concatenate(counts)
+
+    left = [bits(rng, nm, n * l_cap) for nm in DTYPES]
+    right = [bits(rng, nm, n * r_cap) for nm in right_names]
+    ls, lc = parts(l_cap, True)
+    rs, rc = parts(r_cap, False)
+    bl, br = l_cap * 3 // (2 * n), r_cap * 3 // n
+    return {"left": left, "right": right, "right_names": right_names, "ls": ls, "lc": lc,
+            "rs": rs, "rc": rc, "bucket_rows": [bl, br], "out_caps": [n * bl, r_cap // 3]}
+
+
+def join_tables():
+    """Probe (int64 key, int64 row, float32 payload) JOIN build (int64
+    key, int64 row + 7), selectivity 0.3."""
+    rng = np.random.default_rng(7)
+    build, probe = host_build_probe_keys(3000, 4000, 0.3, rng, dtype=np.dtype("int64"))
+    return ([build, np.arange(3000, dtype=np.int64) + 7],
+            [probe, np.arange(4000, dtype=np.int64), rng.standard_normal(4000).astype(np.float32)])
+
+
+def prepared_tables(seed: int, nb: int = 2400, nl: int = 3600):
+    """Build keys unique in [0, 3 nb) with both ends present."""
+    rng = np.random.default_rng(seed)
+    span = 3 * nb
+    build = np.concatenate([[0, span - 1], rng.permutation(np.arange(1, span - 1))[: nb - 2]])
+    probe = rng.integers(0, span, nl)
+    return ([build.astype(np.int64), np.arange(nb, dtype=np.int64) + 10**6],
+            [probe.astype(np.int64), np.arange(nl, dtype=np.int64)])
+
+
+GENERATE = dict(build_nrows_per_shard=400, probe_nrows_per_shard=600, selectivity=0.3,
+                rand_max_per_shard=999, uniq_build_tbl_keys=True, seed=5)
+# Overflows on some ranks and not on others, at worlds of 2 and 4.
+FLAGS_CONFIG = dict(over_decom_factor=2, bucket_factor=1.0, join_out_factor=0.3)
+
+
+def shard_rows(table, counts) -> list:
+    """Each shard's valid rows, sorted (one shard in a process world)."""
+    counts = np.asarray(counts).tolist()
+    cols = [np.asarray(c.data) for c in table.columns]
+    cap = cols[0].shape[0] // len(counts)
+    return [sorted(zip(*[c[r * cap : r * cap + k].tolist() for c in cols]))
+            for r, k in enumerate(counts)]
+
+
+def _np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else x
+
+
+def _join_result(res) -> dict:
+    out, counts, info = res
+    return {"rows": shard_rows(out, counts), "counts": counts.tolist(),
+            "flags": {k: v.tolist() for k, v in info.items()}}
+
+
+def case_collectives(topo):
+    n, r = topo.world_size, topo.rank
+    inp = collective_inputs(n)
+    t = {k: torch.from_numpy(v[r]) for k, v in inp.items()}
+    out = {}
+    for name, cls in SMALL_BACKENDS.items():
+        def body(comm):
+            return {
+                "x": comm.all_to_all(t["x"]), "u64": comm.all_to_all(t["u64"]),
+                "i16": comm.all_to_all(t["i16"]), "b": comm.all_to_all(t["b"]),
+                "sizes": comm.communicate_sizes(t["g"][:n]),
+            }
+
+        res = spmd.run_spmd(topo, body, communicator_cls=cls)
+        out[name] = {k: _np(v) for k, v in res.items()}
+
+    def body(comm):
+        tr = comm.transport
+        return {
+            "gather_g": comm.all_gather(t["g"]), "gather_u64": comm.all_gather(t["u64r"]),
+            "gather_b": comm.all_gather(t["b"][0]),
+            "max_f": comm.all_reduce_max(t["f"]), "sum_g": comm.all_reduce_sum(t["g"]),
+            "max_u64": comm.all_reduce_max(t["u64r"]), "sum_u64": comm.all_reduce_sum(t["u64r"]),
+            "shift": [tr.shift_start(t["x"][0], s).wait() for s in range(n)],
+            "rank": comm.rank(), "transport": tr.name,
+        }
+
+    res = spmd.run_spmd(topo, body)
+    out["plain"] = {k: ([_np(e) for e in v] if isinstance(v, list) else _np(v))
+                    for k, v in res.items()}
+    return out
+
+
+def case_exchange(topo):
+    n, r = topo.world_size, topo.rank
+    bufs = [torch.from_numpy(b[r]) for b in exchange_buffers(n)]
+    out = {}
+    for name, cls in SMALL_BACKENDS.items():
+        for fuse in (True, False):
+            def body(comm):
+                got = comm.exchange(bufs)
+                started = comm.exchange_start(bufs)
+                return got, started.wait()
+
+            got, started = spmd.run_spmd(topo, body, communicator_cls=cls, fuse_columns=fuse)
+            out[(name, fuse)] = ([g.numpy() for g in got], [s.numpy() for s in started])
+    return out
+
+
+def case_shuffle(topo):
+    n = topo.world_size
+    inp = shuffle_inputs(n)
+    lt = convert.table_from_numpy(inp["left"], DTYPES, device="cpu")
+    rt = convert.table_from_numpy(inp["right"], inp["right_names"], device="cpu")
+    blk = {k: torch.from_numpy(inp[k].reshape(n, -1)[topo.rank].copy())
+           for k in ("ls", "lc", "rs", "rc")}
+
+    def block(t, cap):
+        r = topo.rank
+        return dj.Table(tuple(dj.Column(c.data[r * cap : (r + 1) * cap], c.dtype)
+                              for c in t.columns))
+
+    lt, rt = block(lt, 48), block(rt, 30)
+    out = {}
+    for name, fuse in SHUFFLE_RUNS:
+        def body(comm):
+            res = a2a.shuffle_tables(comm, [lt, rt], [blk["ls"], blk["rs"]],
+                                     [blk["lc"], blk["rc"]], inp["bucket_rows"], inp["out_caps"])
+            return tuple(
+                ([c.data.numpy() for c in t.columns], int(t.count()), int(tot), bool(ovf),
+                 bool(st[a2a.OVF_BUCKET]), bool(st[a2a.OVF_OUT]))
+                for t, tot, ovf, st in res)
+
+        out[(name, fuse)] = spmd.run_spmd(topo, body, communicator_cls=BACKENDS[name],
+                                          fuse_columns=fuse)
+    return out
+
+
+def _sharded(topo, arrays):
+    names = [a.dtype.name for a in arrays]
+    return dj.shard_table(topo, convert.table_from_numpy(arrays, names, device="cpu"))
+
+
+def case_join(topo):
+    build, probe = join_tables()
+    (tl, tlc), (tr, trc) = _sharded(topo, probe), _sharded(topo, build)
+    out = {}
+    for odf, mode, backend in JOIN_RUNS:
+        os.environ["DJT_JOIN_EXPAND"] = mode
+        cfg = dj.JoinConfig(over_decom_factor=odf, communicator_cls=BACKENDS[backend])
+        out[(odf, mode, backend)] = _join_result(
+            dj.distributed_inner_join(topo, tl, tlc, tr, trc, [0], [0], cfg))
+    os.environ.pop("DJT_JOIN_EXPAND")
+    cfg = dj.JoinConfig(**FLAGS_CONFIG)
+    out["flags"] = _join_result(dj.distributed_inner_join(topo, tl, tlc, tr, trc, [0], [0], cfg))
+    return out
+
+
+def case_prepared(topo):
+    out = {}
+    for odf in (1, 4):
+        build, probe = prepared_tables(odf)
+        (tl, tlc), (tr, trc) = _sharded(topo, probe), _sharded(topo, build)
+        cfg = dj.JoinConfig(over_decom_factor=odf)
+        prep = dj.prepare_join_side(topo, tr, trc, [0], cfg, left_capacity=len(probe[0]))
+        batches = [(w.numpy(), [c.data.numpy() for c in p.columns], c.tolist())
+                   for w, p, c in prep.batches]
+        out[(odf, "prepare")] = {"plan": tuple(prep.plan), "sizing": tuple(prep.sizing),
+                                 "key_range": prep.key_range, "batches": batches}
+        for tier in TIERS:
+            os.environ["DJT_JOIN_MERGE"] = tier
+            out[(odf, tier)] = _join_result(
+                dj.distributed_inner_join(topo, tl, tlc, prep, None, [0], None, cfg))
+        os.environ.pop("DJT_JOIN_MERGE")
+    return out
+
+
+def case_generate(topo):
+    b, bc, p, pc = dj.generate_tables_distributed(topo, **GENERATE)
+    return {"build": [c.data.numpy() for c in b.columns], "build_counts": bc.tolist(),
+            "probe": [c.data.numpy() for c in p.columns], "probe_counts": pc.tolist()}
+
+
+def case_fail(topo):
+    """Rank 1 raises before the join; its peers wait in the join's
+    collectives until the world fails them."""
+    build, probe = join_tables()
+    (tl, tlc), (tr, trc) = _sharded(topo, probe), _sharded(topo, build)
+    if topo.rank == 1:
+        raise ValueError("rank 1 fails on purpose")
+    return _join_result(dj.distributed_inner_join(topo, tl, tlc, tr, trc, [0], [0]))
+
+
+CASES = {"collectives": case_collectives, "exchange": case_exchange, "shuffle": case_shuffle,
+         "join": case_join, "prepared": case_prepared, "generate": case_generate,
+         "fail": case_fail}
+
+
+def main(spec_json: str, out_dir: str) -> int:
+    spec = json.loads(spec_json)
+    torch.set_num_threads(1)
+    dj.init_distributed(device="cpu")
+    try:
+        topo = dj.make_topology(["cpu"])
+        results = {"rank": topo.rank, "world": topo.world_size}
+        for case in spec["cases"]:
+            results[case] = CASES[case](topo)
+        with open(pathlib.Path(out_dir) / f"rank{topo.rank}.pkl", "wb") as f:
+            pickle.dump(results, f)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1], sys.argv[2]))
