@@ -87,7 +87,29 @@ Phases, each printing its own line(s):
      more than one stage, one row with 1M matches, all-miss, n_out below
      and above the total; for expand_ranks' merge path also S = 0, n_out
      = 0 and 1, and S + n_out at one CTA's items and one either side);
-  7. timings: the `timings` line (walls, peaks and the main path's sort);
+  7a. every fixed-width key kind through distributed_inner_join at odf 1
+     on phase 4's tables, keys mapped from the generator's so that the
+     expected count is its exact count: uint64 (key + 2^63); two int32
+     columns (k >> 16, k & 0xFFFF), packed through the probed range and
+     again under DJT_JOIN_PACK=0 (the unpacked sort); float64; int64 with
+     a build row at INT64_MIN and a probe row at INT64_MAX (an observed
+     span that sorts unpacked); DJT_JOIN_CARRY=1; DJT_JOIN_EXPAND=hist;
+     and uint64 under vcarry and vfull, float64 under ranks, fused, join.
+     Each: every flag False, the total the expected count, the rows equal
+     to phase 4's mapped back, the kernels launched by the join itself,
+     the median wall of 3 warm runs and the peak (run after 5b);
+  7b. float keys with 100 rows a side at each of -0.0, 0.0, NaN and
+     +-inf among 1M: the join on the card equals the port's own join on
+     the CPU (total, flags, rows bit for bit);
+  7c. distributed_inner_join_auto: join_out_factor 0.05 heals to the
+     exact count (attempts and factors logged); a second call under
+     DJT_LEDGER, the in-process ledger forgotten, succeeds on attempt 1;
+     max_attempts=1 raises CapacityExhausted; in phase 4d's 4-rank world,
+     bucket_factor 1.0 with one probe row in ten on one key heals
+     shuffle_overflow; a prepared side queried with a probe key below its
+     range re-prepares under the sort and the merge tier, its rows equal
+     to the unprepared join's;
+  9. timings: the `timings` line (walls, peaks and the main path's sort);
   8. the hardware probes: `python -m dj_tpu_torch.hw.probe_sort` and
      `... .probe_gather` through their main() at the JAX probes' shapes
      (64 tiles of 32768 u32 words; N = 131072 int32), each printing
@@ -154,15 +176,18 @@ def cuda_ms(fn, reps: int) -> float:
 
 def packed_inputs(build, probe, device):
     """The sorted packed words inner_join builds for probe JOIN build."""
-    from dj_tpu_torch.ops.join import _packed_sorted_words
+    from dj_tpu_torch.ops.join import _single_key_pack
+    from dj_tpu_torch.ops.merge import sort_u64
 
     lk, rk = probe.columns[0].data, build.columns[0].data
     L, R = lk.shape[0], rk.shape[0]
     tag_bits = max(1, (L + R).bit_length())
     lc = torch.tensor(L, dtype=torch.int32, device=device)
     rc = torch.tensor(R, dtype=torch.int32, device=device)
-    sp, _ = _packed_sorted_words(lk, rk, lc, rc, tag_bits, None)
-    return sp, lc, rc, tag_bits, L, R
+    packed = _single_key_pack(lk, rk, lc, rc, tag_bits, None)
+    if packed.word is None:
+        raise AssertionError("packed_inputs: the keys' span does not fit the packed word")
+    return sort_u64(packed.word), lc, rc, tag_bits, L, R
 
 
 def max_abs_diff(pairs) -> int:
@@ -341,7 +366,7 @@ def carry_inputs(build, probe, device):
     """The mode kernels' inputs for probe JOIN build as inner_join makes
     them under vcarry: (csum, cnt, stag, run_start, slots, key) from the
     sort that carries every non-key column as a union u64 slot."""
-    from dj_tpu_torch.ops.join import _carry_sorted, _union_slots
+    from dj_tpu_torch.ops.join import _carry_sorted, _single_key_pack, _union_slots
     from dj_tpu_torch.ops.scan import join_scans
 
     lk, rk = probe.columns[0].data, build.columns[0].data
@@ -351,7 +376,8 @@ def carry_inputs(build, probe, device):
     rc = torch.tensor(R, dtype=torch.int32, device=device)
     slots = _union_slots(list(enumerate(probe.columns))[1:], list(enumerate(build.columns))[1:],
                          L, R, device)
-    sp, _, key, sslots = _carry_sorted(lk, rk, lc, rc, tag_bits, None, slots)
+    sp, key, sslots = _carry_sorted(_single_key_pack(lk, rk, lc, rc, tag_bits, None), lk.dtype,
+                                    tag_bits, slots)
     stag, run_start, cnt, csum = join_scans(sp, lc, rc, tag_bits, L, R)
     return csum, cnt, stag, run_start, sslots, key
 
@@ -599,6 +625,345 @@ def check_unsigned_path(dj, topo, gen, dev, n: int) -> None:
             build_rows=build.capacity, total=expected, key_range=list(key_range),
             same_rows_as_int64_join=[r for r in results if r.startswith(str(key_dtype))])
         del build, probe, build64, probe64, left, lcnt, right, rcnt, ref, k, lp, rp
+
+
+INT64_MIN, INT64_MAX = -(2**63), 2**63 - 1
+# Phase 7a's key kinds: the generator's int64 keys mapped into each; a
+# "+mode" suffix runs the kind under that DJT_JOIN_EXPAND mode (the
+# uint64 key recovered from the packed word by vcarry and vfull, and the
+# unpacked sort's words read by the other kernel modes).
+KEY_KINDS = ("uint64", "two_int32_packed", "two_int32_unpacked", "float64", "int64_extremes",
+             "carry", "hist", "uint64+vcarry", "uint64+vfull", "float64+ranks", "float64+fused",
+             "float64+join")
+# The merged sort each kind's join takes (int64_extremes: the probed
+# range spans 64 bits, so the plan sorts unpacked).
+KIND_SORTS = {"uint64": "packed", "two_int32_packed": "packed, two fields",
+              "two_int32_unpacked": "unpacked, two stable passes", "float64": "unpacked",
+              "int64_extremes": "unpacked", "carry": "unpacked, one slot", "hist": "packed"}
+
+
+def key_kind_tables(dj, kind: str, build, probe):
+    """(build, probe, key columns, env, back) of one phase 7a kind: the
+    generator's tables with their int64 keys k mapped into the kind
+    (uint64 k + 2^63; two int32 columns (k >> 16, k & 0xFFFF); float64;
+    int64 with one build row at INT64_MIN and one probe row at INT64_MAX
+    added, which match nothing), so the expected count stays the
+    generator's; ``env`` holds the knobs the kind runs under and
+    ``back(key columns)`` maps an output's keys back to int64."""
+    kind, _, mode = kind.partition("+")
+    env = {"two_int32_unpacked": {"DJT_JOIN_PACK": "0"}, "carry": {"DJT_JOIN_CARRY": "1"},
+           "hist": {"DJT_JOIN_EXPAND": "hist"}}.get(kind, {})
+    if mode:
+        env = {"DJT_JOIN_EXPAND": mode}
+
+    def keys(k):
+        if kind == "uint64":
+            return [dj.Column((k ^ INT64_MIN).view(torch.uint64), dj.dtypes.uint64)]
+        if kind.startswith("two_int32"):
+            return [dj.Column((k >> 16).to(torch.int32), dj.dtypes.int32),
+                    dj.Column((k & 0xFFFF).to(torch.int32), dj.dtypes.int32)]
+        if kind == "float64":
+            return [dj.Column(k.to(torch.float64), dj.dtypes.float64)]
+        return [dj.Column(k, dj.dtypes.int64)]
+
+    def back(cols):
+        if kind == "uint64":
+            return cols[0].view(torch.int64) ^ INT64_MIN
+        if kind.startswith("two_int32"):
+            return (cols[0].to(torch.int64) << 16) | cols[1].to(torch.int64)
+        return cols[0].to(torch.int64)
+
+    tables = []
+    for t, extreme in ((build, INT64_MIN), (probe, INT64_MAX)):
+        k, pay = t.columns[0].data, t.columns[1].data
+        if kind == "int64_extremes":
+            k = torch.cat([k, torch.tensor([extreme], device=k.device)])
+            pay = torch.cat([pay, torch.tensor([pay.numel()], device=k.device)])
+        tables.append(dj.Table(tuple(keys(k)) + (dj.Column(pay, dj.dtypes.int64),)))
+    n_keys = 2 if kind.startswith("two_int32") else 1
+    return tables[0], tables[1], n_keys, env, back
+
+
+def kind_rows(out, counts, n_keys: int, back):
+    """The valid rows (int64 key, probe row, build row) ordered by probe
+    row, as sorted_rows gives phase 4's."""
+    n = int(counts.sum())
+    cols = [c.data[:n] for c in out.columns]
+    lp, rp = cols[n_keys], cols[n_keys + 1]
+    order = torch.sort(lp).indices
+    return back(cols[:n_keys])[order], lp[order], rp[order]
+
+
+def run_key_kinds(dj, topo, build, probe, expected: int, ref, smi: str) -> dict:
+    """Phase 7a: the one-rank join at odf 1 on each new key kind, checked
+    against phase 4's rows. Returns {path: {1: launches}}."""
+    from dj_tpu_torch.ops.join import EXPAND_KERNELS, join_plan
+    from dj_tpu_torch.parallel.dist_join import _resolve_key_range
+
+    launch_table = {}
+    for kind in KEY_KINDS:
+        b, p, n_keys, env, back = key_kind_tables(dj, kind, build, probe)
+        right, rcnt = dj.shard_table(topo, b)
+        left, lcnt = dj.shard_table(topo, p)
+        del b, p
+        on = list(range(n_keys))
+        cfg = dj.JoinConfig()
+        what = f"7a kind={kind}"
+        base = kind.partition("+")[0]
+        os.environ.update(env)
+        try:
+            # The plan the join resolves: the key range it probes, then
+            # the local join's resolver on the one rank's (whole) batch.
+            key_range = _resolve_key_range(cfg, left, lcnt, right, rcnt, on, on, 1, topo)
+            plan = join_plan(left, right, on, on, key_range)
+            if plan.packed != KIND_SORTS[base].startswith("packed"):
+                raise AssertionError(f"{what}: the plan {plan} does not take the "
+                                     f"{KIND_SORTS[base]} sort")
+            need = ("join_scans",) + tuple(EXPAND_KERNELS[m] for m in (plan.expand,)
+                                           if m in EXPAND_KERNELS)
+
+            def join():
+                return dj.distributed_inner_join(topo, left, lcnt, right, rcnt, on, on, cfg)
+
+            reset_launches()
+            out, counts, info = join()
+            torch.cuda.synchronize()
+            launches = read_launches()
+            set_flags = [f for f, v in info.items() if bool(v.any())]
+            if set_flags:
+                raise AssertionError(f"{what}: flags set: {set_flags}")
+            if int(counts.sum()) != expected:
+                raise AssertionError(f"{what}: total {int(counts.sum())} != expected {expected}")
+            check_same_rows(kind_rows(out, counts, n_keys, back), ref, what)
+            del out, counts, info
+            if min(launches[k] for k in need) < 1:
+                raise AssertionError(f"{what}: {need} not launched by the join: {launches}")
+            wall, runs, peak = warm_walls(join)
+            if kind in ("float64", "two_int32_unpacked", "carry"):
+                profile_join(join, path=f"key_{kind}", odf=1)
+        finally:
+            for k in env:
+                os.environ.pop(k)
+        launch_table[f"key_{kind}"] = {1: launches}
+        log("key_kind", smoke_phase="7a", kind=kind, key_dtypes=[str(c.data.dtype) for c in
+            left.columns[:n_keys]], env=env, plan=plan._asdict(), sort=KIND_SORTS[base],
+            rows=left.capacity,
+            build_rows=right.capacity, odf=1, total=expected, flags="all False",
+            same_rows_as_phase_4=True, launches=launches, wall_ms=wall, wall_ms_runs=runs,
+            peak_bytes=peak, card=smi)
+        del left, lcnt, right, rcnt
+        torch.cuda.empty_cache()
+    return launch_table
+
+
+def float_special_tables(dj, gen, dev, n: int):
+    """(build, probe) of n float64 keys in [0, 2n) each, 100 rows a side
+    set to each of -0.0, 0.0, NaN, +inf and -inf, and an int64 row id."""
+    tables = []
+    for _ in range(2):
+        k = torch.randint(0, 2 * n, (n,), generator=gen, device=dev).to(torch.float64)
+        idx = torch.randperm(n, generator=gen, device=dev)[:500].view(5, 100)
+        for row, v in zip(idx, (-0.0, 0.0, float("nan"), float("inf"), float("-inf"))):
+            k[row] = v
+        tables.append(dj.Table((dj.Column(k, dj.dtypes.float64),
+                                dj.Column(torch.arange(n, device=dev), dj.dtypes.int64))))
+    return tables
+
+
+def check_float_specials(dj, gen, dev, n: int, smi: str) -> dict:
+    """Phase 7b: float keys with -0.0, 0.0, NaN and +-inf joined on the
+    card and by the port on the CPU: the same total, flags and rows, bit
+    for bit (-0.0 joins 0.0 and keeps its sign in the left key column;
+    NaN joins nothing)."""
+    build, probe = float_special_tables(dj, gen, dev, n)
+    results = {}
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        topo = dj.make_topology([device])
+        b = dj.Table(tuple(dj.Column(c.data.to(device), c.dtype) for c in build.columns))
+        p = dj.Table(tuple(dj.Column(c.data.to(device), c.dtype) for c in probe.columns))
+        right, rcnt = dj.shard_table(topo, b)
+        left, lcnt = dj.shard_table(topo, p)
+        reset_launches()
+        out, counts, info = dj.distributed_inner_join(topo, left, lcnt, right, rcnt, [0], [0])
+        launches = read_launches()
+        total = int(counts.sum())
+        k, lp, rp = (c.data[:total].cpu() for c in out.columns)
+        order = torch.sort(lp * (n + 1) + rp).indices
+        results[where] = (total, {f: v.tolist() for f, v in info.items()},
+                          k.view(torch.int64)[order], lp[order], rp[order], launches)
+    card, cpu = results["card"], results["cpu"]
+    if card[0] != cpu[0] or card[1] != cpu[1]:
+        raise AssertionError(f"7b: card total/flags {card[:2]} != the CPU's {cpu[:2]}")
+    for g, w, name in zip(card[2:5], cpu[2:5], ("key bits", "probe row", "build row")):
+        if not torch.equal(g, w):
+            raise AssertionError(f"7b: the {name} column differs from the CPU join's")
+    keys = card[2].view(torch.float64)
+    zeros = int((keys == 0).sum())
+    if bool(torch.isnan(keys).any()) or zeros < 100 * 100 or card[5]["join_scans"] < 1:
+        raise AssertionError(f"7b: NaN rows or too few zero matches ({zeros}): {card[5]}")
+    log("float_specials", smoke_phase="7b", rows=n, total=card[0], flags="all False",
+        zero_key_rows=zeros, negative_zero_key_rows=int(torch.signbit(keys[keys == 0]).sum()),
+        nan_key_rows=0, same_rows_as_cpu=True, launches=card[5], card=smi)
+    return {"float_specials": {1: card[5]}}
+
+
+class Attempts:
+    """Counts the attempts distributed_inner_join_auto runs (its calls of
+    the unprepared and prepared joins) while active."""
+
+    NAMES = ("distributed_inner_join", "_distributed_inner_join_prepared")
+
+    def __enter__(self):
+        from dj_tpu_torch.parallel import dist_join
+
+        self.mod, self.n = dist_join, 0
+        self.orig = {name: getattr(dist_join, name) for name in self.NAMES}
+        for name, fn in self.orig.items():
+            setattr(dist_join, name, self._counted(fn))
+        return self
+
+    def _counted(self, fn):
+        def counted(*a, **k):
+            self.n += 1
+            return fn(*a, **k)
+        return counted
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.mod, name, fn)
+
+
+FACTOR_FIELDS = ("bucket_factor", "join_out_factor", "char_out_factor")
+
+
+def check_auto(dj, dev, topo, left, lcnt, right, rcnt, build, probe, expected: int, ref, rows: int,
+               smi: str) -> dict:
+    """Phase 7c: distributed_inner_join_auto. Returns {path: {1: launches}}."""
+    from dj_tpu_torch.resilience import ledger
+
+    launch_table = {}
+
+    def auto(*args, **kw):
+        reset_launches()
+        with Attempts() as a:
+            t0 = time.perf_counter()
+            res = dj.distributed_inner_join_auto(*args, **kw)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        set_flags = [f for f, v in res[2].items() if bool(v.any())]
+        if set_flags:
+            raise AssertionError(f"7c: flags set after healing: {set_flags}")
+        return res, a.n, wall, read_launches()
+
+    # (1) join_out_factor 0.05 overflows (an output of 10M slots for 30M
+    # matches); the heal doubles it until the count is exact. (2) Under
+    # DJT_LEDGER, a second call with the in-process ledger forgotten
+    # replays the file and succeeds on attempt 1. (3) One attempt only:
+    # CapacityExhausted.
+    tight = dj.JoinConfig(join_out_factor=0.05)
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["DJT_LEDGER"] = os.path.join(tmp, "ledger.jsonl")
+        try:
+            ledger.reset()
+            for call in ("first", "second_from_the_ledger_file"):
+                res, n, wall, launches = auto(topo, left, lcnt, right, rcnt, [0], [0], tight)
+                check_rows(res[0], res[1], build, probe, expected)
+                check_same_rows(sorted_rows(res[0], res[1]), ref, f"7c auto {call}")
+                if (n == 1) != (call != "first"):
+                    raise AssertionError(f"7c auto {call}: {n} attempts")
+                launch_table[f"auto_{call}"] = {1: launches}
+                log("auto", smoke_phase="7c", call=call, attempts=n,
+                    config={f: getattr(tight, f) for f in FACTOR_FIELDS},
+                    factors_used={f: getattr(res[3], f) for f in FACTOR_FIELDS}, total=expected,
+                    rows_checked=expected, same_rows_as_phase_4=True, wall_ms=wall,
+                    launches=launches, ledger_lines=len(open(os.environ["DJT_LEDGER"]).readlines()),
+                    card=smi)
+                del res
+                ledger.reset()
+        finally:
+            os.environ.pop("DJT_LEDGER")
+    ledger.reset()
+    try:
+        dj.distributed_inner_join_auto(topo, left, lcnt, right, rcnt, [0], [0], tight,
+                                       max_attempts=1)
+    except dj.CapacityExhausted as e:
+        if e.attempts != 1 or not e.flags["join_overflow"]:
+            raise AssertionError(f"7c: CapacityExhausted with {e.attempts} attempts, {e.flags}")
+        log("auto_exhausted", smoke_phase="7c", max_attempts=1, stage=e.stage,
+            attempts=e.attempts, flags=e.flags, factors=e.factors)
+    else:
+        raise AssertionError("7c: max_attempts=1 did not raise CapacityExhausted")
+    torch.cuda.empty_cache()
+
+    # (4) Phase 4d's 4-rank world, bucket_factor 1.0, one probe row in ten
+    # on one build key: the hot rank's buckets overflow until the heal
+    # grows bucket_factor.
+    topo4 = dj.make_topology([dev] * WORLD)
+    bk, pk = build.columns[0].data, probe.columns[0].data
+    pk2 = pk.clone()
+    pk2[::10] = bk[0]
+    expected2 = int(torch.isin(pk2, bk).sum())
+    skewed = dj.Table((dj.Column(pk2, dj.dtypes.int64), probe.columns[1]))
+    l4, lc4 = dj.shard_table(topo4, skewed)
+    r4, rc4 = dj.shard_table(topo4, build)
+    res, n, wall, launches = auto(topo4, l4, lc4, r4, rc4, [0], [0],
+                                  dj.JoinConfig(bucket_factor=1.0))
+    out, counts = res[0], res[1]
+    if int(counts.sum()) != expected2 or n < 2 or not res[3].bucket_factor > 1.0:
+        raise AssertionError(f"7c world: total {int(counts.sum())} (expected {expected2}), "
+                             f"{n} attempts, bucket_factor {res[3].bucket_factor}")
+    cap = out.capacity // WORLD
+    lps = []
+    for r, c in enumerate(counts.tolist()):
+        k, lp, rp = (col.data[r * cap: r * cap + c] for col in out.columns)
+        if not (bool((pk2[lp] == k).all()) and bool((bk[rp] == k).all())):
+            raise AssertionError(f"7c world: a row of shard {r} differs from its inputs")
+        lps.append(lp)
+    s = torch.sort(torch.cat(lps)).values
+    if bool((s[1:] == s[:-1]).any()):
+        raise AssertionError("7c world: a probe row appears twice")
+    launch_table["auto_world4_skewed"] = {1: launches}
+    log("auto", smoke_phase="7c", call="world4_skewed", ranks=WORLD, hot_rows=pk2[::10].numel(),
+        attempts=n, config={"bucket_factor": 1.0},
+        factors_used={f: getattr(res[3], f) for f in FACTOR_FIELDS}, total=expected2,
+        counts=counts.tolist(), rows_checked=expected2, wall_ms=wall, launches=launches,
+        card=smi)
+    del res, out, counts, l4, lc4, r4, rc4, skewed, pk2, lps, s
+    torch.cuda.empty_cache()
+
+    # (5) A prepared side probed from the build keys, queried with a
+    # probe key below them under the sort and merge tiers: each query
+    # re-prepares under the widened range, its rows equal the unprepared
+    # join's.
+    pk3 = pk.clone()
+    pk3[0] = -1
+    probe3 = dj.Table((dj.Column(pk3, dj.dtypes.int64), probe.columns[1]))
+    l3, lc3 = dj.shard_table(topo, probe3)
+    want = dj.distributed_inner_join(topo, l3, lc3, right, rcnt, [0], [0])
+    ref3 = sorted_rows(want[0], want[1])
+    del want
+    for tier in ("sort", "merge"):
+        os.environ["DJT_JOIN_MERGE"] = tier
+        try:
+            prep = dj.prepare_join_side(topo, right, rcnt, [0], left_capacity=rows)
+            res, n, wall, launches = auto(topo, l3, lc3, prep, None, [0], None)
+        finally:
+            os.environ.pop("DJT_JOIN_MERGE")
+        what = f"7c prepared auto, tier {tier}"
+        check_same_rows(sorted_rows(res[0], res[1]), ref3, what)
+        if n != 2 or res[4] is prep or res[4].key_range[0][0] > -1:
+            raise AssertionError(f"{what}: {n} attempts, key range {res[4].key_range}")
+        if tier == "merge" and launches["merge_sorted_u64"] < 2:
+            raise AssertionError(f"{what}: merge_sorted_u64 not launched by each query: {launches}")
+        launch_table[f"auto_prepared_reprepare_{tier}"] = {1: launches}
+        log("auto", smoke_phase="7c", call="prepared_reprepare", tier=tier, attempts=n,
+            old_key_range=prep.key_range, new_key_range=res[4].key_range,
+            total=int(res[1].sum()), same_rows_as_unprepared=True, wall_ms=wall,
+            launches=launches, card=smi)
+        del res, prep
+    del l3, lc3, ref3, pk3, probe3
+    torch.cuda.empty_cache()
+    return launch_table
 
 
 def ptxas_resources(source: str) -> dict:
@@ -1505,6 +1870,14 @@ def main() -> int:
     check_unsigned_path(dj, topo, gen, dev, min(rows, 1_000_000))
     torch.cuda.empty_cache()
 
+    # 7a-7c. every fixed-width key kind, float keys' special values, and
+    # distributed_inner_join_auto
+    launch_table.update(run_key_kinds(dj, topo, build, probe, expected, ref, smi))
+    launch_table.update(check_float_specials(dj, gen, dev, min(rows, 1_000_000), smi))
+    launch_table.update(check_auto(dj, dev, topo, left, lcnt, right, rcnt, build, probe, expected,
+                                   ref, rows, smi))
+    torch.cuda.empty_cache()
+
     # 6a. a process world of one over NCCL
     process1_launches = process_world_of_one(dj, dev, "nccl", build, probe, expected, ref, rows, smi)
     del ref
@@ -1596,7 +1969,7 @@ def main() -> int:
                                         RANKS_NV - 1000 + extra))
     del hot, dense
 
-    # 7. timings
+    # 9. timings
     S, n_out = timing["S"], timing["n_out"]
     scan_bytes = 8 * S + 4 * 4 * S
     expand_bytes = 4 * 4 * S + 2 * 4 * n_out

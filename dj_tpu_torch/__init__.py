@@ -7,7 +7,7 @@ merge_sorted_u64, expand_ranks), built with nvcc at first use. Entry
 points run on the current CUDA device unless given CPU tensors or a CPU
 topology, where each kernel's plain PyTorch version runs instead.
 
-Ported so far: the unprepared inner join on int keys (generate -> shard
+Ported so far: the unprepared inner join (generate -> shard
 -> distributed_inner_join), and the prepared build side
 (prepare_join_side once, then distributed_inner_join with the
 PreparedSide per query, under the sort, merge or probe tier), over a
@@ -23,6 +23,16 @@ and each entry point returns this rank's block with every rank's flags.
 The collectives' backend is ``JoinConfig.communicator_cls``:
 ``XlaCommunicator`` (the default), ``BufferedCommunicator`` or
 ``RingCommunicator``, as in dj_tpu.
+
+The join takes every fixed-width key dj_tpu takes: signed and unsigned
+ints of any width (uint64 included), floats, two dtypes per key pair and
+several key columns, packed into one sort word where a range allows and
+sorted unpacked otherwise, with ``carry_payloads`` and every expansion
+mode. ``distributed_inner_join_auto`` answers any input: it heals
+overflowing capacities, a wrong declared key range and a prepared side
+the probe keys fall outside of, remembering the healed factors in the
+capacity ledger (``resilience``; ``DJT_LEDGER=<path>`` keeps it), and
+raises ``CapacityExhausted`` when its ``HealBudget`` runs out.
 """
 
 from .core import dtypes
@@ -37,15 +47,30 @@ from .parallel.dist_join import (
     JoinConfig,
     PreparedSide,
     distributed_inner_join,
+    distributed_inner_join_auto,
     prepare_join_side,
 )
 from .parallel.topology import Topology, make_topology
-from .resilience.errors import PreparedPlanMismatch
+from . import resilience
+from .resilience import (
+    CapacityExhausted,
+    DeadlineExceeded,
+    DJError,
+    HealBudget,
+    PlanMismatch,
+    PreparedPlanMismatch,
+    deadline_scope,
+)
 
 __all__ = [
     "BufferedCommunicator",
+    "CapacityExhausted",
     "Column",
+    "DJError",
+    "DeadlineExceeded",
+    "HealBudget",
     "JoinConfig",
+    "PlanMismatch",
     "PreparedPlanMismatch",
     "PreparedSide",
     "RingCommunicator",
@@ -53,7 +78,9 @@ __all__ = [
     "Topology",
     "XlaCommunicator",
     "concatenate",
+    "deadline_scope",
     "distributed_inner_join",
+    "distributed_inner_join_auto",
     "dtypes",
     "from_arrays",
     "generate_build_probe_tables",
@@ -65,6 +92,7 @@ __all__ = [
     "prepare_join_side",
     "process_count",
     "process_index",
+    "resilience",
     "shard_table",
     "unshard_table",
 ]

@@ -61,7 +61,10 @@ def _fmix32(h: torch.Tensor) -> torch.Tensor:
 def _bits64(data: torch.Tensor) -> torch.Tensor:
     """The element's little-endian bits as int64 (same width view)."""
     if data.is_floating_point():
-        data = torch.where(data == 0, torch.zeros_like(data), data)  # -0.0 -> 0.0
+        # -0.0 and the subnormals -> 0.0: dj_tpu's ``data == 0`` under
+        # XLA, which flushes subnormals to zero.
+        zero = data.abs() < torch.finfo(data.dtype).tiny
+        data = torch.where(zero, torch.zeros_like(data), data)
         data = data.view(torch.int64 if data.element_size() == 8 else torch.int32)
     if data.dtype == torch.uint64:
         return data.view(torch.int64)

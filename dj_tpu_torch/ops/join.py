@@ -1,22 +1,39 @@
-"""Local inner join, packed single-int-key path: one merged sort + scans.
+"""Local inner join: one merged sort, the match scans, the expansion.
 
-Counterpart of ``dj_tpu/ops/join.py::inner_join`` on the path the
-reference's headline benchmark takes, with its column-order contract:
-the result is every left column (the join column included) followed by
-the right columns without ``right_on``. The output has a static
-capacity and the true int64 match total comes back beside it, so a
-caller can detect overflow.
+Counterpart of ``dj_tpu/ops/join.py::inner_join`` for every fixed-width
+key, with its column-order contract: the result is every left column
+(the join columns included) followed by the right columns without
+``right_on``. The output has a static capacity and the true int64 match
+total comes back beside it, so a caller can detect overflow.
 
-1. Key and row tag pack into one u64 word, ``(key - min) << tag_bits |
-   tag``, refs (right rows) tagged 0..R-1 before queries (left rows)
-   R..R+L-1; padding rows pack to all-ones. One ``torch.sort`` orders
-   the words (``ops.merge.sort_u64``: as int64 with the top bit
-   flipped, which is unsigned order under a signed compare).
+1. The merged sort puts refs (right rows) before queries (left rows) in
+   each run of equal keys. ``effective_plan`` picks one of three forms:
+
+   - packed, one int key (``_single_key_pack``): key and row tag pack
+     into one u64 word, ``(key - min) << tag_bits | tag``, refs tagged
+     0..R-1 before queries R..R+L-1, padding all-ones. One
+     ``torch.sort`` orders the words (``ops.merge.sort_u64``: as int64
+     with the top bit flipped, which is unsigned order under a signed
+     compare). uint64 keys pack as int64 with the top bit flipped. A
+     64-bit key whose declared range does not fit (``static_fit`` False)
+     or whose observed span does not fit takes the unpacked sort;
+   - packed, several int keys (``_multi_key_pack_word``): a declared or
+     probed range whose fields fit the word packs them mixed-radix into
+     the same word, which then takes the single-key machinery;
+   - unpacked (``_unpacked_words``): float keys, keys of two dtypes
+     (promoted as ``jnp.concatenate`` promotes them), several keys
+     without a packable range, ``carry_payloads`` and ``DJT_JOIN_PACK=0``.
+     PyTorch has no variadic sort: stable ``torch.sort`` passes over an
+     order-preserving int64 image of each key column, last column
+     first, compose the lexicographic order (valid rows first, then the
+     keys, refs before queries). The dense run id and the row re-pack
+     into ascending words ``run_id << tag_bits | row``, padding
+     all-ones, so the scans below read every path alike.
 2. ``ops.scan.join_scans`` (CUDA kernel) turns the sorted words into
    (stag, run_start, cnt, csum).
 3. The duplicate expansion (``ops/expand.py``, one CUDA kernel per
    mode) tells each output slot which rows it joins.
-4. Row gathers build the output columns.
+4. Row gathers build the output columns, one column at a time.
 
 The expansion mode is ``DJT_JOIN_EXPAND`` (``resolve_expand_impl``),
 ``dj_tpu``'s ``DJ_JOIN_EXPAND`` under the port's short names:
@@ -26,6 +43,8 @@ The expansion mode is ``DJT_JOIN_EXPAND`` (``resolve_expand_impl``),
 - "ranks" (``pallas``): ``expand_ranks`` gives src, then src's own run
   starts give the within-run offset t (``_run_offsets``) and one gather
   the (stag, run_start) metadata at src;
+- "hist" (``hist``, dj_tpu's non-TPU default): as "ranks" with src from
+  ``core.search.count_leq_arange``, no kernel;
 - "fused" (``pallas-fused``): ``expand_gather`` gives src and that
   metadata in one pass, t as in "ranks";
 - "join" (``pallas-join``): ``expand_join`` gives both row tags;
@@ -36,11 +55,12 @@ The expansion mode is ``DJT_JOIN_EXPAND`` (``resolve_expand_impl``),
 - "vfull" (``pallas-vfull``): as "vcarry", but ``expand_vfull`` also
   reads the key and the right payloads at the matched refs.
 
-``effective_plan`` applies ``dj_tpu``'s degrade rules (vcarry and vfull
-fall back to vmeta past three payload slots). Every mode gives the same
-rows. Multi-key joins, ``carry_payloads`` and keys that the packed word
-cannot hold (float keys, mixed key dtypes, uint64 keys, a key range too
-wide) raise NotImplementedError: they come with later slices.
+``carry_payloads`` (``DJT_JOIN_CARRY``, dj_tpu's ``DJ_JOIN_CARRY``)
+carries the payload slots through the unpacked sort and expands with
+"ranks" or "hist". ``effective_plan`` applies ``dj_tpu``'s gates: vcarry
+and vfull need one int key on the packed path and at most three payload
+slots, and run vmeta otherwise. Every plan gives the same rows. String
+keys are not fixed-width and come with a later slice.
 
 The prepared build side (``dj_tpu/ops/join.py:1861-2497``) shares the
 scans and expansion: ``plan_prepared_pack`` anchors the pack to a key
@@ -64,7 +84,7 @@ import numpy as np
 import torch
 
 from ..core import dtypes as dt
-from ..core.search import run_bounds
+from ..core.search import count_leq_arange, run_bounds
 from ..core.table import Column, Table, gather_fill
 from .expand import (
     expand_carry,
@@ -175,35 +195,84 @@ def _from_unsigned_order(u: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return u.to(dtype)
 
 
+def _signed_image64(x: torch.Tensor) -> torch.Tensor:
+    """A 64-bit integer key as int64 in the same order: int64 itself,
+    uint64 with its top bit flipped. PyTorch's CUDA build has no uint64
+    sort, min, max, where or comparison, so uint64 keys live here."""
+    return x.view(torch.int64) ^ INT64_MIN if x.dtype == torch.uint64 else x
+
+
 def _flag(value: bool, device) -> torch.Tensor:
     return torch.tensor(value, device=device)
 
 
-def _check_supported(left, right, left_on, right_on, carry_payloads):
-    if carry_payloads:
-        raise NotImplementedError(
-            "carry_payloads (payloads riding the sort) comes with ROADMAP "
-            "queue 1 item 5"
-        )
+def _dtype_bits(d: torch.dtype) -> int:
+    return 8 * torch.empty((), dtype=d).element_size()
+
+
+_SIGNED_OF_BITS = {8: torch.int8, 16: torch.int16, 32: torch.int32, 64: torch.int64}
+
+
+def promote_key_dtype(a: torch.dtype, b: torch.dtype) -> torch.dtype:
+    """The dtype two key columns compare in: ``jnp.promote_types`` with
+    64-bit types enabled (the lattice ``jnp.concatenate`` applies in
+    dj_tpu's unpacked sort). Any int with a float gives the float; a
+    signed and an unsigned int give the signed int twice the unsigned
+    width, and uint64 with any signed int gives float64."""
+    if a == b or b == torch.bool:
+        return a
+    if a == torch.bool:
+        return b
+    fa, fb = a.is_floating_point, b.is_floating_point
+    if fa and fb:
+        if {a, b} == {torch.float16, torch.bfloat16}:
+            return torch.float32
+        return a if _dtype_bits(a) >= _dtype_bits(b) else b
+    if fa or fb:
+        return a if fa else b
+    if a.is_signed == b.is_signed:
+        return a if _dtype_bits(a) >= _dtype_bits(b) else b
+    s, u = (a, b) if a.is_signed else (b, a)
+    if u == torch.uint64:
+        return torch.float64
+    return _SIGNED_OF_BITS[max(_dtype_bits(s), 2 * _dtype_bits(u))]
+
+
+def _order_image(x: torch.Tensor) -> torch.Tensor:
+    """int64 whose signed order is the key order of ``x``, as
+    ``jax.lax.sort`` and ``!=`` order it under XLA: ints by value;
+    floats with -0.0 and the subnormals equal to 0.0 (XLA flushes
+    subnormals to zero) and every NaN equal and above +inf (INT64_MAX).
+    A finite float's bits, negative ones with the magnitude bits
+    flipped, compare as signed ints in the float's order."""
+    if not x.is_floating_point():
+        return _signed_image64(x) if _dtype_bits(x.dtype) == 64 else x.to(torch.int64)
+    if x.dtype == torch.float64:
+        b = x.view(torch.int64)
+        img = b ^ ((b >> 63) & INT64_MAX)
+    else:
+        x32 = x.to(torch.float32)
+        b = x32.view(torch.int32)
+        img = (b ^ ((b >> 31) & (2**31 - 1))).to(torch.int64)
+    tiny = torch.finfo(x.dtype).tiny
+    return img.masked_fill_(x.abs() < tiny, 0).masked_fill_(torch.isnan(x), INT64_MAX)
+
+
+def _single_int_key(left: Table, right: Table, left_on, right_on) -> bool:
+    """One key column of the same integer dtype on both sides
+    (``_single_int_key``, dj_tpu/ops/join.py:1160-1171)."""
     if len(left_on) != 1:
-        raise NotImplementedError(
-            "multi-key joins come with ROADMAP queue 1 item 5"
-        )
-    a, b = left.columns[left_on[0]], right.columns[right_on[0]]
-    if not (
-        dt.is_integer(a.dtype)
-        and a.data.dtype == b.data.dtype
-        and a.data.dtype != torch.uint64
-    ):
-        raise NotImplementedError(
-            "keys that are not one signed or <= 32-bit unsigned integer "
-            "dtype on both sides take the unpacked sort, which comes with "
-            "ROADMAP queue 1 item 5"
-        )
+        return False
+    return _same_int_dtype(left.columns[left_on[0]].data, right.columns[right_on[0]].data)
 
 
-EXPAND_IMPLS = ("vmeta", "ranks", "fused", "join", "vcarry", "vfull")
-# The CUDA kernel each expansion mode runs (join_scans runs in every mode).
+def _same_int_dtype(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.dtype == b.dtype and not a.is_floating_point() and a.dtype != torch.bool
+
+
+EXPAND_IMPLS = ("vmeta", "ranks", "hist", "fused", "join", "vcarry", "vfull")
+# The CUDA kernel each expansion mode runs (join_scans runs in every mode;
+# "hist" runs none: its ranks come from ``count_leq_arange``).
 EXPAND_KERNELS = {
     "vmeta": "expand_values", "ranks": "expand_ranks", "fused": "expand_gather",
     "join": "expand_join", "vcarry": "expand_carry", "vfull": "expand_vfull",
@@ -212,89 +281,254 @@ EXPAND_KERNELS = {
 
 def resolve_expand_impl() -> str:
     """The unprepared join's expansion mode: ``DJT_JOIN_EXPAND`` ("vmeta",
-    the default; "ranks", "fused", "join", "vcarry" or "vfull", which are
-    dj_tpu's ``DJ_JOIN_EXPAND`` = "pallas-vmeta", "pallas",
-    "pallas-fused", "pallas-join", "pallas-vcarry" and "pallas-vfull").
-    dj_tpu's "hist" has no kernel and is not a mode here."""
+    the default; "ranks", "hist", "fused", "join", "vcarry" or "vfull",
+    which are dj_tpu's ``DJ_JOIN_EXPAND`` = "pallas-vmeta", "pallas",
+    "hist", "pallas-fused", "pallas-join", "pallas-vcarry" and
+    "pallas-vfull")."""
     impl = os.environ.get("DJT_JOIN_EXPAND", "vmeta")
     if impl not in EXPAND_IMPLS:
         raise ValueError(f"DJT_JOIN_EXPAND={impl!r}: expected one of {EXPAND_IMPLS}")
     return impl
 
 
-def effective_plan(n_payload: int) -> str:
-    """The expansion mode a join runs: ``DJT_JOIN_EXPAND`` after dj_tpu's
-    degrade rules (``effective_plan``, dj_tpu/ops/join.py:1055-1123).
-    vcarry and vfull need a single int key on the packed path, no strings
-    and at most three payload slots, and run vmeta otherwise. The port's
-    unprepared join is always single-key, packed and string-free
-    (``_check_supported`` raises on the rest), so ``n_payload``, the
-    larger number of non-key columns of the two sides, is the gate left.
-    The prepared join does not read this: see ``prepared_effective_plan``."""
-    expand = resolve_expand_impl()
-    if expand in ("vcarry", "vfull") and n_payload > 3:
-        return "vmeta"
-    return expand
+class JoinPlan(NamedTuple):
+    """The plan a join runs: the expansion mode, whether the merged sort
+    is the packed single-word one, and whether the payloads ride the
+    (unpacked) sort as union slots."""
+
+    expand: str
+    packed: bool
+    carry: bool
 
 
-def _packed_words(
-    lk: torch.Tensor, rk: torch.Tensor, l_count, r_count, tag_bits: int,
-    static_fit: Optional[bool],
-) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-    """(words, pack_range_overflow, kmin): the unsorted packed words (u64
-    bits in int64), refs first, padding all-ones. ``kmin`` is the int64
-    minimum that 64-bit keys were packed relative to (None for narrower
-    keys, packed as their unsigned-order image)."""
-    L, R = lk.shape[0], rk.shape[0]
-    S = L + R
-    dev = lk.device
-    valid = torch.cat(
-        [
-            torch.arange(R, device=dev) < r_count,
-            torch.arange(L, device=dev) < l_count,
-        ]
+def effective_plan(
+    n_payload: int = 1,
+    *,
+    single_int_key: bool = True,
+    carry_payloads: Optional[bool] = None,
+    multi_key_packed: bool = False,
+) -> JoinPlan:
+    """The plan a join of the given shape runs under the knobs, with
+    dj_tpu's gates (``effective_plan``, dj_tpu/ops/join.py:1055-1123).
+
+    ``n_payload`` is the larger number of non-key columns of the two
+    sides; ``carry_payloads`` mirrors inner_join's (None reads
+    ``DJT_JOIN_CARRY``); ``multi_key_packed`` says a multi-column int key
+    has a declared or probed range whose fields fit the packed word.
+    Carry needs one int key and sorts unpacked; the packed sort needs
+    one int key or a packable multi-key, no carry and ``DJT_JOIN_PACK``
+    unset or "1". vcarry and vfull need one int key on the packed path
+    and at most three payload slots, and run vmeta otherwise; carry
+    expands with "ranks" (any kernel mode) or "hist". The prepared join
+    does not read this: see ``prepared_effective_plan``."""
+    if carry_payloads is None:
+        carry_payloads = os.environ.get("DJT_JOIN_CARRY", "0") == "1"
+    carry = bool(carry_payloads) and single_int_key
+    packed = (
+        (single_int_key or multi_key_packed)
+        and not carry
+        and os.environ.get("DJT_JOIN_PACK", "1") == "1"
     )
-    pack_ovf = _flag(False, dev)
-    kmin = None
-    if 8 * lk.element_size() + tag_bits <= 64:
-        # Narrow keys: the unsigned-order image fits beside the tag as is.
-        word = _to_unsigned_order(torch.cat([rk, lk]))
-    else:
-        if static_fit is False:
-            raise NotImplementedError(
-                "a declared key range wider than the packed word takes the "
-                "unpacked sort, which comes with ROADMAP queue 1 item 5"
-            )
-        # 64-bit keys: signed order of the key is unsigned order of its
-        # image, and (key - kmin) in wrapping int64 is the u64 span.
-        word = torch.cat([rk, lk])
-        kmin = torch.where(valid, word, INT64_MAX).min()
-        kmax = torch.where(valid, word, INT64_MIN).max()
-        span = kmax - kmin
-        limit = (1 << (64 - tag_bits)) - 1
-        fits = (span >= 0) & (span < limit)
-        pack_ovf = ~fits & (l_count > 0) & (r_count > 0)
-        if static_fit is None and bool(pack_ovf):
-            raise NotImplementedError(
-                "keys whose observed range does not fit the packed word take "
-                "the unpacked sort, which comes with ROADMAP queue 1 item 5"
-            )
-        word = word - kmin
+    expand = resolve_expand_impl()
+    if expand in ("vcarry", "vfull") and not (
+        not carry and single_int_key and packed and n_payload <= 3
+    ):
+        expand = "vmeta"
+    if carry and expand != "hist":
+        expand = "ranks"
+    return JoinPlan(expand, packed, carry)
+
+
+def _resolve_plan(left: Table, right: Table, left_on, right_on, key_range,
+                  carry_payloads) -> tuple[JoinPlan, bool, Optional[KeyPackPlan]]:
+    """(plan, single int key, key pack plan) of a join: effective_plan's
+    gates on the key columns, with a multi-column key packed when a
+    declared ``key_range`` (normalized) fits the word."""
+    single = _single_int_key(left, right, left_on, right_on)
+    pairs = [(left.columns[lc].data, right.columns[rc].data) for lc, rc in zip(left_on, right_on)]
+    pack_plan = None
+    if key_range is not None and all(_same_int_dtype(a, b) for a, b in pairs):
+        pack_plan = plan_key_pack(key_range, [dt.numpy_dtype(a.dtype) for a, _ in pairs],
+                                  left.capacity + right.capacity)
+    n_payload = max(left.num_columns - 1, right.num_columns - 1) if single else 0
+    plan = effective_plan(
+        n_payload, single_int_key=single, carry_payloads=carry_payloads,
+        multi_key_packed=not single and pack_plan is not None and pack_plan.fits,
+    )
+    return plan, single, pack_plan
+
+
+def join_plan(left: Table, right: Table, left_on, right_on, key_range=None,
+              carry_payloads: Optional[bool] = None) -> JoinPlan:
+    """The plan ``inner_join`` takes on these tables under the knobs.
+    ``packed`` is False where a declared ``key_range`` does not fit the
+    word; without a range, a single 64-bit key the plan packs still
+    sorts unpacked when its observed span does not fit (a host check in
+    the join)."""
+    key_range = normalize_key_range(key_range, len(left_on))
+    plan, single, pack_plan = _resolve_plan(left, right, left_on, right_on, key_range,
+                                            carry_payloads)
+    if single and pack_plan is not None and not pack_plan.fits:
+        plan = plan._replace(packed=False)
+    return plan
+
+
+def _valid_mask(l_count, r_count, L: int, R: int, device) -> torch.Tensor:
+    """The merged operand's validity, refs first."""
+    return torch.cat([
+        torch.arange(R, device=device) < r_count,
+        torch.arange(L, device=device) < l_count,
+    ])
+
+
+def _tag_words(word: torch.Tensor, valid: torch.Tensor, tag_bits: int) -> torch.Tensor:
+    """``word << tag_bits | row`` in place, padding all-ones."""
     word.bitwise_left_shift_(tag_bits)
-    word.bitwise_or_(torch.arange(S, dtype=torch.int64, device=dev))
-    word.masked_fill_(~valid, -1)
-    return word, pack_ovf, kmin
+    word.bitwise_or_(torch.arange(word.shape[0], dtype=torch.int64, device=word.device))
+    return word.masked_fill_(~valid, -1)
 
 
-def _packed_sorted_words(
+class _SingleKeyPack(NamedTuple):
+    word: Optional[torch.Tensor]  # the unsorted packed words; None: sort unpacked
+    pack_ovf: torch.Tensor
+    kmin: Optional[torch.Tensor]  # what 64-bit keys were packed relative to
+
+
+def _single_key_pack(
     lk: torch.Tensor, rk: torch.Tensor, l_count, r_count, tag_bits: int,
     static_fit: Optional[bool],
+) -> _SingleKeyPack:
+    """The packed words of one int key (``_packed_merged_sort``,
+    dj_tpu/ops/join.py:592-716), or word None when the plan takes the
+    unpacked sort: a 64-bit key with ``static_fit`` False, or with
+    ``static_fit`` None and an observed span that does not fit the word
+    (the host reads the fit, where dj_tpu's ``lax.cond`` branches on
+    it). Keys of at most 64 - tag_bits bits pack their unsigned-order
+    image as is. A 64-bit key packs ``key - kmin`` in its int64 image;
+    under ``static_fit`` True, data whose span overflows the word raises
+    ``pack_range_overflow`` when both sides have rows."""
+    L, R = lk.shape[0], rk.shape[0]
+    dev = lk.device
+    pack_ovf = _flag(False, dev)
+    valid = _valid_mask(l_count, r_count, L, R, dev)
+    if 8 * lk.element_size() + tag_bits <= 64:
+        word = _to_unsigned_order(torch.cat([rk, lk]))
+        return _SingleKeyPack(_tag_words(word, valid, tag_bits), pack_ovf, None)
+    if static_fit is False:
+        return _SingleKeyPack(None, pack_ovf, None)
+    word = _signed_image64(torch.cat([rk, lk]))
+    kmin = torch.where(valid, word, INT64_MAX).min()
+    kmax = torch.where(valid, word, INT64_MIN).max()
+    span = kmax - kmin  # the u64 span, wrapping past 2^63
+    fits = (span >= 0) & (span < (1 << (64 - tag_bits)) - 1)
+    if static_fit is None:
+        if not bool(fits):
+            return _SingleKeyPack(None, pack_ovf, None)
+    else:
+        pack_ovf = ~fits & (l_count > 0) & (r_count > 0)
+    word = word - kmin
+    return _SingleKeyPack(_tag_words(word, valid, tag_bits), pack_ovf, kmin)
+
+
+def _multi_key_pack_word(
+    left: Table, right: Table, left_on, right_on, pack: KeyPackPlan, l_count, r_count,
+    tag_bits: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The ascending packed words (u64 bits in int64) and the
-    pack_range_overflow flag. ``_packed_merged_sort`` + ``_pack_sort_core``
-    of dj_tpu/ops/join.py:500-716, monolithic sort only."""
-    word, pack_ovf, _ = _packed_words(lk, rk, l_count, r_count, tag_bits, static_fit)
-    return sort_u64(word), pack_ovf
+    """(unsorted words, ok): the mixed-radix u64 word of N int key
+    columns, refs first (``_multi_key_pack_word``, dj_tpu/ops/join.py:
+    719-778). Each column's unsigned-order image less its observed
+    minimum sits in its static field; ``ok`` is False iff an observed
+    span overflows its field or the combined spans reach the sentinel,
+    with rows on both sides (the caller raises pack_range_overflow).
+    Unsigned compares are signed compares of top-bit-flipped images."""
+    L, R = left.capacity, right.capacity
+    dev = left.device
+    valid = _valid_mask(l_count, r_count, L, R, dev)
+    rel = torch.zeros(L + R, dtype=torch.int64, device=dev)
+    mdyn = torch.zeros((), dtype=torch.int64, device=dev)
+    ok = _flag(True, dev)
+    for lc, rc, w, sh in zip(left_on, right_on, pack.widths, pack.shifts):
+        u = torch.cat([_to_unsigned_order(right.columns[rc].data),
+                       _to_unsigned_order(left.columns[lc].data)])
+        uf = u ^ INT64_MIN
+        umin = torch.where(valid, uf, INT64_MAX).min() ^ INT64_MIN
+        umax = torch.where(valid, uf, INT64_MIN).max() ^ INT64_MIN
+        span = umax - umin
+        ok = ok & ((span ^ INT64_MIN) <= (((1 << w) - 1) ^ INT64_MIN))
+        rel |= (u - umin) << sh
+        mdyn = mdyn | (span << sh)
+    limit = (1 << (64 - tag_bits)) - 1
+    ok = ok & ((mdyn ^ INT64_MIN) < (limit ^ INT64_MIN))
+    ok = ok | (l_count == 0) | (r_count == 0)
+    return _tag_words(rel, valid, tag_bits), ok
+
+
+def _unpacked_words(
+    images: list, float_keys: Sequence[bool], l_count, r_count, L: int, R: int,
+    tag_bits: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sorted words, perm) of the unpacked merged sort
+    (``_multi_key_merged_sort`` and the stable ``(vals, tag)`` fallback,
+    dj_tpu/ops/join.py:287-338, 679-700).
+
+    ``images`` holds each key column's int64 order image over the
+    concatenation (refs first; the list is emptied); ``float_keys``
+    marks float columns, whose NaNs (INT64_MAX) each start a run of their
+    own, as ``!=`` decides in ``_run_starts``. The order is (valid rows
+    first, key columns, row): the valid rows in concatenation order
+    first, padding after, then a stable ``torch.sort`` per key column,
+    last column first, padding pinned at INT64_MAX (it stays behind the
+    valid rows of that value, and so at the tail). ``perm`` maps each
+    merged position to its concatenated row. The dense run id of each
+    position and that row re-pack into ``run_id << tag_bits | row``:
+    ascending, since one run's rows stay in concatenation order, refs
+    first. Padding packs to all-ones."""
+    S = L + R
+    dev = images[0].device
+    i = torch.arange(S, device=dev)
+    rc = torch.as_tensor(r_count, device=dev).to(torch.int64)
+    lc = torch.as_tensor(l_count, device=dev).to(torch.int64)
+    nv = rc + lc
+    pad = i >= nv
+    j = i - nv
+    perm = torch.where(
+        pad, torch.where(j < R - rc, rc + j, j + nv), torch.where(i < rc, i, i + (R - rc))
+    )
+    del j, i
+    first = None
+    for k in reversed(range(len(images))):
+        v = images[k][perm].masked_fill_(pad, INT64_MAX)
+        v, p = torch.sort(v, stable=True)
+        perm = perm[p]
+        del p
+        first = v
+    boundary = torch.zeros(S, dtype=torch.bool, device=dev)
+    boundary[0] = True
+    for k, img in enumerate(images):
+        s = first if k == 0 else img[perm]
+        boundary[1:] |= s[1:] != s[:-1]
+        if float_keys[k]:
+            boundary |= s == INT64_MAX
+    images.clear()
+    del first
+    words = torch.cumsum(boundary, 0).sub_(1)
+    del boundary
+    words.bitwise_left_shift_(tag_bits).bitwise_or_(perm)
+    return words.masked_fill_(pad, -1), perm
+
+
+def _key_images(left: Table, right: Table, left_on, right_on) -> tuple[list, list]:
+    """(order images, float flags) of each key pair over the
+    concatenation (refs first), both sides cast to the pair's promoted
+    dtype first."""
+    images, floats = [], []
+    for lc, rc in zip(left_on, right_on):
+        a, b = left.columns[lc].data, right.columns[rc].data
+        d = promote_key_dtype(a.dtype, b.dtype)
+        col = torch.cat([b.to(d), a.to(d)])
+        images.append(_order_image(col))
+        floats.append(col.is_floating_point())
+    return images, floats
 
 
 _INT_OF_SIZE = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
@@ -327,34 +561,39 @@ def _union_slots(l_carry, r_fixed, L: int, R: int, device) -> list:
     return slots
 
 
-def _carry_sorted(
-    lk: torch.Tensor, rk: torch.Tensor, l_count, r_count, tag_bits: int,
-    static_fit: Optional[bool], slots: list,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, list]:
-    """vcarry's sort (the ``carry_ops`` branch of ``_pack_sort_core``,
-    dj_tpu/ops/join.py:564-581): (sorted words, pack_range_overflow,
-    sorted keys, sorted slots). The slots are emptied as they are
-    gathered. ``torch.sort`` has no variadic form, so the words sort with
-    their permutation and each slot is gathered by it; valid words are
-    distinct, so the valid prefix's permutation is unique (padding slots
-    are unspecified and never read below the total). The key is recovered
-    from the sorted word as int64 (sign-extended for narrower signed
-    keys): the key field under a logical shift, plus kmin for 64-bit
-    keys, or less the unsigned-order bias for narrower signed ones."""
-    word, pack_ovf, kmin = _packed_words(lk, rk, l_count, r_count, tag_bits, static_fit)
-    sp, perm = torch.sort(word.bitwise_xor_(INT64_MIN))
-    del word
-    sp.bitwise_xor_(INT64_MIN)
-    sslots = []
+def _gather_slots(slots: list, perm: torch.Tensor) -> list:
+    """Each slot gathered by ``perm``; ``slots`` is emptied as it goes, so
+    one unsorted slot is alive at a time."""
+    out = []
     while slots:
-        sslots.append(slots.pop(0)[perm])
+        out.append(slots.pop(0)[perm])
+    return out
+
+
+def _carry_sorted(packed: _SingleKeyPack, key_dtype: torch.dtype, tag_bits: int,
+                  slots: list) -> tuple[torch.Tensor, torch.Tensor, list]:
+    """vcarry's packed sort (the ``carry_ops`` branch of
+    ``_pack_sort_core``, dj_tpu/ops/join.py:564-581): (sorted words,
+    sorted keys, sorted slots). ``torch.sort`` has no variadic form, so
+    the words sort with their permutation and each slot is gathered by
+    it; valid words are distinct, so the valid prefix's permutation is
+    unique (padding slots are unspecified and never read below the
+    total). The key is recovered
+    from the sorted word as int64 bits: the key field under a logical
+    shift, plus kmin for 64-bit keys (uint64 flipped back), or less the
+    unsigned-order bias for narrower signed ones (sign-extended)."""
+    sp, perm = torch.sort(packed.word.bitwise_xor_(INT64_MIN))
+    sp.bitwise_xor_(INT64_MIN)
+    sslots = _gather_slots(slots, perm)
     del perm
     key = (sp >> tag_bits).bitwise_and_((1 << (64 - tag_bits)) - 1)
-    if kmin is not None:
-        key.add_(kmin)
-    elif lk.dtype.is_signed:
-        key.sub_(1 << (8 * lk.element_size() - 1))
-    return sp, pack_ovf, key, sslots
+    if packed.kmin is not None:
+        key.add_(packed.kmin)
+        if key_dtype == torch.uint64:
+            key.bitwise_xor_(INT64_MIN)
+    elif key_dtype.is_signed:
+        key.sub_(1 << (8 * torch.empty((), dtype=key_dtype).element_size() - 1))
+    return sp, key, sslots
 
 
 def _run_offsets(src: torch.Tensor) -> torch.Tensor:
@@ -376,17 +615,25 @@ def _run_offsets(src: torch.Tensor) -> torch.Tensor:
     return j - starts[run_id]
 
 
+def _ranks_src(csum: torch.Tensor, out_capacity: int, mode: str) -> torch.Tensor:
+    """src = #{csum <= j} per output slot, clipped to [0, S - 1]:
+    ``expand_ranks`` (CUDA kernel) or, under "hist", ``count_leq_arange``
+    (dj_tpu/ops/join.py:1653-1659)."""
+    rank = count_leq_arange if mode == "hist" else expand_ranks
+    return rank(csum, out_capacity).clamp_(0, csum.shape[0] - 1)
+
+
 def _expand_matches(
     words: list, l_count, r_count, tag_bits: int, L: int, R: int, out_capacity: int,
     mode: str = "vmeta",
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(li, rrow, total) from the sorted packed words of a merged L + R
     operand: the scans and the expansion under ``mode`` ("vmeta",
-    "ranks", "fused" or "join"). Output slot j joins left row li[j]
-    (L past the total) with right row rrow[j] (R past it); ``total`` is
-    the exact int64 match count. ``words`` is a one-element list whose
-    tensor this function takes, so the words are freed once the scans
-    have read them."""
+    "ranks", "hist", "fused" or "join"). Output slot j joins left row
+    li[j] (L past the total) with right row rrow[j] (R past it);
+    ``total`` is the exact int64 match count. ``words`` is a one-element
+    list whose tensor this function takes, so the words are freed once
+    the scans have read them."""
     S = L + R
     stag, run_start, cnt, csum = join_scans(words.pop(), l_count, r_count, tag_bits, L, R)
     total = cnt.sum(dtype=torch.int64)
@@ -399,8 +646,8 @@ def _expand_matches(
     elif mode == "fused":
         src, stag_j, rstart_j = expand_gather(csum, stag, run_start, out_capacity)
         rpos = rstart_j + _run_offsets(src.clamp_(0, S - 1))
-    else:  # ranks, then the meta gather: (stag, run_start) at src
-        src = expand_ranks(csum, out_capacity).clamp_(0, S - 1)
+    else:  # ranks or hist, then the meta gather: (stag, run_start) at src
+        src = _ranks_src(csum, out_capacity, mode)
         stag_j = stag[src]
         rpos = run_start[src] + _run_offsets(src)
     del csum, cnt, run_start
@@ -416,29 +663,37 @@ def _expand_matches(
 
 def _carry_expand(
     words: list, key: torch.Tensor, sslots: list, l_count, r_count, tag_bits: int,
-    L: int, R: int, out_capacity: int, vfull: bool,
+    L: int, R: int, out_capacity: int, mode: str,
 ) -> tuple[torch.Tensor, list, list, torch.Tensor]:
     """(key_j, left payload slots, right payload slots, total) per output
-    slot, from vcarry's sorted words (a one-element list this function
-    takes), keys and slots: the scans, then ``expand_carry`` (left slots
-    at src) and a gather of key and slots at the matched refs (``rpos``),
-    or ``expand_vfull`` (all of it in one kernel). Slots past the total
-    are unspecified. dj_tpu stacks the key and slots into one gather
-    (dj_tpu/ops/join.py:1699-1701); here each column is gathered alone:
-    PyTorch's gather of 16-byte rows took 121 ms at 200M slots on an
-    H100."""
+    slot, from the sorted words (a one-element list this function
+    takes), keys and slots: the scans, then under "vcarry"
+    ``expand_carry`` (left slots at src) and a gather of key and slots at
+    the matched refs (``rpos``), under "vfull" ``expand_vfull`` (all of
+    it in one kernel), under carry's "ranks" or "hist" src by ranks and
+    rpos from src's run (dj_tpu/ops/join.py:1653-1673) and a gather of
+    key and left slots at src. Slots past the total are unspecified.
+    dj_tpu stacks the key and slots into one gather (dj_tpu/ops/join.py:
+    1699-1701, 1667-1669); here each column is gathered alone: PyTorch's
+    gather of 16-byte rows took 121 ms at 200M slots on an H100."""
     S = L + R
-    stag, run_start, cnt, csum = join_scans(words.pop(), l_count, r_count, tag_bits, L, R)
-    del stag
+    _, run_start, cnt, csum = join_scans(words.pop(), l_count, r_count, tag_bits, L, R)
     total = cnt.sum(dtype=torch.int64)
     n = len(sslots)
-    if vfull:
+    if mode == "vfull":
         outs = expand_vfull(csum, cnt, run_start, sslots, key, out_capacity)
         return outs[n], list(outs[:n]), list(outs[n + 1:]), total
-    rpos, *lpay = expand_carry(csum, cnt, run_start, sslots, out_capacity)
+    if mode == "vcarry":
+        rpos, *lpay = expand_carry(csum, cnt, run_start, sslots, out_capacity)
+        rpos = rpos.clamp_(0, S - 1)
+        key_j = key[rpos]
+    else:
+        src = _ranks_src(csum, out_capacity, mode)
+        rpos = (run_start[src] + _run_offsets(src)).clamp_(0, S - 1)
+        lpay = [s[src] for s in sslots]
+        key_j = key[src]
     del csum, cnt, run_start
-    rpos = rpos.clamp_(0, S - 1)
-    return key[rpos], lpay, [s[rpos] for s in sslots], total
+    return key_j, lpay, [s[rpos] for s in sslots], total
 
 
 def inner_join(
@@ -451,7 +706,7 @@ def inner_join(
     return_flags: bool = False,
     key_range=None,
 ):
-    """Inner-join two tables on one integer key column of each.
+    """Inner-join two tables on the key columns ``left_on`` / ``right_on``.
 
     Returns (result, total), or (result, total, flags) with
     ``return_flags``: ``result`` has static capacity ``out_capacity``
@@ -459,10 +714,15 @@ def inner_join(
     out_capacity); ``total`` is the true int64 match count. On overflow
     (total > out_capacity) the whole output is unspecified. ``flags``
     holds ``surrogate_collision`` (always False: no string keys here) and
-    ``pack_range_overflow`` (a declared ``key_range`` lied about the
-    span so the packed word overflowed; the output is then
-    unspecified). ``key_range`` makes the pack decision static, as in
-    dj_tpu; without it a 64-bit key's range is checked on the host.
+    ``pack_range_overflow`` (a declared ``key_range`` lied about a span,
+    so the packed word overflowed; the output is then unspecified).
+    ``key_range`` (one (min, max) pair, or one per key) makes the pack
+    decision static, as in dj_tpu; without it a 64-bit key's range is
+    checked on the host. Keys compare as ``jax.lax.sort`` and ``!=``
+    compare them in dj_tpu: two dtypes in their promoted dtype, -0.0 and
+    subnormals equal to 0.0, NaN equal to nothing. ``carry_payloads`` (None reads
+    ``DJT_JOIN_CARRY``) carries the payloads through the merged sort;
+    every plan gives the same rows (see the module docstring).
     """
     if len(left_on) != len(right_on):
         raise ValueError(
@@ -476,8 +736,7 @@ def inner_join(
                     f"{name} index {c} out of range for table with "
                     f"{tbl.num_columns} columns"
                 )
-    _check_supported(left, right, left_on, right_on, carry_payloads)
-    key_range = normalize_key_range(key_range, 1)
+    key_range = normalize_key_range(key_range, len(left_on))
     if out_capacity is None:
         out_capacity = max(left.capacity, right.capacity)
     L, R = left.capacity, right.capacity
@@ -494,14 +753,13 @@ def inner_join(
             f"position domain (2^31 - 1); shard the join instead"
         )
     dev = left.device
-    out_cols_src = list(left.columns) + [
-        c for i, c in enumerate(right.columns) if i != right_on[0]
-    ]
+    right_on_set = set(right_on)
+    r_fixed = [(i, c) for i, c in enumerate(right.columns) if i not in right_on_set]
     flags = {"surrogate_collision": _flag(False, dev), "pack_range_overflow": _flag(False, dev)}
     if S == 0:
         cols = tuple(
             Column(torch.zeros(out_capacity, dtype=c.data.dtype, device=dev), c.dtype)
-            for c in out_cols_src
+            for c in list(left.columns) + [c for _, c in r_fixed]
         )
         result = (
             Table(cols, torch.zeros((), dtype=torch.int32, device=dev)),
@@ -510,29 +768,54 @@ def inner_join(
         return result + (flags,) if return_flags else result
 
     l_count, r_count = left.count(), right.count()
-    lk = left.columns[left_on[0]].data
-    rk = right.columns[right_on[0]].data
+    plan, single, pack_plan = _resolve_plan(left, right, left_on, right_on, key_range,
+                                            carry_payloads)
+    l_carry = [(i, c) for i, c in enumerate(left.columns) if i != left_on[0]] if single else []
+    pairs = [(left.columns[lc].data, right.columns[rc].data) for lc, rc in zip(left_on, right_on)]
+    static_fit = pack_plan.fits if single and pack_plan is not None else None
+    mode = plan.expand
+    carried = plan.carry or mode in ("vcarry", "vfull")
     tag_bits = max(1, S.bit_length())
-    static_fit = None
-    if key_range is not None:
-        static_fit = plan_key_pack(key_range, [np.dtype(left.columns[left_on[0]].dtype.physical)], S).fits
-    l_carry = [(i, c) for i, c in enumerate(left.columns) if i != left_on[0]]
-    r_fixed = [(i, c) for i, c in enumerate(right.columns) if i != right_on[0]]
-    mode = effective_plan(max(len(l_carry), len(r_fixed)))
-    if mode in ("vcarry", "vfull"):
-        sp, pack_ovf, key, sslots = _carry_sorted(
-            lk, rk, l_count, r_count, tag_bits, static_fit,
-            _union_slots(l_carry, r_fixed, L, R, dev),
-        )
-        words = [sp]
-        del sp
+
+    # The merged sort: packed words, or the unpacked sort's words and
+    # permutation; the carry families also sort their keys and slots.
+    packed = None
+    if plan.packed and single:
+        lk, rk = pairs[0]
+        packed = _single_key_pack(lk, rk, l_count, r_count, tag_bits, static_fit)
+        flags["pack_range_overflow"] = packed.pack_ovf
+        if packed.word is None:
+            packed = None
+    slots = _union_slots(l_carry, r_fixed, L, R, dev) if carried else []
+    if packed is not None and carried:
+        sp, key, sslots = _carry_sorted(packed, pairs[0][0].dtype, tag_bits, slots)
+    elif packed is not None:
+        sp = sort_u64(packed.word)
+    elif plan.packed and not single:
+        word, ok = _multi_key_pack_word(left, right, left_on, right_on, pack_plan, l_count,
+                                        r_count, tag_bits)
+        flags["pack_range_overflow"] = ~ok
+        sp = sort_u64(word)
+    else:
+        images, floats = _key_images(left, right, left_on, right_on)
+        sp, perm = _unpacked_words(images, floats, l_count, r_count, L, R, tag_bits)
+        if carried:
+            lk, rk = pairs[0]
+            key = _to_u64(torch.cat([rk, lk]))[perm]
+            sslots = _gather_slots(slots, perm)
+        del perm
+    del packed
+    words = [sp]
+    del sp
+
+    if carried:
         key_j, lpay, rpay, total = _carry_expand(
-            words, key, sslots, l_count, r_count, tag_bits, L, R, out_capacity,
-            vfull=mode == "vfull",
+            words, key, sslots, l_count, r_count, tag_bits, L, R, out_capacity, mode
         )
+        del key, sslots
         # Slots past the total read 0 in every column, the key included
-        # (dj_tpu/ops/join.py:1703-1716); the column order is the
-        # contract's (1743-1751).
+        # (dj_tpu/ops/join.py:1703-1716, 1763-1775); the column order is
+        # the contract's (1743-1751).
         valid_out = torch.arange(out_capacity, device=dev) < total
         bits = {left_on[0]: key_j} | {i: b for (i, _), b in zip(l_carry, lpay)}
         cols = [
@@ -543,14 +826,10 @@ def inner_join(
             for (_, c), b in zip(r_fixed, rpay)
         ]
     else:
-        sp, pack_ovf = _packed_sorted_words(lk, rk, l_count, r_count, tag_bits, static_fit)
-        words = [sp]
-        del sp
         li, rrow, total = _expand_matches(
             words, l_count, r_count, tag_bits, L, R, out_capacity, mode
         )
         cols = [c.take(li) for c in left.columns] + [c.take(rrow) for _, c in r_fixed]
-    flags["pack_range_overflow"] = pack_ovf
     count = torch.minimum(total, torch.tensor(out_capacity, device=dev)).to(torch.int32)
     result = (Table(tuple(cols), count), total)
     return result + (flags,) if return_flags else result

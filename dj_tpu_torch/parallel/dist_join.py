@@ -30,14 +30,24 @@ The prepared build side (``prepare_join_side``, ``PreparedSide``) pays
 the build table's partition, exchange, pack and sort once; each query
 (``distributed_inner_join`` with a PreparedSide as ``right``) partitions,
 exchanges and joins only the probe side. Its shuffle tier is ported; the
-broadcast and salted tiers, the heal loop and the ledger come with later
-slices, as do the skew-adaptive plans, shape bucketing, the roofline
-phases, the degradation guard and the auto/heal wrapper.
+broadcast and salted tiers come with later slices, as do the
+skew-adaptive plans, shape bucketing, the roofline phases and the
+degradation guard.
+
+``distributed_inner_join_auto`` is the entry point that answers any
+input: it runs the join under the heal engine (``resilience.heal``),
+which doubles exactly the factor whose overflow flag fired, drops a
+declared key range the data violates, and, against a PreparedSide,
+re-prepares under a range widened to the probe side. The capacity
+ledger (``resilience.ledger``) remembers what a workload's signature
+healed to, so a later call starts there. ``prepare_join_side`` heals its
+own build stage the same way.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import NamedTuple, Optional, Sequence, Type
 
 import torch
@@ -55,7 +65,10 @@ from ..ops.join import (
     prepare_packed_batch,
 )
 from ..ops.partition import hash_partition
-from ..resilience.errors import CapacityExhausted, PreparedPlanMismatch
+from ..resilience import heal as heal_engine
+from ..resilience import ledger as dj_ledger
+from ..resilience.errors import PreparedPlanMismatch
+from ..resilience.heal import HealBudget
 from .all_to_all import shuffle_table, shuffle_table_start, shuffle_tables_start
 from .communicator import Communicator, XlaCommunicator
 from .spmd import run_spmd
@@ -188,20 +201,28 @@ def _local_join_pipeline(
 
 
 def _masked_minmax(data: torch.Tensor, counts: torch.Tensor, w: int):
-    """(min, max) over the valid rows of a [w * cap] sharded column; an
-    empty column gives the inverted sentinel (dtype max, dtype min)."""
+    """(min, max) over the valid rows of a [w * cap] sharded int column,
+    as python ints; an empty column gives the inverted sentinel (dtype
+    max, dtype min). Unsigned 16/32-bit columns reduce widened to int64
+    and uint64 ones as int64 with the top bit flipped: PyTorch has no
+    min, max or where for them."""
     info = torch.iinfo(data.dtype)
     cap = data.shape[0] // w
     if cap == 0:
         return info.max, info.min
-    if data.dtype in (torch.uint16, torch.uint32):
-        data = data.to(torch.int64)  # no min or where for these dtypes
+    bias = 0
+    if data.dtype == torch.uint64:
+        data, bias = data.view(torch.int64) ^ (-(2**63)), 2**63
+    elif data.dtype in (torch.uint16, torch.uint32):
+        data = data.to(torch.int64)
+    lo, hi = torch.iinfo(data.dtype).max, torch.iinfo(data.dtype).min
     valid = torch.arange(cap, device=data.device)[None, :] < counts[:, None]
     d2 = data.reshape(w, cap)
-    return (
-        int(torch.where(valid, d2, info.max).min()),
-        int(torch.where(valid, d2, info.min).max()),
-    )
+    mn = int(torch.where(valid, d2, lo).min())
+    mx = int(torch.where(valid, d2, hi).max())
+    if mx < mn:
+        return info.max, info.min
+    return mn + bias, mx + bias
 
 
 def _world_minmax(topology: Optional[Topology], ranges: list) -> list:
@@ -222,14 +243,19 @@ def _resolve_key_range(
     left_on: Sequence[int], right_on: Sequence[int], w: int,
     topology: Optional[Topology] = None,
 ) -> Optional[tuple]:
-    """The static key range the join plans with: the declared one, else
-    the probed global range of a single 64-bit int key canonicalized to
-    width form (0, 2^w - 1). None for narrower keys (they pack
-    statically), non-integer keys and two empty sides. ``w`` is the
-    number of shards the tables here hold; in a process world
-    (``topology``) the ranges of every process's shards are reduced."""
+    """The static key range the join plans with
+    (``_resolve_key_range``, dj_tpu/parallel/dist_join.py:628-683): the
+    declared one, else the probed global range of a single 64-bit int
+    key, or of a multi-column int key, canonicalized to width form (0,
+    2^w - 1) per key. None for a single key of at most 32 bits (it packs
+    statically), float keys, key pairs of two dtypes, two empty sides
+    and ``DJT_JOIN_PACK=0``. ``w`` is the number of shards the tables
+    here hold; in a process world (``topology``) the ranges of every
+    process's shards are reduced."""
     if config.key_range is not None:
         return normalize_key_range(config.key_range, len(left_on))
+    if os.environ.get("DJT_JOIN_PACK", "1") != "1":
+        return None
     cols = []
     for lc, rc in zip(left_on, right_on):
         a, b = left.columns[lc].data, right.columns[rc].data
@@ -340,6 +366,128 @@ def _flag_info(flag_mat: torch.Tensor, keys) -> dict:
     return {k: flag_mat[:, i] for i, k in enumerate(keys)}
 
 
+# Which JoinConfig factor heals which overflow flag: the heal loop grows
+# exactly the offending capacity. (pre_shuffle_overflow, and the factor
+# that heals it, come with the two-level topology.)
+_HEAL_FACTORS = {
+    "shuffle_overflow": ("bucket_factor",),
+    "join_overflow": ("join_out_factor",),
+    "char_overflow": ("char_out_factor",),
+}
+
+_CONFIG_FACTOR_FIELDS = (
+    "bucket_factor",
+    "join_out_factor",
+    "char_out_factor",
+)
+
+
+def _config_factors(config: JoinConfig) -> dict:
+    return {f: getattr(config, f) for f in _CONFIG_FACTOR_FIELDS}
+
+
+def _raise_surrogate_collision(_info):
+    # Not a capacity problem: two distinct string keys share a 64-bit
+    # surrogate, which no factor heals. (The flag stays False until
+    # string keys are ported.)
+    raise RuntimeError(
+        "surrogate_collision: distinct string join keys share a 64-bit "
+        "hash surrogate; re-join via a dictionary encoding of the key column"
+    )
+
+
+def distributed_inner_join_auto(
+    topology: Topology,
+    left: Table,
+    left_counts: torch.Tensor,
+    right,
+    right_counts: Optional[torch.Tensor] = None,
+    left_on: Sequence[int] = (),
+    right_on: Optional[Sequence[int]] = None,
+    config: Optional[JoinConfig] = None,
+    *,
+    max_attempts: int = 8,
+    growth: float = 2.0,
+    max_total_growth: float = 4096.0,
+):
+    """distributed_inner_join that heals its own overflows
+    (``distributed_inner_join_auto``, dj_tpu/parallel/dist_join.py:
+    1283-1440).
+
+    Static capacities make a wrong sizing factor raise overflow flags
+    and leave the rows unspecified. This wrapper runs the join, reads
+    the flags on the host, multiplies exactly the offending factor
+    (``_HEAL_FACTORS``) by ``growth`` and runs again; a declared
+    key_range that the data violates (pack_range_overflow) is dropped
+    and the range probed instead. The capacity ledger keeps the healed
+    factors per workload signature, so a later call of the same shape
+    succeeds on its first attempt. Exhausting ``max_attempts``, or one
+    factor growing past ``max_total_growth``, raises CapacityExhausted
+    with the last attempt count, flags and factors.
+
+    Returns (result, counts, info, config_used): ``config_used`` is the
+    final, possibly grown, config. With a :class:`PreparedSide` as
+    ``right`` it returns (result, counts, info, config_used,
+    prepared_used): capacity flags grow the query's factors and reuse
+    the prepared batches; prepared_plan_mismatch, as a flag or as the
+    structural exception, re-prepares under a range widened to the
+    probe side, and ``prepared_used`` is that side.
+    """
+    if isinstance(right, PreparedSide):
+        return _distributed_inner_join_prepared_auto(
+            topology, left, left_counts, right, left_on, config,
+            max_attempts=max_attempts, growth=growth, max_total_growth=max_total_growth,
+        )
+    if config is None:
+        config = JoinConfig()
+    state = {"config": config, "dropped_range": False}
+
+    def run_attempt(attempt):
+        out, counts, info = distributed_inner_join(
+            topology, left, left_counts, right, right_counts, left_on, right_on,
+            state["config"],
+        )
+        return (out, counts), info
+
+    def _heal_pack_range(info, attempt):
+        # Data outside the declared key_range: the packed tags are
+        # corrupt and no other flag of this attempt is trusted. A probed
+        # range covers the data by construction and never fires this.
+        cfg = state["config"]
+        if cfg.key_range is None:
+            raise RuntimeError(
+                "pack_range_overflow with no declared key_range: the probed "
+                "range covers the data by construction; this is a bug, not a "
+                "capacity problem"
+            )
+        state.update(config=dataclasses.replace(cfg, key_range=None), dropped_range=True)
+
+    def _apply_ledger(entry):
+        # A learned "declared range was wrong" repair: drop it before the
+        # first attempt.
+        if entry.get("drop_declared_range") and state["config"].key_range is not None:
+            state.update(config=dataclasses.replace(state["config"], key_range=None),
+                         dropped_range=True)
+
+    (out, counts), info, _ = heal_engine.run_healed(
+        name="distributed_inner_join_auto",
+        stage="join",
+        budget=HealBudget(max_attempts, growth, max_total_growth),
+        run_attempt=run_attempt,
+        heal_map=_HEAL_FACTORS,
+        read_factors=lambda: _config_factors(state["config"]),
+        apply_factors=lambda grew: state.update(
+            config=dataclasses.replace(state["config"], **grew)
+        ),
+        poison={"pack_range_overflow": _heal_pack_range},
+        terminal={"surrogate_collision": _raise_surrogate_collision},
+        ledger_key=dj_ledger.plan_signature(topology, left, right, left_on, right_on, config),
+        ledger_extra=lambda: {"drop_declared_range": True} if state["dropped_range"] else {},
+        apply_ledger_entry=_apply_ledger,
+    )
+    return out, counts, info, state["config"]
+
+
 # --- prepared build side (shuffle tier) ----------------------------------
 
 
@@ -444,6 +592,9 @@ def prepare_join_side(
     *,
     left_capacity: Optional[int] = None,
     key_range=None,
+    max_attempts: int = 8,
+    growth: float = 2.0,
+    max_total_growth: float = 4096.0,
     tier: Optional[str] = None,
 ) -> PreparedSide:
     """Shuffle, pack and sort the build side once for repeated joins.
@@ -453,17 +604,19 @@ def prepare_join_side(
     ``key_range`` (or config.key_range) declares the join keys' bounds;
     undeclared keys are probed from the build side, so a probe key below
     the build side's minimum raises the query's prepared_plan_mismatch
-    flag. ``left_capacity`` (global rows, default the build side's) sizes
-    the probe batches the tag field must hold; a later probe table whose
+    flag (``distributed_inner_join_auto`` re-prepares for it).
+    ``left_capacity`` (global rows, default the build side's) sizes the
+    probe batches the tag field must hold; a later probe table whose
     sizing needs another tag width raises PreparedPlanMismatch.
 
-    This is dj_tpu's prepare on its shuffle tier with one attempt: a
-    fired shuffle_overflow raises CapacityExhausted (prepare again with a
-    larger bucket_factor), build keys outside a declared key_range raise
-    PreparedPlanMismatch (prepare again with a wider or probed range).
-    The heal loop that does either by itself, its ledger, the broadcast
-    and salted tiers (``tier``) and shape bucketing come with later
-    slices.
+    The build stage heals as dj_tpu's does (``prepare_join_side``,
+    dj_tpu/parallel/dist_join.py:2190-2360), under the heal engine: a
+    fired shuffle_overflow grows bucket_factor by ``growth``, build keys
+    outside a declared key_range re-probe the range, and budget
+    exhaustion raises CapacityExhausted. The capacity ledger remembers
+    both per build signature. The returned side's ``config`` holds the
+    factors it settled on. The broadcast and salted tiers (``tier``) and
+    shape bucketing come with later slices.
     """
     if tier not in (None, "shuffle"):
         raise NotImplementedError(
@@ -491,11 +644,10 @@ def prepare_join_side(
                 "prepare_join_side requires fixed-width int join keys; use "
                 "the unprepared distributed_inner_join for other keys"
             )
-        if col.data.dtype == torch.uint64:
-            raise NotImplementedError("uint64 join keys come with ROADMAP queue 1 item 5")
         dtypes.append(col.data.dtype)
     declared = key_range if key_range is not None else config.key_range
-    if declared is None:
+    probed = declared is None
+    if probed:
         kr = _probe_side_range(right, right_counts, right_on, topology)
         if kr is None:
             raise ValueError(
@@ -504,38 +656,70 @@ def prepare_join_side(
             )
     else:
         kr = normalize_key_range(declared, len(right_on))
-    n, l_cap_m, r_cap_m = _main_group_sizing(topology, config, l_cap, r_cap)
-    sizing = batch_sizing(config, n, l_cap_m, r_cap_m)
-    S = n * (sizing.bl + sizing.br)
-    plan = plan_prepared_pack(kr, dtypes, S)
-    if plan is None:
-        raise ValueError(
-            f"prepare_join_side: key range {kr} does not pack into the "
-            f"64-bit word at batch size S={S}; use the unprepared join"
-        )
-    def run(comm, rt, rc):
-        batches, flags = _prepare_batches(
-            comm, config, rt.with_count(rc[0]), right_on, sizing, plan
-        )
-        return batches, _flag_row(flags, _PREP_FLAG_KEYS)
+    state = {"config": config, "kr": kr, "probed": probed, "reprobed": False}
 
-    batches, flag_mat = run_spmd(topology, run, right, right_counts,
-                                 **_backend(config, flags_at=1))
-    fired = {k: bool(v.any()) for k, v in _flag_info(flag_mat, _PREP_FLAG_KEYS).items()}
-    if fired["prep_range_violation"]:
-        raise PreparedPlanMismatch(
-            f"prepare_join_side: prep_range_violation: build keys fall "
-            f"outside the declared key_range {kr}; prepare again with a "
-            f"wider or probed range"
-        )
-    if fired["shuffle_overflow"]:
-        raise CapacityExhausted(
-            f"prepare_join_side: shuffle_overflow at bucket_factor "
-            f"{config.bucket_factor}; prepare again with a larger one",
-            stage="prepare", attempts=1, flags=fired,
-        )
+    def run_attempt(attempt):
+        cfg = state["config"]
+        n, l_cap_m, r_cap_m = _main_group_sizing(topology, cfg, l_cap, r_cap)
+        sizing = batch_sizing(cfg, n, l_cap_m, r_cap_m)
+        S = n * (sizing.bl + sizing.br)
+        plan = plan_prepared_pack(state["kr"], dtypes, S)
+        if plan is None:
+            raise ValueError(
+                f"prepare_join_side: key range {state['kr']} does not pack into "
+                f"the 64-bit word at batch size S={S}; use the unprepared join"
+            )
+
+        def run(comm, rt, rc):
+            batches, flags = _prepare_batches(
+                comm, cfg, rt.with_count(rc[0]), right_on, sizing, plan
+            )
+            return batches, _flag_row(flags, _PREP_FLAG_KEYS)
+
+        batches, flag_mat = run_spmd(topology, run, right, right_counts,
+                                     **_backend(cfg, flags_at=1))
+        return (batches, plan, n, sizing), _flag_info(flag_mat, _PREP_FLAG_KEYS)
+
+    def _heal_range_violation(info, attempt):
+        # Build keys outside the declared range: the anchored words are
+        # corrupt, so no other flag of this attempt is trusted.
+        if state["probed"]:
+            raise RuntimeError(
+                "prep_range_violation with a probed key range: the probe "
+                "covers the build side by construction; this is a bug"
+            )
+        new_kr = _probe_side_range(right, right_counts, right_on, topology)
+        if new_kr is None:
+            raise ValueError(
+                "prepare_join_side: declared key_range violated and the "
+                "build side probes empty"
+            )
+        state.update(kr=new_kr, probed=True, reprobed=True)
+
+    def _apply_ledger(entry):
+        # A learned "declared range was violated" repair: probe up front.
+        if entry.get("reprobe_declared_range") and not state["probed"]:
+            new_kr = _probe_side_range(right, right_counts, right_on, topology)
+            if new_kr is not None:
+                state.update(kr=new_kr, probed=True, reprobed=True)
+
+    (batches, plan, n, sizing), _, _ = heal_engine.run_healed(
+        name="prepare_join_side",
+        stage="prepare",
+        budget=HealBudget(max_attempts, growth, max_total_growth),
+        run_attempt=run_attempt,
+        heal_map=_HEAL_FACTORS,
+        read_factors=lambda: _config_factors(state["config"]),
+        apply_factors=lambda grew: state.update(
+            config=dataclasses.replace(state["config"], **grew)
+        ),
+        poison={"prep_range_violation": _heal_range_violation},
+        ledger_key=dj_ledger.plan_signature(topology, None, right, None, right_on, config),
+        ledger_extra=lambda: {"reprobe_declared_range": True} if state["reprobed"] else {},
+        apply_ledger_entry=_apply_ledger,
+    )
     return PreparedSide(
-        topology=topology, config=config, right_on=right_on, key_range=kr,
+        topology=topology, config=state["config"], right_on=right_on, key_range=state["kr"],
         plan=plan, n=n, sizing=sizing, l_cap=l_cap, r_cap=r_cap,
         batches=batches, right=right, right_counts=right_counts,
     )
@@ -670,3 +854,97 @@ def _prepared_query(
         "prepared_plan_mismatch": mismatch,
     }
     return out, flags
+
+
+def _reprepare(
+    topology: Topology, left: Table, left_counts: torch.Tensor, prepared: PreparedSide,
+    left_on, config: JoinConfig,
+) -> PreparedSide:
+    """Re-prepare under a range widened to cover the probe side (the
+    prepared_plan_mismatch heal, dj_tpu/parallel/dist_join.py:2853-2888):
+    the union of the prepared range and the left side's probed bounds,
+    the current (possibly grown) factors, and a tag field sized for the
+    actual left capacity."""
+    left_range = _probe_side_range(left, left_counts, tuple(left_on), topology)
+    kr = prepared.key_range
+    if left_range is not None:
+        kr = tuple((min(a_lo, b_lo), max(a_hi, b_hi))
+                   for (a_lo, a_hi), (b_lo, b_hi) in zip(kr, left_range))
+    left_capacity = left.capacity * topology.world_size // topology.local_ranks
+    return prepare_join_side(
+        topology, prepared.right, prepared.right_counts, prepared.right_on, config,
+        left_capacity=left_capacity, key_range=kr,
+    )
+
+
+def _distributed_inner_join_prepared_auto(
+    topology: Topology,
+    left: Table,
+    left_counts: torch.Tensor,
+    prepared: PreparedSide,
+    left_on: Sequence[int],
+    config: Optional[JoinConfig],
+    *,
+    max_attempts: int = 8,
+    growth: float = 2.0,
+    max_total_growth: float = 4096.0,
+):
+    """The prepared half of distributed_inner_join_auto
+    (dj_tpu/parallel/dist_join.py:2893-3040): capacity flags grow the
+    offending factor and reuse the prepared batches; a mismatch (the
+    flag, or PreparedPlanMismatch raised by the query) re-prepares under
+    the widened range. The query's config starts at least as wide as the
+    prepared side's settled factors, and stays so after a re-prepare, or
+    the tag width would mismatch again on every attempt."""
+    if config is None:
+        config = prepared.config
+    else:
+        wider = dj_ledger.wider_factors(_config_factors(prepared.config),
+                                        _config_factors(config))
+        if wider:
+            config = dataclasses.replace(config, **wider)
+    state = {"config": config, "prepared": prepared}
+
+    def _adopt_settled(new_prepared):
+        wider = dj_ledger.wider_factors(_config_factors(new_prepared.config),
+                                        _config_factors(state["config"]))
+        if wider:
+            state["config"] = dataclasses.replace(state["config"], **wider)
+
+    def run_attempt(attempt):
+        out, counts, info = _distributed_inner_join_prepared(
+            topology, left, left_counts, state["prepared"], left_on, state["config"],
+        )
+        return (out, counts), info
+
+    def _reprepare_heal(_cause, attempt):
+        # Left keys outside the prepared anchors (the flag), or a probe
+        # side the plan cannot take (the exception): the packed words do
+        # not compare, so no other flag of this attempt is trusted.
+        new_prepared = _reprepare(topology, left, left_counts, state["prepared"], left_on,
+                                  state["config"])
+        state["prepared"] = new_prepared
+        state["config"] = dataclasses.replace(
+            state["config"], over_decom_factor=new_prepared.config.over_decom_factor)
+        _adopt_settled(new_prepared)
+
+    (out, counts), info, _ = heal_engine.run_healed(
+        name="distributed_inner_join_auto (prepared)",
+        stage="join",
+        budget=HealBudget(max_attempts, growth, max_total_growth),
+        run_attempt=run_attempt,
+        # The query's flags heal the same factors, which size the left
+        # side only: the prepared batches stay as they are (a growth that
+        # shifts the merged tag width raises PreparedPlanMismatch, and
+        # that re-prepares).
+        heal_map=_HEAL_FACTORS,
+        read_factors=lambda: _config_factors(state["config"]),
+        apply_factors=lambda grew: state.update(
+            config=dataclasses.replace(state["config"], **grew)
+        ),
+        poison={"prepared_plan_mismatch": _reprepare_heal},
+        mismatch_excs=(PreparedPlanMismatch,),
+        on_mismatch=_reprepare_heal,
+        ledger_key=dj_ledger.plan_signature(topology, left, prepared, left_on, None, config),
+    )
+    return out, counts, info, state["config"], state["prepared"]

@@ -146,21 +146,52 @@ def test_column_order_contract():
 
 
 def test_unsupported_inputs_raise_not_implemented():
-    rng = np.random.default_rng(1)
-    a = rng.integers(0, 9, 20)
-    t = convert.table_from_numpy([a, a], ["int64", "int64"], device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-key"):
-        tjoin.inner_join(t, t, [0, 1], [0, 1])
-    with pytest.raises(NotImplementedError, match="carry"):
-        tjoin.inner_join(t, t, [0], [0], carry_payloads=True)
-    f = convert.table_from_numpy([a.astype(np.float64)], ["float64"], device="cpu")
-    with pytest.raises(NotImplementedError, match="unpacked sort"):
-        tjoin.inner_join(f, f, [0], [0])
+    """String columns are not fixed-width: they come with a later slice."""
     with pytest.raises(NotImplementedError, match="string"):
         convert.table_from_numpy([np.zeros(3, np.uint8)], ["string"], device="cpu")
-    wide = convert.table_from_numpy([np.array([-(2**63), 2**63 - 1])], ["int64"], device="cpu")
-    with pytest.raises(NotImplementedError, match="observed range"):
-        tjoin.inner_join(wide, wide, [0], [0])
+
+
+def _limit_case(name):
+    """(left tables, right tables, left_on, right_on, out_capacity,
+    inner_join keywords) of an input the port refused before it took
+    every fixed-width key."""
+    rng = np.random.default_rng(1)
+    a = rng.integers(0, 9, 20)
+    wide = np.array([-(2**63), 2**63 - 1, 0, 7], np.int64)
+    if name == "multi_key":
+        sides = []
+        for keys in (a, a[::-1].copy()):
+            arrays = [keys, (keys % 3).astype(np.int32), np.arange(20)]
+            names = ["int64", "int32", "int64"]
+            sides.append((JTable(tuple(JColumn(jnp.asarray(x), dj_tpu.dtypes.by_name(n))
+                                       for x, n in zip(arrays, names)), jnp.int32(18)),
+                          convert.table_from_numpy(arrays, names, 18, device="cpu")))
+        (jl, tl), (jr, tr) = sides
+        return (jl, jr, tl, tr), [0, 1], [0, 1], 512, {}
+    if name == "carry":
+        return _tables(a, a.copy(), 20, 20), [0], [0], 512, {"carry_payloads": True}
+    if name == "float":
+        f = a.astype(np.float64) - 4.0
+        f[::3] = np.nan
+        f[1::5] = -0.0
+        return _tables(f, f[::-1].copy(), 20, 20), [0], [0], 512, {}
+    if name == "wide_range":
+        return _tables(wide, wide[::-1].copy(), 4, 4), [0], [0], 64, {}
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", ["multi_key", "carry", "float", "wide_range"])
+def test_former_limits_match_dj_tpu(name):
+    """Multi-column keys, carry_payloads, float keys and a 64-bit key whose
+    observed span overflows the packed word now join as in dj_tpu: the
+    same row multiset, total, valid count and flags."""
+    (jl, jr, tl, tr), lon, ron, cap, kw = _limit_case(name)
+    jt, jtot, jflags = dj_tpu.inner_join(jl, jr, lon, ron, out_capacity=cap, return_flags=True, **kw)
+    tt, ttot, tflags = tjoin.inner_join(tl, tr, lon, ron, out_capacity=cap, return_flags=True, **kw)
+    assert int(ttot) == int(jtot) > 0 and int(tt.count()) == int(jt.count())
+    assert {k: bool(v) for k, v in tflags.items()} == {k: bool(v) for k, v in jflags.items()}
+    k = int(jt.count())
+    assert repr(_rows(tt, k)) == repr(_rows(jt, k))
 
 
 def test_argument_errors_match_dj_tpu():

@@ -219,14 +219,16 @@ def test_resolver_degrade_rules(mode, monkeypatch):
     slots; every other mode runs whatever the payload count."""
     monkeypatch.setenv("DJT_JOIN_EXPAND", mode)
     for n_payload in (0, 1, 3):
-        assert tjoin.effective_plan(n_payload) == mode
-    assert tjoin.effective_plan(4) == ("vmeta" if mode in ("vcarry", "vfull") else mode)
+        assert tjoin.effective_plan(n_payload).expand == mode
+    assert tjoin.effective_plan(4).expand == ("vmeta" if mode in ("vcarry", "vfull") else mode)
 
 
 def test_resolver_reads_the_knob(monkeypatch):
     monkeypatch.delenv("DJT_JOIN_EXPAND", raising=False)
     assert tjoin.resolve_expand_impl() == "vmeta"
-    for bad in ("hist", "pallas-vfull", ""):
+    monkeypatch.setenv("DJT_JOIN_EXPAND", "hist")
+    assert tjoin.resolve_expand_impl() == "hist"
+    for bad in ("pallas", "pallas-vfull", ""):
         monkeypatch.setenv("DJT_JOIN_EXPAND", bad)
         with pytest.raises(ValueError, match="DJT_JOIN_EXPAND"):
             tjoin.effective_plan(1)

@@ -8,8 +8,8 @@ against each of dj_tpu's (its CPU default xla, its Pallas merge kernel
 in interpret mode, its probe tier). Compared: counts, flags and row
 multisets, exactly. Also: a dj_tpu PreparedSide carried into the port
 serves the same rows, PreparedPlanMismatch is raised on the same
-structural mismatches as in dj_tpu, and the one-attempt prepare raises
-typed errors where dj_tpu would heal.
+structural mismatches as in dj_tpu, and the prepare heals as dj_tpu's
+does (with one attempt, both raise the same CapacityExhausted).
 """
 
 import jax
@@ -29,6 +29,15 @@ from dj_tpu_torch import convert
 from dj_tpu_torch.resilience import errors as terrors
 
 TIERS = ("sort", "merge", "probe")
+
+
+@pytest.fixture(autouse=True)
+def empty_port_ledger():
+    """The port's capacity ledger empty around each test, as dj_tpu's
+    conftest keeps dj_tpu's: a healed prepare would widen later ones."""
+    tj.resilience.ledger.reset()
+    yield
+    tj.resilience.ledger.reset()
 
 
 def _rows(table):
@@ -151,6 +160,46 @@ def test_prepared_unsigned_columns_match_dj_tpu(tier, monkeypatch):
     assert _rows(tt) == _rows(jt)
 
 
+@pytest.mark.parametrize("declared", [True, False])
+@pytest.mark.parametrize("tier", TIERS)
+def test_prepared_uint64_keys_match_dj_tpu(tier, declared, monkeypatch):
+    """uint64 keys past 2^63, declared or probed, at odf 1 (the hash of a
+    uint64 key differs from its int64 image's, so odf > 1 batches differ):
+    the prepared plan, the prepared words and each tier's rows equal
+    dj_tpu's for the same keys less 2^63 as int64 (dj_tpu cannot pad a
+    uint64 key; the map keeps order and equality, so the words' fields
+    and tags agree)."""
+    build, probe, kr, want = _tables(33, nb=600, nl=900, key_dtype=np.int64)
+    w64 = _World(build, probe)
+    for t in (build, probe):
+        t[0] = t[0].astype(np.uint64) + np.uint64(2**63)
+    w = _World.__new__(_World)
+    w.ttopo = tj.make_topology(["cpu"])
+    _, tb = _both(build)
+    _, tp = _both(probe)
+    w.tr, w.trc = tj.shard_table(w.ttopo, tb)
+    w.tl, w.tlc = tj.shard_table(w.ttopo, tp)
+    jcfg = dj_tpu.JoinConfig(key_range=kr if declared else None)
+    jprep = w64.jprepare(jcfg, left_capacity=len(probe[0]))
+    ukr = tuple(v + 2**63 for v in kr)
+    tprep = w.tprepare(dj_tpu.JoinConfig(key_range=ukr if declared else None),
+                       left_capacity=len(probe[0]))
+    # Anchors are unsigned-order images: k + 2^63 either way.
+    assert tprep.plan.anchors == tuple(jprep.plan.anchors)
+    assert tprep.plan.widths == tuple(jprep.plan.widths)
+    assert tprep.plan.key_dtypes == ("uint64",)
+    (tw, _, tc), (jw, _, jc) = tprep.batches[0], jprep.batches[0]
+    assert tc.tolist() == np.asarray(jc).tolist()
+    np.testing.assert_array_equal(tw.numpy(), np.asarray(jw).view(np.int64))
+    jt, jcounts, _ = w64.jquery(jprep, jcfg)
+    monkeypatch.setenv("DJT_JOIN_MERGE", tier)
+    tt, tcounts, tinfo = w.tquery(tprep, jcfg)
+    assert int(tcounts[0]) == int(np.asarray(jcounts)[0]) == want
+    assert not any(bool(v.any()) for v in tinfo.values())
+    assert tt.columns[0].data.dtype == torch.uint64
+    assert sorted((r[0] - 2**63,) + r[1:] for r in _rows(tt)) == _rows(jt)
+
+
 def test_probe_keys_outside_plan_flag_in_both(monkeypatch):
     build, probe, kr, _ = _tables(3)
     probe[0][::7] += 10**6  # outside the declared range
@@ -234,15 +283,27 @@ def test_plan_mismatch_raised_where_dj_tpu_raises():
 def test_one_attempt_prepare_raises_typed_errors():
     build, probe, kr, _ = _tables(6)
     w = _World(build, probe)
-    # Build keys outside a declared range: dj_tpu re-probes, the port
-    # names the flag and asks for a re-prepare.
-    with pytest.raises(tj.PreparedPlanMismatch, match="prep_range_violation"):
-        w.tprepare(dj_tpu.JoinConfig(key_range=(10, 20)))
-    # Send buckets far below the batch's rows: dj_tpu grows
-    # bucket_factor, the port raises CapacityExhausted.
-    with pytest.raises(terrors.CapacityExhausted, match="shuffle_overflow") as err:
-        w.tprepare(dj_tpu.JoinConfig(over_decom_factor=4, bucket_factor=0.5, key_range=kr))
-    assert err.value.flags["shuffle_overflow"] and err.value.attempts == 1
+    # Build keys outside a declared range, and send buckets far below the
+    # batch's rows: with one attempt both packages run out of budget and
+    # raise CapacityExhausted naming the flag; with the default budget
+    # both heal (re-probe the range, grow bucket_factor) to the same side.
+    for cfg in (dj_tpu.JoinConfig(key_range=(10, 20)),
+                dj_tpu.JoinConfig(over_decom_factor=4, bucket_factor=0.5, key_range=kr)):
+        flag = "prep_range_violation" if cfg.bucket_factor > 1 else "shuffle_overflow"
+        with pytest.raises(jerrors.CapacityExhausted, match=flag) as jerr:
+            w.jprepare(cfg, max_attempts=1)
+        with pytest.raises(terrors.CapacityExhausted, match=flag) as err:
+            w.tprepare(cfg, max_attempts=1)
+        assert err.value.flags == jerr.value.flags and err.value.flags[flag]
+        assert err.value.attempts == jerr.value.attempts == 1
+        # dj_tpu's less pre_shuffle_out_factor, which only its two-level
+        # topology reads.
+        assert err.value.factors == {f: v for f, v in jerr.value.factors.items()
+                                     if f != "pre_shuffle_out_factor"}
+        jprep, tprep = w.jprepare(cfg), w.tprepare(cfg)
+        assert tprep.key_range == tuple(jprep.key_range)
+        assert tuple(tprep.plan) == tuple(jprep.plan)
+        assert tprep.config.bucket_factor == jprep.config.bucket_factor
     with pytest.raises(NotImplementedError, match="broadcast"):
         tj.prepare_join_side(w.ttopo, w.tr, w.trc, [0], tier="broadcast")
     with pytest.raises(ValueError, match="empty build side"):

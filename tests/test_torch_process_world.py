@@ -6,6 +6,9 @@ Worlds of 2 and 4 CPU processes are started once per module with
 (torch, numpy and dj_tpu_torch only, since a spawned child must not load
 JAX) and pickles its rank's results, and each test below reads them:
 the collectives and ``exchange`` under the three backends against numpy;
+``distributed_inner_join_auto`` (a heal, a ledger hit, a prepared
+re-prepare) against dj_tpu at a world of 2, and a world whose processes
+start from different ledger entries failing instead of hanging;
 ``shuffle_tables`` leaf for leaf against dj_tpu's on the CPU mesh, for
 every fixed-width dtype; joins shard for shard against dj_tpu at odf 1
 and 4 (vmeta and ranks, and under Ring and Buffered); the prepared side
@@ -56,7 +59,7 @@ W = _load("torch_world_worker", WORKER)
 chip_smoke = _load("chip_smoke", ROOT / "chip_smoke.py")
 
 WORLDS = (2, 4)
-CASES = {2: ["collectives", "exchange", "shuffle", "join", "generate"],
+CASES = {2: ["collectives", "exchange", "shuffle", "join", "generate", "auto", "keys"],
          4: ["collectives", "exchange", "shuffle", "join", "prepared", "generate"]}
 
 
@@ -64,10 +67,11 @@ class _Worlds:
     """The spawned worlds, each read once on first use."""
 
     def __init__(self, tmp_path_factory):
-        self.pool = concurrent.futures.ThreadPoolExecutor(len(WORLDS) + 1)
+        self.pool = concurrent.futures.ThreadPoolExecutor(len(WORLDS) + 2)
         self.runs = {}
         for key, w, spec, env in [(w, w, {"cases": CASES[w]}, ENV) for w in WORLDS] + [
-                ("fail", 2, {"cases": ["fail"]}, {**ENV, "DJT_COLLECTIVE_TIMEOUT_S": "30"})]:
+                (case, 2, {"cases": [case]}, {**ENV, "DJT_COLLECTIVE_TIMEOUT_S": "30"})
+                for case in ("fail", "ledger_split")]:
             d = tmp_path_factory.mktemp(f"world_{key}")
             fut = self.pool.submit(chip_smoke.spawn_world, w,
                                    [str(WORKER), json.dumps(spec), str(d)],
@@ -320,6 +324,117 @@ def test_a_rank_that_raises_fails_its_world(worlds):
     (rc0, _, err0), (rc1, _, err1) = worlds.outcome("fail")
     assert rc1 != 0 and "rank 1 fails on purpose" in err1
     assert rc0 != 0 and "Traceback" in err0
+
+
+def _jax_auto(build, probe, cfg, prepared: bool, **kw):
+    """dj_tpu's auto join on 2 devices: (result dict, attempts, config,
+    prepared side or None)."""
+    world = _JaxWorld(2, [np.asarray(a) for a in build], [np.asarray(a) for a in probe])
+    (jl, jlc), (jr, jrc) = world.j["probe"], world.j["build"]
+    attempts = []
+    name = "_distributed_inner_join_prepared" if prepared else "distributed_inner_join"
+    orig = getattr(jdist, name)
+    setattr(jdist, name, lambda *a, **k: attempts.append(1) or orig(*a, **k))
+    try:
+        if prepared:
+            prep = jdist.prepare_join_side(world.jtopo, jr, jrc, [0], cfg, tier="shuffle")
+            res = dj_tpu.distributed_inner_join_auto(world.jtopo, jl, jlc, prep, None, [0], None,
+                                                     cfg, **kw)
+        else:
+            prep = None
+            res = dj_tpu.distributed_inner_join_auto(world.jtopo, jl, jlc, jr, jrc, [0], [0], cfg,
+                                                     **kw)
+    finally:
+        setattr(jdist, name, orig)
+    out = W._join_result((
+        convert.table_from_numpy([np.asarray(c.data) for c in res[0].columns],
+                                 [c.dtype.name for c in res[0].columns], device="cpu"),
+        torch.from_numpy(np.asarray(res[1])),
+        {k: torch.from_numpy(np.asarray(v)) for k, v in res[2].items()}))
+    return out, len(attempts), res[3], (prep, res[4]) if prepared else None
+
+
+def test_process_world_auto_heals_as_dj_tpu(worlds):
+    """distributed_inner_join_auto in a gloo world of 2: each process
+    takes the same heal as dj_tpu on 2 devices (the same attempts, final
+    factors and shard rows), the second call is a ledger hit on attempt
+    1, and the prepared side re-prepares under the same widened range."""
+    from dj_tpu.resilience import ledger as jledger
+
+    results = worlds.results(2)
+    want, n, cfg, _ = _jax_auto(*W.auto_tables(), dj_tpu.JoinConfig(**W.AUTO_CONFIG), False,
+                                growth=8.0)
+    assert n > 1 and not any(any(v) for v in want["flags"].values())
+    factors = {f: getattr(cfg, f) for f in W.FACTOR_FIELDS}
+    for key, attempts in (("first", n), ("second", 1)):
+        _assert_shards(2, results, ("auto", key), want)
+        for res in results:
+            assert res["auto"][key]["attempts"] == attempts
+            assert res["auto"][key]["factors"] == factors
+    jledger.reset()
+    want, n, cfg, (jprep, jused) = _jax_auto(
+        *W.prepared_auto_tables(), dj_tpu.JoinConfig(**W.PREPARED_AUTO_CONFIG), True)
+    _assert_shards(2, results, ("auto", "prepared"), want)
+    for res in results:
+        got = res["auto"]["prepared"]
+        assert got["attempts"] == n == 2
+        assert got["old_key_range"] == tuple(jprep.key_range)
+        assert got["key_range"] == tuple(jused.key_range) != got["old_key_range"]
+
+
+def _jax_keys_join(build, probe, on) -> dict:
+    """dj_tpu's join of the keys case on 2 devices, as W._join_result."""
+    world = _JaxWorld(2, build, probe)
+    (jl, jlc), (jr, jrc) = world.j["probe"], world.j["build"]
+    out = dj_tpu.distributed_inner_join(world.jtopo, jl, jlc, jr, jrc, on, on,
+                                        dj_tpu.JoinConfig(**W.KEYS_CONFIG))
+    return W._join_result((
+        convert.table_from_numpy([np.asarray(c.data) for c in out[0].columns],
+                                 [c.dtype.name for c in out[0].columns], device="cpu"),
+        torch.from_numpy(np.array(out[1])),
+        {k: torch.from_numpy(np.array(v)) for k, v in out[2].items()}))
+
+
+@pytest.mark.parametrize("name", ["float64", "two_int32", "int16_int64", "uint64"])
+def test_process_world_key_kinds_match(name, worlds):
+    """A gloo world of 2 joins each key kind as dj_tpu does on 2 devices,
+    shard for shard (NaN and subnormal float keys among them). dj_tpu
+    cannot join a uint64 key, and a uint64 key hashes apart from its
+    int64 image: the uint64 world is held to dj_tpu's join of the keys
+    less 2^63 on the whole result (total, flags and the unsharded row
+    multiset), and shard for shard to the port's world in one process."""
+    ba, bn, pa, pn, on = W.key_tables()[name]
+    results = worlds.results(2)
+    if name == "uint64":
+        image = [(ba[0] ^ np.uint64(2**63)).view(np.int64)] + ba[1:]
+        jwant = _jax_keys_join(image, [(pa[0] ^ np.uint64(2**63)).view(np.int64)] + pa[1:], on)
+        assert not any(any(v) for v in jwant["flags"].values())
+        got = sorted(r for res in results for r in res["keys"][name]["rows"][0])
+        assert got == sorted((r[0] + 2**63,) + r[1:] for shard in jwant["rows"] for r in shard)
+        assert sum(res["keys"][name]["counts"][0] for res in results) == sum(jwant["counts"])
+        topo = tj.make_topology(["cpu"] * 2)
+        (tl, tlc), (tr, trc) = (tj.shard_table(topo, convert.table_from_numpy(a, n, device="cpu"))
+                                for a, n in ((pa, pn), (ba, bn)))
+        want = W._join_result(tj.distributed_inner_join(topo, tl, tlc, tr, trc, on, on,
+                                                        tj.JoinConfig(**W.KEYS_CONFIG)))
+    else:
+        want = _jax_keys_join(ba, pa, on)
+    assert sum(want["counts"]) > 0 and not any(any(v) for v in want["flags"].values())
+    for r, res in enumerate(results):
+        got = res["keys"][name]
+        assert got["counts"] == [want["counts"][r]] and got["flags"] == want["flags"]
+        assert repr(got["rows"]) == repr([want["rows"][r]])
+
+
+def test_a_ledger_split_world_fails_instead_of_hanging(worlds):
+    """Two processes that start from different ledger entries size their
+    exchanges differently: both end with an error within the time limit
+    (spawn_world raises past it) instead of hanging. Under gloo the
+    receiver of the larger bucket aborts on the size mismatch and its
+    peer's read fails."""
+    (rc0, _, err0), (rc1, _, err1) = worlds.outcome("ledger_split")
+    assert rc0 != 0 and rc1 != 0
+    assert "collective mismatch" in err0 + err1
 
 
 def _counting(monkeypatch):

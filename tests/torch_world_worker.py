@@ -135,6 +135,55 @@ def prepared_tables(seed: int, nb: int = 2400, nl: int = 3600):
             [probe.astype(np.int64), np.arange(nl, dtype=np.int64)])
 
 
+# The auto case: duplicate keys overflow join_out_factor 1; the prepared
+# side's probe keys reach past its build keys.
+AUTO_CONFIG = dict(over_decom_factor=1, bucket_factor=8.0, join_out_factor=1.0)
+PREPARED_AUTO_CONFIG = dict(over_decom_factor=2, bucket_factor=4.0, join_out_factor=4.0)
+FACTOR_FIELDS = ("bucket_factor", "join_out_factor", "char_out_factor")
+
+
+def auto_tables():
+    """(build, probe) of the auto join: 8 keys, 1024 rows each side."""
+    rng = np.random.default_rng(11)
+    return ([rng.integers(0, 8, 1024), np.arange(1024, dtype=np.int64)],
+            [rng.integers(0, 8, 1024), np.arange(1024, dtype=np.int64) + 5])
+
+
+def prepared_auto_tables():
+    """(build, probe): build keys in [0, 100), probe keys in [0, 4000)."""
+    rng = np.random.default_rng(12)
+    return ([rng.integers(0, 100, 1024), np.arange(1024, dtype=np.int64)],
+            [rng.integers(0, 4000, 1024), np.arange(1024, dtype=np.int64)])
+
+
+def key_tables() -> dict:
+    """name -> (build arrays, names, probe arrays, names, key columns) of
+    the keys case: float64 keys with -0.0, NaN, +-inf and subnormals; two
+    int32 key columns (a probed range packs them); an int16 probe key
+    against an int64 build key; uint64 keys past 2^63."""
+    rng = np.random.default_rng(21)
+    tiny = np.finfo(np.float64).smallest_subnormal
+    pool = np.array([0.0, -0.0, np.nan, np.inf, -np.inf, tiny, -tiny, 1.5, -2.5, 7.0])
+    out = {"float64": ([pool[rng.integers(0, 10, 700)]], ["float64"],
+                       [pool[rng.integers(0, 10, 900)]], ["float64"], [0])}
+    b = rng.integers(0, 5000, 800)
+    p = rng.integers(0, 5000, 1000)
+    out["two_int32"] = ([(b >> 6).astype(np.int32), (b & 63).astype(np.int32)], ["int32"] * 2,
+                        [(p >> 6).astype(np.int32), (p & 63).astype(np.int32)], ["int32"] * 2,
+                        [0, 1])
+    out["int16_int64"] = ([rng.integers(-300, 300, 800)], ["int64"],
+                          [rng.integers(-300, 300, 1000).astype(np.int16)], ["int16"], [0])
+    out["uint64"] = ([b.astype(np.uint64) + np.uint64(2**63)], ["uint64"],
+                     [p.astype(np.uint64) + np.uint64(2**63)], ["uint64"], [0])
+    for name, (ba, bn, pa, pn, on) in out.items():
+        out[name] = (ba + [np.arange(len(ba[0]), dtype=np.int64)], bn + ["int64"],
+                     pa + [np.arange(len(pa[0]), dtype=np.int64) + 10**6], pn + ["int64"], on)
+    return out
+
+
+KEYS_CONFIG = dict(over_decom_factor=2, bucket_factor=8.0, join_out_factor=64.0)
+
+
 GENERATE = dict(build_nrows_per_shard=400, probe_nrows_per_shard=600, selectivity=0.3,
                 rand_max_per_shard=999, uniq_build_tbl_keys=True, seed=5)
 # Overflows on some ranks and not on others, at worlds of 2 and 4.
@@ -283,6 +332,70 @@ def case_generate(topo):
             "probe": [c.data.numpy() for c in p.columns], "probe_counts": pc.tolist()}
 
 
+def _counted_auto(topo, *args, **kw):
+    """distributed_inner_join_auto's result and the attempts it ran."""
+    from dj_tpu_torch.parallel import dist_join
+
+    attempts = []
+    names = ("distributed_inner_join", "_distributed_inner_join_prepared")
+    orig = {n: getattr(dist_join, n) for n in names}
+    for n, fn in orig.items():
+        setattr(dist_join, n, lambda *a, _fn=fn, **k: attempts.append(1) or _fn(*a, **k))
+    try:
+        res = dj.distributed_inner_join_auto(topo, *args, **kw)
+    finally:
+        for n, fn in orig.items():
+            setattr(dist_join, n, fn)
+    out = _join_result(res[:3])
+    out["factors"] = {f: getattr(res[3], f) for f in FACTOR_FIELDS}
+    out["attempts"] = len(attempts)
+    if len(res) == 5:
+        out["key_range"] = res[4].key_range
+    return out
+
+
+def case_auto(topo):
+    """The heal in a process world: the duplicate blow-up twice (the
+    second call a ledger hit), then a prepared side re-prepared for the
+    probe keys outside it."""
+    build, probe = auto_tables()
+    (tl, tlc), (tr, trc) = _sharded(topo, probe), _sharded(topo, build)
+    cfg = dj.JoinConfig(**AUTO_CONFIG)
+    out = {"first": _counted_auto(topo, tl, tlc, tr, trc, [0], [0], cfg, growth=8.0),
+           "second": _counted_auto(topo, tl, tlc, tr, trc, [0], [0], cfg, growth=8.0)}
+    build, probe = prepared_auto_tables()
+    (tl, tlc), (tr, trc) = _sharded(topo, probe), _sharded(topo, build)
+    cfg = dj.JoinConfig(**PREPARED_AUTO_CONFIG)
+    prep = dj.prepare_join_side(topo, tr, trc, [0], cfg)
+    out["prepared"] = _counted_auto(topo, tl, tlc, prep, None, [0], None, cfg)
+    out["prepared"]["old_key_range"] = prep.key_range
+    return out
+
+
+def case_keys(topo):
+    """The distributed join on each of key_tables()'s key kinds."""
+    out = {}
+    for name, (ba, bn, pa, pn, on) in key_tables().items():
+        (tl, tlc) = dj.shard_table(topo, convert.table_from_numpy(pa, pn, device="cpu"))
+        (tr, trc) = dj.shard_table(topo, convert.table_from_numpy(ba, bn, device="cpu"))
+        out[name] = _join_result(dj.distributed_inner_join(topo, tl, tlc, tr, trc, on, on,
+                                                           dj.JoinConfig(**KEYS_CONFIG)))
+    return out
+
+
+def case_ledger_split(topo):
+    """Rank 0 starts from a ledger entry that widens bucket_factor, rank
+    1 from none: their exchanges differ in size, and the world must fail
+    within the collective timeout instead of hanging."""
+    build, probe = auto_tables()
+    (tl, tlc), (tr, trc) = _sharded(topo, probe), _sharded(topo, build)
+    cfg = dj.JoinConfig(**AUTO_CONFIG)
+    if topo.rank == 0:
+        sig = dj.resilience.plan_signature(topo, tl, tr, [0], [0], cfg)
+        dj.resilience.ledger.update(sig, factors={"bucket_factor": 64.0})
+    return _join_result(dj.distributed_inner_join_auto(topo, tl, tlc, tr, trc, [0], [0], cfg)[:3])
+
+
 def case_fail(topo):
     """Rank 1 raises before the join; its peers wait in the join's
     collectives until the world fails them."""
@@ -295,7 +408,8 @@ def case_fail(topo):
 
 CASES = {"collectives": case_collectives, "exchange": case_exchange, "shuffle": case_shuffle,
          "join": case_join, "prepared": case_prepared, "generate": case_generate,
-         "fail": case_fail}
+         "auto": case_auto, "keys": case_keys, "fail": case_fail,
+         "ledger_split": case_ledger_split}
 
 
 def main(spec_json: str, out_dir: str) -> int:
