@@ -109,15 +109,40 @@ Phases, each printing its own line(s):
      shuffle_overflow; a prepared side queried with a probe key below its
      range re-prepares under the sort and the merge tier, its rows equal
      to the unprepared join's;
+  8a. string payloads on one GPU's split of TPC-H at scale factor 100 split
+     8 ways (the port of scripts/make_tpch_sample.py's make_split: 18.75M
+     orders, about 75M lineitems, 1.875M customers, from --seed): orders
+     (O_ORDERKEY, O_CUSTKEY, O_ORDERPRIORITY) joined with lineitem
+     (L_ORDERKEY, L_PARTKEY, L_QUANTITY) at odf 1 and 4 on one rank and at
+     odf 1 in a 4-rank world, char_out_factor 5; every flag False, the
+     total the lineitem count, the lineitem columns equal to lineitem's
+     rows, every O_CUSTKEY and priority the one its orderkey was drawn
+     with (checked on the card, byte for byte); join_scans and
+     expand_values launched once a rank and batch; walls, peak, and the
+     device ms of each string pass (StringColumn.take, the string hash,
+     the char bucketize and compact, the verifier) from CUDA events;
+  8b. distributed_inner_join_auto on 8a's tables at char_out_factor 1:
+     char_overflow heals (attempts and the factor logged), the rows check
+     as in 8a, and a second call takes one attempt through the ledger;
+  8c. a string key: orders keyed by the C_NAME of O_CUSTKEY ("Customer#"
+     and 9 digits, 18 bytes) joined with customer keyed by C_NAME, with
+     C_MKTSEGMENT as the string payload, on one rank and in the 4-rank
+     world; the total the host's count of orders of split 0's customers,
+     surrogate_collision False, every row's key, custkeys and segment
+     checked, world rows on their key's _string_hash shard;
+  8d. the verifier: a 1M-row string-key join under a surrogate weakened
+     to ignore the first byte ("Customer#k" and "Dustomer#k" collide)
+     flags surrogate_collision, a true match under it does not, and
+     distributed_inner_join_auto raises the collision after one attempt;
   9. timings: the `timings` line (walls, peaks and the main path's sort);
-  8. the hardware probes: `python -m dj_tpu_torch.hw.probe_sort` and
+  10. the hardware probes: `python -m dj_tpu_torch.hw.probe_sort` and
      `... .probe_gather` through their main() at the JAX probes' shapes
      (64 tiles of 32768 u32 words; N = 131072 int32), each printing
      CORRECT and launching its kernels (the gather: the L2 gather `run`
      and the cluster gather `run_cluster`); then tile_sort at the join's
      scale (6104 tiles, 200,015,872 words) against its plain version,
      beside the flat sort of the same words;
-  8b. kernels vs plain: tile_sort, `run` and `run_cluster` against their
+  10b. kernels vs plain: tile_sort, `run` and `run_cluster` against their
      plain versions, exact equality, on the probes' shapes and on edge
      cases (words >= 2^31, all equal to the padding, sorted, reverse
      sorted, heavy duplicates, TILE 20000, 1025, 1024, 1023, 33, 32, 31,
@@ -133,7 +158,8 @@ beside each kernel's bound, launches per query on each path and in the
 main()'s, and no join path launches them).
 The last line is {"ok": true, "device": {...}}. With no CUDA device, or
 without the package beside it, the script fails before printing any
-result. ``--rows N`` shrinks the main path (for a quick first check).
+result. ``--rows N`` shrinks the main path and ``--orders N`` phase 8's
+split (for a quick first check).
 """
 
 from __future__ import annotations
@@ -1548,11 +1574,358 @@ def process_world_of_one(dj, dev, backend: str, build, probe, expected: int, ref
     return launch_table
 
 
+# --- string columns on TPC-H-shaped data (phases 8a-8d) --------------------
+
+# One GPU's split of TPC-H at scale factor 100 split 8 ways, as the
+# reference's tpch.cpp gives each GPU one split (scripts/make_tpch_sample.py
+# parameters): 150M orders / 8, about 4 lineitems an order, 15M customers / 8.
+TPCH_SPLITS = 8
+TPCH_ORDERS = 18_750_000
+TPCH_LINEITEMS_PER_ORDER = 4.0
+CHAR_FIT = 5.0  # char_out_factor of 8a: the lineitems copy each order's priority ~4 times
+CHAR_FIT_KEYS = 2.0  # 8c: each customer's segment is copied ~1.25 times
+
+
+class PassTimer:
+    """Device ms of the string passes inside one call: each wrapped
+    function's work is bracketed by CUDA events on the current stream
+    (in the in-process world only one rank issues work at a time, so the
+    events bracket that call's kernels alone)."""
+
+    def __init__(self):
+        from dj_tpu_torch.core import table
+        from dj_tpu_torch.ops import hashing, join
+        from dj_tpu_torch.parallel import all_to_all
+
+        self.targets = [("string_take", table.StringColumn, "take"),
+                        ("string_hash", hashing, "_string_hashes"),
+                        ("verify", join, "_verify_string_pairs"),
+                        ("char_bucketize", all_to_all, "bucketize"),
+                        ("char_compact", all_to_all, "compact")]
+
+    def __enter__(self):
+        self.events, self.orig = [], {}
+        for label, owner, name in self.targets:
+            fn = getattr(owner, name)
+            self.orig[(owner, name)] = fn
+            setattr(owner, name, self._timed(label, fn))
+        return self
+
+    def _timed(self, label, fn):
+        def timed(*a, **k):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **k)
+            end.record()
+            self.events.append((label, start, end))
+            return out
+        return timed
+
+    def __exit__(self, *exc):
+        for (owner, name), fn in self.orig.items():
+            setattr(owner, name, fn)
+
+    def ms(self) -> dict:
+        torch.cuda.synchronize()
+        out: dict = {}
+        for label, start, end in self.events:
+            ms, n = out.get(label, (0.0, 0))
+            out[label] = (ms + start.elapsed_time(end), n + 1)
+        return {k: {"ms": ms, "calls": n} for k, (ms, n) in out.items()}
+
+
+def word_codes(col, words) -> torch.Tensor:
+    """The index in ``words`` of each string of ``col``, read from its
+    first byte (every word of PRIORITIES and SEGMENTS starts with its
+    own byte)."""
+    table = torch.full((256,), -1, dtype=torch.int64, device=col.device)
+    for i, w in enumerate(words):
+        table[ord(w[0])] = i
+    first = col.chars[col.offsets[:-1].to(torch.int64)].to(torch.int64)
+    return table[first]
+
+
+def check_string_codes(what: str, col, n: int, code: torch.Tensor, words) -> None:
+    """Rows [0, n) of ``col`` equal ``words[code]`` byte for byte: the
+    expected bytes are built apart from the port's gathers (a
+    repeat_interleave of the rows over their sizes)."""
+    dev = col.device
+    enc = [w.encode() for w in words]
+    lens = torch.tensor([len(w) for w in enc], dtype=torch.int64, device=dev)
+    flat = torch.frombuffer(bytearray(b"".join(enc)), dtype=torch.uint8).to(dev)
+    start = torch.cumsum(lens, 0) - lens
+    sizes = col.sizes()[:n].to(torch.int64)
+    if not torch.equal(sizes, lens[code]):
+        raise AssertionError(f"{what}: a string's length differs from its expected word's")
+    offs = col.offsets[: n + 1].to(torch.int64)
+    nbytes = int(offs[-1])
+    row = torch.repeat_interleave(torch.arange(n, device=dev), sizes, output_size=nbytes)
+    want = flat[start[code][row] + torch.arange(nbytes, device=dev) - offs[row]]
+    if not torch.equal(col.chars[:nbytes], want):
+        raise AssertionError(f"{what}: a string's bytes differ from its expected word's")
+
+
+def tpch_tables(dj, dev, seed: int, n_orders: int):
+    """Split 0 of one GPU's share of TPC-H: (orders, lineitem, customer,
+    customers per split), built by the port of make_split on the card."""
+    from dj_tpu_torch.data import tpch
+
+    n_cust = n_orders // 10
+    t0 = time.perf_counter()
+    orders, lineitem, customer = tpch.make_split(0, n_orders, seed, TPCH_LINEITEMS_PER_ORDER,
+                                                 n_cust, n_cust * TPCH_SPLITS, device=dev)
+    torch.cuda.synchronize()
+    log("tpch_data", smoke_phase="8", split=0, splits=TPCH_SPLITS, orders=orders.capacity,
+        lineitems=lineitem.capacity, customers=customer.capacity,
+        priority_bytes=int(orders.columns[2].offsets[-1]),
+        segment_bytes=int(customer.columns[1].offsets[-1]),
+        build_seconds=round(time.perf_counter() - t0, 3))
+    return orders, lineitem, customer, n_cust
+
+
+def lineitem_words(keys, partkey, quantity) -> torch.Tensor:
+    """Each lineitem row packed into one sortable int64 (orderkey < 2^28,
+    partkey < 2^27, quantity < 2^6)."""
+    return (keys << 33) | (partkey << 6) | quantity
+
+
+def check_orders_lineitem(what: str, dj, out, counts, orders, lineitem, li_sorted) -> None:
+    """8a's rows: the count is the lineitem count; the lineitem columns
+    of the output, as a multiset, are lineitem's; each row's O_CUSTKEY
+    and O_ORDERPRIORITY are those its orderkey was drawn with."""
+    from dj_tpu_torch.data import tpch
+
+    flat = dj.unshard_table(out, counts) if counts.shape[0] > 1 else out
+    n = int(counts.sum())
+    if n != lineitem.capacity:
+        raise AssertionError(f"{what}: {n} rows, expected the {lineitem.capacity} lineitems")
+    ok, ck, pri, pk, q = flat.columns
+    got = torch.sort(lineitem_words(ok.data[:n], pk.data[:n], q.data[:n])).values
+    if not torch.equal(got, li_sorted):
+        raise AssertionError(f"{what}: the lineitem columns differ from lineitem's rows")
+    okeys, ocust = orders.columns[0].data, orders.columns[1].data
+    base = int(okeys.min())
+    row_of = torch.empty_like(okeys)
+    row_of[okeys - base] = torch.arange(okeys.shape[0], device=okeys.device)
+    rows = row_of[ok.data[:n] - base]
+    if not torch.equal(ck.data[:n], ocust[rows]):
+        raise AssertionError(f"{what}: an O_CUSTKEY differs from its order's")
+    code = word_codes(orders.columns[2], tpch.PRIORITIES)[rows]
+    check_string_codes(what, pri, n, code, tpch.PRIORITIES)
+
+
+def run_strings(dj, dev, seed: int, n_orders: int, smi: str, verifier_rows: int = 1_000_000):
+    """Phases 8a-8d (8d on ``verifier_rows`` rows a side). Returns
+    ({path: {odf: launches}} of one rank, the same for the 4-rank
+    world)."""
+    from dj_tpu_torch.data import tpch
+    from dj_tpu_torch.ops import hashing
+    from dj_tpu_torch.parallel.dist_join import MAIN_JOIN_SEED
+    from dj_tpu_torch.resilience import ledger
+
+    t_phase = time.perf_counter()
+    orders, lineitem, customer, n_cust = tpch_tables(dj, dev, seed, n_orders)
+    li_sorted = torch.sort(lineitem_words(*(c.data for c in lineitem.columns))).values
+    launch_table: dict = {}
+    world_table: dict = {}
+
+    def joined(what, topo, left, right, cfg, kernels_each):
+        """One join, its flags, launches and string passes."""
+        reset_launches()
+        with PassTimer() as timer:
+            res = dj.distributed_inner_join(topo, *left, *right, [0], [0], cfg)
+            torch.cuda.synchronize()
+        launches = read_launches()
+        set_flags = [k for k, v in res[2].items() if bool(v.any())]
+        if set_flags:
+            raise AssertionError(f"{what}: flags set: {set_flags}")
+        wrong = {k: launches[k] for k in ("join_scans", "expand_values")
+                 if launches[k] != kernels_each}
+        if wrong:
+            raise AssertionError(f"{what}: each kernel must launch {kernels_each} times: {wrong}")
+        return res, launches, timer.ms()
+
+    # 8a. orders (O_ORDERKEY, O_CUSTKEY, O_ORDERPRIORITY) join lineitem
+    # (L_ORDERKEY, L_PARTKEY, L_QUANTITY) on the orderkey
+    for w in (1, WORLD):
+        topo = dj.make_topology() if w == 1 else dj.make_topology([dev] * WORLD)
+        left, right = dj.shard_table(topo, orders), dj.shard_table(topo, lineitem)
+        for odf in ((1, 4) if w == 1 else (1,)):
+            cfg = dj.JoinConfig(over_decom_factor=odf, char_out_factor=CHAR_FIT)
+            what = f"8a world {w} odf {odf}"
+            res, launches, passes = joined(what, topo, left, right, cfg, w * odf)
+            check_orders_lineitem(what, dj, *res[:2], orders, lineitem, li_sorted)
+            (world_table if w > 1 else launch_table).setdefault(
+                "tpch_orders_lineitem", {})[odf] = launches
+            del res
+
+            def join():
+                return dj.distributed_inner_join(topo, *left, *right, [0], [0], cfg)
+
+            wall, runs, peak = warm_walls(join)
+            phases = world_phases(join) if w > 1 else None
+            log("tpch_join", smoke_phase="8a", ranks=w, odf=odf, key="O_ORDERKEY = L_ORDERKEY",
+                string_payload="O_ORDERPRIORITY", char_out_factor=CHAR_FIT,
+                total=lineitem.capacity, flags="all False", rows_checked=lineitem.capacity,
+                priorities_checked=True, launches=launches, wall_ms=wall, wall_ms_runs=runs,
+                peak_bytes=peak, string_pass_ms=passes,
+                **({"phases": phases} if phases else {}), card=smi)
+            if w == 1 and odf == 1:
+                profile_join(join, path="tpch_orders_lineitem", odf=odf)
+        del left, right, topo
+        torch.cuda.empty_cache()
+
+    # 8b. the char_overflow heal at the default char_out_factor 1.0; the
+    # second call of the shape starts from the ledger
+    topo = dj.make_topology()
+    left, right = dj.shard_table(topo, orders), dj.shard_table(topo, lineitem)
+    ledger.reset()
+    for call in ("first", "second"):
+        reset_launches()
+        with Attempts() as a:
+            t0 = time.perf_counter()
+            res = dj.distributed_inner_join_auto(topo, *left, *right, [0], [0])
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        set_flags = [k for k, v in res[2].items() if bool(v.any())]
+        if set_flags:
+            raise AssertionError(f"8b {call}: flags set after healing: {set_flags}")
+        check_orders_lineitem(f"8b {call}", dj, *res[:2], orders, lineitem, li_sorted)
+        factor = res[3].char_out_factor
+        if call == "first" and (a.n < 2 or factor <= 1.0):
+            raise AssertionError(f"8b: no char_overflow heal ({a.n} attempts, factor {factor})")
+        if call == "second" and a.n != 1:
+            raise AssertionError(f"8b: the ledger's second call took {a.n} attempts")
+        launch_table[f"tpch_auto_{call}"] = {1: read_launches()}
+        log("tpch_auto", smoke_phase="8b", call=call, attempts=a.n, char_out_factor_from=1.0,
+            char_out_factor_used=factor, total=lineitem.capacity, flags="all False",
+            priorities_checked=True, wall_ms=wall, launches=launch_table[f"tpch_auto_{call}"][1],
+            card=smi)
+        del res
+    ledger.reset()
+    del left, right
+    torch.cuda.empty_cache()
+
+    # 8c. customer keyed by C_NAME join orders keyed by the C_NAME of
+    # O_CUSTKEY, C_MKTSEGMENT the string payload
+    okey, ocust = orders.columns[0].data, orders.columns[1].data
+    ckey, cseg = customer.columns
+    o_side = dj.Table((tpch.customer_names(ocust), orders.columns[0], orders.columns[1]))
+    c_side = dj.Table((tpch.customer_names(ckey.data), cseg, ckey))
+    hit = ocust < n_cust  # split 0's customers are [0, n_cust)
+    expected = int(hit.sum())
+    want_orders = torch.sort(okey[hit]).values
+    seg_code = torch.empty(n_cust, dtype=torch.int64, device=dev)
+    seg_code[ckey.data] = word_codes(cseg, tpch.SEGMENTS)
+    del hit
+    for w in (1, WORLD):
+        topo = dj.make_topology() if w == 1 else dj.make_topology([dev] * WORLD)
+        left, right = dj.shard_table(topo, o_side), dj.shard_table(topo, c_side)
+        cfg = dj.JoinConfig(char_out_factor=CHAR_FIT_KEYS)
+        what = f"8c world {w}"
+        res, launches, passes = joined(what, topo, left, right, cfg, w)
+        out, counts, info = res
+        if w > 1:
+            cap, ocap = out.capacity // w, out.columns[0].chars.shape[0] // w
+            for r, n in enumerate(counts.tolist()):
+                name = dj.StringColumn(out.columns[0].offsets[r * (cap + 1):(r + 1) * (cap + 1)],
+                                       out.columns[0].chars[r * ocap:(r + 1) * ocap])
+                h = hashing._string_hash(name, MAIN_JOIN_SEED)[:n]
+                if not bool((h % w == r).all()):
+                    raise AssertionError(f"{what}: a row on shard {r} hashes to another rank")
+        flat = dj.unshard_table(out, counts) if w > 1 else out
+        n = int(counts.sum())
+        if n != expected:
+            raise AssertionError(f"{what}: {n} rows, expected {expected}")
+        name, ok, oc, seg, cc = flat.columns
+        if not torch.equal(oc.data[:n], cc.data[:n]):
+            raise AssertionError(f"{what}: a row joins two customers")
+        if not torch.equal(torch.sort(ok.data[:n]).values, want_orders):
+            raise AssertionError(f"{what}: the orders joined differ from the host's")
+        names = tpch.customer_names(oc.data[:n])
+        if not (torch.equal(name.offsets[: n + 1], names.offsets)
+                and torch.equal(name.chars[: 18 * n], names.chars[: 18 * n])):
+            raise AssertionError(f"{what}: an order's C_NAME key differs from its O_CUSTKEY's")
+        check_string_codes(what, seg, n, seg_code[cc.data[:n]], tpch.SEGMENTS)
+        (world_table if w > 1 else launch_table).setdefault("tpch_string_key", {})[1] = launches
+        del res, out, flat, name, ok, oc, seg, cc, names
+
+        def join():
+            return dj.distributed_inner_join(topo, *left, *right, [0], [0], cfg)
+
+        wall, runs, peak = warm_walls(join)
+        log("tpch_string_key", smoke_phase="8c", ranks=w, odf=1, key="C_NAME", key_bytes=18,
+            string_payload="C_MKTSEGMENT", char_out_factor=CHAR_FIT_KEYS, total=expected,
+            host_count=expected, flags="all False", surrogate_collision=False,
+            colocated=w > 1, launches=launches, wall_ms=wall, wall_ms_runs=runs,
+            peak_bytes=peak, string_pass_ms=passes, card=smi)
+        del left, right, topo
+        torch.cuda.empty_cache()
+    del o_side, c_side, want_orders, seg_code
+
+    # 8d. the verifier on the card: a surrogate weakened to ignore each
+    # string's first byte, so "Customer#k" and "Dustomer#k" collide
+    real = hashing.string_surrogate64
+
+    def weak(col, max_len=hashing.SURROGATE_MAX_LEN):
+        chars = col.chars.clone()
+        nonempty = col.sizes() > 0
+        chars[col.offsets[:-1][nonempty].to(torch.int64)] = ord("C")
+        return real(dj.StringColumn(col.offsets, chars), max_len)
+
+    m = verifier_rows
+    names = tpch.customer_names(torch.arange(m, device=dev))
+    other = dj.StringColumn(names.offsets, names.chars.clone())
+    other.chars[other.offsets[:-1].to(torch.int64)] = ord("D")
+    perm = torch.randperm(m, device=dev)
+    ids = torch.arange(m, device=dev)
+    shuffled = names.take(perm)
+    topo = dj.make_topology()
+    cases = {"forced_collision": (names, other, ids), "true_match": (names, shuffled, perm)}
+    hashing.string_surrogate64 = weak
+    try:
+        for case, (lcol, rcol, rid) in cases.items():
+            left = dj.shard_table(topo, dj.Table((lcol, dj.Column(ids, dj.dtypes.int64))))
+            right = dj.shard_table(topo, dj.Table((rcol, dj.Column(rid, dj.dtypes.int64))))
+            reset_launches()
+            out, counts, info = dj.distributed_inner_join(topo, *left, *right, [0], [0])
+            torch.cuda.synchronize()
+            launches = read_launches()
+            flagged = bool(info["surrogate_collision"].any())
+            n = int(counts.sum())
+            if n != m or flagged != (case == "forced_collision"):
+                raise AssertionError(f"8d {case}: {n} rows, surrogate_collision {flagged}")
+            if not torch.equal(out.columns[1].data[:n], out.columns[2].data[:n]):
+                raise AssertionError(f"8d {case}: a row pairs two different ids")
+            outcome = "not run"
+            if case == "forced_collision":
+                with Attempts() as a:
+                    try:
+                        dj.distributed_inner_join_auto(topo, *left, *right, [0], [0])
+                    except RuntimeError as e:
+                        if "surrogate_collision" not in str(e) or a.n != 1:
+                            raise AssertionError(f"8d: auto raised {e!r} after {a.n} attempts")
+                        outcome = f"raised after {a.n} attempt: {e}"
+                    else:
+                        raise AssertionError("8d: the auto wrapper healed a collision")
+            log("tpch_verifier", smoke_phase="8d", case=case, rows=m, total=n,
+                surrogate_collision=flagged, auto=outcome, launches=launches, card=smi)
+            del out, counts, info, left, right
+    finally:
+        hashing.string_surrogate64 = real
+    del names, other, shuffled, perm, ids, orders, lineitem, customer, li_sorted
+    torch.cuda.empty_cache()
+    log("tpch_phase", smoke_phase="8", seconds=round(time.perf_counter() - t_phase, 3))
+    return launch_table, world_table
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=100_000_000,
                     help="build and probe rows of the main path (default 100M)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--orders", type=int, default=TPCH_ORDERS,
+                    help="orders of phase 8's TPC-H split (default one GPU's share of SF 100)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card", file=sys.stderr)
@@ -1878,6 +2251,11 @@ def main() -> int:
                                    ref, rows, smi))
     torch.cuda.empty_cache()
 
+    # 8a-8d. string columns on one GPU's split of TPC-H at scale factor 100
+    tpch_launches, tpch_world = run_strings(dj, dev, args.seed, args.orders, smi)
+    launch_table.update(tpch_launches)
+    world_launches.update(tpch_world)
+
     # 6a. a process world of one over NCCL
     process1_launches = process_world_of_one(dj, dev, "nccl", build, probe, expected, ref, rows, smi)
     del ref
@@ -1985,7 +2363,7 @@ def main() -> int:
         mode_kernels_S=mode_timing["S"], mode_kernels_n_out=mode_timing["n_out"],
         card=smi)
 
-    # 8. the hardware probes through their entry points, and a tile pass
+    # 10. the hardware probes through their entry points, and a tile pass
     # at the join's scale beside the flat sort of the same words
     from dj_tpu_torch.hw import probe_gather, probe_sort
 
@@ -2011,7 +2389,7 @@ def main() -> int:
     log("tile_pass_join_scale", **join_scale)
     del xj, flipped
 
-    # 8b. the probe kernels against their plain versions on edge cases
+    # 10b. the probe kernels against their plain versions on edge cases
     sort_errs.append(compare_tile_sort("probe_shape", words(probe_sort.NT * T), T))
     sort_errs.append(compare_tile_sort("words_ge_2^31", words(16 * T, hi=0), T))
     sort_errs.append(compare_tile_sort("all_equal_to_padding", words(8 * T, -1, 0), T))

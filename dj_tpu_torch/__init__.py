@@ -28,7 +28,14 @@ The join takes every fixed-width key dj_tpu takes: signed and unsigned
 ints of any width (uint64 included), floats, two dtypes per key pair and
 several key columns, packed into one sort word where a range allows and
 sorted unpacked otherwise, with ``carry_payloads`` and every expansion
-mode. ``distributed_inner_join_auto`` answers any input: it heals
+mode. String columns (``StringColumn``: int32 offsets and uint8 chars;
+``from_strings`` / ``to_strings`` build and read them) ride the
+partition, the two-buffer exchange and the join as payloads, with
+``JoinConfig.char_out_factor`` sizing the output's chars and the
+``char_overflow`` flag when it is too small; a string key joins through
+a 64-bit surrogate hash whose matches are verified byte for byte
+(``surrogate_collision``). The prepared side takes no string column
+yet. ``distributed_inner_join_auto`` answers any input: it heals
 overflowing capacities, a wrong declared key range and a prepared side
 the probe keys fall outside of, remembering the healed factors in the
 capacity ledger (``resilience``; ``DJT_LEDGER=<path>`` keeps it), and
@@ -36,7 +43,15 @@ raises ``CapacityExhausted`` when its ``HealBudget`` runs out.
 """
 
 from .core import dtypes
-from .core.table import Column, Table, concatenate, from_arrays
+from .core.table import (
+    Column,
+    StringColumn,
+    Table,
+    concatenate,
+    from_arrays,
+    from_strings,
+    to_strings,
+)
 from .data.generator import generate_build_probe_tables, generate_tables_distributed
 from .ops.join import inner_join
 from .ops.partition import hash_partition
@@ -74,6 +89,7 @@ __all__ = [
     "PreparedPlanMismatch",
     "PreparedSide",
     "RingCommunicator",
+    "StringColumn",
     "Table",
     "Topology",
     "XlaCommunicator",
@@ -83,6 +99,7 @@ __all__ = [
     "distributed_inner_join_auto",
     "dtypes",
     "from_arrays",
+    "from_strings",
     "generate_build_probe_tables",
     "generate_tables_distributed",
     "hash_partition",
@@ -94,5 +111,6 @@ __all__ = [
     "process_index",
     "resilience",
     "shard_table",
+    "to_strings",
     "unshard_table",
 ]

@@ -2,8 +2,8 @@
 dj_tpu_torch.
 
 The two packages share no code, so the meeting point is plain data: a
-table as a list of numpy column arrays, their logical dtype names and a
-valid row count; a config as its field values; a prepared side as its
+table as a list of numpy column arrays (a string column as its
+(offsets, chars) pair), their logical dtype names and a valid row count; a config as its field values; a prepared side as its
 plan fields and its batches' arrays. This module imports neither JAX nor
 dj_tpu; the caller converts dj_tpu arrays with ``np.asarray`` and builds
 dj_tpu tables from the arrays it gets back, and ``prepared_side_from``
@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from .core import dtypes as dt
-from .core.table import Column, Table
+from .core.table import Column, StringColumn, Table
 from .ops.join import PreparedPackPlan
 from .parallel import communicator
 from .parallel.dist_join import BatchSizing, JoinConfig, PreparedSide
@@ -34,11 +34,17 @@ def table_from_numpy(
     device="cuda",
 ) -> Table:
     """A dj_tpu_torch Table from column arrays and logical dtype names
-    (``Column.dtype.name`` on the dj_tpu side). String columns raise
-    NotImplementedError."""
+    (``Column.dtype.name`` on the dj_tpu side). A "string" column's
+    entry is its (offsets, chars) pair (``StringColumn.offsets`` and
+    ``.chars`` on the dj_tpu side)."""
     cols = []
     for a, name in zip(arrays, dtype_names, strict=True):
         d = dt.by_name(name)
+        if d.kind == "string":
+            offsets, chars = (torch.from_numpy(np.array(x, dtype=t)).to(device)
+                              for x, t in zip(a, (np.int32, np.uint8), strict=True))
+            cols.append(StringColumn(offsets, chars, d))
+            continue
         a = np.array(a, dtype=d.physical)  # a writable copy
         cols.append(Column(torch.from_numpy(a).to(device), d))
     vc = None
@@ -48,8 +54,10 @@ def table_from_numpy(
 
 
 def table_to_numpy(table: Table) -> tuple[list[np.ndarray], list[str], Optional[int]]:
-    """(column arrays, logical dtype names, valid count or None)."""
-    arrays = [c.data.cpu().numpy() for c in table.columns]
+    """(column arrays, logical dtype names, valid count or None); a
+    string column's array is its (offsets, chars) pair."""
+    arrays = [(c.offsets.cpu().numpy(), c.chars.cpu().numpy()) if isinstance(c, StringColumn)
+              else c.data.cpu().numpy() for c in table.columns]
     names = [c.dtype.name for c in table.columns]
     vc = None if table.valid_count is None else int(table.valid_count)
     return arrays, names, vc

@@ -3,7 +3,8 @@
 Counterpart of ``dj_tpu/core/dtypes.py``: a column keeps its logical
 dtype as metadata beside a torch tensor of the physical dtype. Temporal
 types are stored as their int64 tick counts, exactly as in the JAX
-package. Strings are not part of this slice.
+package. A string column's dtype is ``string``: its physical dtype is
+that of its chars (uint8), beside int32 offsets.
 """
 
 from __future__ import annotations
@@ -19,8 +20,9 @@ import torch
 class DType:
     """A logical column dtype.
 
-    ``physical`` is the numpy dtype of the stored values; ``kind`` is one
-    of {"int", "uint", "float", "timestamp", "duration"}.
+    ``physical`` is the numpy dtype of the stored values (for strings,
+    of the chars); ``kind`` is one of {"int", "uint", "float",
+    "timestamp", "duration", "string"}.
     """
 
     name: str
@@ -59,6 +61,8 @@ duration_ms = DType("duration_ms", np.int64, "duration")
 duration_us = DType("duration_us", np.int64, "duration")
 duration_ns = DType("duration_ns", np.int64, "duration")
 
+string = DType("string", np.uint8, "string")
+
 _BY_NAME = {
     d.name: d
     for d in [
@@ -67,6 +71,7 @@ _BY_NAME = {
         float32, float64,
         timestamp_s, timestamp_ms, timestamp_us, timestamp_ns,
         duration_s, duration_ms, duration_us, duration_ns,
+        string,
     ]
 }
 
@@ -85,10 +90,6 @@ TORCH_BY_NUMPY = {
 
 
 def by_name(name: str) -> DType:
-    if name == "string":
-        raise NotImplementedError(
-            "string columns come with ROADMAP queue 1 item 6 (strings)"
-        )
     return _BY_NAME[name]
 
 

@@ -1,11 +1,14 @@
 """Columnar Table/Column core: struct-of-arrays over torch tensors.
 
-Counterpart of ``dj_tpu/core/table.py:32-48, 159-303`` for fixed-width
-columns. Every column has a static *capacity*; the number of valid
-leading rows is ``valid_count``, a 0-d int32 tensor on the table's
-device (``None`` means all rows are valid). Rows beyond it are padding
-that every op ignores. Keeping the count on the device lets a join run
-without reading it back to the host, as the JAX package keeps it traced.
+Counterpart of ``dj_tpu/core/table.py``. A fixed-width column is one
+flat tensor; a string column is the (offsets int32[n + 1], chars
+uint8[char_capacity]) pair of cuDF's strings column, which the shuffle
+moves as two buffers. Every column has a static *capacity*; the number
+of valid leading rows is ``valid_count``, a 0-d int32 tensor on the
+table's device (``None`` means all rows are valid). Rows beyond it are
+padding that every op ignores. Keeping the count on the device lets a
+join run without reading it back to the host, as the JAX package keeps
+it traced.
 """
 
 from __future__ import annotations
@@ -13,9 +16,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from . import dtypes as dt
+from .search import interval_of_arange
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,10 +74,70 @@ def take_fill(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 @dataclasses.dataclass(frozen=True)
+class StringColumn:
+    """Variable-width column: row i's bytes are
+    ``chars[offsets[i]:offsets[i + 1]]``, offsets[0] == 0. ``chars`` may
+    hold more bytes than ``offsets[-1]``; the tail is padding."""
+
+    offsets: torch.Tensor  # int32 [nrows + 1]
+    chars: torch.Tensor  # uint8 [char_capacity]
+    dtype: dt.DType = dt.string
+
+    @property
+    def size(self) -> int:
+        return self.offsets.shape[0] - 1
+
+    @property
+    def device(self) -> torch.device:
+        return self.offsets.device
+
+    def sizes(self) -> torch.Tensor:
+        """Per-row byte sizes (the offsets' adjacent difference), int32."""
+        return self.offsets[1:] - self.offsets[:-1]
+
+    def take(self, indices: torch.Tensor, out_char_capacity: Optional[int] = None
+             ) -> "StringColumn":
+        """Gather rows (out-of-range indices give empty rows) into chars of
+        ``out_char_capacity`` bytes (default: the input's). Offsets are
+        rebuilt from the gathered sizes by a scan and stay true when the
+        bytes do not fit, so ``char_overflow()`` detects the truncation.
+        Each output byte finds its row by ``interval_of_arange`` over the
+        new offsets and reads the source byte at the row's start plus
+        its place in the row."""
+        cap = self.chars.shape[0] if out_char_capacity is None else out_char_capacity
+        if indices.shape[0] == 0:
+            return StringColumn(torch.zeros(1, dtype=torch.int32, device=self.device),
+                                torch.zeros(cap, dtype=torch.uint8, device=self.device),
+                                self.dtype)
+        sizes = take_fill(self.sizes(), indices)
+        new_offsets = sizes_to_offsets(sizes)
+        del sizes
+        starts = take_fill(self.offsets, indices)
+        pos = torch.arange(cap, dtype=torch.int32, device=self.device)
+        row = interval_of_arange(new_offsets, cap, indices.shape[0])
+        src = starts[row]
+        src += pos
+        src -= new_offsets[row]
+        del row, starts
+        beyond = pos >= new_offsets[-1]
+        del pos
+        chars = take_fill(self.chars, src).masked_fill_(beyond, 0)
+        return StringColumn(new_offsets, chars, self.dtype)
+
+    def char_overflow(self) -> torch.Tensor:
+        """True if the offsets claim more bytes than chars holds (the
+        truncation ``take`` leaves detectable)."""
+        return self.offsets[-1] > self.chars.shape[0]
+
+
+AnyColumn = Column | StringColumn
+
+
+@dataclasses.dataclass(frozen=True)
 class Table:
     """An ordered collection of equal-capacity columns."""
 
-    columns: tuple[Column, ...]
+    columns: tuple[AnyColumn, ...]
     valid_count: Optional[torch.Tensor] = None
 
     @property
@@ -81,11 +146,21 @@ class Table:
 
     @property
     def capacity(self) -> int:
+        # A fixed-width column first: a sharded string column's offsets
+        # hold w * (cap + 1) entries, one extra a shard.
+        for c in self.columns:
+            if isinstance(c, Column):
+                return c.size
         return self.columns[0].size if self.columns else 0
 
     @property
     def device(self) -> torch.device:
-        return self.columns[0].data.device
+        c = self.columns[0]
+        return c.offsets.device if isinstance(c, StringColumn) else c.data.device
+
+    @property
+    def has_strings(self) -> bool:
+        return any(isinstance(c, StringColumn) for c in self.columns)
 
     def count(self) -> torch.Tensor:
         """Valid row count as a 0-d int32 tensor."""
@@ -107,6 +182,27 @@ def from_arrays(*arrays, dtypes=None, valid_count=None, device="cuda") -> Table:
     if valid_count is not None and not isinstance(valid_count, torch.Tensor):
         valid_count = torch.tensor(int(valid_count), dtype=torch.int32, device=device)
     return Table(tuple(cols), valid_count)
+
+
+def from_strings(strings: Sequence, device="cuda") -> StringColumn:
+    """A StringColumn of python strings or bytes (utf-8), for tests and
+    small tables. An empty column keeps one byte of chars."""
+    bs = [s.encode() if isinstance(s, str) else bytes(s) for s in strings]
+    sizes = np.array([len(b) for b in bs], np.int32)
+    offsets = np.zeros(len(bs) + 1, np.int32)
+    np.cumsum(sizes, out=offsets[1:])
+    chars = np.frombuffer(b"".join(bs), np.uint8).copy()
+    if chars.size == 0:
+        chars = np.zeros(1, np.uint8)
+    return StringColumn(torch.from_numpy(offsets).to(device), torch.from_numpy(chars).to(device))
+
+
+def to_strings(col: StringColumn, count: Optional[int] = None) -> list[bytes]:
+    """The first ``count`` rows (default all) of a StringColumn as bytes."""
+    offsets = col.offsets.cpu().numpy()
+    chars = col.chars.cpu().numpy()
+    n = col.size if count is None else int(count)
+    return [chars[offsets[i] : offsets[i + 1]].tobytes() for i in range(n)]
 
 
 def sizes_to_offsets(sizes: torch.Tensor) -> torch.Tensor:
@@ -136,6 +232,9 @@ def concatenate(tables: Sequence[Table]) -> Table:
     device = tables[0].device
     out_cols = []
     for c, col0 in enumerate(tables[0].columns):
+        if isinstance(col0, StringColumn):
+            out_cols.append(_concat_strings(tables, c, starts_h, total_cap))
+            continue
         out = torch.empty(total_cap, dtype=col0.data.dtype, device=device)
         for t, tbl in enumerate(tables):
             s = starts_h[t]
@@ -143,3 +242,44 @@ def concatenate(tables: Sequence[Table]) -> Table:
         out[starts_h[-1] :] = 0
         out_cols.append(Column(out, col0.dtype))
     return Table(tuple(out_cols), total)
+
+
+def _write_at(out: torch.Tensor, data: torch.Tensor, start: int) -> None:
+    """``out[start : start + len(data)] = data`` with the start clamped so
+    the write fits, as ``jax.lax.dynamic_update_slice`` clamps it."""
+    start = min(max(start, 0), out.shape[0] - data.shape[0])
+    out[start : start + data.shape[0]] = data
+
+
+def _concat_strings(tables: Sequence[Table], c: int, starts_h: list, total_cap: int
+                    ) -> StringColumn:
+    """Row-compacting concatenation of string column ``c``
+    (``_concat_strings``, dj_tpu/core/table.py:268-301): each table's
+    sizes, then its chars, are written at its running start (the next
+    table overwrites the padding), the offsets rebuilt by a scan, and
+    everything past the valid rows and bytes zeroed."""
+    cols = [t.columns[c] for t in tables]
+    out_char_cap = sum(col.chars.shape[0] for col in cols)
+    dev = cols[0].device
+    sizes = torch.zeros(total_cap, dtype=torch.int32, device=dev)
+    for t, col in enumerate(cols):
+        _write_at(sizes, col.sizes(), starts_h[t])
+    sizes[starts_h[-1] :] = 0
+    new_offsets = sizes_to_offsets(sizes)
+    byte_starts = new_offsets[torch.tensor(starts_h[:-1], device=dev)].tolist()
+    chars = torch.zeros(out_char_cap, dtype=torch.uint8, device=dev)
+    for t, col in enumerate(cols):
+        _write_at(chars, col.chars, byte_starts[t])
+    chars[int(new_offsets[-1]) :] = 0
+    return StringColumn(new_offsets, chars, cols[0].dtype)
+
+
+def table_nbytes(t: Table) -> int:
+    """Static byte footprint of a table's buffers (capacity-based)."""
+    n = 0
+    for c in t.columns:
+        if isinstance(c, StringColumn):
+            n += c.offsets.numel() * 4 + c.chars.numel()
+        else:
+            n += c.size * c.data.element_size()
+    return n

@@ -58,9 +58,21 @@ The expansion mode is ``DJT_JOIN_EXPAND`` (``resolve_expand_impl``),
 ``carry_payloads`` (``DJT_JOIN_CARRY``, dj_tpu's ``DJ_JOIN_CARRY``)
 carries the payload slots through the unpacked sort and expands with
 "ranks" or "hist". ``effective_plan`` applies ``dj_tpu``'s gates: vcarry
-and vfull need one int key on the packed path and at most three payload
-slots, and run vmeta otherwise. Every plan gives the same rows. String
-keys are not fixed-width and come with a later slice.
+and vfull need one int key on the packed path, at most three payload
+slots and no string column, and run vmeta otherwise. Every plan gives
+the same rows.
+
+String payload columns ride the output gather (``StringColumn.take``)
+with ``char_out_factor`` times their input char capacity; a result that
+needs more bytes keeps true offsets and reports ``char_overflow()``.
+A string key pair joins through ``hashing.string_surrogate64``
+(``_surrogate_string_keys``): the int64 surrogates are appended to both
+sides and joined as an int key, the left string key stays in the output
+as a payload and the right one is dropped. With ``return_flags`` the
+verifier re-reads both keys' first 64 bytes and lengths at every matched
+pair (``_verify_string_pairs``, ``DJT_STRING_VERIFY``, default on) and
+raises ``surrogate_collision`` where distinct strings shared a
+surrogate.
 
 The prepared build side (``dj_tpu/ops/join.py:1861-2497``) shares the
 scans and expansion: ``plan_prepared_pack`` anchors the pack to a key
@@ -78,6 +90,7 @@ kernel).
 from __future__ import annotations
 
 import os
+import warnings
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -85,7 +98,8 @@ import torch
 
 from ..core import dtypes as dt
 from ..core.search import count_leq_arange, run_bounds
-from ..core.table import Column, Table, gather_fill
+from ..core.table import Column, StringColumn, Table, gather_fill, take_fill
+from . import hashing
 from .expand import (
     expand_carry,
     expand_gather,
@@ -259,15 +273,136 @@ def _order_image(x: torch.Tensor) -> torch.Tensor:
 
 
 def _single_int_key(left: Table, right: Table, left_on, right_on) -> bool:
-    """One key column of the same integer dtype on both sides
-    (``_single_int_key``, dj_tpu/ops/join.py:1160-1171)."""
+    """One fixed-width key column of the same integer dtype on both
+    sides (``_single_int_key``, dj_tpu/ops/join.py:1160-1171)."""
     if len(left_on) != 1:
         return False
-    return _same_int_dtype(left.columns[left_on[0]].data, right.columns[right_on[0]].data)
+    return _same_int_dtype(left.columns[left_on[0]], right.columns[right_on[0]])
 
 
-def _same_int_dtype(a: torch.Tensor, b: torch.Tensor) -> bool:
+def _same_int_dtype(a, b) -> bool:
+    """Two fixed-width columns of one integer dtype."""
+    if not (isinstance(a, Column) and isinstance(b, Column)):
+        return False
+    a, b = a.data, b.data
     return a.dtype == b.dtype and not a.is_floating_point() and a.dtype != torch.bool
+
+
+def _surrogate_string_keys(left: Table, right: Table, left_on, right_on):
+    """String key pairs as int64 surrogate keys (``_surrogate_string_keys``,
+    dj_tpu/ops/join.py:826-888). Each pair's ``string_surrogate64``
+    columns are appended to both tables and the key indices redirected
+    to them. Returns (left, right, left_on, right_on, left_drop,
+    right_drop, str_pairs): ``left_drop`` holds the appended left
+    surrogates (never output), ``right_drop`` the original right string
+    keys (dropped like any right key; the left string key stays as a
+    payload), ``str_pairs`` the original (left, right) string key
+    columns the verifier reads. A string key against a fixed-width one
+    raises TypeError."""
+    lcols, rcols = list(left.columns), list(right.columns)
+    left_on, right_on = list(left_on), list(right_on)
+    left_drop, right_drop, str_pairs = set(), set(), []
+    for k in range(len(left_on)):
+        a, b = lcols[left_on[k]], rcols[right_on[k]]
+        a_str, b_str = isinstance(a, StringColumn), isinstance(b, StringColumn)
+        if not (a_str or b_str):
+            continue
+        if not (a_str and b_str):
+            raise TypeError(
+                f"join key pair {k}: cannot join a string column against "
+                f"a fixed-width column"
+            )
+        str_pairs.append((left_on[k], right_on[k]))
+        lcols.append(Column(hashing.string_surrogate64(a), dt.int64))
+        left_on[k] = len(lcols) - 1
+        left_drop.add(left_on[k])
+        rcols.append(Column(hashing.string_surrogate64(b), dt.int64))
+        right_drop.add(right_on[k])
+        right_on[k] = len(rcols) - 1
+    if not str_pairs:
+        return left, right, tuple(left_on), tuple(right_on), frozenset(), frozenset(), ()
+    return (
+        Table(tuple(lcols), left.valid_count), Table(tuple(rcols), right.valid_count),
+        tuple(left_on), tuple(right_on), frozenset(left_drop), frozenset(right_drop),
+        tuple(str_pairs),
+    )
+
+
+def _window_byte(col: StringColumn, starts: torch.Tensor, sizes: torch.Tensor, j: int
+                 ) -> torch.Tensor:
+    """Byte j of each gathered string, 0 at or past min(size, 64)."""
+    return take_fill(col.chars, starts + j).masked_fill_(sizes <= j, 0)
+
+
+def _verify_string_pairs(left: Table, right: Table, str_pairs, li: torch.Tensor,
+                         rrow: torch.Tensor, max_len: int) -> torch.Tensor:
+    """True if some matched pair's string keys differ in what the
+    surrogate hashed: the true length or a byte of the first ``max_len``
+    (``_verify_string_pairs``, dj_tpu/ops/join.py:906-943). Rows out of
+    range (slots past the total) read as empty on both sides. dj_tpu
+    compares a dense [slots, max_len] window; here one byte position at
+    a time, up to the longest window either side holds."""
+    bad = torch.zeros((), dtype=torch.bool, device=li.device)
+    for lc, rc in str_pairs:
+        sides = []
+        for col, rows in ((left.columns[lc], li), (right.columns[rc], rrow)):
+            starts = take_fill(col.offsets[:-1], rows).to(torch.int64)
+            sizes = take_fill(col.sizes(), rows)
+            sides.append((col, starts, sizes, sizes.clamp_max(max_len)))
+        (lcol, ls, lsz, lw), (rcol, rs, rsz, rw) = sides
+        diff = lsz != rsz
+        width = int(torch.maximum(lw.max(), rw.max())) if li.shape[0] else 0
+        for j in range(width):
+            diff |= _window_byte(lcol, ls, lw, j) != _window_byte(rcol, rs, rw, j)
+        bad = bad | diff.any()
+    return bad
+
+
+_warned_unverified_string_keys = False
+
+
+def _warn_unverified_string_keys() -> None:
+    """Warn once per process that a string-key join without
+    ``return_flags`` skips the collision verifier."""
+    global _warned_unverified_string_keys
+    if _warned_unverified_string_keys:
+        return
+    _warned_unverified_string_keys = True
+    warnings.warn(
+        "inner_join with string join keys and return_flags=False: the "
+        "surrogate-collision verifier is SKIPPED (its flag would be "
+        "unobservable), so two distinct keys sharing a 64-bit surrogate "
+        "would join silently. Pass return_flags=True and check the "
+        "'surrogate_collision' flag (distributed_inner_join does this "
+        "automatically), or pass verify_string_keys=False to "
+        "acknowledge and silence this warning.",
+        RuntimeWarning,
+        stacklevel=3,
+    )
+
+
+def _fill_column(c, out_capacity: int):
+    """An all-zero output column of ``out_capacity`` rows (an empty
+    side's; ``_fill_column``, dj_tpu/ops/join.py:977-987)."""
+    if isinstance(c, StringColumn):
+        return StringColumn(
+            torch.zeros(out_capacity + 1, dtype=torch.int32, device=c.device),
+            torch.zeros(max(1, c.chars.shape[0]), dtype=torch.uint8, device=c.device),
+            c.dtype,
+        )
+    return Column(torch.zeros(out_capacity, dtype=c.data.dtype, device=c.data.device), c.dtype)
+
+
+def _take_output(c, rows: torch.Tensor, side_capacity: int, out_capacity: int,
+                 char_out_factor: float):
+    """Column ``c`` gathered at ``rows`` (out-of-range rows give 0 or
+    empty strings): a string column into ``char_out_factor`` times its
+    char capacity, and all-fill from a capacity-0 side."""
+    if not isinstance(c, StringColumn):
+        return c.take(rows)
+    if side_capacity == 0:
+        return _fill_column(c, out_capacity)
+    return c.take(rows, max(1, int(c.chars.shape[0] * char_out_factor)))
 
 
 EXPAND_IMPLS = ("vmeta", "ranks", "hist", "fused", "join", "vcarry", "vfull")
@@ -305,22 +440,25 @@ def effective_plan(
     n_payload: int = 1,
     *,
     single_int_key: bool = True,
+    has_strings: bool = False,
     carry_payloads: Optional[bool] = None,
     multi_key_packed: bool = False,
 ) -> JoinPlan:
     """The plan a join of the given shape runs under the knobs, with
     dj_tpu's gates (``effective_plan``, dj_tpu/ops/join.py:1055-1123).
 
-    ``n_payload`` is the larger number of non-key columns of the two
-    sides; ``carry_payloads`` mirrors inner_join's (None reads
+    ``n_payload`` is the larger number of fixed-width non-key columns of
+    the two sides; ``has_strings`` says a side holds a string column;
+    ``carry_payloads`` mirrors inner_join's (None reads
     ``DJT_JOIN_CARRY``); ``multi_key_packed`` says a multi-column int key
     has a declared or probed range whose fields fit the packed word.
     Carry needs one int key and sorts unpacked; the packed sort needs
     one int key or a packable multi-key, no carry and ``DJT_JOIN_PACK``
-    unset or "1". vcarry and vfull need one int key on the packed path
-    and at most three payload slots, and run vmeta otherwise; carry
-    expands with "ranks" (any kernel mode) or "hist". The prepared join
-    does not read this: see ``prepared_effective_plan``."""
+    unset or "1". vcarry and vfull need one int key on the packed path,
+    no string column and at most three payload slots, and run vmeta
+    otherwise; carry expands with "ranks" (any kernel mode) or "hist".
+    The prepared join does not read this: see
+    ``prepared_effective_plan``."""
     if carry_payloads is None:
         carry_payloads = os.environ.get("DJT_JOIN_CARRY", "0") == "1"
     carry = bool(carry_payloads) and single_int_key
@@ -331,7 +469,7 @@ def effective_plan(
     )
     expand = resolve_expand_impl()
     if expand in ("vcarry", "vfull") and not (
-        not carry and single_int_key and packed and n_payload <= 3
+        not carry and single_int_key and packed and not has_strings and n_payload <= 3
     ):
         expand = "vmeta"
     if carry and expand != "hist":
@@ -340,19 +478,30 @@ def effective_plan(
 
 
 def _resolve_plan(left: Table, right: Table, left_on, right_on, key_range,
-                  carry_payloads) -> tuple[JoinPlan, bool, Optional[KeyPackPlan]]:
-    """(plan, single int key, key pack plan) of a join: effective_plan's
-    gates on the key columns, with a multi-column key packed when a
-    declared ``key_range`` (normalized) fits the word."""
+                  carry_payloads, l_drop=frozenset(), r_drop=frozenset()
+                  ) -> tuple[JoinPlan, bool, Optional[KeyPackPlan]]:
+    """(plan, single int key, key pack plan) of a join whose string keys
+    are already surrogates (``l_drop`` / ``r_drop`` as
+    ``_surrogate_string_keys`` gives them): effective_plan's gates on the
+    key columns, with a multi-column key packed when a declared
+    ``key_range`` (normalized) fits the word."""
     single = _single_int_key(left, right, left_on, right_on)
-    pairs = [(left.columns[lc].data, right.columns[rc].data) for lc, rc in zip(left_on, right_on)]
+    pairs = [(left.columns[lc], right.columns[rc]) for lc, rc in zip(left_on, right_on)]
     pack_plan = None
     if key_range is not None and all(_same_int_dtype(a, b) for a, b in pairs):
-        pack_plan = plan_key_pack(key_range, [dt.numpy_dtype(a.dtype) for a, _ in pairs],
+        pack_plan = plan_key_pack(key_range, [dt.numpy_dtype(a.data.dtype) for a, _ in pairs],
                                   left.capacity + right.capacity)
-    n_payload = max(left.num_columns - 1, right.num_columns - 1) if single else 0
+    n_payload = 0
+    if single:
+        n_payload = max(
+            sum(isinstance(c, Column) for i, c in enumerate(left.columns)
+                if i not in l_drop and i != left_on[0]),
+            sum(isinstance(c, Column) for i, c in enumerate(right.columns)
+                if i not in right_on and i not in r_drop),
+        )
     plan = effective_plan(
-        n_payload, single_int_key=single, carry_payloads=carry_payloads,
+        n_payload, single_int_key=single, has_strings=left.has_strings or right.has_strings,
+        carry_payloads=carry_payloads,
         multi_key_packed=not single and pack_plan is not None and pack_plan.fits,
     )
     return plan, single, pack_plan
@@ -366,8 +515,12 @@ def join_plan(left: Table, right: Table, left_on, right_on, key_range=None,
     sorts unpacked when its observed span does not fit (a host check in
     the join)."""
     key_range = normalize_key_range(key_range, len(left_on))
+    left, right, left_on, right_on, l_drop, r_drop, str_pairs = _surrogate_string_keys(
+        left, right, left_on, right_on)
+    if str_pairs:
+        key_range = None
     plan, single, pack_plan = _resolve_plan(left, right, left_on, right_on, key_range,
-                                            carry_payloads)
+                                            carry_payloads, l_drop, r_drop)
     if single and pack_plan is not None and not pack_plan.fits:
         plan = plan._replace(packed=False)
     return plan
@@ -664,10 +817,13 @@ def _expand_matches(
 def _carry_expand(
     words: list, key: torch.Tensor, sslots: list, l_count, r_count, tag_bits: int,
     L: int, R: int, out_capacity: int, mode: str,
-) -> tuple[torch.Tensor, list, list, torch.Tensor]:
-    """(key_j, left payload slots, right payload slots, total) per output
-    slot, from the sorted words (a one-element list this function
-    takes), keys and slots: the scans, then under "vcarry"
+) -> tuple[torch.Tensor, list, list, torch.Tensor, Optional[tuple]]:
+    """(key_j, left payload slots, right payload slots, total, rows) per
+    output slot, from the sorted words (a one-element list this function
+    takes), keys and slots; ``rows`` is the (left row, right row) pair
+    of carry's "ranks" and "hist" (L and R past the total), which gather
+    string payloads, and None under "vcarry" and "vfull", which take no
+    string column. The scans, then under "vcarry"
     ``expand_carry`` (left slots at src) and a gather of key and slots at
     the matched refs (``rpos``), under "vfull" ``expand_vfull`` (all of
     it in one kernel), under carry's "ranks" or "hist" src by ranks and
@@ -677,12 +833,13 @@ def _carry_expand(
     1699-1701, 1667-1669); here each column is gathered alone: PyTorch's
     gather of 16-byte rows took 121 ms at 200M slots on an H100."""
     S = L + R
-    _, run_start, cnt, csum = join_scans(words.pop(), l_count, r_count, tag_bits, L, R)
+    stag, run_start, cnt, csum = join_scans(words.pop(), l_count, r_count, tag_bits, L, R)
     total = cnt.sum(dtype=torch.int64)
     n = len(sslots)
     if mode == "vfull":
         outs = expand_vfull(csum, cnt, run_start, sslots, key, out_capacity)
-        return outs[n], list(outs[:n]), list(outs[n + 1:]), total
+        return outs[n], list(outs[:n]), list(outs[n + 1:]), total, None
+    rows = None
     if mode == "vcarry":
         rpos, *lpay = expand_carry(csum, cnt, run_start, sslots, out_capacity)
         rpos = rpos.clamp_(0, S - 1)
@@ -692,8 +849,10 @@ def _carry_expand(
         rpos = (run_start[src] + _run_offsets(src)).clamp_(0, S - 1)
         lpay = [s[src] for s in sslots]
         key_j = key[src]
-    del csum, cnt, run_start
-    return key_j, lpay, [s[rpos] for s in sslots], total
+        valid_out = torch.arange(out_capacity, device=stag.device) < total
+        rows = (torch.where(valid_out, stag[src], L), torch.where(valid_out, stag[rpos] - L, R))
+    del csum, cnt, run_start, stag
+    return key_j, lpay, [s[rpos] for s in sslots], total, rows
 
 
 def inner_join(
@@ -702,7 +861,9 @@ def inner_join(
     left_on: Sequence[int],
     right_on: Sequence[int],
     out_capacity: Optional[int] = None,
+    char_out_factor: float = 1.0,
     carry_payloads: Optional[bool] = None,
+    verify_string_keys: Optional[bool] = None,
     return_flags: bool = False,
     key_range=None,
 ):
@@ -713,16 +874,27 @@ def inner_join(
     (default max(left, right) capacity) and valid_count = min(total,
     out_capacity); ``total`` is the true int64 match count. On overflow
     (total > out_capacity) the whole output is unspecified. ``flags``
-    holds ``surrogate_collision`` (always False: no string keys here) and
-    ``pack_range_overflow`` (a declared ``key_range`` lied about a span,
-    so the packed word overflowed; the output is then unspecified).
+    holds ``surrogate_collision`` (distinct string keys shared a
+    surrogate: the rows are wrong) and ``pack_range_overflow`` (a
+    declared ``key_range`` lied about a span, so the packed word
+    overflowed; the output is then unspecified).
     ``key_range`` (one (min, max) pair, or one per key) makes the pack
     decision static, as in dj_tpu; without it a 64-bit key's range is
-    checked on the host. Keys compare as ``jax.lax.sort`` and ``!=``
-    compare them in dj_tpu: two dtypes in their promoted dtype, -0.0 and
-    subnormals equal to 0.0, NaN equal to nothing. ``carry_payloads`` (None reads
+    checked on the host. It is ignored when a key is a string. Keys
+    compare as ``jax.lax.sort`` and ``!=`` compare them in dj_tpu: two
+    dtypes in their promoted dtype, -0.0 and subnormals equal to 0.0,
+    NaN equal to nothing. ``carry_payloads`` (None reads
     ``DJT_JOIN_CARRY``) carries the payloads through the merged sort;
     every plan gives the same rows (see the module docstring).
+
+    A string payload's output chars hold ``char_out_factor`` times its
+    input char capacity; a result that needs more reports
+    ``char_overflow()``. String keys join through their int64
+    surrogates. Two keys equal in their first 64 bytes and their length
+    are equal by design. The verifier runs when ``return_flags`` is set
+    and ``verify_string_keys`` (None reads ``DJT_STRING_VERIFY``, default
+    on) allows it; without ``return_flags`` it is skipped and a warning
+    says so once per process.
     """
     if len(left_on) != len(right_on):
         raise ValueError(
@@ -737,6 +909,17 @@ def inner_join(
                     f"{tbl.num_columns} columns"
                 )
     key_range = normalize_key_range(key_range, len(left_on))
+    left, right, left_on, right_on, l_drop, r_drop, str_pairs = _surrogate_string_keys(
+        left, right, left_on, right_on)
+    if str_pairs:
+        # The surrogates span the whole 64-bit range.
+        key_range = None
+    if verify_string_keys is None:
+        verify_string_keys = os.environ.get("DJT_STRING_VERIFY", "1") == "1"
+    verify_eligible = (bool(verify_string_keys) and bool(str_pairs)
+                       and left.capacity > 0 and right.capacity > 0)
+    if verify_eligible and not return_flags:
+        _warn_unverified_string_keys()
     if out_capacity is None:
         out_capacity = max(left.capacity, right.capacity)
     L, R = left.capacity, right.capacity
@@ -753,14 +936,13 @@ def inner_join(
             f"position domain (2^31 - 1); shard the join instead"
         )
     dev = left.device
-    right_on_set = set(right_on)
-    r_fixed = [(i, c) for i, c in enumerate(right.columns) if i not in right_on_set]
+    right_on_set = set(right_on) | r_drop
+    l_out = [(i, c) for i, c in enumerate(left.columns) if i not in l_drop]
+    r_out = [(i, c) for i, c in enumerate(right.columns) if i not in right_on_set]
+    r_fixed = [(i, c) for i, c in r_out if isinstance(c, Column)]
     flags = {"surrogate_collision": _flag(False, dev), "pack_range_overflow": _flag(False, dev)}
     if S == 0:
-        cols = tuple(
-            Column(torch.zeros(out_capacity, dtype=c.data.dtype, device=dev), c.dtype)
-            for c in list(left.columns) + [c for _, c in r_fixed]
-        )
+        cols = tuple(_fill_column(c, out_capacity) for _, c in l_out + r_out)
         result = (
             Table(cols, torch.zeros((), dtype=torch.int32, device=dev)),
             torch.zeros((), dtype=torch.int64, device=dev),
@@ -769,8 +951,9 @@ def inner_join(
 
     l_count, r_count = left.count(), right.count()
     plan, single, pack_plan = _resolve_plan(left, right, left_on, right_on, key_range,
-                                            carry_payloads)
-    l_carry = [(i, c) for i, c in enumerate(left.columns) if i != left_on[0]] if single else []
+                                            carry_payloads, l_drop, r_drop)
+    l_carry = ([(i, c) for i, c in l_out if isinstance(c, Column) and i != left_on[0]]
+               if single else [])
     pairs = [(left.columns[lc].data, right.columns[rc].data) for lc, rc in zip(left_on, right_on)]
     static_fit = pack_plan.fits if single and pack_plan is not None else None
     mode = plan.expand
@@ -809,7 +992,7 @@ def inner_join(
     del sp
 
     if carried:
-        key_j, lpay, rpay, total = _carry_expand(
+        key_j, lpay, rpay, total, rows = _carry_expand(
             words, key, sslots, l_count, r_count, tag_bits, L, R, out_capacity, mode
         )
         del key, sslots
@@ -817,19 +1000,27 @@ def inner_join(
         # (dj_tpu/ops/join.py:1703-1716, 1763-1775); the column order is
         # the contract's (1743-1751).
         valid_out = torch.arange(out_capacity, device=dev) < total
-        bits = {left_on[0]: key_j} | {i: b for (i, _), b in zip(l_carry, lpay)}
-        cols = [
-            Column(_from_u64(torch.where(valid_out, bits[i], 0), c.data.dtype), c.dtype)
-            for i, c in enumerate(left.columns)
-        ] + [
-            Column(_from_u64(torch.where(valid_out, b, 0), c.data.dtype), c.dtype)
-            for (_, c), b in zip(r_fixed, rpay)
-        ]
+        lbits = {left_on[0]: key_j} | {i: b for (i, _), b in zip(l_carry, lpay)}
+        rbits = {i: b for (i, _), b in zip(r_fixed, rpay)}
+        li, rrow = rows if rows is not None else (None, None)
+
+        def out_col(i, c, bits, side_rows, cap):
+            if isinstance(c, StringColumn):
+                return _take_output(c, side_rows, cap, out_capacity, char_out_factor)
+            return Column(_from_u64(torch.where(valid_out, bits[i], 0), c.data.dtype), c.dtype)
+
+        cols = ([out_col(i, c, lbits, li, L) for i, c in l_out]
+                + [out_col(i, c, rbits, rrow, R) for i, c in r_out])
     else:
         li, rrow, total = _expand_matches(
             words, l_count, r_count, tag_bits, L, R, out_capacity, mode
         )
-        cols = [c.take(li) for c in left.columns] + [c.take(rrow) for _, c in r_fixed]
+        cols = ([_take_output(c, li, L, out_capacity, char_out_factor) for _, c in l_out]
+                + [_take_output(c, rrow, R, out_capacity, char_out_factor) for _, c in r_out])
+    if verify_eligible and return_flags:
+        # Window = exactly what the surrogate hashed.
+        flags["surrogate_collision"] = _verify_string_pairs(
+            left, right, str_pairs, li, rrow, hashing.SURROGATE_MAX_LEN)
     count = torch.minimum(total, torch.tensor(out_capacity, device=dev)).to(torch.int32)
     result = (Table(tuple(cols), count), total)
     return result + (flags,) if return_flags else result

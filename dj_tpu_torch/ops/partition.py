@@ -4,7 +4,8 @@ Counterpart of ``dj_tpu/ops/partition.py:30-172``. Partition id =
 murmur3(key row, seed) % npartitions; padding rows get id ==
 npartitions so they sort to the tail and enter no partition. The
 reorder is one stable sort of the ids whose permutation gathers every
-column; offsets come from a histogram and a cumsum.
+column (a string column through ``StringColumn.take``, at its own char
+capacity); offsets come from a histogram and a cumsum.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import Sequence
 
 import torch
 
-from ..core.table import Column, Table, gather, sizes_to_offsets
+from ..core.table import Column, StringColumn, Table, gather, sizes_to_offsets
 from . import hashing
 
 
@@ -45,7 +46,10 @@ def partition_by_ids(
     ``pid == npartitions``). Returns (table, offsets[npartitions+1])."""
     offsets = sizes_to_offsets(partition_counts_from_ids(pid, npartitions))
     perm = torch.sort(pid, stable=True).indices
-    cols = tuple(Column(gather(c.data, perm), c.dtype) for c in table.columns)
+    cols = tuple(
+        c.take(perm) if isinstance(c, StringColumn) else Column(gather(c.data, perm), c.dtype)
+        for c in table.columns
+    )
     return Table(cols, table.count()), offsets
 
 

@@ -1,20 +1,28 @@
 """Bucketed all-to-all table shuffle: plan, exchange, compact.
 
-Counterpart of ``dj_tpu/parallel/all_to_all.py`` for fixed-width
-columns. Each partition is padded into a bucket of static size
+Counterpart of ``dj_tpu/parallel/all_to_all.py`` without its compressed
+wire. Each partition is padded into a bucket of static size
 (``bucketize``), one ``Communicator.exchange`` moves every bucket of
 the epoch, and a gather concatenates the received valid prefixes
 (``compact``). ``shuffle_tables`` shuffles several tables through one
 epoch, as a join batch's left and right tables do:
 
-1. one batched size exchange: every table's per-peer row counts form
-   one [n, T] int32 matrix that rides the 4-byte class of the data
-   exchange;
+1. one batched size exchange: every table's per-peer row counts and
+   every string column's per-peer byte counts form one [n, V] int32
+   matrix that rides the 4-byte class of the data exchange;
 2. one exchange for all data: per (width, table) the equal-width
    columns stack, as same-width signed integer views, into one
    [n, B, k] buffer (``ShufflePlan``), and fuse-capable communicators
-   move each width class across the tables with one collective;
-3. ``compact`` per received buffer into the table's output.
+   move each width class across the tables with one collective. A
+   string column is two buffers, as in the reference: its int32 row
+   sizes ride the 4-byte class, and its chars go as [n, char bucket]
+   uint8 buffers (``default_char_bucket``), all of them in one more
+   collective;
+3. ``compact`` per received buffer into the table's output; a string
+   column's offsets are rebuilt from its received sizes.
+
+A char bucket too small for a peer's bytes is a ``bucket_overflow``, an
+output char capacity too small an ``out_overflow``, as for rows.
 
 ``shuffle_tables_start`` issues steps 1 and 2 (bucketize, then
 ``Communicator.exchange_start``) and returns a handle whose ``wait()``
@@ -23,19 +31,19 @@ batch b (dj_tpu/parallel/dist_join.py:278-305); ``shuffle_tables`` is
 the two in a row.
 
 A one-peer group shuffles by the self-copy of ``_single_peer_shuffle``
-(dj_tpu/parallel/all_to_all.py:204-249). String columns and the
-compressed wire come with later slices.
+(dj_tpu/parallel/all_to_all.py:204-249). The compressed wire comes with
+a later slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
 from ..core.search import interval_of_arange
-from ..core.table import Column, Table, gather_fill, sizes_to_offsets
+from ..core.table import Column, StringColumn, Table, gather_fill, sizes_to_offsets
 from .communicator import Communicator, Pending, done
 
 # Split-overflow stat keys: OVF_BUCKET is a send bucket that was too
@@ -47,6 +55,12 @@ OVF_OUT = "out_overflow"
 # The same-width signed integer dtype each column travels as (PyTorch's
 # card build has no unsigned indexing or masked fills).
 _INT_OF_SIZE = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def default_char_bucket(char_capacity: int, bucket_rows: int, row_capacity: int) -> int:
+    """Char-bucket bytes with the row buckets' slack ratio (bucket_rows
+    / row_capacity), so the two buffers overflow at alike odds."""
+    return max(1, -(-char_capacity * bucket_rows // max(1, row_capacity)))
 
 
 def _gather_columns(cols, idx: torch.Tensor, fill: torch.Tensor) -> list:
@@ -110,17 +124,19 @@ Slot = tuple[int, int]  # (table, column)
 
 @dataclasses.dataclass(frozen=True)
 class ShufflePlan:
-    """Which columns ride which collective: one (element width, slots)
-    group per width across every table of the epoch when fused, one per
-    column otherwise (dj_tpu/parallel/all_to_all.py:127-195, without its
-    string and compressed slots)."""
+    """Which row-aligned buffers ride which collective: one (element
+    width, slots) group per width across every table of the epoch when
+    fused, one per buffer otherwise (dj_tpu/parallel/all_to_all.py:
+    127-195, without its compressed slots). A string column's slot is
+    its int32 size vector, in the 4-byte group; its chars are not
+    row-aligned and travel apart."""
 
     width_groups: tuple[tuple[int, tuple[Slot, ...]], ...]
 
     @staticmethod
     def for_tables(tables: Sequence[Table], fuse: bool) -> "ShufflePlan":
         slots = [
-            (col.data.element_size(), (t, i))
+            (4 if isinstance(col, StringColumn) else col.data.element_size(), (t, i))
             for t, table in enumerate(tables)
             for i, col in enumerate(table.columns)
         ]
@@ -132,29 +148,46 @@ class ShufflePlan:
         return ShufflePlan(tuple((w, tuple(ss)) for w, ss in sorted(groups.items())))
 
 
+def _copy_prefix(data: torch.Tensor, start: int, count: int, length: int) -> torch.Tensor:
+    """``data[start : start + count]`` at the front of ``length`` zeros
+    (cut to ``length``)."""
+    out = torch.zeros(length, dtype=data.dtype, device=data.device)
+    part = data[start : start + min(count, length)]
+    out[: part.shape[0]] = part
+    return out
+
+
 def _single_peer_shuffle(
     table: Table, part_starts: torch.Tensor, part_counts: torch.Tensor,
-    out_capacity: int,
+    out_capacity: int, char_caps: Callable[[int], tuple[int, int]],
 ) -> tuple[Table, torch.Tensor, torch.Tensor, dict]:
     """Copy rows [part_starts[0], +part_counts[0]) into a table of
-    ``out_capacity`` rows, zero past the count. The start and count are
+    ``out_capacity`` rows, zero past the count; a string column's sizes
+    and its bytes from the partition's first one, into ``char_caps(i)[1]``
+    bytes. The start, the count and a string column's first byte are
     read back to the host to slice. When the partition is the whole
-    table at its own capacity (one rank, one batch) the columns are
-    returned as they are: the copy would be the identity."""
+    table at its own capacity (one rank, one batch) the fixed-width
+    columns are returned as they are: the copy would be the identity."""
     total = part_counts[0].to(torch.int32)
     overflow = total > out_capacity
     start, n = int(part_starts[0]), int(part_counts[0])
     count = min(n, out_capacity)
+    identity = start == 0 and count == out_capacity == table.capacity
+    cols = []
+    for i, col in enumerate(table.columns):
+        if isinstance(col, StringColumn):
+            _, cout = char_caps(i)
+            offsets = sizes_to_offsets(_copy_prefix(col.sizes(), start, count, out_capacity))
+            nbytes = int(offsets[-1])
+            chars = _copy_prefix(col.chars, int(col.offsets[start]), nbytes, cout)
+            overflow = overflow | (offsets[-1] > cout)
+            cols.append(StringColumn(offsets, chars, col.dtype))
+        elif identity:
+            cols.append(col)
+        else:
+            cols.append(Column(_copy_prefix(col.data, start, count, out_capacity), col.dtype))
+    cols = tuple(cols)
     dev = table.device
-    if start == 0 and count == out_capacity == table.capacity:
-        cols = table.columns
-    else:
-        cols = []
-        for col in table.columns:
-            out = torch.zeros(out_capacity, dtype=col.data.dtype, device=dev)
-            out[:count] = col.data[start : start + count]
-            cols.append(Column(out, col.dtype))
-        cols = tuple(cols)
     # No send buckets exist on one peer: every overflow is an output one.
     stats = {OVF_BUCKET: torch.tensor(False, device=dev), OVF_OUT: overflow}
     out_count = torch.tensor(count, dtype=torch.int32, device=dev)
@@ -168,15 +201,22 @@ def shuffle_tables(
     part_counts: Sequence[torch.Tensor],
     bucket_rows: Sequence[int],
     out_capacity: Sequence[int],
+    char_bucket_bytes: Optional[Sequence[Optional[dict]]] = None,
+    char_out_bytes: Optional[Sequence[Optional[dict]]] = None,
 ) -> list[tuple[Table, torch.Tensor, torch.Tensor, dict]]:
     """Shuffle hash-partitioned tables through one epoch: partition p of
     every table goes to group peer p. Returns one (table,
     total_recv_rows, overflow, stats) per table; ``stats`` holds the
-    split bits OVF_BUCKET (a send bucket was too small) and OVF_OUT (the
-    output capacity was exceeded), ``overflow`` their OR. Every rank of
-    the group calls it with the same static sizes."""
+    split bits OVF_BUCKET (a send bucket, of rows or of chars, was too
+    small) and OVF_OUT (an output capacity, of rows or of chars, was
+    exceeded), ``overflow`` their OR. ``char_bucket_bytes[t]`` and
+    ``char_out_bytes[t]`` map a string column of table t to its char
+    bucket and output char capacity (default ``default_char_bucket`` and
+    n buckets). Every rank of the group calls it with the same static
+    sizes."""
     return shuffle_tables_start(
-        comm, tables, part_starts, part_counts, bucket_rows, out_capacity
+        comm, tables, part_starts, part_counts, bucket_rows, out_capacity,
+        char_bucket_bytes, char_out_bytes,
     ).wait()
 
 
@@ -187,6 +227,8 @@ def shuffle_tables_start(
     part_counts: Sequence[torch.Tensor],
     bucket_rows: Sequence[int],
     out_capacity: Sequence[int],
+    char_bucket_bytes: Optional[Sequence[Optional[dict]]] = None,
+    char_out_bytes: Optional[Sequence[Optional[dict]]] = None,
 ) -> Pending:
     """Issue ``shuffle_tables``: bucketize and start the exchange. The
     handle's ``wait()`` waits for the exchange, compacts and returns
@@ -203,9 +245,19 @@ def shuffle_tables_start(
     for t in range(nt):
         if part_starts[t].shape != (n,) or part_counts[t].shape != (n,):
             raise ValueError(f"table {t}: part_starts/part_counts must have shape ({n},)")
+    char_bucket_bytes = char_bucket_bytes or [None] * nt
+    char_out_bytes = char_out_bytes or [None] * nt
+
+    def char_caps(t: int, i: int) -> tuple[int, int]:
+        col = tables[t].columns[i]
+        bucket = (char_bucket_bytes[t] or {}).get(i) or default_char_bucket(
+            col.chars.shape[0], bucket_rows[t], tables[t].capacity)
+        return bucket, (char_out_bytes[t] or {}).get(i) or n * bucket
+
     if n == 1:
         return done([
-            _single_peer_shuffle(tables[t], part_starts[t], part_counts[t], out_capacity[t])
+            _single_peer_shuffle(tables[t], part_starts[t], part_counts[t], out_capacity[t],
+                                 lambda i, t=t: char_caps(t, i))
             for t in range(nt)
         ])
 
@@ -213,7 +265,20 @@ def shuffle_tables_start(
     plan = ShufflePlan.for_tables(tables, comm.fuse_columns)
     send_ovf = [(part_counts[t] > bucket_rows[t]).any() for t in range(nt)]
     sent = [part_counts[t].clamp_max(bucket_rows[t]).to(torch.int32) for t in range(nt)]
-    buffers = [torch.stack(sent, dim=1)]  # the [n, T] size matrix
+    string_cols = [(t, i) for t in range(nt) for i, c in enumerate(tables[t].columns)
+                   if isinstance(c, StringColumn)]
+    char_meta = {}
+    size_vecs = list(sent)
+    for t, i in string_cols:
+        offsets = tables[t].columns[i].offsets
+        cbucket, cout = char_caps(t, i)
+        byte_starts = offsets[part_starts[t]]
+        byte_counts = offsets[part_starts[t] + part_counts[t]] - byte_starts
+        sent_bytes = byte_counts.clamp_max(cbucket).to(torch.int32)
+        char_meta[(t, i)] = (byte_starts, sent_bytes, (byte_counts > cbucket).any(), cbucket,
+                             cout)
+        size_vecs.append(sent_bytes)
+    buffers = [torch.stack(size_vecs, dim=1)]  # the [n, V] size matrix
     send_index = [
         _bucket_index(part_starts[t], sent[t], bucket_rows[t], tables[t].capacity)
         for t in range(nt)
@@ -224,15 +289,18 @@ def shuffle_tables_start(
         for s in slots:
             by_table.setdefault(s[0], []).append(s)
         for t, tslots in by_table.items():
-            cols = [tables[t].columns[i].data.view(_INT_OF_SIZE[width]) for _, i in tslots]
+            cols = [_slot_data(tables[t].columns[i]).view(_INT_OF_SIZE[width]) for _, i in tslots]
             buffers.append(torch.stack(_gather_columns(cols, *send_index[t]), dim=-1))  # [n, B, k]
             metas.append((t, tuple(tslots)))
     del send_index
+    for t, i in string_cols:
+        byte_starts, sent_bytes, _, cbucket, _ = char_meta[(t, i)]
+        buffers.append(bucketize(tables[t].columns[i].chars, byte_starts, sent_bytes, cbucket))
 
     comm.phase("a2a_exchange")
     pending = comm.exchange_start(buffers)
     del buffers
-    schema = [[(c.data.dtype, c.dtype) for c in tb.columns] for tb in tables]
+    schema = [[(_slot_data(c).dtype, c.dtype) for c in tb.columns] for tb in tables]
     bucket_rows, out_capacity = list(bucket_rows), list(out_capacity)
 
     def finish():
@@ -242,6 +310,9 @@ def shuffle_tables_start(
         recv_index = [_compact_index(recv_mat[:, t], n, bucket_rows[t], out_capacity[t])
                       for t in range(nt)]
         totals = [total for _, _, total in recv_index]
+        counts = [totals[t].clamp_max(out_capacity[t]).to(torch.int32) for t in range(nt)]
+        bucket_ovfs = list(send_ovf)
+        out_ovfs = [totals[t] > out_capacity[t] for t in range(nt)]
         out_cols: list[list] = [[None] * len(schema[t]) for t in range(nt)]
         for buf, (t, tslots) in zip(received[1:], metas):
             idx, fill, _ = recv_index[t]
@@ -249,16 +320,32 @@ def shuffle_tables_start(
             for d, (_, i) in zip(data, tslots):
                 tdtype, dtype = schema[t][i]
                 out_cols[t][i] = Column(d.view(tdtype), dtype)
+        del recv_index
+        # Chars: compacted by the received byte counts; offsets rebuilt
+        # from the received sizes of the valid rows.
+        for j, (buf, (t, i)) in enumerate(zip(received[1 + len(metas):], string_cols)):
+            _, _, covf, _, cout = char_meta[(t, i)]
+            chars, btotal = compact(buf, recv_mat[:, nt + j], cout)
+            sizes = out_cols[t][i].data
+            sizes = sizes.masked_fill_(torch.arange(sizes.shape[0], device=sizes.device)
+                                       >= counts[t], 0)
+            bucket_ovfs[t] = bucket_ovfs[t] | covf
+            out_ovfs[t] = out_ovfs[t] | (btotal > cout)
+            out_cols[t][i] = StringColumn(sizes_to_offsets(sizes), chars, schema[t][i][1])
         results = []
         for t in range(nt):
-            out_ovf = totals[t] > out_capacity[t]
-            count = totals[t].clamp_max(out_capacity[t]).to(torch.int32)
-            stats = {OVF_BUCKET: send_ovf[t], OVF_OUT: out_ovf}
-            results.append((Table(tuple(out_cols[t]), count), totals[t], send_ovf[t] | out_ovf,
-                            stats))
+            stats = {OVF_BUCKET: bucket_ovfs[t], OVF_OUT: out_ovfs[t]}
+            results.append((Table(tuple(out_cols[t]), counts[t]), totals[t],
+                            bucket_ovfs[t] | out_ovfs[t], stats))
         return results
 
     return Pending(finish)
+
+
+def _slot_data(col) -> torch.Tensor:
+    """The row-aligned buffer of a column: its data, or a string
+    column's int32 row sizes."""
+    return col.sizes() if isinstance(col, StringColumn) else col.data
 
 
 def shuffle_table(

@@ -54,7 +54,7 @@ import torch
 import torch.distributed as dist
 
 from ..core import dtypes as dt
-from ..core.table import Table, concatenate
+from ..core.table import StringColumn, Table, concatenate
 from ..ops.join import (
     PreparedPackPlan,
     canonical_key_range,
@@ -95,7 +95,9 @@ class JoinConfig:
     bucket_factor: slack on the mean partition size for the exchange.
     join_out_factor: per-batch join output capacity as a multiple of the
       received batch capacity.
-    char_out_factor: string payload char capacity (no strings yet).
+    char_out_factor: join-output char capacity of each string column, as
+      a multiple of its input char capacity (raise it when the join
+      duplicates string rows).
     key_range: declared (min, max) key bounds; skips the range probe.
     fuse_columns: one collective per dtype class in an exchange (True)
       or one per buffer (False); None defers to the backend's default.
@@ -165,7 +167,7 @@ def _local_join_pipeline(
 
     dev = left.device
     no = torch.tensor(False, device=dev)
-    shuffle_ovf = join_ovf = pack_ovf = coll = no
+    shuffle_ovf = join_ovf = char_ovf = pack_ovf = coll = no
     batch_results = []
     odf = config.over_decom_factor
     inflight = issue(0)
@@ -179,6 +181,7 @@ def _local_join_pipeline(
         result, total, jflags = inner_join(
             l_batch, r_batch, left_on, right_on,
             out_capacity=batch_out_cap,
+            char_out_factor=config.char_out_factor,
             return_flags=True,
             key_range=key_range,
         )
@@ -186,6 +189,9 @@ def _local_join_pipeline(
         join_ovf = join_ovf | (total > batch_out_cap)
         coll = coll | jflags["surrogate_collision"]
         pack_ovf = pack_ovf | jflags["pack_range_overflow"]
+        for col in result.columns:
+            if isinstance(col, StringColumn):
+                char_ovf = char_ovf | col.char_overflow()
         batch_results.append(result)
     comm.phase("dj_concat")
     out = batch_results[0] if len(batch_results) == 1 else concatenate(batch_results)
@@ -193,7 +199,7 @@ def _local_join_pipeline(
         "pre_shuffle_overflow": no,
         "shuffle_overflow": shuffle_ovf,
         "join_overflow": join_ovf,
-        "char_overflow": no,
+        "char_overflow": char_ovf,
         "surrogate_collision": coll,
         "pack_range_overflow": pack_ovf,
     }
@@ -248,8 +254,8 @@ def _resolve_key_range(
     declared one, else the probed global range of a single 64-bit int
     key, or of a multi-column int key, canonicalized to width form (0,
     2^w - 1) per key. None for a single key of at most 32 bits (it packs
-    statically), float keys, key pairs of two dtypes, two empty sides
-    and ``DJT_JOIN_PACK=0``. ``w`` is the number of shards the tables
+    statically), string and float keys, key pairs of two dtypes, two
+    empty sides and ``DJT_JOIN_PACK=0``. ``w`` is the number of shards the tables
     here hold; in a process world (``topology``) the ranges of every
     process's shards are reduced."""
     if config.key_range is not None:
@@ -258,7 +264,10 @@ def _resolve_key_range(
         return None
     cols = []
     for lc, rc in zip(left_on, right_on):
-        a, b = left.columns[lc].data, right.columns[rc].data
+        a, b = left.columns[lc], right.columns[rc]
+        if isinstance(a, StringColumn) or isinstance(b, StringColumn):
+            return None
+        a, b = a.data, b.data
         if a.dtype != b.dtype or a.is_floating_point() or a.dtype == torch.bool:
             return None
         cols.append((a, b))
@@ -388,8 +397,10 @@ def _config_factors(config: JoinConfig) -> dict:
 
 def _raise_surrogate_collision(_info):
     # Not a capacity problem: two distinct string keys share a 64-bit
-    # surrogate, which no factor heals. (The flag stays False until
-    # string keys are ported.)
+    # surrogate, which no factor heals. The heal engine reads this flag
+    # only on an attempt without a capacity overflow: under join
+    # overflow the expansion is garbage and the verifier compares
+    # unrelated rows, so the capacity heals first.
     raise RuntimeError(
         "surrogate_collision: distinct string join keys share a 64-bit "
         "hash surrogate; re-join via a dictionary encoding of the key column"
@@ -540,6 +551,15 @@ _PREPARED_FLAG_KEYS = (
 )
 
 
+def _refuse_strings(table: Table, what: str) -> None:
+    if table.has_strings:
+        raise NotImplementedError(
+            f"{what} holds a string column: string columns on the prepared "
+            f"side come with ROADMAP queue 1 item 7; join them with the "
+            f"unprepared distributed_inner_join"
+        )
+
+
 def _prepare_batches(
     comm: Communicator, config: JoinConfig, right: Table, right_on: tuple,
     sizing: BatchSizing, plan: PreparedPackPlan,
@@ -623,6 +643,7 @@ def prepare_join_side(
             f"prepared tier {tier!r}: the broadcast and salted tiers come "
             f"with ROADMAP queue 1 item 7; the shuffle tier is ported"
         )
+    _refuse_strings(right, "prepare_join_side's build side")
     if config is None:
         config = JoinConfig()
     w = topology.local_ranks
@@ -763,6 +784,7 @@ def _distributed_inner_join_prepared(
     ``inner_join_prepared`` against the resident run. No range probe:
     the plan is pinned, and probe keys outside it raise the
     prepared_plan_mismatch flag."""
+    _refuse_strings(left, "the prepared query's probe side")
     if config is None:
         config = prepared.config
     if topology != prepared.topology:

@@ -5,8 +5,9 @@ pipeline (``dj_tpu/utils/compat.py:24``; ``run`` in
 ``dj_tpu/parallel/dist_join.py:862-876``). Every positional argument is
 sharded as ``in_specs=spec`` shards it: a [w * cap] column, a [w] count
 vector, a Table or a tuple of them splits into w equal row blocks, and
-rank r's body gets block r. The bodies' results join the same way, as
-``out_specs=spec`` does: their tensors and tables are concatenated in
+rank r's body gets block r (a string column's offsets in blocks of cap +
+1, its chars in w equal blocks). The bodies' results join the same way,
+as ``out_specs=spec`` does: their tensors and tables are concatenated in
 rank order ([w * cap_out] tables, [w] counts, [w, k] flag matrices).
 Each body gets a communicator of the backend the caller names
 (``communicator_cls``, default ``XlaCommunicator``) over the world's
@@ -47,7 +48,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
-from ..core.table import Column, Table
+from ..core.table import Column, StringColumn, Table
 from .communicator import (
     Communicator,
     DistTransport,
@@ -93,13 +94,27 @@ def _split(x, w: int) -> list:
     if isinstance(x, Table):
         if x.valid_count is not None:
             raise ValueError("run_spmd: shard a table's counts as their own [w] argument")
-        cols = [_split(c.data, w) for c in x.columns]
-        return [Table(tuple(Column(cols[j][r], c.dtype) for j, c in enumerate(x.columns)))
-                for r in range(w)]
+        cols = [_split_column(c, w) for c in x.columns]
+        return [Table(tuple(col[r] for col in cols)) for r in range(w)]
     if isinstance(x, (tuple, list)):
         parts = [_split(e, w) for e in x]
         return [type(x)(p[r] for p in parts) for r in range(w)]
     raise TypeError(f"run_spmd: cannot shard a {type(x).__name__}")
+
+
+def _split_column(c, w: int) -> list:
+    if isinstance(c, StringColumn):
+        return [StringColumn(o, ch, c.dtype)
+                for o, ch in zip(_split(c.offsets, w), _split(c.chars, w))]
+    return [Column(d, c.dtype) for d in _split(c.data, w)]
+
+
+def _concat_column(cols: list):
+    c = cols[0]
+    if isinstance(c, StringColumn):
+        return StringColumn(torch.cat([p.offsets for p in cols]),
+                            torch.cat([p.chars for p in cols]), c.dtype)
+    return Column(torch.cat([p.data for p in cols]), c.dtype)
 
 
 def _concat(parts: list):
@@ -112,10 +127,8 @@ def _concat(parts: list):
     if isinstance(x, Table):
         if any(p.valid_count is not None for p in parts):
             raise ValueError("run_spmd: return a table's counts as their own [1] output")
-        return Table(tuple(
-            Column(torch.cat([p.columns[j].data for p in parts]), c.dtype)
-            for j, c in enumerate(x.columns)
-        ))
+        return Table(tuple(_concat_column([p.columns[j] for p in parts])
+                           for j in range(x.num_columns)))
     if isinstance(x, (tuple, list)):
         return type(x)(_concat([p[i] for p in parts]) for i in range(len(x)))
     raise TypeError(f"run_spmd: cannot join rank results of type {type(x).__name__}")

@@ -50,18 +50,23 @@ def signature(kind: str, **parts) -> str:
 
 
 def table_sig(table) -> tuple:
-    """A table's column schema: each column's physical dtype name (the
-    counterpart of dj_tpu's ``obs.recorder.table_sig`` for fixed-width
-    columns)."""
-    return tuple(str(c.data.dtype).removeprefix("torch.") for c in table.columns)
+    """A table's column schema: each fixed-width column's physical dtype
+    name, "str" for a string column (dj_tpu's ``obs.recorder.table_sig``,
+    duck-typed on ``.chars`` as it is)."""
+    return tuple("str" if hasattr(c, "chars") else str(c.data.dtype).removeprefix("torch.")
+                 for c in table.columns)
 
 
 def table_shape(table, shards: int) -> tuple:
-    """The per-shard shape a signature folds: ``(rows,)`` of each of the
-    ``shards`` shards ``table`` holds here. dj_tpu rounds it to a shape
+    """The per-shard shape a signature folds: ``(rows, char_cap, ...)``
+    of each of the ``shards`` shards ``table`` holds here, one char
+    capacity for each string column (dj_tpu's
+    ``parallel.shape_bucket.table_shape``). dj_tpu rounds it to a shape
     bucket under ``DJ_SHAPE_BUCKET=1``; the port has no buckets and
     keeps the raw shape."""
-    return (table.capacity // max(1, shards),)
+    w = max(1, shards)
+    chars = tuple(c.chars.shape[0] // w for c in table.columns if hasattr(c, "chars"))
+    return (table.capacity // w,) + chars
 
 
 def plan_signature(topology, left, right, left_on, right_on, config) -> str:

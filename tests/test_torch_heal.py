@@ -28,6 +28,7 @@ import pytest
 import torch
 
 import dj_tpu
+from dj_tpu.core import table as jT
 from dj_tpu.parallel import dist_join as jdist
 from dj_tpu.parallel.api import shard_table as jshard
 from dj_tpu.parallel.topology import make_topology as jmake_topology
@@ -411,6 +412,21 @@ def test_plan_signatures_match_dj_tpu():
             jledger.plan_signature(wd.jtopo, jl, jr, [0], [0], cfg)
         assert tledger.plan_signature(wd.ttopo, None, tr, None, [0], tcfg) == \
             jledger.plan_signature(wd.jtopo, None, jr, None, [0], cfg)
+        # A string column folds its per-shard char capacity into the shape
+        # and renders as "str" in the schema.
+        strs = [b"row-%d" % i for i in range(len(p))]
+        js, _ = jshard(wd.jtopo, jT.Table((jT.Column(jnp.asarray(p), dj_tpu.dtypes.int64),
+                                           jT.from_strings(strs))))
+        ts, _ = tj.shard_table(wd.ttopo, tj.Table((
+            tj.Column(torch.from_numpy(p), tj.dtypes.int64), tj.from_strings(strs, device="cpu"))))
+        sig = tledger.plan_signature(wd.ttopo, ts, tr, [0], [0], tcfg)
+        assert sig == jledger.plan_signature(wd.jtopo, js, jr, [0], [0], cfg)
+        assert "'str'" in sig
+        assert tledger.plan_signature(wd.ttopo, tl, ts, [0], [0], tcfg) == \
+            jledger.plan_signature(wd.jtopo, jl, js, [0], [0], cfg)
+        assert tledger.plan_signature(wd.ttopo, None, ts, None, [0], tcfg) == \
+            jledger.plan_signature(wd.jtopo, None, js, None, [0], cfg)
+        assert tledger.table_shape(ts, w)[1] == ts.columns[1].chars.shape[0] // w
 
 
 # --- the prepared auto path ---------------------------------------------

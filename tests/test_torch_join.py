@@ -15,6 +15,7 @@ import torch
 import dj_tpu
 from dj_tpu.core.table import Column as JColumn, Table as JTable
 from dj_tpu.ops import pallas_scan as psc
+import dj_tpu_torch as tj
 from dj_tpu_torch import convert
 from dj_tpu_torch.ops import join as tjoin
 
@@ -146,9 +147,17 @@ def test_column_order_contract():
 
 
 def test_unsupported_inputs_raise_not_implemented():
-    """String columns are not fixed-width: they come with a later slice."""
+    """A string column now converts and joins; the prepared side still
+    refuses one (ROADMAP queue 1 item 7) with NotImplementedError."""
+    offsets, chars = np.array([0, 1, 1, 3], np.int32), np.frombuffer(b"abc", np.uint8)
+    t = convert.table_from_numpy([np.array([1, 2, 3]), (offsets, chars)], ["int64", "string"],
+                                 device="cpu")
+    assert tj.to_strings(t.columns[1]) == [b"a", b"", b"bc"]
+    out, total = tjoin.inner_join(t, t, [0], [0])
+    assert int(total) == 3 and tj.to_strings(out.columns[1], 3) == [b"a", b"", b"bc"]
+    topo = tj.make_topology(["cpu"])
     with pytest.raises(NotImplementedError, match="string"):
-        convert.table_from_numpy([np.zeros(3, np.uint8)], ["string"], device="cpu")
+        tj.prepare_join_side(topo, *tj.shard_table(topo, t), [0])
 
 
 def _limit_case(name):

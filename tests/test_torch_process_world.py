@@ -59,7 +59,7 @@ W = _load("torch_world_worker", WORKER)
 chip_smoke = _load("chip_smoke", ROOT / "chip_smoke.py")
 
 WORLDS = (2, 4)
-CASES = {2: ["collectives", "exchange", "shuffle", "join", "generate", "auto", "keys"],
+CASES = {2: ["collectives", "exchange", "shuffle", "join", "generate", "auto", "keys", "strings"],
          4: ["collectives", "exchange", "shuffle", "join", "prepared", "generate"]}
 
 
@@ -424,6 +424,58 @@ def test_process_world_key_kinds_match(name, worlds):
         got = res["keys"][name]
         assert got["counts"] == [want["counts"][r]] and got["flags"] == want["flags"]
         assert repr(got["rows"]) == repr([want["rows"][r]])
+
+
+def _jax_string_join(build, bnames, probe, pnames, cfg, auto=False):
+    """dj_tpu's join (or auto join) of a strings case on 2 devices, as
+    W._join_result, with the attempts and final factors of the auto."""
+    jtopo = jmake_topology(jax.devices()[:2])
+
+    def table(arrays, names):
+        return jT.Table(tuple(
+            jT.StringColumn(jnp.asarray(a[0]), jnp.asarray(a[1])) if n == "string"
+            else jT.Column(jnp.asarray(a), dj_tpu.dtypes.by_name(n)) for a, n in zip(arrays, names)))
+
+    (jl, jlc), (jr, jrc) = jshard(jtopo, table(probe, pnames)), jshard(jtopo, table(build, bnames))
+    attempts, factors = [], None
+    if auto:
+        orig = jdist.distributed_inner_join
+        jdist.distributed_inner_join = lambda *a, **k: attempts.append(1) or orig(*a, **k)
+        try:
+            res = dj_tpu.distributed_inner_join_auto(jtopo, jl, jlc, jr, jrc, [0], [0], cfg)
+        finally:
+            jdist.distributed_inner_join = orig
+        factors = {f: getattr(res[3], f) for f in W.FACTOR_FIELDS}
+    else:
+        res = dj_tpu.distributed_inner_join(jtopo, jl, jlc, jr, jrc, [0], [0], cfg)
+    out = {"rows": W.shard_rows(res[0], np.asarray(res[1])), "counts": np.asarray(res[1]).tolist(),
+           "flags": {k: np.asarray(v).tolist() for k, v in res[2].items()}}
+    return out, len(attempts), factors
+
+
+@pytest.mark.parametrize("backend", ["xla", "ring", "buffered"])
+@pytest.mark.parametrize("name", ["payload", "key"])
+def test_process_world_strings_match_dj_tpu(name, backend, worlds):
+    """A gloo world of 2 joins string payloads and string keys as dj_tpu
+    does on 2 devices, shard for shard (rows with their strings, counts,
+    every flag), under the default, the Ring and the Buffered backend."""
+    ba, bn, pa, pn = W.string_tables()[name]
+    want, _, _ = _jax_string_join(ba, bn, pa, pn, dj_tpu.JoinConfig(**W.STRINGS_CONFIG))
+    assert sum(want["counts"]) > 0 and not any(any(v) for v in want["flags"].values())
+    _assert_shards(2, worlds.results(2), ("strings", (name, backend)), want)
+
+
+def test_process_world_char_overflow_heal_matches_dj_tpu(worlds):
+    """The char_overflow heal in a gloo world of 2: the same attempts,
+    final factors and shard rows as dj_tpu's auto join on 2 devices."""
+    ba, bn, pa, pn = W.string_tables()["auto"]
+    want, n, factors = _jax_string_join(ba, bn, pa, pn, dj_tpu.JoinConfig(**W.STRINGS_AUTO_CONFIG),
+                                        auto=True)
+    assert n > 1 and factors["char_out_factor"] > 1.0
+    _assert_shards(2, worlds.results(2), ("strings", "auto"), want)
+    for res in worlds.results(2):
+        assert res["strings"]["auto"]["attempts"] == n
+        assert res["strings"]["auto"]["factors"] == factors
 
 
 def test_a_ledger_split_world_fails_instead_of_hanging(worlds):

@@ -377,3 +377,225 @@ def test_pipeline_issues_next_exchange_before_the_join(w, monkeypatch):
     order.clear()
     tj.distributed_inner_join(topo, s, c, prep, None, [0], None, cfg)
     assert order == pipelined
+
+
+# --- string columns through the world --------------------------------------
+
+
+def _rank_strings(rng, n, cap, max_len):
+    """A sharded string column of n ranks (cap rows a rank, random
+    lengths and bytes), as shard_table lays it out: offsets [n * (cap +
+    1)], chars [n * ccap]; and the per-rank byte counts."""
+    ccap = cap * max_len
+    offs, chars = [], []
+    for _ in range(n):
+        sz = rng.integers(0, max_len + 1, cap)
+        o = np.concatenate([[0], np.cumsum(sz)]).astype(np.int32)
+        c = np.zeros(ccap, np.uint8)
+        c[: o[-1]] = rng.integers(0, 256, o[-1])
+        offs.append(o)
+        chars.append(c)
+    return np.concatenate(offs), np.concatenate(chars)
+
+
+@pytest.mark.parametrize("case", ["default", "char_bucket", "char_out"])
+@pytest.mark.parametrize("fuse", [True, False])
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_string_shuffle_matches_dj_tpu(n, fuse, case):
+    """Two tables with string columns through one epoch (the sizes in
+    the 4-byte class, the chars in their own buffers) against dj_tpu's
+    shuffle_tables under shard_map, leaf for leaf: keys, offsets, every
+    byte of chars, counts, totals and both overflow bits. "char_bucket"
+    gives the right table's strings a char bucket of 8 bytes (a
+    bucket_overflow), "char_out" the left's an output of 16 bytes (an
+    out_overflow); the row buckets fit in both."""
+    rng = np.random.default_rng(200 + 3 * n + fuse)
+    l_cap, r_cap = 24, 18
+    bl, br = l_cap, r_cap  # a whole rank's rows fit one bucket
+    lkeys = rng.integers(-(2**62), 2**62, n * l_cap)
+    l_str = _rank_strings(rng, n, l_cap, 9)
+    r_str = _rank_strings(rng, n, r_cap, 13)
+    rpay = rng.integers(0, 2**31, n * r_cap).astype(np.int32)
+
+    def parts(cap):
+        starts, counts = [], []
+        for _ in range(n):
+            c = rng.multinomial(cap - int(rng.integers(0, 3)), np.full(n, 1.0 / n)).astype(np.int32)
+            counts.append(c)
+            starts.append(np.concatenate([[0], np.cumsum(c)[:-1]]).astype(np.int32))
+        return np.concatenate(starts), np.concatenate(counts)
+
+    ls, lc = parts(l_cap)
+    rs, rc = parts(r_cap)
+    cbb = [None, {0: 8}] if case == "char_bucket" else None
+    cob = [{1: 16}, None] if case == "char_out" else None
+    out_caps = [n * bl, n * br]
+
+    jtopo = jmake_topology(jax.devices()[:n])
+    jcomm = dj_tpu.XlaCommunicator(jtopo.world_group(), fuse_columns=fuse)
+    spec = jtopo.row_spec()
+
+    @jax.jit
+    @functools.partial(compat.shard_map, mesh=jtopo.mesh, in_specs=(spec,) * 6, out_specs=spec)
+    def jrun(lt, rt, a, b, c, d):
+        res = ja2a.shuffle_tables(jcomm, [lt, rt], [a, c], [b, d], [bl, br], out_caps,
+                                  char_bucket_bytes=cbb, char_out_bytes=cob)
+        return tuple(
+            (t.with_count(None), t.count()[None], tot[None], ovf[None],
+             st[ja2a.OVF_BUCKET][None], st[ja2a.OVF_OUT][None])
+            for t, tot, ovf, st in res
+        )
+
+    jl = jT.Table((jT.Column(jnp.asarray(lkeys), dj_tpu.dtypes.int64),
+                   jT.StringColumn(*map(jnp.asarray, l_str))))
+    jr = jT.Table((jT.StringColumn(*map(jnp.asarray, r_str)),
+                   jT.Column(jnp.asarray(rpay), dj_tpu.dtypes.int32)))
+    want = jrun(jl, jr, *(jnp.asarray(v) for v in (ls, lc, rs, rc)))
+
+    def body(comm, lt, rt, a, b, c, d):
+        res = ta2a.shuffle_tables(comm, [lt, rt], [a, c], [b, d], [bl, br], out_caps,
+                                  char_bucket_bytes=cbb, char_out_bytes=cob)
+        return tuple(
+            (t.with_count(None), t.count().reshape(1), tot.reshape(1), ovf.reshape(1),
+             st[OVF_B].reshape(1), st[OVF_O].reshape(1))
+            for t, tot, ovf, st in res
+        )
+
+    tl = convert.table_from_numpy([lkeys, l_str], ["int64", "string"], device="cpu")
+    tr = convert.table_from_numpy([r_str, rpay], ["string", "int32"], device="cpu")
+    got = spmd.run_spmd(tj.make_topology(["cpu"] * n), body, tl, tr,
+                        *(torch.from_numpy(v) for v in (ls, lc, rs, rc)), fuse_columns=fuse)
+    for t in range(2):
+        gtab, *gvec = got[t]
+        wtab, *wvec = want[t]
+        for g, w in zip(gtab.columns, wtab.columns):
+            if isinstance(g, tj.StringColumn):
+                np.testing.assert_array_equal(g.offsets.numpy(), np.asarray(w.offsets))
+                np.testing.assert_array_equal(g.chars.numpy(), np.asarray(w.chars))
+            else:
+                np.testing.assert_array_equal(g.data.numpy(), np.asarray(w.data))
+        for name, g, w in zip(("count", "total", "overflow", OVF_B, OVF_O), gvec, wvec):
+            assert g.tolist() == np.asarray(w).tolist(), (t, name)
+    bucket_bits = got[1][4].tolist() + got[0][4].tolist()
+    out_bits = got[0][5].tolist() + got[1][5].tolist()
+    assert any(bucket_bits) == (case == "char_bucket")
+    assert any(out_bits) == (case == "char_out")
+
+
+def _string_world_tables(rng, key_kind):
+    """Probe (key, row id, string payload) and build (key, build
+    string): int64 keys with string payloads both sides, or string keys
+    ("key-<k>") with a string payload on the probe side."""
+    nb, npr = 600, 800
+    bk = rng.permutation(np.arange(2 * nb))[:nb]
+    pk = np.where(rng.random(npr) < 0.5, bk[rng.integers(0, nb, npr)],
+                  rng.integers(2 * nb, 4 * nb, npr))
+    pstr = [bytes([97 + int(k) % 26]) * (int(k) % 7 + 1) for k in pk]
+    bstr = [b"b%d" % k for k in bk]
+    if key_kind == "string":
+        probe = [[b"key-%d" % k for k in pk], np.arange(npr, dtype=np.int64), pstr]
+        build = [[b"key-%d" % k for k in bk], bk * 10 + 3]
+        return probe, ["string", "int64", "string"], build, ["string", "int64"]
+    probe = [pk, np.arange(npr, dtype=np.int64), pstr]
+    build = [bk, bstr]
+    return probe, ["int64", "int64", "string"], build, ["int64", "string"]
+
+
+def _as_tables(arrays, names):
+    """(dj_tpu table, port table): a string entry is a list of bytes."""
+    jcols, tcols = [], []
+    for a, nm in zip(arrays, names):
+        if nm == "string":
+            jcols.append(jT.from_strings(a))
+            tcols.append(tj.from_strings(a, device="cpu"))
+        else:
+            jcols.append(jT.Column(jnp.asarray(a), dj_tpu.dtypes.by_name(nm)))
+            tcols.append(tj.Column(torch.from_numpy(np.asarray(a)), tj.dtypes.by_name(nm)))
+    return jT.Table(tuple(jcols)), tj.Table(tuple(tcols))
+
+
+def _shard_string_rows(table, counts, to_strings):
+    """Each shard's valid rows (strings as bytes), sorted."""
+    counts = np.asarray(counts).tolist()
+    w = len(counts)
+    fixed = [np.asarray(c.data) for c in table.columns if not hasattr(c, "chars")]
+    cap = fixed[0].shape[0] // w
+    shards = []
+    for r, n in enumerate(counts):
+        cols = []
+        for c in table.columns:
+            if hasattr(c, "chars"):
+                ccap = c.chars.shape[0] // w
+                shard = jT.StringColumn(np.asarray(c.offsets)[r * (cap + 1):(r + 1) * (cap + 1)],
+                                        np.asarray(c.chars)[r * ccap:(r + 1) * ccap])
+                cols.append(jT.to_strings(shard, n))
+            else:
+                cols.append(np.asarray(c.data)[r * cap:r * cap + n].tolist())
+        shards.append(sorted(zip(*cols)))
+    return shards
+
+
+@pytest.mark.parametrize("key_kind", ["int64", "string"])
+@pytest.mark.parametrize("odf", [1, 2])
+@pytest.mark.parametrize("w", [1, 4])
+def test_string_distributed_join_matches_dj_tpu(w, odf, key_kind):
+    """String payloads on both sides, or a string key, through the
+    partition, the two-buffer shuffle, the join and the concatenation:
+    counts, every flag and each shard's rows (strings included) equal to
+    dj_tpu's, shard for shard; string-key rows sit on the shard of their
+    key's _string_hash."""
+    from dj_tpu_torch.ops import hashing as thash
+    from dj_tpu_torch.parallel.dist_join import MAIN_JOIN_SEED
+
+    rng = np.random.default_rng(40 + w + odf)
+    probe, pnames, build, bnames = _string_world_tables(rng, key_kind)
+    jp, tp = _as_tables(probe, pnames)
+    jb, tb = _as_tables(build, bnames)
+    jtopo, ttopo = jmake_topology(jax.devices()[:w]), tj.make_topology(["cpu"] * w)
+    cfg = dj_tpu.JoinConfig(over_decom_factor=odf, bucket_factor=4.0, join_out_factor=2.0,
+                            char_out_factor=2.0)
+    jout, jcounts, jinfo = dj_tpu.distributed_inner_join(
+        jtopo, *jshard(jtopo, jp), *jshard(jtopo, jb), [0], [0], cfg)
+    tout, tcounts, tinfo = tj.distributed_inner_join(
+        ttopo, *tj.shard_table(ttopo, tp), *tj.shard_table(ttopo, tb), [0], [0],
+        convert.join_config_from(cfg))
+    assert tcounts.tolist() == np.asarray(jcounts).tolist()
+    assert set(tinfo) == set(jinfo)
+    for k in jinfo:
+        assert tinfo[k].tolist() == np.asarray(jinfo[k]).tolist(), k
+        assert not tinfo[k].any(), k
+    assert _shard_string_rows(tout, tcounts, tj.to_strings) == \
+        _shard_string_rows(jout, jcounts, jT.to_strings)
+    pkeys = probe[0] if key_kind == "int64" else [int(s[4:]) for s in probe[0]]
+    assert int(tcounts.sum()) == int(np.isin(pkeys, np.asarray(
+        build[0] if key_kind == "int64" else [int(s[4:]) for s in build[0]])).sum())
+    if key_kind == "string" and w > 1:
+        cap = tout.capacity // w
+        ocap = tout.columns[0].chars.shape[0] // w
+        for r, n in enumerate(tcounts.tolist()):
+            col = tj.StringColumn(tout.columns[0].offsets[r * (cap + 1):(r + 1) * (cap + 1)],
+                                  tout.columns[0].chars[r * ocap:(r + 1) * ocap])
+            h = thash._string_hash(col, MAIN_JOIN_SEED)[:n]
+            assert bool((h % (w * odf) % w == r).all())
+
+
+def test_string_shard_table_matches_dj_tpu():
+    """A world of 3 over 10 rows with a string column: offsets rebased
+    per shard and held past its rows, chars padded to the largest
+    shard's bytes or a declared capacity; unshard_table inverts it."""
+    rng = np.random.default_rng(9)
+    strs = [rng.integers(0, 256, int(k)).astype(np.uint8).tobytes()
+            for k in rng.integers(0, 6, 10)]
+    keys = np.arange(10, dtype=np.int64)
+    jt, tt = _as_tables([keys, strs], ["int64", "string"])
+    jtopo, ttopo = jmake_topology(jax.devices()[:3]), tj.make_topology(["cpu"] * 3)
+    for cap, ccap in ((None, None), (6, 40)):
+        js, jc = jshard(jtopo, jt, capacity_per_shard=cap, char_capacity_per_shard=ccap)
+        ts, tc = tj.shard_table(ttopo, tt, capacity_per_shard=cap, char_capacity_per_shard=ccap)
+        assert tc.tolist() == np.asarray(jc).tolist() == [4, 3, 3]
+        np.testing.assert_array_equal(ts.columns[1].offsets.numpy(), np.asarray(js.columns[1].offsets))
+        np.testing.assert_array_equal(ts.columns[1].chars.numpy(), np.asarray(js.columns[1].chars))
+        back = tj.unshard_table(ts, tc)
+        assert tj.to_strings(back.columns[1]) == strs
+    with pytest.raises(ValueError, match="char capacity 1 <"):
+        tj.shard_table(ttopo, tt, char_capacity_per_shard=1)

@@ -190,13 +190,61 @@ GENERATE = dict(build_nrows_per_shard=400, probe_nrows_per_shard=600, selectivit
 FLAGS_CONFIG = dict(over_decom_factor=2, bucket_factor=1.0, join_out_factor=0.3)
 
 
+def str_arrays(strings) -> tuple:
+    """(offsets, chars) numpy pair of a list of byte strings."""
+    offsets = np.zeros(len(strings) + 1, np.int32)
+    np.cumsum([len(x) for x in strings], out=offsets[1:])
+    chars = np.frombuffer(b"".join(strings), np.uint8).copy()
+    return offsets, chars if chars.size else np.zeros(1, np.uint8)
+
+
+def string_tables() -> dict:
+    """name -> (build arrays, names, probe arrays, names) of the strings
+    case: "payload", int64 keys with a string payload on both sides
+    (non-ASCII bytes, empty strings); "key", string keys ("key-<k>")
+    with an int64 payload each; "auto", each build key probed 3 times,
+    so the build side's strings triple in the output."""
+    rng = np.random.default_rng(31)
+    nb, npr = 500, 700
+    bk = rng.permutation(np.arange(2 * nb))[:nb]
+    pk = np.where(rng.random(npr) < 0.5, bk[rng.integers(0, nb, npr)],
+                  rng.integers(2 * nb, 4 * nb, npr))
+    pstr = [bytes([97 + int(k) % 26]) * (int(k) % 7) for k in pk]
+    bstr = [("b%d-é" % k).encode() for k in bk]
+    rows = np.arange(npr, dtype=np.int64)
+    return {
+        "payload": ([bk, str_arrays(bstr)], ["int64", "string"],
+                    [pk, rows, str_arrays(pstr)], ["int64", "int64", "string"]),
+        "key": ([str_arrays([b"key-%d" % k for k in bk]), bk * 10 + 3], ["string", "int64"],
+                [str_arrays([b"key-%d" % k for k in pk]), rows], ["string", "int64"]),
+        "auto": ([bk, str_arrays(bstr)], ["int64", "string"],
+                 [np.repeat(bk, 3), np.arange(3 * nb, dtype=np.int64)], ["int64", "int64"]),
+    }
+
+
+STRINGS_CONFIG = dict(over_decom_factor=2, bucket_factor=4.0, join_out_factor=2.0,
+                      char_out_factor=2.0)
+STRINGS_AUTO_CONFIG = dict(over_decom_factor=2, bucket_factor=2.0, join_out_factor=4.0)
+
+
 def shard_rows(table, counts) -> list:
     """Each shard's valid rows, sorted (one shard in a process world)."""
     counts = np.asarray(counts).tolist()
-    cols = [np.asarray(c.data) for c in table.columns]
-    cap = cols[0].shape[0] // len(counts)
-    return [sorted(zip(*[c[r * cap : r * cap + k].tolist() for c in cols]))
-            for r, k in enumerate(counts)]
+    w = len(counts)
+    cap = next(np.asarray(c.data).shape[0] for c in table.columns if not hasattr(c, "chars")) // w
+    shards = []
+    for r, k in enumerate(counts):
+        cols = []
+        for c in table.columns:
+            if hasattr(c, "chars"):  # a string column, rows as bytes
+                offs = np.asarray(c.offsets)[r * (cap + 1) : r * (cap + 1) + k + 1]
+                ccap = np.asarray(c.chars).shape[0] // w
+                chars = np.asarray(c.chars)[r * ccap : (r + 1) * ccap]
+                cols.append([chars[a:b].tobytes() for a, b in zip(offs[:-1], offs[1:])])
+            else:
+                cols.append(np.asarray(c.data)[r * cap : r * cap + k].tolist())
+        shards.append(sorted(zip(*cols)))
+    return shards
 
 
 def _np(x):
@@ -383,6 +431,29 @@ def case_keys(topo):
     return out
 
 
+def case_strings(topo):
+    """String payloads and string keys through the join under the
+    default, Ring and Buffered backends (chars as uint8 on the wire;
+    Buffered cuts every bucket into CHUNK_ROWS rows, or bytes), then the
+    char_overflow heal."""
+    out = {}
+    tables = string_tables()
+    for name in ("payload", "key"):
+        ba, bn, pa, pn = tables[name]
+        (tl, tlc) = dj.shard_table(topo, convert.table_from_numpy(pa, pn, device="cpu"))
+        (tr, trc) = dj.shard_table(topo, convert.table_from_numpy(ba, bn, device="cpu"))
+        for backend in ("xla", "ring", "buffered"):
+            cfg = dj.JoinConfig(**STRINGS_CONFIG, communicator_cls=SMALL_BACKENDS[backend])
+            out[(name, backend)] = _join_result(
+                dj.distributed_inner_join(topo, tl, tlc, tr, trc, [0], [0], cfg))
+    ba, bn, pa, pn = tables["auto"]
+    (tl, tlc) = dj.shard_table(topo, convert.table_from_numpy(pa, pn, device="cpu"))
+    (tr, trc) = dj.shard_table(topo, convert.table_from_numpy(ba, bn, device="cpu"))
+    out["auto"] = _counted_auto(topo, tl, tlc, tr, trc, [0], [0],
+                                dj.JoinConfig(**STRINGS_AUTO_CONFIG))
+    return out
+
+
 def case_ledger_split(topo):
     """Rank 0 starts from a ledger entry that widens bucket_factor, rank
     1 from none: their exchanges differ in size, and the world must fail
@@ -409,7 +480,7 @@ def case_fail(topo):
 CASES = {"collectives": case_collectives, "exchange": case_exchange, "shuffle": case_shuffle,
          "join": case_join, "prepared": case_prepared, "generate": case_generate,
          "auto": case_auto, "keys": case_keys, "fail": case_fail,
-         "ledger_split": case_ledger_split}
+         "ledger_split": case_ledger_split, "strings": case_strings}
 
 
 def main(spec_json: str, out_dir: str) -> int:
