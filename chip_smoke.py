@@ -49,6 +49,29 @@ Phases, each printing its own line(s):
      rank's device time by phase (partition, bucketize, the exchange's
      copies, compact, join; CUDA events on the shared stream) beside a
      profiler breakdown by kernel at odf 1;
+  4e. the two-level world: 4d's 4 ranks as 2 domains of 2,
+     make_topology(["cuda:0"] * 4, intra_size=2), the same tables sharded
+     the same way; distributed_inner_join at odf 1 and 4 (the pre-shuffle
+     over 'inter', seed 87654321, then the main stage over 'intra') and
+     at odf 1 under each other expansion mode; distributed_inner_join_auto
+     from pre_shuffle_out_factor 0.5 and bucket_factor 1.0 at growth 2.5
+     (pre_shuffle_overflow must heal; attempts and factors logged);
+     prepare_join_side at odf 1 and a query under each merge tier. Each
+     run: every flag False, counts summing to the generator's count, rows
+     checked and equal to phase 4's, each row on shard r in domain
+     murmur3(key, 87654321) % 2 == r // 2 and at murmur3(key, 12345678)
+     % (2 odf) % 2 == r % 2 there, each kernel launched by the join
+     itself; median walls of 3 warm runs, peaks, each rank's device ms by
+     phase, the pre-shuffle's apart (dj_pre_shuffle), and a profiler
+     breakdown by kernel at odf 1. One card crosses no link: this reads
+     the second exchange's cost only;
+  4f. shuffle_on of a table shaped as GPU-BDB's web_clickstreams (four
+     int64 columns, 100M rows, drawn from the seed on the card: the repo
+     has no parquet and the card's machine no pyarrow) on column 0: over
+     4d's flat world, then over 4e's 'inter' (seed 87654321) and 'intra'
+     axes, and shuffle_on_auto from factors 1.2 / 1.2 on a copy with one
+     row in ten on one key (bucket_factor must heal); every row on its
+     hash's shard, the row multiset conserved, no overflow; walls, peaks;
   5. prepared path: at odf 1 and 4, prepare_join_side on the build table,
      then distributed_inner_join with the PreparedSide under each merge
      tier (sort, merge, probe); each query checked as in 4, with the
@@ -75,10 +98,15 @@ Phases, each printing its own line(s):
      its 25M + 25M row block at odf 1 through torch.distributed: each
      process's shard digest (rows and an order-free row hash) equals rank
      r's in phase 4d, the flag matrices are equal on all four; walls and
-     each rank's device time by phase (the exchange's among them);
+     each rank's device time by phase (the exchange's among them); then
+     the same four processes at intra_size=2 (every 'inter' and 'intra'
+     group a torch.distributed subgroup): the odf 1 join, its shard
+     digests equal to rank r's in 4e, and 4f's table shuffled over
+     'inter' and 'intra', its digests equal to 4f's;
   6c. an NCCL world of one process per card at phase 4d's rows a rank,
-     on a machine with 2 or more cards; with one card, one line saying
-     that it did not start and why;
+     on a machine with 2 or more cards, with 6b's two-level half when the
+     cards factor by 2 (4 or more); with one card, one line saying that
+     it did not start and why;
   6. kernels vs plain: merge_sorted_u64 and expand_ranks against their
      plain versions, exact equality, on the prepared path's own inputs at
      full size and on edge cases (cross-operand duplicates with sentinel
@@ -154,7 +182,7 @@ Phases, each printing its own line(s):
      kernels cannot hold;
 then the `kernels` JSON line (kernel, plain-version and library times
 beside each kernel's bound, launches per query on each path and in the
-4-rank world and the process worlds, and each kernel's registers and spills from ptxas; the probes' launches are their
+4-rank world, its two-level form and the process worlds, and each kernel's registers and spills from ptxas; the probes' launches are their
 main()'s, and no join path launches them).
 The last line is {"ok": true, "device": {...}}. With no CUDA device, or
 without the package beside it, the script fails before printing any
@@ -1248,6 +1276,324 @@ def run_world(dj, dev, build, probe, expected: int, ref, rows: int, smi: str):
     return launch_table, digests
 
 
+# --- the two-level world and shuffle_on (phases 4e, 4f) ------------------
+
+INTRA = 2  # the intra size of phase 4e's and 4f's two-level world
+
+
+def key_hash(keys, seed: int):
+    """murmur3 of an int64 key column, as the partition hashes it."""
+    from dj_tpu_torch.core import dtypes
+    from dj_tpu_torch.core.table import Column, Table
+    from dj_tpu_torch.ops import hashing
+
+    return hashing.hash_table(Table((Column(keys, dtypes.int64),)), [0], seed)
+
+
+def check_two_level_placed(what: str, out, counts, odf: int) -> None:
+    """Every valid row of shard r of the two-level world sits in its
+    key's domain, murmur3(key, INTER_DOMAIN_SEED) % (WORLD / INTRA) ==
+    r // INTRA, and on its partition's rank there, murmur3(key,
+    MAIN_JOIN_SEED) % (INTRA odf) % INTRA == r % INTRA."""
+    from dj_tpu_torch.parallel.dist_join import INTER_DOMAIN_SEED, MAIN_JOIN_SEED
+
+    cap = out.capacity // WORLD
+    for r, n in enumerate(counts.tolist()):
+        keys = out.columns[0].data[r * cap : r * cap + n]
+        inter = key_hash(keys, INTER_DOMAIN_SEED) % (WORLD // INTRA) == r // INTRA
+        intra = key_hash(keys, MAIN_JOIN_SEED) % (INTRA * odf) % INTRA == r % INTRA
+        if not bool((inter & intra).all()):
+            raise AssertionError(f"{what}: a row on shard {r} belongs to another rank")
+
+
+def pre_shuffle_ms(phases: dict) -> dict:
+    """The pre-shuffle's device ms of one {phase: ms}: its own phase (the
+    partition over 'inter') and the bucketize, exchange and compact
+    marked inside it, summed."""
+    return sum(v for k, v in phases.items() if k.startswith("dj_pre_shuffle"))
+
+
+def run_two_level(dj, dev, build, probe, expected: int, ref, rows: int, smi: str):
+    """Phase 4e: the main path over phase 4d's 4 ranks factored into 2
+    domains of 2 ranks. Returns ({path: {odf: launches}}, the shard
+    digests of the default join at odf 1)."""
+    from dj_tpu_torch.ops.join import prepared_effective_plan
+    from dj_tpu_torch.resilience import ledger
+
+    t_phase = time.perf_counter()
+    topo = dj.make_topology([dev] * WORLD, intra_size=INTRA)
+    left, lcnt = dj.shard_table(topo, probe)
+    right, rcnt = dj.shard_table(topo, build)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    launch_table: dict = {}
+
+    def check(what, res, odf, kernels, launches_each=None):
+        out, counts, info = res[:3]
+        torch.cuda.synchronize()
+        launches = read_launches()
+        set_flags = [k for k, v in info.items() if bool(v.any())]
+        if set_flags:
+            raise AssertionError(f"{what}: flags set on a shard: {set_flags}")
+        if tuple(counts.shape) != (WORLD,) or int(counts.sum()) != expected:
+            raise AssertionError(f"{what}: counts {counts.tolist()} do not sum to {expected}")
+        check_two_level_placed(what, out, counts, odf)
+        flat = dj.unshard_table(out, counts)
+        flat_counts = torch.tensor([flat.capacity])
+        check_rows(flat, flat_counts, build, probe, expected)
+        check_same_rows(sorted_rows(flat, flat_counts), ref, what)
+        each = WORLD * odf if launches_each is None else launches_each
+        wrong = {k: launches[k] for k in kernels if launches[k] != each}
+        if wrong:
+            raise AssertionError(f"{what}: each of {kernels} must launch {each} times: {wrong}")
+        return launches, counts.tolist()
+
+    summary: dict = {}
+    for odf in (1, 4):
+        cfg = dj.JoinConfig(over_decom_factor=odf)
+
+        def join():
+            return dj.distributed_inner_join(topo, left, lcnt, right, rcnt, [0], [0], cfg)
+
+        what = f"two-level world {WORLD // INTRA} x {INTRA}, odf={odf}"
+        reset_launches()
+        res = join()
+        launches, counts = check(what, res, odf, ("join_scans", "expand_values"))
+        if odf == 1:
+            digests = shard_digests(res[0], res[1])
+        del res
+        launch_table.setdefault("unprepared", {})[odf] = launches
+        wall, runs, peak = warm_walls(join)
+        summary[f"unprepared_odf{odf}"] = {"wall_ms": wall, "wall_ms_runs": runs,
+                                           "peak_bytes": peak}
+        extra = {}
+        if odf == 1:
+            profile_join(join, path="world4_two_level_unprepared", odf=odf)
+            phases = world_phases(join)
+            extra = {"pre_shuffle_ms": pre_shuffle_ms(phases["phase_ms"]),
+                     "pre_shuffle_ms_by_rank": [pre_shuffle_ms(p)
+                                                for p in phases["phase_ms_by_rank"]],
+                     "phases": phases}
+            summary["unprepared_odf1"]["phases"] = extra
+        log("two_level_path", smoke_phase="4e", ranks=WORLD, intra=INTRA, odf=odf, rows=rows,
+            counts=counts, total=expected, flags="all False", rows_checked=expected,
+            placed=True, same_rows_as_one_rank=True, launches=launches, wall_ms=wall,
+            wall_ms_runs=runs, peak_bytes=peak, resident_bytes=resident, **extra)
+
+    from dj_tpu_torch.ops.join import EXPAND_KERNELS
+
+    for mode in MODES:
+        os.environ["DJT_JOIN_EXPAND"] = mode
+        cfg = dj.JoinConfig()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = dj.distributed_inner_join(topo, left, lcnt, right, rcnt, [0], [0], cfg)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches, counts = check(f"two-level world, mode={mode}", res, 1,
+                                 ("join_scans", EXPAND_KERNELS[mode]))
+        del res
+        launch_table.setdefault(f"unprepared_{mode}", {})[1] = launches
+        summary[f"{mode}_odf1"] = {"wall_ms_one_run": wall}
+        log("two_level_path", smoke_phase="4e", ranks=WORLD, intra=INTRA, mode=mode, odf=1,
+            counts=counts, total=expected, flags="all False", rows_checked=expected,
+            placed=True, same_rows_as_one_rank=True, launches=launches, wall_ms_one_run=wall)
+    os.environ.pop("DJT_JOIN_EXPAND")
+
+    # distributed_inner_join_auto from pre_shuffle_out_factor 0.5 (and
+    # bucket_factor 1.0, so that the heal, which grows both, lands near
+    # the defaults' sizes at growth 2.5): pre_shuffle_overflow heals.
+    ledger.reset()
+    tight = dj.JoinConfig(pre_shuffle_out_factor=0.5, bucket_factor=1.0)
+    reset_launches()
+    with Attempts() as a:
+        t0 = time.perf_counter()
+        res = dj.distributed_inner_join_auto(topo, left, lcnt, right, rcnt, [0], [0], tight,
+                                             growth=2.5)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    launches, counts = check("4e auto", res, 1, ("join_scans", "expand_values"),
+                             launches_each=WORLD * a.n)
+    if a.n < 2 or not res[3].pre_shuffle_out_factor > 0.5:
+        raise AssertionError(f"4e auto: {a.n} attempts, pre_shuffle_out_factor "
+                             f"{res[3].pre_shuffle_out_factor}: pre_shuffle_overflow did not heal")
+    factors = ("pre_shuffle_out_factor",) + FACTOR_FIELDS
+    launch_table["auto_pre_shuffle"] = {1: launches}
+    log("two_level_auto", smoke_phase="4e", attempts=a.n, growth=2.5,
+        config={f: getattr(tight, f) for f in factors},
+        factors_used={f: getattr(res[3], f) for f in factors}, counts=counts, total=expected,
+        flags="all False", rows_checked=expected, wall_ms=wall, launches=launches, card=smi)
+    del res
+    ledger.reset()  # the two-level world shares the flat world's signature
+
+    cfg = dj.JoinConfig(key_range=(0, 2 * rows))
+    prep_runs = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(4):  # the first warms up, the next three are timed
+        prep = None
+        t0 = time.perf_counter()
+        prep = dj.prepare_join_side(topo, right, rcnt, [0], cfg, left_capacity=rows)
+        torch.cuda.synchronize()
+        prep_runs.append((time.perf_counter() - t0) * 1e3)
+    summary["prepare_odf1"] = {"wall_ms": statistics.median(prep_runs[1:]),
+                               "wall_ms_runs": prep_runs,
+                               "peak_bytes": torch.cuda.max_memory_allocated()}
+    log("two_level_prepare", smoke_phase="4e", ranks=WORLD, intra=INTRA, odf=1,
+        **summary["prepare_odf1"], resident_rows_per_rank_batch=prep.batches[0][0].shape[0] // WORLD)
+    for tier in TIERS:
+        os.environ["DJT_JOIN_MERGE"] = tier
+
+        def query():
+            return dj.distributed_inner_join(topo, left, lcnt, prep, None, [0], None, cfg)
+
+        reset_launches()
+        launches, counts = check(f"two-level world, prepared tier={tier}", query(), 1,
+                                 prepared_effective_plan(tier))
+        launch_table.setdefault(f"prepared_{tier}", {})[1] = launches
+        wall, runs, peak = warm_walls(query)
+        summary[f"prepared_{tier}_odf1"] = {"wall_ms": wall, "wall_ms_runs": runs,
+                                            "peak_bytes": peak}
+        log("two_level_path", smoke_phase="4e", ranks=WORLD, intra=INTRA, prepared_tier=tier,
+            odf=1, counts=counts, total=expected, flags="all False", rows_checked=expected,
+            placed=True, same_rows_as_one_rank=True, launches=launches, wall_ms=wall,
+            wall_ms_runs=runs, peak_bytes=peak)
+    os.environ.pop("DJT_JOIN_MERGE")
+    del prep, left, right
+    log("two_level", smoke_phase="4e", ranks=WORLD, intra=INTRA, device=str(dev),
+        rows_per_rank=rows // WORLD, resident_bytes=resident, **summary, card=smi,
+        shard_digests_odf1=digests, one_card="no link is crossed: the second exchange's "
+        "cost only", seconds=time.perf_counter() - t_phase)
+    return launch_table, digests
+
+
+# GPU-BDB web_clickstreams' four int64 columns (benchmarks/gpubdb_shuffle_on.py)
+# and the ranges each is drawn from.
+CLICK_COLUMNS = (("wcs_user_sk", 0, 10_000_000), ("wcs_item_sk", 0, 400_000),
+                 ("wcs_click_date_sk", 36_890, 38_716), ("wcs_click_time_sk", 0, 86_400))
+
+
+def clickstream_table(dj, dev, rows: int, seed: int, hot: bool = False):
+    """Phase 4f's table: ``rows`` rows of the four web_clickstreams
+    columns drawn from ``seed`` on the device (the repo has no parquet of
+    them); with ``hot``, one row in ten on one wcs_user_sk."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    cols = [torch.randint(lo, hi, (rows,), generator=gen, device=dev)
+            for _, lo, hi in CLICK_COLUMNS]
+    if hot:
+        cols[0][::10] = 4242
+    return dj.Table(tuple(dj.Column(c, dj.dtypes.int64) for c in cols))
+
+
+def row_mix(cols) -> torch.Tensor:
+    """One mixed int64 word per row of int64 columns (shard_digest's)."""
+    h = torch.zeros_like(cols[0])
+    for j, x in enumerate(cols):
+        h = (h ^ x) * MIX[j % 3]
+        h = h ^ (h >> 29)
+    return h
+
+
+def check_shuffled(what: str, res, table, placed) -> list:
+    """A shuffle_on result over the 4 ranks: no overflow, every row on
+    the shard ``placed(keys, r)`` names, and the row multiset of
+    ``table`` (sorted row words equal). Returns the counts."""
+    out, counts, overflow = res[:3]
+    if bool(overflow.any()):
+        raise AssertionError(f"{what}: overflow on shards {overflow.tolist()}")
+    if int(counts.sum()) != table.capacity:
+        raise AssertionError(f"{what}: counts {counts.tolist()} != {table.capacity} rows")
+    cap = out.capacity // WORLD
+    mixes = []
+    for r, n in enumerate(counts.tolist()):
+        cols = [c.data[r * cap : r * cap + n] for c in out.columns]
+        if not bool(placed(cols[0], r).all()):
+            raise AssertionError(f"{what}: a row on shard {r} hashes to another shard")
+        mixes.append(row_mix(cols))
+    got = torch.sort(torch.cat(mixes)).values
+    if not torch.equal(got, torch.sort(row_mix([c.data for c in table.columns])).values):
+        raise AssertionError(f"{what}: the row multiset changed")
+    return counts.tolist()
+
+
+def run_shuffle_on(dj, dev, rows: int, seed: int, smi: str) -> list:
+    """Phase 4f: shuffle_on of a web_clickstreams-shaped table of ``rows``
+    rows on column 0: over phase 4d's world, per axis over 4e's two-level
+    world, and shuffle_on_auto on a skewed copy. Returns the two-level
+    result's shard digests (6b holds its processes to them)."""
+    from dj_tpu_torch.ops.hashing import DEFAULT_HASH_SEED
+    from dj_tpu_torch.parallel import shuffle
+    from dj_tpu_torch.parallel.dist_join import INTER_DOMAIN_SEED
+    from dj_tpu_torch.resilience import ledger
+
+    t_phase = time.perf_counter()
+    table = clickstream_table(dj, dev, rows, seed)
+    flat = dj.make_topology([dev] * WORLD)
+    t, c = dj.shard_table(flat, table)
+
+    def run_flat():
+        return dj.shuffle_on(flat, t, c, [0], with_split_overflow=True)
+
+    counts = check_shuffled("4f flat", run_flat(), table,
+                            lambda k, r: key_hash(k, DEFAULT_HASH_SEED) % WORLD == r)
+    wall, runs, peak = warm_walls(run_flat)
+    log("shuffle_on", smoke_phase="4f", topology="flat", ranks=WORLD, rows=rows,
+        columns=[n for n, _, _ in CLICK_COLUMNS], counts=counts, overflow="all False",
+        placed=True, rows_conserved=True, wall_ms=wall, wall_ms_runs=runs, peak_bytes=peak,
+        card=smi)
+    del t, c
+
+    two = dj.make_topology([dev] * WORLD, intra_size=INTRA)
+    t2, c2 = dj.shard_table(two, table)
+
+    def run_two():
+        a = dj.shuffle_on(two, t2, c2, [0], group=two.group("inter"), seed=INTER_DOMAIN_SEED)
+        if bool(a[2].any()):
+            raise AssertionError(f"4f inter: overflow on shards {a[2].tolist()}")
+        return dj.shuffle_on(two, a[0], a[1], [0], group=two.group("intra"))
+
+    res = run_two()
+    counts = check_shuffled(
+        "4f two-level", res, table,
+        lambda k, r: ((key_hash(k, INTER_DOMAIN_SEED) % (WORLD // INTRA) == r // INTRA)
+                      & (key_hash(k, DEFAULT_HASH_SEED) % INTRA == r % INTRA)))
+    digests = shard_digests(res[0], res[1])
+    del res
+    wall, runs, peak = warm_walls(run_two)
+    log("shuffle_on", smoke_phase="4f", topology=f"{WORLD // INTRA} x {INTRA}",
+        axes=["inter (seed 87654321)", "intra"], ranks=WORLD, rows=rows, counts=counts,
+        overflow="all False", placed=True, rows_conserved=True, wall_ms=wall,
+        wall_ms_runs=runs, peak_bytes=peak, shard_digests=digests, card=smi)
+    del t2, c2, table
+
+    hot = clickstream_table(dj, dev, rows, seed, hot=True)
+    th, ch = dj.shard_table(flat, hot)
+    ledger.reset()
+    calls = []
+    orig = shuffle.shuffle_on
+    shuffle.shuffle_on = lambda *a, **k: calls.append(1) or orig(*a, **k)
+    try:
+        t0 = time.perf_counter()
+        res = dj.shuffle_on_auto(flat, th, ch, [0])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        shuffle.shuffle_on = orig
+    counts = check_shuffled("4f auto", res, hot,
+                            lambda k, r: key_hash(k, DEFAULT_HASH_SEED) % WORLD == r)
+    if len(calls) < 2 or not res[3] > 1.2:
+        raise AssertionError(f"4f auto: {len(calls)} attempts, bucket_factor {res[3]}")
+    log("shuffle_on_auto", smoke_phase="4f", ranks=WORLD, rows=rows, hot_rows=rows // 10,
+        attempts=len(calls), factors_from=[1.2, 1.2], bucket_factor=res[3], out_factor=res[4],
+        counts=counts, overflow="all False", placed=True, rows_conserved=True, wall_ms=wall,
+        card=smi)
+    ledger.reset()
+    del res, th, ch, hot
+    log("shuffle_on_phase", smoke_phase="4f", seconds=time.perf_counter() - t_phase,
+        data="columns drawn from the seed on the card: the repo has no parquet of "
+             "web_clickstreams and the card's machine no pyarrow")
+    return digests
+
+
 # --- process worlds (phases 6a-6c) ---------------------------------------
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -1390,20 +1736,80 @@ def world_rank(spec_json: str) -> int:
             join()
             _sync(dev)
         result["phase_ms"] = phase_runs[-1][0]
+        if spec.get("intra"):
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()  # four processes share the card
+            result["two_level"] = two_level_rank(dj, dev, spec, left, lcnt, right, rcnt)
         print("RESULT " + json.dumps(result), flush=True)
     finally:
         torch.distributed.destroy_process_group()
     return 0
 
 
+def two_level_rank(dj, dev, spec: dict, left, lcnt, right, rcnt) -> dict:
+    """The second half of a process of phase 6b (and 6c) at
+    ``spec["intra"]``: the same blocks joined at odf 1 over a two-level
+    process world (each 'inter' and 'intra' group a torch.distributed
+    subgroup), then phase 4f's table shuffled on column 0 over 'inter'
+    (seed 87654321) and 'intra'; the shard digests, flags, launches, a
+    warm wall and the phase times of each."""
+    from dj_tpu_torch.parallel import spmd
+    from dj_tpu_torch.parallel.dist_join import INTER_DOMAIN_SEED
+
+    topo = dj.make_topology([dev], intra_size=spec["intra"])
+    cfg = dj.JoinConfig()
+
+    def join():
+        return dj.distributed_inner_join(topo, left, lcnt, right, rcnt, [0], [0], cfg)
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        res = fn()
+        _sync(dev)
+        return res, (time.perf_counter() - t0) * 1e3
+
+    reset_launches()
+    (out, counts, info), _ = timed(join)
+    launches = read_launches()
+    result = {"axes": list(topo.axis_names),
+              "groups": [topo.group(a).size for a in topo.axis_names],
+              "digest": shard_digest(out, int(counts[0])),
+              "flags": {k: v.tolist() for k, v in info.items()}, "launches": launches}
+    del out, counts, info
+    result["wall_ms"] = timed(join)[1]
+    with spmd.record_phases() as phase_runs:
+        join()
+        _sync(dev)
+    result["phase_ms"] = phase_runs[-1][0]
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    table = clickstream_table(dj, dev, spec["shuffle_rows"], spec["seed"])
+    t, c = dj.shard_table(topo, table)
+    del table
+
+    def shuffle():
+        a = dj.shuffle_on(topo, t, c, [0], group=topo.group("inter"), seed=INTER_DOMAIN_SEED)
+        b = dj.shuffle_on(topo, a[0], a[1], [0], group=topo.group("intra"))
+        return b, a[2] | b[2]
+
+    (res, ovf), result["shuffle_wall_ms"] = timed(shuffle)
+    result["shuffle_digest"] = shard_digest(res[0], int(res[1][0]))
+    result["shuffle_overflow"] = ovf.tolist()
+    return result
+
+
 def run_process_world(world: int, backend: str, device: str, rows: int, seed: int, *,
                       odf: int = 1, reps: int = 3, timeout: float = 600.0,
-                      local_ranks: bool = False) -> list:
+                      local_ranks: bool = False, intra: Optional[int] = None,
+                      shuffle_rows: int = 0) -> list:
     """Phases 6b and 6c: ``world`` processes of ``world_rank``; returns
     their RESULT objects by rank. Every process must end with code 0 and
-    print one; the flag matrices must be equal on all."""
+    print one; the flag matrices must be equal on all. With ``intra``
+    each process also runs ``two_level_rank`` (``shuffle_rows`` rows of
+    phase 4f's table)."""
     spec = json.dumps({"backend": backend, "device": device, "rows": rows, "seed": seed,
-                       "odf": odf, "reps": reps})
+                       "odf": odf, "reps": reps, "intra": intra,
+                       "shuffle_rows": shuffle_rows})
     code = "import sys, chip_smoke; sys.exit(chip_smoke.world_rank(sys.argv[1]))"
     outs = spawn_world(world, ["-c", code, spec], timeout=timeout, local_ranks=local_ranks)
     results = []
@@ -1417,7 +1823,42 @@ def run_process_world(world: int, backend: str, device: str, rows: int, seed: in
         raise AssertionError(f"ranks {[res['rank'] for res in results]}")
     if any(res["flags"] != results[0]["flags"] for res in results):
         raise AssertionError("the flag matrices differ between processes")
+    if intra and any(res["two_level"]["flags"] != results[0]["two_level"]["flags"]
+                     for res in results):
+        raise AssertionError("the two-level flag matrices differ between processes")
     return results
+
+
+def check_two_level_processes(what: str, results: list, want_digests: Optional[list],
+                              want_shuffle: Optional[list], expected: int,
+                              launches: int) -> None:
+    """The two-level half of each process (``two_level_rank``): flags
+    False, the join's shard digests equal to phase 4e's rank r (when
+    given) and summing to the generator's count, join_scans and
+    expand_values launched ``launches`` times on every process (once on
+    the card), and the shuffle's digests equal to phase 4f's two-level
+    ones (when given), without overflow."""
+    two = [res["two_level"] for res in results]
+    set_flags = [k for k, v in two[0]["flags"].items() if any(v)]
+    if set_flags:
+        raise AssertionError(f"{what} two-level: flags set: {set_flags}")
+    digests = [t["digest"] for t in two]
+    if want_digests is not None and digests != want_digests:
+        raise AssertionError(f"{what} two-level: shard digests {digests} != 4e's {want_digests}")
+    if sum(d[0] for d in digests) != expected:
+        raise AssertionError(f"{what} two-level: shard rows do not sum to {expected}")
+    for r, t in enumerate(two):
+        bad = {k: t["launches"][k] for k in ("join_scans", "expand_values")
+               if t["launches"][k] != launches}
+        if bad:
+            raise AssertionError(f"{what} two-level: rank {r} launched {bad}, not {launches} "
+                                 f"each")
+        if any(t["shuffle_overflow"]):
+            raise AssertionError(f"{what} two-level: shuffle_on overflow {t['shuffle_overflow']}")
+    shuffled = [t["shuffle_digest"] for t in two]
+    if want_shuffle is not None and shuffled != want_shuffle:
+        raise AssertionError(f"{what} two-level: shuffle digests {shuffled} != 4f's "
+                             f"{want_shuffle}")
 
 
 def check_process_world(what: str, results: list, want_digests: Optional[list],
@@ -2175,6 +2616,13 @@ def main() -> int:
     world_launches, world_digests = run_world(dj, dev, build, probe, expected, ref, rows, smi)
     torch.cuda.empty_cache()
 
+    # 4e. the same 4 ranks as 2 domains of 2; 4f. shuffle_on
+    two_level_launches, two_level_digests = run_two_level(dj, dev, build, probe, expected, ref,
+                                                          rows, smi)
+    torch.cuda.empty_cache()
+    shuffle_digests = run_shuffle_on(dj, dev, rows, args.seed, smi)
+    torch.cuda.empty_cache()
+
     # 5. prepared path: prepare once, query under each merge tier
     prep_walls, query_walls = {}, {}
     for odf in (1, 4):
@@ -2261,9 +2709,14 @@ def main() -> int:
     del ref
     torch.cuda.empty_cache()
 
-    # 6b. four processes on this card over gloo, phase 4d's blocks
-    process4 = run_process_world(WORLD, "gloo", "cuda", rows, args.seed)
+    # 6b. four processes on this card over gloo, phase 4d's blocks, then
+    # the same processes as 2 domains of 2 (4e's join, 4f's shuffle)
+    t_6b = time.perf_counter()
+    parent_bytes = torch.cuda.memory_reserved()
+    process4 = run_process_world(WORLD, "gloo", "cuda", rows, args.seed, intra=INTRA,
+                                 shuffle_rows=rows)
     check_process_world("6b", process4, world_digests, expected, 1)
+    check_two_level_processes("6b", process4, two_level_digests, shuffle_digests, expected, 1)
     log("process_world", smoke_phase="6b", backend="gloo", ranks=WORLD, device=str(dev),
         transport=process4[0]["transport"], host_staged_calls=process4[0]["host_staged_calls"],
         rows_per_rank=rows // WORLD, odf=1, flags="all False", total=expected,
@@ -2274,15 +2727,34 @@ def main() -> int:
         phase_ms_by_rank=[res["phase_ms"] for res in process4],
         peak_bytes_by_rank=[res["peak_bytes"] for res in process4],
         launches_by_rank=[res["launches"] for res in process4], card=smi)
+    two = [res["two_level"] for res in process4]
+    log("process_world_two_level", smoke_phase="6b", backend="gloo", ranks=WORLD, intra=INTRA,
+        axes=two[0]["axes"], groups=two[0]["groups"], odf=1, flags="all False",
+        digests=[t["digest"] for t in two], digests_equal_phase_4e=True,
+        shuffle_digests=[t["shuffle_digest"] for t in two], shuffle_digests_equal_phase_4f=True,
+        wall_ms_by_rank=[t["wall_ms"] for t in two],
+        pre_shuffle_ms_by_rank=[pre_shuffle_ms(t["phase_ms"]) for t in two],
+        phase_ms_by_rank=[t["phase_ms"] for t in two],
+        shuffle_wall_ms_by_rank=[t["shuffle_wall_ms"] for t in two],
+        launches_by_rank=[t["launches"] for t in two], seconds=time.perf_counter() - t_6b,
+        parent_reserved_bytes=parent_bytes, card=smi)
 
-    # 6c. an NCCL world of one process per card, phase 4d's rows a rank
+    # 6c. an NCCL world of one process per card, phase 4d's rows a rank,
+    # at 4e's intra size when the cards factor by it
     cards = torch.cuda.device_count()
     process_n = None
+    intra_n = INTRA if cards > INTRA and cards % INTRA == 0 else None
     if cards >= 2:
         process_n = run_process_world(cards, "nccl", "cuda", cards * (rows // WORLD), args.seed,
-                                      local_ranks=True)
+                                      local_ranks=True, intra=intra_n,
+                                      shuffle_rows=cards * (rows // WORLD) if intra_n else 0)
         check_process_world("6c", process_n, world_digests if cards == WORLD else None,
                             process_n[0]["expected"], 1)
+        if intra_n:
+            check_two_level_processes("6c", process_n,
+                                      two_level_digests if cards == WORLD else None,
+                                      shuffle_digests if cards == WORLD else None,
+                                      process_n[0]["expected"], 1)
         log("process_world", smoke_phase="6c", backend="nccl", ranks=cards,
             transport=process_n[0]["transport"], rows_per_rank=rows // WORLD, odf=1,
             flags="all False", total=process_n[0]["expected"],
@@ -2294,7 +2766,8 @@ def main() -> int:
     else:
         log("process_world", smoke_phase="6c", started=False,
             why=f"this machine has {cards} card; an NCCL world of one process per card needs "
-                f"2 or more (NCCL refuses two ranks on one GPU)")
+                f"2 or more (NCCL refuses two ranks on one GPU), and its two-level half "
+                f"(intra {INTRA}, NCCL subgroups) {2 * INTRA} or more")
 
     # 6. the prepared path's kernels on edge cases
     merge_errs, ranks_errs = [merge_err], [ranks_err]
@@ -2565,6 +3038,10 @@ def main() -> int:
     for k in kernels:
         on_path = bool(k["launches_per_query"])
         k["launches_world4"] = per_query(k["name"], world_launches) if on_path else {}
+        k["launches_world4_two_level"] = (per_query(k["name"], two_level_launches)
+                                          if on_path else {})
+        k["launches_process4_gloo_two_level_by_rank"] = (
+            [res["two_level"]["launches"][k["name"]] for res in process4] if on_path else [])
         k["launches_process1_nccl"] = per_query(k["name"], process1_launches) if on_path else {}
         k["launches_process4_gloo_by_rank"] = (
             [res["launches"][k["name"]] for res in process4] if on_path else [])

@@ -1,11 +1,14 @@
 """dj_tpu_torch: the distributed inner join on PyTorch and CUDA.
 
 A port of the JAX package ``dj_tpu`` to an NVIDIA H100 (Hopper). Plain
-tensor code is PyTorch; each TPU kernel on the ported paths has a
-hand-written CUDA counterpart in ``csrc/`` (join_scans, expand_values,
-merge_sorted_u64, expand_ranks), built with nvcc at first use. Entry
-points run on the current CUDA device unless given CPU tensors or a CPU
-topology, where each kernel's plain PyTorch version runs instead.
+tensor code is PyTorch; each TPU kernel of the JAX package has a
+hand-written CUDA counterpart in ``csrc/``, built with nvcc at first
+use: the join's join_scans, expand_values, expand_ranks,
+merge_sorted_u64, expand_carry, expand_gather, expand_join and
+expand_vfull, and the hardware probes' tile_sort and gathers
+(take_gather, cluster_gather). Entry points run on the current CUDA
+device unless given CPU tensors or a CPU topology, where each kernel's
+plain PyTorch version runs instead.
 
 Ported so far: the unprepared inner join (generate -> shard
 -> distributed_inner_join), and the prepared build side
@@ -23,6 +26,15 @@ and each entry point returns this rank's block with every rank's flags.
 The collectives' backend is ``JoinConfig.communicator_cls``:
 ``XlaCommunicator`` (the default), ``BufferedCommunicator`` or
 ``RingCommunicator``, as in dj_tpu.
+
+Any of these worlds may be two-level: ``make_topology(...,
+intra_size=i)`` factors the ranks into ('inter', 'intra') groups
+(``largest_intra_size`` gives the reference's choice of i), and every
+join path then pre-shuffles both sides over 'inter'
+(``JoinConfig.pre_shuffle_out_factor``, the ``pre_shuffle_overflow``
+flag) before its main stage over 'intra'. ``shuffle_on`` hash-shuffles
+a sharded table over the world or over one axis, and ``shuffle_on_auto``
+heals its overflows.
 
 The join takes every fixed-width key dj_tpu takes: signed and unsigned
 ints of any width (uint64 included), floats, two dtypes per key pair and
@@ -53,11 +65,34 @@ from .core.table import (
     to_strings,
 )
 from .data.generator import generate_build_probe_tables, generate_tables_distributed
+from .ops.hashing import (
+    DEFAULT_HASH_SEED,
+    HASH_IDENTITY,
+    HASH_MURMUR3,
+    hash_columns,
+    murmur3_32,
+)
 from .ops.join import inner_join
 from .ops.partition import hash_partition
-from .parallel.api import shard_table, unshard_table
-from .parallel.bootstrap import init_distributed, process_count, process_index
-from .parallel.communicator import BufferedCommunicator, RingCommunicator, XlaCommunicator
+from .parallel.api import (
+    collect_tables,
+    distribute_table,
+    shard_table,
+    shard_table_pieces,
+    unshard_table,
+)
+from .parallel.bootstrap import (
+    init_distributed,
+    is_distributed_initialized,
+    process_count,
+    process_index,
+)
+from .parallel.communicator import (
+    BufferedCommunicator,
+    Communicator,
+    RingCommunicator,
+    XlaCommunicator,
+)
 from .parallel.dist_join import (
     JoinConfig,
     PreparedSide,
@@ -65,36 +100,54 @@ from .parallel.dist_join import (
     distributed_inner_join_auto,
     prepare_join_side,
 )
-from .parallel.topology import Topology, make_topology
+from .parallel.shuffle import shuffle_on, shuffle_on_auto
+from .parallel.topology import CommunicationGroup, Topology, largest_intra_size, make_topology
 from . import resilience
 from .resilience import (
+    AdmissionRejected,
+    BackendError,
     CapacityExhausted,
+    ContractViolation,
     DeadlineExceeded,
     DJError,
+    FaultInjected,
     HealBudget,
     PlanMismatch,
     PreparedPlanMismatch,
+    QueueFull,
     deadline_scope,
 )
 
 __all__ = [
+    "AdmissionRejected",
+    "BackendError",
     "BufferedCommunicator",
     "CapacityExhausted",
     "Column",
+    "CommunicationGroup",
+    "Communicator",
+    "ContractViolation",
+    "DEFAULT_HASH_SEED",
     "DJError",
     "DeadlineExceeded",
+    "FaultInjected",
+    "HASH_IDENTITY",
+    "HASH_MURMUR3",
     "HealBudget",
     "JoinConfig",
     "PlanMismatch",
     "PreparedPlanMismatch",
     "PreparedSide",
+    "QueueFull",
     "RingCommunicator",
     "StringColumn",
     "Table",
     "Topology",
     "XlaCommunicator",
+    "collect_tables",
     "concatenate",
     "deadline_scope",
+    "distribute_table",
     "distributed_inner_join",
     "distributed_inner_join_auto",
     "dtypes",
@@ -102,15 +155,22 @@ __all__ = [
     "from_strings",
     "generate_build_probe_tables",
     "generate_tables_distributed",
+    "hash_columns",
     "hash_partition",
     "init_distributed",
     "inner_join",
+    "is_distributed_initialized",
+    "largest_intra_size",
     "make_topology",
+    "murmur3_32",
     "prepare_join_side",
     "process_count",
     "process_index",
     "resilience",
     "shard_table",
+    "shard_table_pieces",
+    "shuffle_on",
+    "shuffle_on_auto",
     "to_strings",
     "unshard_table",
 ]

@@ -80,7 +80,7 @@ def prepared_side_from(prepared, topology: Topology) -> PreparedSide:
     through ``np.asarray``."""
     tier = getattr(prepared, "tier", "shuffle")
     if tier != "shuffle":
-        raise NotImplementedError(f"prepared tier {tier!r} comes with ROADMAP queue 1 item 7")
+        raise NotImplementedError(f"prepared tier {tier!r} comes with ROADMAP queue 1 item 7b")
     dev = topology.device
 
     def tensor(a, dtype=None):

@@ -105,6 +105,23 @@ def rank_seed(seed: int, rank: int) -> int:
     return int(np.random.SeedSequence((seed, rank)).generate_state(1, np.uint64)[0])
 
 
+def _exchange_chunks(comm, bufs: list) -> list:
+    """The flat world's equal-chunk all-to-all of [w, c] buffers (row j
+    to world rank j, row i of the result from world rank i). On a
+    two-level topology it is composed of one exchange per axis, as
+    dj_tpu composes its per-axis all_to_alls: chunk (a, b) goes over
+    'inter' to domain a, then over 'intra' to rank b of it."""
+    if "inter" not in comm.axes:
+        return comm.exchange(bufs)
+    inter, intra = comm.sub("inter"), comm.sub("intra")
+    ni, nj = inter.size, intra.size
+    # z[a, b] = the chunk for (my domain, b) from (a, my intra rank)
+    z = inter.exchange([b.reshape(ni, nj, -1) for b in bufs])
+    # u[b, a] = the chunk for me from (a, b)
+    u = intra.exchange([x.transpose(0, 1).contiguous() for x in z])
+    return [x.transpose(0, 1).reshape(ni * nj, -1) for x in u]
+
+
 def generate_tables_distributed(
     topology: Topology,
     build_nrows_per_shard: int,
@@ -125,7 +142,8 @@ def generate_tables_distributed(
     ids); then equal chunks go all-to-all, so every shard holds a uniform
     sample (dj_tpu/data/generator.py:162-255). Returns (build,
     build_counts, probe, probe_counts) as sharded tables, every row valid;
-    in a process world, this rank's block. Keys are unique within a rank
+    in a process world, this rank's block. A two-level topology gives the
+    same shards as the flat one. Keys are unique within a rank
     when ``uniq_build_tbl_keys`` and disjoint across ranks, so the join's
     total is the sum of the ranks' exact expected counts.
     """
@@ -134,7 +152,7 @@ def generate_tables_distributed(
         raise ValueError("per-shard row counts must divide by the world size for equal chunks")
 
     def body(comm):
-        r = comm.rank()
+        r = comm.world_rank()
         gen = torch.Generator(device=topology.device).manual_seed(rank_seed(seed, r))
         build, probe = generate_build_probe_tables(
             gen, build_nrows_per_shard, probe_nrows_per_shard, selectivity,
@@ -149,7 +167,7 @@ def generate_tables_distributed(
         cols = shifted(build, r * build_nrows_per_shard) + shifted(probe, r * probe_nrows_per_shard)
         del build, probe
         # Equal-chunk all-to-all: chunk j of shard i goes to shard j.
-        got = comm.exchange([c.reshape(w, -1) for c in cols])
+        got = _exchange_chunks(comm, [c.reshape(w, -1) for c in cols])
         bk, bp, pk, pp = (g.reshape(-1) for g in got)
 
         def table(k, p):

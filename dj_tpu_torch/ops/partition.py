@@ -1,6 +1,6 @@
 """hash_partition: reorder a table by key-hash partition id.
 
-Counterpart of ``dj_tpu/ops/partition.py:30-172``. Partition id =
+Counterpart of ``dj_tpu/ops/partition.py:30-176``. Partition id =
 murmur3(key row, seed) % npartitions; padding rows get id ==
 npartitions so they sort to the tail and enter no partition. The
 reorder is one stable sort of the ids whose permutation gathers every
@@ -71,3 +71,8 @@ def hash_partition(
     pid = partition_ids(table, on_columns, npartitions, seed, hash_function)
     return partition_by_ids(table, pid, npartitions)
 
+
+
+def partition_counts(offsets: torch.Tensor) -> torch.Tensor:
+    """Per-partition row counts from an offsets vector."""
+    return torch.diff(offsets)

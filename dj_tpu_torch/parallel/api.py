@@ -155,3 +155,8 @@ def _unshard_strings(c: StringColumn, counts_h: list, cap: int) -> StringColumn:
         base += nb
     merged = torch.cat(chars) if base else torch.zeros(1, dtype=torch.uint8, device=c.device)
     return StringColumn(torch.cat(offs), merged, c.dtype)
+
+
+# The reference's names for the same pair (dj_tpu/parallel/api.py:245-246).
+distribute_table = shard_table
+collect_tables = unshard_table

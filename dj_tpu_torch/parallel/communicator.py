@@ -11,10 +11,15 @@ Two layers. A *transport* is how this rank reaches its peers:
 - ``SingleRankTransport``: the world of one rank; every collective is
   the identity (a copy);
 - ``InProcessTransport``: ranks that run as threads of this process
-  (``parallel.spmd``); each collective is a rendezvous of the world;
+  (``parallel.spmd``); each collective is a rendezvous of the group;
 - ``DistTransport``: one rank per process over ``torch.distributed``
   (NCCL on the card, gloo on the CPU): ``all_to_all_single``,
-  ``all_gather_into_tensor``, ``all_reduce`` and ``batch_isend_irecv``.
+  ``all_gather_into_tensor``, ``all_reduce`` and ``batch_isend_irecv``,
+  over the default process group or a subgroup's.
+
+On a two-level topology a rank has one communicator per axis ('inter'
+and 'intra', each over its own group's transport); ``Communicator.sub``
+reaches the other axis's, and both share the rank's ``PhaseClock``.
 
 A *backend* is how an all-to-all is cut into transport calls, dj_tpu's
 three: ``XlaCommunicator`` (one call, the default), ``BufferedCommunicator``
@@ -30,6 +35,7 @@ then runs on the backend's stream meanwhile.
 from __future__ import annotations
 
 import abc
+import contextlib
 import functools
 import threading
 import time
@@ -38,7 +44,7 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from .topology import CommunicationGroup
+from .topology import INTER, INTRA, CommunicationGroup
 
 
 class PhaseClock:
@@ -54,6 +60,7 @@ class PhaseClock:
     def __init__(self, device: torch.device):
         self.device = device
         self.label: Optional[str] = None
+        self.scope: Optional[str] = None  # set: marks are named "<scope>/<label>"
         self._marks: list = []
 
     def _stamp(self):
@@ -64,6 +71,8 @@ class PhaseClock:
         return ev
 
     def mark(self, label: str) -> None:
+        if self.scope is not None:
+            label = f"{self.scope}/{label}"
         self.label = label
         self._marks.append((label, self._stamp()))
 
@@ -85,8 +94,6 @@ class PhaseClock:
             gap = a.elapsed_time(b) if self.device.type == "cuda" else (b - a) * 1e3
             out[label] = out.get(label, 0.0) + gap
         return out
-
-
 
 
 class Pending:
@@ -188,8 +195,10 @@ def _unwire(w: torch.Tensor, like: torch.Tensor, shape) -> torch.Tensor:
 
 
 class DistTransport(Transport):
-    """This process's rank of a process world, over ``torch.distributed``'s
-    default process group. Under NCCL every call
+    """This process's rank of a process world, over ``torch.distributed``:
+    the default process group, or ``group`` (a subgroup's ProcessGroup,
+    ``topology.process_subgroups``), where the rank and the peers are
+    the group's own. Under NCCL every call
     takes the card's tensors as they are, and so do gloo's collectives.
     gloo's point-to-point send on a CUDA tensor aborts the process (its
     TCP pair writes from the device pointer: ``gloo::IoException ...
@@ -197,11 +206,12 @@ class DistTransport(Transport):
     moves ``shift`` through host copies; ``host_staged`` names the calls
     it stages."""
 
-    def __init__(self, device: torch.device):
-        super().__init__(dist.get_world_size())
+    def __init__(self, device: torch.device, group=None):
+        super().__init__(dist.get_world_size(group))
         self.device = device
-        self._rank = dist.get_rank()
-        self.name = str(dist.get_backend())
+        self.pg = group
+        self._rank = dist.get_rank(group)
+        self.name = str(dist.get_backend(group))
         cuda_gloo = self.name == "gloo" and device.type == "cuda"
         self.host_staged = ("shift",) if cuda_gloo else ()
 
@@ -211,7 +221,7 @@ class DistTransport(Transport):
     def all_to_all_start(self, buckets: torch.Tensor) -> Pending:
         send = _wire(buckets, buckets.shape[0])
         recv = torch.empty_like(send)
-        work = dist.all_to_all_single(recv, send, async_op=True)
+        work = dist.all_to_all_single(recv, send, group=self.pg, async_op=True)
 
         def finish():
             work.wait()
@@ -222,7 +232,7 @@ class DistTransport(Transport):
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         send = _wire(x, 1).reshape(-1)
         recv = send.new_empty((self.size * send.numel(),))
-        dist.all_gather_into_tensor(recv, send)
+        dist.all_gather_into_tensor(recv, send, group=self.pg)
         return _unwire(recv, x, (self.size,) + tuple(x.shape))
 
     def all_reduce(self, x: torch.Tensor, op: str) -> torch.Tensor:
@@ -232,11 +242,15 @@ class DistTransport(Transport):
             # wraps the same in either view.
             v = x.view(torch.int64)
             y = v ^ _INT64_MIN if op == "max" else v.clone()
-            dist.all_reduce(y, rop)
+            dist.all_reduce(y, rop, group=self.pg)
             return (y ^ _INT64_MIN if op == "max" else y).view(torch.uint64)
         y = x.to(_REDUCE_AS.get(x.dtype, x.dtype), copy=True)
-        dist.all_reduce(y, rop)
+        dist.all_reduce(y, rop, group=self.pg)
         return y.to(x.dtype)
+
+    def _global(self, peer: int) -> int:
+        """A peer's rank in the default group, which P2POp takes."""
+        return peer if self.pg is None else dist.get_global_rank(self.pg, peer)
 
     def shift_start(self, x: torch.Tensor, s: int) -> Pending:
         if s % self.size == 0 and self.name == "gloo":
@@ -246,8 +260,8 @@ class DistTransport(Transport):
         recv = torch.empty_like(send)
         r, n = self._rank, self.size
         works = dist.batch_isend_irecv([
-            dist.P2POp(dist.isend, send, (r + s) % n),
-            dist.P2POp(dist.irecv, recv, (r - s) % n),
+            dist.P2POp(dist.isend, send, self._global((r + s) % n), self.pg),
+            dist.P2POp(dist.irecv, recv, self._global((r - s) % n), self.pg),
         ])
 
         def finish():
@@ -268,6 +282,9 @@ class Communicator(abc.ABC):
         self.group = group
         self.transport = transport
         self.fuse_columns = fuse_columns
+        # {axis name: this rank's communicator on that axis}, set by
+        # run_spmd on a two-level topology; empty on a flat one.
+        self.axes: dict = {}
 
     @property
     def size(self) -> int:
@@ -287,9 +304,42 @@ class Communicator(abc.ABC):
         if self.clock is not None:
             self.clock.mark(label)
 
+    @contextlib.contextmanager
+    def phase_scope(self, label: str):
+        """Phase ``label`` for the body: the phases marked inside it, on
+        any axis's communicator of this rank, are named
+        ``"<label>/<phase>"``."""
+        self.phase(label)
+        clock = self.clock
+        if clock is not None:
+            clock.scope = label
+        try:
+            yield
+        finally:
+            if clock is not None:
+                clock.scope = None
+
     def rank(self) -> int:
         """This rank's index in the group."""
         return self.transport.rank()
+
+    def sub(self, axis_name: str) -> "Communicator":
+        """This rank's communicator on ``axis_name``: its own axis, or on
+        a two-level topology the other one."""
+        if axis_name == self.group.axis_name:
+            return self
+        if axis_name not in self.axes:
+            raise ValueError(f"no {axis_name!r} group on this rank's topology")
+        return self.axes[axis_name]
+
+    def world_rank(self) -> int:
+        """This rank's index in the world: inter index * intra size +
+        intra index on a two-level topology, the group rank on a flat
+        one."""
+        if INTER in self.axes:
+            intra = self.axes[INTRA]
+            return self.axes[INTER].rank() * intra.size + intra.rank()
+        return self.rank()
 
     def _check(self, buckets: torch.Tensor) -> None:
         if buckets.dim() == 0 or buckets.shape[0] != self.size:
@@ -458,42 +508,68 @@ class InProcessWorld:
 
     ``cond`` holds the world lock: a rank holds it while it runs and
     releases it only while it waits at a rendezvous, so one rank's work
-    is issued at a time. At a rendezvous every rank deposits a value and
-    waits until all ``size`` ranks have; each then reads the deposits of
-    that rendezvous. A rank that fails calls ``abort``, which wakes every
-    waiting rank with ``WorldAborted``; a wait that outlasts ``timeout``
-    seconds, or that a returned rank can no longer complete, aborts the
-    world too, so no rank waits forever."""
+    is issued at a time. Each communication group of the world (the
+    whole world, or on a two-level topology each 'inter' and 'intra'
+    group, ``group(members)``) has its own rendezvous state under that
+    one lock. A rank that fails calls ``abort``, which wakes every
+    waiting rank of every group with ``WorldAborted``; a wait that
+    outlasts ``timeout`` seconds, or that a returned member of its group
+    can no longer complete, aborts the world too, so no rank waits
+    forever."""
 
     def __init__(self, size: int, timeout: float):
         self.size = size
         self.timeout = timeout
         self.cond = threading.Condition(threading.Lock())
-        self._slots: list = [None] * size
+        self.error: Optional[BaseException] = None
+        self.returned: list[int] = []
+
+    def group(self, members: Sequence[int]) -> "InProcessGroup":
+        """A group of the world ranks ``members``; a member's rank in it is
+        its index there."""
+        return InProcessGroup(self, members)
+
+    def abort(self, error: BaseException) -> None:
+        """Fail every rendezvous from now on (caller holds ``cond``)."""
+        if self.error is None:
+            self.error = error
+        self.cond.notify_all()
+
+    def rank_returned(self, rank: int) -> None:
+        """World rank ``rank``'s body returned (caller holds ``cond``)."""
+        self.returned.append(rank)
+        self.cond.notify_all()
+
+
+
+class InProcessGroup:
+    """The rendezvous state of one communication group of an
+    ``InProcessWorld``: at a rendezvous every member deposits a value
+    and waits until all ``size`` members have; each then reads the
+    deposits of that rendezvous."""
+
+    def __init__(self, world: InProcessWorld, members: Sequence[int]):
+        self.world = world
+        self.members = tuple(members)
+        self.size = len(self.members)
+        self._slots: list = [None] * self.size
         self._arrived = 0
         self._gen = 0
         self._done: Optional[list] = None  # the deposits of the last rendezvous
         self._reads = 0
-        self._error: Optional[BaseException] = None
-        self._returned: list[int] = []
 
-    def abort(self, error: BaseException) -> None:
-        """Fail every rendezvous from now on (caller holds ``cond``)."""
-        if self._error is None:
-            self._error = error
-        self.cond.notify_all()
-
-    def rank_returned(self, rank: int) -> None:
-        """Rank ``rank``'s body returned (caller holds ``cond``)."""
-        self._returned.append(rank)
-        self.cond.notify_all()
+    def _members_returned(self) -> list[int]:
+        return [m for m in self.world.returned if m in self.members]
 
     def rendezvous(self, rank: int, value) -> list:
-        """Deposit ``value`` and wait for every rank's; returns the list
-        of deposits by rank. The caller holds ``cond``, reads what it
-        needs, then calls ``read_done``."""
-        if self._error is not None:
-            raise WorldAborted(f"rank {rank}: the world was aborted") from self._error
+        """Deposit ``value`` as member ``rank`` and wait for every
+        member's; returns the list of deposits by member. The caller
+        holds the world's ``cond``, reads what it needs, then calls
+        ``read_done``."""
+        world = self.world
+        me = self.members[rank]
+        if world.error is not None:
+            raise WorldAborted(f"rank {me}: the world was aborted") from world.error
         gen = self._gen
         self._slots[rank] = value
         self._arrived += 1
@@ -501,49 +577,51 @@ class InProcessWorld:
             self._done, self._slots = self._slots, [None] * self.size
             self._arrived = self._reads = 0
             self._gen += 1
-            self.cond.notify_all()
+            world.cond.notify_all()
         else:
-            self.cond.wait_for(
-                lambda: self._gen != gen or self._error is not None or bool(self._returned),
-                self.timeout,
+            world.cond.wait_for(
+                lambda: (self._gen != gen or world.error is not None
+                         or bool(self._members_returned())),
+                world.timeout,
             )
             if self._gen == gen:
-                if self._error is None:
-                    why = (f"rank(s) {self._returned} returned" if self._returned
-                           else f"no completion within {self.timeout} s")
+                if world.error is None:
+                    gone = self._members_returned()
+                    why = (f"rank(s) {gone} returned" if gone
+                           else f"no completion within {world.timeout} s")
                     err = RuntimeError(
-                        f"rank {rank}: rendezvous {gen} cannot complete: {self._arrived} of "
-                        f"{self.size} ranks arrived and {why}"
+                        f"rank {me}: rendezvous {gen} of group {list(self.members)} cannot "
+                        f"complete: {self._arrived} of {self.size} ranks arrived and {why}"
                     )
-                    self.abort(err)
+                    world.abort(err)
                     raise err
-                raise WorldAborted(f"rank {rank}: the world was aborted") from self._error
+                raise WorldAborted(f"rank {me}: the world was aborted") from world.error
         return self._done  # type: ignore[return-value]
 
     def read_done(self) -> None:
-        """A rank has read the last rendezvous; the last reader drops the
-        deposits, so no send buffer outlives its exchange."""
+        """A member has read the last rendezvous; the last reader drops
+        the deposits, so no send buffer outlives its exchange."""
         self._reads += 1
         if self._reads == self.size:
             self._done = None
 
 
 class InProcessTransport(Transport):
-    """One rank of a world whose ranks are threads of this process, all
+    """One rank of a group whose ranks are threads of this process, all
     on one device (``parallel.spmd.run_spmd``). Each collective is a
-    rendezvous of the world: rank r deposits its tensor, waits for every
-    peer's, and reads its own part of each (``all_to_all`` gives
+    rendezvous of its ``InProcessGroup``: rank r deposits its tensor,
+    waits for every peer's, and reads its own part of each (``all_to_all`` gives
     ``out[p] = sent_by_peer_p[r]``), so every call completes when it
     returns. The result is a new tensor, never a view of a peer's
     buffer."""
 
     name = "in-process"
 
-    def __init__(self, world: InProcessWorld, rank: int):
-        if not 0 <= rank < world.size:
-            raise ValueError(f"rank {rank} of a world of {world.size}")
-        super().__init__(world.size)
-        self.world = world
+    def __init__(self, group: InProcessGroup, rank: int):
+        if not 0 <= rank < group.size:
+            raise ValueError(f"rank {rank} of a group of {group.size}")
+        super().__init__(group.size)
+        self.group = group
         self._rank = rank
 
     def rank(self) -> int:
@@ -552,11 +630,11 @@ class InProcessTransport(Transport):
     def _collective(self, x: torch.Tensor, read):
         if self.clock is not None:
             self.clock.pause()
-        deposits = self.world.rendezvous(self._rank, x)
+        deposits = self.group.rendezvous(self._rank, x)
         if self.clock is not None:
             self.clock.resume()
         out = read(deposits)
-        self.world.read_done()
+        self.group.read_done()
         return out
 
     def all_to_all_start(self, buckets: torch.Tensor) -> Pending:

@@ -1,14 +1,21 @@
 """distributed_inner_join: partition, exchange per batch, join, concat.
 
-Counterpart of ``dj_tpu/parallel/dist_join.py`` for the unprepared join
-on a flat topology (``JoinConfig``, ``batch_sizing``,
-``_local_join_pipeline``, ``_masked_minmax``, ``_resolve_key_range``,
-``distributed_inner_join``). Each rank of the world runs the pipeline
-on its own shard (``parallel.spmd.run_spmd``, the counterpart of
-dj_tpu's ``shard_map``), with a communicator over the world:
+Counterpart of ``dj_tpu/parallel/dist_join.py`` for the join on its
+shuffle tier (``JoinConfig``, ``batch_sizing``, ``_local_join_pipeline``,
+``_masked_minmax``, ``_resolve_key_range``, ``distributed_inner_join``).
+Each rank of the world runs the pipeline on its own shard
+(``parallel.spmd.run_spmd``, the counterpart of dj_tpu's ``shard_map``),
+with a communicator over the main group: the world on a flat topology,
+the rank's 'intra' group on a two-level one.
 
-1. hash-partition both tables into world * over_decom_factor parts
-   (seed 12345678, the reference's);
+0. on a two-level topology only, the hierarchical pre-shuffle
+   (``dj_pre_shuffle``): both tables hash-partitioned by seed 87654321
+   over the 'inter' group and exchanged in one epoch into
+   ``pre_shuffle_out_factor`` times their capacity (the
+   ``pre_shuffle_overflow`` flag when too small), so the main stage's
+   keys stay inside their intra domain;
+1. hash-partition both tables into n * over_decom_factor parts, n the
+   main group's size (seed 12345678, the reference's);
 2. per batch: exchange one batch of partitions (both tables in one
    epoch), then the local inner join. Batch b+1's exchange is issued
    before batch b's join and finished when its own join starts, as
@@ -69,11 +76,16 @@ from ..resilience import heal as heal_engine
 from ..resilience import ledger as dj_ledger
 from ..resilience.errors import PreparedPlanMismatch
 from ..resilience.heal import HealBudget
+from ..ops import hashing
 from .all_to_all import shuffle_table, shuffle_table_start, shuffle_tables_start
 from .communicator import Communicator, XlaCommunicator
+from .shuffle import _local_shuffle, _local_shuffle_pair
 from .spmd import run_spmd
-from .topology import Topology
+from .topology import INTER, Topology
 
+# The reference's two-level seed split: the inter-domain pre-shuffle and
+# the main stage's partition are independent.
+INTER_DOMAIN_SEED = 87654321
 MAIN_JOIN_SEED = 12345678
 
 _FLAG_KEYS = (
@@ -95,6 +107,8 @@ class JoinConfig:
     bucket_factor: slack on the mean partition size for the exchange.
     join_out_factor: per-batch join output capacity as a multiple of the
       received batch capacity.
+    pre_shuffle_out_factor: output capacity of the inter-domain
+      pre-shuffle (two-level topologies) as a multiple of the input's.
     char_out_factor: join-output char capacity of each string column, as
       a multiple of its input char capacity (raise it when the join
       duplicates string rows).
@@ -108,6 +122,7 @@ class JoinConfig:
     over_decom_factor: int = 1
     bucket_factor: float = 2.0
     join_out_factor: float = 1.0
+    pre_shuffle_out_factor: float = 1.5
     char_out_factor: float = 1.0
     key_range: Optional[tuple] = None
     fuse_columns: Optional[bool] = None
@@ -141,8 +156,27 @@ def _local_join_pipeline(
     right_on: Sequence[int], config: JoinConfig, l_cap: int, r_cap: int,
     key_range: Optional[tuple] = None,
 ):
-    """One rank's pipeline: partition, then exchange + join per batch,
-    over the world's communicator ``comm``."""
+    """One rank's pipeline: on a two-level topology the pre-shuffle over
+    'inter', then partition and exchange + join per batch over the main
+    group's communicator ``comm``."""
+    dev = left.device
+    no = torch.tensor(False, device=dev)
+    pre_ovf = no
+    if INTER in comm.axes:
+        inter = comm.sub(INTER)
+        l_pre_cap = max(1, int(l_cap * config.pre_shuffle_out_factor))
+        r_pre_cap = max(1, int(r_cap * config.pre_shuffle_out_factor))
+        # Both tables' pre-shuffles share one epoch.
+        with comm.phase_scope("dj_pre_shuffle"):
+            (left, _, l_ovf, _), (right, _, r_ovf, _) = _local_shuffle_pair(
+                left, right, inter, left_on, right_on, hashing.HASH_MURMUR3,
+                INTER_DOMAIN_SEED,
+                max(1, int(l_cap * config.bucket_factor / inter.size)),
+                max(1, int(r_cap * config.bucket_factor / inter.size)),
+                l_pre_cap, r_pre_cap,
+            )
+        pre_ovf = l_ovf | r_ovf
+        l_cap, r_cap = l_pre_cap, r_pre_cap
     n = comm.size
     m, _, _, bl, br, batch_out_cap = batch_sizing(config, n, l_cap, r_cap)
     comm.phase("dj_partition")
@@ -165,8 +199,6 @@ def _local_join_pipeline(
             [n * bl, n * br],
         )
 
-    dev = left.device
-    no = torch.tensor(False, device=dev)
     shuffle_ovf = join_ovf = char_ovf = pack_ovf = coll = no
     batch_results = []
     odf = config.over_decom_factor
@@ -196,7 +228,7 @@ def _local_join_pipeline(
     comm.phase("dj_concat")
     out = batch_results[0] if len(batch_results) == 1 else concatenate(batch_results)
     flags = {
-        "pre_shuffle_overflow": no,
+        "pre_shuffle_overflow": pre_ovf,
         "shuffle_overflow": shuffle_ovf,
         "join_overflow": join_ovf,
         "char_overflow": char_ovf,
@@ -376,15 +408,18 @@ def _flag_info(flag_mat: torch.Tensor, keys) -> dict:
 
 
 # Which JoinConfig factor heals which overflow flag: the heal loop grows
-# exactly the offending capacity. (pre_shuffle_overflow, and the factor
-# that heals it, come with the two-level topology.)
+# exactly the offending capacity. pre_shuffle_overflow folds the
+# pre-shuffle's bucket and output overflows into one flag, so both of its
+# sizing factors grow.
 _HEAL_FACTORS = {
+    "pre_shuffle_overflow": ("pre_shuffle_out_factor", "bucket_factor"),
     "shuffle_overflow": ("bucket_factor",),
     "join_overflow": ("join_out_factor",),
     "char_overflow": ("char_out_factor",),
 }
 
 _CONFIG_FACTOR_FIELDS = (
+    "pre_shuffle_out_factor",
     "bucket_factor",
     "join_out_factor",
     "char_out_factor",
@@ -532,8 +567,15 @@ def _main_group_sizing(
     topology: Topology, config: JoinConfig, l_cap: int, r_cap: int
 ) -> tuple[int, int, int]:
     """(n, l_cap, r_cap) of the main join stage, shared by the prepare
-    and the query so their sizings cannot drift. A flat topology keeps
-    the capacities; two-level ones come with a later slice."""
+    and the query so their sizings cannot drift: on a two-level topology
+    the 'intra' group and the pre-shuffle's output capacities, on a flat
+    one the world and the capacities as they are."""
+    if topology.is_hierarchical:
+        return (
+            topology.main_group().size,
+            max(1, int(l_cap * config.pre_shuffle_out_factor)),
+            max(1, int(r_cap * config.pre_shuffle_out_factor)),
+        )
     return topology.world_group().size, l_cap, r_cap
 
 
@@ -555,18 +597,37 @@ def _refuse_strings(table: Table, what: str) -> None:
     if table.has_strings:
         raise NotImplementedError(
             f"{what} holds a string column: string columns on the prepared "
-            f"side come with ROADMAP queue 1 item 7; join them with the "
+            f"side come with ROADMAP queue 1 item 7a; join them with the "
             f"unprepared distributed_inner_join"
         )
 
 
+def _pre_shuffle_one(comm: Communicator, config: JoinConfig, table: Table, on: tuple,
+                     cap: int, out_cap: int) -> tuple[Table, torch.Tensor]:
+    """The hierarchical pre-shuffle of one side over 'inter' (the
+    prepare's build side or the prepared query's probe side): (table,
+    overflow); a flat topology's rank keeps its table."""
+    if INTER not in comm.axes:
+        return table, torch.tensor(False, device=table.device)
+    inter = comm.sub(INTER)
+    with comm.phase_scope("dj_pre_shuffle"):
+        out, _, ovf, _ = _local_shuffle(
+            table, inter, on, hashing.HASH_MURMUR3, INTER_DOMAIN_SEED,
+            max(1, int(cap * config.bucket_factor / inter.size)), out_cap,
+        )
+    return out, ovf
+
+
 def _prepare_batches(
     comm: Communicator, config: JoinConfig, right: Table, right_on: tuple,
-    sizing: BatchSizing, plan: PreparedPackPlan,
+    sizing: BatchSizing, plan: PreparedPackPlan, r_cap: int, r_cap_m: int,
 ) -> tuple[tuple, dict]:
     """One rank's preparation (the body of dj_tpu's _build_prepare_fn):
-    partition, then per batch a single-table shuffle and the anchored
-    pack + sort + re-tag. Returns (batches, flags by _PREP_FLAG_KEYS)."""
+    on a two-level topology the build side's pre-shuffle into
+    ``r_cap_m`` rows, then partition, then per batch a single-table
+    shuffle and the anchored pack + sort + re-tag. Returns (batches,
+    flags by _PREP_FLAG_KEYS)."""
+    right, pre_ovf = _pre_shuffle_one(comm, config, right, right_on, r_cap, r_cap_m)
     n = comm.size
     comm.phase("dj_partition")
     r_part, r_offsets = hash_partition(right, right_on, sizing.m, seed=MAIN_JOIN_SEED)
@@ -585,7 +646,7 @@ def _prepare_batches(
         range_bad = range_bad | ~ok
         outs.append((words, payload.with_count(None), payload.count().reshape(1)))
     flags = {
-        "pre_shuffle_overflow": no,
+        "pre_shuffle_overflow": pre_ovf,
         "shuffle_overflow": shuffle_ovf,
         "prep_range_violation": range_bad,
     }
@@ -641,7 +702,7 @@ def prepare_join_side(
     if tier not in (None, "shuffle"):
         raise NotImplementedError(
             f"prepared tier {tier!r}: the broadcast and salted tiers come "
-            f"with ROADMAP queue 1 item 7; the shuffle tier is ported"
+            f"with ROADMAP queue 1 item 7b; the shuffle tier is ported"
         )
     _refuse_strings(right, "prepare_join_side's build side")
     if config is None:
@@ -693,7 +754,7 @@ def prepare_join_side(
 
         def run(comm, rt, rc):
             batches, flags = _prepare_batches(
-                comm, cfg, rt.with_count(rc[0]), right_on, sizing, plan
+                comm, cfg, rt.with_count(rc[0]), right_on, sizing, plan, r_cap, r_cap_m
             )
             return batches, _flag_row(flags, _PREP_FLAG_KEYS)
 
@@ -815,12 +876,15 @@ def _distributed_inner_join_prepared(
             f"< {w} shards here leaves a shard with zero capacity; pad the "
             f"table to >= 1 row per shard"
         )
-    n, _, bl, out_cap = _prepared_query_sizing(topology, config, left.capacity // w, prepared)
+    l_cap = left.capacity // w
+    n, l_cap_m, bl, out_cap = _prepared_query_sizing(topology, config, l_cap, prepared)
     plan = prepared.plan
 
     def run(comm, lt, lc, batches):
-        out, flags = _prepared_query(comm, lt.with_count(lc[0]), left_on, batches, plan,
-                                     odf, bl, out_cap)
+        lt, pre_ovf = _pre_shuffle_one(comm, config, lt.with_count(lc[0]), left_on, l_cap,
+                                       l_cap_m)
+        out, flags = _prepared_query(comm, lt, left_on, batches, plan, odf, bl, out_cap)
+        flags["pre_shuffle_overflow"] = pre_ovf
         return out.with_count(None), out.count().reshape(1), _flag_row(flags, _PREPARED_FLAG_KEYS)
 
     out, counts, flag_mat = run_spmd(topology, run, left, left_counts, prepared.batches,
@@ -832,9 +896,10 @@ def _prepared_query(
     comm: Communicator, left: Table, left_on: tuple, batches: tuple,
     plan: PreparedPackPlan, odf: int, bl: int, out_cap: int,
 ) -> tuple[Table, dict]:
-    """One rank's query (the body of dj_tpu's _build_prepared_query_fn):
-    partition the probe side, then per batch a single-table shuffle and
-    ``inner_join_prepared`` against the rank's resident run."""
+    """One rank's query (the body of dj_tpu's _build_prepared_query_fn,
+    after its pre-shuffle): partition the probe side, then per batch a
+    single-table shuffle and ``inner_join_prepared`` against the rank's
+    resident run."""
     n = comm.size
     comm.phase("dj_partition")
     l_part, l_offsets = hash_partition(left, left_on, n * odf, seed=MAIN_JOIN_SEED)

@@ -10,8 +10,12 @@ rank r's body gets block r (a string column's offsets in blocks of cap +
 as ``out_specs=spec`` does: their tensors and tables are concatenated in
 rank order ([w * cap_out] tables, [w] counts, [w, k] flag matrices).
 Each body gets a communicator of the backend the caller names
-(``communicator_cls``, default ``XlaCommunicator``) over the world's
-transport.
+(``communicator_cls``, default ``XlaCommunicator``) over the main group:
+the world on a flat topology, the rank's 'intra' group on a two-level
+one, where ``comm.sub("inter")`` is its communicator over the 'inter'
+group and ``comm.world_rank()`` its rank in the world. A group of one
+rank (intra 1) takes the ``SingleRankTransport``; both communicators
+share the rank's ``PhaseClock``.
 
 A world of one rank runs its body on the caller's thread over the
 ``SingleRankTransport``. A world of w > 1 ranks on one device runs
@@ -33,10 +37,12 @@ In a process world (``Topology.is_process_world``) every process calls
 run_spmd with its own block of each sharded argument; the body runs once,
 on this process's rank, over a ``DistTransport``, and run_spmd returns
 this rank's results. The outputs named by ``gathered`` are all-gathered
-instead, so every process holds the [w, ...] whole that one process's
-world returns (the flag matrix, which every rank must read alike). A
-rank that raises leaves its peers at their next collective until the
-process group's timeout fails them.
+over the world instead, so every process holds the [w, ...] whole that
+one process's world returns (the flag matrix, which every rank must
+read alike). A two-level process world's communicators run over the
+subgroups' ProcessGroups (``topology.process_subgroups``). A rank that
+raises leaves its peers at their next collective until the process
+group's timeout fails them.
 """
 
 from __future__ import annotations
@@ -60,7 +66,7 @@ from .communicator import (
     XlaCommunicator,
     make_communicator,
 )
-from .topology import Topology
+from .topology import INTER, INTRA, Topology, process_subgroups
 
 RENDEZVOUS_TIMEOUT_S = 600.0  # the longest one rank waits at one collective
 
@@ -144,37 +150,57 @@ def _on_device(dev: torch.device):
     return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
+def _axis_comms(topology: Topology, transports: dict, cls, fuse_columns,
+                clock: Optional[PhaseClock]) -> Communicator:
+    """The rank's communicator over the main group, given a transport per
+    axis ({axis name: transport}); on a two-level topology each knows the
+    other through ``axes``. Every one shares ``clock``."""
+    comms = {axis: make_communicator(cls, topology.group(axis), t, fuse_columns)
+             for axis, t in transports.items()}
+    for c in comms.values():
+        c.clock = clock
+        if topology.is_hierarchical:
+            c.axes = comms
+    return comms[topology.main_group().axis_name]
+
+
 def run_spmd(topology: Topology, body: Callable, *sharded, communicator_cls=None,
              fuse_columns: Optional[bool] = None, gathered: Sequence[int] = ()):
     """``body(comm, *blocks)`` once per rank of ``topology`` that runs in
     this process, where ``comm`` is the rank's communicator over the
-    world group and ``blocks`` the rank's blocks of ``sharded``; returns
-    the ranks' results joined in rank order. ``communicator_cls`` and
-    ``fuse_columns`` choose the backend and whether an exchange moves one
-    collective per dtype class or one per buffer (None: the backend's
-    own default). ``gathered`` indexes outputs of a tuple result that
-    every process of a process world gets whole."""
+    main group (module docstring) and ``blocks`` the rank's blocks of
+    ``sharded``; returns the ranks' results joined in rank order.
+    ``communicator_cls`` and ``fuse_columns`` choose the backend and
+    whether an exchange moves one collective per dtype class or one per
+    buffer (None: the backend's own default). ``gathered`` indexes
+    outputs of a tuple result that every process of a process world gets
+    whole."""
     cls = XlaCommunicator if communicator_cls is None else communicator_cls
     dev = topology.device
-    group = topology.world_group()
     runs = _phase_runs.get()
     if topology.is_process_world:
-        comm = make_communicator(cls, group, DistTransport(dev), fuse_columns)
-        comm.clock = PhaseClock(dev) if runs is not None else None
+        clock = PhaseClock(dev) if runs is not None else None
+        if topology.is_hierarchical:
+            transports = {axis: SingleRankTransport() if pg is None else DistTransport(dev, pg)
+                          for axis, pg in process_subgroups(topology).items()}
+        else:
+            transports = {topology.axis_name: DistTransport(dev)}
+        comm = _axis_comms(topology, transports, cls, fuse_columns, clock)
         with _on_device(dev):
             out = body(comm, *sharded)
             _stop(comm)
             if gathered:
-                out = tuple(_gather(comm, x) if i in gathered else x for i, x in enumerate(out))
+                world = DistTransport(dev) if topology.is_hierarchical else comm.transport
+                out = tuple(_gather(world, x) if i in gathered else x for i, x in enumerate(out))
         if runs is not None:
-            runs.append([comm.clock.ms()])
+            runs.append([clock.ms()])
         return out
     w = topology.world_size
     blocks = [_split(a, w) for a in sharded]
     clocks = [PhaseClock(dev) if runs is not None else None for _ in range(w)]
     if w == 1:
-        comm = make_communicator(cls, group, SingleRankTransport(), fuse_columns)
-        comm.clock = clocks[0]
+        comm = _axis_comms(topology, {topology.axis_name: SingleRankTransport()}, cls,
+                           fuse_columns, clocks[0])
         out = body(comm, *(b[0] for b in blocks))
         _stop(comm)
     else:
@@ -184,24 +210,43 @@ def run_spmd(topology: Topology, body: Callable, *sharded, communicator_cls=None
     return out
 
 
-def _gather(comm: Communicator, x: torch.Tensor) -> torch.Tensor:
+def _gather(transport, x: torch.Tensor) -> torch.Tensor:
     """Every rank's ``x`` joined in rank order, as one process's world
     concatenates them."""
-    g = comm.all_gather(x)
+    g = transport.all_gather(x)
     return g.reshape((-1,) + tuple(g.shape[2:]))
+
+
+def _thread_transports(topology: Topology, world: InProcessWorld) -> list[dict]:
+    """Each world rank's {axis name: transport}: one rendezvous group per
+    group of each axis, all under the world's one lock."""
+    w = topology.world_size
+    if not topology.is_hierarchical:
+        group = world.group(range(w))
+        return [{topology.axis_name: InProcessTransport(group, r)} for r in range(w)]
+    out: list[dict] = [{} for _ in range(w)]
+    for axis in (INTER, INTRA):
+        made: dict = {}
+        for r in range(w):
+            members = topology.group_ranks(axis, r)
+            if len(members) == 1:
+                out[r][axis] = SingleRankTransport()
+                continue
+            group = made.setdefault(members[0], world.group(members))
+            out[r][axis] = InProcessTransport(group, members.index(r))
+    return out
 
 
 def _run_threads(topology, body, blocks, clocks, cls, fuse_columns):
     w = topology.world_size
     dev = topology.device
-    group = topology.world_group()
     world = InProcessWorld(w, RENDEZVOUS_TIMEOUT_S)
+    transports = _thread_transports(topology, world)
     results: list = [None] * w
     errors: list = []
 
     def rank_main(r: int) -> None:
-        comm = make_communicator(cls, group, InProcessTransport(world, r), fuse_columns)
-        comm.clock = clocks[r]
+        comm = _axis_comms(topology, transports[r], cls, fuse_columns, clocks[r])
         with world.cond:
             try:
                 with _on_device(dev):

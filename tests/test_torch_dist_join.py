@@ -161,8 +161,11 @@ def test_convert_roundtrip_and_shard():
     assert s.capacity == 5 and counts.tolist() == [3]
     u = tj.unshard_table(s, counts)
     np.testing.assert_array_equal(u.columns[0].data.numpy(), arrays[0])
-    with pytest.raises(NotImplementedError):
-        tj.make_topology(["cpu", "cpu"], intra_size=1)
+    two = tj.make_topology(["cpu", "cpu"], intra_size=1)
+    assert two.is_hierarchical
+    assert (two.group("inter").size, two.group("intra").size) == (2, 1)
+    with pytest.raises(ValueError, match="not divisible"):
+        tj.make_topology(["cpu"] * 3, intra_size=2)
 
 
 def test_single_rank_communicator():

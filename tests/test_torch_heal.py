@@ -272,14 +272,8 @@ def _shard_rows(table, counts):
             for r, n in enumerate(counts)]
 
 
-# The port's heal factors: dj_tpu's less pre_shuffle_out_factor, which
-# only its two-level topology reads.
-FACTOR_FIELDS = ("bucket_factor", "join_out_factor", "char_out_factor")
-
-
-def _port_factors(jfactors: dict) -> dict:
-    """dj_tpu's factors of a CapacityExhausted, as the port reports them."""
-    return {f: jfactors[f] for f in FACTOR_FIELDS}
+# The heal factors, the same in both packages.
+FACTOR_FIELDS = ("pre_shuffle_out_factor", "bucket_factor", "join_out_factor", "char_out_factor")
 
 
 def _assert_same(runs, want_total=None):
@@ -342,8 +336,8 @@ def _assert_same_error(runs):
     assert isinstance(terr, RuntimeError) and tn == jn
     for f in ("stage", "attempts", "flags"):
         assert getattr(terr, f) == getattr(jerr, f), f
-    assert terr.factors == _port_factors(jerr.factors)
-    assert str(terr) == str(jerr).replace(str(jerr.factors), str(terr.factors))
+    assert terr.factors == jerr.factors
+    assert str(terr) == str(jerr)
     return terr
 
 
@@ -427,6 +421,18 @@ def test_plan_signatures_match_dj_tpu():
         assert tledger.plan_signature(wd.ttopo, None, ts, None, [0], tcfg) == \
             jledger.plan_signature(wd.jtopo, None, js, None, [0], cfg)
         assert tledger.table_shape(ts, w)[1] == ts.columns[1].chars.shape[0] // w
+    # A two-level topology keys on the world size alone, as dj_tpu's does:
+    # its signatures are the flat world's of the same size.
+    wd = _World(4, p, b)
+    jtopo2 = jmake_topology(jax.devices()[:4], intra_size=2)
+    ttopo2 = tj.make_topology(["cpu"] * 4, intra_size=2)
+    (jl, _), (jr, _) = wd.j["probe"], wd.j["build"]
+    (tl, _), (tr, _) = wd.t["probe"], wd.t["build"]
+    sig2 = tledger.plan_signature(ttopo2, tl, tr, [0], [0], tcfg)
+    assert sig2 == jledger.plan_signature(jtopo2, jl, jr, [0], [0], cfg)
+    assert sig2 == tledger.plan_signature(wd.ttopo, tl, tr, [0], [0], tcfg)
+    assert tledger.plan_signature(ttopo2, None, tr, None, [0], tcfg) == \
+        jledger.plan_signature(jtopo2, None, jr, None, [0], cfg)
 
 
 # --- the prepared auto path ---------------------------------------------

@@ -148,7 +148,7 @@ def test_column_order_contract():
 
 def test_unsupported_inputs_raise_not_implemented():
     """A string column now converts and joins; the prepared side still
-    refuses one (ROADMAP queue 1 item 7) with NotImplementedError."""
+    refuses one (ROADMAP queue 1 item 7a) with NotImplementedError."""
     offsets, chars = np.array([0, 1, 1, 3], np.int32), np.frombuffer(b"abc", np.uint8)
     t = convert.table_from_numpy([np.array([1, 2, 3]), (offsets, chars)], ["int64", "string"],
                                  device="cpu")

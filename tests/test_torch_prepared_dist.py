@@ -296,10 +296,7 @@ def test_one_attempt_prepare_raises_typed_errors():
             w.tprepare(cfg, max_attempts=1)
         assert err.value.flags == jerr.value.flags and err.value.flags[flag]
         assert err.value.attempts == jerr.value.attempts == 1
-        # dj_tpu's less pre_shuffle_out_factor, which only its two-level
-        # topology reads.
-        assert err.value.factors == {f: v for f, v in jerr.value.factors.items()
-                                     if f != "pre_shuffle_out_factor"}
+        assert err.value.factors == jerr.value.factors
         jprep, tprep = w.jprepare(cfg), w.tprepare(cfg)
         assert tprep.key_range == tuple(jprep.key_range)
         assert tuple(tprep.plan) == tuple(jprep.plan)

@@ -41,6 +41,7 @@ from dj_tpu.utils import compat
 import dj_tpu_torch as tj
 from dj_tpu_torch import convert
 from dj_tpu_torch.data import generator as tgen
+from dj_tpu_torch.parallel import dist_join as tdist
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 WORKER = pathlib.Path(__file__).resolve().parent / "torch_world_worker.py"
@@ -60,7 +61,7 @@ chip_smoke = _load("chip_smoke", ROOT / "chip_smoke.py")
 
 WORLDS = (2, 4)
 CASES = {2: ["collectives", "exchange", "shuffle", "join", "generate", "auto", "keys", "strings"],
-         4: ["collectives", "exchange", "shuffle", "join", "prepared", "generate"]}
+         4: ["collectives", "exchange", "shuffle", "join", "prepared", "generate", "two_level"]}
 
 
 class _Worlds:
@@ -317,6 +318,42 @@ def test_process_world_flag_matrix_is_the_same_on_every_process(w, worlds):
     _assert_shards(w, worlds.results(w), ("join", "flags"), want)
 
 
+@functools.lru_cache(maxsize=None)
+def _two_level_in_one_process():
+    """The two_level case on a world of 4 ranks in this process: rank r's
+    results, shard r of each."""
+    topo = tj.make_topology(["cpu"] * 4, intra_size=W.TWO_LEVEL_INTRA)
+    return W.case_two_level(topo, make=lambda devices, intra_size: tj.make_topology(
+        devices * 4, intra_size=intra_size))
+
+
+def _shard(res: dict, r: int) -> dict:
+    """Shard r's part of one result of the world in one process."""
+    return {k: ([v[r]] if k in ("rows", "counts") else v) for k, v in res.items()}
+
+
+def test_process_world_two_level_matches_the_world_in_one_process(worlds):
+    """Four gloo processes at intra 2, every 'inter' and 'intra'
+    subgroup a torch.distributed group: the join under the default, Ring
+    and Buffered backends, the tight pre-shuffle's flag matrix, its auto
+    heal (factors included) and shuffle_on over 'inter' then 'intra'
+    give each process shard r of the world in one process, and every
+    process the whole flag matrix."""
+    want = _two_level_in_one_process()
+    assert want["axes"] == ("inter", "intra") and want["groups"] == [2, 2]
+    assert all(want[("xla", 0.5)]["flags"]["pre_shuffle_overflow"])
+    assert want["auto"]["factors"]["pre_shuffle_out_factor"] > 0.5
+    for r, res in enumerate(worlds.results(4)):
+        got = res["two_level"]
+        assert (got["axes"], got["groups"]) == (want["axes"], want["groups"])
+        for key, wres in want.items():
+            if key in ("axes", "groups"):
+                continue
+            assert got[key] == _shard(wres, r), (key, r)
+        for axis in ("inter", "intra"):
+            assert got[("shuffle", axis)]["overflow"] == [False] * 4
+
+
 def test_a_rank_that_raises_fails_its_world(worlds):
     """Rank 1 raises before the join; rank 0, waiting in the join's first
     collective, fails too, and both processes end within the time limit
@@ -523,10 +560,25 @@ def test_chip_smoke_process_world_helpers_rehearse_with_gloo(monkeypatch):
     (l, lc), (r, rc) = tj.shard_table(topo, probe), tj.shard_table(topo, build)
     out, counts, _ = tj.distributed_inner_join(topo, l, lc, r, rc, [0], [0])
     digests = chip_smoke.shard_digests(out, counts)
-    res = chip_smoke.run_process_world(4, "gloo", "cpu", rows, 0, reps=1, timeout=TIMEOUT_S)
+    # The two-level half (6b at intra 2): the world in one process's
+    # digests of the join and of 4f's shuffle per axis.
+    two = tj.make_topology(["cpu"] * 4, intra_size=chip_smoke.INTRA)
+    (l2, lc2), (r2, rc2) = tj.shard_table(two, probe), tj.shard_table(two, build)
+    out2, counts2, _ = tj.distributed_inner_join(two, l2, lc2, r2, rc2, [0], [0])
+    two_digests = chip_smoke.shard_digests(out2, counts2)
+    t, c = tj.shard_table(two, chip_smoke.clickstream_table(tj, torch.device("cpu"), rows, 0))
+    t, c = tj.shuffle_on(two, t, c, [0], group=two.group("inter"),
+                         seed=tdist.INTER_DOMAIN_SEED)[:2]
+    shuffle_digests = chip_smoke.shard_digests(*tj.shuffle_on(two, t, c, [0],
+                                                              group=two.group("intra"))[:2])
+    res = chip_smoke.run_process_world(4, "gloo", "cpu", rows, 0, reps=1, timeout=TIMEOUT_S,
+                                       intra=chip_smoke.INTRA, shuffle_rows=rows)
     chip_smoke.check_process_world("rehearsal", res, digests, expected, 0)
+    chip_smoke.check_two_level_processes("rehearsal", res, two_digests, shuffle_digests, expected,
+                                         0)
     assert [x["transport"] for x in res] == ["gloo"] * 4
     assert all("a2a_exchange" in x["phase_ms"] for x in res)
+    assert all("dj_pre_shuffle/a2a_exchange" in x["two_level"]["phase_ms"] for x in res)
 
     one = tj.make_topology(["cpu"])
     (l1, lc1), (r1, rc1) = tj.shard_table(one, probe), tj.shard_table(one, build)

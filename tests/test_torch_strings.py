@@ -634,17 +634,17 @@ def test_tpch_split_matches_make_split(split):
 
 def test_prepared_side_refuses_string_columns():
     """String columns on the prepared side come with ROADMAP queue 1
-    item 7: both entry points raise before any work."""
+    item 7a: both entry points raise before any work."""
     topo = tj.make_topology(["cpu"])
     rk = np.arange(50, dtype=np.int64)
     strings = _str_arrays([b"s%d" % k for k in rk])
     build = tj.shard_table(topo, convert.table_from_numpy([rk, strings], ["int64", "string"],
                                                           device="cpu"))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 7a"):
         tj.prepare_join_side(topo, *build, [0])
     plain = tj.shard_table(topo, convert.table_from_numpy([rk, rk], ["int64"] * 2, device="cpu"))
     prep = tj.prepare_join_side(topo, *plain, [0])
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 7a"):
         tj.distributed_inner_join(topo, *build, prep, None, [0], None)
 
 

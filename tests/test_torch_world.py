@@ -335,8 +335,11 @@ def test_make_topology_limits():
     assert tj.make_topology(["cpu"] * 5).world_size == 5
     with pytest.raises(NotImplementedError, match="process world"):
         tj.make_topology(["cpu", "cuda:0"])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tj.make_topology(["cpu"] * 2, intra_size=1)
+    two = tj.make_topology(["cpu"] * 2, intra_size=1)
+    assert two.is_hierarchical and two.axis_names == ("inter", "intra")
+    assert (two.group("inter").size, two.group("intra").size) == (2, 1)
+    with pytest.raises(ValueError, match="not divisible"):
+        tj.make_topology(["cpu"] * 6, intra_size=4)
 
 
 @pytest.mark.parametrize("w", [1, 2])

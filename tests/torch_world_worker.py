@@ -477,10 +477,57 @@ def case_fail(topo):
     return _join_result(dj.distributed_inner_join(topo, tl, tlc, tr, trc, [0], [0]))
 
 
+# The two_level case: (backend, pre_shuffle_out_factor) of its joins at
+# intra 2; 0.5 fires pre_shuffle_overflow.
+TWO_LEVEL_JOINS = (("xla", 1.5), ("ring", 1.5), ("buffered", 1.5), ("xla", 0.5))
+TWO_LEVEL_INTRA = 2
+
+
+def two_level_shuffle_table(w: int) -> list:
+    """The shuffle_on table of the two_level case: 96 rows a rank, one
+    row in three on one key."""
+    rng = np.random.default_rng(60 + w)
+    keys = rng.integers(0, 10**6, 96 * w)
+    keys[::3] = 424242
+    return [keys, np.arange(96 * w, dtype=np.int64)]
+
+
+def case_two_level(topo, make=None):
+    """The world at intra 2 (each process's subgroups made by
+    make_topology): the join under each backend, the tight
+    pre-shuffle's flags, its auto heal, and shuffle_on per axis.
+    ``make`` builds the topology (the test passes the world in one
+    process's)."""
+    topo = (make or dj.make_topology)(["cpu"], intra_size=TWO_LEVEL_INTRA)
+    build, probe = join_tables()
+    (tl, tlc), (tr, trc) = _sharded(topo, probe), _sharded(topo, build)
+    out = {"axes": topo.axis_names, "groups": [topo.group(a).size for a in topo.axis_names]}
+    for backend, psof in TWO_LEVEL_JOINS:
+        cfg = dj.JoinConfig(communicator_cls=SMALL_BACKENDS[backend], pre_shuffle_out_factor=psof)
+        res = _join_result(dj.distributed_inner_join(topo, tl, tlc, tr, trc, [0], [0], cfg))
+        if psof < 1:
+            res.pop("rows")  # a fired flag leaves the rows unspecified
+        out[(backend, psof)] = res
+    res = dj.distributed_inner_join_auto(topo, tl, tlc, tr, trc, [0], [0],
+                                         dj.JoinConfig(pre_shuffle_out_factor=0.5))
+    out["auto"] = _join_result(res[:3])
+    out["auto"]["factors"] = {f: getattr(res[3], f)
+                              for f in ("pre_shuffle_out_factor",) + FACTOR_FIELDS}
+    t, c = _sharded(topo, two_level_shuffle_table(topo.world_size))
+    for axis, seed in zip(topo.axis_names, (87654321, 0)):
+        t, c, ovf, split = dj.shuffle_on(topo, t, c, [0], group=topo.group(axis), seed=seed,
+                                         with_split_overflow=True)
+        out[("shuffle", axis)] = {"rows": shard_rows(t, c), "counts": c.tolist(),
+                                  "overflow": ovf.tolist(),
+                                  "split": {k: v.tolist() for k, v in split.items()}}
+    return out
+
+
 CASES = {"collectives": case_collectives, "exchange": case_exchange, "shuffle": case_shuffle,
          "join": case_join, "prepared": case_prepared, "generate": case_generate,
          "auto": case_auto, "keys": case_keys, "fail": case_fail,
-         "ledger_split": case_ledger_split, "strings": case_strings}
+         "ledger_split": case_ledger_split, "strings": case_strings,
+         "two_level": case_two_level}
 
 
 def main(spec_json: str, out_dir: str) -> int:
