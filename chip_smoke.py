@@ -72,6 +72,28 @@ Phases, each printing its own line(s):
      axes, and shuffle_on_auto from factors 1.2 / 1.2 on a copy with one
      row in ten on one key (bucket_factor must heal); every row on its
      hash's shard, the row multiset conserved, no overflow; walls, peaks;
+  4g. the cascaded wire codec alone: compress_buckets / decompress_buckets
+     on the card for each of the 8 cascades (rle x delta x bp) and
+     itemsizes 1, 2, 4 and 8 on [4, 1M] buckets in dj_tpu's patterns
+     (constant, strided, small range, runs, full range, the width's
+     extremes, a walk from the minimum, zeros after an iota) with counts
+     below 1M, at wire_factor 1.0: words, totals, overflow bits and
+     decodes equal to the same calls on the CPU (in worker threads), each
+     bucket that fits decoding to its input, and each RLE decode launching
+     expand_ranks once; then the auto-selected cascade of each of 4f's
+     columns at 4f's flat bucket shape ([4, 12.5M] int64, half full),
+     compress and decompress timed beside their byte bound;
+  4e and 4f compressed: 4e's world with each side's auto options
+     (broadcast_compression_options) on the pre-shuffle, as
+     benchmarks/distributed_join.py --compression: the join at odf 1
+     checked as in 4e, the pre_shuffle_comp_* sums, raw/actual and
+     wire/raw, walls, the pre-shuffle's device ms and the peak;
+     distributed_inner_join_auto from 0.5 / 1.0 at growth 2.5; a prepare
+     with right_compression and a sort-tier query with left_compression.
+     4f's table shuffled with its auto options flat and per axis, each
+     shard equal to the uncompressed shuffle's; with a 0.2 wire on the
+     skewed copy the wire alone sets the bucket bit at 1.8 / 2.4 (where
+     the raw rows fit) and shuffle_on_auto from 1.2 / 1.2 heals it;
   5. prepared path: at odf 1 and 4, prepare_join_side on the build table,
      then distributed_inner_join with the PreparedSide under each merge
      tier (sort, merge, probe); each query checked as in 4, with the
@@ -102,7 +124,11 @@ Phases, each printing its own line(s):
      the same four processes at intra_size=2 (every 'inter' and 'intra'
      group a torch.distributed subgroup): the odf 1 join, its shard
      digests equal to rank r's in 4e, and 4f's table shuffled over
-     'inter' and 'intra', its digests equal to 4f's;
+     'inter' and 'intra', its digests equal to 4f's; each process's auto
+     options through broadcast_compression_options over gloo (every
+     process ends with rank 0's tree, also for trees made to differ by
+     rank), and 4f's table over 'inter' raw and compressed, equal digests,
+     each exchange's device ms;
   6c. an NCCL world of one process per card at phase 4d's rows a rank,
      on a machine with 2 or more cards, with 6b's two-level half when the
      cards factor by 2 (4 or more); with one card, one line saying that
@@ -182,7 +208,8 @@ Phases, each printing its own line(s):
      kernels cannot hold;
 then the `kernels` JSON line (kernel, plain-version and library times
 beside each kernel's bound, launches per query on each path and in the
-4-rank world, its two-level form and the process worlds, and each kernel's registers and spills from ptxas; the probes' launches are their
+4-rank world, its two-level form and the process worlds, expand_ranks'
+codec decodes in 4g, and each kernel's registers and spills from ptxas; the probes' launches are their
 main()'s, and no join path launches them).
 The last line is {"ok": true, "device": {...}}. With no CUDA device, or
 without the package beside it, the script fails before printing any
@@ -193,6 +220,7 @@ split (for a quick first check).
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -1313,6 +1341,35 @@ def pre_shuffle_ms(phases: dict) -> dict:
     return sum(v for k, v in phases.items() if k.startswith("dj_pre_shuffle"))
 
 
+def check_two_level(dj, what: str, res, odf: int, kernels, build, probe, expected: int, ref,
+                    launches_each=None):
+    """A join result of the two-level world: every flag False (the
+    pre-shuffle's compression counters aside), counts summing to the
+    generator's count, each row in its domain and on its rank there,
+    every row checked and equal to phase 4's, and each of ``kernels``
+    launched ``launches_each`` times (default once a rank and batch).
+    Returns (launches, counts)."""
+    out, counts, info = res[:3]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    set_flags = [k for k, v in info.items()
+                 if not k.startswith("pre_shuffle_comp") and bool(v.any())]
+    if set_flags:
+        raise AssertionError(f"{what}: flags set on a shard: {set_flags}")
+    if tuple(counts.shape) != (WORLD,) or int(counts.sum()) != expected:
+        raise AssertionError(f"{what}: counts {counts.tolist()} do not sum to {expected}")
+    check_two_level_placed(what, out, counts, odf)
+    flat = dj.unshard_table(out, counts)
+    flat_counts = torch.tensor([flat.capacity])
+    check_rows(flat, flat_counts, build, probe, expected)
+    check_same_rows(sorted_rows(flat, flat_counts), ref, what)
+    each = WORLD * odf if launches_each is None else launches_each
+    wrong = {k: launches[k] for k in kernels if launches[k] != each}
+    if wrong:
+        raise AssertionError(f"{what}: each of {kernels} must launch {each} times: {wrong}")
+    return launches, counts.tolist()
+
+
 def run_two_level(dj, dev, build, probe, expected: int, ref, rows: int, smi: str):
     """Phase 4e: the main path over phase 4d's 4 ranks factored into 2
     domains of 2 ranks. Returns ({path: {odf: launches}}, the shard
@@ -1329,24 +1386,8 @@ def run_two_level(dj, dev, build, probe, expected: int, ref, rows: int, smi: str
     launch_table: dict = {}
 
     def check(what, res, odf, kernels, launches_each=None):
-        out, counts, info = res[:3]
-        torch.cuda.synchronize()
-        launches = read_launches()
-        set_flags = [k for k, v in info.items() if bool(v.any())]
-        if set_flags:
-            raise AssertionError(f"{what}: flags set on a shard: {set_flags}")
-        if tuple(counts.shape) != (WORLD,) or int(counts.sum()) != expected:
-            raise AssertionError(f"{what}: counts {counts.tolist()} do not sum to {expected}")
-        check_two_level_placed(what, out, counts, odf)
-        flat = dj.unshard_table(out, counts)
-        flat_counts = torch.tensor([flat.capacity])
-        check_rows(flat, flat_counts, build, probe, expected)
-        check_same_rows(sorted_rows(flat, flat_counts), ref, what)
-        each = WORLD * odf if launches_each is None else launches_each
-        wrong = {k: launches[k] for k in kernels if launches[k] != each}
-        if wrong:
-            raise AssertionError(f"{what}: each of {kernels} must launch {each} times: {wrong}")
-        return launches, counts.tolist()
+        return check_two_level(dj, what, res, odf, kernels, build, probe, expected, ref,
+                               launches_each)
 
     summary: dict = {}
     for odf in (1, 4):
@@ -1594,6 +1635,379 @@ def run_shuffle_on(dj, dev, rows: int, seed: int, smi: str) -> list:
     return digests
 
 
+# --- the cascaded wire codec (phases 4g, 4e and 4f compressed) -------------
+
+CASCADES = tuple((r, d, bp) for r in (0, 1) for d in (0, 1) for bp in (True, False))
+
+
+def codec_inputs(dev, itemsize: int, rows: int, seed: int) -> list:
+    """Phase 4g's two [4, rows] inputs of one itemsize, drawn from the seed
+    on the device, one pattern a bucket (tests/test_compression.py:48-60
+    and more): constant, strided, small range, runs; full range, the
+    width's extremes (+-2^63 at 8 bytes), a sorted walk up from the
+    minimum, zeros after an iota."""
+    from dj_tpu_torch.compress.cascaded import _INT_OF_SIZE
+
+    dtype = _INT_OF_SIZE[itemsize]
+    info = torch.iinfo(dtype)
+    g = torch.Generator(device=dev).manual_seed(seed + 40 + itemsize)
+
+    def ri(lo, hi, n=rows):
+        return torch.randint(lo, hi, (n,), generator=g, device=dev, dtype=torch.int64)
+
+    iota = torch.arange(rows, device=dev, dtype=torch.int64)
+    a = [torch.full((rows,), int(ri(info.min, info.max, 1)), device=dev, dtype=torch.int64),
+         iota * 3 + 1000, ri(0, 16),
+         torch.repeat_interleave(ri(0, 5, -(-rows // 64)), 64)[:rows]]
+    b = [ri(info.min, info.max),
+         torch.where(ri(0, 2) == 0, info.min, info.max),
+         torch.cumsum(ri(0, 4), 0) + info.min + 5,
+         torch.where(iota < rows // 2, iota, 0)]
+    return [torch.stack(x).to(dtype) for x in (a, b)]
+
+
+def check_codec(dev, n: int, rows: int, seed: int, smi: str, time_rows: int) -> dict:
+    """Phase 4g. Part 1: compress_buckets / decompress_buckets on the card
+    for each of the 8 cascades and itemsizes 1, 2, 4 and 8, on
+    codec_inputs' [n, rows] buckets with counts below rows, at the
+    capacity of wire_factor 1.0 (the cascades without bitpack overflow
+    on the wide patterns); words, totals, overflow bits and decodes
+    equal element for element to the same calls on the CPU, and each
+    bucket that did not overflow decodes to its input's prefix. The RLE
+    decodes launch expand_ranks (counted from 0 around the card's
+    calls). Part 2: the auto-selected cascade of each of 4f's columns
+    at 4f's flat bucket shape ([4, time_rows] int64 buckets, half full),
+    compress and decompress timed apart beside their byte bound."""
+    from dj_tpu_torch.compress import cascaded as cz
+    from dj_tpu_torch.ops import expand
+
+    t_phase = time.perf_counter()
+    counts = torch.tensor([rows, rows - 1, rows // 2 + 17, 3], device=dev)[:n]
+    cpu = torch.device("cpu")
+    counts_cpu = counts.to(cpu)
+    keep = torch.arange(rows, device=dev)[None, :] < counts[:, None]
+    launches = overflowed = compared = 0
+
+    def same_as_cpu(what, x_cpu, itemsize, opts, cap, card):
+        # The CPU's calls (the path the tests hold to dj_tpu) on the same
+        # inputs, in a worker thread while the card goes on.
+        pw, pt, po = cz.compress_buckets(x_cpu, itemsize, opts, cap, counts_cpu)
+        pdec = cz.decompress_buckets(pw, itemsize, opts, rows, x_cpu.dtype)
+        for name, got, want in zip(("words", "totals", "overflow", "decode"), card,
+                                   (pw, pt, po, pdec)):
+            if not torch.equal(got, want):
+                raise AssertionError(f"{what}: {name} differ from the CPU's")
+
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        pending = []
+        for itemsize in (1, 2, 4, 8):
+            cap = cz.compressed_capacity_words(rows * itemsize, 1.0)
+            for x in codec_inputs(dev, itemsize, rows, seed):
+                x = x[:n]
+                x_cpu = x.to(cpu)
+                for cascade in CASCADES:
+                    opts = cz.CascadedOptions(*cascade)
+                    what = f"codec itemsize={itemsize} cascade={cascade}"
+                    reset_launches()
+                    words, total, ovf = cz.compress_buckets(x, itemsize, opts, cap, counts)
+                    dec = cz.decompress_buckets(words, itemsize, opts, rows, x.dtype)
+                    torch.cuda.synchronize()
+                    launches += expand.ranks_launches
+                    if cascade[0] and expand.ranks_launches != 1:
+                        raise AssertionError(f"{what}: the RLE decode launched expand_ranks "
+                                             f"{expand.ranks_launches} times, not 1")
+                    for p in range(n):
+                        if bool(ovf[p]):
+                            overflowed += 1
+                        elif not torch.equal(dec[p], torch.where(keep[p], x[p], 0)):
+                            raise AssertionError(f"{what}: bucket {p} does not decode to its "
+                                                 f"input")
+                    card = tuple(t.to(cpu) for t in (words, total, ovf, dec))
+                    pending.append(pool.submit(same_as_cpu, what, x_cpu, itemsize, opts, cap,
+                                               card))
+                    compared += 1
+        for f in pending:
+            f.result()
+    log("codec", smoke_phase="4g", part=1, buckets=n, rows=rows, itemsizes=[1, 2, 4, 8],
+        cascades=len(CASCADES), inputs=compared, counts=counts.tolist(),
+        overflowed_buckets=overflowed, equal_to_cpu=True, decodes_checked=True,
+        expand_ranks_launches=launches, card=smi, seconds=time.perf_counter() - t_phase)
+
+    # Part 2: 4f's columns at 4f's flat bucket shape.
+    count = time_rows // 2
+    timing = {}
+    for name, lo, hi in CLICK_COLUMNS:
+        g = torch.Generator(device=dev).manual_seed(seed + 7)
+        x = torch.randint(lo, hi, (4, time_rows), generator=g, device=dev)
+        opts, wf = cz.select_cascaded_options(cz.selector_sample(x[:, :count].reshape(-1)))
+        cap = cz.compressed_capacity_words(time_rows * 8, wf)
+        c = torch.full((4,), count, device=dev)
+        words, total, ovf = cz.compress_buckets(x, 8, opts, cap, c)
+        if bool(ovf.any()) or not torch.equal(
+                cz.decompress_buckets(words, 8, opts, time_rows, torch.int64)[:, :count],
+                x[:, :count]):
+            raise AssertionError(f"codec {name}: the timed cascade does not round-trip")
+        comp_ms = cuda_ms(lambda: cz.compress_buckets(x, 8, opts, cap, c), 3)
+        dec_ms = cuda_ms(lambda: cz.decompress_buckets(words, 8, opts, time_rows, torch.int64), 3)
+        comp_bytes = 4 * count * 8 + words.numel() * 8
+        dec_bytes = int(total.sum()) * 8 + x.numel() * 8
+        timing[name] = {
+            "cascade": astuple(opts), "wire_factor": wf, "compress_ms": comp_ms,
+            "decompress_ms": dec_ms, "compress_bytes": comp_bytes, "decompress_bytes": dec_bytes,
+            "compress_bound_ms": comp_bytes / HBM_BYTES_PER_S * 1e3,
+            "decompress_bound_ms": dec_bytes / HBM_BYTES_PER_S * 1e3,
+            "raw_over_actual": 4 * count * 8 / (int(total.sum()) * 8)}
+        del x, words
+    log("codec_time", smoke_phase="4g", part=2, buckets=4, bucket_rows=time_rows, count=count,
+        columns=timing, bytes="compress: the valid rows read, every wire word written; "
+        "decompress: the stream's words read, every bucket row written", card=smi,
+        seconds=time.perf_counter() - t_phase)
+    return {"cascades": len(CASCADES), "max_abs_err": 0, "expand_ranks_launches": launches,
+            "timing": timing}
+
+
+def astuple(opts) -> tuple:
+    return (opts.num_rles, opts.num_deltas, opts.use_bp)
+
+
+def comp_sums(info: dict, prefix: str) -> dict:
+    """The three compression counters summed over the shards, with
+    raw/actual and wire/raw."""
+    from dj_tpu_torch.parallel.shuffle import STAT_KEYS
+
+    sums = {k: float(info[prefix + k].double().sum()) for k in STAT_KEYS}
+    raw, wire, actual = (sums[k] for k in STAT_KEYS)
+    if not (raw > 0 and actual > 0 and actual <= wire):
+        raise AssertionError(f"compression counters {sums}: nothing compressed, or a "
+                             f"stream larger than its wire")
+    return {**sums, "raw_over_actual": raw / actual, "wire_over_raw": wire / raw}
+
+
+def options_summary(opts) -> list:
+    """[cascade, wire_factor] of each column's options (a string column's
+    sizes child), or "none"."""
+    out = []
+    for o in opts:
+        o = o.children[0] if o.children else o
+        out.append([list(astuple(o.cascaded)), o.wire_factor] if o.method == "cascaded"
+                   else "none")
+    return out
+
+
+def run_two_level_compressed(dj, dev, build, probe, expected: int, ref, rows: int,
+                             smi: str) -> dict:
+    """Phase 4e compressed: 4e's two-level world with each side's auto
+    options (broadcast_compression_options, as the reference's driver
+    agrees on them) on the pre-shuffle, as
+    benchmarks/distributed_join.py --compression does: the join at odf 1
+    (vmeta) checked as in 4e, its counters, walls, the pre-shuffle's
+    device ms and the peak; distributed_inner_join_auto from 4e's tight
+    start (pre_shuffle_out_factor 0.5, bucket_factor 1.0, growth 2.5);
+    prepare_join_side with right_compression and one sort-tier query
+    with left_compression. Returns {path: {1: launches}}."""
+    from dj_tpu_torch.resilience import ledger
+
+    t_phase = time.perf_counter()
+    topo = dj.make_topology([dev] * WORLD, intra_size=INTRA)
+    left, lcnt = dj.shard_table(topo, probe)
+    right, rcnt = dj.shard_table(topo, build)
+    t0 = time.perf_counter()
+    lopts = dj.broadcast_compression_options(dj.generate_auto_select_compression_options(left))
+    ropts = dj.broadcast_compression_options(dj.generate_auto_select_compression_options(right))
+    select_ms = (time.perf_counter() - t0) * 1e3
+    cfg = dj.JoinConfig(left_compression=lopts, right_compression=ropts)
+
+    def join():
+        return dj.distributed_inner_join(topo, left, lcnt, right, rcnt, [0], [0], cfg)
+
+    launch_table: dict = {}
+    reset_launches()
+    res = join()
+    launches, counts = check_two_level(dj, "4e compressed", res, 1,
+                                       ("join_scans", "expand_values"), build, probe,
+                                       expected, ref)
+    sums = comp_sums(res[2], "pre_shuffle_")
+    del res
+    launch_table["compressed"] = {1: launches}
+    wall, runs, peak = warm_walls(join)
+    phases = world_phases(join)
+    log("two_level_compressed", smoke_phase="4e", ranks=WORLD, intra=INTRA, odf=1, rows=rows,
+        options={"probe": options_summary(lopts), "build": options_summary(ropts)},
+        select_ms=select_ms, counts=counts, total=expected, flags="all False",
+        rows_checked=expected, placed=True, same_rows_as_one_rank=True, launches=launches,
+        wall_ms=wall, wall_ms_runs=runs, peak_bytes=peak,
+        pre_shuffle_ms=pre_shuffle_ms(phases["phase_ms"]),
+        pre_shuffle_ms_by_rank=[pre_shuffle_ms(p) for p in phases["phase_ms_by_rank"]],
+        phase_ms=phases["phase_ms"], comp=sums, card=smi)
+
+    ledger.reset()
+    tight = dj.JoinConfig(pre_shuffle_out_factor=0.5, bucket_factor=1.0, left_compression=lopts,
+                          right_compression=ropts)
+    reset_launches()
+    with Attempts() as a:
+        t0 = time.perf_counter()
+        res = dj.distributed_inner_join_auto(topo, left, lcnt, right, rcnt, [0], [0], tight,
+                                             growth=2.5)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    launches, counts = check_two_level(dj, "4e compressed auto", res, 1,
+                                       ("join_scans", "expand_values"), build, probe, expected,
+                                       ref, launches_each=WORLD * a.n)
+    if a.n < 2 or not res[3].pre_shuffle_out_factor > 0.5:
+        raise AssertionError(f"4e compressed auto: {a.n} attempts, pre_shuffle_out_factor "
+                             f"{res[3].pre_shuffle_out_factor}: pre_shuffle_overflow did not heal")
+    factors = ("pre_shuffle_out_factor",) + FACTOR_FIELDS
+    launch_table["compressed_auto"] = {1: launches}
+    log("two_level_compressed_auto", smoke_phase="4e", attempts=a.n, growth=2.5,
+        config={f: getattr(tight, f) for f in factors},
+        factors_used={f: getattr(res[3], f) for f in factors}, counts=counts, total=expected,
+        flags="all False", rows_checked=expected, wall_ms=wall, launches=launches,
+        comp=comp_sums(res[2], "pre_shuffle_"), card=smi)
+    del res
+    ledger.reset()
+
+    pcfg = dj.JoinConfig(key_range=(0, 2 * rows), left_compression=lopts,
+                         right_compression=ropts)
+    t0 = time.perf_counter()
+    prep = dj.prepare_join_side(topo, right, rcnt, [0], pcfg, left_capacity=rows)
+    torch.cuda.synchronize()
+    prep_ms = (time.perf_counter() - t0) * 1e3
+    os.environ["DJT_JOIN_MERGE"] = "sort"
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        res = dj.distributed_inner_join(topo, left, lcnt, prep, None, [0], None, pcfg)
+        torch.cuda.synchronize()
+        query_ms = (time.perf_counter() - t0) * 1e3
+        launches, counts = check_two_level(dj, "4e compressed prepared", res, 1,
+                                           ("join_scans", "expand_values"), build, probe,
+                                           expected, ref)
+    finally:
+        os.environ.pop("DJT_JOIN_MERGE")
+    launch_table["compressed_prepared_sort"] = {1: launches}
+    log("two_level_compressed_prepared", smoke_phase="4e", prepared_tier="sort", odf=1,
+        prepare_ms_one_run=prep_ms, query_ms_one_run=query_ms, counts=counts, total=expected,
+        flags="all False", rows_checked=expected, launches=launches,
+        comp=comp_sums(res[2], "pre_shuffle_"), card=smi,
+        seconds=time.perf_counter() - t_phase)
+    del res, prep, left, right
+    return launch_table
+
+
+def with_wire_factor(opts, wf: float):
+    """The options with every cascaded column's wire_factor set to wf."""
+    import dataclasses
+
+    return tuple(dataclasses.replace(o, wire_factor=wf) if o.method == "cascaded" else o
+                 for o in opts)
+
+
+def run_shuffle_on_compressed(dj, dev, rows: int, seed: int, smi: str,
+                              two_level_digests: list) -> None:
+    """Phase 4f compressed: 4f's table shuffled with its auto options, as
+    benchmarks/gpubdb_shuffle_on.py --compression does: flat and per
+    axis, each shard's rows equal to the uncompressed shuffle's (shard
+    digests; per axis 4f's own), the counters, walls and peak; then a
+    wire_factor of 0.2 on every column of the skewed copy: at factors
+    1.8 / 2.4 (where the rows fit, the uncompressed shuffle says) the
+    wire sets the bucket bit, and shuffle_on_auto from 1.2 / 1.2 heals
+    it."""
+    from dj_tpu_torch.ops.hashing import DEFAULT_HASH_SEED
+    from dj_tpu_torch.parallel import shuffle
+    from dj_tpu_torch.parallel.dist_join import INTER_DOMAIN_SEED
+    from dj_tpu_torch.resilience import ledger
+
+    t_phase = time.perf_counter()
+    table = clickstream_table(dj, dev, rows, seed)
+    flat = dj.make_topology([dev] * WORLD)
+    t, c = dj.shard_table(flat, table)
+    opts = dj.broadcast_compression_options(dj.generate_auto_select_compression_options(t))
+    want = shard_digests(*dj.shuffle_on(flat, t, c, [0])[:2])
+
+    def run_flat():
+        return dj.shuffle_on(flat, t, c, [0], compression=opts, with_stats=True)
+
+    res = run_flat()
+    counts = check_shuffled("4f compressed flat", res, table,
+                            lambda k, r: key_hash(k, DEFAULT_HASH_SEED) % WORLD == r)
+    if shard_digests(res[0], res[1]) != want:
+        raise AssertionError("4f compressed flat: the shards differ from the uncompressed ones")
+    sums = comp_sums(res[3], "")
+    del res
+    wall, runs, peak = warm_walls(run_flat)
+    log("shuffle_on_compressed", smoke_phase="4f", topology="flat", ranks=WORLD, rows=rows,
+        options=options_summary(opts), counts=counts, overflow="all False",
+        same_shards_as_uncompressed=True, wall_ms=wall, wall_ms_runs=runs, peak_bytes=peak,
+        comp=sums, card=smi)
+    del t, c
+
+    two = dj.make_topology([dev] * WORLD, intra_size=INTRA)
+    t2, c2 = dj.shard_table(two, table)
+
+    def run_two():
+        a = dj.shuffle_on(two, t2, c2, [0], group=two.group("inter"), seed=INTER_DOMAIN_SEED,
+                          compression=opts, with_stats=True)
+        if bool(a[2].any()):
+            raise AssertionError(f"4f compressed inter: overflow on shards {a[2].tolist()}")
+        b = dj.shuffle_on(two, a[0], a[1], [0], group=two.group("intra"), compression=opts,
+                          with_stats=True)
+        return b, a[3]
+
+    res, inter_stats = run_two()
+    counts = check_shuffled(
+        "4f compressed two-level", res, table,
+        lambda k, r: ((key_hash(k, INTER_DOMAIN_SEED) % (WORLD // INTRA) == r // INTRA)
+                      & (key_hash(k, DEFAULT_HASH_SEED) % INTRA == r % INTRA)))
+    if shard_digests(res[0], res[1]) != two_level_digests:
+        raise AssertionError("4f compressed two-level: the shards differ from 4f's")
+    sums = {"inter": comp_sums(inter_stats, ""), "intra": comp_sums(res[3], "")}
+    del res, inter_stats
+    wall, runs, peak = warm_walls(run_two)
+    log("shuffle_on_compressed", smoke_phase="4f", topology=f"{WORLD // INTRA} x {INTRA}",
+        axes=["inter (seed 87654321)", "intra"], ranks=WORLD, rows=rows, counts=counts,
+        overflow="all False", same_shards_as_uncompressed=True, wall_ms=wall,
+        wall_ms_runs=runs, peak_bytes=peak, comp=sums, card=smi)
+    del t2, c2, table
+
+    hot = clickstream_table(dj, dev, rows, seed, hot=True)
+    th, ch = dj.shard_table(flat, hot)
+    tight = with_wire_factor(
+        dj.broadcast_compression_options(dj.generate_auto_select_compression_options(th)), 0.2)
+    raw = dj.shuffle_on(flat, th, ch, [0], bucket_factor=1.8, out_factor=2.4,
+                        with_split_overflow=True)
+    wire = dj.shuffle_on(flat, th, ch, [0], bucket_factor=1.8, out_factor=2.4,
+                         compression=tight, with_split_overflow=True)
+    if bool(raw[2].any()) or not bool(wire[3]["bucket"].any()) or bool(wire[3]["out"].any()):
+        raise AssertionError(f"4f compressed: at 1.8 / 2.4 the rows must fit "
+                             f"({raw[2].tolist()}) and the 0.2 wire set the bucket bit alone "
+                             f"({ {k: v.tolist() for k, v in wire[3].items()} })")
+    wire_bits = wire[3]["bucket"].tolist()
+    del raw, wire
+    ledger.reset()
+    calls = []
+    orig = shuffle.shuffle_on
+    shuffle.shuffle_on = lambda *a, **k: calls.append(
+        (k["bucket_factor"], k["out_factor"])) or orig(*a, **k)
+    try:
+        t0 = time.perf_counter()
+        res = dj.shuffle_on_auto(flat, th, ch, [0], compression=tight, with_stats=True)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        shuffle.shuffle_on = orig
+    counts = check_shuffled("4f compressed auto", res, hot,
+                            lambda k, r: key_hash(k, DEFAULT_HASH_SEED) % WORLD == r)
+    if len(calls) < 2 or not res[3] > 1.8:
+        raise AssertionError(f"4f compressed auto: attempts {calls}, bucket_factor {res[3]}")
+    log("shuffle_on_compressed_auto", smoke_phase="4f", ranks=WORLD, rows=rows,
+        hot_rows=rows // 10, wire_factor=0.2, wire_bit_at_1_8=wire_bits, attempts=len(calls),
+        factors_by_attempt=calls, bucket_factor=res[3], out_factor=res[4], counts=counts,
+        overflow="all False", placed=True, rows_conserved=True, wall_ms=wall,
+        comp=comp_sums(res[5], ""), card=smi, seconds=time.perf_counter() - t_phase)
+    ledger.reset()
+    del res, th, ch, hot
+
+
 # --- process worlds (phases 6a-6c) ---------------------------------------
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -1795,6 +2209,38 @@ def two_level_rank(dj, dev, spec: dict, left, lcnt, right, rcnt) -> dict:
     (res, ovf), result["shuffle_wall_ms"] = timed(shuffle)
     result["shuffle_digest"] = shard_digest(res[0], int(res[1][0]))
     result["shuffle_overflow"] = ovf.tolist()
+    del res
+
+    # The codec over the process group: each rank samples its own block
+    # and takes rank 0's options; then the table over 'inter', raw and
+    # compressed, each with its exchange's device ms (gloo stages it
+    # through the host).
+    from dj_tpu_torch.compress import cascaded as cz
+
+    local = dj.generate_auto_select_compression_options(t)
+    agreed = dj.broadcast_compression_options(local)
+    result["options_local"] = [cz._encode(o) for o in local]
+    result["options_agreed"] = [cz._encode(o) for o in agreed]
+    # Blocks of one distribution sample alike: a tree made to differ by
+    # rank must come back as rank 0's too.
+    ranked = with_wire_factor(local, 0.9 + 0.01 * topo.rank)
+    result["options_ranked"] = [cz._encode(o) for o in ranked]
+    result["options_ranked_agreed"] = [
+        cz._encode(o) for o in dj.broadcast_compression_options(ranked)]
+
+    def inter(comp):
+        return dj.shuffle_on(topo, t, c, [0], group=topo.group("inter"), seed=INTER_DOMAIN_SEED,
+                             compression=comp, with_stats=True)
+
+    inter(agreed)  # the codec's first call
+    for name, comp in (("raw", None), ("compressed", agreed)):
+        with spmd.record_phases() as runs:
+            res, wall = timed(lambda: inter(comp))
+        result[f"inter_{name}"] = {
+            "digest": shard_digest(res[0], int(res[1][0])), "overflow": res[2].tolist(),
+            "wall_ms": wall, "exchange_ms": runs[-1][0].get("a2a_exchange"),
+            "phase_ms": runs[-1][0], "stats": {k: v.tolist() for k, v in res[3].items()}}
+        del res
     return result
 
 
@@ -1859,6 +2305,18 @@ def check_two_level_processes(what: str, results: list, want_digests: Optional[l
     if want_shuffle is not None and shuffled != want_shuffle:
         raise AssertionError(f"{what} two-level: shuffle digests {shuffled} != 4f's "
                              f"{want_shuffle}")
+    if any(t["options_agreed"] != two[0]["options_local"]
+           or t["options_ranked_agreed"] != two[0]["options_ranked"] for t in two):
+        raise AssertionError(f"{what} two-level: a process did not take rank 0's options")
+    if len({json.dumps(t["options_ranked"]) for t in two}) != len(two):
+        raise AssertionError(f"{what} two-level: the ranked trees do not differ by rank")
+    for r, t in enumerate(two):
+        raw, comp = t["inter_raw"], t["inter_compressed"]
+        if raw["digest"] != comp["digest"] or any(raw["overflow"] + comp["overflow"]):
+            raise AssertionError(f"{what} two-level: rank {r}'s compressed 'inter' shuffle "
+                                 f"differs from the raw one")
+        if not all(v > 0 for v in comp["stats"]["comp_actual_bytes"]):
+            raise AssertionError(f"{what} two-level: rank {r} compressed nothing")
 
 
 def check_process_world(what: str, results: list, want_digests: Optional[list],
@@ -2623,6 +3081,16 @@ def main() -> int:
     shuffle_digests = run_shuffle_on(dj, dev, rows, args.seed, smi)
     torch.cuda.empty_cache()
 
+    # 4g. the cascaded codec alone; 4e and 4f again, compressed
+    codec = check_codec(dev, 4, min(rows // 100, 1_000_000), args.seed, smi,
+                        time_rows=2 * rows // (WORLD * WORLD))
+    torch.cuda.empty_cache()
+    two_level_launches.update(run_two_level_compressed(dj, dev, build, probe, expected, ref,
+                                                       rows, smi))
+    torch.cuda.empty_cache()
+    run_shuffle_on_compressed(dj, dev, rows, args.seed, smi, shuffle_digests)
+    torch.cuda.empty_cache()
+
     # 5. prepared path: prepare once, query under each merge tier
     prep_walls, query_walls = {}, {}
     for odf in (1, 4):
@@ -2738,6 +3206,18 @@ def main() -> int:
         shuffle_wall_ms_by_rank=[t["shuffle_wall_ms"] for t in two],
         launches_by_rank=[t["launches"] for t in two], seconds=time.perf_counter() - t_6b,
         parent_reserved_bytes=parent_bytes, card=smi)
+    log("process_world_compressed", smoke_phase="6b", backend="gloo", ranks=WORLD,
+        intra=INTRA, options_agreed_rank0=True,
+        options_local_by_rank=[t["options_local"] for t in two],
+        inter_digests_equal_raw=True,
+        inter_exchange_ms_raw_by_rank=[t["inter_raw"]["exchange_ms"] for t in two],
+        inter_exchange_ms_compressed_by_rank=[t["inter_compressed"]["exchange_ms"]
+                                              for t in two],
+        inter_wall_ms_raw_by_rank=[t["inter_raw"]["wall_ms"] for t in two],
+        inter_wall_ms_compressed_by_rank=[t["inter_compressed"]["wall_ms"] for t in two],
+        inter_phase_ms_compressed_by_rank=[t["inter_compressed"]["phase_ms"] for t in two],
+        comp=[{k: sum(v) for k, v in t["inter_compressed"]["stats"].items()} for t in two][0],
+        card=smi)
 
     # 6c. an NCCL world of one process per card, phase 4d's rows a rank,
     # at 4e's intra size when the cards factor by it
@@ -2976,6 +3456,8 @@ def main() -> int:
             "bound_ms": ranks_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": ranks_timing["library_ms"],
             "library_call": "torch.searchsorted(csum, arange(n_out), right=True, out_int32=True)",
+            # The codec's RLE decodes in phase 4g, one a decompress call.
+            "launches_codec_4g": codec["expand_ranks_launches"],
             # The same kernel at the unprepared ranks mode's S and n_out.
             "ranks_mode": {"S": mode_timing["S"], "n_out": mode_timing["n_out"],
                            "ms": mode_timing["expand_ranks"]["ms"],

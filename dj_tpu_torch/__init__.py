@@ -46,7 +46,17 @@ partition, the two-buffer exchange and the join as payloads, with
 ``JoinConfig.char_out_factor`` sizing the output's chars and the
 ``char_overflow`` flag when it is too small; a string key joins through
 a 64-bit surrogate hash whose matches are verified byte for byte
-(``surrogate_collision``). The prepared side takes no string column
+(``surrogate_collision``).
+
+The two-level pre-shuffle, ``shuffle_on`` and ``shuffle_on_auto`` can
+send their buckets through the cascaded wire codec (``compress``: RLE,
+zigzag delta and FoR bitpack into a static ``wire_factor`` of the raw
+bytes, its RLE decode on the expand_ranks kernel):
+``generate_auto_select_compression_options`` samples each column and
+picks its cascade, ``broadcast_compression_options`` gives every process
+rank 0's choice, and ``JoinConfig.left_compression`` /
+``right_compression`` or ``shuffle_on(compression=...)`` take it;
+``warmup_compression`` runs the codec once. The prepared side takes no string column
 yet. ``distributed_inner_join_auto`` answers any input: it heals
 overflowing capacities, a wrong declared key range and a prepared side
 the probe keys fall outside of, remembering the healed factors in the
@@ -54,6 +64,13 @@ capacity ledger (``resilience``; ``DJT_LEDGER=<path>`` keeps it), and
 raises ``CapacityExhausted`` when its ``HealBudget`` runs out.
 """
 
+from .compress import (
+    CascadedOptions,
+    ColumnCompressionOptions,
+    broadcast_compression_options,
+    generate_auto_select_compression_options,
+    generate_none_compression_options,
+)
 from .core import dtypes
 from .core.table import (
     Column,
@@ -102,6 +119,7 @@ from .parallel.dist_join import (
 )
 from .parallel.shuffle import shuffle_on, shuffle_on_auto
 from .parallel.topology import CommunicationGroup, Topology, largest_intra_size, make_topology
+from .parallel.warmup import warmup_compression
 from . import resilience
 from .resilience import (
     AdmissionRejected,
@@ -123,7 +141,9 @@ __all__ = [
     "BackendError",
     "BufferedCommunicator",
     "CapacityExhausted",
+    "CascadedOptions",
     "Column",
+    "ColumnCompressionOptions",
     "CommunicationGroup",
     "Communicator",
     "ContractViolation",
@@ -144,6 +164,7 @@ __all__ = [
     "Table",
     "Topology",
     "XlaCommunicator",
+    "broadcast_compression_options",
     "collect_tables",
     "concatenate",
     "deadline_scope",
@@ -153,7 +174,9 @@ __all__ = [
     "dtypes",
     "from_arrays",
     "from_strings",
+    "generate_auto_select_compression_options",
     "generate_build_probe_tables",
+    "generate_none_compression_options",
     "generate_tables_distributed",
     "hash_columns",
     "hash_partition",
@@ -173,4 +196,5 @@ __all__ = [
     "shuffle_on_auto",
     "to_strings",
     "unshard_table",
+    "warmup_compression",
 ]

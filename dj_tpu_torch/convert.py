@@ -6,9 +6,10 @@ table as a list of numpy column arrays (a string column as its
 (offsets, chars) pair), their logical dtype names and a valid row count; a config as its field values; a prepared side as its
 plan fields and its batches' arrays. This module imports neither JAX nor
 dj_tpu; the caller converts dj_tpu arrays with ``np.asarray`` and builds
-dj_tpu tables from the arrays it gets back, and ``prepared_side_from``
+dj_tpu tables from the arrays it gets back, ``prepared_side_from``
 reads a dj_tpu PreparedSide by attribute name, converting each array
-with ``np.asarray``.
+with ``np.asarray``, and ``compression_options_from`` reads a
+compression options tree by field name.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .compress import cascaded as cz
 from .core import dtypes as dt
 from .core.table import Column, StringColumn, Table
 from .ops.join import PreparedPackPlan
@@ -63,12 +65,34 @@ def table_to_numpy(table: Table) -> tuple[list[np.ndarray], list[str], Optional[
     return arrays, names, vc
 
 
+def compression_options_from(tree):
+    """The port's options for any compression options tree, read by field
+    name (``method``, ``cascaded.num_rles`` / ``num_deltas`` /
+    ``use_bp``, ``wire_factor``, ``children``): a table's tuple of
+    column options gives a tuple, one column's options a
+    ColumnCompressionOptions, None gives None."""
+    if tree is None:
+        return None
+    if isinstance(tree, (tuple, list)):
+        return tuple(compression_options_from(o) for o in tree)
+    c = tree.cascaded
+    return cz.ColumnCompressionOptions(
+        method=str(tree.method),
+        cascaded=cz.CascadedOptions(int(c.num_rles), int(c.num_deltas), bool(c.use_bp)),
+        wire_factor=float(tree.wire_factor),
+        children=tuple(compression_options_from(ch) for ch in tree.children),
+    )
+
+
 def join_config_from(config) -> JoinConfig:
     """A JoinConfig with the same values of every field this port has,
     read by name from another config object (dj_tpu's JoinConfig). The
-    communicator class maps to the port's class of the same name."""
+    communicator class maps to the port's class of the same name, the
+    compression options through ``compression_options_from``."""
     fields = {f.name: getattr(config, f.name) for f in dataclasses.fields(JoinConfig)}
     fields["communicator_cls"] = getattr(communicator, fields["communicator_cls"].__name__)
+    for side in ("left_compression", "right_compression"):
+        fields[side] = compression_options_from(fields[side])
     return JoinConfig(**fields)
 
 

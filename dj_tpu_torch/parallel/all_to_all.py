@@ -1,7 +1,7 @@
 """Bucketed all-to-all table shuffle: plan, exchange, compact.
 
-Counterpart of ``dj_tpu/parallel/all_to_all.py`` without its compressed
-wire. Each partition is padded into a bucket of static size
+Counterpart of ``dj_tpu/parallel/all_to_all.py``. Each partition is
+padded into a bucket of static size
 (``bucketize``), one ``Communicator.exchange`` moves every bucket of
 the epoch, and a gather concatenates the received valid prefixes
 (``compact``). ``shuffle_tables`` shuffles several tables through one
@@ -21,6 +21,17 @@ epoch, as a join batch's left and right tables do:
 3. ``compact`` per received buffer into the table's output; a string
    column's offsets are rebuilt from its received sizes.
 
+``compression`` (an options tree per table, ``compress.cascaded``) sends
+a slot whose options are ``METHOD_CASCADED`` through the wire codec: its
+buckets are compressed into [n, cap_words] int64 words
+(``compressed_capacity_words`` of the raw bucket bytes and the slot's
+wire_factor), which ride the same exchange, and are decompressed before
+the compact. A string column's options come from its sizes child; its
+chars never compress. A bucket whose stream does not fit is a
+``bucket_overflow`` (the wire's capacity scales with bucket_rows), and
+the table's stats add ``comp_raw_bytes``, ``comp_wire_bytes`` and
+``comp_actual_bytes`` (float32, the reference's ratio report).
+
 A char bucket too small for a peer's bytes is a ``bucket_overflow``, an
 output char capacity too small an ``out_overflow``, as for rows.
 
@@ -31,8 +42,7 @@ batch b (dj_tpu/parallel/dist_join.py:278-305); ``shuffle_tables`` is
 the two in a row.
 
 A one-peer group shuffles by the self-copy of ``_single_peer_shuffle``
-(dj_tpu/parallel/all_to_all.py:204-249). The compressed wire comes with
-a later slice.
+(dj_tpu/parallel/all_to_all.py:204-249), which compresses nothing.
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from ..compress import cascaded as cz
 from ..core.search import interval_of_arange
 from ..core.table import Column, StringColumn, Table, gather_fill, sizes_to_offsets
 from .communicator import Communicator, Pending, done
@@ -127,25 +138,37 @@ class ShufflePlan:
     """Which row-aligned buffers ride which collective: one (element
     width, slots) group per width across every table of the epoch when
     fused, one per buffer otherwise (dj_tpu/parallel/all_to_all.py:
-    127-195, without its compressed slots). A string column's slot is
-    its int32 size vector, in the 4-byte group; its chars are not
-    row-aligned and travel apart."""
+    127-195). A string column's slot is its int32 size vector, in the
+    4-byte group; its chars are not row-aligned and travel apart. A slot
+    whose options are ``METHOD_CASCADED`` (a string column's: its sizes
+    child's) leaves the width groups for ``compressed``, with its
+    options."""
 
     width_groups: tuple[tuple[int, tuple[Slot, ...]], ...]
+    compressed: tuple[tuple[Slot, cz.ColumnCompressionOptions], ...] = ()
 
     @staticmethod
-    def for_tables(tables: Sequence[Table], fuse: bool) -> "ShufflePlan":
-        slots = [
-            (4 if isinstance(col, StringColumn) else col.data.element_size(), (t, i))
-            for t, table in enumerate(tables)
-            for i, col in enumerate(table.columns)
-        ]
+    def for_tables(tables: Sequence[Table], fuse: bool,
+                   compression: Optional[Sequence] = None) -> "ShufflePlan":
+        slots, compressed = [], []
+        for t, table in enumerate(tables):
+            tree = None if compression is None else compression[t]
+            for i, col in enumerate(table.columns):
+                is_str = isinstance(col, StringColumn)
+                o = None if tree is None else tree[i]
+                if is_str and o is not None:
+                    o = o.children[0] if o.children else None
+                if o is not None and o.method == cz.METHOD_CASCADED:
+                    compressed.append(((t, i), o))
+                else:
+                    slots.append((4 if is_str else col.data.element_size(), (t, i)))
         if not fuse:
-            return ShufflePlan(tuple((w, (s,)) for w, s in slots))
+            return ShufflePlan(tuple((w, (s,)) for w, s in slots), tuple(compressed))
         groups: dict[int, list[Slot]] = {}
         for w, s in slots:
             groups.setdefault(w, []).append(s)
-        return ShufflePlan(tuple((w, tuple(ss)) for w, ss in sorted(groups.items())))
+        return ShufflePlan(tuple((w, tuple(ss)) for w, ss in sorted(groups.items())),
+                           tuple(compressed))
 
 
 def _copy_prefix(data: torch.Tensor, start: int, count: int, length: int) -> torch.Tensor:
@@ -203,6 +226,7 @@ def shuffle_tables(
     out_capacity: Sequence[int],
     char_bucket_bytes: Optional[Sequence[Optional[dict]]] = None,
     char_out_bytes: Optional[Sequence[Optional[dict]]] = None,
+    compression: Optional[Sequence] = None,
 ) -> list[tuple[Table, torch.Tensor, torch.Tensor, dict]]:
     """Shuffle hash-partitioned tables through one epoch: partition p of
     every table goes to group peer p. Returns one (table,
@@ -212,11 +236,13 @@ def shuffle_tables(
     exceeded), ``overflow`` their OR. ``char_bucket_bytes[t]`` and
     ``char_out_bytes[t]`` map a string column of table t to its char
     bucket and output char capacity (default ``default_char_bucket`` and
-    n buckets). Every rank of the group calls it with the same static
-    sizes."""
+    n buckets). ``compression[t]`` is table t's options tree or None
+    (module docstring); a table with compressed slots also has the
+    ``comp_*`` byte counters in its stats. Every rank of the group calls
+    it with the same static sizes and options."""
     return shuffle_tables_start(
         comm, tables, part_starts, part_counts, bucket_rows, out_capacity,
-        char_bucket_bytes, char_out_bytes,
+        char_bucket_bytes, char_out_bytes, compression,
     ).wait()
 
 
@@ -229,6 +255,7 @@ def shuffle_tables_start(
     out_capacity: Sequence[int],
     char_bucket_bytes: Optional[Sequence[Optional[dict]]] = None,
     char_out_bytes: Optional[Sequence[Optional[dict]]] = None,
+    compression: Optional[Sequence] = None,
 ) -> Pending:
     """Issue ``shuffle_tables``: bucketize and start the exchange. The
     handle's ``wait()`` waits for the exchange, compacts and returns
@@ -262,7 +289,7 @@ def shuffle_tables_start(
         ])
 
     comm.phase("a2a_bucketize")
-    plan = ShufflePlan.for_tables(tables, comm.fuse_columns)
+    plan = ShufflePlan.for_tables(tables, comm.fuse_columns, compression)
     send_ovf = [(part_counts[t] > bucket_rows[t]).any() for t in range(nt)]
     sent = [part_counts[t].clamp_max(bucket_rows[t]).to(torch.int32) for t in range(nt)]
     string_cols = [(t, i) for t in range(nt) for i, c in enumerate(tables[t].columns)
@@ -292,6 +319,16 @@ def shuffle_tables_start(
             cols = [_slot_data(tables[t].columns[i]).view(_INT_OF_SIZE[width]) for _, i in tslots]
             buffers.append(torch.stack(_gather_columns(cols, *send_index[t]), dim=-1))  # [n, B, k]
             metas.append((t, tuple(tslots)))
+    comp_metas = []
+    for (t, i), copts in plan.compressed:
+        raw = _slot_data(tables[t].columns[i])
+        itemsize = raw.element_size()
+        cap_words = cz.compressed_capacity_words(bucket_rows[t] * itemsize, copts.wire_factor)
+        words, nwords, wovf = cz.compress_buckets(
+            _gather_columns([raw], *send_index[t])[0], itemsize, copts.cascaded, cap_words,
+            sent[t])
+        buffers.append(words)  # [n, cap_words] int64
+        comp_metas.append(((t, i), copts, raw.dtype, nwords, cap_words, wovf))
     del send_index
     for t, i in string_cols:
         byte_starts, sent_bytes, _, cbucket, _ = char_meta[(t, i)]
@@ -320,10 +357,34 @@ def shuffle_tables_start(
             for d, (_, i) in zip(data, tslots):
                 tdtype, dtype = schema[t][i]
                 out_cols[t][i] = Column(d.view(tdtype), dtype)
+        stats: list[dict] = [{} for _ in range(nt)]
+        received_comp = received[1 + len(metas) : 1 + len(metas) + len(comp_metas)]
+        for buf, ((t, i), copts, physical, nwords, cap_words, wovf) in zip(received_comp,
+                                                                           comp_metas):
+            # Decompress, then compact (the reference's compressed
+            # all-to-all, all_to_all_comm.cpp:358-465).
+            dec = cz.decompress_buckets(buf, physical.itemsize, copts.cascaded,
+                                        bucket_rows[t], physical)
+            idx, fill, _ = recv_index[t]
+            out_cols[t][i] = Column(_gather_columns([dec.reshape(-1)], idx, fill)[0],
+                                    schema[t][i][1])
+            # The wire's capacity scales with the bucket: bucket_factor
+            # heals its overflow.
+            bucket_ovfs[t] = bucket_ovfs[t] | wovf.any()
+            itemsize = physical.itemsize
+            for key, value in (
+                ("comp_raw_bytes", sent[t].sum().to(torch.float32) * itemsize),
+                ("comp_wire_bytes", torch.tensor(n * cap_words * 8, dtype=torch.float32,
+                                                 device=buf.device)),
+                ("comp_actual_bytes", nwords.sum().to(torch.float32) * 8),
+            ):
+                stats[t][key] = stats[t].get(key, torch.zeros((), dtype=torch.float32,
+                                                               device=buf.device)) + value
         del recv_index
         # Chars: compacted by the received byte counts; offsets rebuilt
         # from the received sizes of the valid rows.
-        for j, (buf, (t, i)) in enumerate(zip(received[1 + len(metas):], string_cols)):
+        first_chars = 1 + len(metas) + len(comp_metas)
+        for j, (buf, (t, i)) in enumerate(zip(received[first_chars:], string_cols)):
             _, _, covf, _, cout = char_meta[(t, i)]
             chars, btotal = compact(buf, recv_mat[:, nt + j], cout)
             sizes = out_cols[t][i].data
@@ -334,9 +395,9 @@ def shuffle_tables_start(
             out_cols[t][i] = StringColumn(sizes_to_offsets(sizes), chars, schema[t][i][1])
         results = []
         for t in range(nt):
-            stats = {OVF_BUCKET: bucket_ovfs[t], OVF_OUT: out_ovfs[t]}
+            stats[t].update({OVF_BUCKET: bucket_ovfs[t], OVF_OUT: out_ovfs[t]})
             results.append((Table(tuple(out_cols[t]), counts[t]), totals[t],
-                            bucket_ovfs[t] | out_ovfs[t], stats))
+                            bucket_ovfs[t] | out_ovfs[t], stats[t]))
         return results
 
     return Pending(finish)
@@ -355,12 +416,13 @@ def shuffle_table(
     part_counts: torch.Tensor,
     bucket_rows: int,
     out_capacity: int,
+    compression=None,
 ) -> tuple[Table, torch.Tensor, torch.Tensor, dict]:
     """Shuffle one hash-partitioned table: the one-table view of
     ``shuffle_tables``, with the same (table, total_recv_rows, overflow,
-    stats) result."""
+    stats) result; ``compression`` is the table's options tree."""
     return shuffle_table_start(
-        comm, table, part_starts, part_counts, bucket_rows, out_capacity
+        comm, table, part_starts, part_counts, bucket_rows, out_capacity, compression
     ).wait()
 
 
@@ -371,9 +433,11 @@ def shuffle_table_start(
     part_counts: torch.Tensor,
     bucket_rows: int,
     out_capacity: int,
+    compression=None,
 ) -> Pending:
     """Issue ``shuffle_table``; ``wait()`` gives its result."""
     pending = shuffle_tables_start(
-        comm, [table], [part_starts], [part_counts], [bucket_rows], [out_capacity]
+        comm, [table], [part_starts], [part_counts], [bucket_rows], [out_capacity],
+        compression=[compression],
     )
     return Pending(lambda: pending.wait()[0])

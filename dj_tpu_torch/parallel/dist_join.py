@@ -13,7 +13,10 @@ the rank's 'intra' group on a two-level one.
    over the 'inter' group and exchanged in one epoch into
    ``pre_shuffle_out_factor`` times their capacity (the
    ``pre_shuffle_overflow`` flag when too small), so the main stage's
-   keys stay inside their intra domain;
+   keys stay inside their intra domain. ``JoinConfig.left_compression``
+   / ``right_compression`` send this stage through the cascaded wire
+   codec, and the info then holds its ``pre_shuffle_comp_*`` byte
+   counters; the main stage stays uncompressed, as in the reference;
 1. hash-partition both tables into n * over_decom_factor parts, n the
    main group's size (seed 12345678, the reference's);
 2. per batch: exchange one batch of partitions (both tables in one
@@ -79,7 +82,7 @@ from ..resilience.heal import HealBudget
 from ..ops import hashing
 from .all_to_all import shuffle_table, shuffle_table_start, shuffle_tables_start
 from .communicator import Communicator, XlaCommunicator
-from .shuffle import _local_shuffle, _local_shuffle_pair
+from .shuffle import STAT_KEYS, _local_shuffle, _local_shuffle_pair
 from .spmd import run_spmd
 from .topology import INTER, Topology
 
@@ -117,6 +120,13 @@ class JoinConfig:
       or one per buffer (False); None defers to the backend's default.
     communicator_cls: the collective backend (XlaCommunicator,
       BufferedCommunicator or RingCommunicator).
+    left_compression / right_compression: per-column compression options
+      (``compress.cascaded``) of the inter-domain pre-shuffle only: the
+      intra-domain batches always run uncompressed, as the reference
+      wires it (compressed shuffle_on across domains, none options on
+      the main stage, distributed_join.cpp:160-184, 253-264). The info
+      then also holds pre_shuffle_comp_raw_bytes / _wire_bytes /
+      _actual_bytes, float32 per shard.
     """
 
     over_decom_factor: int = 1
@@ -127,6 +137,8 @@ class JoinConfig:
     key_range: Optional[tuple] = None
     fuse_columns: Optional[bool] = None
     communicator_cls: Type[Communicator] = XlaCommunicator
+    left_compression: Optional[tuple] = None
+    right_compression: Optional[tuple] = None
 
 
 class BatchSizing(NamedTuple):
@@ -162,20 +174,22 @@ def _local_join_pipeline(
     dev = left.device
     no = torch.tensor(False, device=dev)
     pre_ovf = no
+    pre_stats: dict = {}
     if INTER in comm.axes:
         inter = comm.sub(INTER)
         l_pre_cap = max(1, int(l_cap * config.pre_shuffle_out_factor))
         r_pre_cap = max(1, int(r_cap * config.pre_shuffle_out_factor))
         # Both tables' pre-shuffles share one epoch.
         with comm.phase_scope("dj_pre_shuffle"):
-            (left, _, l_ovf, _), (right, _, r_ovf, _) = _local_shuffle_pair(
+            (left, _, l_ovf, l_stats), (right, _, r_ovf, r_stats) = _local_shuffle_pair(
                 left, right, inter, left_on, right_on, hashing.HASH_MURMUR3,
                 INTER_DOMAIN_SEED,
                 max(1, int(l_cap * config.bucket_factor / inter.size)),
                 max(1, int(r_cap * config.bucket_factor / inter.size)),
-                l_pre_cap, r_pre_cap,
+                l_pre_cap, r_pre_cap, config.left_compression, config.right_compression,
             )
         pre_ovf = l_ovf | r_ovf
+        pre_stats = _pre_shuffle_stats(l_stats, r_stats)
         l_cap, r_cap = l_pre_cap, r_pre_cap
     n = comm.size
     m, _, _, bl, br, batch_out_cap = batch_sizing(config, n, l_cap, r_cap)
@@ -234,8 +248,21 @@ def _local_join_pipeline(
         "char_overflow": char_ovf,
         "surrogate_collision": coll,
         "pack_range_overflow": pack_ovf,
+        **pre_stats,
     }
     return out, flags
+
+
+def _pre_shuffle_stats(*stats: dict) -> dict:
+    """The pre-shuffle's STAT_KEYS counters summed over its tables, each
+    as ``pre_shuffle_<key>`` (float32, in table order as dj_tpu sums)."""
+    out: dict = {}
+    for st in stats:
+        for k in STAT_KEYS:
+            if k in st:
+                key = f"pre_shuffle_{k}"
+                out[key] = out[key] + st[k] if key in out else st[k]
+    return out
 
 
 def _masked_minmax(data: torch.Tensor, counts: torch.Tensor, w: int):
@@ -378,16 +405,18 @@ def distributed_inner_join(
     left_on, right_on = tuple(left_on), tuple(right_on)
     l_cap, r_cap = left.capacity // w, right.capacity // w
 
+    keys = _flag_keys(config)
+
     def run(comm, lt, lc, rt, rc):
         out, flags = _local_join_pipeline(
             comm, lt.with_count(lc[0]), rt.with_count(rc[0]), left_on, right_on, config,
             l_cap, r_cap, key_range,
         )
-        return out.with_count(None), out.count().reshape(1), _flag_row(flags, _FLAG_KEYS)
+        return out.with_count(None), out.count().reshape(1), _flag_row(flags, keys)
 
     out, counts, flag_mat = run_spmd(topology, run, left, left_counts, right, right_counts,
                                      **_backend(config))
-    return out, counts, _flag_info(flag_mat, _FLAG_KEYS)
+    return out, counts, _flag_info(flag_mat, keys)
 
 
 def _backend(config: JoinConfig, flags_at: int = 2) -> dict:
@@ -397,14 +426,31 @@ def _backend(config: JoinConfig, flags_at: int = 2) -> dict:
             "gathered": (flags_at,)}
 
 
+_STAT_PREFIX = "pre_shuffle_comp"
+
+
+def _flag_keys(config: JoinConfig) -> tuple:
+    """The unprepared join's info keys: the flags, plus the pre-shuffle's
+    compression counters when either side compresses."""
+    if config.left_compression or config.right_compression:
+        return _FLAG_KEYS + tuple(f"pre_shuffle_{k}" for k in STAT_KEYS)
+    return _FLAG_KEYS
+
+
 def _flag_row(flags: dict, keys) -> torch.Tensor:
-    """One rank's flags as a bool [1, len(keys)] row."""
-    return torch.stack([flags[k] for k in keys]).reshape(1, len(keys))
+    """One rank's flags and counters as a float32 [1, len(keys)] row (a
+    bool flag as 0 or 1; a counter absent on this rank as 0)."""
+    dev = next(iter(flags.values())).device
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    return torch.stack([flags[k].to(torch.float32) if k in flags else zero
+                        for k in keys]).reshape(1, len(keys))
 
 
 def _flag_info(flag_mat: torch.Tensor, keys) -> dict:
-    """{key: bool[world]} from the ranks' stacked flag rows."""
-    return {k: flag_mat[:, i] for i, k in enumerate(keys)}
+    """{key: bool[world]} for each flag and {key: float32[world]} for each
+    compression counter, from the ranks' stacked rows."""
+    return {k: flag_mat[:, i] if k.startswith(_STAT_PREFIX) else flag_mat[:, i] != 0
+            for i, k in enumerate(keys)}
 
 
 # Which JoinConfig factor heals which overflow flag: the heal loop grows
@@ -593,6 +639,22 @@ _PREPARED_FLAG_KEYS = (
 )
 
 
+def _prep_flag_keys(config: JoinConfig) -> tuple:
+    """The prepare's info keys: its flags, plus the build side's
+    pre-shuffle counters when it compresses."""
+    if config.right_compression:
+        return _PREP_FLAG_KEYS + tuple(f"pre_shuffle_{k}" for k in STAT_KEYS)
+    return _PREP_FLAG_KEYS
+
+
+def _prepared_flag_keys(config: JoinConfig) -> tuple:
+    """A prepared query's info keys: its flags, plus the probe side's
+    pre-shuffle counters when it compresses."""
+    if config.left_compression:
+        return _PREPARED_FLAG_KEYS + tuple(f"pre_shuffle_{k}" for k in STAT_KEYS)
+    return _PREPARED_FLAG_KEYS
+
+
 def _refuse_strings(table: Table, what: str) -> None:
     if table.has_strings:
         raise NotImplementedError(
@@ -603,19 +665,22 @@ def _refuse_strings(table: Table, what: str) -> None:
 
 
 def _pre_shuffle_one(comm: Communicator, config: JoinConfig, table: Table, on: tuple,
-                     cap: int, out_cap: int) -> tuple[Table, torch.Tensor]:
+                     cap: int, out_cap: int, compression=None) -> tuple[Table, torch.Tensor,
+                                                                        dict]:
     """The hierarchical pre-shuffle of one side over 'inter' (the
-    prepare's build side or the prepared query's probe side): (table,
-    overflow); a flat topology's rank keeps its table."""
+    prepare's build side or the prepared query's probe side), through
+    the codec under ``compression``: (table, overflow, its
+    ``pre_shuffle_comp_*`` counters); a flat topology's rank keeps its
+    table."""
     if INTER not in comm.axes:
-        return table, torch.tensor(False, device=table.device)
+        return table, torch.tensor(False, device=table.device), {}
     inter = comm.sub(INTER)
     with comm.phase_scope("dj_pre_shuffle"):
-        out, _, ovf, _ = _local_shuffle(
+        out, _, ovf, stats = _local_shuffle(
             table, inter, on, hashing.HASH_MURMUR3, INTER_DOMAIN_SEED,
-            max(1, int(cap * config.bucket_factor / inter.size)), out_cap,
+            max(1, int(cap * config.bucket_factor / inter.size)), out_cap, compression,
         )
-    return out, ovf
+    return out, ovf, _pre_shuffle_stats(stats)
 
 
 def _prepare_batches(
@@ -627,7 +692,8 @@ def _prepare_batches(
     ``r_cap_m`` rows, then partition, then per batch a single-table
     shuffle and the anchored pack + sort + re-tag. Returns (batches,
     flags by _PREP_FLAG_KEYS)."""
-    right, pre_ovf = _pre_shuffle_one(comm, config, right, right_on, r_cap, r_cap_m)
+    right, pre_ovf, pre_stats = _pre_shuffle_one(comm, config, right, right_on, r_cap, r_cap_m,
+                                                 config.right_compression)
     n = comm.size
     comm.phase("dj_partition")
     r_part, r_offsets = hash_partition(right, right_on, sizing.m, seed=MAIN_JOIN_SEED)
@@ -649,6 +715,7 @@ def _prepare_batches(
         "pre_shuffle_overflow": pre_ovf,
         "shuffle_overflow": shuffle_ovf,
         "prep_range_violation": range_bad,
+        **pre_stats,
     }
     return tuple(outs), flags
 
@@ -752,15 +819,17 @@ def prepare_join_side(
                 f"the 64-bit word at batch size S={S}; use the unprepared join"
             )
 
+        keys = _prep_flag_keys(cfg)
+
         def run(comm, rt, rc):
             batches, flags = _prepare_batches(
                 comm, cfg, rt.with_count(rc[0]), right_on, sizing, plan, r_cap, r_cap_m
             )
-            return batches, _flag_row(flags, _PREP_FLAG_KEYS)
+            return batches, _flag_row(flags, keys)
 
         batches, flag_mat = run_spmd(topology, run, right, right_counts,
                                      **_backend(cfg, flags_at=1))
-        return (batches, plan, n, sizing), _flag_info(flag_mat, _PREP_FLAG_KEYS)
+        return (batches, plan, n, sizing), _flag_info(flag_mat, keys)
 
     def _heal_range_violation(info, attempt):
         # Build keys outside the declared range: the anchored words are
@@ -879,17 +948,18 @@ def _distributed_inner_join_prepared(
     l_cap = left.capacity // w
     n, l_cap_m, bl, out_cap = _prepared_query_sizing(topology, config, l_cap, prepared)
     plan = prepared.plan
+    keys = _prepared_flag_keys(config)
 
     def run(comm, lt, lc, batches):
-        lt, pre_ovf = _pre_shuffle_one(comm, config, lt.with_count(lc[0]), left_on, l_cap,
-                                       l_cap_m)
+        lt, pre_ovf, pre_stats = _pre_shuffle_one(comm, config, lt.with_count(lc[0]), left_on,
+                                                  l_cap, l_cap_m, config.left_compression)
         out, flags = _prepared_query(comm, lt, left_on, batches, plan, odf, bl, out_cap)
-        flags["pre_shuffle_overflow"] = pre_ovf
-        return out.with_count(None), out.count().reshape(1), _flag_row(flags, _PREPARED_FLAG_KEYS)
+        flags.update(pre_shuffle_overflow=pre_ovf, **pre_stats)
+        return out.with_count(None), out.count().reshape(1), _flag_row(flags, keys)
 
     out, counts, flag_mat = run_spmd(topology, run, left, left_counts, prepared.batches,
                                      **_backend(config))
-    return out, counts, _flag_info(flag_mat, _PREPARED_FLAG_KEYS)
+    return out, counts, _flag_info(flag_mat, keys)
 
 
 def _prepared_query(

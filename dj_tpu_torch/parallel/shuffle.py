@@ -10,14 +10,18 @@ two-level topology shuffles once per axis ('inter', then 'intra').
 ``shuffle_on_auto`` grows exactly the factor whose split overflow bit
 fired, under the heal engine and the capacity ledger.
 
+``compression`` sends the table through the cascaded wire codec
+(``compress.cascaded``; ``STAT_KEYS`` count its bytes), and a wire too
+small for a bucket's stream sets the bucket bit, which ``bucket_factor``
+heals.
+
 ``_local_shuffle`` and ``_local_shuffle_pair`` are the per-rank bodies
 that the join's hierarchical pre-shuffle runs over the 'inter' group.
 
-Left out here, as in the rest of the port: the compressed wire
-(``compression``, ROADMAP queue 1 item 8b; the ``STAT_KEYS`` counters
-are zeros), and dj_tpu's degradation guard (``resil.degrade_guard``),
-fault sites (``faults.check``, ``faults.force_flags``) and ``obs``
-counters, which come with the serving stack (item 10).
+Left out here, as in the rest of the port: dj_tpu's degradation guard
+(``resil.degrade_guard``, whose "wire" tier retries a failing codec
+uncompressed), fault sites (``faults.check``, ``faults.force_flags``)
+and ``obs`` counters, which come with the serving stack (item 10).
 """
 
 from __future__ import annotations
@@ -36,8 +40,8 @@ from .communicator import Communicator, XlaCommunicator
 from .spmd import run_spmd
 from .topology import CommunicationGroup, Topology
 
-# Compression byte counters per shard (zeros while nothing compresses;
-# the reference's compression-ratio report).
+# Compression byte counters per shard (zero when nothing compresses; the
+# reference's compression-ratio report).
 STAT_KEYS = ("comp_raw_bytes", "comp_wire_bytes", "comp_actual_bytes")
 
 
@@ -49,13 +53,15 @@ def _local_shuffle(
     seed: int,
     bucket_rows: int,
     out_capacity: int,
+    compression=None,
 ):
     """One rank's shuffle over ``comm``'s group: (table, total, overflow,
-    stats), ``stats`` holding the split bits OVF_BUCKET and OVF_OUT."""
+    stats), ``stats`` holding the split bits OVF_BUCKET and OVF_OUT and,
+    when a slot compresses, the STAT_KEYS counters."""
     part, offsets = hash_partition(local, on_columns, comm.size, seed=seed,
                                    hash_function=hash_function)
     return shuffle_table(comm, part, offsets[:-1], partition_counts(offsets), bucket_rows,
-                         out_capacity)
+                         out_capacity, compression)
 
 
 def _local_shuffle_pair(
@@ -70,6 +76,8 @@ def _local_shuffle_pair(
     right_bucket_rows: int,
     left_out_capacity: int,
     right_out_capacity: int,
+    left_compression=None,
+    right_compression=None,
 ):
     """One rank's shuffle of a join's two tables through one epoch (one
     batched size exchange, equal-width buffers sharing collectives):
@@ -84,6 +92,7 @@ def _local_shuffle_pair(
         [partition_counts(l_off), partition_counts(r_off)],
         [left_bucket_rows, right_bucket_rows],
         [left_out_capacity, right_out_capacity],
+        compression=[left_compression, right_compression],
     )
 
 
@@ -114,18 +123,19 @@ def shuffle_on(
     buckets of ``bucket_factor * cap / group size`` rows to each peer and
     receives into ``out_factor * cap`` rows.
 
+    ``compression`` is the table's options tree
+    (``generate_auto_select_compression_options``, the same on every
+    rank: ``broadcast_compression_options``), None for an uncompressed
+    wire. A group of one rank compresses nothing.
+
     Returns (shuffled_table, counts, overflow[world]); with
-    ``with_stats`` also {STAT_KEYS: float32[world]} (zeros: nothing
-    compresses), with ``with_split_overflow`` also {"bucket":
-    bool[world], "out": bool[world]}, the overflow's two components
-    (send buckets, output capacity). A set overflow leaves that shard's
-    rows unspecified: grow the factor and shuffle again. In a process
-    world the flags and stats hold every rank's."""
-    if compression is not None:
-        raise NotImplementedError(
-            "compression: the cascaded codec comes with ROADMAP queue 1 item 8b; "
-            "shuffle uncompressed (compression=None)"
-        )
+    ``with_stats`` also {STAT_KEYS: float32[world]}, each shard's raw,
+    wire and actual compressed bytes (zeros when nothing compresses),
+    with ``with_split_overflow`` also {"bucket": bool[world], "out":
+    bool[world]}, the overflow's two components (send buckets and the
+    compressed wire, output capacity). A set overflow leaves that
+    shard's rows unspecified: grow the factor and shuffle again. In a
+    process world the flags and stats hold every rank's."""
     if group is None:
         group = topology.world_group()
     axis = group.axis_name
@@ -139,19 +149,21 @@ def shuffle_on(
     def run(comm, t, c):
         out, _, overflow, stats = _local_shuffle(
             t.with_count(c[0]), comm.sub(axis), on_columns, hash_function, seed,
-            bucket_rows, out_capacity,
+            bucket_rows, out_capacity, compression,
         )
         split = torch.stack([stats[OVF_BUCKET], stats[OVF_OUT]]).reshape(1, 2)
-        return out.with_count(None), out.count().reshape(1), overflow.reshape(1), split
+        zero = torch.zeros((), dtype=torch.float32, device=overflow.device)
+        stat_row = torch.stack([stats.get(k, zero) for k in STAT_KEYS]).reshape(1, -1)
+        return (out.with_count(None), out.count().reshape(1), overflow.reshape(1), split,
+                stat_row)
 
-    out, out_counts, overflow, split_mat = run_spmd(
+    out, out_counts, overflow, split_mat, stat_mat = run_spmd(
         topology, run, table, counts, communicator_cls=communicator_cls,
-        fuse_columns=fuse_columns, gathered=(2, 3),
+        fuse_columns=fuse_columns, gathered=(2, 3, 4),
     )
     res = (out, out_counts, overflow)
     if with_stats:
-        zeros = torch.zeros(overflow.shape[0], dtype=torch.float32, device=overflow.device)
-        res = res + ({k: zeros.clone() for k in STAT_KEYS},)
+        res = res + ({k: stat_mat[:, j] for j, k in enumerate(STAT_KEYS)},)
     if with_split_overflow:
         res = res + ({"bucket": split_mat[:, 0], "out": split_mat[:, 1]},)
     return res
@@ -182,7 +194,8 @@ def shuffle_on_auto(
     ``shuffle_on_auto``): it runs shuffle_on, reads the split overflow
     bits on the host and runs again with exactly the offending factor
     multiplied by ``growth`` (a send bucket grows ``bucket_factor``, the
-    output capacity ``out_factor``) until no shard overflows. So the
+    output capacity ``out_factor``; a compressed wire too small for a
+    bucket's stream is a send bucket) until no shard overflows. So the
     factors may start tight. Exhausting ``max_attempts``, or one factor
     growing past ``max_total_growth``, raises CapacityExhausted. The
     capacity ledger keeps the healed factors per workload signature, so

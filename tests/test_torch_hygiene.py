@@ -37,7 +37,8 @@ def test_importing_every_module_loads_no_jax():
     mods = list(_modules())
     for m in ("ops.scan", "convert", "ops.merge", "ops.expand", "resilience.errors",
               "hw.probe_sort", "hw.probe_gather", "parallel.spmd", "parallel.communicator",
-              "parallel.bootstrap", "parallel.topology", "data.generator"):
+              "parallel.bootstrap", "parallel.topology", "data.generator",
+              "compress.cascaded", "parallel.warmup"):
         assert f"dj_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -15,13 +15,6 @@ import dj_tpu_torch as tj
 NOT_YET_PORTED = {
     # 7a: the rest of the prepared side.
     "append_to_prepared": "7a",
-    # 8b: the cascaded codec.
-    "CascadedOptions": "8b",
-    "ColumnCompressionOptions": "8b",
-    "broadcast_compression_options": "8b",
-    "generate_auto_select_compression_options": "8b",
-    "generate_none_compression_options": "8b",
-    "warmup_compression": "8b",
     # 9: the composition layers.
     "JoinStage": "9",
     "distributed_join_pipeline": "9",

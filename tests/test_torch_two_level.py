@@ -10,7 +10,8 @@ string keys; the ``pre_shuffle_overflow`` flag at a tight
 ``pre_shuffle_out_factor`` and ``distributed_inner_join_auto``'s heal of
 it; the prepared side under each merge tier; ``shuffle_on`` over the
 world and per axis, with its split bits, stats and the identity hash,
-and ``shuffle_on_auto``'s heal. The hash is bit exact, so every shard
+and ``shuffle_on_auto``'s heal (the compressed wire has its own file,
+``tests/test_torch_compress.py``). The hash is bit exact, so every shard
 holds the same rows in both: compared are the counts, every flag and
 each shard's row multiset. Then the topology itself (groups,
 ``largest_intra_size`` against dj_tpu's, the generator's shards) and an
@@ -452,12 +453,17 @@ def test_shuffle_on_auto_heals_as_dj_tpu(axis, monkeypatch):
     assert tledger.entries() == jledger.entries() and len(tledger.entries()) == 1
 
 
-def test_shuffle_on_refuses_compression_and_foreign_groups():
+def test_shuffle_on_takes_compression_and_refuses_foreign_groups():
     topo = tj.make_topology(["cpu"] * 4, intra_size=2)
-    t, c = tj.shard_table(topo, convert.table_from_numpy([np.arange(8)], ["int64"],
-                                                         device="cpu"))
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        tj.shuffle_on(topo, t, c, [0], group=topo.group("inter"), compression=object())
+    table = convert.table_from_numpy([np.arange(800)], ["int64"], device="cpu")
+    t, c = tj.shard_table(topo, table)
+    opts = tj.generate_auto_select_compression_options(table)
+    assert opts[0].method == "cascaded"
+    out, counts, ovf, stats = tj.shuffle_on(topo, t, c, [0], group=topo.group("inter"),
+                                            compression=opts, with_stats=True)
+    assert int(counts.sum()) == 800 and not ovf.any()
+    assert sorted(tj.unshard_table(out, counts).columns[0].data.tolist()) == list(range(800))
+    assert bool((stats["comp_actual_bytes"] > 0).all())
     with pytest.raises(ValueError, match="single-axis"):
         tj.shuffle_on(topo, t, c, [0])
     with pytest.raises(ValueError):

@@ -523,11 +523,40 @@ def case_two_level(topo, make=None):
     return out
 
 
+def compress_table(w: int) -> list:
+    """The compress case's table: 200 rows a rank of (key, small int,
+    row id), its key range ten times wider on every rank but the first,
+    so that each rank's sampled options differ."""
+    rng = np.random.default_rng(80 + w)
+    keys = np.concatenate([rng.integers(0, 1000 * (10 if r else 1), 200) for r in range(w)])
+    return [keys, rng.integers(0, 50, 200 * w).astype(np.int32),
+            np.arange(200 * w, dtype=np.int64)]
+
+
+def compress_shuffle(topo, opts) -> dict:
+    """shuffle_on of the compress table over the world with ``opts``."""
+    t, c = _sharded(topo, compress_table(topo.world_size))
+    t, c, ovf, stats = dj.shuffle_on(topo, t, c, [0], compression=opts, with_stats=True,
+                                     bucket_factor=3.0)
+    return {"rows": shard_rows(t, c), "counts": c.tolist(), "overflow": ovf.tolist(),
+            "stats": {k: v.tolist() for k, v in stats.items()}}
+
+
+def case_compress(topo):
+    """Each rank's auto options from its own block, then
+    broadcast_compression_options (rank 0's tree on every rank) and a
+    compressed shuffle_on with the agreed options."""
+    t, _ = _sharded(topo, compress_table(topo.world_size))
+    local = dj.generate_auto_select_compression_options(t)
+    agreed = dj.broadcast_compression_options(local)
+    return {"local": local, "agreed": agreed, "shuffle": compress_shuffle(topo, agreed)}
+
+
 CASES = {"collectives": case_collectives, "exchange": case_exchange, "shuffle": case_shuffle,
          "join": case_join, "prepared": case_prepared, "generate": case_generate,
          "auto": case_auto, "keys": case_keys, "fail": case_fail,
          "ledger_split": case_ledger_split, "strings": case_strings,
-         "two_level": case_two_level}
+         "two_level": case_two_level, "compress": case_compress}
 
 
 def main(spec_json: str, out_dir: str) -> int:
