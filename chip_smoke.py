@@ -94,12 +94,32 @@ Phases, each printing its own line(s):
      shard equal to the uncompressed shuffle's; with a 0.2 wire on the
      skewed copy the wire alone sets the bucket bit at 1.8 / 2.4 (where
      the raw rows fit) and shuffle_on_auto from 1.2 / 1.2 heals it;
+  4h. the join's plan knob: phase 4's join at odf 1 under
+     DJT_JOIN_RANGE_PROBE=0, checked as in 4 with the default join's rows
+     and launches, its wall beside the default's;
   5. prepared path: at odf 1 and 4, prepare_join_side on the build table,
      then distributed_inner_join with the PreparedSide under each merge
      tier (sort, merge, probe); each query checked as in 4, with the
      same row multiset as the unprepared join, and its tier's kernels
      launched by the query itself; median walls of warm prepares and
      queries, peak memory, a profiler breakdown per tier at odf 1;
+  5d. the probe tier's expansions: at odf 1 and 4 the probe-tier query
+     under DJT_PROBE_EXPAND segment, hist and pallas, each checked as in
+     5 and launching its kernel (expand_ranks; expand_values under
+     pallas) once a batch; then expand_values as the probe tier calls it
+     (stag = arange(L), run_start = 0) against its plain version on the
+     tier's own inputs at odf 1, timed beside its byte bound and
+     torch.searchsorted, and on one probe row with 1M matches amid
+     sparse ones (windows past the shared stage), a batch with no match
+     and a csum wrapped past 2^31 (every row in range);
+  5c. appends: phase 5's build table prepared at odf 4 takes 1% more rows
+     (keys it lacks, drawn from the seed), every batch touched, and a
+     query under each tier equals the unprepared join of the combined
+     table, flags False (i), and likewise in 4d's 4-rank world (iv);
+     rows of batch 0 only touch batch 0 and keep the other batches' tensors
+     (ii); at odf 1 the batch has no slack and append_overflow fires (iii);
+     a two-level topology is refused (v); the appends' walls beside a
+     fresh prepare of the combined table, and the peak;
   5b. unsigned columns: a uint16-key and a uint32-key table (keys past
      the signed range) with uint64 payloads (top bit set), about 1M probe
      rows, joined under every DJT_JOIN_EXPAND mode and queried through
@@ -188,6 +208,14 @@ Phases, each printing its own line(s):
      to ignore the first byte ("Customer#k" and "Dustomer#k" collide)
      flags surrogate_collision, a true match under it does not, and
      distributed_inner_join_auto raises the collision after one attempt;
+  8e. the prepared side with strings: orders prepared, lineitem queried
+     under each tier at odf 1 and 4 on one rank and odf 1 in the 4-rank
+     world, char_out_factor 5, each checked as 8a (priorities byte for
+     byte) with each tier's kernels launched once a rank and batch;
+     distributed_inner_join_auto from char_out_factor 1 heals
+     char_overflow on the prepared path; 1M orders held back from the
+     prepare are appended with their priorities and the queries checked
+     as 8a again; a string key raises dj_tpu's ValueError;
   9. timings: the `timings` line (walls, peaks and the main path's sort);
   10. the hardware probes: `python -m dj_tpu_torch.hw.probe_sort` and
      `... .probe_gather` through their main() at the JAX probes' shapes
@@ -209,7 +237,8 @@ Phases, each printing its own line(s):
 then the `kernels` JSON line (kernel, plain-version and library times
 beside each kernel's bound, launches per query on each path and in the
 4-rank world, its two-level form and the process worlds, expand_ranks'
-codec decodes in 4g, and each kernel's registers and spills from ptxas; the probes' launches are their
+codec decodes in 4g, expand_values' probe-tier call of 5d, and each
+kernel's registers and spills from ptxas; the probes' launches are their
 main()'s, and no join path launches them).
 The last line is {"ok": true, "device": {...}}. With no CUDA device, or
 without the package beside it, the script fails before printing any
@@ -2008,6 +2037,493 @@ def run_shuffle_on_compressed(dj, dev, rows: int, seed: int, smi: str,
     del res, th, ch, hot
 
 
+# --- the join's plan knobs (phase 4h) -------------------------------------
+
+def run_knobs(dj, topo, left, lcnt, right, rcnt, build, probe, expected: int, ref, walls: dict,
+              smi: str) -> dict:
+    """Phase 4h: phase 4's join at odf 1 under DJT_JOIN_RANGE_PROBE=0,
+    checked as in 4 with the default join's rows and launches. Returns
+    {path: {odf: launches}}."""
+    t_phase = time.perf_counter()
+    odf = 1
+    cfg = dj.JoinConfig(over_decom_factor=odf)
+
+    def join():
+        return dj.distributed_inner_join(topo, left, lcnt, right, rcnt, [0], [0], cfg)
+
+    what = f"4h range_probe_0 odf={odf}"
+    os.environ["DJT_JOIN_RANGE_PROBE"] = "0"
+    try:
+        reset_launches()
+        out, counts, info = join()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        set_flags = [k for k, v in info.items() if bool(v.any())]
+        if set_flags:
+            raise AssertionError(f"{what}: flags set: {set_flags}")
+        check_rows(out, counts, build, probe, expected)
+        check_same_rows(sorted_rows(out, counts), ref, what)
+        del out, counts, info
+        if launches["join_scans"] != odf or launches["expand_values"] != odf:
+            raise AssertionError(f"{what}: join_scans and expand_values must launch {odf} "
+                                 f"times: {launches}")
+        wall, runs, peak = warm_walls(join)
+    finally:
+        os.environ.pop("DJT_JOIN_RANGE_PROBE")
+    log("knob", smoke_phase="4h", knob="range_probe_0", env={"DJT_JOIN_RANGE_PROBE": "0"},
+        odf=odf, total=expected, flags="all False", rows_checked=expected,
+        same_rows_as_default=True, launches=launches, wall_ms=wall, wall_ms_runs=runs,
+        default_wall_ms=walls[odf], peak_bytes=peak, card=smi,
+        seconds=time.perf_counter() - t_phase)
+    return {"knob_range_probe_0": {odf: launches}}
+
+
+# --- the probe tier's expansions (phase 5d) -------------------------------
+
+PROBE_EXPANDS = ("segment", "hist", "pallas")
+
+
+def run_probe_expand(dj, topo, left, lcnt, prep, cfg, odf: int, build, probe, expected: int, ref,
+                     smi: str) -> dict:
+    """Phase 5d, one odf: phase 5's probe-tier query under each
+    DJT_PROBE_EXPAND mode, checked as in 5, each launching its mode's
+    kernel (expand_ranks, or expand_values under "pallas") once a batch.
+    Returns {path: {odf: launches}}."""
+    from dj_tpu_torch.ops.join import prepared_effective_plan
+
+    launch_table: dict = {}
+    os.environ["DJT_JOIN_MERGE"] = "probe"
+    try:
+        for mode in PROBE_EXPANDS:
+            os.environ["DJT_PROBE_EXPAND"] = mode
+
+            def query():
+                return dj.distributed_inner_join(topo, left, lcnt, prep, None, [0], None, cfg)
+
+            what = f"5d probe tier, DJT_PROBE_EXPAND={mode} odf={odf}"
+            reset_launches()
+            out, counts, info = query()
+            torch.cuda.synchronize()
+            launches = read_launches()
+            set_flags = [k for k, v in info.items() if bool(v.any())]
+            if set_flags:
+                raise AssertionError(f"{what}: flags set: {set_flags}")
+            check_rows(out, counts, build, probe, expected)
+            check_same_rows(sorted_rows(out, counts), ref, what)
+            del out, counts, info
+            (kernel,) = prepared_effective_plan("probe", mode)
+            if launches[kernel] != odf:
+                raise AssertionError(f"{what}: {kernel} must launch once a batch: {launches}")
+            launch_table[f"prepared_probe_{mode}"] = {odf: launches}
+            wall, runs, peak = warm_walls(query)
+            log("probe_expand", smoke_phase="5d", mode=mode, odf=odf, total=expected,
+                flags="all False", rows_checked=expected, same_rows_as_unprepared=True,
+                kernel=kernel, launches=launches, wall_ms=wall, wall_ms_runs=runs,
+                peak_bytes=peak, card=smi)
+    finally:
+        os.environ.pop("DJT_PROBE_EXPAND", None)
+        os.environ.pop("DJT_JOIN_MERGE")
+    return launch_table
+
+
+def compare_probe_values(case: str, cnt, n_out: int, timing: bool = False,
+                         need_global_windows: bool = False):
+    """expand_values as the probe tier calls it under "pallas" (stag =
+    arange(L), run_start = 0, so its outputs are (src, t)) against its
+    plain version on the int32 ``cnt`` of L probe rows: every slot below
+    the total equal, and every src in [0, L) (where csum wraps past 2^31
+    no slot is specified, and only that is held). Returns the max |kernel
+    - plain| and, with ``timing``, times."""
+    from dj_tpu_torch.ops import expand
+
+    L = cnt.numel()
+    csum = torch.cumsum(cnt, 0, dtype=torch.int64).to(torch.int32)
+    stag = torch.arange(L, dtype=torch.int32, device=cnt.device)
+    zero = torch.zeros(L, dtype=torch.int32, device=cnt.device)
+    src, t = expand.expand_values(csum, cnt, stag, zero, n_out)
+    wsrc, wt = expand.expand_values_plain(csum, cnt, stag, zero, n_out)
+    torch.cuda.synchronize()
+    total = int(cnt.sum(dtype=torch.int64))
+    wrapped = total > 2**31 - 1
+    if n_out and not bool(((src >= 0) & (src < L)).all()):
+        raise AssertionError(f"{case}: expand_values gave a row outside [0, {L})")
+    k = 0 if wrapped else min(total, n_out)
+    err = max_abs_diff(((src[:k], wsrc[:k]), (t[:k], wt[:k])))
+    if err:
+        for name, g, w in (("src", src[:k], wsrc[:k]), ("t", t[:k], wt[:k])):
+            if bool((g != w).any()):
+                bad = int(torch.nonzero(g != w)[0])
+                raise AssertionError(f"{case}: expand_values {name} differs first at {bad}: "
+                                     f"{int(g[bad])} vs {int(w[bad])} (max |err| {err})")
+    del src, t, wsrc, wt
+    widest, n_global = (0, 0) if wrapped else block_windows(csum, n_out, total)
+    if need_global_windows and not n_global:
+        raise AssertionError(f"{case}: no expand_values window is wider than {expand.WIN} "
+                             f"(widest {widest}); the global-memory search was not exercised")
+    log("kernels_vs_plain", case=case, kernel="expand_values", path="probe tier", L=L,
+        n_out=n_out, total=total, max_abs_err=err, slots_compared=k, rows_in_range=True,
+        widest_window=widest, blocks_over_win=n_global,
+        **({"note": "csum wrapped past 2^31: no slot specified, rows held in range"}
+           if wrapped else {}))
+    if not timing:
+        return err
+    j = torch.arange(n_out, dtype=torch.int32, device=cnt.device)
+    times = {
+        "ms": cuda_ms(lambda: expand.expand_values(csum, cnt, stag, zero, n_out), 5),
+        "plain_ms": cuda_ms(lambda: expand.expand_values_plain(csum, cnt, stag, zero, n_out), 2),
+        "library_ms": cuda_ms(lambda: torch.searchsorted(csum, j, right=True, out_int32=True), 5),
+        "L": L, "n_out": n_out,
+    }
+    return err, times
+
+
+def probe_values_edge_cases(gen, dev, sk: int) -> list:
+    """expand_values on the probe tier's three edge cases: one probe row
+    with ``sk`` matches amid sparse ones (windows past the shared stage),
+    a batch with no match, and a csum that wraps past 2^31."""
+    L = 5 * sk
+    hot = (torch.rand(L, generator=gen, device=dev) < 1e-4).to(torch.int32)
+    hot[L // 2] = sk
+    errs = [compare_probe_values("probe_tier_hot_key", hot, int(hot.sum()) + 3,
+                                 need_global_windows=True)]
+    errs.append(compare_probe_values("probe_tier_no_match",
+                                     torch.zeros(3 * sk, dtype=torch.int32, device=dev), sk))
+    wrap = torch.randint(0, 3, (sk,), generator=gen, device=dev, dtype=torch.int32)
+    wrap[sk // 3] = wrap[2 * sk // 3] = 1_500_000_000
+    errs.append(compare_probe_values("probe_tier_csum_wraps", wrap, sk))
+    return errs
+
+
+# --- appends to a prepared side (phase 5c) ---------------------------------
+
+def absent_keys(gen, dev, present, hi: int, n: int, batch0_of: int = 0):
+    """n distinct int64 keys in [0, hi] that ``present`` lacks, in a
+    random order, drawn from ``gen`` on the card; with ``batch0_of`` = m,
+    only keys in partition 0 of m (murmur3, the join's seed)."""
+    from dj_tpu_torch.core import dtypes
+    from dj_tpu_torch.core.table import Column, Table
+    from dj_tpu_torch.ops.partition import partition_ids
+    from dj_tpu_torch.parallel.dist_join import MAIN_JOIN_SEED
+
+    have = torch.sort(present).values
+    draw = 4 * n * max(1, batch0_of)
+    cand = torch.unique(torch.randint(0, hi + 1, (draw,), generator=gen, device=dev))
+    at = torch.searchsorted(have, cand).clamp_max_(have.numel() - 1)
+    cand = cand[have[at] != cand]
+    if batch0_of:
+        pid = partition_ids(Table((Column(cand, dtypes.int64),)), [0], batch0_of, MAIN_JOIN_SEED)
+        cand = cand[pid == 0]
+    if cand.numel() < n:
+        raise AssertionError(f"absent_keys: {cand.numel()} candidates for {n} keys")
+    return cand[torch.randperm(cand.numel(), generator=gen, device=dev)[:n]]
+
+
+def appended_table(dj, keys, first_row: int):
+    """(key, row id) rows, the ids continuing the build table's."""
+    rows = torch.arange(first_row, first_row + keys.numel(), device=keys.device)
+    return dj.Table((dj.Column(keys, dj.dtypes.int64), dj.Column(rows, dj.dtypes.int64)))
+
+
+def appended_matches(probe, keys) -> int:
+    """Probe rows whose key is one of ``keys`` (distinct)."""
+    s = torch.sort(keys).values
+    pk = probe.columns[0].data
+    at = torch.searchsorted(s, pk).clamp_max_(s.numel() - 1)
+    return int((s[at] == pk).sum())
+
+
+def run_appends(dj, dev, gen, topo, left, lcnt, right, rcnt, build, probe, expected: int,
+                rows: int, smi: str) -> tuple[dict, dict]:
+    """Phase 5c: appends to phase 5's build table prepared at odf 4. (i)
+    1% more rows, keys the build side lacks, then a query under each
+    tier equal to the unprepared join of the combined table; (ii) rows
+    of batch 0 only; (iii) an append at odf 1, where the batch has no
+    slack; (iv) (i) in 4d's 4-rank world; (v) a two-level topology
+    refused. Returns ({path: {odf: launches}} of one rank, the same of
+    the 4-rank world)."""
+    from dj_tpu_torch.ops.join import prepared_effective_plan
+
+    t_phase = time.perf_counter()
+    launch_table: dict = {}
+    world_table: dict = {}
+    cfg = dj.JoinConfig(over_decom_factor=4, key_range=(0, 2 * rows))
+    n_app = max(1, rows // 100)
+    keys = absent_keys(gen, dev, build.columns[0].data, 2 * rows, n_app)
+    app = appended_table(dj, keys, build.capacity)
+    combined = dj.concatenate([build, app]).with_count(None)
+    want_total = expected + appended_matches(probe, keys)
+    del keys
+    cright, crcnt = dj.shard_table(topo, combined)
+    out, counts, info = dj.distributed_inner_join(topo, left, lcnt, cright, crcnt, [0], [0])
+    torch.cuda.synchronize()
+    if any(bool(v.any()) for v in info.values()):
+        raise AssertionError("5c: the unprepared join of the combined table set a flag")
+    check_rows(out, counts, combined, probe, want_total)
+    ref = sorted_rows(out, counts)
+    del out, counts, info, cright, crcnt
+    torch.cuda.empty_cache()
+
+    def check_append(what, side, info, touched):
+        set_flags = [k for k, v in info.items() if k != "touched" and bool(v.any())]
+        if set_flags:
+            raise AssertionError(f"{what}: flags set: {set_flags}")
+        if info["touched"] != touched:
+            raise AssertionError(f"{what}: touched {info['touched']}, expected {touched}")
+
+    def check_query(what, res, w, kernels):
+        out, counts, info = res
+        torch.cuda.synchronize()
+        launches = read_launches()
+        set_flags = [k for k, v in info.items() if bool(v.any())]
+        if set_flags:
+            raise AssertionError(f"{what}: flags set: {set_flags}")
+        if int(counts.sum()) != want_total:
+            raise AssertionError(f"{what}: {int(counts.sum())} rows, expected {want_total}")
+        flat = dj.unshard_table(out, counts) if w > 1 else out
+        flat_counts = torch.tensor([int(counts.sum())])
+        check_rows(flat, flat_counts, combined, probe, want_total)
+        check_same_rows(sorted_rows(flat, flat_counts), ref, what)
+        wrong = {k: launches[k] for k in kernels if launches[k] != w * 4}
+        if wrong:
+            raise AssertionError(f"{what}: each of {kernels} must launch {w * 4} times: {wrong}")
+        return launches
+
+    for w in (1, WORLD):
+        summary: dict = {}
+        t = topo if w == 1 else dj.make_topology([dev] * WORLD)
+        l_side, r_side = ((left, lcnt), (right, rcnt)) if w == 1 else (
+            dj.shard_table(t, probe), dj.shard_table(t, build))
+        a_side = dj.shard_table(t, app)
+        prep = dj.prepare_join_side(t, *r_side, [0], cfg, left_capacity=rows)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        new, info = dj.append_to_prepared(t, prep, *a_side)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        check_append(f"5c(i) world {w}", new, info, (0, 1, 2, 3))
+        wall, runs, _ = warm_walls(lambda: dj.append_to_prepared(t, prep, *a_side))
+        fresh, fresh_runs, fresh_peak = warm_walls(
+            lambda: dj.prepare_join_side(t, new.right, new.right_counts, [0], cfg,
+                                         left_capacity=rows), reps=2)
+        del prep
+        for tier in TIERS:
+            os.environ["DJT_JOIN_MERGE"] = tier
+
+            def query():
+                return dj.distributed_inner_join(t, *l_side, new, None, [0], None, cfg)
+
+            reset_launches()
+            launches = check_query(f"5c(i) world {w} tier={tier}", query(), w,
+                                   prepared_effective_plan(tier))
+            (world_table if w > 1 else launch_table)[f"append_{tier}"] = {4: launches}
+            q_wall, q_runs, _ = warm_walls(query, reps=2)
+            summary[tier] = {"wall_ms": q_wall, "wall_ms_runs": q_runs}
+        os.environ.pop("DJT_JOIN_MERGE")
+        log("append", smoke_phase="5c", case="(i)" if w == 1 else "(iv)", ranks=w, odf=4,
+            resident_rows=rows, appended_rows=n_app, touched=list(info["touched"]),
+            flags="all False", total=want_total, rows_checked=want_total,
+            same_rows_as_unprepared_combined=True, r_cap=new.r_cap, first_append_ms=first_ms,
+            append_wall_ms=wall, append_wall_ms_runs=runs, append_peak_bytes=peak,
+            append_peak_over_resident_bytes=peak - base, fresh_prepare_wall_ms=fresh,
+            fresh_prepare_wall_ms_runs=fresh_runs, fresh_prepare_peak_bytes=fresh_peak,
+            queries=summary, card=smi)
+        del new, info, l_side, r_side, a_side
+        torch.cuda.empty_cache()
+
+    # (ii) rows of batch 0 only: the other batches keep their tensors.
+    prep = dj.prepare_join_side(topo, right, rcnt, [0], cfg, left_capacity=rows)
+    keys0 = absent_keys(gen, dev, combined.columns[0].data, 2 * rows, max(1, n_app // 10),
+                        batch0_of=4)
+    new, info = dj.append_to_prepared(topo, prep, *dj.shard_table(
+        topo, appended_table(dj, keys0, combined.capacity)))
+    check_append("5c(ii)", new, info, (0,))
+    same = [new.batches[b] is prep.batches[b] for b in range(4)]
+    if same != [False, True, True, True]:
+        raise AssertionError(f"5c(ii): the untouched batches were not kept: {same}")
+    log("append", smoke_phase="5c", case="(ii)", odf=4, appended_rows=keys0.numel(),
+        touched=list(info["touched"]), untouched_batches_kept=True, flags="all False", card=smi)
+    del prep, new, info, keys0
+
+    # (iii) odf 1: the batch holds every resident row, no slack.
+    cfg1 = dj.JoinConfig(key_range=(0, 2 * rows))
+    prep = dj.prepare_join_side(topo, right, rcnt, [0], cfg1, left_capacity=rows)
+    few = appended_table(dj, app.columns[0].data[:1000], build.capacity)
+    _, info = dj.append_to_prepared(topo, prep, *dj.shard_table(topo, few))
+    fired = [k for k, v in info.items() if k != "touched" and bool(v.any())]
+    if fired != ["append_overflow"]:
+        raise AssertionError(f"5c(iii): flags {fired}, expected append_overflow alone")
+    log("append", smoke_phase="5c", case="(iii)", odf=1, appended_rows=1000,
+        resident_capacity=prep.batches[0][0].shape[0], flags_fired=fired, card=smi)
+    del prep, info, few
+
+    # (v) a two-level topology refuses the append.
+    topo2 = dj.make_topology([dev] * WORLD, intra_size=INTRA)
+    small = dj.Table(tuple(dj.Column(c.data[: 4 * n_app], c.dtype) for c in build.columns))
+    prep = dj.prepare_join_side(topo2, *dj.shard_table(topo2, small), [0], cfg)
+    try:
+        dj.append_to_prepared(topo2, prep, *dj.shard_table(topo2, app))
+    except dj.PreparedPlanMismatch as e:
+        log("append", smoke_phase="5c", case="(v)", ranks=WORLD, intra=INTRA, refused=str(e))
+    else:
+        raise AssertionError("5c(v): a two-level topology's append was not refused")
+    del prep, small, app, combined, ref
+    torch.cuda.empty_cache()
+    log("append_phase", smoke_phase="5c", seconds=time.perf_counter() - t_phase)
+    return launch_table, world_table
+
+
+# --- string columns on the prepared side (phase 8e) ------------------------
+
+def slice_rows(dj, table, a: int, b: int):
+    """Rows [a, b) of a table, string columns rebased."""
+    cols = []
+    for c in table.columns:
+        if isinstance(c, dj.StringColumn):
+            lo = int(c.offsets[a])
+            cols.append(dj.StringColumn(c.offsets[a : b + 1] - lo,
+                                        c.chars[lo : int(c.offsets[b])].clone(), c.dtype))
+        else:
+            cols.append(dj.Column(c.data[a:b], c.dtype))
+    return dj.Table(tuple(cols))
+
+
+def as_orders_lineitem(dj, out):
+    """A prepared query's (L_ORDERKEY, L_PARTKEY, L_QUANTITY, O_CUSTKEY,
+    O_ORDERPRIORITY) in 8a's column order."""
+    lk, pk, q, ck, pri = out.columns
+    return dj.Table((lk, ck, pri, pk, q), out.valid_count)
+
+
+def run_prepared_strings(dj, dev, orders, lineitem, li_sorted, smi: str) -> tuple[dict, dict]:
+    """Phase 8e: orders (O_ORDERKEY, O_CUSTKEY, O_ORDERPRIORITY) prepared,
+    lineitem queried under each tier at odf 1 and 4 on one rank and odf
+    1 in the 4-rank world, char_out_factor 5, each checked as 8a; the
+    auto wrapper from char_out_factor 1 heals char_overflow; 1M orders
+    held back, then appended, and the query checked as 8a; a string key
+    refused. Returns ({path: {odf: launches}}, the same of the world)."""
+    from dj_tpu_torch.ops.join import prepared_effective_plan
+
+    t_phase = time.perf_counter()
+    launch_table: dict = {}
+    world_table: dict = {}
+
+    def query_checked(what, t, w, odf, l_side, prep, cfg):
+        reset_launches()
+        with PassTimer() as timer:
+            out, counts, info = dj.distributed_inner_join(t, *l_side, prep, None, [0], None, cfg)
+            torch.cuda.synchronize()
+        launches = read_launches()
+        set_flags = [k for k, v in info.items() if bool(v.any())]
+        if set_flags:
+            raise AssertionError(f"{what}: flags set: {set_flags}")
+        check_orders_lineitem(what, dj, as_orders_lineitem(dj, out), counts, orders, lineitem,
+                              li_sorted)
+        tier = os.environ.get("DJT_JOIN_MERGE", "sort")
+        wrong = {k: launches[k] for k in prepared_effective_plan(tier) if launches[k] != w * odf}
+        if wrong:
+            raise AssertionError(f"{what}: each kernel must launch {w * odf} times: {wrong}")
+        return launches, timer.ms()
+
+    for w, odfs in ((1, (1, 4)), (WORLD, (1,))):
+        t = dj.make_topology() if w == 1 else dj.make_topology([dev] * WORLD)
+        r_side, l_side = dj.shard_table(t, orders), dj.shard_table(t, lineitem)
+        for odf in odfs:
+            cfg = dj.JoinConfig(over_decom_factor=odf, char_out_factor=CHAR_FIT)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            prep = dj.prepare_join_side(t, *r_side, [0], cfg, left_capacity=lineitem.capacity)
+            torch.cuda.synchronize()
+            prep_ms = (time.perf_counter() - t0) * 1e3
+            for tier in TIERS:
+                os.environ["DJT_JOIN_MERGE"] = tier
+                what = f"8e world {w} odf {odf} tier {tier}"
+                launches, passes = query_checked(what, t, w, odf, l_side, prep, cfg)
+                (world_table if w > 1 else launch_table).setdefault(
+                    f"tpch_prepared_{tier}", {})[odf] = launches
+                wall, runs, peak = warm_walls(
+                    lambda: dj.distributed_inner_join(t, *l_side, prep, None, [0], None, cfg),
+                    reps=2)
+                log("tpch_prepared", smoke_phase="8e", ranks=w, odf=odf, tier=tier,
+                    build="orders (O_ORDERKEY, O_CUSTKEY, O_ORDERPRIORITY)",
+                    probe="lineitem", char_out_factor=CHAR_FIT, total=lineitem.capacity,
+                    flags="all False", rows_checked=lineitem.capacity, priorities_checked=True,
+                    launches=launches, first_prepare_ms=prep_ms, wall_ms=wall,
+                    wall_ms_runs=runs, peak_bytes=peak, string_pass_ms=passes, card=smi)
+            os.environ.pop("DJT_JOIN_MERGE")
+            del prep
+        del r_side, l_side
+        torch.cuda.empty_cache()
+
+    # The char_overflow heal on the prepared path, from factor 1.
+    topo = dj.make_topology()
+    r_side, l_side = dj.shard_table(topo, orders), dj.shard_table(topo, lineitem)
+    prep = dj.prepare_join_side(topo, *r_side, [0], left_capacity=lineitem.capacity)
+    with Attempts() as a:
+        t0 = time.perf_counter()
+        out, counts, info, used, _ = dj.distributed_inner_join_auto(
+            topo, *l_side, prep, None, [0], None, dj.JoinConfig(char_out_factor=1.0))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    if any(bool(v.any()) for v in info.values()) or a.n < 2 or used.char_out_factor <= 1.0:
+        raise AssertionError(f"8e: no char_overflow heal ({a.n} attempts, factor "
+                             f"{used.char_out_factor}, flags {info})")
+    check_orders_lineitem("8e auto", dj, as_orders_lineitem(dj, out), counts, orders, lineitem,
+                          li_sorted)
+    log("tpch_prepared_auto", smoke_phase="8e", attempts=a.n, char_out_factor_from=1.0,
+        char_out_factor_used=used.char_out_factor, total=lineitem.capacity, flags="all False",
+        priorities_checked=True, wall_ms=wall, card=smi)
+    del out, counts, info, prep, r_side
+
+    # 1M orders held back from the prepare, then appended with their
+    # priorities: every lineitem matches again.
+    n = orders.capacity
+    m = min(1_000_000, n // 10)
+    okeys = orders.columns[0].data
+    cfg = dj.JoinConfig(over_decom_factor=4, char_out_factor=CHAR_FIT,
+                        key_range=(int(okeys.min()), int(okeys.max())))
+    head, tail = slice_rows(dj, orders, 0, n - m), slice_rows(dj, orders, n - m, n)
+    prep = dj.prepare_join_side(topo, *dj.shard_table(topo, head), [0], cfg,
+                                left_capacity=lineitem.capacity)
+    a_side = dj.shard_table(topo, tail)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    new, info = dj.append_to_prepared(topo, prep, *a_side)
+    torch.cuda.synchronize()
+    append_ms = (time.perf_counter() - t0) * 1e3
+    append_peak = torch.cuda.max_memory_allocated()
+    set_flags = [k for k, v in info.items() if k != "touched" and bool(v.any())]
+    if set_flags or info["touched"] != (0, 1, 2, 3):
+        raise AssertionError(f"8e append: flags {set_flags}, touched {info['touched']}")
+    fresh, _, _ = warm_walls(lambda: dj.prepare_join_side(
+        topo, new.right, new.right_counts, [0], cfg, left_capacity=lineitem.capacity), reps=1)
+    for tier in TIERS:
+        os.environ["DJT_JOIN_MERGE"] = tier
+        launches, _ = query_checked(f"8e after append tier {tier}", topo, 1, 4, l_side, new, cfg)
+        launch_table[f"tpch_prepared_append_{tier}"] = {4: launches}
+    os.environ.pop("DJT_JOIN_MERGE")
+    log("tpch_prepared_append", smoke_phase="8e", odf=4, resident_orders=n - m, appended_orders=m,
+        touched=list(info["touched"]), flags="all False", total=lineitem.capacity,
+        priorities_checked=True, append_ms=append_ms, append_peak_bytes=append_peak,
+        fresh_prepare_wall_ms=fresh, card=smi)
+    del prep, new, info, head, tail, a_side, l_side
+
+    # A string key: dj_tpu's ValueError.
+    keyed = dj.Table((orders.columns[2], orders.columns[0]))
+    try:
+        dj.prepare_join_side(topo, *dj.shard_table(topo, keyed), [0])
+    except ValueError as e:
+        log("tpch_prepared_string_key", smoke_phase="8e", refused=str(e))
+    else:
+        raise AssertionError("8e: a string key was not refused")
+    torch.cuda.empty_cache()
+    log("tpch_prepared_phase", smoke_phase="8e", seconds=time.perf_counter() - t_phase)
+    return launch_table, world_table
+
+
 # --- process worlds (phases 6a-6c) ---------------------------------------
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -3070,6 +3586,11 @@ def main() -> int:
     del hot
     torch.cuda.empty_cache()
 
+    # 4h. the join's plan knobs
+    launch_table.update(run_knobs(dj, topo, left, lcnt, right, rcnt, build, probe, expected, ref,
+                                  walls, smi))
+    torch.cuda.empty_cache()
+
     # 4d. the main path over a 4-rank world on this card
     world_launches, world_digests = run_world(dj, dev, build, probe, expected, ref, rows, smi)
     torch.cuda.empty_cache()
@@ -3144,6 +3665,10 @@ def main() -> int:
             if odf == 1:
                 profile_join(query, path=f"prepared_{tier}", odf=odf)
         os.environ.pop("DJT_JOIN_MERGE")
+        # 5d. the probe tier under each DJT_PROBE_EXPAND mode
+        for path, by_odf in run_probe_expand(dj, topo, left, lcnt, prep, cfg, odf, build, probe,
+                                             expected, ref, smi).items():
+            launch_table.setdefault(path, {}).update(by_odf)
         if odf == 1:
             # 6. the prepared path's kernels on its own inputs
             out_cap = _prepared_query_sizing(topo, cfg, rows, prep)[3]
@@ -3151,9 +3676,23 @@ def main() -> int:
             merge_err, merge_timing = compare_merge("main_path", pwords, sort_u64(w_l), timing=True)
             del w_l
             ranks_err, ranks_timing = compare_ranks("main_path", csum, out_cap, timing=True)
-            del pwords, csum
+            # 5d. expand_values as the probe tier runs it, on the same inputs
+            cnt = torch.diff(csum, prepend=torch.zeros(1, dtype=csum.dtype, device=dev))
+            probe_err, probe_timing = compare_probe_values("probe_tier_main_path", cnt, out_cap,
+                                                           timing=True)
+            del pwords, csum, cnt
         del prep
         torch.cuda.empty_cache()
+
+    # 5d. expand_values on the probe tier's edge cases
+    probe_errs = [probe_err] + probe_values_edge_cases(gen, dev, 1_000_000)
+    torch.cuda.empty_cache()
+
+    # 5c. appends to the prepared side
+    append_launches, append_world = run_appends(dj, dev, gen, topo, left, lcnt, right, rcnt, build,
+                                                probe, expected, rows, smi)
+    launch_table.update(append_launches)
+    torch.cuda.empty_cache()
 
     # 5b. unsigned keys and payloads
     check_unsigned_path(dj, topo, gen, dev, min(rows, 1_000_000))
@@ -3171,6 +3710,16 @@ def main() -> int:
     tpch_launches, tpch_world = run_strings(dj, dev, args.seed, args.orders, smi)
     launch_table.update(tpch_launches)
     world_launches.update(tpch_world)
+    world_launches.update(append_world)
+
+    # 8e. the prepared side with string columns, on phase 8's split
+    orders, lineitem, _, _ = tpch_tables(dj, dev, args.seed, args.orders)
+    li_sorted = torch.sort(lineitem_words(*(c.data for c in lineitem.columns))).values
+    tpch_launches, tpch_world = run_prepared_strings(dj, dev, orders, lineitem, li_sorted, smi)
+    launch_table.update(tpch_launches)
+    world_launches.update(tpch_world)
+    del orders, lineitem, li_sorted
+    torch.cuda.empty_cache()
 
     # 6a. a process world of one over NCCL
     process1_launches = process_world_of_one(dj, dev, "nccl", build, probe, expected, ref, rows, smi)
@@ -3426,11 +3975,26 @@ def main() -> int:
             "launches": launch_table["unprepared"][1]["expand_values"],
             "launches_odf4": launch_table["unprepared"][4]["expand_values"],
             "launches_per_query": per_query("expand_values"),
-            "max_abs_err": max(e[1] for e in errs), "ms": timing["expand_ms"],
+            "max_abs_err": max([e[1] for e in errs] + probe_errs), "ms": timing["expand_ms"],
             "plain_ms": timing["expand_plain_ms"],
             "bound_ms": expand_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": timing["searchsorted_ms"],
             "library_call": "torch.searchsorted(csum, arange(n_out), right=True)",
+            # The probe tier's call under DJT_PROBE_EXPAND=pallas (phase 5d):
+            # L probe rows, stag = arange(L), run_start = 0. The (src, t) it
+            # needs reads csum alone (csum_ex[src] = csum[src - 1]): 4 bytes
+            # a row and 8 an output. The kernel as called also reads cnt,
+            # stag and run_start: 16 bytes a row.
+            "probe_tier": {"L": probe_timing["L"], "n_out": probe_timing["n_out"],
+                           "ms": probe_timing["ms"], "plain_ms": probe_timing["plain_ms"],
+                           "bound_ms": (4 * probe_timing["L"] + 8 * probe_timing["n_out"])
+                           / HBM_BYTES_PER_S * 1e3,
+                           "bound_ms_as_called": (16 * probe_timing["L"]
+                                                  + 8 * probe_timing["n_out"])
+                           / HBM_BYTES_PER_S * 1e3,
+                           "library_ms": probe_timing["library_ms"],
+                           "launches": {f"odf{o}": c["expand_values"] for o, c in
+                                        launch_table["prepared_probe_pallas"].items()}},
         },
         {
             "name": "merge_sorted_u64", "route": "cuda",

@@ -56,8 +56,10 @@ bytes, its RLE decode on the expand_ranks kernel):
 picks its cascade, ``broadcast_compression_options`` gives every process
 rank 0's choice, and ``JoinConfig.left_compression`` /
 ``right_compression`` or ``shuffle_on(compression=...)`` take it;
-``warmup_compression`` runs the codec once. The prepared side takes no string column
-yet. ``distributed_inner_join_auto`` answers any input: it heals
+``warmup_compression`` runs the codec once. The prepared side carries
+string payloads on either side, and ``append_to_prepared`` merges
+appended build rows into it (``combine_prepared_source`` gives its
+source with them). ``distributed_inner_join_auto`` answers any input: it heals
 overflowing capacities, a wrong declared key range and a prepared side
 the probe keys fall outside of, remembering the healed factors in the
 capacity ledger (``resilience``; ``DJT_LEDGER=<path>`` keeps it), and
@@ -113,6 +115,8 @@ from .parallel.communicator import (
 from .parallel.dist_join import (
     JoinConfig,
     PreparedSide,
+    append_to_prepared,
+    combine_prepared_source,
     distributed_inner_join,
     distributed_inner_join_auto,
     prepare_join_side,
@@ -164,8 +168,10 @@ __all__ = [
     "Table",
     "Topology",
     "XlaCommunicator",
+    "append_to_prepared",
     "broadcast_compression_options",
     "collect_tables",
+    "combine_prepared_source",
     "concatenate",
     "deadline_scope",
     "distribute_table",

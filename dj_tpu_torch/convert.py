@@ -99,9 +99,10 @@ def join_config_from(config) -> JoinConfig:
 def prepared_side_from(prepared, topology: Topology) -> PreparedSide:
     """The port's PreparedSide holding the state of a dj_tpu
     PreparedSide (its shuffle tier) on ``topology``'s device: the plan
-    fields, sizes and config by name, the sorted words (u64, kept as
-    their int64 bit patterns), payload tables and counts of every batch
-    through ``np.asarray``."""
+    fields, sizes (``r_cap`` grown by any append) and config by name, the
+    sorted words (u64, kept as their int64 bit patterns), payload tables
+    (string columns as their offsets and chars) and counts of every
+    batch, and the source table, through ``np.asarray``."""
     tier = getattr(prepared, "tier", "shuffle")
     if tier != "shuffle":
         raise NotImplementedError(f"prepared tier {tier!r} comes with ROADMAP queue 1 item 7b")
@@ -113,8 +114,9 @@ def prepared_side_from(prepared, topology: Topology) -> PreparedSide:
 
     def table(t) -> Table:
         return table_from_numpy(
-            [np.asarray(c.data) for c in t.columns], [c.dtype.name for c in t.columns],
-            device=dev,
+            [(np.asarray(c.offsets), np.asarray(c.chars)) if hasattr(c, "chars")
+             else np.asarray(c.data) for c in t.columns],
+            [c.dtype.name for c in t.columns], device=dev,
         )
 
     batches = tuple(

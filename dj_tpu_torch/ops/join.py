@@ -83,8 +83,12 @@ merge tiers (``DJT_JOIN_MERGE``): "sort" re-sorts the concatenation,
 "merge" sorts the probe words alone and merges them in one pass
 (``ops.merge.merge_sorted_u64``, CUDA kernel), "probe"
 (``inner_join_probe``) sorts nothing and binary-searches each probe key
-in the resident run, expanding with ``ops.expand.expand_ranks`` (CUDA
-kernel).
+in the resident run, expanding under ``DJT_PROBE_EXPAND``: "segment"
+(default) and "hist" rank with ``ops.expand.expand_ranks`` (CUDA kernel),
+"pallas" takes (row, offset) from ``ops.expand.expand_values`` (CUDA
+kernel). String payloads of either side ride the output gather as in the
+unprepared join, and ``merge_packed_batch`` merges appended build rows
+into a prepared batch in place of a fresh prepare.
 """
 
 from __future__ import annotations
@@ -98,7 +102,7 @@ import torch
 
 from ..core import dtypes as dt
 from ..core.search import count_leq_arange, run_bounds
-from ..core.table import Column, StringColumn, Table, gather_fill, take_fill
+from ..core.table import Column, StringColumn, Table, concatenate, gather_fill, take_fill
 from . import hashing
 from .expand import (
     expand_carry,
@@ -1110,11 +1114,13 @@ def prepare_packed_batch(
     payload table directly.
 
     Returns (words, payload, ok): the ascending words (padding an
-    all-ones tail), the non-key columns in sorted order (zero past the
-    valid count, which the table carries) and the pack-fit flag. Valid
-    words are distinct, so the sort's permutation of the valid prefix is
-    unique and the payload gather equals the JAX package's sort carrying
-    them. Only fixed-width payloads exist in the port."""
+    all-ones tail), the non-key columns in sorted order (zero or empty
+    past the valid count, which the table carries) and the pack-fit
+    flag. Valid words are distinct, so the sort's permutation of the
+    valid prefix is unique and the fixed payloads' gather equals the JAX
+    package's sort carrying them; string payloads follow the same
+    permutation (``StringColumn.take``, padding rows empty), as in
+    dj_tpu."""
     R = right.capacity
     r_count = right.count()
     words, ok = _anchored_pack_word(right, right_on, plan, 0)
@@ -1126,13 +1132,66 @@ def prepare_packed_batch(
     invalid = rank >= r_count  # valid words sort below the sentinel
     words_out = ((sw & ~mask) | rank).masked_fill_(invalid, -1)
     cols = tuple(
-        Column(gather_fill(c.data, perm, invalid), c.dtype)
+        c.take(perm.masked_fill(invalid, R)) if isinstance(c, StringColumn)
+        else Column(gather_fill(c.data, perm, invalid), c.dtype)
         for i, c in enumerate(right.columns) if i not in set(right_on)
     )
     return words_out, Table(cols, r_count), ok
 
 
+def merge_packed_batch(
+    words: torch.Tensor, payload: Table, appended: Table, a_words: torch.Tensor,
+    right_on: Sequence[int], plan: PreparedPackPlan,
+) -> tuple[torch.Tensor, Table, torch.Tensor, torch.Tensor]:
+    """Merge appended build rows into one prepared batch, keeping its
+    capacity (``merge_packed_batch``, dj_tpu/ops/join.py:1988-2082).
+
+    ``words`` / ``payload`` are a ``prepare_packed_batch`` output
+    (capacity R); ``appended`` is the appended rows' shuffled batch (all
+    columns, capacity A) and ``a_words`` its anchored pack under the same
+    plan with tag offset R, so every valid word of the concatenation is
+    distinct. One sort of the concatenated words (``sort_u64``) re-merges
+    the run; its first R words are re-tagged by rank as in a fresh
+    preparation. A sorted word's old tag is its row in the concatenation
+    [resident payload | appended rows], which the fixed payloads are
+    gathered at; string payloads are gathered from the row-compacting
+    ``concatenate`` of the two sides (so an appended tag t maps to row
+    t - R + pcnt), into the concatenation's char capacity.
+
+    Returns (words[R], payload, new_count, overflow): ``overflow`` is
+    set when the resident and appended valid rows exceed R, and the
+    result is then unspecified (the caller re-prepares)."""
+    R = words.shape[0]
+    A = appended.capacity
+    pcnt, acnt = payload.count(), appended.count()
+    new_count = pcnt + acnt
+    overflow = new_count > R
+    right_on_set = set(right_on)
+    pay_idx = [i for i in range(appended.num_columns) if i not in right_on_set]
+    sw = sort_u64(torch.cat([words, a_words]))[:R]
+    mask = (1 << plan.tag_bits) - 1
+    rank = torch.arange(R, device=sw.device)
+    invalid = rank >= new_count
+    src = (sw & mask).masked_fill_(invalid, R + A)
+    words_out = ((sw & ~mask) | rank).masked_fill_(invalid, -1)
+    del sw, rank
+    cols = []
+    str_perm = None
+    for pc, i in zip(payload.columns, pay_idx):
+        ac = appended.columns[i]
+        if isinstance(pc, StringColumn):
+            if str_perm is None:
+                str_perm = torch.where(src >= R, src - R + pcnt, src)
+            both = concatenate([Table((pc,), pcnt), Table((ac,), acnt)]).columns[0]
+            cols.append(both.take(str_perm, both.chars.shape[0]))
+        else:
+            both = torch.cat([pc.data, ac.data])
+            cols.append(Column(gather_fill(both, src.clamp_max(R + A - 1), invalid), pc.dtype))
+    return words_out, Table(tuple(cols), new_count), new_count, overflow
+
+
 MERGE_IMPLS = ("sort", "merge", "probe")
+PROBE_EXPAND_IMPLS = ("segment", "hist", "pallas")
 
 
 def resolve_merge_impl() -> str:
@@ -1144,26 +1203,49 @@ def resolve_merge_impl() -> str:
     return impl
 
 
-def prepared_effective_plan(merge_impl: str) -> tuple[str, ...]:
+def resolve_probe_expand() -> str:
+    """The probe tier's expansion: ``DJT_PROBE_EXPAND`` (dj_tpu's
+    ``DJ_PROBE_EXPAND``, dj_tpu/ops/join.py:1025-1037): "segment" (the
+    default; src from the rank, the offset from the row's exclusive
+    csum), "hist" (the same src, the offset from src's run starts) or
+    "pallas" (src and offset from ``expand_values``)."""
+    impl = os.environ.get("DJT_PROBE_EXPAND", "segment")
+    if impl not in PROBE_EXPAND_IMPLS:
+        raise ValueError(f"DJT_PROBE_EXPAND={impl!r}: expected one of {PROBE_EXPAND_IMPLS}")
+    return impl
+
+
+def prepared_effective_plan(merge_impl: str, probe_expand: Optional[str] = None
+                            ) -> tuple[str, ...]:
     """The CUDA kernels a prepared join runs on the card under
     ``merge_impl``. The expansion is always vmeta on the merged tiers
     (``prepared_effective_plan``, dj_tpu/ops/join.py:1871-1892, which
-    degrades the carry families) and the rank kernel on the probe tier
-    (``DJ_JOIN_EXPAND=pallas``, the TPU plan)."""
-    return {
-        "sort": ("join_scans", "expand_values"),
-        "merge": ("merge_sorted_u64", "join_scans", "expand_values"),
-        "probe": ("expand_ranks",),
-    }[merge_impl]
+    degrades the carry families), after the scans. The probe tier ranks with expand_ranks
+    (``DJ_JOIN_EXPAND=pallas``, the TPU plan) under ``probe_expand``
+    (None reads ``DJT_PROBE_EXPAND``) "segment" and "hist", and runs
+    expand_values under "pallas"."""
+    if merge_impl == "probe":
+        if probe_expand is None:
+            probe_expand = resolve_probe_expand()
+        return ("expand_values",) if probe_expand == "pallas" else ("expand_ranks",)
+    merge = ("merge_sorted_u64",) if merge_impl == "merge" else ()
+    return merge + ("join_scans", "expand_values")
 
 
 def _gather_prepared_output(
-    left: Table, right_payload: Table, li: torch.Tensor, rrow: torch.Tensor
+    left: Table, right_payload: Table, li: torch.Tensor, rrow: torch.Tensor,
+    out_capacity: int, char_out_factor: float,
 ) -> list:
     """Every left column at ``li`` (left row ids, L past the total) and
     every prepared payload column at ``rrow`` (sorted ranks in the
-    resident table, R past it); out-of-range ids gather zeros."""
-    return [c.take(li) for c in left.columns] + [c.take(rrow) for c in right_payload.columns]
+    resident table, R past it); out-of-range ids gather zeros or empty
+    strings, a string column into ``char_out_factor`` times its char
+    capacity, and a capacity-0 side's string columns fill
+    (``_gather_prepared_output``, dj_tpu/ops/join.py:2246-2304)."""
+    L, R = left.capacity, right_payload.capacity
+    return ([_take_output(c, li, L, out_capacity, char_out_factor) for c in left.columns]
+            + [_take_output(c, rrow, R, out_capacity, char_out_factor)
+               for c in right_payload.columns])
 
 
 def _check_prepared_geometry(L: int, R: int, plan: PreparedPackPlan) -> None:
@@ -1186,6 +1268,7 @@ def inner_join_prepared(
     plan: PreparedPackPlan,
     out_capacity: int,
     merge_impl: Optional[str] = None,
+    char_out_factor: float = 1.0,
 ) -> tuple[Table, torch.Tensor, dict]:
     """Join a probe batch against a prepared build batch
     (``prepare_packed_batch``'s words and payload table).
@@ -1196,7 +1279,9 @@ def inner_join_prepared(
     (``merge_sorted_u64``); "probe" delegates to ``inner_join_probe``.
     The scans and the vmeta expansion follow, and the right payload is
     gathered from the sorted resident table directly (its words' tags
-    are sorted ranks).
+    are sorted ranks). String columns of either side are gathered into
+    ``char_out_factor`` times their char capacity; a result that needs
+    more reports ``char_overflow()``.
 
     Returns (result, total, flags): result = every left column, then the
     payload columns, with capacity ``out_capacity``; ``total`` the exact
@@ -1211,7 +1296,8 @@ def inner_join_prepared(
     if merge_impl not in MERGE_IMPLS:
         raise ValueError(f"merge_impl {merge_impl!r}: expected one of {MERGE_IMPLS}")
     if merge_impl == "probe":
-        return inner_join_probe(left, left_on, pwords, right_payload, plan, out_capacity)
+        return inner_join_probe(left, left_on, pwords, right_payload, plan, out_capacity,
+                                char_out_factor)
     l_count, r_count = left.count(), right_payload.count()
     w_l, ok = _anchored_pack_word(left, left_on, plan, R)
     flags = {"prepared_plan_mismatch": ~(ok | (r_count == 0))}
@@ -1221,7 +1307,7 @@ def inner_join_prepared(
         words = [sort_u64(torch.cat([pwords, w_l]))]
     del w_l
     li, rrow, total = _expand_matches(words, l_count, r_count, plan.tag_bits, L, R, out_capacity)
-    cols = _gather_prepared_output(left, right_payload, li, rrow)
+    cols = _gather_prepared_output(left, right_payload, li, rrow, out_capacity, char_out_factor)
     count = torch.minimum(total, torch.tensor(out_capacity, device=total.device)).to(torch.int32)
     return Table(tuple(cols), count), total, flags
 
@@ -1242,6 +1328,27 @@ def _probe_counts(
     return lo, cnt
 
 
+def _probe_expand(csum: torch.Tensor, cnt: torch.Tensor, L: int, out_capacity: int,
+                  mode: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """(src, t) per output slot of the probe tier under ``mode``
+    (dj_tpu/ops/join.py:2428-2480): the probe row src, clipped to [0,
+    L - 1], and the slot's offset t within that row's run of slots.
+    "segment": src from ``expand_ranks``, t = j - (csum - cnt)[src];
+    "hist": the same src, t from src's run starts (``_run_offsets``);
+    "pallas": ``expand_values`` with stag = arange(L) and run_start = 0,
+    whose (stag_j, rpos) are (src, t)."""
+    dev = csum.device
+    if mode == "pallas":
+        src, t = expand_values(csum, cnt, torch.arange(L, dtype=torch.int32, device=dev),
+                               torch.zeros(L, dtype=torch.int32, device=dev), out_capacity)
+        return src.clamp_(0, L - 1), t
+    src = expand_ranks(csum, out_capacity).clamp_(0, L - 1)
+    if mode == "hist":
+        return src, _run_offsets(src)
+    j = torch.arange(out_capacity, dtype=torch.int32, device=dev)
+    return src, j - (csum - cnt)[src]
+
+
 def inner_join_probe(
     left: Table,
     left_on: Sequence[int],
@@ -1249,27 +1356,29 @@ def inner_join_probe(
     right_payload: Table,
     plan: PreparedPackPlan,
     out_capacity: int,
+    char_out_factor: float = 1.0,
 ) -> tuple[Table, torch.Tensor, dict]:
     """The probe tier of ``inner_join_prepared``: no sort of any size.
 
     Each probe row's key field is binary-searched in the resident run's
     key fields (lo = side-left rank, hi = side-right rank, count hi - lo).
     csum = cumsum(count) in probe-row order is sorted by construction, so
-    output slot j comes from row src = #{csum <= j} (``expand_ranks``,
-    CUDA kernel on the card) at offset t = j - (csum - cnt)[src] within
-    the row's run of slots, and its matched ref's sorted rank is
-    ``lo[src] + t``. csum is int32 and wraps past 2^31 as the JAX
+    output slot j comes from row src = #{csum <= j} at offset t within
+    the row's run of slots (``_probe_expand`` under ``DJT_PROBE_EXPAND``:
+    the ``expand_ranks`` CUDA kernel under "segment" and "hist", the
+    ``expand_values`` one under "pallas"), and its matched ref's sorted
+    rank is ``lo[src] + t``. csum is int32 and wraps past 2^31 as the JAX
     package's does; total then exceeds out_capacity and condemns the
-    output. The same (result, total, flags) contract as
-    ``inner_join_prepared``.
+    output. The same (result, total, flags) contract, string columns
+    included, as ``inner_join_prepared``.
     """
     L, R = left.capacity, pwords.shape[0]
     _check_prepared_geometry(L, R, plan)
+    probe_expand = resolve_probe_expand()
     l_count, r_count = left.count(), right_payload.count()
     dev = pwords.device
     w_l, ok = _anchored_pack_word(left, left_on, plan, R)
     flags = {"prepared_plan_mismatch": ~(ok | (r_count == 0))}
-    j = torch.arange(out_capacity, dtype=torch.int32, device=dev)
     if L == 0 or R == 0:
         # A capacity-0 side joins empty.
         total = torch.zeros((), dtype=torch.int64, device=dev)
@@ -1281,12 +1390,11 @@ def inner_join_probe(
         # int64 cumsum cut to int32: the int32 wraparound of jnp.cumsum.
         csum = torch.cumsum(cnt, 0, dtype=torch.int64).to(torch.int32)
         total = cnt.sum(dtype=torch.int64)
-        src = expand_ranks(csum, out_capacity).clamp_(0, L - 1)
-        t = j - (csum - cnt)[src]
+        src, t = _probe_expand(csum, cnt, L, out_capacity, probe_expand)
         del csum, cnt
-        valid_out = j < total
+        valid_out = torch.arange(out_capacity, device=dev) < total
         li = torch.where(valid_out, src, L)
         rrow = torch.where(valid_out, lo[src] + t, R)
-    cols = _gather_prepared_output(left, right_payload, li, rrow)
+    cols = _gather_prepared_output(left, right_payload, li, rrow, out_capacity, char_out_factor)
     count = torch.minimum(total, torch.tensor(out_capacity, device=dev)).to(torch.int32)
     return Table(tuple(cols), count), total, flags

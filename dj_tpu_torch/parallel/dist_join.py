@@ -39,10 +39,12 @@ fusing (None: the backend's default).
 The prepared build side (``prepare_join_side``, ``PreparedSide``) pays
 the build table's partition, exchange, pack and sort once; each query
 (``distributed_inner_join`` with a PreparedSide as ``right``) partitions,
-exchanges and joins only the probe side. Its shuffle tier is ported; the
-broadcast and salted tiers come with later slices, as do the
-skew-adaptive plans, shape bucketing, the roofline phases and the
-degradation guard.
+exchanges and joins only the probe side; both sides may hold string
+payloads. ``append_to_prepared`` merges appended build rows into the odf
+batches they hash to, leaving the other batches as they are. Its shuffle
+tier is ported; the broadcast and salted tiers come with later slices,
+as do the skew-adaptive plans, shape bucketing, the roofline phases and
+the degradation guard.
 
 ``distributed_inner_join_auto`` is the entry point that answers any
 input: it runs the join under the heal engine (``resilience.heal``),
@@ -64,12 +66,14 @@ import torch
 import torch.distributed as dist
 
 from ..core import dtypes as dt
-from ..core.table import StringColumn, Table, concatenate
+from ..core.table import Column, StringColumn, Table, concatenate
 from ..ops.join import (
     PreparedPackPlan,
+    _anchored_pack_word,
     canonical_key_range,
     inner_join,
     inner_join_prepared,
+    merge_packed_batch,
     normalize_key_range,
     plan_prepared_pack,
     prepare_packed_batch,
@@ -314,11 +318,15 @@ def _resolve_key_range(
     key, or of a multi-column int key, canonicalized to width form (0,
     2^w - 1) per key. None for a single key of at most 32 bits (it packs
     statically), string and float keys, key pairs of two dtypes, two
-    empty sides and ``DJT_JOIN_PACK=0``. ``w`` is the number of shards the tables
+    empty sides, ``DJT_JOIN_RANGE_PROBE=0`` (dj_tpu's
+    ``DJ_JOIN_RANGE_PROBE``: a 64-bit key's fit is then checked on the
+    host in the join) and ``DJT_JOIN_PACK=0``. ``w`` is the number of shards the tables
     here hold; in a process world (``topology``) the ranges of every
     process's shards are reduced."""
     if config.key_range is not None:
         return normalize_key_range(config.key_range, len(left_on))
+    if os.environ.get("DJT_JOIN_RANGE_PROBE", "1") != "1":
+        return None
     if os.environ.get("DJT_JOIN_PACK", "1") != "1":
         return None
     cols = []
@@ -592,8 +600,10 @@ class PreparedSide:
     sorted payload table, valid counts [world]). ``key_range``/``plan``
     pin the anchored pack every probe side must satisfy; ``sizing``/``n``
     pin the batch geometry the words' tag field was built for.
-    ``right``/``right_counts`` keep the source, so a caller can
-    re-prepare. This is the shuffle tier of dj_tpu's PreparedSide."""
+    ``right``/``right_counts`` keep the source (with every appended row,
+    ``append_to_prepared``), so a caller can re-prepare. This is the
+    shuffle tier of dj_tpu's PreparedSide; ``tier`` names it, and the
+    broadcast and salted tiers come with ROADMAP queue 1 item 7b."""
 
     topology: Topology
     config: JoinConfig
@@ -607,6 +617,7 @@ class PreparedSide:
     batches: tuple
     right: Table
     right_counts: torch.Tensor
+    tier: str = "shuffle"
 
 
 def _main_group_sizing(
@@ -653,15 +664,6 @@ def _prepared_flag_keys(config: JoinConfig) -> tuple:
     if config.left_compression:
         return _PREPARED_FLAG_KEYS + tuple(f"pre_shuffle_{k}" for k in STAT_KEYS)
     return _PREPARED_FLAG_KEYS
-
-
-def _refuse_strings(table: Table, what: str) -> None:
-    if table.has_strings:
-        raise NotImplementedError(
-            f"{what} holds a string column: string columns on the prepared "
-            f"side come with ROADMAP queue 1 item 7a; join them with the "
-            f"unprepared distributed_inner_join"
-        )
 
 
 def _pre_shuffle_one(comm: Communicator, config: JoinConfig, table: Table, on: tuple,
@@ -771,7 +773,6 @@ def prepare_join_side(
             f"prepared tier {tier!r}: the broadcast and salted tiers come "
             f"with ROADMAP queue 1 item 7b; the shuffle tier is ported"
         )
-    _refuse_strings(right, "prepare_join_side's build side")
     if config is None:
         config = JoinConfig()
     w = topology.local_ranks
@@ -788,10 +789,12 @@ def prepare_join_side(
     dtypes = []
     for c_idx in right_on:
         col = right.columns[c_idx]
-        if not dt.is_integer(col.dtype):
+        if not (isinstance(col, Column) and dt.is_integer(col.dtype)):
             raise ValueError(
-                "prepare_join_side requires fixed-width int join keys; use "
-                "the unprepared distributed_inner_join for other keys"
+                "prepare_join_side requires fixed-width int join keys: "
+                "string keys join through full-range 64-bit surrogates "
+                "and cannot ride the anchored packed plan — use the "
+                "unprepared distributed_inner_join for those"
             )
         dtypes.append(col.data.dtype)
     declared = key_range if key_range is not None else config.key_range
@@ -914,7 +917,6 @@ def _distributed_inner_join_prepared(
     ``inner_join_prepared`` against the resident run. No range probe:
     the plan is pinned, and probe keys outside it raise the
     prepared_plan_mismatch flag."""
-    _refuse_strings(left, "the prepared query's probe side")
     if config is None:
         config = prepared.config
     if topology != prepared.topology:
@@ -933,7 +935,9 @@ def _distributed_inner_join_prepared(
             f"{len(prepared.right_on)}"
         )
     for k, c_idx in enumerate(left_on):
-        if str(dt.numpy_dtype(left.columns[c_idx].data.dtype)) != prepared.plan.key_dtypes[k]:
+        col = left.columns[c_idx]
+        if not (isinstance(col, Column)
+                and str(dt.numpy_dtype(col.data.dtype)) == prepared.plan.key_dtypes[k]):
             raise PreparedPlanMismatch(
                 f"left key column {c_idx} dtype differs from the prepared "
                 f"plan's {prepared.plan.key_dtypes[k]}"
@@ -953,7 +957,8 @@ def _distributed_inner_join_prepared(
     def run(comm, lt, lc, batches):
         lt, pre_ovf, pre_stats = _pre_shuffle_one(comm, config, lt.with_count(lc[0]), left_on,
                                                   l_cap, l_cap_m, config.left_compression)
-        out, flags = _prepared_query(comm, lt, left_on, batches, plan, odf, bl, out_cap)
+        out, flags = _prepared_query(comm, lt, left_on, batches, plan, odf, bl, out_cap,
+                                     config.char_out_factor)
         flags.update(pre_shuffle_overflow=pre_ovf, **pre_stats)
         return out.with_count(None), out.count().reshape(1), _flag_row(flags, keys)
 
@@ -964,12 +969,13 @@ def _distributed_inner_join_prepared(
 
 def _prepared_query(
     comm: Communicator, left: Table, left_on: tuple, batches: tuple,
-    plan: PreparedPackPlan, odf: int, bl: int, out_cap: int,
+    plan: PreparedPackPlan, odf: int, bl: int, out_cap: int, char_out_factor: float,
 ) -> tuple[Table, dict]:
     """One rank's query (the body of dj_tpu's _build_prepared_query_fn,
     after its pre-shuffle): partition the probe side, then per batch a
     single-table shuffle and ``inner_join_prepared`` against the rank's
-    resident run."""
+    resident run; each output string column's char_overflow raises the
+    flag."""
     n = comm.size
     comm.phase("dj_partition")
     l_part, l_offsets = hash_partition(left, left_on, n * odf, seed=MAIN_JOIN_SEED)
@@ -981,7 +987,7 @@ def _prepared_query(
         return shuffle_table_start(comm, l_part, starts, counts, bl, n * bl)
 
     no = torch.tensor(False, device=left.device)
-    shuffle_ovf = join_ovf = mismatch = no
+    shuffle_ovf = join_ovf = char_ovf = mismatch = no
     batch_results = []
     inflight = issue(0)
     for b in range(odf):
@@ -995,11 +1001,14 @@ def _prepared_query(
         comm.phase("dj_join")
         result, total, jflags = inner_join_prepared(
             l_batch, left_on, words_b, ptab_b.with_count(pcnt_b[0]), plan,
-            out_capacity=out_cap,
+            out_capacity=out_cap, char_out_factor=char_out_factor,
         )
         del l_batch
         join_ovf = join_ovf | (total > out_cap)
         mismatch = mismatch | jflags["prepared_plan_mismatch"]
+        for col in result.columns:
+            if isinstance(col, StringColumn):
+                char_ovf = char_ovf | col.char_overflow()
         batch_results.append(result)
     comm.phase("dj_concat")
     out = batch_results[0] if odf == 1 else concatenate(batch_results)
@@ -1007,7 +1016,7 @@ def _prepared_query(
         "pre_shuffle_overflow": no,
         "shuffle_overflow": shuffle_ovf,
         "join_overflow": join_ovf,
-        "char_overflow": no,
+        "char_overflow": char_ovf,
         "prepared_plan_mismatch": mismatch,
     }
     return out, flags
@@ -1105,3 +1114,154 @@ def _distributed_inner_join_prepared_auto(
         ledger_key=dj_ledger.plan_signature(topology, left, prepared, left_on, None, config),
     )
     return out, counts, info, state["config"], state["prepared"]
+
+
+# --- appends to a prepared side (shuffle tier) ----------------------------
+#
+# The incremental alternative to a fresh prepare (dj_tpu/parallel/
+# dist_join.py:3810-4144): the appended rows are hash-partitioned with the
+# prepare's seed, so they land in the odf batches of the resident rows
+# they join; only the batches that receive rows are shuffled, packed
+# under the same anchored plan with tags past the resident ranks and
+# merged into the resident run, keeping its capacity and tag width, so a
+# query's sizing does not change. Untouched batches keep their tensors.
+
+_APPEND_FLAG_KEYS = (
+    "append_shuffle_overflow",
+    "append_overflow",
+    "prepared_plan_mismatch",
+)
+
+
+def combine_prepared_source(
+    topology: Topology, prepared: PreparedSide, rows: Table, rows_counts: torch.Tensor,
+) -> tuple[Table, torch.Tensor]:
+    """The prepared side's source table with ``rows`` appended: per
+    shard, the row-compacting ``concatenate`` of the source and the
+    appended block (capacity grows by the appended capacity). Returns
+    (table, counts) sharded like the source."""
+
+    def run(comm, rt, rc, at, ac):
+        out = concatenate([rt.with_count(rc[0]), at.with_count(ac[0])])
+        return out.with_count(None), out.count().reshape(1)
+
+    return run_spmd(topology, run, prepared.right, prepared.right_counts, rows, rows_counts)
+
+
+def append_to_prepared(
+    topology: Topology, prepared: PreparedSide, rows: Table, rows_counts: torch.Tensor,
+) -> tuple[PreparedSide, dict]:
+    """Merge appended build rows into the resident runs, re-sorting only
+    the odf batches that receive rows (``append_to_prepared``,
+    dj_tpu/parallel/dist_join.py:3978-4144).
+
+    ``rows`` carries the prepared source's column schema, sharded like it
+    (at least one row of capacity a shard). First each rank partitions
+    its appended rows with the prepare's seed and counts each batch's
+    rows; the counts are gathered over the world, so every rank (every
+    process of a process world) merges the same batches. Then each
+    touched batch: a single-table shuffle at the appended capacity a
+    peer (it cannot overflow, whatever the skew; the flag is kept), the
+    anchored pack with tags offset past the resident run, and
+    ``merge_packed_batch``.
+
+    Returns (new_prepared, info): the new side shares every untouched
+    batch (the same tensors), holds the combined source
+    (``combine_prepared_source``) and an ``r_cap`` grown by the appended
+    capacity a shard. ``info`` maps append_shuffle_overflow,
+    append_overflow (resident and appended rows exceed a batch's
+    capacity) and prepared_plan_mismatch (appended keys outside the
+    anchored plan) to bool[world], and ``touched`` to the merged batch
+    ids (a host tuple). Any fired flag leaves the touched runs
+    unspecified: discard the side and re-prepare from its source.
+
+    Raises PreparedPlanMismatch for a hierarchical topology (the rows
+    would need the pre-shuffle re-run), a schema other than the source's
+    and an appended capacity the tag field cannot hold; ValueError for a
+    shard with zero appended capacity. dj_tpu re-prepares a broadcast or
+    salted side on its own tier; those tiers come with ROADMAP queue 1
+    item 7b. dj_tpu's ``obs`` counters and ``faults.force_flags`` come
+    with item 10."""
+    if topology.is_hierarchical:
+        raise PreparedPlanMismatch(
+            "append_to_prepared does not support hierarchical topologies (the "
+            "appended rows would need the inter-domain pre-shuffle re-run); "
+            "re-prepare instead"
+        )
+    if dj_ledger.table_sig(rows) != dj_ledger.table_sig(prepared.right):
+        raise PreparedPlanMismatch(
+            "appended rows' column schema differs from the prepared source table's"
+        )
+    w = topology.local_ranks
+    if rows.capacity < w:
+        raise ValueError(
+            f"append_to_prepared: appended capacity {rows.capacity} < {w} shards "
+            f"here leaves a shard with zero capacity; pad to >= 1 row per shard"
+        )
+    if prepared.tier != "shuffle":
+        raise NotImplementedError(
+            f"append_to_prepared on a {prepared.tier!r}-prepared side re-prepares on "
+            f"its tier, which comes with ROADMAP queue 1 item 7b"
+        )
+    config = prepared.config
+    right_on, plan, n = prepared.right_on, prepared.plan, prepared.n
+    odf = config.over_decom_factor
+    m = n * odf
+    a_cap = rows.capacity // w
+    R = n * prepared.sizing.br
+    if R + n * a_cap > (1 << plan.tag_bits) - 1:
+        raise PreparedPlanMismatch(
+            f"append batch capacity {n * a_cap} does not fit the prepared tag "
+            f"field (tag_bits={plan.tag_bits}, resident R={R}); re-prepare, or "
+            f"append in smaller slices"
+        )
+
+    def probe(comm, at, ac):
+        comm.phase("dj_partition")
+        _, offsets = hash_partition(at.with_count(ac[0]), right_on, m, seed=MAIN_JOIN_SEED)
+        return (torch.stack([offsets[(b + 1) * n] - offsets[b * n] for b in range(odf)])
+                .reshape(1, odf),)
+
+    (per_rank,) = run_spmd(topology, probe, rows, rows_counts, **_backend(config, flags_at=0))
+    per_batch = per_rank.sum(dim=0).tolist()
+    touched = tuple(b for b in range(odf) if per_batch[b] > 0)
+    new_batches = list(prepared.batches)
+    if touched:
+        def merge(comm, at, ac, batches):
+            comm.phase("dj_partition")
+            part, offsets = hash_partition(at.with_count(ac[0]), right_on, m,
+                                           seed=MAIN_JOIN_SEED)
+            no = torch.tensor(False, device=at.device)
+            flags = dict.fromkeys(_APPEND_FLAG_KEYS, no)
+            outs = []
+            for b, (words_b, ptab_b, pcnt_b) in zip(touched, batches):
+                starts = offsets[b * n : (b + 1) * n]
+                counts = offsets[b * n + 1 : (b + 1) * n + 1] - starts
+                comm.phase("dj_exchange")
+                a_batch, _, a_ovf, _ = shuffle_table(comm, part, starts, counts, a_cap, n * a_cap)
+                comm.phase("dj_append_merge")
+                a_words, ok = _anchored_pack_word(a_batch, right_on, plan, words_b.shape[0])
+                words, payload, count, over = merge_packed_batch(
+                    words_b, ptab_b.with_count(pcnt_b[0]), a_batch, a_words, right_on, plan)
+                del a_batch, a_words
+                flags["append_shuffle_overflow"] = flags["append_shuffle_overflow"] | a_ovf
+                flags["append_overflow"] = flags["append_overflow"] | over
+                flags["prepared_plan_mismatch"] = flags["prepared_plan_mismatch"] | ~ok
+                outs.append((words, payload.with_count(None), count.reshape(1)))
+            return tuple(outs), _flag_row(flags, _APPEND_FLAG_KEYS)
+
+        merged, flag_mat = run_spmd(topology, merge, rows, rows_counts,
+                                    tuple(prepared.batches[b] for b in touched),
+                                    **_backend(config, flags_at=1))
+        for b, batch in zip(touched, merged):
+            new_batches[b] = batch
+        info = _flag_info(flag_mat, _APPEND_FLAG_KEYS)
+    else:
+        none = torch.zeros(topology.world_size, dtype=torch.bool, device=topology.device)
+        info = dict.fromkeys(_APPEND_FLAG_KEYS, none)
+    new_right, new_rc = combine_prepared_source(topology, prepared, rows, rows_counts)
+    info["touched"] = touched
+    return dataclasses.replace(
+        prepared, batches=tuple(new_batches), right=new_right, right_counts=new_rc,
+        r_cap=prepared.r_cap + a_cap,
+    ), info

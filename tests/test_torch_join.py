@@ -147,8 +147,9 @@ def test_column_order_contract():
 
 
 def test_unsupported_inputs_raise_not_implemented():
-    """A string column now converts and joins; the prepared side still
-    refuses one (ROADMAP queue 1 item 7a) with NotImplementedError."""
+    """A string column converts and joins, and the prepared side takes it
+    as a payload; a prepared tier other than the shuffle tier still
+    raises NotImplementedError (ROADMAP queue 1 item 7b)."""
     offsets, chars = np.array([0, 1, 1, 3], np.int32), np.frombuffer(b"abc", np.uint8)
     t = convert.table_from_numpy([np.array([1, 2, 3]), (offsets, chars)], ["int64", "string"],
                                  device="cpu")
@@ -156,8 +157,12 @@ def test_unsupported_inputs_raise_not_implemented():
     out, total = tjoin.inner_join(t, t, [0], [0])
     assert int(total) == 3 and tj.to_strings(out.columns[1], 3) == [b"a", b"", b"bc"]
     topo = tj.make_topology(["cpu"])
-    with pytest.raises(NotImplementedError, match="string"):
-        tj.prepare_join_side(topo, *tj.shard_table(topo, t), [0])
+    prep = tj.prepare_join_side(topo, *tj.shard_table(topo, t), [0])
+    out, counts, _ = tj.distributed_inner_join(topo, *tj.shard_table(topo, t), prep, None, [0],
+                                               None)
+    assert int(counts[0]) == 3 and tj.to_strings(out.columns[2], 3) == [b"a", b"", b"bc"]
+    with pytest.raises(NotImplementedError, match="item 7b"):
+        tj.prepare_join_side(topo, *tj.shard_table(topo, t), [0], tier="broadcast")
 
 
 def _limit_case(name):

@@ -60,7 +60,8 @@ W = _load("torch_world_worker", WORKER)
 chip_smoke = _load("chip_smoke", ROOT / "chip_smoke.py")
 
 WORLDS = (2, 4)
-CASES = {2: ["collectives", "exchange", "shuffle", "join", "generate", "auto", "keys", "strings"],
+CASES = {2: ["collectives", "exchange", "shuffle", "join", "generate", "auto", "keys", "strings",
+             "append"],
          4: ["collectives", "exchange", "shuffle", "join", "prepared", "generate", "two_level"]}
 
 
@@ -352,6 +353,37 @@ def test_process_world_two_level_matches_the_world_in_one_process(worlds):
             assert got[key] == _shard(wres, r), (key, r)
         for axis in ("inter", "intra"):
             assert got[("shuffle", axis)]["overflow"] == [False] * 4
+
+
+def test_process_world_append_from_one_process(worlds):
+    """Two gloo processes, rows appended on process 0 only: the touched
+    batches (the gathered per-batch counts), flags, merged batches,
+    combined source and each tier's query after the append give each
+    process shard r of the same append in a world of 2 in one process."""
+    topo = tj.make_topology(["cpu"] * 2)
+    build, probe = W.prepared_tables(5, 600, 900)
+    (tl, tlc), (tr, trc) = (tj.shard_table(topo, convert.table_from_numpy(
+        t, ["int64"] * 2, device="cpu")) for t in (probe, build))
+    prep = tj.prepare_join_side(topo, tr, trc, [0], tj.JoinConfig(**W.APPEND_CONFIG),
+                                left_capacity=len(probe[0]))
+    blocks = [W.append_blocks(topo, r) for r in range(2)]
+    rows = tj.Table(tuple(tj.Column(torch.cat([b[0].columns[i].data for b in blocks]),
+                                    blocks[0][0].columns[i].dtype) for i in range(2)))
+    want = W.append_result(topo, prep, rows, torch.cat([b[1] for b in blocks]), tl, tlc)
+    assert want["touched"] == (0, 1) and not any(any(v) for v in want["flags"].values())
+    for r, res in enumerate(worlds.results(2)):
+        got = res["append"]
+        assert got["touched"] == want["touched"] and got["r_cap"] == want["r_cap"]
+        assert got["flags"] == want["flags"]
+        assert got["source_rows"] == [want["source_rows"][r]]
+        for (gw, gp, gc), (ww, wp, wc) in zip(got["batches"], want["batches"]):
+            R = gw.shape[0]
+            np.testing.assert_array_equal(gw, ww[r * R:(r + 1) * R])
+            assert gc == [wc[r]]
+            for g, w_ in zip(gp, wp):
+                np.testing.assert_array_equal(g[:gc[0]], w_[r * R:r * R + gc[0]])
+        for tier in ("sort", "merge", "probe"):
+            assert got[tier] == _shard(want[tier], r), (tier, r)
 
 
 def test_a_rank_that_raises_fails_its_world(worlds):

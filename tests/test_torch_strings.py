@@ -633,19 +633,39 @@ def test_tpch_split_matches_make_split(split):
 
 
 def test_prepared_side_refuses_string_columns():
-    """String columns on the prepared side come with ROADMAP queue 1
-    item 7a: both entry points raise before any work."""
+    """The prepared side refuses a string key column only: a string key
+    raises dj_tpu's ValueError in both packages, and the same string
+    payload table now prepares and serves a query with a string probe
+    payload, with dj_tpu's rows."""
     topo = tj.make_topology(["cpu"])
+    jtopo = jmake_topology(jax.devices()[:1])
     rk = np.arange(50, dtype=np.int64)
     strings = _str_arrays([b"s%d" % k for k in rk])
-    build = tj.shard_table(topo, convert.table_from_numpy([rk, strings], ["int64", "string"],
-                                                          device="cpu"))
-    with pytest.raises(NotImplementedError, match="item 7a"):
-        tj.prepare_join_side(topo, *build, [0])
-    plain = tj.shard_table(topo, convert.table_from_numpy([rk, rk], ["int64"] * 2, device="cpu"))
-    prep = tj.prepare_join_side(topo, *plain, [0])
-    with pytest.raises(NotImplementedError, match="item 7a"):
-        tj.distributed_inner_join(topo, *build, prep, None, [0], None)
+    jb, tb = _tables([rk, strings], ["int64", "string"])
+    jkey, tkey = _tables([strings, rk], ["string", "int64"])
+    with pytest.raises(ValueError, match="fixed-width int join keys") as want:
+        jdist.prepare_join_side(jtopo, *jshard(jtopo, jkey), [0], tier="shuffle")
+    with pytest.raises(ValueError, match="fixed-width int join keys") as got:
+        tj.prepare_join_side(topo, *tj.shard_table(topo, tkey), [0])
+    assert str(got.value) == str(want.value)
+    jprep = jdist.prepare_join_side(jtopo, *jshard(jtopo, jb), [0], tier="shuffle")
+    tprep = tj.prepare_join_side(topo, *tj.shard_table(topo, tb), [0])
+    pk = rk[::-2] % 60
+    jp, tp = _tables([pk, _str_arrays([b"p%d" % k * 2 for k in pk])], ["int64", "string"])
+    jout, jcounts, _ = dj_tpu.distributed_inner_join(jtopo, *jshard(jtopo, jp), jprep, None, [0],
+                                                     None)
+    tout, tcounts, tinfo = tj.distributed_inner_join(topo, *tj.shard_table(topo, tp), tprep, None,
+                                                     [0], None)
+    assert int(tcounts[0]) == int(jcounts[0]) == int(np.isin(pk, rk).sum())
+    assert not any(bool(v.any()) for v in tinfo.values())
+    n = int(tcounts[0])
+    rows = [sorted(zip(np.asarray(o.columns[0].data)[:n].tolist(),
+                       jT.to_strings(jT.StringColumn(np.asarray(o.columns[1].offsets),
+                                                     np.asarray(o.columns[1].chars)), n),
+                       jT.to_strings(jT.StringColumn(np.asarray(o.columns[2].offsets),
+                                                     np.asarray(o.columns[2].chars)), n)))
+            for o in (tout, jout)]
+    assert rows[0] == rows[1]
 
 
 def test_convert_round_trips_a_string_table():

@@ -13,8 +13,6 @@ import dj_tpu
 import dj_tpu_torch as tj
 
 NOT_YET_PORTED = {
-    # 7a: the rest of the prepared side.
-    "append_to_prepared": "7a",
     # 9: the composition layers.
     "JoinStage": "9",
     "distributed_join_pipeline": "9",

@@ -374,6 +374,57 @@ def case_prepared(topo):
     return out
 
 
+# The append case: odf 2, a declared range, slack for the appended rows.
+APPEND_CONFIG = dict(over_decom_factor=2, bucket_factor=4.0, join_out_factor=4.0,
+                     key_range=(0, 3 * 600 - 1))
+APPEND_ROWS = 48  # appended rows, all on rank 0
+
+
+def append_rows() -> list:
+    """Rank 0's appended rows: keys new to ``prepared_tables(5, 600,
+    900)``'s build side and some of its keys."""
+    build, _ = prepared_tables(5, 600, 900)
+    rng = np.random.default_rng(13)
+    new = np.setdiff1d(np.arange(3 * 600), build[0])[: APPEND_ROWS - 8]
+    keys = rng.permutation(np.concatenate([new, build[0][:8]])).astype(np.int64)
+    return [keys, np.arange(APPEND_ROWS, dtype=np.int64) + 2 * 10**6]
+
+
+def append_blocks(topo, rank: int):
+    """(rows, counts) of the appended rows as a rank's block: the rows on
+    rank 0, an empty block of the same capacity on the others."""
+    rows = convert.table_from_numpy(append_rows(), ["int64", "int64"], device="cpu")
+    n = APPEND_ROWS if rank == 0 else 0
+    return rows.with_count(None), torch.tensor([n], dtype=torch.int32)
+
+
+def append_result(topo, prep, rows, counts, left, lcounts) -> dict:
+    """append_to_prepared's batches, flags and touched batches, then a
+    query under each merge tier."""
+    cfg = dj.JoinConfig(**APPEND_CONFIG)
+    new, info = dj.append_to_prepared(topo, prep, rows, counts)
+    out = {"touched": info["touched"], "r_cap": new.r_cap,
+           "flags": {k: v.tolist() for k, v in info.items() if k != "touched"},
+           "batches": [(w.numpy(), [c.data.numpy() for c in p.columns], c.tolist())
+                       for w, p, c in new.batches],
+           "source_rows": shard_rows(new.right, new.right_counts)}
+    for tier in TIERS:
+        os.environ["DJT_JOIN_MERGE"] = tier
+        out[tier] = _join_result(dj.distributed_inner_join(topo, left, lcounts, new, None, [0],
+                                                           None, cfg))
+    os.environ.pop("DJT_JOIN_MERGE")
+    return out
+
+
+def case_append(topo):
+    """Only rank 0 appends rows: every process merges the same batches."""
+    build, probe = prepared_tables(5, 600, 900)
+    (tl, tlc), (tr, trc) = _sharded(topo, probe), _sharded(topo, build)
+    cfg = dj.JoinConfig(**APPEND_CONFIG)
+    prep = dj.prepare_join_side(topo, tr, trc, [0], cfg, left_capacity=len(probe[0]))
+    return append_result(topo, prep, *append_blocks(topo, topo.rank), tl, tlc)
+
+
 def case_generate(topo):
     b, bc, p, pc = dj.generate_tables_distributed(topo, **GENERATE)
     return {"build": [c.data.numpy() for c in b.columns], "build_counts": bc.tolist(),
@@ -556,7 +607,7 @@ CASES = {"collectives": case_collectives, "exchange": case_exchange, "shuffle": 
          "join": case_join, "prepared": case_prepared, "generate": case_generate,
          "auto": case_auto, "keys": case_keys, "fail": case_fail,
          "ledger_split": case_ledger_split, "strings": case_strings,
-         "two_level": case_two_level, "compress": case_compress}
+         "two_level": case_two_level, "compress": case_compress, "append": case_append}
 
 
 def main(spec_json: str, out_dir: str) -> int:
