@@ -97,6 +97,18 @@ Phases, each printing its own line(s):
   4h. the join's plan knob: phase 4's join at odf 1 under
      DJT_JOIN_RANGE_PROBE=0, checked as in 4 with the default join's rows
      and launches, its wall beside the default's;
+  4i. the skew-adaptive plans in 4d's world under DJT_PLAN_ADAPT=1: (i)
+     the broadcast plan by fit at odf 1 and 4 (decision tier and source,
+     flags False, rows checked and equal to phase 4's, each row on the
+     shard of its probe row, no all-to-all issued, join_scans and
+     expand_values once a rank; walls, peak, device ms by phase); (ii)
+     the salted plan at odf 1 and 4 under DJT_BROADCAST_BYTES=0, a random
+     half of the probe rows on one build key: the salt set and replicas equal to
+     the rule re-derived from the gathered counts, the rows equal to the
+     shuffle plan's through distributed_inner_join_auto (its heal
+     attempts and factors logged beside the salted run's); (iii) a
+     replayed decision takes no probe, and 4e's two-level world stays on
+     the shuffle plan with 4e's digests;
   5. prepared path: at odf 1 and 4, prepare_join_side on the build table,
      then distributed_inner_join with the PreparedSide under each merge
      tier (sort, merge, probe); each query checked as in 4, with the
@@ -120,6 +132,21 @@ Phases, each printing its own line(s):
      (ii); at odf 1 the batch has no slack and append_overflow fires (iii);
      a two-level topology is refused (v); the appends' walls beside a
      fresh prepare of the combined table, and the peak;
+  5e. the prepared tiers in 4d's world on phase 5's build table: (i)
+     DJT_PREPARED_TIER=broadcast and auto (which must pick broadcast) at
+     odf 1, one replicated batch a rank, queries under each merge tier
+     checked as in 5 with no collective issued and each tier's kernels
+     once a rank; prepare and query walls, peaks; (iii) a 1% append to the
+     broadcast side re-prepares on its tier, its queries equal to the
+     unprepared join of the combined table; (ii) DJT_PREPARED_TIER=salted
+     on the build table with 2 of every 5 rows on one key, which one probe
+     row carries (about 40M more output rows), with one buffer a
+     collective (fuse_columns False): the salt set and replicas
+     equal to the rule on the gathered counts, the rows of a query under
+     the merge and probe tiers through distributed_inner_join_auto equal
+     to the shuffle-prepared side's sort-tier query (attempts and factors
+     logged; a salted sort-tier query sorts 400M words a rank, which does
+     not fit beside four ranks' resident runs on one card);
   5b. unsigned columns: a uint16-key and a uint32-key table (keys past
      the signed range) with uint64 payloads (top bit set), about 1M probe
      rows, joined under every DJT_JOIN_EXPAND mode and queried through
@@ -148,7 +175,10 @@ Phases, each printing its own line(s):
      options through broadcast_compression_options over gloo (every
      process ends with rank 0's tree, also for trees made to differ by
      rank), and 4f's table over 'inter' raw and compressed, equal digests,
-     each exchange's device ms;
+     each exchange's device ms; and each process, under DJT_PLAN_ADAPT=1,
+     decides the broadcast plan on its own and joins once at odf 1: the
+     same decision on all four, each shard digest equal to rank r's in
+     4i(i);
   6c. an NCCL world of one process per card at phase 4d's rows a rank,
      on a machine with 2 or more cards, with 6b's two-level half when the
      cards factor by 2 (4 or more); with one card, one line saying that
@@ -208,6 +238,10 @@ Phases, each printing its own line(s):
      to ignore the first byte ("Customer#k" and "Dustomer#k" collide)
      flags surrogate_collision, a true match under it does not, and
      distributed_inner_join_auto raises the collision after one attempt;
+  8f. 8c's 4-rank join under DJT_PLAN_ADAPT=1: customer, the build side,
+     broadcast to every rank (its two string columns as two buffers
+     each), no all-to-all, every row checked as in 8c; wall, peak and the
+     string passes' device ms beside 8c's world;
   8e. the prepared side with strings: orders prepared, lineitem queried
      under each tier at odf 1 and 4 on one rank and odf 1 in the 4-rank
      world, char_out_factor 5, each checked as 8a (priorities byte for
@@ -236,7 +270,8 @@ Phases, each printing its own line(s):
      kernels cannot hold;
 then the `kernels` JSON line (kernel, plain-version and library times
 beside each kernel's bound, launches per query on each path and in the
-4-rank world, its two-level form and the process worlds, expand_ranks'
+4-rank world (the plan tiers of 4i, 5e and 8f among its paths), its
+two-level form and the process worlds (6b's broadcast run apart), expand_ranks'
 codec decodes in 4g, expand_values' probe-tier call of 5d, and each
 kernel's registers and spills from ptxas; the probes' launches are their
 main()'s, and no join path launches them).
@@ -2078,6 +2113,538 @@ def run_knobs(dj, topo, left, lcnt, right, rcnt, build, probe, expected: int, re
     return {"knob_range_probe_0": {odf: launches}}
 
 
+# --- the skew-adaptive plan tiers (phases 4i and 5e) ----------------------
+
+# 4i(ii): probe rows on one build key, drawn at random with this share
+# (at even positions only, the salt peer pos % replicas would use half the
+# peers of an even fan-out)
+HOT_PROBE_SHARE = 0.5
+HOT_BUILD_SHARE = (2, 5)  # 5e: 2 of every 5 build rows on one key
+SALTED_SKEW_TIERS = ("merge", "probe")  # 5e(ii)'s salted queries (no sort tier)
+
+
+class Collectives:
+    """Counts the in-process transport's collectives issued while active,
+    by kind."""
+
+    NAMES = ("all_to_all_start", "all_gather", "all_reduce", "shift_start")
+
+    def __enter__(self):
+        from dj_tpu_torch.parallel.communicator import InProcessTransport
+
+        self.cls, self.counts = InProcessTransport, dict.fromkeys(self.NAMES, 0)
+        self.orig = {name: getattr(InProcessTransport, name) for name in self.NAMES}
+        for name, fn in self.orig.items():
+            setattr(InProcessTransport, name, self._counted(name, fn))
+        return self
+
+    def _counted(self, name, fn):
+        def counted(transport, *a, **k):
+            self.counts[name] += 1
+            return fn(transport, *a, **k)
+        return counted
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.cls, name, fn)
+
+
+@contextlib.contextmanager
+def env_set(**kv):
+    """The DJT_* variables ``kv`` set inside the block, restored after."""
+    old = {k: os.environ.get(k) for k in kv}
+    os.environ.update(kv)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def salt_rule(counts, n: int, odf: int, threshold: float = 2.0, topk: int = 3):
+    """dj_tpu's salting rule (plan_adapt.decide at its default knobs),
+    re-derived here from the gathered [w, n odf] partition counts: per
+    batch the destination rows; a destination among the batch's topk is
+    heavy when it alone reaches ``threshold`` times the batch's mean;
+    the fan-out is ceil(worst ratio) clamped to [2, n]. Returns (salt
+    set, replicas, worst ratio)."""
+    import math
+
+    import numpy as np
+
+    counts = np.asarray(counts)
+    heavy, worst = [], 1.0
+    for b in range(odf):
+        rows = counts[:, b * n:(b + 1) * n].sum(axis=0)
+        mean = float(rows.mean())
+        if mean <= 0:
+            continue
+        worst = max(worst, int(rows.max()) / mean)
+        top = sorted(range(n), key=lambda d: -int(rows[d]))[:topk]
+        heavy += [b * n + d for d in top if rows[d] >= threshold * mean]
+    return tuple(sorted(set(heavy))), max(2, min(n, math.ceil(worst))), worst
+
+
+def key_matches(build_keys, probe_keys) -> int:
+    """The join's row count: per probe row, the build rows of its key."""
+    s = torch.sort(build_keys).values
+    lo = torch.searchsorted(s, probe_keys)
+    hi = torch.searchsorted(s, probe_keys, right=True)
+    return int((hi - lo).sum())
+
+
+def pair_words(out, counts, build, probe, expected: int, what: str):
+    """Every output row (k, lp, rp) with probe_key[lp] == k and
+    build_key[rp] == k, each (lp, rp) pair once, ``expected`` rows in
+    all (build keys may repeat). Returns the sorted pair words lp << 32
+    | rp, which hold a result's row multiset."""
+    from dj_tpu_torch.parallel.api import unshard_table
+
+    flat = out if counts.shape[0] == 1 else unshard_table(out, counts)
+    n = int(counts.sum())
+    if n != expected:
+        raise AssertionError(f"{what}: {n} rows, expected {expected}")
+    k, lp, rp = (c.data[:n] for c in flat.columns)
+    if not bool((probe.columns[0].data[lp] == k).all()):
+        raise AssertionError(f"{what}: a row's probe key differs from its key column")
+    if not bool((build.columns[0].data[rp] == k).all()):
+        raise AssertionError(f"{what}: a row's build key differs from its key column")
+    words = torch.sort((lp << 32) | rp).values
+    if n > 1 and bool((words[1:] == words[:-1]).any()):
+        raise AssertionError(f"{what}: a (probe row, build row) pair appears twice")
+    return words
+
+
+def check_on_probe_shard(what: str, out, counts, shard_rows: int) -> None:
+    """Every row on shard r joins a probe row of rank r's block: the
+    broadcast plan joins each rank's own left shard where it lies."""
+    cap = out.capacity // counts.shape[0]
+    for r, n in enumerate(counts.tolist()):
+        lp = out.columns[1].data[r * cap: r * cap + n]
+        if n and not bool(((lp >= r * shard_rows) & (lp < (r + 1) * shard_rows)).all()):
+            raise AssertionError(f"{what}: a row on shard {r} joins another rank's probe row")
+
+
+def flags_false(what: str, info: dict) -> None:
+    set_flags = [k for k, v in info.items() if k != "touched" and bool(v.any())]
+    if set_flags:
+        raise AssertionError(f"{what}: flags set: {set_flags}")
+
+
+def run_plan_tiers(dj, dev, build, probe, expected: int, ref, rows: int, smi: str,
+                   two_level_digests: list) -> tuple[dict, list]:
+    """Phase 4i: the unprepared plan tiers in 4d's 4-rank world under
+    DJT_PLAN_ADAPT=1. (i) The broadcast plan by fit at odf 1 and 4; (ii)
+    the salted plan at odf 1 and 4 under DJT_BROADCAST_BYTES=0 on a
+    probe side with a random half of its rows on one build key, beside
+    the shuffle plan's heal on the same tables; (iii) a replayed decision takes no
+    probe, and 4e's two-level world stays on shuffle. Returns ({path:
+    {odf: launches}} of the world, the broadcast plan's shard digests at
+    odf 1)."""
+    from dj_tpu_torch.parallel import dist_join as dist
+    from dj_tpu_torch.resilience import ledger
+
+    t_phase = time.perf_counter()
+    topo = dj.make_topology([dev] * WORLD)
+    left, lcnt = dj.shard_table(topo, probe)
+    right, rcnt = dj.shard_table(topo, build)
+    shard_rows = probe.capacity // WORLD
+    table: dict = {}
+    ledger.reset()
+
+    # (i) the broadcast plan: no partition, no all-to-all.
+    with env_set(DJT_PLAN_ADAPT="1"):
+        for odf in (1, 4):
+            cfg = dj.JoinConfig(over_decom_factor=odf)
+            what = f"4i(i) broadcast odf={odf}"
+            d = dist._resolve_plan_decision(topo, left, lcnt, right, rcnt, (0,), (0,), cfg)
+            if (d.tier, d.source) != ("broadcast", "fit"):
+                raise AssertionError(f"{what}: decision {d}")
+
+            def join():
+                return dj.distributed_inner_join(topo, left, lcnt, right, rcnt, [0], [0], cfg)
+
+            reset_launches()
+            with Collectives() as coll:
+                out, counts, info = join()
+                torch.cuda.synchronize()
+            launches = read_launches()
+            flags_false(what, info)
+            if coll.counts["all_to_all_start"] or coll.counts["shift_start"]:
+                raise AssertionError(f"{what}: the join issued an all-to-all: {coll.counts}")
+            if int(counts.sum()) != expected:
+                raise AssertionError(f"{what}: {int(counts.sum())} rows, expected {expected}")
+            check_on_probe_shard(what, out, counts, shard_rows)
+            flat = dj.unshard_table(out, counts)
+            flat_counts = torch.tensor([flat.capacity])
+            check_rows(flat, flat_counts, build, probe, expected)
+            check_same_rows(sorted_rows(flat, flat_counts), ref, what)
+            if odf == 1:
+                digests = shard_digests(out, counts)
+            del out, flat, info
+            wrong = {k: launches[k] for k in ("join_scans", "expand_values")
+                     if launches[k] != WORLD}
+            if wrong:
+                raise AssertionError(f"{what}: each kernel must launch {WORLD} times: {wrong}")
+            table.setdefault("plan_broadcast", {})[odf] = launches
+            wall, runs, peak = warm_walls(join)
+            phases = world_phases(join)
+            log("plan_tier", smoke_phase="4i", case="(i)", tier=d.tier, source=d.source, odf=odf,
+                ranks=WORLD, rows=rows, counts=counts.tolist(), total=expected,
+                flags="all False", rows_checked=expected, same_rows_as_one_rank=True,
+                rows_on_their_probe_shard=True, collectives=coll.counts, launches=launches,
+                wall_ms=wall, wall_ms_runs=runs, peak_bytes=peak, phases=phases, card=smi)
+            del counts
+
+    # (ii) the salted plan on a probe side with half its rows on one key.
+    keys = probe.columns[0].data.clone()
+    g = torch.Generator(device=keys.device).manual_seed(14)
+    hot_rows = torch.rand(keys.numel(), generator=g, device=keys.device) < HOT_PROBE_SHARE
+    keys[hot_rows] = build.columns[0].data[7]
+    n_hot = int(hot_rows.sum())
+    del hot_rows
+    hot = dj.Table((dj.Column(keys, dj.dtypes.int64), probe.columns[1]))
+    hot_expected = key_matches(build.columns[0].data, keys)
+    del keys
+    hl, hlc = dj.shard_table(topo, hot)
+    salted_cases = {}
+    for odf in (1, 4):
+        cfg = dj.JoinConfig(over_decom_factor=odf)
+        what = f"4i(ii) odf={odf}"
+
+        def auto(c=cfg, **kw):
+            return dj.distributed_inner_join_auto(topo, hl, hlc, right, rcnt, [0], [0], c, **kw)
+
+        # The skewed table has the plain one's signature: forget (i)'s
+        # decision and the healed factors, or they replay.
+        ledger.reset()
+        if odf == 1:
+            with Attempts() as a:
+                out, counts, info, used = auto()
+                torch.cuda.synchronize()
+            flags_false(f"{what} shuffle plan", info)
+            flat = dj.unshard_table(out, counts)
+            flat_counts = torch.tensor([flat.capacity])
+            check_rows(flat, flat_counts, build, hot, hot_expected)
+            want = sorted_rows(flat, flat_counts)  # the rows at every odf
+            del out, counts, info, flat
+            shuffle = {"attempts": a.n, **{f: getattr(used, f) for f in FACTOR_FIELDS}}
+            shuffle["wall_ms"], shuffle["wall_ms_runs"], shuffle["peak_bytes"] = warm_walls(
+                lambda: dj.distributed_inner_join(topo, hl, hlc, right, rcnt, [0], [0], used))
+        else:
+            # At odf 4 the hot bucket (about 13.3M rows a source) needs
+            # bucket_factor 16, whose buckets and output capacities do not
+            # fit the card's 80 GB beside the four ranks' tables: the heal
+            # is stopped at 4, where it must still overflow.
+            with Attempts() as a:
+                try:
+                    auto(max_attempts=2)
+                except dj.CapacityExhausted as e:
+                    shuffle = {"attempts": a.n, "capacity_exhausted": dict(e.factors),
+                               "flags": sorted(k for k, v in e.flags.items() if v)}
+                else:
+                    raise AssertionError(f"{what}: the shuffle plan fit at bucket_factor 4")
+            torch.cuda.empty_cache()
+        ledger.reset()
+        with env_set(DJT_PLAN_ADAPT="1", DJT_BROADCAST_BYTES="0"):
+            mat = dist._partition_probe_counts(topo, hl, hlc, (0,), odf)
+            salt, replicas, worst = salt_rule(mat, WORLD, odf)
+            d = dist._resolve_plan_decision(topo, hl, hlc, right, rcnt, (0,), (0,), cfg)
+            if (d.tier, d.salt, d.replicas) != ("salted", salt, replicas):
+                raise AssertionError(f"{what}: decision {d}, the rule gives {salt} x {replicas}")
+            reset_launches()
+            with Attempts() as a:
+                out, counts, info, s_used = auto()
+                torch.cuda.synchronize()
+            launches = read_launches()
+            flags_false(what, info)
+            flat = dj.unshard_table(out, counts)
+            flat_counts = torch.tensor([flat.capacity])
+            check_rows(flat, flat_counts, build, hot, hot_expected)
+            check_same_rows(sorted_rows(flat, flat_counts), want, what)
+            del out, info, flat
+            wrong = {k: launches[k] for k in ("join_scans", "expand_values")
+                     if launches[k] != WORLD * odf * a.n}
+            if wrong:
+                raise AssertionError(f"{what}: each kernel must launch {WORLD * odf} times an "
+                                     f"attempt: {wrong}")
+            table.setdefault("plan_salted", {})[odf] = launches
+
+            def join(c=s_used):
+                return dj.distributed_inner_join(topo, hl, hlc, right, rcnt, [0], [0], c)
+
+            wall, runs, peak = warm_walls(join)
+            phases = world_phases(join)
+        salted_cases[odf] = (cfg, d)
+        log("plan_tier", smoke_phase="4i", case="(ii)", tier=d.tier, source=d.source, odf=odf,
+            ranks=WORLD, rows=rows, hot_probe_rows=n_hot, salt=list(d.salt),
+            replicas=d.replicas, ratio=d.ratio, rule_salt=list(salt), rule_replicas=replicas,
+            rule_worst_ratio=worst, counts=counts.tolist(), total=hot_expected,
+            flags="all False", rows_checked=hot_expected, same_rows_as_shuffle_plan=True,
+            salted_attempts=a.n, salted_bucket_factor_healed=s_used.bucket_factor > 2.0,
+            salted_factors={f: getattr(s_used, f) for f in FACTOR_FIELDS},
+            shuffle_plan=shuffle, launches=launches, wall_ms=wall, wall_ms_runs=runs,
+            peak_bytes=peak, phases=phases, card=smi)
+        del counts
+
+    # (iii) a replayed decision takes no probe; a two-level world stays on
+    # the shuffle plan.
+    probes = []
+    real = dist._partition_probe_counts
+    dist._partition_probe_counts = lambda *a, **k: probes.append(1) or real(*a, **k)
+    try:
+        with env_set(DJT_PLAN_ADAPT="1", DJT_BROADCAST_BYTES="0"):
+            cfg, first = salted_cases[4]  # the last decided: each odf reset the ledger
+            d = dist._resolve_plan_decision(topo, hl, hlc, right, rcnt, (0,), (0,), cfg)
+            cfg = dj.JoinConfig()
+            if (d.source, d.tier, d.salt, d.replicas) != ("ledger", first.tier, first.salt,
+                                                          first.replicas) or probes:
+                raise AssertionError(f"4i(iii): the replay gave {d} after {len(probes)} probes")
+            topo2 = dj.make_topology([dev] * WORLD, intra_size=INTRA)
+            l2, lc2 = dj.shard_table(topo2, probe)
+            r2, rc2 = dj.shard_table(topo2, build)
+            d2 = dist._resolve_plan_decision(topo2, l2, lc2, r2, rc2, (0,), (0,), cfg)
+            out, counts, info = dj.distributed_inner_join(topo2, l2, lc2, r2, rc2, [0], [0], cfg)
+            torch.cuda.synchronize()
+            flags_false("4i(iii) two-level", info)
+            got = shard_digests(out, counts)
+            if d2.tier != "shuffle" or probes or got != two_level_digests:
+                raise AssertionError(f"4i(iii): the two-level world planned {d2} after "
+                                     f"{len(probes)} probes, digests {got} vs 4e's")
+            del out, counts, info, l2, lc2, r2, rc2
+    finally:
+        dist._partition_probe_counts = real
+    log("plan_tier", smoke_phase="4i", case="(iii)", replay_source=d.source, replay_probes=0,
+        two_level_tier=d2.tier, two_level_source=d2.source, two_level_digests_equal_4e=True,
+        card=smi)
+    ledger.reset()
+    del hl, hlc, hot, left, right, want
+    torch.cuda.empty_cache()
+    log("plan_tier_phase", smoke_phase="4i", seconds=time.perf_counter() - t_phase)
+    return table, digests
+
+
+def run_prepared_tiers(dj, dev, gen, topo1, left1, lcnt1, build, probe, expected: int, ref,
+                       rows: int, smi: str) -> dict:
+    """Phase 5e: the prepared tiers in 4d's 4-rank world on phase 5's
+    build table. (i) DJT_PREPARED_TIER=broadcast and auto (which must
+    pick broadcast) at odf 1, a query under each merge tier issuing no
+    collective; (ii) DJT_PREPARED_TIER=salted on a build side with two
+    fifths of its rows on one key, held to the shuffle-prepared side's
+    rows; (iii) a 1% append to the broadcast side re-prepares on its
+    tier, its queries equal to the unprepared join of the combined
+    table. Returns {path: {odf: launches}} of the world."""
+    from dj_tpu_torch.ops.join import prepared_effective_plan
+    from dj_tpu_torch.parallel import dist_join as dist
+    from dj_tpu_torch.resilience import ledger
+
+    t_phase = time.perf_counter()
+    topo = dj.make_topology([dev] * WORLD)
+    left, lcnt = dj.shard_table(topo, probe)
+    right, rcnt = dj.shard_table(topo, build)
+    cfg = dj.JoinConfig(key_range=(0, 2 * rows))
+    table: dict = {}
+    ledger.reset()
+
+    def query_checked(what, prep, tier, l_side, check):
+        """One query under merge tier ``tier``: no collective, flags
+        False, its kernels launched once a rank, rows by ``check``."""
+        os.environ["DJT_JOIN_MERGE"] = tier
+        reset_launches()
+        with Collectives() as coll:
+            out, counts, info = dj.distributed_inner_join(topo, *l_side, prep, None, [0], None,
+                                                          cfg)
+            torch.cuda.synchronize()
+        launches = read_launches()
+        flags_false(what, info)
+        check(out, counts)
+        del out, info
+        wrong = {k: launches[k] for k in prepared_effective_plan(tier) if launches[k] != WORLD}
+        if wrong:
+            raise AssertionError(f"{what}: each kernel must launch {WORLD} times: {wrong}")
+        return launches, coll.counts, counts.tolist()
+
+    def same_as(want_rows, base, probe_t, total):
+        def check(out, counts):
+            flat = dj.unshard_table(out, counts)
+            flat_counts = torch.tensor([flat.capacity])
+            check_rows(flat, flat_counts, base, probe_t, total)
+            check_same_rows(sorted_rows(flat, flat_counts), want_rows, "5e")
+        return check
+
+    # (i) broadcast and auto: one replicated batch a rank, queries with
+    # no collective.
+    for knob in ("broadcast", "auto"):
+        ledger.reset()
+        with env_set(DJT_PREPARED_TIER=knob):
+            prep_wall, prep_runs, prep_peak = warm_walls(
+                lambda: dj.prepare_join_side(topo, right, rcnt, [0], cfg, left_capacity=rows))
+            prep = dj.prepare_join_side(topo, right, rcnt, [0], cfg, left_capacity=rows)
+        if prep.tier != "broadcast" or len(prep.batches) != 1:
+            raise AssertionError(f"5e(i) {knob}: tier {prep.tier}, {len(prep.batches)} batches")
+        queries = {}
+        for tier in (TIERS if knob == "broadcast" else ("sort",)):
+            what = f"5e(i) {knob} tier={tier}"
+            launches, coll, counts = query_checked(what, prep, tier, (left, lcnt),
+                                                   same_as(ref, build, probe, expected))
+            if any(coll.values()):
+                raise AssertionError(f"{what}: the query issued collectives: {coll}")
+            table[f"prepared_broadcast_{tier}" if knob == "broadcast"
+                  else "prepared_auto_sort"] = {1: launches}
+
+            def query():
+                return dj.distributed_inner_join(topo, left, lcnt, prep, None, [0], None, cfg)
+
+            wall, runs, peak = warm_walls(query)
+            queries[tier] = {"wall_ms": wall, "wall_ms_runs": runs, "peak_bytes": peak,
+                             "counts": counts, "launches": launches, "collectives": coll,
+                             "phase_ms": world_phases(query)["phase_ms"]}
+        os.environ.pop("DJT_JOIN_MERGE")
+        log("prepared_tier", smoke_phase="5e", case="(i)", knob=knob, tier=prep.tier, odf=1,
+            ranks=WORLD, resident_rows_per_rank=prep.batches[0][0].shape[0] // WORLD,
+            tag_bits=prep.plan.tag_bits, prepare_wall_ms=prep_wall,
+            prepare_wall_ms_runs=prep_runs, prepare_peak_bytes=prep_peak, total=expected,
+            flags="all False", rows_checked=expected, same_rows_as_one_rank=True,
+            queries=queries, card=smi)
+        if knob == "broadcast":
+            bprep = prep
+        del prep
+
+    # (iii) a 1% append to the broadcast side: it re-prepares on its tier.
+    n_app = max(1, rows // 100)
+    keys = absent_keys(gen, dev, build.columns[0].data, 2 * rows, n_app)
+    app = appended_table(dj, keys, build.capacity)
+    combined = dj.concatenate([build, app]).with_count(None)
+    want_total = expected + appended_matches(probe, keys)
+    cright, crcnt = dj.shard_table(topo1, combined)
+    out, counts, info = dj.distributed_inner_join(topo1, left1, lcnt1, cright, crcnt, [0], [0])
+    torch.cuda.synchronize()
+    flags_false("5e(iii) unprepared combined", info)
+    check_rows(out, counts, combined, probe, want_total)
+    ref_c = sorted_rows(out, counts)
+    del out, counts, info, cright, crcnt, keys
+    a_side = dj.shard_table(topo, app)
+    t0 = time.perf_counter()
+    new, info = dj.append_to_prepared(topo, bprep, *a_side)
+    torch.cuda.synchronize()
+    append_ms = (time.perf_counter() - t0) * 1e3
+    flags_false("5e(iii) append", info)
+    if new.tier != "broadcast" or info["touched"] != (0,):
+        raise AssertionError(f"5e(iii): tier {new.tier}, touched {info['touched']}")
+    del bprep
+    appended = {}
+    for tier in TIERS:
+        what = f"5e(iii) appended tier={tier}"
+        launches, coll, counts = query_checked(what, new, tier, (left, lcnt),
+                                               same_as(ref_c, combined, probe, want_total))
+        table[f"prepared_broadcast_append_{tier}"] = {1: launches}
+        appended[tier] = {"launches": launches, "collectives": coll}
+    os.environ.pop("DJT_JOIN_MERGE")
+    log("prepared_tier", smoke_phase="5e", case="(iii)", tier=new.tier, appended_rows=n_app,
+        touched=list(info["touched"]), append_ms=append_ms, total=want_total, flags="all False",
+        rows_checked=want_total, same_rows_as_unprepared_combined=True, queries=appended,
+        card=smi)
+    del new, info, a_side, app, combined, ref_c
+    torch.cuda.empty_cache()
+
+    # (ii) salted: two fifths of the build rows on one key, which exactly
+    # one probe row carries. Both prepares heal bucket_factor to 4, so the
+    # salted one exchanges three [4, 25M] windows a rank: fused into one
+    # collective, the four ranks' copies of them ran out of the card's
+    # 80 GB, so this case moves one buffer a collective (fuse_columns
+    # False, dj_tpu's unfused exchange), the shuffle-prepared side too.
+    del right, rcnt
+    torch.cuda.empty_cache()
+    cfg = dj.JoinConfig(key_range=(0, 2 * rows), fuse_columns=False)
+    pk, bk = probe.columns[0].data, build.columns[0].data
+    uniq, cnt = torch.unique_consecutive(torch.sort(pk).values, return_counts=True)
+    sb = torch.sort(bk).values
+    inb = sb[torch.searchsorted(sb, uniq).clamp_max_(sb.numel() - 1)] == uniq
+    hot_key = uniq[(cnt == 1) & inb][0]
+    del uniq, cnt, sb, inb
+    every, of = HOT_BUILD_SHARE
+    hb = bk.clone()
+    hb[torch.arange(rows, device=dev) % of < every] = hot_key
+    skewed = dj.Table((dj.Column(hb, dj.dtypes.int64), build.columns[1]))
+    s_expected = key_matches(hb, pk)
+    del hb
+    sr, src = dj.shard_table(topo, skewed)
+    sides = {}
+    for knob in ("shuffle", "salted"):
+        ledger.reset()
+        torch.cuda.reset_peak_memory_stats()
+        with env_set(DJT_PREPARED_TIER=knob):
+            t0 = time.perf_counter()
+            prep = dj.prepare_join_side(topo, sr, src, [0], cfg, left_capacity=rows)
+            torch.cuda.synchronize()
+            prep_ms = (time.perf_counter() - t0) * 1e3
+        prep_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        if prep.tier != knob:
+            raise AssertionError(f"5e(ii): DJT_PREPARED_TIER={knob} prepared {prep.tier}")
+        rule = None
+        if knob == "salted":
+            mat = dist._partition_probe_counts(topo, sr, src, (0,), 1)
+            rule = salt_rule(mat, WORLD, 1)
+            if (prep.salt, prep.salt_replicas) != rule[:2]:
+                raise AssertionError(f"5e(ii): salt {prep.salt} x {prep.salt_replicas}, the "
+                                     f"rule gives {rule}")
+        queries = {}
+        # The salted side holds 3 x 4 x 25M resident slots a rank; a sort-tier
+        # query sorts them with its 100M probe slots (400M words a rank),
+        # which did not fit beside the four ranks' resident runs on one card.
+        for tier in (SALTED_SKEW_TIERS if knob == "salted" else ("sort",)):
+            os.environ["DJT_JOIN_MERGE"] = tier
+            what = f"5e(ii) {knob} tier={tier}"
+            reset_launches()
+            with Attempts() as a:
+                out, counts, info, used, _ = dj.distributed_inner_join_auto(
+                    topo, left, lcnt, prep, None, [0], None, prep.config)
+                torch.cuda.synchronize()
+            launches = read_launches()
+            flags_false(what, info)
+            words = pair_words(out, counts, skewed, probe, s_expected, what)
+            if "words" in sides and not torch.equal(words, sides["words"]):
+                raise AssertionError(f"{what}: rows differ from the shuffle-prepared side's")
+            sides.setdefault("words", words)
+            del out, info, words
+            missing = [k for k in prepared_effective_plan(tier) if launches[k] < WORLD]
+            if missing:
+                raise AssertionError(f"{what}: kernels not launched by every rank: {missing}")
+            table[f"prepared_{knob}_skewed_{tier}"] = {1: launches}
+            t0 = time.perf_counter()
+            res = dj.distributed_inner_join(topo, left, lcnt, prep, None, [0], None, used)
+            torch.cuda.synchronize()
+            queries[tier] = {"attempts": a.n, "wall_ms_one_warm_run":
+                             (time.perf_counter() - t0) * 1e3, "counts": counts.tolist(),
+                             "factors": {f: getattr(used, f) for f in FACTOR_FIELDS},
+                             "launches": launches}
+            del res, counts
+        os.environ.pop("DJT_JOIN_MERGE")
+        log("prepared_tier", smoke_phase="5e", case="(ii)", tier=prep.tier, odf=1, ranks=WORLD,
+            hot_build_rows=rows * every // of, hot_probe_rows=1, salt=list(prep.salt),
+            replicas=prep.salt_replicas, rule=list(rule) if rule else None,
+            prepare_ms=prep_ms, prepare_peak_bytes=prep_peak,
+            prepare_factors={f: getattr(prep.config, f) for f in FACTOR_FIELDS},
+            resident_rows_per_rank=prep.batches[0][0].shape[0] // WORLD,
+            tag_bits=prep.plan.tag_bits, total=s_expected, flags="all False",
+            rows_checked=s_expected, same_rows_as_shuffle_prepared=knob == "salted",
+            queries=queries, query_peak_bytes=torch.cuda.max_memory_allocated(),
+            **({"sort_tier": "not run: 400M words a rank to sort beside four resident runs "
+                             "of 300M slots exceed one card's 80 GB"} if knob == "salted" else {}),
+            card=smi)
+        del prep
+        torch.cuda.empty_cache()
+    ledger.reset()
+    del sides, sr, src, skewed, left
+    torch.cuda.empty_cache()
+    log("prepared_tier_phase", smoke_phase="5e", seconds=time.perf_counter() - t_phase)
+    return table
+
+
 # --- the probe tier's expansions (phase 5d) -------------------------------
 
 PROBE_EXPANDS = ("segment", "hist", "pallas")
@@ -2666,6 +3233,9 @@ def world_rank(spec_json: str) -> int:
             join()
             _sync(dev)
         result["phase_ms"] = phase_runs[-1][0]
+        if spec.get("broadcast"):
+            result["broadcast"] = broadcast_rank(dj, dev, topo, join, left, lcnt, right, rcnt,
+                                                 cfg)
         if spec.get("intra"):
             if dev.type == "cuda":
                 torch.cuda.empty_cache()  # four processes share the card
@@ -2674,6 +3244,38 @@ def world_rank(spec_json: str) -> int:
     finally:
         torch.distributed.destroy_process_group()
     return 0
+
+
+def broadcast_rank(dj, dev, topo, join, left, lcnt, right, rcnt, cfg) -> dict:
+    """Phase 6b's broadcast run on one process: under DJT_PLAN_ADAPT=1
+    this process decides the plan on its own (from the gathered counts
+    and the global build side's bytes), then joins once; its decision,
+    shard digest, flags, launches and a warm wall."""
+    from dj_tpu_torch.parallel import dist_join
+
+    try:
+        with env_set(DJT_PLAN_ADAPT="1"):
+            dj.resilience.ledger.reset()
+            d = dist_join._resolve_plan_decision(topo, left, lcnt, right, rcnt, (0,), (0,), cfg)
+            reset_launches()
+            out, counts, info = join()
+            _sync(dev)
+            res = {"decision": [d.tier, list(d.salt), d.replicas, d.ratio, d.source],
+                   "digest": shard_digest(out, int(counts[0])),
+                   "flags": {k: v.tolist() for k, v in info.items()},
+                   "launches": read_launches()}
+            del out, counts, info
+            t0 = time.perf_counter()
+            join()
+            _sync(dev)
+            res["wall_ms"] = (time.perf_counter() - t0) * 1e3
+            if dev.type == "cuda":
+                res["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    finally:
+        dj.resilience.ledger.reset()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()  # four processes share the card
+    return res
 
 
 def two_level_rank(dj, dev, spec: dict, left, lcnt, right, rcnt) -> dict:
@@ -2763,15 +3365,15 @@ def two_level_rank(dj, dev, spec: dict, left, lcnt, right, rcnt) -> dict:
 def run_process_world(world: int, backend: str, device: str, rows: int, seed: int, *,
                       odf: int = 1, reps: int = 3, timeout: float = 600.0,
                       local_ranks: bool = False, intra: Optional[int] = None,
-                      shuffle_rows: int = 0) -> list:
+                      shuffle_rows: int = 0, broadcast: bool = False) -> list:
     """Phases 6b and 6c: ``world`` processes of ``world_rank``; returns
     their RESULT objects by rank. Every process must end with code 0 and
     print one; the flag matrices must be equal on all. With ``intra``
     each process also runs ``two_level_rank`` (``shuffle_rows`` rows of
-    phase 4f's table)."""
+    phase 4f's table), with ``broadcast`` ``broadcast_rank``."""
     spec = json.dumps({"backend": backend, "device": device, "rows": rows, "seed": seed,
                        "odf": odf, "reps": reps, "intra": intra,
-                       "shuffle_rows": shuffle_rows})
+                       "shuffle_rows": shuffle_rows, "broadcast": broadcast})
     code = "import sys, chip_smoke; sys.exit(chip_smoke.world_rank(sys.argv[1]))"
     outs = spawn_world(world, ["-c", code, spec], timeout=timeout, local_ranks=local_ranks)
     results = []
@@ -2788,7 +3390,38 @@ def run_process_world(world: int, backend: str, device: str, rows: int, seed: in
     if intra and any(res["two_level"]["flags"] != results[0]["two_level"]["flags"]
                      for res in results):
         raise AssertionError("the two-level flag matrices differ between processes")
+    if broadcast and any(res["broadcast"]["flags"] != results[0]["broadcast"]["flags"]
+                         for res in results):
+        raise AssertionError("the broadcast plan's flag matrices differ between processes")
     return results
+
+
+def check_broadcast_processes(what: str, results: list, want_digests: Optional[list],
+                              expected: int, launches: int) -> None:
+    """Each process's broadcast run (``broadcast_rank``): the same
+    broadcast decision on every process, flags False, shard digests
+    equal to phase 4i(i)'s rank r (when given) and summing to the
+    generator's count, join_scans and expand_values launched
+    ``launches`` times (once on the card)."""
+    runs = [res["broadcast"] for res in results]
+    decisions = [b["decision"] for b in runs]
+    if decisions[0][0] != "broadcast" or any(d != decisions[0] for d in decisions):
+        raise AssertionError(f"{what}: decisions {decisions}")
+    set_flags = [k for k, v in runs[0]["flags"].items() if any(v)]
+    if set_flags:
+        raise AssertionError(f"{what}: broadcast flags set: {set_flags}")
+    digests = [b["digest"] for b in runs]
+    if want_digests is not None and digests != want_digests:
+        raise AssertionError(f"{what}: broadcast shard digests {digests} != 4i(i)'s "
+                             f"{want_digests}")
+    if sum(d[0] for d in digests) != expected:
+        raise AssertionError(f"{what}: broadcast shard rows do not sum to {expected}")
+    for b in runs:
+        bad = {k: b["launches"][k] for k in ("join_scans", "expand_values")
+               if b["launches"][k] != launches}
+        if bad:
+            raise AssertionError(f"{what}: a broadcast process launched {bad}, not {launches} "
+                                 f"each")
 
 
 def check_two_level_processes(what: str, results: list, want_digests: Optional[list],
@@ -3135,6 +3768,7 @@ def run_strings(dj, dev, seed: int, n_orders: int, smi: str, verifier_rows: int 
     world)."""
     from dj_tpu_torch.data import tpch
     from dj_tpu_torch.ops import hashing
+    from dj_tpu_torch.parallel import dist_join as dist
     from dj_tpu_torch.parallel.dist_join import MAIN_JOIN_SEED
     from dj_tpu_torch.resilience import ledger
 
@@ -3233,14 +3867,13 @@ def run_strings(dj, dev, seed: int, n_orders: int, smi: str, verifier_rows: int 
     seg_code = torch.empty(n_cust, dtype=torch.int64, device=dev)
     seg_code[ckey.data] = word_codes(cseg, tpch.SEGMENTS)
     del hit
-    for w in (1, WORLD):
-        topo = dj.make_topology() if w == 1 else dj.make_topology([dev] * WORLD)
-        left, right = dj.shard_table(topo, o_side), dj.shard_table(topo, c_side)
-        cfg = dj.JoinConfig(char_out_factor=CHAR_FIT_KEYS)
-        what = f"8c world {w}"
-        res, launches, passes = joined(what, topo, left, right, cfg, w)
+    def check_string_key(what, res, w, colocated):
+        """8c's checks of one result: the host's count, each row joining
+        one customer, the orders joined, each row's C_NAME key and
+        segment byte for byte, and with ``colocated`` each row on its
+        key's shard."""
         out, counts, info = res
-        if w > 1:
+        if colocated:
             cap, ocap = out.capacity // w, out.columns[0].chars.shape[0] // w
             for r, n in enumerate(counts.tolist()):
                 name = dj.StringColumn(out.columns[0].offsets[r * (cap + 1):(r + 1) * (cap + 1)],
@@ -3262,8 +3895,16 @@ def run_strings(dj, dev, seed: int, n_orders: int, smi: str, verifier_rows: int 
                 and torch.equal(name.chars[: 18 * n], names.chars[: 18 * n])):
             raise AssertionError(f"{what}: an order's C_NAME key differs from its O_CUSTKEY's")
         check_string_codes(what, seg, n, seg_code[cc.data[:n]], tpch.SEGMENTS)
+
+    for w in (1, WORLD):
+        topo = dj.make_topology() if w == 1 else dj.make_topology([dev] * WORLD)
+        left, right = dj.shard_table(topo, o_side), dj.shard_table(topo, c_side)
+        cfg = dj.JoinConfig(char_out_factor=CHAR_FIT_KEYS)
+        what = f"8c world {w}"
+        res, launches, passes = joined(what, topo, left, right, cfg, w)
+        check_string_key(what, res, w, colocated=w > 1)
         (world_table if w > 1 else launch_table).setdefault("tpch_string_key", {})[1] = launches
-        del res, out, flat, name, ok, oc, seg, cc, names
+        del res
 
         def join():
             return dj.distributed_inner_join(topo, *left, *right, [0], [0], cfg)
@@ -3274,8 +3915,35 @@ def run_strings(dj, dev, seed: int, n_orders: int, smi: str, verifier_rows: int 
             host_count=expected, flags="all False", surrogate_collision=False,
             colocated=w > 1, launches=launches, wall_ms=wall, wall_ms_runs=runs,
             peak_bytes=peak, string_pass_ms=passes, card=smi)
-        del left, right, topo
+        if w == 1:
+            del left, right, topo
         torch.cuda.empty_cache()
+
+    # 8f. 8c's world join under DJT_PLAN_ADAPT=1: customer, the build side,
+    # is broadcast to every rank, each string column as two buffers.
+    ledger.reset()
+    with env_set(DJT_PLAN_ADAPT="1"):
+        d = dist._resolve_plan_decision(topo, *left, *right, (0,), (0,), cfg)
+        if (d.tier, d.source) != ("broadcast", "fit"):
+            raise AssertionError(f"8f: decision {d}")
+        with Collectives() as coll:
+            res, launches, bc_passes = joined("8f broadcast", topo, left, right, cfg, WORLD)
+        if coll.counts["all_to_all_start"] or coll.counts["shift_start"]:
+            raise AssertionError(f"8f: the join issued an all-to-all: {coll.counts}")
+        check_string_key("8f broadcast", res, WORLD, colocated=False)
+        world_table.setdefault("tpch_string_key_broadcast", {})[1] = launches
+        del res
+        bc_wall, bc_runs, bc_peak = warm_walls(join)
+        bc_phases = world_phases(join)
+    ledger.reset()
+    log("tpch_string_key", smoke_phase="8f", ranks=WORLD, odf=1, tier=d.tier, source=d.source,
+        key="C_NAME", string_payload="C_MKTSEGMENT", char_out_factor=CHAR_FIT_KEYS,
+        total=expected, flags="all False", surrogate_collision=False, collectives=coll.counts,
+        launches=launches, wall_ms=bc_wall, wall_ms_runs=bc_runs, peak_bytes=bc_peak,
+        shuffle_plan_wall_ms=wall, shuffle_plan_peak_bytes=peak, string_pass_ms=bc_passes,
+        shuffle_plan_string_pass_ms=passes, phases=bc_phases, card=smi)
+    del left, right, topo
+    torch.cuda.empty_cache()
     del o_side, c_side, want_orders, seg_code
 
     # 8d. the verifier on the card: a surrogate weakened to ignore each
@@ -3612,6 +4280,12 @@ def main() -> int:
     run_shuffle_on_compressed(dj, dev, rows, args.seed, smi, shuffle_digests)
     torch.cuda.empty_cache()
 
+    # 4i. the unprepared plan tiers (broadcast, salted) in 4d's world
+    plan_launches, plan_digests = run_plan_tiers(dj, dev, build, probe, expected, ref, rows, smi,
+                                                 two_level_digests)
+    world_launches.update(plan_launches)
+    torch.cuda.empty_cache()
+
     # 5. prepared path: prepare once, query under each merge tier
     prep_walls, query_walls = {}, {}
     for odf in (1, 4):
@@ -3694,6 +4368,11 @@ def main() -> int:
     launch_table.update(append_launches)
     torch.cuda.empty_cache()
 
+    # 5e. the broadcast- and salted-prepared build sides in 4d's world
+    world_launches.update(run_prepared_tiers(dj, dev, gen, topo, left, lcnt, build, probe,
+                                             expected, ref, rows, smi))
+    torch.cuda.empty_cache()
+
     # 5b. unsigned keys and payloads
     check_unsigned_path(dj, topo, gen, dev, min(rows, 1_000_000))
     torch.cuda.empty_cache()
@@ -3731,8 +4410,9 @@ def main() -> int:
     t_6b = time.perf_counter()
     parent_bytes = torch.cuda.memory_reserved()
     process4 = run_process_world(WORLD, "gloo", "cuda", rows, args.seed, intra=INTRA,
-                                 shuffle_rows=rows)
+                                 shuffle_rows=rows, broadcast=True)
     check_process_world("6b", process4, world_digests, expected, 1)
+    check_broadcast_processes("6b", process4, plan_digests, expected, 1)
     check_two_level_processes("6b", process4, two_level_digests, shuffle_digests, expected, 1)
     log("process_world", smoke_phase="6b", backend="gloo", ranks=WORLD, device=str(dev),
         transport=process4[0]["transport"], host_staged_calls=process4[0]["host_staged_calls"],
@@ -3744,6 +4424,12 @@ def main() -> int:
         phase_ms_by_rank=[res["phase_ms"] for res in process4],
         peak_bytes_by_rank=[res["peak_bytes"] for res in process4],
         launches_by_rank=[res["launches"] for res in process4], card=smi)
+    log("process_world_broadcast", smoke_phase="6b", backend="gloo", ranks=WORLD, odf=1,
+        decision=process4[0]["broadcast"]["decision"], decisions_equal=True, flags="all False",
+        digests=[res["broadcast"]["digest"] for res in process4], digests_equal_phase_4i=True,
+        wall_ms_by_rank=[res["broadcast"]["wall_ms"] for res in process4],
+        peak_bytes_by_rank=[res["broadcast"].get("peak_bytes") for res in process4],
+        launches_by_rank=[res["broadcast"]["launches"] for res in process4], card=smi)
     two = [res["two_level"] for res in process4]
     log("process_world_two_level", smoke_phase="6b", backend="gloo", ranks=WORLD, intra=INTRA,
         axes=two[0]["axes"], groups=two[0]["groups"], odf=1, flags="all False",
@@ -4091,6 +4777,8 @@ def main() -> int:
         k["launches_process1_nccl"] = per_query(k["name"], process1_launches) if on_path else {}
         k["launches_process4_gloo_by_rank"] = (
             [res["launches"][k["name"]] for res in process4] if on_path else [])
+        k["launches_process4_gloo_broadcast_by_rank"] = (
+            [res["broadcast"]["launches"][k["name"]] for res in process4] if on_path else [])
         if process_n is not None:
             k["launches_process_nccl_by_rank"] = (
                 [res["launches"][k["name"]] for res in process_n] if on_path else [])

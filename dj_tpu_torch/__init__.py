@@ -64,6 +64,13 @@ overflowing capacities, a wrong declared key range and a prepared side
 the probe keys fall outside of, remembering the healed factors in the
 capacity ledger (``resilience``; ``DJT_LEDGER=<path>`` keeps it), and
 raises ``CapacityExhausted`` when its ``HealBudget`` runs out.
+
+The skew-adaptive plans (``plan_adapt``): under ``DJT_PLAN_ADAPT=1``
+the unprepared join decides once per signature between the broadcast
+plan (the build side all-gathered to every rank, no all-to-all), the
+salted plan (a heavy destination's rows scattered over salt peers) and
+the shuffle plan; ``prepare_join_side`` builds on the tier
+``DJT_PREPARED_TIER`` names (shuffle, broadcast, salted or auto).
 """
 
 from .compress import (
@@ -122,6 +129,7 @@ from .parallel.dist_join import (
     prepare_join_side,
 )
 from .parallel.shuffle import shuffle_on, shuffle_on_auto
+from .parallel import plan_adapt  # noqa: F401 - the planner's namespace, as in dj_tpu
 from .parallel.topology import CommunicationGroup, Topology, largest_intra_size, make_topology
 from .parallel.warmup import warmup_compression
 from . import resilience

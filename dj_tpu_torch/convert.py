@@ -98,14 +98,12 @@ def join_config_from(config) -> JoinConfig:
 
 def prepared_side_from(prepared, topology: Topology) -> PreparedSide:
     """The port's PreparedSide holding the state of a dj_tpu
-    PreparedSide (its shuffle tier) on ``topology``'s device: the plan
-    fields, sizes (``r_cap`` grown by any append) and config by name, the
-    sorted words (u64, kept as their int64 bit patterns), payload tables
-    (string columns as their offsets and chars) and counts of every
-    batch, and the source table, through ``np.asarray``."""
-    tier = getattr(prepared, "tier", "shuffle")
-    if tier != "shuffle":
-        raise NotImplementedError(f"prepared tier {tier!r} comes with ROADMAP queue 1 item 7b")
+    PreparedSide of any tier on ``topology``'s device: the plan fields,
+    sizes (``r_cap`` grown by any append), config, tier, salt set and
+    salt replicas by name, the sorted words (u64, kept as their int64
+    bit patterns), payload tables (string columns as their offsets and
+    chars) and counts of every batch (one replicated batch on the
+    broadcast tier), and the source table, through ``np.asarray``."""
     dev = topology.device
 
     def tensor(a, dtype=None):
@@ -136,4 +134,7 @@ def prepared_side_from(prepared, topology: Topology) -> PreparedSide:
         batches=batches,
         right=table(prepared.right),
         right_counts=tensor(prepared.right_counts),
+        tier=str(prepared.tier),
+        salt=tuple(int(p) for p in prepared.salt),
+        salt_replicas=int(prepared.salt_replicas),
     )

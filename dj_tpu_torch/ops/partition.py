@@ -6,6 +6,8 @@ npartitions so they sort to the tail and enter no partition. The
 reorder is one stable sort of the ids whose permutation gathers every
 column (a string column through ``StringColumn.take``, at its own char
 capacity); offsets come from a histogram and a cumsum.
+``salted_partition_ids`` (``:72-112``) scatters a heavy destination's
+rows over its salt peers, the probe side of the salted tier.
 """
 
 from __future__ import annotations
@@ -37,6 +39,36 @@ def partition_counts_from_ids(pid: torch.Tensor, npartitions: int) -> torch.Tens
     (padding) count in none."""
     hist = torch.bincount(pid.to(torch.int64).clamp(0, npartitions), minlength=npartitions + 1)
     return hist[:npartitions].to(torch.int32)
+
+
+def salted_partition_ids(
+    pid: torch.Tensor,
+    npartitions: int,
+    group_size: int,
+    heavy: Sequence[int],
+    replicas: int,
+) -> torch.Tensor:
+    """The probe side's salt of the salted tier: a row whose partition id
+    is in ``heavy`` (global ids, batch b's destination d at
+    ``b * group_size + d``) moves to ``b * n + (d + pos % replicas) %
+    n``, where ``pos`` is its position in the shard, so its batch stays
+    the same; every other row, padding's ``pid == npartitions`` among
+    them, keeps its id. The build side's heavy partitions go to exactly
+    the peers ``(d + c) % n``, c < replicas (the salted join's rotated
+    windows), so each probe row meets each matching build row once.
+    Needs 2 <= replicas <= group_size."""
+    if not 2 <= replicas <= group_size:
+        raise ValueError(f"salt replicas {replicas} outside [2, {group_size}]")
+    is_heavy = [False] * (npartitions + 1)
+    for p in heavy:
+        if not 0 <= p < npartitions:
+            raise ValueError(f"heavy partition id {p} outside [0, {npartitions})")
+        is_heavy[p] = True
+    heavy_v = torch.tensor(is_heavy, dtype=torch.bool, device=pid.device)
+    j = pid % group_size  # the in-batch destination (garbage for padding)
+    salt = torch.arange(pid.shape[0], dtype=torch.int32, device=pid.device) % replicas
+    return torch.where(heavy_v[pid.clamp(0, npartitions).long()],
+                       pid - j + (j + salt) % group_size, pid)
 
 
 def partition_by_ids(

@@ -43,6 +43,10 @@ the two in a row.
 
 A one-peer group shuffles by the self-copy of ``_single_peer_shuffle``
 (dj_tpu/parallel/all_to_all.py:204-249), which compresses nothing.
+
+``broadcast_table`` (dj_tpu/parallel/all_to_all.py:546-667) gives every
+peer the whole table: all-gathers and a compact, no all-to-all. It is
+the data movement of the broadcast tiers.
 """
 
 from __future__ import annotations
@@ -441,3 +445,73 @@ def shuffle_table_start(
         compression=[compression],
     )
     return Pending(lambda: pending.wait()[0])
+
+
+def broadcast_table(
+    comm: Communicator,
+    table: Table,
+    out_capacity: int,
+    char_out_bytes: Optional[dict] = None,
+) -> tuple[Table, torch.Tensor, torch.Tensor, dict]:
+    """Give every group peer the whole row-sharded table: the broadcast
+    tiers' data movement, with no partition and no all-to-all.
+
+    One all-gather of the batched size vector (this peer's row count,
+    then the char bytes of each string column), one all-gather of each
+    fixed-width column's buffer and two of each string column's (its
+    int32 row sizes and its chars); then ``compact`` concatenates the
+    peers' valid prefixes into ``out_capacity`` rows, a string column's
+    offsets rebuilt from its sizes by a scan. ``char_out_bytes`` maps a
+    string column to its output char capacity (default n times its
+    shard's, which cannot overflow). Returns the ``shuffle_table``
+    contract (table, total_rows, overflow, stats); no send buckets
+    exist, so OVF_BUCKET is False. A one-peer group is
+    ``_single_peer_shuffle``'s self-copy."""
+    n = comm.size
+    count = table.count()
+    char_out_bytes = char_out_bytes or {}
+
+    def char_out(i: int) -> int:
+        override = char_out_bytes.get(i)
+        return override if override is not None else n * table.columns[i].chars.shape[0]
+
+    if n == 1:
+        zero = torch.zeros(1, dtype=torch.int32, device=table.device)
+        return _single_peer_shuffle(table, zero, count.reshape(1).to(torch.int32), out_capacity,
+                                    lambda i: (table.columns[i].chars.shape[0], char_out(i)))
+    string_cols = [i for i, c in enumerate(table.columns) if isinstance(c, StringColumn)]
+    size_vec = torch.stack([count.to(torch.int32)] + [
+        table.columns[i].offsets[count].to(torch.int32) for i in string_cols])
+    comm.phase("bc_gather")
+    counts_g = comm.all_gather(size_vec)  # [n, 1 + string columns]
+    gathered = []  # (kind, column, [n, ...] buffer)
+    for i, col in enumerate(table.columns):
+        if isinstance(col, StringColumn):
+            gathered.append(("sizes", i, comm.all_gather(col.sizes())))
+            gathered.append(("chars", i, comm.all_gather(col.chars)))
+        else:
+            gathered.append(("col", i, comm.all_gather(col.data)))
+    comm.phase("bc_compact")
+    recv_rows = counts_g[:, 0]
+    total = sizes_to_offsets(recv_rows)[-1]
+    out_count = total.clamp_max(out_capacity).to(torch.int32)
+    overflow = total > out_capacity
+    out_cols: list = [None] * table.num_columns
+    recv_sizes = {}
+    for kind, i, buf in gathered:
+        if kind == "col":
+            out_cols[i] = Column(compact(buf, recv_rows, out_capacity)[0], table.columns[i].dtype)
+        elif kind == "sizes":
+            recv_sizes[i] = compact(buf, recv_rows, out_capacity)[0]
+    for kind, i, buf in gathered:
+        if kind != "chars":
+            continue
+        cout = char_out(i)
+        chars, btotal = compact(buf, counts_g[:, 1 + string_cols.index(i)], cout)
+        sizes = recv_sizes[i].masked_fill_(
+            torch.arange(out_capacity, device=buf.device) >= out_count, 0)
+        overflow = overflow | (btotal > cout)
+        out_cols[i] = StringColumn(sizes_to_offsets(sizes), chars, table.columns[i].dtype)
+    del gathered
+    stats = {OVF_BUCKET: torch.tensor(False, device=table.device), OVF_OUT: overflow}
+    return Table(tuple(out_cols), out_count), total, overflow, stats

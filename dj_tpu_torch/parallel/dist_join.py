@@ -41,10 +41,20 @@ the build table's partition, exchange, pack and sort once; each query
 (``distributed_inner_join`` with a PreparedSide as ``right``) partitions,
 exchanges and joins only the probe side; both sides may hold string
 payloads. ``append_to_prepared`` merges appended build rows into the odf
-batches they hash to, leaving the other batches as they are. Its shuffle
-tier is ported; the broadcast and salted tiers come with later slices,
-as do the skew-adaptive plans, shape bucketing, the roofline phases and
-the degradation guard.
+batches they hash to, leaving the other batches as they are.
+
+The skew-adaptive tiers (``parallel.plan_adapt``):
+under ``DJT_PLAN_ADAPT=1`` the unprepared join runs the plan its
+signature decided: broadcast (every rank all-gathers the right side and
+joins its own left shard, no all-to-all), salted (heavy destinations'
+probe rows scattered over salt peers, their build rows copied there by
+rotated windows in the same exchange epoch) or shuffle.
+``prepare_join_side`` builds its side on the tier ``DJT_PREPARED_TIER``
+(or ``tier=``) names: shuffle, broadcast (one replicated batch a rank,
+queried with no collective), salted, or auto. A two-level topology stays
+on shuffle. Every tier returns the shuffle plan's flag keys, so the heal
+is tier-blind. Shape bucketing, the roofline phases and the degradation
+guard come with later slices.
 
 ``distributed_inner_join_auto`` is the entry point that answers any
 input: it runs the join under the heal engine (``resilience.heal``),
@@ -60,6 +70,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import warnings
 from typing import NamedTuple, Optional, Sequence, Type
 
 import torch
@@ -78,13 +89,27 @@ from ..ops.join import (
     plan_prepared_pack,
     prepare_packed_batch,
 )
-from ..ops.partition import hash_partition
+from ..obs.bytemodel import replicated_table_bytes
+from ..obs import skew as obs_skew
+from ..ops.partition import (
+    hash_partition,
+    partition_by_ids,
+    partition_counts_from_ids,
+    partition_ids,
+    salted_partition_ids,
+)
 from ..resilience import heal as heal_engine
 from ..resilience import ledger as dj_ledger
 from ..resilience.errors import PreparedPlanMismatch
 from ..resilience.heal import HealBudget
 from ..ops import hashing
-from .all_to_all import shuffle_table, shuffle_table_start, shuffle_tables_start
+from . import plan_adapt
+from .all_to_all import (
+    broadcast_table,
+    shuffle_table,
+    shuffle_table_start,
+    shuffle_tables_start,
+)
 from .communicator import Communicator, XlaCommunicator
 from .shuffle import STAT_KEYS, _local_shuffle, _local_shuffle_pair
 from .spmd import run_spmd
@@ -167,14 +192,44 @@ def batch_sizing(config: JoinConfig, n: int, l_cap: int, r_cap: int) -> BatchSiz
     return BatchSizing(m, sl, sr, bl, br, out_cap)
 
 
+def _char_overflow(result: Table, flag: torch.Tensor) -> torch.Tensor:
+    """``flag`` or any output string column's char_overflow."""
+    for col in result.columns:
+        if isinstance(col, StringColumn):
+            flag = flag | col.char_overflow()
+    return flag
+
+
+def _salt_windows(b: int, n: int, starts: torch.Tensor, counts: torch.Tensor, salt: tuple,
+                  replicas: int) -> list:
+    """The (starts, counts) of the salted tier's ``replicas - 1`` extra
+    copies of batch b's build partitions: copy c sends partition slot j
+    to peer (j + c) % n, so peer p gets slot (p - c) % n, masked to the
+    slots whose global id ``b * n + slot`` is in ``salt`` (zero rows
+    elsewhere). Each copy rides the batch's exchange epoch as one more
+    table (dj_tpu/parallel/dist_join.py:1110-1131)."""
+    salt_set = frozenset(int(p) for p in salt)
+    out = []
+    for c in range(1, replicas):
+        rot = [(j - c) % n for j in range(n)]
+        idx = torch.tensor(rot, dtype=torch.int64, device=starts.device)
+        mask = torch.tensor([(b * n + s) in salt_set for s in rot], device=starts.device)
+        out.append((starts[idx], torch.where(mask, counts[idx], 0)))
+    return out
+
+
 def _local_join_pipeline(
     comm: Communicator, left: Table, right: Table, left_on: Sequence[int],
     right_on: Sequence[int], config: JoinConfig, l_cap: int, r_cap: int,
-    key_range: Optional[tuple] = None,
+    key_range: Optional[tuple] = None, salt: tuple = (), replicas: int = 1,
 ):
     """One rank's pipeline: on a two-level topology the pre-shuffle over
     'inter', then partition and exchange + join per batch over the main
-    group's communicator ``comm``."""
+    group's communicator ``comm``. With a ``salt`` set (the salted tier,
+    flat topologies only) the left partition ids are salted over
+    ``replicas`` peers and each batch's exchange carries the build
+    side's rotated windows (``_salt_windows``), concatenated into the
+    batch's right table (dj_tpu's ``_build_salted_join_fn``)."""
     dev = left.device
     no = torch.tensor(False, device=dev)
     pre_ovf = no
@@ -198,7 +253,12 @@ def _local_join_pipeline(
     n = comm.size
     m, _, _, bl, br, batch_out_cap = batch_sizing(config, n, l_cap, r_cap)
     comm.phase("dj_partition")
-    l_part, l_offsets = hash_partition(left, left_on, m, seed=MAIN_JOIN_SEED)
+    if salt:
+        l_pid = salted_partition_ids(partition_ids(left, left_on, m, seed=MAIN_JOIN_SEED), m, n,
+                                     salt, replicas)
+        l_part, l_offsets = partition_by_ids(left, l_pid, m)
+    else:
+        l_part, l_offsets = hash_partition(left, left_on, m, seed=MAIN_JOIN_SEED)
     r_part, r_offsets = hash_partition(right, right_on, m, seed=MAIN_JOIN_SEED)
 
     def issue(b: int):
@@ -207,14 +267,16 @@ def _local_join_pipeline(
         lo, hi = b * n, (b + 1) * n
         l_starts = l_offsets[lo:hi]
         r_starts = r_offsets[lo:hi]
+        r_cnt = r_offsets[lo + 1 : hi + 1] - r_starts
+        windows = _salt_windows(b, n, r_starts, r_cnt, salt, replicas) if salt else []
         comm.phase("dj_exchange")
         return shuffle_tables_start(
             comm,
-            [l_part, r_part],
-            [l_starts, r_starts],
-            [l_offsets[lo + 1 : hi + 1] - l_starts, r_offsets[lo + 1 : hi + 1] - r_starts],
-            [bl, br],
-            [n * bl, n * br],
+            [l_part, r_part] + [r_part] * len(windows),
+            [l_starts, r_starts] + [st for st, _ in windows],
+            [l_offsets[lo + 1 : hi + 1] - l_starts, r_cnt] + [ct for _, ct in windows],
+            [bl] + [br] * (1 + len(windows)),
+            [n * bl] + [n * br] * (1 + len(windows)),
         )
 
     shuffle_ovf = join_ovf = char_ovf = pack_ovf = coll = no
@@ -224,9 +286,17 @@ def _local_join_pipeline(
     for b in range(odf):
         # Batch b+1's exchange is issued before batch b's join.
         prefetch = issue(b + 1) if b + 1 < odf else None
-        (l_batch, _, l_ovf, _), (r_batch, _, r_ovf, _) = inflight.wait()
+        (l_batch, _, l_ovf, _), *r_parts = inflight.wait()
         inflight = prefetch
-        shuffle_ovf = shuffle_ovf | l_ovf | r_ovf
+        shuffle_ovf = shuffle_ovf | l_ovf
+        for _, _, r_ovf, _ in r_parts:
+            shuffle_ovf = shuffle_ovf | r_ovf
+        if len(r_parts) == 1:
+            r_batch = r_parts[0][0]
+        else:
+            comm.phase("dj_salt_concat")
+            r_batch = concatenate([t for t, _, _, _ in r_parts])
+        del r_parts
         comm.phase("dj_join")
         result, total, jflags = inner_join(
             l_batch, r_batch, left_on, right_on,
@@ -239,9 +309,7 @@ def _local_join_pipeline(
         join_ovf = join_ovf | (total > batch_out_cap)
         coll = coll | jflags["surrogate_collision"]
         pack_ovf = pack_ovf | jflags["pack_range_overflow"]
-        for col in result.columns:
-            if isinstance(col, StringColumn):
-                char_ovf = char_ovf | col.char_overflow()
+        char_ovf = _char_overflow(result, char_ovf)
         batch_results.append(result)
     comm.phase("dj_concat")
     out = batch_results[0] if len(batch_results) == 1 else concatenate(batch_results)
@@ -267,6 +335,115 @@ def _pre_shuffle_stats(*stats: dict) -> dict:
                 key = f"pre_shuffle_{k}"
                 out[key] = out[key] + st[k] if key in out else st[k]
     return out
+
+
+def _broadcast_join_pipeline(
+    comm: Communicator, left: Table, right: Table, left_on: Sequence[int],
+    right_on: Sequence[int], config: JoinConfig, l_cap: int, r_cap: int,
+    key_range: Optional[tuple] = None,
+):
+    """One rank's broadcast-tier join (dj_tpu's
+    ``_build_broadcast_join_fn``, dist_join.py:893-969): the right side
+    all-gathered into n * r_cap rows (``broadcast_table``), then one
+    local join of the rank's own left shard against it. Each left row
+    lives on one rank and meets every right row there, so the ranks'
+    outputs together are the shuffle plan's rows. No partition and no
+    all-to-all; the output capacity is ``join_out_factor * max(l_cap, n *
+    r_cap)``, which join_out_factor heals as on the shuffle plan."""
+    n = comm.size
+    out_cap = max(1, int(config.join_out_factor * max(l_cap, n * r_cap)))
+    with comm.phase_scope("dj_broadcast"):
+        right_g, _, b_ovf, _ = broadcast_table(comm, right, n * r_cap)
+    comm.phase("dj_join")
+    result, total, jflags = inner_join(
+        left, right_g, left_on, right_on,
+        out_capacity=out_cap,
+        char_out_factor=config.char_out_factor,
+        return_flags=True,
+        key_range=key_range,
+    )
+    del right_g
+    no = torch.tensor(False, device=left.device)
+    # The default sizing is exact, so shuffle_overflow cannot fire; it
+    # heals by bucket_factor like the shuffle plan's.
+    return result, {
+        "pre_shuffle_overflow": no,
+        "shuffle_overflow": b_ovf,
+        "join_overflow": total > out_cap,
+        "char_overflow": _char_overflow(result, no),
+        "surrogate_collision": jflags["surrogate_collision"],
+        "pack_range_overflow": jflags["pack_range_overflow"],
+    }
+
+
+def _partition_probe_counts(
+    topology: Topology, table: Table, counts: torch.Tensor, on: tuple, odf: int,
+    config: Optional[JoinConfig] = None,
+):
+    """The global [w, m] per-source partition counts of ``table`` under
+    the main stage's partition (seed MAIN_JOIN_SEED, m = n * odf), as a
+    numpy array on every process (dj_tpu/parallel/dist_join.py:748-773):
+    each rank counts its own shard's rows a partition, and the rows are
+    gathered over the world, so every process of a process world plans
+    from the same matrix."""
+    m = topology.world_group().size * odf
+
+    def run(comm, t, c):
+        comm.phase("dj_skew_probe")
+        pid = partition_ids(t.with_count(c[0]), on, m, seed=MAIN_JOIN_SEED)
+        return (partition_counts_from_ids(pid, m).reshape(1, m),)
+
+    (mat,) = run_spmd(topology, run, table, counts,
+                      **_backend(config or JoinConfig(), flags_at=0))
+    return mat.cpu().numpy()
+
+
+def _global_table_bytes(topology: Topology, table: Table) -> int:
+    """``replicated_table_bytes`` of the global table: the sharded table
+    this process holds, times the shards of the other processes."""
+    return replicated_table_bytes(table) * topology.world_size // topology.local_ranks
+
+
+def _resolve_plan_decision(
+    topology: Topology, left: Table, left_counts: torch.Tensor, right: Table,
+    right_counts: torch.Tensor, left_on: tuple, right_on: tuple, config: JoinConfig,
+) -> "plan_adapt.PlanDecision":
+    """The plan of one unprepared join (dj_tpu/parallel/dist_join.py:
+    1207-1287): the signature's decision (``plan_adapt.decide``,
+    replayed from the ledger or decided now from the global right
+    side's bytes and the probe side's gathered partition counts),
+    revalidated: a broadcast whose side no longer fits the budget, or a
+    salt set the current n and odf cannot hold, is demoted to shuffle.
+    A two-level topology and the planner off give the shuffle plan. A
+    failure to decide warns and gives the shuffle plan, as dj_tpu's."""
+    if not plan_adapt.enabled() or topology.is_hierarchical:
+        return plan_adapt.SHUFFLE
+    sig = dj_ledger.plan_signature(topology, left, right, left_on, right_on, config)
+    n = topology.world_group().size
+    odf = config.over_decom_factor
+    try:
+        decision = plan_adapt.decide(
+            sig, n=n, odf=odf,
+            right_bytes_fn=lambda: _global_table_bytes(topology, right),
+            counts_fn=lambda: _partition_probe_counts(topology, left, left_counts, left_on, odf,
+                                                      config),
+        )
+    except Exception as e:  # noqa: BLE001 - planning must not fail a query
+        warnings.warn(f"plan decision failed ({type(e).__name__}: {e}); this join runs the "
+                      f"shuffle plan", RuntimeWarning, stacklevel=3)
+        return plan_adapt.SHUFFLE
+    if decision.tier == plan_adapt.TIER_BROADCAST:
+        budget = plan_adapt.available_broadcast_bytes()
+        rb = _global_table_bytes(topology, right)
+        if budget <= 0 or rb > budget:
+            decision = plan_adapt.demote(
+                sig, f"broadcast misfit: replicated side {rb:.3g} B > budget {budget:.3g} B")
+    elif decision.tier == plan_adapt.TIER_SALTED:
+        if decision.replicas > n or any(not 0 <= p < n * odf for p in decision.salt):
+            decision = plan_adapt.demote(
+                sig, f"salt set {decision.salt} / replicas {decision.replicas} incompatible "
+                     f"with n={n}, odf={odf}")
+    return decision
 
 
 def _masked_minmax(data: torch.Tensor, counts: torch.Tensor, w: int):
@@ -375,6 +552,12 @@ def distributed_inner_join(
     counts), and ``info`` holds every rank's flags (bool[world]) on every
     process.
 
+    Under ``DJT_PLAN_ADAPT=1`` the join runs the plan its signature
+    decided (``parallel.plan_adapt``): broadcast (each rank's output
+    capacity is then ``join_out_factor * max(left cap, world * right
+    cap)``), salted or shuffle; every plan gives the same rows and info
+    keys.
+
     ``right`` may instead be a :class:`PreparedSide` (pass
     ``right_counts=None, right_on=None``): the query then does the probe
     side's work only, and ``info`` holds the prepared flag keys
@@ -412,14 +595,20 @@ def distributed_inner_join(
     )
     left_on, right_on = tuple(left_on), tuple(right_on)
     l_cap, r_cap = left.capacity // w, right.capacity // w
+    decision = _resolve_plan_decision(topology, left, left_counts, right, right_counts, left_on,
+                                      right_on, config)
 
     keys = _flag_keys(config)
 
     def run(comm, lt, lc, rt, rc):
-        out, flags = _local_join_pipeline(
-            comm, lt.with_count(lc[0]), rt.with_count(rc[0]), left_on, right_on, config,
-            l_cap, r_cap, key_range,
-        )
+        args = (comm, lt.with_count(lc[0]), rt.with_count(rc[0]), left_on, right_on, config,
+                l_cap, r_cap, key_range)
+        if decision.tier == plan_adapt.TIER_BROADCAST:
+            out, flags = _broadcast_join_pipeline(*args)
+        elif decision.tier == plan_adapt.TIER_SALTED:
+            out, flags = _local_join_pipeline(*args, decision.salt, decision.replicas)
+        else:
+            out, flags = _local_join_pipeline(*args)
         return out.with_count(None), out.count().reshape(1), _flag_row(flags, keys)
 
     out, counts, flag_mat = run_spmd(topology, run, left, left_counts, right, right_counts,
@@ -588,7 +777,7 @@ def distributed_inner_join_auto(
     return out, counts, info, state["config"]
 
 
-# --- prepared build side (shuffle tier) ----------------------------------
+# --- prepared build side --------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -601,9 +790,15 @@ class PreparedSide:
     pin the anchored pack every probe side must satisfy; ``sizing``/``n``
     pin the batch geometry the words' tag field was built for.
     ``right``/``right_counts`` keep the source (with every appended row,
-    ``append_to_prepared``), so a caller can re-prepare. This is the
-    shuffle tier of dj_tpu's PreparedSide; ``tier`` names it, and the
-    broadcast and salted tiers come with ROADMAP queue 1 item 7b."""
+    ``append_to_prepared``), so a caller can re-prepare.
+
+    ``tier`` is the build tier (``DJT_PREPARED_TIER``, or decided and
+    kept in the ledger under the prepare signature): ``"shuffle"``, the
+    batches above; ``"broadcast"``, one batch a rank holding the whole
+    build side (gathered at prepare time), so a query runs no partition
+    and no collective; ``"salted"``, the shuffle batches with the heavy
+    partitions ``salt`` (global ids) copied to ``salt_replicas`` cyclic
+    peers, and each query's probe rows salted to match."""
 
     topology: Topology
     config: JoinConfig
@@ -617,7 +812,9 @@ class PreparedSide:
     batches: tuple
     right: Table
     right_counts: torch.Tensor
-    tier: str = "shuffle"
+    tier: str = plan_adapt.TIER_SHUFFLE
+    salt: tuple = ()
+    salt_replicas: int = 1
 
 
 def _main_group_sizing(
@@ -688,12 +885,16 @@ def _pre_shuffle_one(comm: Communicator, config: JoinConfig, table: Table, on: t
 def _prepare_batches(
     comm: Communicator, config: JoinConfig, right: Table, right_on: tuple,
     sizing: BatchSizing, plan: PreparedPackPlan, r_cap: int, r_cap_m: int,
+    salt: tuple = (), replicas: int = 1,
 ) -> tuple[tuple, dict]:
     """One rank's preparation (the body of dj_tpu's _build_prepare_fn):
     on a two-level topology the build side's pre-shuffle into
     ``r_cap_m`` rows, then partition, then per batch a single-table
-    shuffle and the anchored pack + sort + re-tag. Returns (batches,
-    flags by _PREP_FLAG_KEYS)."""
+    shuffle and the anchored pack + sort + re-tag. With a ``salt`` set
+    (the salted tier, dj_tpu's ``_build_salted_prepare_fn``) each
+    batch's exchange also carries the rotated windows of
+    ``_salt_windows``, concatenated into the batch before the pack.
+    Returns (batches, flags by _PREP_FLAG_KEYS)."""
     right, pre_ovf, pre_stats = _pre_shuffle_one(comm, config, right, right_on, r_cap, r_cap_m,
                                                  config.right_compression)
     n = comm.size
@@ -705,9 +906,21 @@ def _prepare_batches(
     for b in range(config.over_decom_factor):
         starts = r_offsets[b * n : (b + 1) * n]
         counts = r_offsets[b * n + 1 : (b + 1) * n + 1] - starts
+        windows = [(starts, counts)]
+        if salt:
+            windows += _salt_windows(b, n, starts, counts, salt, replicas)
         comm.phase("dj_exchange")
-        r_batch, _, ovf, _ = shuffle_table(comm, r_part, starts, counts, sizing.br, n * sizing.br)
-        shuffle_ovf = shuffle_ovf | ovf
+        parts = shuffle_tables_start(
+            comm, [r_part] * len(windows), [st for st, _ in windows], [ct for _, ct in windows],
+            [sizing.br] * len(windows), [n * sizing.br] * len(windows)).wait()
+        for _, _, ovf, _ in parts:
+            shuffle_ovf = shuffle_ovf | ovf
+        if len(parts) == 1:
+            r_batch = parts[0][0]
+        else:
+            comm.phase("dj_salt_concat")
+            r_batch = concatenate([t for t, _, _, _ in parts])
+        del parts
         comm.phase("dj_prepare")
         words, payload, ok = prepare_packed_batch(r_batch, right_on, plan)
         del r_batch
@@ -720,6 +933,142 @@ def _prepare_batches(
         **pre_stats,
     }
     return tuple(outs), flags
+
+
+def _prepare_broadcast(
+    comm: Communicator, right: Table, right_on: tuple, plan: PreparedPackPlan, r_cap: int,
+) -> tuple[tuple, dict]:
+    """One rank's broadcast-tier preparation (dj_tpu's
+    ``_build_bc_prepare_fn``, dist_join.py:1879-1933): the whole build
+    side gathered into n * r_cap rows (``broadcast_table``) and packed
+    and sorted into one resident batch, whatever the odf. Returns
+    (batches, flags by _PREP_FLAG_KEYS); the gather's sizing is exact,
+    so its shuffle_overflow cannot fire."""
+    with comm.phase_scope("dj_broadcast"):
+        right_g, _, b_ovf, _ = broadcast_table(comm, right, comm.size * r_cap)
+    comm.phase("dj_prepare")
+    words, payload, ok = prepare_packed_batch(right_g, right_on, plan)
+    del right_g
+    flags = {
+        "pre_shuffle_overflow": torch.tensor(False, device=right.device),
+        "shuffle_overflow": b_ovf,
+        "prep_range_violation": ~ok,
+    }
+    return ((words, payload.with_count(None), payload.count().reshape(1)),), flags
+
+
+# The ledger record of a prepare signature's build tier. The prepare
+# signature does not fold the tier: the decision is read before the
+# tier's prepare runs.
+_PREPARED_TIER_KEY = "prepared_tier"
+_PREPARED_TIERS = (plan_adapt.TIER_SHUFFLE, plan_adapt.TIER_BROADCAST, plan_adapt.TIER_SALTED)
+_SHUFFLE_TIER = (plan_adapt.TIER_SHUFFLE, (), 1)
+
+
+def _prepared_salt_ratio() -> float:
+    """The heavy-partition threshold of the salted-prepared tier:
+    ``DJT_PREPARED_SALT_RATIO``, else (unset or <= 0) the planner's
+    ``DJT_SALT_RATIO``."""
+    try:
+        r = float(os.environ.get("DJT_PREPARED_SALT_RATIO") or 0.0)
+    except ValueError:
+        r = 0.0
+    return r if r > 0 else plan_adapt.salt_ratio()
+
+
+def _persist_prepared_tier(sig: str, tier: str, salt: tuple, replicas: int,
+                           ratio: Optional[float] = None) -> None:
+    dj_ledger.update(sig, **{_PREPARED_TIER_KEY: {
+        "tier": tier, "salt": [int(p) for p in salt], "replicas": int(replicas), "ratio": ratio,
+    }})
+
+
+def _demote_prepared_tier(sig: str, reason: str) -> tuple:
+    """Persist the shuffle tier for prepare signature ``sig``: a
+    requested or replayed replication tier that does not fit (broadcast
+    budget, salt geometry, a merged size that does not pack) falls
+    back to shuffle-prepared. ``reason`` says which (dj_tpu records it
+    in an event)."""
+    _persist_prepared_tier(sig, plan_adapt.TIER_SHUFFLE, (), 1)
+    return _SHUFFLE_TIER
+
+
+def _resolve_prepared_tier(
+    topology: Topology, right: Table, right_counts: torch.Tensor, right_on: tuple,
+    config: JoinConfig, sig: str, forced: Optional[str] = None,
+) -> tuple[str, tuple, int]:
+    """(tier, salt, replicas) of one prepare (dj_tpu/parallel/
+    dist_join.py:1759-1876). A two-level topology stays on shuffle.
+    ``forced`` (a re-prepare keeping its side's tier) and a ledger
+    record are revalidated: a broadcast against the current budget, a
+    salt set against the current n and odf; a misfit demotes. Otherwise
+    ``DJT_PREPARED_TIER`` decides (default shuffle): broadcast when the
+    side's replicated footprint (the global side's bytes times the
+    world, every rank holding it) fits the budget; salted when the build
+    side's gathered partition counts have a destination at
+    ``_prepared_salt_ratio()`` times its batch's mean; auto tries both
+    in that order and else stays on shuffle. A fresh decision persists
+    at once."""
+    if topology.is_hierarchical:
+        return _SHUFFLE_TIER
+    n = topology.world_group().size
+    odf = config.over_decom_factor
+    w = topology.world_size
+    salt, replicas = (), 0
+    rec = (dj_ledger.consult(sig) or {}).get(_PREPARED_TIER_KEY)
+    if forced is not None:
+        requested, source = forced, "forced"
+        if forced == plan_adapt.TIER_SALTED and isinstance(rec, dict):
+            salt = tuple(int(p) for p in rec.get("salt") or ())
+            replicas = int(rec.get("replicas") or 0)
+    elif isinstance(rec, dict) and rec.get("tier") in _PREPARED_TIERS:
+        requested, source = rec["tier"], "ledger"
+        salt = tuple(int(p) for p in rec.get("salt") or ())
+        replicas = int(rec.get("replicas") or 0)
+    else:
+        requested = (os.environ.get("DJT_PREPARED_TIER") or "shuffle").strip().lower() or "shuffle"
+        source = "env"
+    if requested == plan_adapt.TIER_SHUFFLE:
+        return _SHUFFLE_TIER
+    if requested not in _PREPARED_TIERS + ("auto",):
+        raise ValueError(f"DJT_PREPARED_TIER={requested!r}: expected shuffle | broadcast | "
+                         f"salted | auto")
+    if requested in (plan_adapt.TIER_BROADCAST, "auto"):
+        budget = plan_adapt.available_broadcast_bytes()
+        rb = float(_global_table_bytes(topology, right)) * w
+        if budget > 0 and rb <= budget:
+            if source != "ledger":
+                _persist_prepared_tier(sig, plan_adapt.TIER_BROADCAST, (), 1)
+            return plan_adapt.TIER_BROADCAST, (), 1
+        if requested == plan_adapt.TIER_BROADCAST:
+            return _demote_prepared_tier(
+                sig, f"broadcast-prepared misfit: replicated side {rb:.3g} B ({w} shards) > "
+                     f"budget {budget:.3g} B")
+    if source in ("ledger", "forced") and salt and replicas >= 2:
+        if replicas <= n and all(0 <= p < n * odf for p in salt):
+            return plan_adapt.TIER_SALTED, salt, replicas
+        return _demote_prepared_tier(
+            sig, f"replayed salt set {salt} / replicas {replicas} incompatible with n={n}, "
+                 f"odf={odf}")
+    if n <= 1:
+        if requested == plan_adapt.TIER_SALTED:
+            return _demote_prepared_tier(sig, "salted-prepared needs a multi-shard group")
+        return _SHUFFLE_TIER
+    counts = _partition_probe_counts(topology, right, right_counts, right_on, odf, config)
+    batches = obs_skew.batch_skew(counts, n, odf, topk=plan_adapt.salt_topk())
+    threshold = _prepared_salt_ratio()
+    worst = max((b["ratio"] for b in batches), default=1.0)
+    heavy = plan_adapt.heavy_destinations(batches, threshold, n)
+    if worst >= threshold and heavy:
+        salt = tuple(sorted(set(heavy)))
+        replicas = plan_adapt.salt_replicas(n, worst)
+        _persist_prepared_tier(sig, plan_adapt.TIER_SALTED, salt, replicas, float(worst))
+        return plan_adapt.TIER_SALTED, salt, replicas
+    if requested == plan_adapt.TIER_SALTED:
+        return _demote_prepared_tier(
+            sig, f"no heavy resident partition at ratio >= {threshold:.3g} (worst {worst:.3g})")
+    _persist_prepared_tier(sig, plan_adapt.TIER_SHUFFLE, (), 1, float(worst))
+    return _SHUFFLE_TIER
 
 
 def _probe_side_range(table: Table, counts: torch.Tensor, on, topology: Topology):
@@ -765,14 +1114,18 @@ def prepare_join_side(
     outside a declared key_range re-probe the range, and budget
     exhaustion raises CapacityExhausted. The capacity ledger remembers
     both per build signature. The returned side's ``config`` holds the
-    factors it settled on. The broadcast and salted tiers (``tier``) and
-    shape bucketing come with later slices.
+    factors it settled on.
+
+    ``tier`` forces the build tier (a re-prepare keeping its side's);
+    None resolves it (``_resolve_prepared_tier``: ``DJT_PREPARED_TIER``,
+    a ledger record, or auto). The tiers size the tag field for their
+    merged batch: shuffle ``S = n (bl + br)``, broadcast ``l_cap + n
+    r_cap`` (the rank's whole left shard against the whole build side),
+    salted ``n bl + replicas n br``. A replication tier that does not
+    fit (the budget, the salt geometry, an S that does not pack) is
+    demoted to shuffle for this signature instead of failing the
+    prepare. Shape bucketing comes with a later slice.
     """
-    if tier not in (None, "shuffle"):
-        raise NotImplementedError(
-            f"prepared tier {tier!r}: the broadcast and salted tiers come "
-            f"with ROADMAP queue 1 item 7b; the shuffle tier is ported"
-        )
     if config is None:
         config = JoinConfig()
     w = topology.local_ranks
@@ -808,14 +1161,33 @@ def prepare_join_side(
             )
     else:
         kr = normalize_key_range(declared, len(right_on))
-    state = {"config": config, "kr": kr, "probed": probed, "reprobed": False}
+    prep_sig = dj_ledger.plan_signature(topology, None, right, None, right_on, config)
+    tier_r, salt, replicas = _resolve_prepared_tier(topology, right, right_counts, right_on,
+                                                    config, prep_sig, forced=tier)
+    state = {"config": config, "kr": kr, "probed": probed, "reprobed": False, "tier": tier_r,
+             "salt": salt, "replicas": replicas}
+
+    def plan_and_sizing(cfg):
+        n, l_cap_m, r_cap_m = _main_group_sizing(topology, cfg, l_cap, r_cap)
+        sizing = batch_sizing(cfg, n, l_cap_m, r_cap_m)
+        if state["tier"] == plan_adapt.TIER_BROADCAST:
+            S = l_cap_m + n * r_cap_m
+        elif state["tier"] == plan_adapt.TIER_SALTED:
+            S = n * sizing.bl + state["replicas"] * n * sizing.br
+        else:
+            S = n * (sizing.bl + sizing.br)
+        return plan_prepared_pack(state["kr"], dtypes, S), n, sizing, S, r_cap_m
 
     def run_attempt(attempt):
         cfg = state["config"]
-        n, l_cap_m, r_cap_m = _main_group_sizing(topology, cfg, l_cap, r_cap)
-        sizing = batch_sizing(cfg, n, l_cap_m, r_cap_m)
-        S = n * (sizing.bl + sizing.br)
-        plan = plan_prepared_pack(state["kr"], dtypes, S)
+        plan, n, sizing, S, r_cap_m = plan_and_sizing(cfg)
+        if plan is None and state["tier"] != plan_adapt.TIER_SHUFFLE:
+            # The replicated merged size does not pack: this signature
+            # falls back to shuffle-prepared.
+            _demote_prepared_tier(prep_sig, f"merged size S={S} for tier {state['tier']} does "
+                                            f"not pack into the 64-bit word")
+            state.update(tier=plan_adapt.TIER_SHUFFLE, salt=(), replicas=1)
+            plan, n, sizing, S, r_cap_m = plan_and_sizing(cfg)
         if plan is None:
             raise ValueError(
                 f"prepare_join_side: key range {state['kr']} does not pack into "
@@ -823,11 +1195,15 @@ def prepare_join_side(
             )
 
         keys = _prep_flag_keys(cfg)
+        tier_now, salt_now, replicas_now = state["tier"], state["salt"], state["replicas"]
 
         def run(comm, rt, rc):
-            batches, flags = _prepare_batches(
-                comm, cfg, rt.with_count(rc[0]), right_on, sizing, plan, r_cap, r_cap_m
-            )
+            rt = rt.with_count(rc[0])
+            if tier_now == plan_adapt.TIER_BROADCAST:
+                batches, flags = _prepare_broadcast(comm, rt, right_on, plan, r_cap)
+            else:
+                batches, flags = _prepare_batches(comm, cfg, rt, right_on, sizing, plan, r_cap,
+                                                  r_cap_m, salt_now, replicas_now)
             return batches, _flag_row(flags, keys)
 
         batches, flag_mat = run_spmd(topology, run, right, right_counts,
@@ -868,7 +1244,7 @@ def prepare_join_side(
             config=dataclasses.replace(state["config"], **grew)
         ),
         poison={"prep_range_violation": _heal_range_violation},
-        ledger_key=dj_ledger.plan_signature(topology, None, right, None, right_on, config),
+        ledger_key=prep_sig,
         ledger_extra=lambda: {"reprobe_declared_range": True} if state["reprobed"] else {},
         apply_ledger_entry=_apply_ledger,
     )
@@ -876,6 +1252,7 @@ def prepare_join_side(
         topology=topology, config=state["config"], right_on=right_on, key_range=state["kr"],
         plan=plan, n=n, sizing=sizing, l_cap=l_cap, r_cap=r_cap,
         batches=batches, right=right, right_counts=right_counts,
+        tier=state["tier"], salt=state["salt"], salt_replicas=state["replicas"],
     )
 
 
@@ -885,16 +1262,28 @@ def _prepared_query_sizing(
     """(n, l_cap_main, bl, out_cap) of a query against ``prepared``. The
     left sizing follows the query's config; the right sizing is pinned
     by the prepare. Raises PreparedPlanMismatch when the merged size
-    needs another tag width than the prepared words carry."""
+    needs another tag width than the prepared words carry.
+
+    Tier-aware (dj_tpu/parallel/dist_join.py:2363-2417): the resident
+    rows a rank R are read from the prepared words (shuffle n br,
+    broadcast the whole gathered side, salted the rotated windows too).
+    A broadcast-prepared query probes the rank's whole left shard (bl =
+    l_cap_main, S = bl + R, out_cap = join_out_factor * max(bl, R)); the
+    others keep the shuffle tier's left batch."""
     n, l_cap_m, _ = _main_group_sizing(topology, config, l_cap, l_cap)
     if n != prepared.n:
         raise PreparedPlanMismatch(f"main-stage group size {n} != prepared {prepared.n}")
     R = prepared.batches[0][0].shape[0] // topology.local_ranks
-    m = n * config.over_decom_factor
-    sl = max(1, int(l_cap_m * config.bucket_factor / m))
-    bl = l_cap_m if m == 1 else sl
-    S = n * bl + R
-    out_cap = max(1, int(config.join_out_factor * n * max(sl, prepared.sizing.sr)))
+    if prepared.tier == plan_adapt.TIER_BROADCAST:
+        bl = l_cap_m
+        S = bl + R
+        out_cap = max(1, int(config.join_out_factor * max(bl, R)))
+    else:
+        m = n * config.over_decom_factor
+        sl = max(1, int(l_cap_m * config.bucket_factor / m))
+        bl = l_cap_m if m == 1 else sl
+        S = n * bl + R
+        out_cap = max(1, int(config.join_out_factor * n * max(sl, prepared.sizing.sr)))
     need = max(1, int(S).bit_length())
     if need != prepared.plan.tag_bits:
         raise PreparedPlanMismatch(
@@ -914,9 +1303,12 @@ def _distributed_inner_join_prepared(
 ) -> tuple[Table, torch.Tensor, dict]:
     """The per-query half of the prepared join: partition the probe
     side, then per batch a single-table shuffle and
-    ``inner_join_prepared`` against the resident run. No range probe:
-    the plan is pinned, and probe keys outside it raise the
-    prepared_plan_mismatch flag."""
+    ``inner_join_prepared`` against the resident run; on a salted side
+    the probe rows are salted as the side's heavy partitions were
+    copied; on a broadcast side one local ``inner_join_prepared`` of
+    the rank's whole left shard, with no partition and no collective.
+    No range probe: the plan is pinned, and probe keys outside it raise
+    the prepared_plan_mismatch flag."""
     if config is None:
         config = prepared.config
     if topology != prepared.topology:
@@ -955,10 +1347,15 @@ def _distributed_inner_join_prepared(
     keys = _prepared_flag_keys(config)
 
     def run(comm, lt, lc, batches):
+        if prepared.tier == plan_adapt.TIER_BROADCAST:
+            out, flags = _bc_prepared_query(comm, lt.with_count(lc[0]), left_on, batches[0],
+                                            plan, out_cap, config.char_out_factor)
+            return out.with_count(None), out.count().reshape(1), _flag_row(flags, keys)
         lt, pre_ovf, pre_stats = _pre_shuffle_one(comm, config, lt.with_count(lc[0]), left_on,
                                                   l_cap, l_cap_m, config.left_compression)
         out, flags = _prepared_query(comm, lt, left_on, batches, plan, odf, bl, out_cap,
-                                     config.char_out_factor)
+                                     config.char_out_factor, prepared.salt,
+                                     prepared.salt_replicas)
         flags.update(pre_shuffle_overflow=pre_ovf, **pre_stats)
         return out.with_count(None), out.count().reshape(1), _flag_row(flags, keys)
 
@@ -967,18 +1364,52 @@ def _distributed_inner_join_prepared(
     return out, counts, _flag_info(flag_mat, keys)
 
 
+def _bc_prepared_query(
+    comm: Communicator, left: Table, left_on: tuple, batch: tuple, plan: PreparedPackPlan,
+    out_cap: int, char_out_factor: float,
+) -> tuple[Table, dict]:
+    """One rank's broadcast-prepared query (dj_tpu's
+    ``_build_bc_prepared_query_fn``, dist_join.py:2542-2604): the rank's
+    whole left shard against its replicated resident run, one
+    ``inner_join_prepared``; no partition and no collective, so
+    shuffle_overflow cannot fire."""
+    words, ptab, pcnt = batch
+    comm.phase("dj_join")
+    result, total, jflags = inner_join_prepared(
+        left, left_on, words, ptab.with_count(pcnt[0]), plan,
+        out_capacity=out_cap, char_out_factor=char_out_factor,
+    )
+    no = torch.tensor(False, device=left.device)
+    return result, {
+        "pre_shuffle_overflow": no,
+        "shuffle_overflow": no,
+        "join_overflow": total > out_cap,
+        "char_overflow": _char_overflow(result, no),
+        "prepared_plan_mismatch": jflags["prepared_plan_mismatch"],
+    }
+
+
 def _prepared_query(
     comm: Communicator, left: Table, left_on: tuple, batches: tuple,
     plan: PreparedPackPlan, odf: int, bl: int, out_cap: int, char_out_factor: float,
+    salt: tuple = (), replicas: int = 1,
 ) -> tuple[Table, dict]:
     """One rank's query (the body of dj_tpu's _build_prepared_query_fn,
     after its pre-shuffle): partition the probe side, then per batch a
     single-table shuffle and ``inner_join_prepared`` against the rank's
     resident run; each output string column's char_overflow raises the
-    flag."""
+    flag. With a ``salt`` set (a salted side, dj_tpu's
+    ``_build_salted_prepared_query_fn``) the partition ids are salted
+    over ``replicas`` peers first."""
     n = comm.size
+    m = n * odf
     comm.phase("dj_partition")
-    l_part, l_offsets = hash_partition(left, left_on, n * odf, seed=MAIN_JOIN_SEED)
+    if salt:
+        pid = salted_partition_ids(partition_ids(left, left_on, m, seed=MAIN_JOIN_SEED), m, n,
+                                   salt, replicas)
+        l_part, l_offsets = partition_by_ids(left, pid, m)
+    else:
+        l_part, l_offsets = hash_partition(left, left_on, m, seed=MAIN_JOIN_SEED)
 
     def issue(b: int):
         starts = l_offsets[b * n : (b + 1) * n]
@@ -1006,9 +1437,7 @@ def _prepared_query(
         del l_batch
         join_ovf = join_ovf | (total > out_cap)
         mismatch = mismatch | jflags["prepared_plan_mismatch"]
-        for col in result.columns:
-            if isinstance(col, StringColumn):
-                char_ovf = char_ovf | col.char_overflow()
+        char_ovf = _char_overflow(result, char_ovf)
         batch_results.append(result)
     comm.phase("dj_concat")
     out = batch_results[0] if odf == 1 else concatenate(batch_results)
@@ -1029,8 +1458,9 @@ def _reprepare(
     """Re-prepare under a range widened to cover the probe side (the
     prepared_plan_mismatch heal, dj_tpu/parallel/dist_join.py:2853-2888):
     the union of the prepared range and the left side's probed bounds,
-    the current (possibly grown) factors, and a tag field sized for the
-    actual left capacity."""
+    the current (possibly grown) factors, a tag field sized for the
+    actual left capacity, and the side's own tier (revalidated: a
+    misfit lands on shuffle)."""
     left_range = _probe_side_range(left, left_counts, tuple(left_on), topology)
     kr = prepared.key_range
     if left_range is not None:
@@ -1039,7 +1469,7 @@ def _reprepare(
     left_capacity = left.capacity * topology.world_size // topology.local_ranks
     return prepare_join_side(
         topology, prepared.right, prepared.right_counts, prepared.right_on, config,
-        left_capacity=left_capacity, key_range=kr,
+        left_capacity=left_capacity, key_range=kr, tier=prepared.tier,
     )
 
 
@@ -1116,7 +1546,7 @@ def _distributed_inner_join_prepared_auto(
     return out, counts, info, state["config"], state["prepared"]
 
 
-# --- appends to a prepared side (shuffle tier) ----------------------------
+# --- appends to a prepared side -------------------------------------------
 #
 # The incremental alternative to a fresh prepare (dj_tpu/parallel/
 # dist_join.py:3810-4144): the appended rows are hash-partitioned with the
@@ -1125,6 +1555,8 @@ def _distributed_inner_join_prepared_auto(
 # under the same anchored plan with tags past the resident ranks and
 # merged into the resident run, keeping its capacity and tag width, so a
 # query's sizing does not change. Untouched batches keep their tensors.
+# A broadcast or salted side holds copies of its rows on other ranks, so
+# it re-prepares on its tier instead.
 
 _APPEND_FLAG_KEYS = (
     "append_shuffle_overflow",
@@ -1175,13 +1607,19 @@ def append_to_prepared(
     ids (a host tuple). Any fired flag leaves the touched runs
     unspecified: discard the side and re-prepare from its source.
 
+    A broadcast- or salted-prepared side holds copies of its rows on
+    other ranks (the whole gathered side, or the rotated heavy windows):
+    merging into one rank's run would leave the copies stale. Such a
+    side re-prepares on its own tier from the combined source, under its
+    key range widened to the appended rows (dj_tpu/parallel/
+    dist_join.py:4041-4080); ``info`` then marks every batch touched
+    and no flag fired (the re-prepare heals its own overflows).
+
     Raises PreparedPlanMismatch for a hierarchical topology (the rows
     would need the pre-shuffle re-run), a schema other than the source's
     and an appended capacity the tag field cannot hold; ValueError for a
-    shard with zero appended capacity. dj_tpu re-prepares a broadcast or
-    salted side on its own tier; those tiers come with ROADMAP queue 1
-    item 7b. dj_tpu's ``obs`` counters and ``faults.force_flags`` come
-    with item 10."""
+    shard with zero appended capacity. dj_tpu's ``obs`` counters and
+    ``faults.force_flags`` come with the serving stack."""
     if topology.is_hierarchical:
         raise PreparedPlanMismatch(
             "append_to_prepared does not support hierarchical topologies (the "
@@ -1198,11 +1636,22 @@ def append_to_prepared(
             f"append_to_prepared: appended capacity {rows.capacity} < {w} shards "
             f"here leaves a shard with zero capacity; pad to >= 1 row per shard"
         )
-    if prepared.tier != "shuffle":
-        raise NotImplementedError(
-            f"append_to_prepared on a {prepared.tier!r}-prepared side re-prepares on "
-            f"its tier, which comes with ROADMAP queue 1 item 7b"
+    if prepared.tier != plan_adapt.TIER_SHUFFLE:
+        new_right, new_rc = combine_prepared_source(topology, prepared, rows, rows_counts)
+        kr = prepared.key_range
+        src_range = _probe_side_range(new_right, new_rc, prepared.right_on, topology)
+        if src_range is not None:
+            kr = tuple((min(a_lo, b_lo), max(a_hi, b_hi))
+                       for (a_lo, a_hi), (b_lo, b_hi) in zip(kr, src_range))
+        new_prepared = prepare_join_side(
+            topology, new_right, new_rc, prepared.right_on, prepared.config,
+            left_capacity=prepared.l_cap * topology.world_size, key_range=kr,
+            tier=prepared.tier,
         )
+        none = torch.zeros(topology.world_size, dtype=torch.bool, device=topology.device)
+        info = dict.fromkeys(_APPEND_FLAG_KEYS, none)
+        info["touched"] = tuple(range(len(new_prepared.batches)))
+        return new_prepared, info
     config = prepared.config
     right_on, plan, n = prepared.right_on, prepared.plan, prepared.n
     odf = config.over_decom_factor

@@ -5,14 +5,16 @@ converge in O(log(need)) attempts; the ledger keeps what they learned.
 It maps a **plan signature** (the workload's static shape: stage kind,
 world size, odf, both tables' column dtypes, the key columns and the
 per-shard capacities) to the factors, and the plan repairs, the engine
-settled on. The engine reads it (:func:`lookup`, which is dj_tpu's
-``consult`` without its hit counters) before the first attempt and
-updates it after every heal, so a signature pays each heal once per
-process.
+settled on. The engine reads it (:func:`lookup`) before the first
+attempt and updates it after every heal, so a signature pays each heal
+once per process. The skew-adaptive planner keeps its per-signature
+decisions here too (``plan_adapt`` and ``prepared_tier`` records, read
+through :func:`consult`).
 
 Entries are monotone: a factor update keeps the larger of old and new,
 so an entry can only make first attempts more generous. Other fields
-(``drop_declared_range``, ``reprobe_declared_range``) are last-write-wins.
+(``drop_declared_range``, ``reprobe_declared_range``, ``plan_adapt``,
+``prepared_tier``) are last-write-wins.
 
 ``DJT_LEDGER=<path>`` makes it persistent: every update appends one JSON
 line (one ``os.write`` on an ``O_APPEND`` descriptor, so concurrent
@@ -169,6 +171,13 @@ def lookup(sig: str) -> Optional[dict]:
         _ensure_loaded_locked()
         entry = _entries.get(sig)
         return None if entry is None else json.loads(json.dumps(entry))
+
+
+def consult(sig: str) -> Optional[dict]:
+    """A copy of the learned entry of ``sig``, or None: the planner's
+    lookup (dj_tpu/resilience/ledger.py:239-259, without its hit and
+    miss counters and its ``DJ_FLEET_DIR`` refresh)."""
+    return lookup(sig)
 
 
 def update(sig: str, factors: Optional[dict] = None, **extra) -> None:

@@ -7,6 +7,7 @@ expansion) and once with its Pallas kernels in interpret mode at a
 shrunk geometry (the kernels the port's CUDA kernels replace).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,6 +15,10 @@ import torch
 
 import dj_tpu
 from dj_tpu.core.table import Column as JColumn, Table as JTable
+from dj_tpu.core import table as jT
+from dj_tpu.parallel import dist_join as jdist
+from dj_tpu.parallel.api import shard_table as jshard
+from dj_tpu.parallel.topology import make_topology as jmake_topology
 from dj_tpu.ops import pallas_scan as psc
 import dj_tpu_torch as tj
 from dj_tpu_torch import convert
@@ -148,8 +153,8 @@ def test_column_order_contract():
 
 def test_unsupported_inputs_raise_not_implemented():
     """A string column converts and joins, and the prepared side takes it
-    as a payload; a prepared tier other than the shuffle tier still
-    raises NotImplementedError (ROADMAP queue 1 item 7b)."""
+    as a payload on every tier: a forced broadcast tier serves dj_tpu's
+    broadcast side's rows, strings byte for byte."""
     offsets, chars = np.array([0, 1, 1, 3], np.int32), np.frombuffer(b"abc", np.uint8)
     t = convert.table_from_numpy([np.array([1, 2, 3]), (offsets, chars)], ["int64", "string"],
                                  device="cpu")
@@ -161,8 +166,21 @@ def test_unsupported_inputs_raise_not_implemented():
     out, counts, _ = tj.distributed_inner_join(topo, *tj.shard_table(topo, t), prep, None, [0],
                                                None)
     assert int(counts[0]) == 3 and tj.to_strings(out.columns[2], 3) == [b"a", b"", b"bc"]
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        tj.prepare_join_side(topo, *tj.shard_table(topo, t), [0], tier="broadcast")
+    bprep = tj.prepare_join_side(topo, *tj.shard_table(topo, t), [0], tier="broadcast")
+    jtopo = jmake_topology(jax.devices()[:1])
+    jt = JTable((JColumn(jnp.asarray(np.array([1, 2, 3])), dj_tpu.dtypes.int64),
+                 jT.StringColumn(jnp.asarray(offsets), jnp.asarray(chars))))
+    jprep = jdist.prepare_join_side(jtopo, *jshard(jtopo, jt), [0], tier="broadcast")
+    assert bprep.tier == jprep.tier == "broadcast" and tuple(bprep.plan) == tuple(jprep.plan)
+    out, counts, _ = tj.distributed_inner_join(topo, *tj.shard_table(topo, t), bprep, None, [0],
+                                               None)
+    jout, jcounts, _ = dj_tpu.distributed_inner_join(jtopo, *jshard(jtopo, jt), jprep, None, [0],
+                                                     None)
+    assert int(counts[0]) == int(jcounts[0]) == 3
+    got = sorted(zip(out.columns[0].data[:3].tolist(), tj.to_strings(out.columns[2], 3)))
+    want = sorted(zip(np.asarray(jout.columns[0].data)[:3].tolist(),
+                      jT.to_strings(jout.columns[2], 3)))
+    assert got == want == [(1, b"a"), (2, b""), (3, b"bc")]
 
 
 def _limit_case(name):

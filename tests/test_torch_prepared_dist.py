@@ -301,8 +301,16 @@ def test_one_attempt_prepare_raises_typed_errors():
         assert tprep.key_range == tuple(jprep.key_range)
         assert tuple(tprep.plan) == tuple(jprep.plan)
         assert tprep.config.bucket_factor == jprep.config.bucket_factor
-    with pytest.raises(NotImplementedError, match="broadcast"):
-        tj.prepare_join_side(w.ttopo, w.tr, w.trc, [0], tier="broadcast")
+    # A forced broadcast tier builds dj_tpu's side and serves its rows.
+    bcfg = dj_tpu.JoinConfig(key_range=kr)
+    nl = len(probe[0])
+    jb = jdist.prepare_join_side(w.jtopo, w.jr, w.jrc, [0], bcfg, tier="broadcast",
+                                 left_capacity=nl)
+    tb = tj.prepare_join_side(w.ttopo, w.tr, w.trc, [0], convert.join_config_from(bcfg),
+                              tier="broadcast", left_capacity=nl)
+    assert tb.tier == jb.tier == "broadcast" and tuple(tb.plan) == tuple(jb.plan)
+    (jt, jcounts, _), (tt, tcounts, _) = w.jquery(jb, bcfg), w.tquery(tb, bcfg)
+    assert tcounts.tolist() == np.asarray(jcounts).tolist() and _rows(tt) == _rows(jt)
     with pytest.raises(ValueError, match="empty build side"):
         tj.prepare_join_side(w.ttopo, w.tr, torch.zeros(1, dtype=torch.int32), [0])
     with pytest.raises(ValueError, match="right_counts=None"):

@@ -62,7 +62,8 @@ chip_smoke = _load("chip_smoke", ROOT / "chip_smoke.py")
 WORLDS = (2, 4)
 CASES = {2: ["collectives", "exchange", "shuffle", "join", "generate", "auto", "keys", "strings",
              "append"],
-         4: ["collectives", "exchange", "shuffle", "join", "prepared", "generate", "two_level"]}
+         4: ["collectives", "exchange", "shuffle", "join", "prepared", "generate", "two_level",
+             "plan_adapt"]}
 
 
 class _Worlds:
@@ -547,6 +548,39 @@ def test_process_world_char_overflow_heal_matches_dj_tpu(worlds):
         assert res["strings"]["auto"]["factors"] == factors
 
 
+@pytest.mark.parametrize("plan,knobs", W.PLAN_RUNS)
+def test_process_world_plan_adapt_matches_dj_tpu(plan, knobs, worlds, monkeypatch):
+    """A gloo world of 4 under DJT_PLAN_ADAPT=1: every process reaches
+    dj_tpu's decision (the broadcast plan by fit; the salted plan under
+    DJT_BROADCAST_BYTES=0, 65% of the probe rows on one key) from
+    its own block, and its shard equals dj_tpu's on 4 devices, the
+    build side's strings byte for byte."""
+    ba, bn, pa, pn = W.plan_tables()
+    jtopo = jmake_topology(jax.devices()[:4])
+
+    def table(arrays, names):
+        return jT.Table(tuple(
+            jT.StringColumn(jnp.asarray(a[0]), jnp.asarray(a[1])) if n == "string"
+            else jT.Column(jnp.asarray(a), dj_tpu.dtypes.by_name(n)) for a, n in zip(arrays, names)))
+
+    (jl, jlc), (jr, jrc) = jshard(jtopo, table(pa, pn)), jshard(jtopo, table(ba, bn))
+    monkeypatch.setenv("DJ_PLAN_ADAPT", "1")
+    for k, v in knobs.items():
+        monkeypatch.setenv(k.replace("DJT_", "DJ_"), v)
+    cfg = dj_tpu.JoinConfig(**W.PLAN_CONFIG)
+    d = jdist._resolve_plan_decision(jtopo, jl, jlc, jr, jrc, (0,), (0,), cfg)
+    assert d.tier == plan and (plan == "broadcast" or d.replicas == 3)
+    res = dj_tpu.distributed_inner_join(jtopo, jl, jlc, jr, jrc, [0], [0], cfg)
+    want = {"rows": W.shard_rows(res[0], np.asarray(res[1])), "counts": np.asarray(res[1]).tolist(),
+            "flags": {k: np.asarray(v).tolist() for k, v in res[2].items()}}
+    assert not any(any(v) for v in want["flags"].values())
+    results = worlds.results(4)
+    for res in results:
+        assert res["plan_adapt"][plan]["decision"] == (d.tier, tuple(d.salt), d.replicas, d.ratio,
+                                                        d.source)
+    _assert_shards(4, results, ("plan_adapt", plan), want)
+
+
 def test_a_ledger_split_world_fails_instead_of_hanging(worlds):
     """Two processes that start from different ledger entries size their
     exchanges differently: both end with an error within the time limit
@@ -582,7 +616,7 @@ def test_chip_smoke_process_world_helpers_rehearse_with_gloo(monkeypatch):
     """chip_smoke's phases 6a and 6b at a tiny size on the CPU: a gloo
     world of one in this process (every path, the transport checks) and
     four worker processes whose shard digests equal the world in one
-    process's."""
+    process's, the broadcast plan's among them."""
     rows = 4000
     gen = torch.Generator().manual_seed(0)
     build, probe, expected = tj.generate_build_probe_tables(
@@ -603,9 +637,18 @@ def test_chip_smoke_process_world_helpers_rehearse_with_gloo(monkeypatch):
                          seed=tdist.INTER_DOMAIN_SEED)[:2]
     shuffle_digests = chip_smoke.shard_digests(*tj.shuffle_on(two, t, c, [0],
                                                               group=two.group("intra"))[:2])
+    # The broadcast half (6b under DJT_PLAN_ADAPT=1): 4i(i)'s digests.
+    monkeypatch.setenv("DJT_PLAN_ADAPT", "1")
+    tj.resilience.ledger.reset()
+    bc_digests = chip_smoke.shard_digests(*tj.distributed_inner_join(topo, l, lc, r, rc, [0],
+                                                                     [0])[:2])
+    tj.resilience.ledger.reset()
+    monkeypatch.delenv("DJT_PLAN_ADAPT")
+    assert bc_digests != digests
     res = chip_smoke.run_process_world(4, "gloo", "cpu", rows, 0, reps=1, timeout=TIMEOUT_S,
-                                       intra=chip_smoke.INTRA, shuffle_rows=rows)
+                                       intra=chip_smoke.INTRA, shuffle_rows=rows, broadcast=True)
     chip_smoke.check_process_world("rehearsal", res, digests, expected, 0)
+    chip_smoke.check_broadcast_processes("rehearsal", res, bc_digests, expected, 0)
     chip_smoke.check_two_level_processes("rehearsal", res, two_digests, shuffle_digests, expected,
                                          0)
     assert [x["transport"] for x in res] == ["gloo"] * 4

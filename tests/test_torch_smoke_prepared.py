@@ -133,3 +133,32 @@ def test_chip_smoke_prepared_string_phase_rehearses_on_cpu(cs, capsys):
     for line in ("[tpch_prepared]", "[tpch_prepared_auto]", "[tpch_prepared_append]",
                  "[tpch_prepared_string_key]"):
         assert line in out
+
+
+def test_chip_smoke_plan_tier_phases_rehearse_on_cpu(cs, capsys):
+    """Phases 4i and 5e at 20,000 rows: the broadcast and salted plans,
+    the replay and the two-level world, then the prepared tiers, the
+    append to a broadcast side and the salted side on a skewed build
+    table, every check as on the card."""
+    dj = _dj()
+    rows = 20_000
+    gen, build, probe, expected, topo, left, lcnt, right, rcnt, ref = _main_path(cs, dj, rows)
+    two = dj.make_topology(["cpu"] * cs.WORLD, intra_size=cs.INTRA)
+    two_digests = cs.shard_digests(*dj.distributed_inner_join(
+        two, *dj.shard_table(two, probe), *dj.shard_table(two, build), [0], [0])[:2])
+    plans, digests = cs.run_plan_tiers(dj, "cpu", build, probe, expected, ref, rows, "cpu",
+                                       two_digests)
+    assert plans["plan_broadcast"][4]["join_scans"] == cs.WORLD
+    assert plans["plan_salted"][4]["expand_values"] >= 4 * cs.WORLD
+    assert sum(n for n, _ in digests) == expected
+    tiers = cs.run_prepared_tiers(dj, "cpu", gen, topo, left, lcnt, build, probe, expected, ref,
+                                  rows, "cpu")
+    assert tiers["prepared_broadcast_probe"][1]["expand_ranks"] == cs.WORLD
+    assert tiers["prepared_broadcast_merge"][1]["merge_sorted_u64"] == cs.WORLD
+    assert tiers["prepared_salted_skewed_merge"][1]["merge_sorted_u64"] >= cs.WORLD
+    assert tiers["prepared_shuffle_skewed_sort"][1]["join_scans"] >= cs.WORLD
+    out = capsys.readouterr().out
+    for case in ("(i)", "(ii)", "(iii)"):
+        assert f'"smoke_phase": "4i", "case": "{case}"' in out
+        assert f'"smoke_phase": "5e", "case": "{case}"' in out
+    assert '"tier": "salted"' in out

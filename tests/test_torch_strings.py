@@ -681,7 +681,7 @@ def test_convert_round_trips_a_string_table():
 
 
 def test_chip_smoke_string_phase_rehearses_on_cpu(monkeypatch, capsys):
-    """chip_smoke's phases 8a-8d at a tiny split on CPU tables: the card's
+    """chip_smoke's phases 8a-8d and 8f at a tiny split on CPU tables: the card's
     calls stubbed (synchronize, events, memory stats), the kernels'
     wrappers made to count their plain calls, every check of the phase
     run as on the card."""
@@ -726,3 +726,5 @@ def test_chip_smoke_string_phase_rehearses_on_cpu(monkeypatch, capsys):
     out = capsys.readouterr().out
     for line in ("[tpch_join]", "[tpch_auto]", "[tpch_string_key]", "[tpch_verifier]"):
         assert line in out
+    assert world["tpch_string_key_broadcast"][1]["join_scans"] == cs.WORLD
+    assert '"smoke_phase": "8f"' in out

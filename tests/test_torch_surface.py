@@ -64,5 +64,8 @@ def test_the_port_exports_what_it_lists():
                  "FaultInjected", "QueueFull", "distribute_table", "collect_tables"):
         assert name in tj.__all__, name
     assert tj.distribute_table is tj.shard_table and tj.collect_tables is tj.unshard_table
+    # The planner's namespace, as dj_tpu exports it (dj_tpu/__init__.py:73).
+    assert isinstance(tj.plan_adapt, types.ModuleType)
+    assert sorted(set(dj_tpu.plan_adapt.__all__) - set(dir(tj.plan_adapt))) == []
     assert tj.HASH_MURMUR3 == dj_tpu.HASH_MURMUR3 and tj.HASH_IDENTITY == dj_tpu.HASH_IDENTITY
     assert tj.DEFAULT_HASH_SEED == dj_tpu.DEFAULT_HASH_SEED

@@ -505,6 +505,50 @@ def case_strings(topo):
     return out
 
 
+def plan_tables() -> tuple:
+    """(build arrays, names, probe arrays, names) of the plan_adapt case:
+    unique int64 build keys with a string payload; 65% of the probe rows
+    on one build key, the hot destination about 3x its batch's mean at
+    a world of 4."""
+    rng = np.random.default_rng(41)
+    nb, npr = 800, 1200
+    bk = rng.permutation(np.arange(3 * nb))[:nb]
+    pk = rng.integers(0, 3 * nb, npr)
+    pk[: 13 * npr // 20] = bk[11]
+    return ([bk, str_arrays([b"c%d" % (k % 31) for k in bk])], ["int64", "string"],
+            [pk, np.arange(npr, dtype=np.int64)], ["int64", "int64"])
+
+
+# (plan, DJT_* knobs) of the plan_adapt case, each under DJT_PLAN_ADAPT=1.
+PLAN_RUNS = (("broadcast", {}), ("salted", {"DJT_BROADCAST_BYTES": "0"}))
+PLAN_CONFIG = dict(over_decom_factor=1, bucket_factor=4.0, join_out_factor=2.0,
+                   char_out_factor=2.0)
+
+
+def case_plan_adapt(topo):
+    """The broadcast and the salted plan: every process decides on its
+    own from the gathered counts and the global side's bytes, then
+    joins; each run gives this process's decision and its shard."""
+    from dj_tpu_torch.parallel import dist_join
+
+    ba, bn, pa, pn = plan_tables()
+    (tl, tlc) = dj.shard_table(topo, convert.table_from_numpy(pa, pn, device="cpu"))
+    (tr, trc) = dj.shard_table(topo, convert.table_from_numpy(ba, bn, device="cpu"))
+    cfg = dj.JoinConfig(**PLAN_CONFIG)
+    out = {}
+    for plan, knobs in PLAN_RUNS:
+        dj.resilience.ledger.reset()
+        os.environ.update(DJT_PLAN_ADAPT="1", **knobs)
+        d = dist_join._resolve_plan_decision(topo, tl, tlc, tr, trc, (0,), (0,), cfg)
+        out[plan] = {"decision": (d.tier, d.salt, d.replicas, d.ratio, d.source),
+                     **_join_result(dj.distributed_inner_join(topo, tl, tlc, tr, trc, [0], [0],
+                                                              cfg))}
+        for k in ("DJT_PLAN_ADAPT", *knobs):
+            os.environ.pop(k)
+    dj.resilience.ledger.reset()
+    return out
+
+
 def case_ledger_split(topo):
     """Rank 0 starts from a ledger entry that widens bucket_factor, rank
     1 from none: their exchanges differ in size, and the world must fail
@@ -607,7 +651,8 @@ CASES = {"collectives": case_collectives, "exchange": case_exchange, "shuffle": 
          "join": case_join, "prepared": case_prepared, "generate": case_generate,
          "auto": case_auto, "keys": case_keys, "fail": case_fail,
          "ledger_split": case_ledger_split, "strings": case_strings,
-         "two_level": case_two_level, "compress": case_compress, "append": case_append}
+         "two_level": case_two_level, "compress": case_compress, "append": case_append,
+         "plan_adapt": case_plan_adapt}
 
 
 def main(spec_json: str, out_dir: str) -> int:
