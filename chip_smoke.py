@@ -109,6 +109,30 @@ Phases, each printing its own line(s):
      attempts and factors logged beside the salted run's); (iii) a
      replayed decision takes no probe, and 4e's two-level world stays on
      the shuffle plan with 4e's digests;
+  warmups: warmup_all_to_all (10 MB) over 4d's world and over both axes
+     of 4e's, with its wall;
+  4j. a two-stage chain in 4d's world at odf 1 and 4 through
+     distributed_join_pipeline: stage 0 probe JOIN build on key 0 (mode
+     shuffle), stage 1 the intermediate JOIN a copy of the build table
+     hash-partitioned by shuffle_on(..., seed=12345678) over the world
+     and declared right_partitioned, which must plan local; plan_pipeline
+     probes the chain's three input key columns once and no
+     intermediate; every stage's flags False, the total the generator's
+     count, the rows equal to phase 4's and to two composed
+     distributed_inner_join calls', the local stage issuing no collective
+     and launching join_scans and expand_values once a rank (stage 0
+     once a rank and batch); at odf 4 the same chain re-shuffled
+     (DJT_PIPELINE_COPART=0, DJT_PIPELINE_BROADCAST=0) and the composed
+     calls as contrasts (at odf 1 their exchanges peak at 74.8 GB);
+     median walls of 3 warm runs, peaks, each rank's device ms by phase
+     per stage;
+  4k. distributed_inner_join_coalesced_unprepared under
+     DJT_SHAPE_BUCKET=1 in 4d's world at odf 1: four member pairs cut
+     from 4d's tables at four raw sizes near a fourth of them, all in one
+     shape bucket (printed); each member's rows equal its unbucketed
+     singleton join's, each source padded once, one exchange epoch for
+     the call, DJT_PLAN_ADAPT=1 refused; walls beside four singletons,
+     the pad fractions;
   5. prepared path: at odf 1 and 4, prepare_join_side on the build table,
      then distributed_inner_join with the PreparedSide under each merge
      tier (sort, merge, probe); each query checked as in 4, with the
@@ -147,6 +171,16 @@ Phases, each printing its own line(s):
      to the shuffle-prepared side's sort-tier query (attempts and factors
      logged; a salted sort-tier query sorts 400M words a rank, which does
      not fit beside four ranks' resident runs on one card);
+  5f. distributed_inner_join_coalesced in 4d's world: K = 4 members, the
+     probe table cut into four slices, against phase 5's prepared side
+     at odf 1 and 4 under each merge tier, and against 5e's
+     broadcast-prepared side at odf 1, at a fourth of phase 5's
+     join_out_factor (a member holds a fourth of its rows); each member's rows equal its
+     singleton query's and phase 5's rows of its slice, one exchange
+     epoch per odf batch (none on the broadcast side), each tier's
+     kernels once a member, rank and batch; the first call's wall on a
+     fresh side and on one warmed by warmup_prepared_join; the coalesced
+     wall beside four singletons and one whole-table query, peaks;
   5b. unsigned columns: a uint16-key and a uint32-key table (keys past
      the signed range) with uint64 payloads (top bit set), about 1M probe
      rows, joined under every DJT_JOIN_EXPAND mode and queried through
@@ -161,7 +195,9 @@ Phases, each printing its own line(s):
      flag False, each kernel launched once a batch; median walls of warm
      runs and peaks; then the NCCL transport itself on the card's tensors
      (all_to_all, fused and unfused exchange under each backend, the
-     chunked all-to-all, shift, all_gather, all_reduce);
+     chunked all-to-all, shift, all_gather, all_reduce); then, in two
+     fresh NCCL worlds of one, the first join's wall without and after
+     warmup_all_to_all;
   6b. four processes on this card over gloo (NCCL refuses two ranks on
      one GPU), each generating phase 4's tables from the seed and joining
      its 25M + 25M row block at odf 1 through torch.distributed: each
@@ -178,7 +214,10 @@ Phases, each printing its own line(s):
      each exchange's device ms; and each process, under DJT_PLAN_ADAPT=1,
      decides the broadcast plan on its own and joins once at odf 1: the
      same decision on all four, each shard digest equal to rank r's in
-     4i(i);
+     4i(i); and each process runs 4j's chain at odf 1 on 2M rows a side:
+     the same plan (modes, derived ranges) on all four, each shard
+     digest equal to rank r's of the chain in a 4-rank world of this
+     process;
   6c. an NCCL world of one process per card at phase 4d's rows a rank,
      on a machine with 2 or more cards, with 6b's two-level half when the
      cards factor by 2 (4 or more); with one card, one line saying that
@@ -250,6 +289,15 @@ Phases, each printing its own line(s):
      char_overflow on the prepared path; 1M orders held back from the
      prepare are appended with their priorities and the queries checked
      as 8a again; a string key raises dj_tpu's ValueError;
+  8g. TPC-H Q3's joins as one pipeline, as benchmarks/tpch.py --q3 runs
+     them (distributed_join_pipeline_auto, every stage auto): lineitem
+     JOIN orders on the orderkey, then the intermediate JOIN customer on
+     O_CUSTKEY, O_ORDERPRIORITY and C_MKTSEGMENT string payloads, on one
+     rank and in the 4-rank world, stage 1 planned broadcast; the rows
+     equal two composed distributed_inner_join_auto calls', each row's
+     orderkey, custkey and both strings checked against the tables, no
+     all-to-all in stage 1, flags False; heal attempts and factors per
+     stage, walls, the peak and the string passes' device ms;
   9. timings: the `timings` line (walls, peaks and the main path's sort);
   10. the hardware probes: `python -m dj_tpu_torch.hw.probe_sort` and
      `... .probe_gather` through their main() at the JAX probes' shapes
@@ -270,15 +318,17 @@ Phases, each printing its own line(s):
      kernels cannot hold;
 then the `kernels` JSON line (kernel, plain-version and library times
 beside each kernel's bound, launches per query on each path and in the
-4-rank world (the plan tiers of 4i, 5e and 8f among its paths), its
-two-level form and the process worlds (6b's broadcast run apart), expand_ranks'
+4-rank world (the plan tiers of 4i, 5e and 8f and the composition
+layers' 4j, 4k and 5f among its paths), its two-level form and the
+process worlds (6b's broadcast run and chain apart), expand_ranks'
 codec decodes in 4g, expand_values' probe-tier call of 5d, and each
 kernel's registers and spills from ptxas; the probes' launches are their
 main()'s, and no join path launches them).
 The last line is {"ok": true, "device": {...}}. With no CUDA device, or
 without the package beside it, the script fails before printing any
 result. ``--rows N`` shrinks the main path and ``--orders N`` phase 8's
-split (for a quick first check).
+split (for a quick first check). The `total` line gives the command's
+seconds.
 """
 
 from __future__ import annotations
@@ -1201,6 +1251,7 @@ def compare_gather(case: str, vals, idx, kernels=("run", "run_cluster")) -> int:
 
 
 WORLD = 4  # ranks of phase 4d's world
+CHAIN_ROWS = 2_000_000  # rows a side of 6b's chain (4j's chain on a small table)
 
 
 def check_colocated(what: str, out, counts, odf: int) -> None:
@@ -3091,6 +3142,734 @@ def run_prepared_strings(dj, dev, orders, lineitem, li_sorted, smi: str) -> tupl
     return launch_table, world_table
 
 
+# --- the composition layers (phases 4j, 4k, 5f, 8g and the warmups) --------
+
+
+class StageCalls:
+    """Per pipeline stage, the attempts ``parallel.pipeline`` dispatched
+    and the in-process transport's all-to-alls they issued, while
+    active."""
+
+    def __enter__(self):
+        from dj_tpu_torch.parallel import pipeline
+        from dj_tpu_torch.parallel.communicator import InProcessTransport
+
+        self.mod, self.orig = pipeline, pipeline._dispatch_stage
+        self.attempts: dict = {}
+        self.all_to_alls: dict = {}
+        self.stage = None
+        self.cls, self.a2a = InProcessTransport, InProcessTransport.all_to_all_start
+
+        def dispatch(topology, sp, *a, **k):
+            self.stage = sp.index
+            self.attempts[sp.index] = self.attempts.get(sp.index, 0) + 1
+            self.all_to_alls.setdefault(sp.index, 0)
+            try:
+                return self.orig(topology, sp, *a, **k)
+            finally:
+                self.stage = None
+
+        def a2a(transport, *a, **k):
+            if self.stage is not None:
+                self.all_to_alls[self.stage] += 1
+            return self.a2a(transport, *a, **k)
+
+        pipeline._dispatch_stage = dispatch
+        InProcessTransport.all_to_all_start = a2a
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._dispatch_stage = self.orig
+        self.cls.all_to_all_start = self.a2a
+
+
+class Epochs:
+    """The exchange epochs ``parallel.dist_join`` starts while active:
+    each rank starts its part of an epoch, so a world of n ranks counts n
+    calls an epoch."""
+
+    def __enter__(self):
+        from dj_tpu_torch.parallel import dist_join
+
+        self.mod, self.orig, self.n = dist_join, dist_join.shuffle_tables_start, 0
+
+        def start(*a, **k):
+            self.n += 1
+            return self.orig(*a, **k)
+
+        dist_join.shuffle_tables_start = start
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.shuffle_tables_start = self.orig
+
+
+def stage_phases(fn) -> dict:
+    """One call of a pipeline with each rank's device ms by phase, per
+    stage (one run_spmd a stage), and the call's wall."""
+    from dj_tpu_torch.parallel import spmd
+
+    with spmd.record_phases() as runs:
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    del res
+    return {"wall_ms": wall, "stage_phase_ms_by_rank": runs}
+
+
+def chain_rows(what: str, dj, out, counts, build, probe, expected: int):
+    """4j's rows (k, lp, rp, rp2): as check_rows for (k, lp, rp), and rp2
+    == rp (the second build table is a copy of the first, whose keys are
+    unique). Returns (k, lp, rp) ordered by probe row, as sorted_rows."""
+    flat = dj.unshard_table(out, counts) if counts.shape[0] > 1 else out
+    n = int(counts.sum())
+    if n != expected:
+        raise AssertionError(f"{what}: {n} rows, expected {expected}")
+    k, lp, rp, rp2 = (c.data[:n] for c in flat.columns)
+    if not bool((probe.columns[0].data[lp] == k).all()):
+        raise AssertionError(f"{what}: a row's probe key differs from its key column")
+    if not bool((build.columns[0].data[rp] == k).all()):
+        raise AssertionError(f"{what}: a row's build key differs from its key column")
+    if not torch.equal(rp2, rp):
+        raise AssertionError(f"{what}: a row's second build row is not its first")
+    order = torch.sort(lp).indices
+    if n > 1 and bool((lp[order][1:] == lp[order][:-1]).any()):
+        raise AssertionError(f"{what}: a probe row appears in two output rows")
+    return k[order], lp[order], rp[order]
+
+
+def chain_tables(dj, topo, build, probe):
+    """4j's (and 6b's) sharded tables: probe and build, and the build
+    table again, hash-partitioned by its key under the main join seed
+    over the world (``shuffle_on(..., seed=12345678)``): a right side
+    co-partitioned with a shuffle stage's output at any odf. Its output
+    capacity is 2.5 times a rank's rows: the re-shuffle contrasts send
+    each rank's rows of it to one peer, into a bucket of bucket_factor /
+    n = half its capacity."""
+    from dj_tpu_torch.parallel.dist_join import MAIN_JOIN_SEED
+
+    left, lcnt = dj.shard_table(topo, probe)
+    right, rcnt = dj.shard_table(topo, build)
+    b2, b2c, ovf = dj.shuffle_on(topo, right, rcnt, [0], seed=MAIN_JOIN_SEED, out_factor=2.5)
+    if bool(ovf.any()):
+        raise AssertionError(f"the co-partitioned build copy overflowed: {ovf.tolist()}")
+    return left, lcnt, right, rcnt, b2, b2c
+
+
+def chain_stages(dj, right, rcnt, b2, b2c):
+    """Stage 0: probe JOIN build on key 0 (a shuffle); stage 1: the
+    intermediate JOIN the co-partitioned build copy on key 0."""
+    return [dj.JoinStage(right=right, right_counts=rcnt, left_on=(0,), right_on=(0,),
+                         mode="shuffle"),
+            dj.JoinStage(right=b2, right_counts=b2c, left_on=(0,), right_on=(0,),
+                         right_partitioned=True)]
+
+
+def plan_view(plan) -> list:
+    """Each stage's (mode, key range, range source, output partitioning),
+    in JSON's lists (as a process world's RESULT line carries it)."""
+    return json.loads(json.dumps([[sp.mode, sp.key_range, sp.range_source,
+                                   sp.out_partitioned_by] for sp in plan.stage_plans]))
+
+
+def run_warmups(dj, dev, smi: str) -> dict:
+    """warmup_all_to_all of 10 MB over 4d's world and over both axes of
+    4e's, each with its wall."""
+    out = {}
+    for name, intra in (("world4", None), ("two_level", INTRA)):
+        topo = dj.make_topology([dev] * WORLD, intra_size=intra)
+        t0 = time.perf_counter()
+        dj.warmup_all_to_all(topo)
+        out[name] = {"axes": list(topo.axis_names), "wall_ms": (time.perf_counter() - t0) * 1e3}
+    log("warmup_all_to_all", smoke_phase="warmups", nbytes=10_000_000, **out, card=smi)
+    return out
+
+
+def run_pipeline_chain(dj, dev, build, probe, expected: int, ref, rows: int, smi: str) -> dict:
+    """Phase 4j: a two-stage chain in 4d's world at odf 1 and 4 (module
+    docstring). Returns {path: {odf: launches}}."""
+    from dj_tpu_torch.parallel import dist_join
+
+    topo = dj.make_topology([dev] * WORLD)
+    left, lcnt, right, rcnt, b2, b2c = chain_tables(dj, topo, build, probe)
+    check_colocated("4j build copy", b2, b2c, 1)
+    stages = chain_stages(dj, right, rcnt, b2, b2c)
+    torch.cuda.synchronize()
+    launch_table: dict = {}
+    for odf in (1, 4):
+        cfg = dj.JoinConfig(over_decom_factor=odf)
+        before = dist_join.range_probes
+        plan = dj.plan_pipeline(topo, left, lcnt, stages, cfg)
+        probes = dist_join.range_probes - before
+        dj.plan_pipeline(topo, left, lcnt, stages, cfg)
+        replan_probes = dist_join.range_probes - before - probes
+        if [sp.mode for sp in plan.stage_plans] != ["shuffle", "local"]:
+            raise AssertionError(f"4j odf={odf}: plan {plan_view(plan)}")
+        # 3 probes at the first plan: the keys of probe, build and the build
+        # copy, the chain's inputs; none of the intermediate, none again.
+        if probes != (3 if odf == 1 else 0) or replan_probes:
+            raise AssertionError(f"4j odf={odf}: {probes} range probes, {replan_probes} on a "
+                                 f"re-plan")
+
+        def chain():
+            return dj.distributed_join_pipeline(topo, left, lcnt, stages, cfg, plan=plan)
+
+        reset_launches()
+        with Collectives() as c0:
+            res = dj.distributed_join_pipeline(topo, left, lcnt, stages[:1], cfg)
+            torch.cuda.synchronize()
+        stage0 = read_launches()
+        del res
+        reset_launches()
+        with Collectives() as coll:
+            out, counts, infos = chain()
+            torch.cuda.synchronize()
+        launches = read_launches()
+        for i, info in enumerate(infos):
+            flags_false(f"4j odf={odf} stage {i}", info)
+        got = chain_rows(f"4j odf={odf}", dj, out, counts, build, probe, expected)
+        check_same_rows(got, ref, f"4j odf={odf}")
+        del out, counts, infos, got
+        if coll.counts != c0.counts:
+            raise AssertionError(f"4j odf={odf}: the local stage issued collectives: chain "
+                                 f"{coll.counts}, stage 0 alone {c0.counts}")
+        for k in ("join_scans", "expand_values"):
+            if stage0[k] != WORLD * odf or launches[k] != WORLD * odf + WORLD:
+                raise AssertionError(f"4j odf={odf}: {k} launched {stage0[k]} by stage 0 and "
+                                     f"{launches[k]} by the chain, not {WORLD * odf} and "
+                                     f"{WORLD * odf} + {WORLD} (the local stage once a rank)")
+        launch_table.setdefault("pipeline_local_chain", {})[odf] = launches
+        wall, runs, peak = warm_walls(chain)
+        phases = stage_phases(chain)
+
+        # The contrasts at odf 4 only: at odf 1 each exchange's buckets
+        # hold half a rank's capacity of the 50M-slot intermediate and the
+        # 62.5M-slot copy, and the four ranks' peak 74.8 GB of the 80.
+        contrasts = {}
+        if odf == 4:
+            contrasts = chain_contrasts(dj, topo, left, lcnt, right, rcnt, b2, b2c, stages, cfg,
+                                        build, probe, expected, ref, launch_table)
+        log("pipeline_chain", smoke_phase="4j", ranks=WORLD, odf=odf, rows=rows, total=expected,
+            plan=plan_view(plan), range_probes_first_plan=probes, range_probes_replan=0,
+            flags="all False", rows_checked=expected, same_rows_as_phase_4=True,
+            local_stage_collectives=0, collectives_chain=coll.counts, launches_stage0=stage0,
+            launches=launches, wall_ms=wall, wall_ms_runs=runs, peak_bytes=peak, phases=phases,
+            **contrasts, card=smi)
+        torch.cuda.empty_cache()
+    del left, right, b2, stages
+    torch.cuda.empty_cache()
+    return launch_table
+
+
+def chain_contrasts(dj, topo, left, lcnt, right, rcnt, b2, b2c, stages, cfg, build, probe,
+                    expected: int, ref, launch_table: dict) -> dict:
+    """4j's contrasts of its chain: the same chain re-shuffled
+    (DJT_PIPELINE_COPART=0, DJT_PIPELINE_BROADCAST=0) and two composed
+    distributed_inner_join calls, each checked as the chain and timed;
+    their log fields."""
+    odf = cfg.over_decom_factor
+    with env_set(DJT_PIPELINE_COPART="0", DJT_PIPELINE_BROADCAST="0"):
+        rplan = dj.plan_pipeline(topo, left, lcnt, stages, cfg)
+        if [sp.mode for sp in rplan.stage_plans] != ["shuffle", "shuffle"]:
+            raise AssertionError(f"4j re-shuffle: plan {plan_view(rplan)}")
+
+        def reshuffle():
+            return dj.distributed_join_pipeline(topo, left, lcnt, stages, cfg, plan=rplan)
+
+        reset_launches()
+        with Collectives() as rcoll:
+            out, counts, infos = reshuffle()
+            torch.cuda.synchronize()
+        r_launches = read_launches()
+        for i, info in enumerate(infos):
+            flags_false(f"4j re-shuffle stage {i}", info)
+        check_same_rows(chain_rows("4j re-shuffle", dj, out, counts, build, probe, expected), ref,
+                        "4j re-shuffle")
+        del out, counts, infos
+        r_wall, r_runs, r_peak = warm_walls(reshuffle)
+        r_phases = stage_phases(reshuffle)
+    launch_table.setdefault("pipeline_reshuffle_chain", {})[odf] = r_launches
+
+    def composed():
+        o1, c1, i1 = dj.distributed_inner_join(topo, left, lcnt, right, rcnt, [0], [0], cfg)
+        o2, c2, i2 = dj.distributed_inner_join(topo, o1, c1, b2, b2c, [0], [0], cfg)
+        return o2, c2, [i1, i2]
+
+    reset_launches()
+    out, counts, infos = composed()
+    torch.cuda.synchronize()
+    c_launches = read_launches()
+    for i, info in enumerate(infos):
+        flags_false(f"4j composed call {i}", info)
+    check_same_rows(chain_rows("4j composed", dj, out, counts, build, probe, expected), ref,
+                    "4j composed")
+    del out, counts, infos
+    launch_table.setdefault("pipeline_composed_calls", {})[odf] = c_launches
+    c_wall, c_runs, c_peak = warm_walls(composed)
+    return {"same_rows_as_composed": True, "collectives_reshuffle": rcoll.counts,
+            "reshuffle_plan": plan_view(rplan), "reshuffle_launches": r_launches,
+            "reshuffle_wall_ms": r_wall, "reshuffle_wall_ms_runs": r_runs,
+            "reshuffle_peak_bytes": r_peak, "reshuffle_phases": r_phases,
+            "composed_launches": c_launches, "composed_wall_ms": c_wall,
+            "composed_wall_ms_runs": c_runs, "composed_peak_bytes": c_peak}
+
+
+def chain_rank(dj, dev, topo, spec: dict) -> dict:
+    """6b's chain on one process: 4j's chain at odf 1 on a table of
+    ``spec["chain_rows"]`` rows a side made from the seed; this
+    process's plan, shard digest, flags and launches."""
+    rows = spec["chain_rows"]
+    gen = torch.Generator(device=dev).manual_seed(spec["seed"] + 1)
+    build, probe = dj.generate_build_probe_tables(gen, rows, rows, 0.3, 2 * rows, True)
+    left, lcnt, right, rcnt, b2, b2c = chain_tables(dj, topo, build, probe)
+    stages = chain_stages(dj, right, rcnt, b2, b2c)
+    cfg = dj.JoinConfig()
+    plan = dj.plan_pipeline(topo, left, lcnt, stages, cfg)
+    reset_launches()
+    out, counts, infos = dj.distributed_join_pipeline(topo, left, lcnt, stages, cfg, plan=plan)
+    _sync(dev)
+    return {"plan": plan_view(plan), "digest": shard_digest(out, int(counts[0])),
+            "flags": [{k: v.tolist() for k, v in i.items()} for i in infos],
+            "launches": read_launches()}
+
+
+def chain_in_one_process(dj, dev, rows: int, seed: int) -> dict:
+    """6b's chain in a 4-rank world of this process: the plan and rank
+    r's shard digest, which each of 6b's processes must equal."""
+    topo = dj.make_topology([dev] * WORLD)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    build, probe = dj.generate_build_probe_tables(gen, rows, rows, 0.3, 2 * rows, True)
+    left, lcnt, right, rcnt, b2, b2c = chain_tables(dj, topo, build, probe)
+    stages = chain_stages(dj, right, rcnt, b2, b2c)
+    plan = dj.plan_pipeline(topo, left, lcnt, stages)
+    out, counts, _ = dj.distributed_join_pipeline(topo, left, lcnt, stages, plan=plan)
+    return {"plan": plan_view(plan), "digests": shard_digests(out, counts)}
+
+
+def check_chain_processes(what: str, results: list, want: dict) -> None:
+    """Each process's chain: the one-process world's plan on every
+    process, flags False, its shard digest equal to rank r's."""
+    for r, res in enumerate(results):
+        c = res["chain"]
+        if c["plan"] != want["plan"]:
+            raise AssertionError(f"{what}: process {r} planned {c['plan']}, not {want['plan']}")
+        if any(any(v) for f in c["flags"] for v in f.values()):
+            raise AssertionError(f"{what}: process {r}'s chain set a flag")
+        if c["digest"] != want["digests"][r]:
+            raise AssertionError(f"{what}: process {r}'s digest {c['digest']} != "
+                                 f"{want['digests'][r]}")
+
+
+def q3_expected(orders, lineitem, n_cust: int):
+    """(row of each orderkey, the lineitem words of every lineitem whose
+    order's customer is in split 0's [0, n_cust), sorted): Q3's rows."""
+    okeys, ocust = orders.columns[0].data, orders.columns[1].data
+    base = int(okeys.min())
+    row_of = torch.empty_like(okeys)
+    row_of[okeys - base] = torch.arange(okeys.shape[0], device=okeys.device)
+    lk, pk, q = (c.data for c in lineitem.columns)
+    hit = ocust[row_of[lk - base]] < n_cust
+    return base, row_of, torch.sort(lineitem_words(lk[hit], pk[hit], q[hit])).values
+
+
+def check_q3_rows(what: str, dj, out, counts, orders, customer, base, row_of, want_words,
+                  seg_code) -> torch.Tensor:
+    """8g's rows (L_ORDERKEY, L_PARTKEY, L_QUANTITY, O_CUSTKEY,
+    O_ORDERPRIORITY, C_MKTSEGMENT): the lineitem columns, as a multiset,
+    are those of Q3's lineitems; each row's O_CUSTKEY and priority are
+    its order's, its segment its customer's, byte for byte. Returns the
+    sorted lineitem words."""
+    from dj_tpu_torch.data import tpch
+
+    flat = dj.unshard_table(out, counts) if counts.shape[0] > 1 else out
+    n = int(counts.sum())
+    if n != want_words.shape[0]:
+        raise AssertionError(f"{what}: {n} rows, expected {want_words.shape[0]}")
+    lk, pk, q, ck, pri, seg = flat.columns
+    got = torch.sort(lineitem_words(lk.data[:n], pk.data[:n], q.data[:n])).values
+    if not torch.equal(got, want_words):
+        raise AssertionError(f"{what}: the lineitem columns differ from Q3's lineitems")
+    rows = row_of[lk.data[:n] - base]
+    if not torch.equal(ck.data[:n], orders.columns[1].data[rows]):
+        raise AssertionError(f"{what}: an O_CUSTKEY differs from its order's")
+    check_string_codes(what, pri, n, word_codes(orders.columns[2], tpch.PRIORITIES)[rows],
+                       tpch.PRIORITIES)
+    check_string_codes(what, seg, n, seg_code[ck.data[:n]], tpch.SEGMENTS)
+    return got
+
+
+def run_q3_pipeline(dj, dev, orders, lineitem, customer, n_cust: int, smi: str):
+    """Phase 8g: TPC-H Q3's joins as one pipeline, as benchmarks/tpch.py
+    --q3 runs them (distributed_join_pipeline_auto, every stage auto):
+    lineitem JOIN orders on the orderkey, then the intermediate JOIN
+    customer on O_CUSTKEY, at one rank and in the 4-rank world.
+    join_out_factor 1 holds every row (each lineitem matches one order).
+    Stage 0 runs at char_out_factor 5 (phase 8's fit: each priority is
+    copied ~4 times); stage 1 at 1, with customer sharded at 6 times its
+    segments' bytes of char capacity (each segment is copied ~5 times):
+    one char_out_factor sizes both of stage 1's string columns, and 6
+    would give O_ORDERPRIORITY 30 times orders' chars, whose string take
+    needs more than the card's memory at this scale. The composed calls,
+    distributed_inner_join_auto twice under DJT_PLAN_ADAPT=1 (the
+    broadcast plan by fit, as the stages), run once. Returns ({path:
+    {odf: launches}} of one rank, the same for the world)."""
+    from dj_tpu_torch.data import tpch
+    from dj_tpu_torch.resilience import ledger
+
+    base, row_of, want_words = q3_expected(orders, lineitem, n_cust)
+    ckey, cseg = customer.columns
+    seg_code = torch.empty(n_cust, dtype=torch.int64, device=dev)
+    seg_code[ckey.data] = word_codes(cseg, tpch.SEGMENTS)
+    tables = ({}, {})
+    seg_bytes = int(cseg.offsets[-1])
+    for w in (1, WORLD):
+        topo = dj.make_topology() if w == 1 else dj.make_topology([dev] * WORLD)
+        li, o = dj.shard_table(topo, lineitem), dj.shard_table(topo, orders)
+        c = dj.shard_table(topo, customer,
+                           char_capacity_per_shard=int(CHAR_FIT_Q3 * seg_bytes / w) + 64)
+        cfg = dj.JoinConfig(char_out_factor=CHAR_FIT)
+        stages = [dj.JoinStage(right=o[0], right_counts=o[1], left_on=(0,), right_on=(0,)),
+                  dj.JoinStage(right=c[0], right_counts=c[1], left_on=(3,), right_on=(0,),
+                               config=dj.JoinConfig())]
+        plan = dj.plan_pipeline(topo, *li, stages, cfg)
+        if plan.stage_plans[1].mode != "broadcast":
+            raise AssertionError(f"8g world {w}: stage 1 planned {plan_view(plan)}")
+        what = f"8g world {w}"
+        ledger.reset()
+        reset_launches()
+        with StageCalls() as calls, PassTimer() as timer:
+            t0 = time.perf_counter()
+            out, counts, infos, cfgs = dj.distributed_join_pipeline_auto(topo, *li, stages, cfg)
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+        launches = read_launches()
+        for i, info in enumerate(infos):
+            flags_false(f"{what} stage {i}", info)
+        if calls.all_to_alls.get(1):
+            raise AssertionError(f"{what}: stage 1 issued {calls.all_to_alls[1]} all-to-alls")
+        words = check_q3_rows(what, dj, out, counts, orders, customer, base, row_of, want_words,
+                              seg_code)
+        del out, counts, infos
+        for k in ("join_scans", "expand_values"):  # once a rank and stage attempt
+            if launches[k] != w * sum(calls.attempts.values()):
+                raise AssertionError(f"{what}: {k} launched {launches[k]} times for attempts "
+                                     f"{calls.attempts}")
+        tables[w > 1].setdefault("tpch_q3_pipeline", {})[1] = launches
+
+        def composed():
+            o1, c1, i1, _ = dj.distributed_inner_join_auto(topo, *li, *o, [0], [0], cfg)
+            return dj.distributed_inner_join_auto(topo, o1, c1, *c, [3], [0], stages[1].config)
+
+        # The composed calls on the pipeline's plans: under DJT_PLAN_ADAPT=1
+        # both sides fit the broadcast budget, as in the stages (the
+        # shuffle plan's string exchange of 75M lineitems does not fit
+        # beside this phase's tables in the 4-rank world).
+        torch.cuda.empty_cache()
+        ledger.reset()
+        with env_set(DJT_PLAN_ADAPT="1"):
+            t0 = time.perf_counter()
+            out, counts, info, _ = composed()
+            torch.cuda.synchronize()
+            c_wall = (time.perf_counter() - t0) * 1e3
+        flags_false(f"{what} composed", info)
+        if not torch.equal(check_q3_rows(f"{what} composed", dj, out, counts, orders, customer,
+                                         base, row_of, want_words, seg_code), words):
+            raise AssertionError(f"{what}: the pipeline's rows differ from the composed calls'")
+        del out, counts, info
+
+        def chain():
+            return dj.distributed_join_pipeline_auto(topo, *li, stages, cfg)
+
+        wall, runs, peak = warm_walls(chain)
+        log("tpch_q3_pipeline", smoke_phase="8g", ranks=w, odf=1, plan=plan_view(plan),
+            stages=["L_ORDERKEY = O_ORDERKEY", "O_CUSTKEY = C_CUSTKEY"],
+            string_payloads=["O_ORDERPRIORITY", "C_MKTSEGMENT"], total=int(want_words.shape[0]),
+            flags="all False", rows_checked=True, same_rows_as_composed=True,
+            attempts_by_stage=calls.attempts, all_to_alls_by_stage=calls.all_to_alls,
+            factors_by_stage=[{f: getattr(cf, f) for f in FACTOR_FIELDS} for cf in cfgs],
+            launches=launches, first_call_ms=first_ms, string_pass_ms=timer.ms(),
+            wall_ms=wall, wall_ms_runs=runs, peak_bytes=peak, composed_broadcast_plan_wall_ms=c_wall,
+            card=smi)
+        ledger.reset()
+        del li, o, c, stages, plan
+        torch.cuda.empty_cache()
+    return tables
+
+
+def member_rows(what: str, dj, out, counts, build, probe, ref, lo: int, hi: int):
+    """A coalesced member's rows, checked as phase 4's and equal to
+    ``ref``'s rows of the probe rows [lo, hi) (the member's slice of the
+    probe table). Returns them as sorted_rows."""
+    flat = dj.unshard_table(out, counts) if counts.shape[0] > 1 else out
+    n = int(counts.sum())
+    k, lp, rp = (c.data[:n] for c in flat.columns)
+    order = torch.sort(lp).indices
+    got = k[order], lp[order], rp[order]  # the payloads hold the global row ids
+    in_slice = (ref[1] >= lo) & (ref[1] < hi)
+    want = tuple(x[in_slice] for x in ref)
+    check_same_rows(got, want, what)
+    if not bool((probe.columns[0].data[got[1]] == got[0]).all()):
+        raise AssertionError(f"{what}: a row's probe key differs from its key column")
+    return got
+
+
+def run_coalesced_prepared(dj, dev, gen, build, probe, expected: int, ref, rows: int,
+                           smi: str) -> dict:
+    """Phase 5f: distributed_inner_join_coalesced in 4d's world, K = 4
+    members (the probe table cut into four slices of rows / 4, a fourth
+    of a rank's rows each), against phase 5's prepared side at odf 1
+    and 4 under each merge tier, and against 5e's broadcast-prepared side
+    at odf 1. Returns {path: {odf: launches}}."""
+    from dj_tpu_torch.ops.join import prepared_effective_plan
+
+    topo = dj.make_topology([dev] * WORLD)
+    right, rcnt = dj.shard_table(topo, build)
+    m = rows // WORLD
+    members = [dj.shard_table(topo, slice_rows(dj, probe, q * m, (q + 1) * m))
+               for q in range(WORLD)]
+    lefts, lcounts = [t for t, _ in members], [c for _, c in members]
+    left, lcnt = dj.shard_table(topo, probe)
+    torch.cuda.synchronize()
+    launch_table: dict = {}
+    k = len(members)
+    for side, odfs in (("shuffle", (1, 4)), ("broadcast", (1,))):
+        for odf in odfs:
+            # A member holds a fourth of the probe rows: a fourth of phase
+            # 5's join_out_factor gives it phase 5's output slack (at 1.0
+            # the four members' outputs and their rank concatenation need
+            # more than the card's memory beside the resident sides).
+            cfg = dj.JoinConfig(over_decom_factor=odf, key_range=(0, 2 * rows),
+                                join_out_factor=1.0 / WORLD)
+            whole_cfg = dj.JoinConfig(over_decom_factor=odf, key_range=(0, 2 * rows))
+            with env_set(DJT_PREPARED_TIER=side):
+                prep = dj.prepare_join_side(topo, right, rcnt, [0], cfg, left_capacity=m)
+                if prep.tier != side:
+                    raise AssertionError(f"5f: prepared tier {prep.tier}, not {side}")
+                cold_ms = warm_ms = warmup_ms = None
+                if odf == 1:
+                    # The first coalesced call on a fresh side, then on a
+                    # side warmed by warmup_prepared_join.
+                    t0 = time.perf_counter()
+                    dj.distributed_inner_join_coalesced(topo, lefts, lcounts, prep, [0], cfg)
+                    torch.cuda.synchronize()
+                    cold_ms = (time.perf_counter() - t0) * 1e3
+                    warmed = dj.prepare_join_side(topo, right, rcnt, [0], cfg, left_capacity=m)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    dj.warmup_prepared_join(topo, warmed, lefts[0], lcounts[0], [0], cfg)
+                    warmup_ms = (time.perf_counter() - t0) * 1e3
+                    t0 = time.perf_counter()
+                    dj.distributed_inner_join_coalesced(topo, lefts, lcounts, warmed, [0], cfg)
+                    torch.cuda.synchronize()
+                    warm_ms = (time.perf_counter() - t0) * 1e3
+                    del warmed
+                whole = (dj.prepare_join_side(topo, right, rcnt, [0], whole_cfg,
+                                              left_capacity=rows) if odf == 1 else None)
+            for tier in TIERS:
+                os.environ["DJT_JOIN_MERGE"] = tier
+                what = f"5f {side} odf={odf} tier={tier}"
+
+                def coalesced():
+                    return dj.distributed_inner_join_coalesced(topo, lefts, lcounts, prep, [0],
+                                                               cfg)
+
+                reset_launches()
+                with Epochs() as ep, Collectives() as coll:
+                    per_query, used = coalesced()
+                    torch.cuda.synchronize()
+                launches = read_launches()
+                want_epochs = 0 if side == "broadcast" else WORLD * odf
+                if ep.n != want_epochs or (side == "broadcast" and any(coll.counts.values())):
+                    raise AssertionError(f"{what}: {ep.n} epoch starts, not {want_epochs}; "
+                                         f"collectives {coll.counts}")
+                batches = 1 if side == "broadcast" else odf
+                bad = {kk: launches[kk] for kk in prepared_effective_plan(tier)
+                       if launches[kk] != WORLD * batches * k}
+                if bad:
+                    raise AssertionError(f"{what}: {bad}, not {WORLD * batches * k} each (a "
+                                         f"member, rank and batch)")
+                got = []
+                for q, (out, counts, info) in enumerate(per_query):
+                    flags_false(f"{what} member {q}", info)
+                    got.append(member_rows(f"{what} member {q}", dj, out, counts, build, probe,
+                                           ref, q * m, (q + 1) * m))
+                del per_query
+                if sum(g[0].shape[0] for g in got) != expected:
+                    raise AssertionError(f"{what}: the members' rows do not sum to {expected}")
+
+                def singletons():
+                    return [dj.distributed_inner_join(topo, lefts[q], lcounts[q], prep, None, [0],
+                                                      None, cfg) for q in range(k)]
+
+                with Epochs() as sep:
+                    alone = singletons()
+                    torch.cuda.synchronize()
+                for q, (out, counts, info) in enumerate(alone):
+                    flags_false(f"{what} singleton {q}", info)
+                    check_same_rows(member_rows(f"{what} singleton {q}", dj, out, counts, build,
+                                                probe, ref, q * m, (q + 1) * m), got[q], what)
+                del alone, got
+                launch_table.setdefault(f"coalesced_prepared_{side}_{tier}", {})[odf] = launches
+                timed = odf == 1 or tier == "sort"
+                wall, runs, peak = warm_walls(coalesced) if timed else (None, [], None)
+                s_wall, s_runs, s_peak = warm_walls(singletons) if timed else (None, [], None)
+                w_wall = w_runs = None
+                if whole is not None:
+                    w_wall, w_runs, _ = warm_walls(lambda: dj.distributed_inner_join(
+                        topo, left, lcnt, whole, None, [0], None, whole_cfg))
+                log("coalesced_prepared", smoke_phase="5f", ranks=WORLD, side=side, odf=odf,
+                    tier=tier, members=k, member_rows=m, rows_per_rank_member=m // WORLD,
+                    config_used_join_out_factor=used.join_out_factor, flags="all False",
+                    rows_checked=expected, members_equal_singletons=True,
+                    union_equals_phase_5=True, epoch_starts=ep.n,
+                    singleton_epoch_starts=sep.n, collectives=coll.counts, launches=launches,
+                    wall_ms=wall, wall_ms_runs=runs, peak_bytes=peak,
+                    four_singletons_wall_ms=s_wall, four_singletons_wall_ms_runs=s_runs,
+                    four_singletons_peak_bytes=s_peak, whole_table_query_wall_ms=w_wall,
+                    whole_table_query_wall_ms_runs=w_runs,
+                    first_call_ms_fresh_side=cold_ms if tier == TIERS[0] else None,
+                    first_call_ms_after_warmup=warm_ms if tier == TIERS[0] else None,
+                    warmup_prepared_join_ms=warmup_ms if tier == TIERS[0] else None,
+                    card=smi)
+            os.environ.pop("DJT_JOIN_MERGE")
+            del prep, whole
+            torch.cuda.empty_cache()
+    del members, lefts, lcounts, left, right
+    torch.cuda.empty_cache()
+    return launch_table
+
+
+def bucket_sizes(sb, per_rank: int) -> tuple[int, list]:
+    """(the bucket of ``per_rank`` rows a shard, four per-shard sizes
+    strictly between the grid point below it and it): four raw shapes,
+    each padded, that land in one bucket."""
+    import math
+
+    b = sb.bucket_capacity(per_rank)
+    prev, g = sb.grid_floor(), sb.grid_floor()
+    while g < b:
+        prev, g = g, max(g + 1, math.ceil(g * sb.grid_ratio()))
+    step = (b - prev) // 5
+    return b, [b - (i + 1) * step for i in range(4)]
+
+
+def run_coalesced_bucketed(dj, dev, build, probe, rows: int, smi: str) -> dict:
+    """Phase 4k: distributed_inner_join_coalesced_unprepared under
+    DJT_SHAPE_BUCKET=1 in 4d's world at odf 1: K = 4 member pairs cut
+    from 4d's tables (probe and build rows [q rows / 4, ...)) at four raw
+    sizes near rows / 4 that land in one bucket. Returns {path: {odf:
+    launches}}."""
+    from dj_tpu_torch.parallel import shape_bucket
+
+    topo = dj.make_topology([dev] * WORLD)
+    with env_set(DJT_SHAPE_BUCKET="1"):
+        bucket, per_shard = bucket_sizes(shape_bucket, rows // WORLD // WORLD)
+    sizes = [WORLD * s for s in per_shard]
+    starts = [q * (rows // WORLD) for q in range(WORLD)]
+    if starts[-1] + sizes[0] > rows:
+        starts = [q * (rows - sizes[0]) // (WORLD - 1) for q in range(WORLD)]
+    lefts, rights, expected = [], [], []
+    for a, n in zip(starts, sizes):
+        lt = slice_rows(dj, probe, a, a + n)
+        rt = slice_rows(dj, build, a, a + n)
+        expected.append(key_matches(rt.columns[0].data, lt.columns[0].data))
+        lefts.append(dj.shard_table(topo, lt))
+        rights.append(dj.shard_table(topo, rt))
+    cfg = dj.JoinConfig()
+    args = ([t for t, _ in lefts], [c for _, c in lefts], [t for t, _ in rights],
+            [c for _, c in rights], [0], [0], cfg)
+
+    def singletons():
+        return [dj.distributed_inner_join(topo, *lefts[q], *rights[q], [0], [0], cfg)
+                for q in range(WORLD)]
+
+    alone = singletons()
+    want = []
+    for q, (out, counts, info) in enumerate(alone):
+        flags_false(f"4k singleton {q}", info)
+        want.append(pair_words(out, counts, build, probe, expected[q], f"4k singleton {q}"))
+    del alone
+    s_wall, s_runs, s_peak = warm_walls(singletons)
+    with env_set(DJT_SHAPE_BUCKET="1"):
+        pads = dict(shape_bucket.totals)
+        reset_launches()
+        with Epochs() as ep:
+            per_query, used = dj.distributed_inner_join_coalesced_unprepared(topo, *args)
+            torch.cuda.synchronize()
+        launches = read_launches()
+        padded = shape_bucket.totals["pad"] - pads["pad"]
+        if ep.n != WORLD or padded != 2 * WORLD:
+            raise AssertionError(f"4k: {ep.n} epoch starts (not {WORLD}), {padded} pads (not "
+                                 f"{2 * WORLD}, each source once)")
+        for q, (out, counts, info) in enumerate(per_query):
+            flags_false(f"4k member {q}", info)
+            if not torch.equal(pair_words(out, counts, build, probe, expected[q], f"4k member {q}"),
+                               want[q]):
+                raise AssertionError(f"4k member {q}: rows differ from its singleton join's")
+        del per_query
+        for kk in ("join_scans", "expand_values"):
+            if launches[kk] != WORLD * WORLD:
+                raise AssertionError(f"4k: {kk} launched {launches[kk]} times, not "
+                                     f"{WORLD * WORLD} (a member and rank)")
+
+        def coalesced():
+            return dj.distributed_inner_join_coalesced_unprepared(topo, *args)
+
+        wall, runs, peak = warm_walls(coalesced)
+        repads = shape_bucket.totals["pad"] - pads["pad"] - padded
+        if repads:
+            raise AssertionError(f"4k: the warm calls padded {repads} tables again")
+        with env_set(DJT_PLAN_ADAPT="1"):
+            try:
+                coalesced()
+            except ValueError as e:
+                refusal = str(e)
+            else:
+                raise AssertionError("4k: DJT_PLAN_ADAPT=1 was not refused")
+    log("coalesced_bucketed", smoke_phase="4k", ranks=WORLD, odf=1, members=WORLD,
+        bucket_rows_per_shard=bucket, raw_rows_per_shard=per_shard, raw_rows=sizes,
+        pad_fraction=[1 - s / bucket for s in per_shard], totals=expected, flags="all False",
+        members_equal_singletons=True, pads=padded, memo_hits_warm=shape_bucket.totals["memo_hit"]
+        - pads["memo_hit"], epoch_starts=ep.n, launches=launches, wall_ms=wall,
+        wall_ms_runs=runs, peak_bytes=peak, four_singletons_wall_ms=s_wall,
+        four_singletons_wall_ms_runs=s_runs, four_singletons_peak_bytes=s_peak,
+        plan_adapt_refused=refusal, card=smi)
+    del lefts, rights, args
+    torch.cuda.empty_cache()
+    return {"coalesced_unprepared_bucketed": {1: launches}}
+
+
+def first_join_with_warmup(dj, dev, backend: str, build, probe, smi: str) -> dict:
+    """6a's warmup: in two fresh process worlds of one (NCCL on the
+    card), the first join's wall, without and then after
+    warmup_all_to_all (which makes the communicator)."""
+    out = {}
+    for warm in (False, True):
+        dj.init_distributed(f"localhost:{free_port()}", 1, 0, backend=backend, device=dev.type)
+        try:
+            topo = dj.make_topology() if dev.type == "cuda" else dj.make_topology([dev])
+            left, lcnt = dj.shard_table(topo, probe)
+            right, rcnt = dj.shard_table(topo, build)
+            _sync(dev)
+            t0 = time.perf_counter()
+            if warm:
+                dj.warmup_all_to_all(topo)
+            warmup_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            res = dj.distributed_inner_join(topo, left, lcnt, right, rcnt, [0], [0])
+            _sync(dev)
+            out["after_warmup" if warm else "cold"] = {
+                "first_join_ms": (time.perf_counter() - t0) * 1e3,
+                "warmup_ms": warmup_ms if warm else None}
+            flags_false(f"6a warmup={warm}", res[2])
+            del res, left, right
+        finally:
+            torch.distributed.destroy_process_group()
+    log("warmup_first_join", smoke_phase="6a", backend=backend, ranks=1, **out, card=smi)
+    return out
+
+
 # --- process worlds (phases 6a-6c) ---------------------------------------
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -3240,6 +4019,11 @@ def world_rank(spec_json: str) -> int:
             if dev.type == "cuda":
                 torch.cuda.empty_cache()  # four processes share the card
             result["two_level"] = two_level_rank(dj, dev, spec, left, lcnt, right, rcnt)
+        if spec.get("chain_rows"):
+            del left, right
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            result["chain"] = chain_rank(dj, dev, topo, spec)
         print("RESULT " + json.dumps(result), flush=True)
     finally:
         torch.distributed.destroy_process_group()
@@ -3365,15 +4149,18 @@ def two_level_rank(dj, dev, spec: dict, left, lcnt, right, rcnt) -> dict:
 def run_process_world(world: int, backend: str, device: str, rows: int, seed: int, *,
                       odf: int = 1, reps: int = 3, timeout: float = 600.0,
                       local_ranks: bool = False, intra: Optional[int] = None,
-                      shuffle_rows: int = 0, broadcast: bool = False) -> list:
+                      shuffle_rows: int = 0, broadcast: bool = False,
+                      chain_rows: int = 0) -> list:
     """Phases 6b and 6c: ``world`` processes of ``world_rank``; returns
     their RESULT objects by rank. Every process must end with code 0 and
     print one; the flag matrices must be equal on all. With ``intra``
     each process also runs ``two_level_rank`` (``shuffle_rows`` rows of
-    phase 4f's table), with ``broadcast`` ``broadcast_rank``."""
+    phase 4f's table), with ``broadcast`` ``broadcast_rank``, with
+    ``chain_rows`` ``chain_rank``."""
     spec = json.dumps({"backend": backend, "device": device, "rows": rows, "seed": seed,
                        "odf": odf, "reps": reps, "intra": intra,
-                       "shuffle_rows": shuffle_rows, "broadcast": broadcast})
+                       "shuffle_rows": shuffle_rows, "broadcast": broadcast,
+                       "chain_rows": chain_rows})
     code = "import sys, chip_smoke; sys.exit(chip_smoke.world_rank(sys.argv[1]))"
     outs = spawn_world(world, ["-c", code, spec], timeout=timeout, local_ranks=local_ranks)
     results = []
@@ -3632,6 +4419,7 @@ TPCH_ORDERS = 18_750_000
 TPCH_LINEITEMS_PER_ORDER = 4.0
 CHAR_FIT = 5.0  # char_out_factor of 8a: the lineitems copy each order's priority ~4 times
 CHAR_FIT_KEYS = 2.0  # 8c: each customer's segment is copied ~1.25 times
+CHAR_FIT_Q3 = 6.0  # 8g: customer's char capacity over its bytes (each segment copied ~5 times)
 
 
 class PassTimer:
@@ -4010,6 +4798,7 @@ def main() -> int:
     ap.add_argument("--orders", type=int, default=TPCH_ORDERS,
                     help="orders of phase 8's TPC-H split (default one GPU's share of SF 100)")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card", file=sys.stderr)
         return 1
@@ -4286,6 +5075,14 @@ def main() -> int:
     world_launches.update(plan_launches)
     torch.cuda.empty_cache()
 
+    # The warmups; 4j. a two-stage chain with a local stage in 4d's world;
+    # 4k. the coalesced unprepared dispatch with shape buckets
+    run_warmups(dj, dev, smi)
+    world_launches.update(run_pipeline_chain(dj, dev, build, probe, expected, ref, rows, smi))
+    torch.cuda.empty_cache()
+    world_launches.update(run_coalesced_bucketed(dj, dev, build, probe, rows, smi))
+    torch.cuda.empty_cache()
+
     # 5. prepared path: prepare once, query under each merge tier
     prep_walls, query_walls = {}, {}
     for odf in (1, 4):
@@ -4373,6 +5170,11 @@ def main() -> int:
                                              expected, ref, rows, smi))
     torch.cuda.empty_cache()
 
+    # 5f. the coalesced prepared dispatch in 4d's world
+    world_launches.update(run_coalesced_prepared(dj, dev, gen, build, probe, expected, ref, rows,
+                                                 smi))
+    torch.cuda.empty_cache()
+
     # 5b. unsigned keys and payloads
     check_unsigned_path(dj, topo, gen, dev, min(rows, 1_000_000))
     torch.cuda.empty_cache()
@@ -4392,17 +5194,29 @@ def main() -> int:
     world_launches.update(append_world)
 
     # 8e. the prepared side with string columns, on phase 8's split
-    orders, lineitem, _, _ = tpch_tables(dj, dev, args.seed, args.orders)
+    orders, lineitem, customer, n_cust = tpch_tables(dj, dev, args.seed, args.orders)
     li_sorted = torch.sort(lineitem_words(*(c.data for c in lineitem.columns))).values
     tpch_launches, tpch_world = run_prepared_strings(dj, dev, orders, lineitem, li_sorted, smi)
     launch_table.update(tpch_launches)
     world_launches.update(tpch_world)
-    del orders, lineitem, li_sorted
+    del li_sorted
+    torch.cuda.empty_cache()
+
+    # 8g. TPC-H Q3's joins as one pipeline, on phase 8's split
+    tpch_launches, tpch_world = run_q3_pipeline(dj, dev, orders, lineitem, customer, n_cust, smi)
+    launch_table.update(tpch_launches)
+    world_launches.update(tpch_world)
+    del orders, lineitem, customer
     torch.cuda.empty_cache()
 
     # 6a. a process world of one over NCCL
     process1_launches = process_world_of_one(dj, dev, "nccl", build, probe, expected, ref, rows, smi)
     del ref
+    torch.cuda.empty_cache()
+    first_join_with_warmup(dj, dev, "nccl", build, probe, smi)
+    torch.cuda.empty_cache()
+    chain_rows = min(CHAIN_ROWS, rows)
+    chain_want = chain_in_one_process(dj, dev, chain_rows, args.seed)
     torch.cuda.empty_cache()
 
     # 6b. four processes on this card over gloo, phase 4d's blocks, then
@@ -4410,10 +5224,15 @@ def main() -> int:
     t_6b = time.perf_counter()
     parent_bytes = torch.cuda.memory_reserved()
     process4 = run_process_world(WORLD, "gloo", "cuda", rows, args.seed, intra=INTRA,
-                                 shuffle_rows=rows, broadcast=True)
+                                 shuffle_rows=rows, broadcast=True, chain_rows=chain_rows)
     check_process_world("6b", process4, world_digests, expected, 1)
     check_broadcast_processes("6b", process4, plan_digests, expected, 1)
     check_two_level_processes("6b", process4, two_level_digests, shuffle_digests, expected, 1)
+    check_chain_processes("6b", process4, chain_want)
+    log("process_world_chain", smoke_phase="6b", backend="gloo", ranks=WORLD, odf=1,
+        rows=chain_rows, plan=chain_want["plan"], plans_equal=True, flags="all False",
+        digests=[res["chain"]["digest"] for res in process4], digests_equal_one_process=True,
+        launches_by_rank=[res["chain"]["launches"] for res in process4], card=smi)
     log("process_world", smoke_phase="6b", backend="gloo", ranks=WORLD, device=str(dev),
         transport=process4[0]["transport"], host_staged_calls=process4[0]["host_staged_calls"],
         rows_per_rank=rows // WORLD, odf=1, flags="all False", total=expected,
@@ -4779,10 +5598,13 @@ def main() -> int:
             [res["launches"][k["name"]] for res in process4] if on_path else [])
         k["launches_process4_gloo_broadcast_by_rank"] = (
             [res["broadcast"]["launches"][k["name"]] for res in process4] if on_path else [])
+        k["launches_process4_gloo_chain_by_rank"] = (
+            [res["chain"]["launches"][k["name"]] for res in process4] if on_path else [])
         if process_n is not None:
             k["launches_process_nccl_by_rank"] = (
                 [res["launches"][k["name"]] for res in process_n] if on_path else [])
         k["ptxas"] = ptxas_resources(k["source"])
+    log("total", seconds=round(time.perf_counter() - t_start, 1), card=smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -71,6 +71,17 @@ plan (the build side all-gathered to every rank, no all-to-all), the
 salted plan (a heavy destination's rows scattered over salt peers) and
 the shuffle plan; ``prepare_join_side`` builds on the tier
 ``DJT_PREPARED_TIER`` names (shuffle, broadcast, salted or auto).
+
+The composition layers: ``distributed_join_pipeline`` (and its healing
+``_auto``) chains joins (``JoinStage``) with each intermediate on the
+device, planned by ``plan_pipeline``: a stage whose sides are already
+co-partitioned joins with no collective, a small right side is
+broadcast, a PreparedSide is queried. ``distributed_inner_join_coalesced``
+(against a PreparedSide) and ``distributed_inner_join_coalesced_unprepared``
+serve K same-shaped queries with one exchange epoch a batch;
+``DJT_SHAPE_BUCKET=1`` (``shape_bucket``) pads near-miss shapes to one
+bucket so they group. ``warmup_all_to_all`` and ``warmup_prepared_join``
+pay the set-up costs before timing.
 """
 
 from .compress import (
@@ -126,12 +137,21 @@ from .parallel.dist_join import (
     combine_prepared_source,
     distributed_inner_join,
     distributed_inner_join_auto,
+    distributed_inner_join_coalesced,
+    distributed_inner_join_coalesced_unprepared,
     prepare_join_side,
+)
+from .parallel.pipeline import (
+    JoinStage,
+    distributed_join_pipeline,
+    distributed_join_pipeline_auto,
+    plan_pipeline,
 )
 from .parallel.shuffle import shuffle_on, shuffle_on_auto
 from .parallel import plan_adapt  # noqa: F401 - the planner's namespace, as in dj_tpu
+from .parallel import shape_bucket  # noqa: F401 - the shape grid's namespace, as in dj_tpu
 from .parallel.topology import CommunicationGroup, Topology, largest_intra_size, make_topology
-from .parallel.warmup import warmup_compression
+from .parallel.warmup import warmup_all_to_all, warmup_compression, warmup_prepared_join
 from . import resilience
 from .resilience import (
     AdmissionRejected,
@@ -167,6 +187,7 @@ __all__ = [
     "HASH_MURMUR3",
     "HealBudget",
     "JoinConfig",
+    "JoinStage",
     "PlanMismatch",
     "PreparedPlanMismatch",
     "PreparedSide",
@@ -185,6 +206,10 @@ __all__ = [
     "distribute_table",
     "distributed_inner_join",
     "distributed_inner_join_auto",
+    "distributed_inner_join_coalesced",
+    "distributed_inner_join_coalesced_unprepared",
+    "distributed_join_pipeline",
+    "distributed_join_pipeline_auto",
     "dtypes",
     "from_arrays",
     "from_strings",
@@ -200,6 +225,7 @@ __all__ = [
     "largest_intra_size",
     "make_topology",
     "murmur3_32",
+    "plan_pipeline",
     "prepare_join_side",
     "process_count",
     "process_index",
@@ -210,5 +236,7 @@ __all__ = [
     "shuffle_on_auto",
     "to_strings",
     "unshard_table",
+    "warmup_all_to_all",
     "warmup_compression",
+    "warmup_prepared_join",
 ]

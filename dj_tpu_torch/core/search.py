@@ -1,10 +1,10 @@
 """Rank queries against a sorted vector.
 
-Counterpart of ``dj_tpu/core/search.py:25-60, 97-174``. The JAX package
-builds the ``arange`` queries from a scatter-add histogram and the run
-ranks from an unrolled gather loop, because XLA's searchsorted is a
-slow gather loop on a TPU; here ``torch.searchsorted`` is the direct
-form of both. Every function requires its sorted operand ascending
+Counterpart of ``dj_tpu/core/search.py``. The JAX package builds the
+``arange`` queries from a scatter-add histogram, the run ranks from an
+unrolled gather loop and ``rank_in_sorted`` from one stable sort,
+because XLA's searchsorted is a slow gather loop on a TPU; here
+``torch.searchsorted`` is the direct form of all three. Every function requires its sorted operand ascending
 under the tensor's own (signed) order: a caller holding u64 words as
 int64 bit patterns maps them to an order-preserving image first.
 """
@@ -52,6 +52,16 @@ def rank_in_run(
     return torch.searchsorted(
         sorted_ref, queries, right=side == "right", out_int32=True
     )
+
+
+def rank_in_sorted(
+    sorted_ref: torch.Tensor, queries: torch.Tensor, side: str = "left"
+) -> torch.Tensor:
+    """Position of each query in a sorted reference array, int32: the
+    ``searchsorted(sorted_ref, queries, side)`` of dj_tpu's
+    ``rank_in_sorted`` (core/search.py:62-93), which computes by a sort
+    what ``rank_in_run`` computes by a search."""
+    return rank_in_run(sorted_ref, queries, side)
 
 
 def run_bounds(

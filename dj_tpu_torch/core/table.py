@@ -68,9 +68,36 @@ def take_fill(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     the ``mode="fill"`` gather the JAX package uses throughout."""
     n = data.shape[0]
     if n == 0:
-        return torch.zeros(idx.shape, dtype=data.dtype, device=data.device)
+        return torch.zeros(idx.shape + data.shape[1:], dtype=data.dtype, device=data.device)
     bad = (idx < 0) | (idx >= n)
+    if data.dim() > 1:  # a row gather: fill whole rows
+        bad = bad.reshape(bad.shape + (1,) * (data.dim() - 1))
     return gather_fill(data, idx.clamp(0, n - 1), bad)
+
+
+_INT_OF_SIZE = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def gather_rows(cols: Sequence[Column], idx: torch.Tensor) -> list[Column]:
+    """The rows ``idx`` of several fixed-width columns (dj_tpu's
+    ``gather_rows``, core/table.py:118-153): the columns of one element
+    width move as one [n, k] stack of their same-width int bits, one
+    gather a width; out-of-range indices give 0, as ``take_fill``."""
+    by_width: dict[int, list[int]] = {}
+    for pos, c in enumerate(cols):
+        by_width.setdefault(c.data.element_size(), []).append(pos)
+    out: list[Optional[Column]] = [None] * len(cols)
+    for width, positions in by_width.items():
+        if len(positions) == 1:
+            c = cols[positions[0]]
+            out[positions[0]] = Column(take_fill(c.data, idx), c.dtype)
+            continue
+        stacked = torch.stack([cols[p].data.view(_INT_OF_SIZE[width]) for p in positions], dim=-1)
+        rows = take_fill(stacked, idx)
+        for k, p in enumerate(positions):
+            c = cols[p]
+            out[p] = Column(rows[..., k].contiguous().view(c.data.dtype), c.dtype)
+    return out  # type: ignore[return-value]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -188,6 +188,21 @@ def canonical_key_range(key_range, dtypes):
     return tuple(out)
 
 
+def intersect_key_ranges(a, b):
+    """Elementwise intersection of two normalized per-key ranges
+    (dj_tpu/ops/join.py:206-226): the bounds of an inner join's output
+    key columns, whose every value exists on both sides. A disjoint pair
+    (the join is empty) collapses to the point at the higher low; either
+    side None gives None."""
+    if a is None or b is None:
+        return None
+    out = []
+    for (alo, ahi), (blo, bhi) in zip(a, b):
+        lo, hi = max(alo, blo), min(ahi, bhi)
+        out.append((lo, max(lo, hi)))
+    return tuple(out)
+
+
 def _to_unsigned_order(x: torch.Tensor) -> torch.Tensor:
     """Order-preserving map of an integer column to u64 bits (int64
     tensor): signed values get their sign bit flipped."""

@@ -53,8 +53,15 @@ rotated windows in the same exchange epoch) or shuffle.
 (or ``tier=``) names: shuffle, broadcast (one replicated batch a rank,
 queried with no collective), salted, or auto. A two-level topology stays
 on shuffle. Every tier returns the shuffle plan's flag keys, so the heal
-is tier-blind. Shape bucketing, the roofline phases and the degradation
-guard come with later slices.
+is tier-blind. Under ``DJT_SHAPE_BUCKET=1`` (``parallel.shape_bucket``)
+every entry point pads its tables to their shape bucket first. The
+roofline phases and the degradation guard come with the serving stack.
+
+The co-partitioned join (``TIER_LOCAL``) and the coalesced dispatches
+(``distributed_inner_join_coalesced`` against a PreparedSide,
+``distributed_inner_join_coalesced_unprepared``: K same-shaped queries,
+each odf batch's K exchanges in one epoch) serve the composition layers
+(``parallel.pipeline``).
 
 ``distributed_inner_join_auto`` is the entry point that answers any
 input: it runs the join under the heal engine (``resilience.heal``),
@@ -71,6 +78,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import warnings
+import weakref
 from typing import NamedTuple, Optional, Sequence, Type
 
 import torch
@@ -103,13 +111,8 @@ from ..resilience import ledger as dj_ledger
 from ..resilience.errors import PreparedPlanMismatch
 from ..resilience.heal import HealBudget
 from ..ops import hashing
-from . import plan_adapt
-from .all_to_all import (
-    broadcast_table,
-    shuffle_table,
-    shuffle_table_start,
-    shuffle_tables_start,
-)
+from . import plan_adapt, shape_bucket
+from .all_to_all import broadcast_table, shuffle_table, shuffle_tables_start
 from .communicator import Communicator, XlaCommunicator
 from .shuffle import STAT_KEYS, _local_shuffle, _local_shuffle_pair
 from .spmd import run_spmd
@@ -229,100 +232,130 @@ def _local_join_pipeline(
     flat topologies only) the left partition ids are salted over
     ``replicas`` peers and each batch's exchange carries the build
     side's rotated windows (``_salt_windows``), concatenated into the
-    batch's right table (dj_tpu's ``_build_salted_join_fn``)."""
-    dev = left.device
+    batch's right table (dj_tpu's ``_build_salted_join_fn``). The one
+    member of ``_shuffle_join_members``."""
+    return _shuffle_join_members(comm, [(left, right)], left_on, right_on, config, l_cap, r_cap,
+                                 key_range, salt, replicas)[0]
+
+
+def _shuffle_join_members(
+    comm: Communicator, pairs: Sequence[tuple[Table, Table]], left_on: Sequence[int],
+    right_on: Sequence[int], config: JoinConfig, l_cap: int, r_cap: int,
+    key_range: Optional[tuple] = None, salt: tuple = (), replicas: int = 1,
+) -> list[tuple[Table, dict]]:
+    """The shuffle plan of K same-shaped joins on one rank (one for
+    ``_local_join_pipeline``; K for the coalesced unprepared dispatch,
+    dj_tpu's ``_build_coalesced_join_fn``): each member's two tables
+    pre-shuffled (two-level topologies) and partitioned, then per batch
+    every member's windows in ONE exchange epoch (batch b+1's issued
+    before batch b's joins) and each member's join. Returns (result,
+    flags) per member."""
+    pairs = list(pairs)
+    dev = pairs[0][0].device
     no = torch.tensor(False, device=dev)
-    pre_ovf = no
-    pre_stats: dict = {}
+    k = len(pairs)
+    pre_ovf = [no] * k
+    pre_stats: list = [{} for _ in range(k)]
     if INTER in comm.axes:
         inter = comm.sub(INTER)
         l_pre_cap = max(1, int(l_cap * config.pre_shuffle_out_factor))
         r_pre_cap = max(1, int(r_cap * config.pre_shuffle_out_factor))
-        # Both tables' pre-shuffles share one epoch.
-        with comm.phase_scope("dj_pre_shuffle"):
-            (left, _, l_ovf, l_stats), (right, _, r_ovf, r_stats) = _local_shuffle_pair(
-                left, right, inter, left_on, right_on, hashing.HASH_MURMUR3,
-                INTER_DOMAIN_SEED,
-                max(1, int(l_cap * config.bucket_factor / inter.size)),
-                max(1, int(r_cap * config.bucket_factor / inter.size)),
-                l_pre_cap, r_pre_cap, config.left_compression, config.right_compression,
-            )
-        pre_ovf = l_ovf | r_ovf
-        pre_stats = _pre_shuffle_stats(l_stats, r_stats)
+        for q, (left, right) in enumerate(pairs):
+            # Both tables' pre-shuffles share one epoch.
+            with comm.phase_scope("dj_pre_shuffle"):
+                (left, _, l_ovf, l_stats), (right, _, r_ovf, r_stats) = _local_shuffle_pair(
+                    left, right, inter, left_on, right_on, hashing.HASH_MURMUR3,
+                    INTER_DOMAIN_SEED,
+                    max(1, int(l_cap * config.bucket_factor / inter.size)),
+                    max(1, int(r_cap * config.bucket_factor / inter.size)),
+                    l_pre_cap, r_pre_cap, config.left_compression, config.right_compression,
+                )
+            pairs[q] = (left, right)
+            pre_ovf[q] = l_ovf | r_ovf
+            pre_stats[q] = _pre_shuffle_stats(l_stats, r_stats)
         l_cap, r_cap = l_pre_cap, r_pre_cap
     n = comm.size
     m, _, _, bl, br, batch_out_cap = batch_sizing(config, n, l_cap, r_cap)
-    comm.phase("dj_partition")
-    if salt:
-        l_pid = salted_partition_ids(partition_ids(left, left_on, m, seed=MAIN_JOIN_SEED), m, n,
-                                     salt, replicas)
-        l_part, l_offsets = partition_by_ids(left, l_pid, m)
-    else:
-        l_part, l_offsets = hash_partition(left, left_on, m, seed=MAIN_JOIN_SEED)
-    r_part, r_offsets = hash_partition(right, right_on, m, seed=MAIN_JOIN_SEED)
+    parts = []
+    for left, right in pairs:
+        comm.phase("dj_partition")
+        if salt:
+            l_pid = salted_partition_ids(partition_ids(left, left_on, m, seed=MAIN_JOIN_SEED), m,
+                                         n, salt, replicas)
+            l_part, l_offsets = partition_by_ids(left, l_pid, m)
+        else:
+            l_part, l_offsets = hash_partition(left, left_on, m, seed=MAIN_JOIN_SEED)
+        parts.append((l_part, l_offsets) + hash_partition(right, right_on, m, seed=MAIN_JOIN_SEED))
+    del pairs
 
     def issue(b: int):
         # Batch b moves partitions [b*n, (b+1)*n); partition p lands on
-        # group peer p - b*n.
+        # group peer p - b*n. Member q's tables are its left, its right
+        # and the right's salt windows, in that order.
         lo, hi = b * n, (b + 1) * n
-        l_starts = l_offsets[lo:hi]
-        r_starts = r_offsets[lo:hi]
-        r_cnt = r_offsets[lo + 1 : hi + 1] - r_starts
-        windows = _salt_windows(b, n, r_starts, r_cnt, salt, replicas) if salt else []
+        tables, starts, cnts, brows, caps, sizes = [], [], [], [], [], []
+        for l_part, l_offsets, r_part, r_offsets in parts:
+            l_starts = l_offsets[lo:hi]
+            r_starts = r_offsets[lo:hi]
+            r_cnt = r_offsets[lo + 1 : hi + 1] - r_starts
+            windows = _salt_windows(b, n, r_starts, r_cnt, salt, replicas) if salt else []
+            tables += [l_part, r_part] + [r_part] * len(windows)
+            starts += [l_starts, r_starts] + [st for st, _ in windows]
+            cnts += [l_offsets[lo + 1 : hi + 1] - l_starts, r_cnt] + [ct for _, ct in windows]
+            brows += [bl] + [br] * (1 + len(windows))
+            caps += [n * bl] + [n * br] * (1 + len(windows))
+            sizes.append(2 + len(windows))
         comm.phase("dj_exchange")
-        return shuffle_tables_start(
-            comm,
-            [l_part, r_part] + [r_part] * len(windows),
-            [l_starts, r_starts] + [st for st, _ in windows],
-            [l_offsets[lo + 1 : hi + 1] - l_starts, r_cnt] + [ct for _, ct in windows],
-            [bl] + [br] * (1 + len(windows)),
-            [n * bl] + [n * br] * (1 + len(windows)),
-        )
+        return shuffle_tables_start(comm, tables, starts, cnts, brows, caps), sizes
 
-    shuffle_ovf = join_ovf = char_ovf = pack_ovf = coll = no
-    batch_results = []
+    flags = [dict.fromkeys(("shuffle_overflow", "join_overflow", "char_overflow",
+                            "surrogate_collision", "pack_range_overflow"), no) for _ in range(k)]
+    batch_results: list = [[] for _ in range(k)]
     odf = config.over_decom_factor
     inflight = issue(0)
     for b in range(odf):
-        # Batch b+1's exchange is issued before batch b's join.
+        # Batch b+1's exchange is issued before batch b's joins.
         prefetch = issue(b + 1) if b + 1 < odf else None
-        (l_batch, _, l_ovf, _), *r_parts = inflight.wait()
+        pending, sizes = inflight
+        received = pending.wait()
         inflight = prefetch
-        shuffle_ovf = shuffle_ovf | l_ovf
-        for _, _, r_ovf, _ in r_parts:
-            shuffle_ovf = shuffle_ovf | r_ovf
-        if len(r_parts) == 1:
-            r_batch = r_parts[0][0]
-        else:
-            comm.phase("dj_salt_concat")
-            r_batch = concatenate([t for t, _, _, _ in r_parts])
-        del r_parts
-        comm.phase("dj_join")
-        result, total, jflags = inner_join(
-            l_batch, r_batch, left_on, right_on,
-            out_capacity=batch_out_cap,
-            char_out_factor=config.char_out_factor,
-            return_flags=True,
-            key_range=key_range,
-        )
-        del l_batch, r_batch
-        join_ovf = join_ovf | (total > batch_out_cap)
-        coll = coll | jflags["surrogate_collision"]
-        pack_ovf = pack_ovf | jflags["pack_range_overflow"]
-        char_ovf = _char_overflow(result, char_ovf)
-        batch_results.append(result)
-    comm.phase("dj_concat")
-    out = batch_results[0] if len(batch_results) == 1 else concatenate(batch_results)
-    flags = {
-        "pre_shuffle_overflow": pre_ovf,
-        "shuffle_overflow": shuffle_ovf,
-        "join_overflow": join_ovf,
-        "char_overflow": char_ovf,
-        "surrogate_collision": coll,
-        "pack_range_overflow": pack_ovf,
-        **pre_stats,
-    }
-    return out, flags
+        at = 0
+        for q, size in enumerate(sizes):
+            (l_batch, _, l_ovf, _), *r_parts = received[at : at + size]
+            received[at : at + size] = [None] * size  # free the batch after its join
+            at += size
+            f = flags[q]
+            f["shuffle_overflow"] = f["shuffle_overflow"] | l_ovf
+            for _, _, r_ovf, _ in r_parts:
+                f["shuffle_overflow"] = f["shuffle_overflow"] | r_ovf
+            if len(r_parts) == 1:
+                r_batch = r_parts[0][0]
+            else:
+                comm.phase("dj_salt_concat")
+                r_batch = concatenate([t for t, _, _, _ in r_parts])
+            del r_parts
+            comm.phase("dj_join")
+            result, total, jflags = inner_join(
+                l_batch, r_batch, left_on, right_on,
+                out_capacity=batch_out_cap,
+                char_out_factor=config.char_out_factor,
+                return_flags=True,
+                key_range=key_range,
+            )
+            del l_batch, r_batch
+            f["join_overflow"] = f["join_overflow"] | (total > batch_out_cap)
+            f["surrogate_collision"] = f["surrogate_collision"] | jflags["surrogate_collision"]
+            f["pack_range_overflow"] = f["pack_range_overflow"] | jflags["pack_range_overflow"]
+            f["char_overflow"] = _char_overflow(result, f["char_overflow"])
+            batch_results[q].append(result)
+        del received
+    out = []
+    for q in range(k):
+        comm.phase("dj_concat")
+        res = batch_results[q]
+        out.append((res[0] if len(res) == 1 else concatenate(res),
+                    {"pre_shuffle_overflow": pre_ovf[q], **flags[q], **pre_stats[q]}))
+    return out
 
 
 def _pre_shuffle_stats(*stats: dict) -> dict:
@@ -483,6 +516,42 @@ def _world_minmax(topology: Optional[Topology], ranges: list) -> list:
             for j in range(len(ranges))]
 
 
+# The range probe's memo (dj_tpu's ``_memo_minmax``, dist_join.py:594-625):
+# (min, max) of a column's valid rows by the (id, version) of the column
+# and of its counts. A version is bumped by every in-place write, so a
+# written column is probed again; an entry is evicted when either tensor
+# dies, so a recycled id never serves another column's range. Bounded:
+# past the cap a probe is not kept. In a process world the value kept is
+# the world's, and every process probes the same columns in the same
+# order, so the misses, each one gather of Python ints over the
+# processes, line up on every process.
+_MINMAX_CACHE: dict = {}
+_MINMAX_CACHE_MAX = 4096
+range_probes = 0  # memo misses: range probes taken (dj_tpu's dj_range_probe_total)
+
+
+def _memo_minmax(data: torch.Tensor, counts: torch.Tensor, w: int,
+                 topology: Optional[Topology] = None) -> tuple[int, int]:
+    """``_masked_minmax`` of ``data`` over the world, memoized (above).
+    A shape-bucket pad resolves to its source column first
+    (``shape_bucket.alias_base``): the pad appends masked rows only."""
+    global range_probes
+    base = shape_bucket.alias_base(data)
+    if base is not None:
+        data = base
+    key = (id(data), data._version, id(counts), counts._version, w)
+    hit = _MINMAX_CACHE.get(key)
+    if hit is not None:
+        return hit
+    range_probes += 1
+    val = _world_minmax(topology, [_masked_minmax(data, counts, w)])[0]
+    if len(_MINMAX_CACHE) < _MINMAX_CACHE_MAX:
+        _MINMAX_CACHE[key] = val
+        for obj in (data, counts):
+            weakref.finalize(obj, _MINMAX_CACHE.pop, key, None)
+    return val
+
+
 def _resolve_key_range(
     config: JoinConfig, left: Table, left_counts: torch.Tensor,
     right: Table, right_counts: torch.Tensor,
@@ -499,7 +568,8 @@ def _resolve_key_range(
     ``DJ_JOIN_RANGE_PROBE``: a 64-bit key's fit is then checked on the
     host in the join) and ``DJT_JOIN_PACK=0``. ``w`` is the number of shards the tables
     here hold; in a process world (``topology``) the ranges of every
-    process's shards are reduced."""
+    process's shards are reduced. Each column's range comes from the
+    memo (``_memo_minmax``)."""
     if config.key_range is not None:
         return normalize_key_range(config.key_range, len(left_on))
     if os.environ.get("DJT_JOIN_RANGE_PROBE", "1") != "1":
@@ -517,12 +587,11 @@ def _resolve_key_range(
         cols.append((a, b))
     if len(cols) == 1 and cols[0][0].element_size() * 8 <= 32:
         return None
-    local = []
+    ranges = []
     for a, b in cols:
-        amn, amx = _masked_minmax(a, left_counts, w)
-        bmn, bmx = _masked_minmax(b, right_counts, w)
-        local.append((min(amn, bmn), max(amx, bmx)))
-    ranges = _world_minmax(topology, local)
+        amn, amx = _memo_minmax(a, left_counts, w, topology)
+        bmn, bmx = _memo_minmax(b, right_counts, w, topology)
+        ranges.append((min(amn, bmn), max(amx, bmx)))
     if any(mx < mn for mn, mx in ranges):
         return None
     return canonical_key_range(tuple(ranges), [dt.numpy_dtype(a.dtype) for a, _ in cols])
@@ -590,30 +659,83 @@ def distributed_inner_join(
             f"leaves at least one shard with zero capacity; pad the "
             f"table to >= 1 row per shard"
         )
+    # Shape bucketing (DJT_SHAPE_BUCKET=1): both tables pad to their
+    # bucket before the sizing, the signatures and the range probe.
+    left = shape_bucket.bucket_table(topology, left)
+    right = shape_bucket.bucket_table(topology, right)
     key_range = _resolve_key_range(
         config, left, left_counts, right, right_counts, left_on, right_on, w, topology
     )
     left_on, right_on = tuple(left_on), tuple(right_on)
-    l_cap, r_cap = left.capacity // w, right.capacity // w
     decision = _resolve_plan_decision(topology, left, left_counts, right, right_counts, left_on,
                                       right_on, config)
+    return _run_join(topology, decision.tier, left, left_counts, right, right_counts, left_on,
+                     right_on, config, key_range, decision.salt, decision.replicas)
 
+
+TIER_LOCAL = "local"  # the pipeline's co-partitioned join (parallel.pipeline)
+
+
+def _run_join(
+    topology: Topology, tier: str, left: Table, left_counts: torch.Tensor, right: Table,
+    right_counts: torch.Tensor, left_on: tuple, right_on: tuple, config: JoinConfig,
+    key_range: Optional[tuple], salt: tuple = (), replicas: int = 1,
+) -> tuple[Table, torch.Tensor, dict]:
+    """One unprepared join's ranks on ``tier``: the shuffle plan
+    (``_local_join_pipeline``; salted with a ``salt`` set), the broadcast
+    plan (``_broadcast_join_pipeline``) or the co-partitioned local join
+    (``TIER_LOCAL``, ``_copartitioned_join``). Returns (result, counts,
+    info by ``_flag_keys``)."""
+    w = topology.local_ranks
+    l_cap, r_cap = left.capacity // w, right.capacity // w
     keys = _flag_keys(config)
 
     def run(comm, lt, lc, rt, rc):
         args = (comm, lt.with_count(lc[0]), rt.with_count(rc[0]), left_on, right_on, config,
                 l_cap, r_cap, key_range)
-        if decision.tier == plan_adapt.TIER_BROADCAST:
+        if tier == plan_adapt.TIER_BROADCAST:
             out, flags = _broadcast_join_pipeline(*args)
-        elif decision.tier == plan_adapt.TIER_SALTED:
-            out, flags = _local_join_pipeline(*args, decision.salt, decision.replicas)
+        elif tier == TIER_LOCAL:
+            out, flags = _copartitioned_join(*args)
         else:
-            out, flags = _local_join_pipeline(*args)
+            out, flags = _local_join_pipeline(*args, salt, replicas)
         return out.with_count(None), out.count().reshape(1), _flag_row(flags, keys)
 
     out, counts, flag_mat = run_spmd(topology, run, left, left_counts, right, right_counts,
                                      **_backend(config))
     return out, counts, _flag_info(flag_mat, keys)
+
+
+def _copartitioned_join(
+    comm: Communicator, left: Table, right: Table, left_on: Sequence[int],
+    right_on: Sequence[int], config: JoinConfig, l_cap: int, r_cap: int,
+    key_range: Optional[tuple] = None,
+):
+    """One rank's co-partitioned ("local") join (dj_tpu's
+    ``_build_local_join_fn``, dist_join.py:972-1040): both shards are
+    already hash-partitioned by the join key under the main seed, so equal
+    keys lie on one rank and the global join is the ranks' own joins. One
+    ``inner_join`` of the two shards at ``join_out_factor * max(l_cap,
+    r_cap)`` rows; no partition and no collective of any kind. The
+    shuffle flags are constant False."""
+    out_cap = max(1, int(config.join_out_factor * max(l_cap, r_cap)))
+    comm.phase("dj_join")
+    result, total, jflags = inner_join(
+        left, right, left_on, right_on,
+        out_capacity=out_cap,
+        char_out_factor=config.char_out_factor,
+        return_flags=True,
+        key_range=key_range,
+    )
+    no = torch.tensor(False, device=left.device)
+    return result, {
+        "pre_shuffle_overflow": no,
+        "shuffle_overflow": no,
+        "join_overflow": total > out_cap,
+        "char_overflow": _char_overflow(result, no),
+        "surrogate_collision": jflags["surrogate_collision"],
+        "pack_range_overflow": jflags["pack_range_overflow"],
+    }
 
 
 def _backend(config: JoinConfig, flags_at: int = 2) -> dict:
@@ -1073,10 +1195,9 @@ def _resolve_prepared_tier(
 
 def _probe_side_range(table: Table, counts: torch.Tensor, on, topology: Topology):
     """Per-key (min, max) physical bounds of one side's valid rows over
-    the world, or None when the side is empty."""
-    ranges = _world_minmax(topology, [
-        _masked_minmax(table.columns[c].data, counts, topology.local_ranks) for c in on
-    ])
+    the world (memoized), or None when the side is empty."""
+    ranges = [_memo_minmax(table.columns[c].data, counts, topology.local_ranks, topology)
+              for c in on]
     if any(mx < mn for mn, mx in ranges):
         return None
     return tuple(ranges)
@@ -1124,7 +1245,9 @@ def prepare_join_side(
     salted ``n bl + replicas n br``. A replication tier that does not
     fit (the budget, the salt geometry, an S that does not pack) is
     demoted to shuffle for this signature instead of failing the
-    prepare. Shape bucketing comes with a later slice.
+    prepare. Under ``DJT_SHAPE_BUCKET=1`` the build side is padded to its
+    shape bucket (``parallel.shape_bucket``) and ``left_capacity``
+    rounded up to its own.
     """
     if config is None:
         config = JoinConfig()
@@ -1135,9 +1258,15 @@ def prepare_join_side(
             f"shards here leaves a shard with zero capacity; pad the table to "
             f">= 1 row per shard"
         )
+    # Shape bucketing: the build side pads to its bucket, and the left
+    # capacity the tag field is sized for rounds up to its own, so every
+    # bucketed probe table of that bucket fits the prepared geometry.
+    right = shape_bucket.bucket_table(topology, right)
     r_cap = right.capacity // w
     l_cap = (max(1, left_capacity // topology.world_size) if left_capacity is not None
              else r_cap)
+    if shape_bucket.enabled():
+        l_cap = shape_bucket.bucket_capacity(l_cap)
     right_on = tuple(right_on)
     dtypes = []
     for c_idx in right_on:
@@ -1293,24 +1422,11 @@ def _prepared_query_sizing(
     return n, l_cap_m, bl, out_cap
 
 
-def _distributed_inner_join_prepared(
-    topology: Topology,
-    left: Table,
-    left_counts: torch.Tensor,
-    prepared: PreparedSide,
-    left_on: Sequence[int],
-    config: Optional[JoinConfig] = None,
-) -> tuple[Table, torch.Tensor, dict]:
-    """The per-query half of the prepared join: partition the probe
-    side, then per batch a single-table shuffle and
-    ``inner_join_prepared`` against the resident run; on a salted side
-    the probe rows are salted as the side's heavy partitions were
-    copied; on a broadcast side one local ``inner_join_prepared`` of
-    the rank's whole left shard, with no partition and no collective.
-    No range probe: the plan is pinned, and probe keys outside it raise
-    the prepared_plan_mismatch flag."""
-    if config is None:
-        config = prepared.config
+def _check_prepared_query(topology: Topology, left: Table, prepared: PreparedSide,
+                          left_on: Sequence[int], config: JoinConfig, what: str) -> tuple:
+    """A probe side's structural fit to ``prepared`` (the topology, the
+    odf, the key count and dtypes, a capacity of a row a shard): raises
+    PreparedPlanMismatch or ValueError; returns ``left_on`` as a tuple."""
     if topology != prepared.topology:
         raise PreparedPlanMismatch("query topology differs from the prepared side's")
     odf = config.over_decom_factor
@@ -1337,31 +1453,75 @@ def _distributed_inner_join_prepared(
     w = topology.local_ranks
     if left.capacity < w:
         raise ValueError(
-            f"distributed_inner_join(prepared): left capacity {left.capacity} "
+            f"{what}: left capacity {left.capacity} "
             f"< {w} shards here leaves a shard with zero capacity; pad the "
             f"table to >= 1 row per shard"
         )
-    l_cap = left.capacity // w
-    n, l_cap_m, bl, out_cap = _prepared_query_sizing(topology, config, l_cap, prepared)
+    return left_on
+
+
+def _distributed_inner_join_prepared(
+    topology: Topology,
+    left: Table,
+    left_counts: torch.Tensor,
+    prepared: PreparedSide,
+    left_on: Sequence[int],
+    config: Optional[JoinConfig] = None,
+) -> tuple[Table, torch.Tensor, dict]:
+    """The per-query half of the prepared join: partition the probe
+    side, then per batch a single-table shuffle and
+    ``inner_join_prepared`` against the resident run; on a salted side
+    the probe rows are salted as the side's heavy partitions were
+    copied; on a broadcast side one local ``inner_join_prepared`` of
+    the rank's whole left shard, with no partition and no collective.
+    No range probe: the plan is pinned, and probe keys outside it raise
+    the prepared_plan_mismatch flag. Under ``DJT_SHAPE_BUCKET=1`` the
+    probe side is padded to its shape bucket first."""
+    if config is None:
+        config = prepared.config
+    left_on = _check_prepared_query(topology, left, prepared, left_on, config,
+                                    "distributed_inner_join(prepared)")
+    left = shape_bucket.bucket_table(topology, left)
+    per_query, keys = _run_prepared_queries(topology, [left], [left_counts], prepared, left_on,
+                                            config)
+    out, counts, flag_mat = per_query
+    return out[0], counts[0], _flag_info(flag_mat[:, 0], keys)
+
+
+def _run_prepared_queries(
+    topology: Topology, lefts: Sequence[Table], left_counts: Sequence[torch.Tensor],
+    prepared: PreparedSide, left_on: tuple, config: JoinConfig,
+):
+    """K same-shaped queries against ``prepared`` in one run: per rank,
+    each member's pre-shuffle (two-level topologies), then
+    ``_prepared_query`` (every member's batch window in one epoch), or on
+    a broadcast side K local probes with no collective. Returns ((results,
+    counts, the [w, K, k] flag tensor), the flag keys)."""
+    odf = config.over_decom_factor
+    l_cap = lefts[0].capacity // topology.local_ranks
+    _, l_cap_m, bl, out_cap = _prepared_query_sizing(topology, config, l_cap, prepared)
     plan = prepared.plan
     keys = _prepared_flag_keys(config)
 
-    def run(comm, lt, lc, batches):
+    def run(comm, lts, lcs, batches):
+        lts = [lt.with_count(lc[0]) for lt, lc in zip(lts, lcs)]
         if prepared.tier == plan_adapt.TIER_BROADCAST:
-            out, flags = _bc_prepared_query(comm, lt.with_count(lc[0]), left_on, batches[0],
-                                            plan, out_cap, config.char_out_factor)
-            return out.with_count(None), out.count().reshape(1), _flag_row(flags, keys)
-        lt, pre_ovf, pre_stats = _pre_shuffle_one(comm, config, lt.with_count(lc[0]), left_on,
-                                                  l_cap, l_cap_m, config.left_compression)
-        out, flags = _prepared_query(comm, lt, left_on, batches, plan, odf, bl, out_cap,
-                                     config.char_out_factor, prepared.salt,
-                                     prepared.salt_replicas)
-        flags.update(pre_shuffle_overflow=pre_ovf, **pre_stats)
-        return out.with_count(None), out.count().reshape(1), _flag_row(flags, keys)
+            members = [_bc_prepared_query(comm, lt, left_on, batches[0], plan, out_cap,
+                                          config.char_out_factor) for lt in lts]
+        else:
+            pre = [_pre_shuffle_one(comm, config, lt, left_on, l_cap, l_cap_m,
+                                    config.left_compression) for lt in lts]
+            members = _prepared_query(comm, [lt for lt, _, _ in pre], left_on, batches, plan, odf,
+                                      bl, out_cap, config.char_out_factor, prepared.salt,
+                                      prepared.salt_replicas)
+            for (_, flags), (_, pre_ovf, pre_stats) in zip(members, pre):
+                flags.update(pre_shuffle_overflow=pre_ovf, **pre_stats)
+        return (tuple(out.with_count(None) for out, _ in members),
+                tuple(out.count().reshape(1) for out, _ in members),
+                torch.stack([_flag_row(flags, keys)[0] for _, flags in members])[None])
 
-    out, counts, flag_mat = run_spmd(topology, run, left, left_counts, prepared.batches,
-                                     **_backend(config))
-    return out, counts, _flag_info(flag_mat, keys)
+    return run_spmd(topology, run, tuple(lefts), tuple(left_counts), prepared.batches,
+                    **_backend(config)), keys
 
 
 def _bc_prepared_query(
@@ -1390,65 +1550,74 @@ def _bc_prepared_query(
 
 
 def _prepared_query(
-    comm: Communicator, left: Table, left_on: tuple, batches: tuple,
+    comm: Communicator, lefts: Sequence[Table], left_on: tuple, batches: tuple,
     plan: PreparedPackPlan, odf: int, bl: int, out_cap: int, char_out_factor: float,
     salt: tuple = (), replicas: int = 1,
-) -> tuple[Table, dict]:
-    """One rank's query (the body of dj_tpu's _build_prepared_query_fn,
-    after its pre-shuffle): partition the probe side, then per batch a
-    single-table shuffle and ``inner_join_prepared`` against the rank's
+) -> list[tuple[Table, dict]]:
+    """One rank's queries (the body of dj_tpu's _build_prepared_query_fn
+    after its pre-shuffle, and of _build_coalesced_query_fn for K
+    members): partition each probe side, then per batch ONE exchange
+    epoch of every member's window (batch b+1's issued before batch b's
+    joins) and each member's ``inner_join_prepared`` against the rank's
     resident run; each output string column's char_overflow raises the
     flag. With a ``salt`` set (a salted side, dj_tpu's
     ``_build_salted_prepared_query_fn``) the partition ids are salted
-    over ``replicas`` peers first."""
+    over ``replicas`` peers first. Returns (result, flags) per member."""
     n = comm.size
     m = n * odf
-    comm.phase("dj_partition")
-    if salt:
-        pid = salted_partition_ids(partition_ids(left, left_on, m, seed=MAIN_JOIN_SEED), m, n,
-                                   salt, replicas)
-        l_part, l_offsets = partition_by_ids(left, pid, m)
-    else:
-        l_part, l_offsets = hash_partition(left, left_on, m, seed=MAIN_JOIN_SEED)
+    parts = []
+    for left in lefts:
+        comm.phase("dj_partition")
+        if salt:
+            pid = salted_partition_ids(partition_ids(left, left_on, m, seed=MAIN_JOIN_SEED), m, n,
+                                       salt, replicas)
+            parts.append(partition_by_ids(left, pid, m))
+        else:
+            parts.append(hash_partition(left, left_on, m, seed=MAIN_JOIN_SEED))
+    k = len(parts)
 
     def issue(b: int):
-        starts = l_offsets[b * n : (b + 1) * n]
-        counts = l_offsets[b * n + 1 : (b + 1) * n + 1] - starts
+        starts = [offsets[b * n : (b + 1) * n] for _, offsets in parts]
+        counts = [offsets[b * n + 1 : (b + 1) * n + 1] - st
+                  for (_, offsets), st in zip(parts, starts)]
         comm.phase("dj_exchange")
-        return shuffle_table_start(comm, l_part, starts, counts, bl, n * bl)
+        return shuffle_tables_start(comm, [p for p, _ in parts], starts, counts, [bl] * k,
+                                    [n * bl] * k)
 
-    no = torch.tensor(False, device=left.device)
-    shuffle_ovf = join_ovf = char_ovf = mismatch = no
-    batch_results = []
+    no = torch.tensor(False, device=lefts[0].device)
+    flags = [{"pre_shuffle_overflow": no, "shuffle_overflow": no, "join_overflow": no,
+              "char_overflow": no, "prepared_plan_mismatch": no} for _ in range(k)]
+    batch_results: list = [[] for _ in range(k)]
     inflight = issue(0)
     for b in range(odf):
-        # Batch b+1's exchange is issued before batch b's join
+        # Batch b+1's exchange is issued before batch b's joins
         # (dj_tpu/parallel/dist_join.py:1165-1183).
         prefetch = issue(b + 1) if b + 1 < odf else None
-        l_batch, _, ovf, _ = inflight.wait()
+        received = inflight.wait()
         inflight = prefetch
-        shuffle_ovf = shuffle_ovf | ovf
         words_b, ptab_b, pcnt_b = batches[b]
-        comm.phase("dj_join")
-        result, total, jflags = inner_join_prepared(
-            l_batch, left_on, words_b, ptab_b.with_count(pcnt_b[0]), plan,
-            out_capacity=out_cap, char_out_factor=char_out_factor,
-        )
-        del l_batch
-        join_ovf = join_ovf | (total > out_cap)
-        mismatch = mismatch | jflags["prepared_plan_mismatch"]
-        char_ovf = _char_overflow(result, char_ovf)
-        batch_results.append(result)
-    comm.phase("dj_concat")
-    out = batch_results[0] if odf == 1 else concatenate(batch_results)
-    flags = {
-        "pre_shuffle_overflow": no,
-        "shuffle_overflow": shuffle_ovf,
-        "join_overflow": join_ovf,
-        "char_overflow": char_ovf,
-        "prepared_plan_mismatch": mismatch,
-    }
-    return out, flags
+        for q in range(k):
+            l_batch, _, ovf, _ = received[q]
+            received[q] = None  # free the batch after its join
+            f = flags[q]
+            f["shuffle_overflow"] = f["shuffle_overflow"] | ovf
+            comm.phase("dj_join")
+            result, total, jflags = inner_join_prepared(
+                l_batch, left_on, words_b, ptab_b.with_count(pcnt_b[0]), plan,
+                out_capacity=out_cap, char_out_factor=char_out_factor,
+            )
+            del l_batch
+            f["join_overflow"] = f["join_overflow"] | (total > out_cap)
+            f["prepared_plan_mismatch"] = f["prepared_plan_mismatch"] | jflags[
+                "prepared_plan_mismatch"]
+            f["char_overflow"] = _char_overflow(result, f["char_overflow"])
+            batch_results[q].append(result)
+    out = []
+    for q in range(k):
+        comm.phase("dj_concat")
+        res = batch_results[q]
+        out.append((res[0] if odf == 1 else concatenate(res), flags[q]))
+    return out
 
 
 def _reprepare(
@@ -1544,6 +1713,168 @@ def _distributed_inner_join_prepared_auto(
         ledger_key=dj_ledger.plan_signature(topology, left, prepared, left_on, None, config),
     )
     return out, counts, info, state["config"], state["prepared"]
+
+
+# --- coalesced dispatches ------------------------------------------------
+#
+# K same-shaped queries served in one run (dj_tpu/parallel/dist_join.py:
+# 3043-3830): per odf batch, the K members' exchange windows ride ONE
+# epoch (batch b+1's issued before batch b's joins), so a server answers
+# K queries with odf epochs instead of K odf. Each member is sized as the
+# same query alone would be, so its rows and flags are that query's, and
+# a member whose flags fire can be served again alone by
+# distributed_inner_join_auto. Shape bucketing makes near-miss shapes
+# one group: every member is padded to its bucket before the check that
+# all share one capacity and schema.
+
+
+def _same_shape(tables: Sequence[Table], what: str) -> None:
+    sig0 = dj_ledger.table_sig(tables[0])
+    for t in tables[1:]:
+        if t.capacity != tables[0].capacity or dj_ledger.table_sig(t) != sig0:
+            raise ValueError(
+                f"{what}: every left (and every right) table must share one capacity and "
+                f"column schema (coalesce groups are same-signature by construction)"
+            )
+
+
+def _ledger_widened(config: JoinConfig, sig: str) -> JoinConfig:
+    """``config`` with the factors the ledger learned for ``sig`` where
+    they are wider: a signature that healed must run coalesced at its
+    healed factors, or every member would overflow again."""
+    entry = dj_ledger.consult(sig)
+    if entry is not None:
+        widened = dj_ledger.wider_factors(entry.get("factors", {}), _config_factors(config))
+        if widened:
+            config = dataclasses.replace(config, **widened)
+    return config
+
+
+def _members(outs, counts, flag_mat: torch.Tensor, keys) -> list:
+    return [(outs[q], counts[q], _flag_info(flag_mat[:, q], keys)) for q in range(len(outs))]
+
+
+def distributed_inner_join_coalesced(
+    topology: Topology,
+    lefts: Sequence[Table],
+    left_counts: Sequence[torch.Tensor],
+    prepared: PreparedSide,
+    left_on: Sequence[int],
+    config: Optional[JoinConfig] = None,
+) -> tuple[list[tuple[Table, torch.Tensor, dict]], JoinConfig]:
+    """K same-shaped queries against one PreparedSide in one run
+    (dj_tpu's ``distributed_inner_join_coalesced``, dist_join.py:
+    3277-3485; section comment above).
+
+    Every left table must share the first's capacity and column schema
+    after shape bucketing (ValueError otherwise). The checks and the
+    sizing are the singleton prepared query's (PreparedPlanMismatch
+    where it raises), at the config's factors widened by the ledger's
+    for this signature. On a shuffle-prepared side each odf batch's K
+    windows ride one exchange epoch; on a salted side each member's
+    partition ids are salted as a singleton query's; on a
+    broadcast-prepared side the members are K local probes with no
+    collective at all.
+
+    Returns ``(per_query, config_used)``: one (result, counts, info) per
+    member, in the order of ``lefts``, each equal to the same query
+    served alone, and the config the members ran with."""
+    if config is None:
+        config = prepared.config
+    if not lefts or len(left_counts) != len(lefts):
+        raise ValueError("distributed_inner_join_coalesced: one count vector per left table, "
+                         "and at least one left table")
+    lefts = [shape_bucket.bucket_table(topology, t) for t in lefts]
+    _same_shape(lefts, "distributed_inner_join_coalesced")
+    left_on = _check_prepared_query(topology, lefts[0], prepared, left_on, config,
+                                    "distributed_inner_join_coalesced")
+    config = _ledger_widened(config, dj_ledger.plan_signature(topology, lefts[0], prepared,
+                                                              left_on, None, config))
+    (outs, counts, flag_mat), keys = _run_prepared_queries(topology, lefts, left_counts, prepared,
+                                                           left_on, config)
+    return _members(outs, counts, flag_mat, keys), config
+
+
+def _union_key_ranges(ranges):
+    """The key range a coalesced unprepared group plans with: per key the
+    union of the members' resolved ranges (canonical width forms, so the
+    widest member's); any member None (string or float keys, the probe
+    off) gives None, the dynamic plan."""
+    if not ranges or any(r is None for r in ranges):
+        return None
+    return tuple((min(lo for lo, _ in per_key), max(hi for _, hi in per_key))
+                 for per_key in zip(*ranges))
+
+
+def distributed_inner_join_coalesced_unprepared(
+    topology: Topology,
+    lefts: Sequence[Table],
+    left_counts: Sequence[torch.Tensor],
+    rights: Sequence[Table],
+    right_counts: Sequence[torch.Tensor],
+    left_on: Sequence[int],
+    right_on: Sequence[int],
+    config: Optional[JoinConfig] = None,
+) -> tuple[list[tuple[Table, torch.Tensor, dict]], JoinConfig]:
+    """K same-shaped unprepared joins in one run (dj_tpu's
+    ``distributed_inner_join_coalesced_unprepared``, dist_join.py:
+    3646-3830; section comment above): each member's two tables
+    partitioned, each odf batch's 2K windows in one exchange epoch, each
+    member joined at the singleton ``batch_sizing``, all under the union
+    of the members' resolved key ranges (``_union_key_ranges``).
+
+    Every left (and every right) table must share one capacity and
+    column schema after shape bucketing. Flat topologies only, and only
+    with the planner off: ValueError on a two-level topology or under
+    ``DJT_PLAN_ADAPT`` (its broadcast and salted plans are per-query
+    decisions one shuffle dispatch cannot honor), as in dj_tpu. Returns
+    ``(per_query, config_used)`` as ``distributed_inner_join_coalesced``."""
+    if config is None:
+        config = JoinConfig()
+    what = "distributed_inner_join_coalesced_unprepared"
+    if topology.is_hierarchical:
+        raise ValueError(f"{what} supports flat topologies only; dispatch two-level queries "
+                         f"one at a time")
+    if plan_adapt.enabled():
+        raise ValueError(f"{what} requires the adaptive planner off (DJT_PLAN_ADAPT): its "
+                         f"broadcast and salted tiers are per-query plan decisions that one "
+                         f"shuffle dispatch cannot honor; dispatch one at a time")
+    k = len(lefts)
+    if not k or len(rights) != k or len(left_counts) != k or len(right_counts) != k:
+        raise ValueError(f"{what}: as many right tables and count vectors as left tables, and "
+                         f"at least one")
+    lefts = [shape_bucket.bucket_table(topology, t) for t in lefts]
+    rights = [shape_bucket.bucket_table(topology, t) for t in rights]
+    _same_shape(lefts, what)
+    _same_shape(rights, what)
+    left_on, right_on = tuple(left_on), tuple(right_on)
+    w = topology.local_ranks
+    if lefts[0].capacity < w or rights[0].capacity < w:
+        raise ValueError(f"{what}: table capacity {min(lefts[0].capacity, rights[0].capacity)} "
+                         f"< {w} shards here leaves a shard with zero capacity; pad the tables "
+                         f"to >= 1 row per shard")
+    config = _ledger_widened(config, dj_ledger.plan_signature(topology, lefts[0], rights[0],
+                                                              left_on, right_on, config))
+    key_range = _union_key_ranges([
+        _resolve_key_range(config, lefts[q], left_counts[q], rights[q], right_counts[q], left_on,
+                           right_on, w, topology)
+        for q in range(k)
+    ])
+    l_cap, r_cap = lefts[0].capacity // w, rights[0].capacity // w
+    keys = _flag_keys(config)
+
+    def run(comm, lts, lcs, rts, rcs):
+        members = _shuffle_join_members(
+            comm, [(lt.with_count(lc[0]), rt.with_count(rc[0]))
+                   for lt, lc, rt, rc in zip(lts, lcs, rts, rcs)],
+            left_on, right_on, config, l_cap, r_cap, key_range)
+        return (tuple(out.with_count(None) for out, _ in members),
+                tuple(out.count().reshape(1) for out, _ in members),
+                torch.stack([_flag_row(flags, keys)[0] for _, flags in members])[None])
+
+    outs, counts, flag_mat = run_spmd(topology, run, tuple(lefts), tuple(left_counts),
+                                      tuple(rights), tuple(right_counts), **_backend(config))
+    return _members(outs, counts, flag_mat, keys), config
 
 
 # --- appends to a prepared side -------------------------------------------

@@ -62,13 +62,12 @@ def table_sig(table) -> tuple:
 def table_shape(table, shards: int) -> tuple:
     """The per-shard shape a signature folds: ``(rows, char_cap, ...)``
     of each of the ``shards`` shards ``table`` holds here, one char
-    capacity for each string column (dj_tpu's
-    ``parallel.shape_bucket.table_shape``). dj_tpu rounds it to a shape
-    bucket under ``DJ_SHAPE_BUCKET=1``; the port has no buckets and
-    keeps the raw shape."""
-    w = max(1, shards)
-    chars = tuple(c.chars.shape[0] // w for c in table.columns if hasattr(c, "chars"))
-    return (table.capacity // w,) + chars
+    capacity for each string column, rounded to its shape bucket under
+    ``DJT_SHAPE_BUCKET=1`` (``parallel.shape_bucket.table_shape``, as in
+    dj_tpu), so two raw shapes of one bucket share a signature."""
+    from ..parallel.shape_bucket import table_shape as bucketed_shape
+
+    return bucketed_shape(table, shards)
 
 
 def plan_signature(topology, left, right, left_on, right_on, config) -> str:

@@ -63,7 +63,7 @@ WORLDS = (2, 4)
 CASES = {2: ["collectives", "exchange", "shuffle", "join", "generate", "auto", "keys", "strings",
              "append"],
          4: ["collectives", "exchange", "shuffle", "join", "prepared", "generate", "two_level",
-             "plan_adapt"]}
+             "plan_adapt", "pipeline"]}
 
 
 class _Worlds:
@@ -581,6 +581,74 @@ def test_process_world_plan_adapt_matches_dj_tpu(plan, knobs, worlds, monkeypatc
     _assert_shards(4, results, ("plan_adapt", plan), want)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_pipeline():
+    """dj_tpu's plans and results of the pipeline case on 4 devices."""
+    jtopo = jmake_topology(jax.devices()[:4])
+
+    def table(arrays, names):
+        return jT.Table(tuple(
+            jT.StringColumn(jnp.asarray(a[0]), jnp.asarray(a[1])) if n == "string"
+            else jT.Column(jnp.asarray(a), dj_tpu.dtypes.by_name(n)) for a, n in zip(arrays, names)))
+
+    t = {name: jshard(jtopo, table(a, n)) for name, (a, n) in W.pipeline_tables().items()}
+    t["orders2"] = dj_tpu.shuffle_on(jtopo, *t["orders2"], [0], seed=tdist.MAIN_JOIN_SEED,
+                                     out_factor=4.0)[:2]
+    cfg = dj_tpu.JoinConfig(**W.PIPELINE_CONFIG)
+
+    def result(out, counts, info):
+        return {"rows": W.shard_rows(out, np.asarray(counts)), "counts": np.asarray(counts).tolist(),
+                "flags": {k: np.asarray(v).tolist() for k, v in info.items()}}
+
+    want = {}
+    for name, specs in W.PIPELINES:
+        stages = [dj_tpu.JoinStage(right=t[r][0], right_counts=t[r][1], left_on=lo, right_on=ro,
+                                   **kw) for r, lo, ro, kw in specs]
+        plan = dj_tpu.plan_pipeline(jtopo, *t["li"], stages, cfg)
+        o, c, infos = dj_tpu.distributed_join_pipeline(jtopo, *t["li"], stages, cfg, plan=plan)
+        want[name] = {"plan": [(sp.mode, sp.key_range, sp.range_source, sp.out_partitioned_by)
+                               for sp in plan.stage_plans],
+                      "rows": W.shard_rows(o, np.asarray(c)), "counts": np.asarray(c).tolist(),
+                      "flags": [{k: np.asarray(v).tolist() for k, v in i.items()} for i in infos]}
+    ccfg = dj_tpu.JoinConfig(**W.COALESCED_CONFIG)
+    prep = dj_tpu.prepare_join_side(jtopo, *t["dim"], [0], ccfg, left_capacity=300)
+    per_query, _ = dj_tpu.distributed_inner_join_coalesced(
+        jtopo, [t["q0"][0], t["q1"][0]], [t["q0"][1], t["q1"][1]], prep, [0], ccfg)
+    want["coalesced"] = [result(*r) for r in per_query]
+    return want
+
+
+@pytest.mark.parametrize("chain", [name for name, _ in W.PIPELINES])
+def test_process_world_pipeline_matches_dj_tpu(chain, worlds):
+    """A gloo world of 4 runs Q3 (shuffle, then customer broadcast) and
+    the shuffle-then-local chain: every process plans each stage alike
+    (modes, derived ranges, sources, partitioning), as dj_tpu plans on 4
+    devices, and its shard equals dj_tpu's shard r, strings byte for
+    byte."""
+    want = _jax_pipeline()[chain]
+    assert [p[0] for p in want["plan"]] == (["shuffle", "broadcast"] if chain == "q3"
+                                            else ["shuffle", "local"])
+    results = worlds.results(4)
+    for r, res in enumerate(results):
+        got = res["pipeline"][chain]
+        assert got["plan"] == want["plan"], r
+        assert got["counts"] == [want["counts"][r]] and got["rows"] == [want["rows"][r]], r
+        assert got["flags"] == want["flags"], r
+    assert not any(any(v) for f in want["flags"] for v in f.values())
+
+
+def test_process_world_coalesced_matches_dj_tpu(worlds):
+    """K = 2 coalesced queries against a prepared side in a gloo world of
+    4: each member's shard on each process equals dj_tpu's."""
+    want = _jax_pipeline()["coalesced"]
+    for q, wq in enumerate(want):
+        assert not any(any(v) for v in wq["flags"].values())
+        for r, res in enumerate(worlds.results(4)):
+            got = res["pipeline"]["coalesced"][q]
+            assert got["counts"] == [wq["counts"][r]] and got["rows"] == [wq["rows"][r]], (q, r)
+            assert got["flags"] == wq["flags"], (q, r)
+
+
 def test_a_ledger_split_world_fails_instead_of_hanging(worlds):
     """Two processes that start from different ledger entries size their
     exchanges differently: both end with an error within the time limit
@@ -614,9 +682,10 @@ def _counting(monkeypatch):
 
 def test_chip_smoke_process_world_helpers_rehearse_with_gloo(monkeypatch):
     """chip_smoke's phases 6a and 6b at a tiny size on the CPU: a gloo
-    world of one in this process (every path, the transport checks) and
-    four worker processes whose shard digests equal the world in one
-    process's, the broadcast plan's among them."""
+    world of one in this process (every path, the transport checks, the
+    first join's wall without and after warmup_all_to_all) and four
+    worker processes whose shard digests equal the world in one
+    process's, the broadcast plan's and 4j's chain's among them."""
     rows = 4000
     gen = torch.Generator().manual_seed(0)
     build, probe, expected = tj.generate_build_probe_tables(
@@ -645,8 +714,14 @@ def test_chip_smoke_process_world_helpers_rehearse_with_gloo(monkeypatch):
     tj.resilience.ledger.reset()
     monkeypatch.delenv("DJT_PLAN_ADAPT")
     assert bc_digests != digests
+    # The chain half (6b's run of 4j's chain): the world in one process's
+    # plan and digests.
+    chain_want = chip_smoke.chain_in_one_process(tj, torch.device("cpu"), rows, 0)
+    assert [p[0] for p in chain_want["plan"]] == ["shuffle", "local"]
     res = chip_smoke.run_process_world(4, "gloo", "cpu", rows, 0, reps=1, timeout=TIMEOUT_S,
-                                       intra=chip_smoke.INTRA, shuffle_rows=rows, broadcast=True)
+                                       intra=chip_smoke.INTRA, shuffle_rows=rows, broadcast=True,
+                                       chain_rows=rows)
+    chip_smoke.check_chain_processes("rehearsal", res, chain_want)
     chip_smoke.check_process_world("rehearsal", res, digests, expected, 0)
     chip_smoke.check_broadcast_processes("rehearsal", res, bc_digests, expected, 0)
     chip_smoke.check_two_level_processes("rehearsal", res, two_digests, shuffle_digests, expected,
@@ -663,4 +738,7 @@ def test_chip_smoke_process_world_helpers_rehearse_with_gloo(monkeypatch):
                                                expected, ref, rows, "cpu")
     assert launches["unprepared"][4]["join_scans"] == 4
     assert launches["prepared_probe"][1]["expand_ranks"] == 1
+    assert not torch.distributed.is_initialized()
+    warm = chip_smoke.first_join_with_warmup(tj, torch.device("cpu"), "gloo", build, probe, "cpu")
+    assert warm["after_warmup"]["warmup_ms"] > 0 and warm["cold"]["warmup_ms"] is None
     assert not torch.distributed.is_initialized()

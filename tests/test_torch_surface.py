@@ -13,17 +13,9 @@ import dj_tpu
 import dj_tpu_torch as tj
 
 NOT_YET_PORTED = {
-    # 9: the composition layers.
-    "JoinStage": "9",
-    "distributed_join_pipeline": "9",
-    "distributed_join_pipeline_auto": "9",
-    "plan_pipeline": "9",
-    "distributed_inner_join_coalesced": "9",
-    "distributed_inner_join_coalesced_unprepared": "9",
-    "warmup_all_to_all": "9",
-    "warmup_join_index": "9",
-    "warmup_prepared_join": "9",
-    # 10: the serving stack and dj_tpu's timing helpers (obs/, utils/timing).
+    # 10: the serving stack and dj_tpu's timing helpers (obs/, utils/timing);
+    # warmup_join_index walks the join-index cache (cache/index.py).
+    "warmup_join_index": "10",
     "IndexConfig": "10",
     "JoinIndexCache": "10",
     "QueryScheduler": "10",
@@ -67,5 +59,8 @@ def test_the_port_exports_what_it_lists():
     # The planner's namespace, as dj_tpu exports it (dj_tpu/__init__.py:73).
     assert isinstance(tj.plan_adapt, types.ModuleType)
     assert sorted(set(dj_tpu.plan_adapt.__all__) - set(dir(tj.plan_adapt))) == []
+    # The shape grid's namespace (dj_tpu/__init__.py:74).
+    assert isinstance(tj.shape_bucket, types.ModuleType)
+    assert sorted(set(dj_tpu.shape_bucket.__all__) - set(dir(tj.shape_bucket))) == []
     assert tj.HASH_MURMUR3 == dj_tpu.HASH_MURMUR3 and tj.HASH_IDENTITY == dj_tpu.HASH_IDENTITY
     assert tj.DEFAULT_HASH_SEED == dj_tpu.DEFAULT_HASH_SEED

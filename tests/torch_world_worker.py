@@ -549,6 +549,75 @@ def case_plan_adapt(topo):
     return out
 
 
+def pipeline_tables() -> dict:
+    """name -> (arrays, names) of the pipeline case: TPC-H Q3's shape
+    (customer with a string segment, orders with a string priority,
+    lineitem), orders2 keyed on the orderkey (the local chain's right
+    side, shuffled by the main seed in the case), a build side ``dim``
+    on the custkey and two probe sides of it for the coalesced call."""
+    rng = np.random.default_rng(61)
+    n_cust, n_ord, n_li = 64, 256, 1024
+    okeys = np.arange(n_ord, dtype=np.int64)
+    ocust = rng.integers(0, n_cust, n_ord).astype(np.int64)
+    out = {
+        "cust": ([np.arange(n_cust, dtype=np.int64),
+                  str_arrays([b"SEG-%d" % s for s in rng.integers(0, 5, n_cust)])],
+                 ["int64", "string"]),
+        "orders": ([okeys, ocust, str_arrays([b"%d-PRI" % p for p in rng.integers(0, 5, n_ord)])],
+                   ["int64", "int64", "string"]),
+        "li": ([rng.integers(0, n_ord, n_li).astype(np.int64),
+                np.arange(n_li, dtype=np.int64) * 7], ["int64", "int64"]),
+        "orders2": ([okeys.copy(), ocust * 10 + 1], ["int64", "int64"]),
+        "dim": ([rng.permutation(3 * n_cust)[:2 * n_cust].astype(np.int64),
+                 np.arange(2 * n_cust, dtype=np.int64)], ["int64", "int64"]),
+    }
+    for q in range(2):
+        out[f"q{q}"] = ([rng.integers(0, 3 * n_cust, 300).astype(np.int64),
+                         np.arange(300, dtype=np.int64) + 1000 * q], ["int64", "int64"])
+    return out
+
+
+PIPELINE_CONFIG = dict(join_out_factor=8.0, bucket_factor=4.0, char_out_factor=32.0)
+# (name, stages as (right, left_on, right_on, JoinStage fields)) of the
+# pipeline case: Q3 (a shuffle stage, then customer broadcast) and the
+# shuffle-then-local chain.
+PIPELINES = (
+    ("q3", (("orders", (0,), (0,), {"mode": "shuffle"}), ("cust", (2,), (0,), {}))),
+    ("local", (("orders", (0,), (0,), {"mode": "shuffle"}),
+               ("orders2", (0,), (0,), {"right_partitioned": True}))),
+)
+COALESCED_CONFIG = dict(key_range=(0, 191), bucket_factor=4.0, join_out_factor=4.0)
+
+
+def case_pipeline(topo):
+    """Both chains of PIPELINES: each process's plan (modes, ranges,
+    range sources, output partitioning) and its shard; then K = 2
+    coalesced queries against a prepared ``dim``."""
+    from dj_tpu_torch.parallel.dist_join import MAIN_JOIN_SEED
+
+    t = {name: dj.shard_table(topo, convert.table_from_numpy(a, n, device="cpu"))
+         for name, (a, n) in pipeline_tables().items()}
+    res = dj.shuffle_on(topo, *t["orders2"], [0], seed=MAIN_JOIN_SEED, out_factor=4.0)
+    t["orders2"] = res[:2]
+    cfg = dj.JoinConfig(**PIPELINE_CONFIG)
+    out = {}
+    for name, specs in PIPELINES:
+        stages = [dj.JoinStage(right=t[r][0], right_counts=t[r][1], left_on=lo, right_on=ro, **kw)
+                  for r, lo, ro, kw in specs]
+        plan = dj.plan_pipeline(topo, *t["li"], stages, cfg)
+        o, c, infos = dj.distributed_join_pipeline(topo, *t["li"], stages, cfg, plan=plan)
+        out[name] = {"plan": [(sp.mode, sp.key_range, sp.range_source, sp.out_partitioned_by)
+                              for sp in plan.stage_plans],
+                     "rows": shard_rows(o, c), "counts": c.tolist(),
+                     "flags": [{k: v.tolist() for k, v in i.items()} for i in infos]}
+    ccfg = dj.JoinConfig(**COALESCED_CONFIG)
+    prep = dj.prepare_join_side(topo, *t["dim"], [0], ccfg, left_capacity=300)
+    per_query, _ = dj.distributed_inner_join_coalesced(
+        topo, [t["q0"][0], t["q1"][0]], [t["q0"][1], t["q1"][1]], prep, [0], ccfg)
+    out["coalesced"] = [_join_result(r) for r in per_query]
+    return out
+
+
 def case_ledger_split(topo):
     """Rank 0 starts from a ledger entry that widens bucket_factor, rank
     1 from none: their exchanges differ in size, and the world must fail
@@ -652,7 +721,7 @@ CASES = {"collectives": case_collectives, "exchange": case_exchange, "shuffle": 
          "auto": case_auto, "keys": case_keys, "fail": case_fail,
          "ledger_split": case_ledger_split, "strings": case_strings,
          "two_level": case_two_level, "compress": case_compress, "append": case_append,
-         "plan_adapt": case_plan_adapt}
+         "plan_adapt": case_plan_adapt, "pipeline": case_pipeline}
 
 
 def main(spec_json: str, out_dir: str) -> int:
