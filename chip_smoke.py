@@ -49,6 +49,23 @@ Phases, each printing its own line(s):
      rank's device time by phase (partition, bucketize, the exchange's
      copies, compact, join; CUDA events on the shared stream) beside a
      profiler breakdown by kernel at odf 1;
+  11. observability on the main path (after 4d, on phase 4's and 4d's
+     tables): (a) phase 4's one-rank join and 4d's 4-rank join at odf
+     1, three warm walls each with obs off and three inside
+     obs.query_ctx with obs on, in turns, their medians and ratio, and
+     the synchronizing CUDA calls of one join of each
+     (torch.cuda.set_sync_debug_mode("warn")), which must be equal with
+     obs off and on; (b) distributed_inner_join_auto in 4d's world at
+     join_out_factor 0.1 (one heal) inside query_ctx("q11",
+     tenant="smoke"): the timeline's events in the CPU parity test's
+     order, dj_heal_total = attempts - 1, dj_join_queries_total
+     {path="unprepared"} = attempts, dj_collective_launches_total = the
+     all-to-alls rank 0 issued (a quarter of the four ranks'),
+     export_trace("q11") a chrome trace whose spans nest, every
+     roofline_frac in (0, 1.05]; (c) one 4d join under dj.profile(dir):
+     the dj_partition, dj_exchange and dj_join ranges, the join_scans
+     and expand_values kernels inside dj_join, each range's device ms
+     beside the phase clock's ms, and the cost of one annotate range;
   4e. the two-level world: 4d's 4 ranks as 2 domains of 2,
      make_topology(["cuda:0"] * 4, intra_size=2), the same tables sharded
      the same way; distributed_inner_join at odf 1 and 4 (the pre-shuffle
@@ -1417,6 +1434,285 @@ def run_world(dj, dev, build, probe, expected: int, ref, rows: int, smi: str):
     log("world", ranks=WORLD, device=str(dev), rows_per_rank=rows // WORLD, resident_bytes=resident,
         **summary, card=smi, shard_digests_odf1=digests)
     return launch_table, digests
+
+
+# --- observability on the main path (phase 11) ---------------------------
+
+
+@contextlib.contextmanager
+def obs_on():
+    """The port's obs enabled, with a clean registry, ring and timelines,
+    for the block; the former state after."""
+    from dj_tpu_torch import obs
+
+    was = obs.enabled()
+    obs.reset(reenable=True)
+    obs.drain()
+    try:
+        yield obs
+    finally:
+        obs.reset(reenable=was)
+        obs.drain()
+
+
+def sync_calls(fn) -> dict:
+    """The synchronizing CUDA calls one call of fn makes, as torch's
+    sync debug mode warns of them: {"file:line" of the Python call that
+    synchronized: count}."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        del res
+    torch.cuda.synchronize()
+    where: dict = {}
+    for w in caught:
+        if "synchronizing" in str(w.message):
+            k = f"{pathlib.Path(w.filename).name}:{w.lineno}"
+            where[k] = where.get(k, 0) + 1
+    return where
+
+
+def obs_overhead(what: str, join, reps: int = 3) -> dict:
+    """Phase 11a for one join: warm walls with obs off and on, in turns
+    (off, on, on, off, off, on), and the synchronizing calls of one join
+    each way, which must be equal."""
+    walls: dict = {"off": [], "on": []}
+    for k, mode in enumerate(("off", "on", "on", "off", "off", "on")[: 2 * reps]):
+        with obs_on() if mode == "on" else contextlib.nullcontext() as obs:
+            ctx = obs.query_ctx(f"q11a-{what}-{k}", "smoke") if obs else contextlib.nullcontext()
+            with ctx:
+                t0 = time.perf_counter()
+                res = join()
+                torch.cuda.synchronize()
+                walls[mode].append((time.perf_counter() - t0) * 1e3)
+            del res
+            if obs:
+                obs.events()  # resolve the join's device phases
+    # The process's first call under the sync debug mode makes one
+    # synchronize of its own (in torch/cuda/__init__.py, on the H100):
+    # a discarded call first.
+    sync_calls(join)
+    syncs_off = sync_calls(join)
+    with obs_on() as obs:
+        with obs.query_ctx(f"q11a-{what}-sync", "smoke"):
+            syncs_on = sync_calls(join)
+        phases = [e["phase"] for e in obs.events("phase")]
+    if syncs_on != syncs_off:
+        raise AssertionError(f"11a {what}: synchronizing calls by caller with obs off "
+                             f"{syncs_off}, with obs on {syncs_on}")
+    # Joins back to back with obs on and no reader between them: each
+    # phase's start resolves the completed ones, so the pending device
+    # phases stay bounded, and the registry's reader gives every dispatch.
+    n_loop = 5
+    with obs_on() as obs:
+        pending = []
+        for _ in range(n_loop):
+            res = join()
+            del res
+            pending.append(obs.roofline.pending_count())
+        hists = obs.metrics_summary()["histograms"]
+        left = obs.roofline.pending_count()
+    dispatches = hists.get('dj_phase_seconds{phase="dispatch"}', {}).get("count")
+    if max(pending) > 2 or left or dispatches != n_loop:
+        raise AssertionError(f"11a {what}: pending device phases after each of {n_loop} joins "
+                             f"{pending}, {left} after metrics_summary, which shows "
+                             f"{dispatches} dispatches")
+    syncs_off = sum(syncs_off.values())
+    syncs_on = sum(syncs_on.values())
+    off, on = statistics.median(walls["off"]), statistics.median(walls["on"])
+    return {"wall_ms_obs_off": off, "wall_ms_obs_on": on, "on_over_off": on / off,
+            "pending_after_each_join": pending,
+            "wall_ms_runs_obs_off": walls["off"], "wall_ms_runs_obs_on": walls["on"],
+            "sync_calls_obs_off": syncs_off, "sync_calls_obs_on": syncs_on,
+            "phases_obs_on": phases}
+
+
+def range_kernels(prof, name: str) -> tuple[dict, float, int]:
+    """({kernel name: device ms}, the profiler's own device span ms of
+    the ranges, ranges) of the device work inside the profiler ranges
+    called ``name``. A range's window on the device runs from the first
+    to the last kernel that the ops inside it launched (their linked
+    correlation ids); every kernel the device ran in that window is the
+    range's. All ranks issue on one stream, one rank at a time, so the
+    window also holds the kernels the package launches through ctypes,
+    which the profiler links to no op. The profiler also projects each
+    range onto the device (a device event of the range's name): that is
+    the span, not a kernel."""
+    raw = prof.profiler.kineto_results.events()
+
+    def end(e):
+        return e.end_ns() if hasattr(e, "end_ns") else e.start_ns() + e.duration_ns()
+
+    cpu = [e for e in raw if e.device_type() == torch.autograd.DeviceType.CPU]
+    dev = [e for e in raw if e.device_type() == torch.autograd.DeviceType.CUDA]
+    linked: dict = {}
+    for k in dev:
+        linked.setdefault(k.linked_correlation_id(), []).append(k)
+    ranges = [e for e in cpu if e.name() == name]
+    labels = {e.name() for e in cpu if getattr(e, "is_user_annotation", lambda: False)()}
+    labels.add(name)
+    span = sum((end(k) - k.start_ns()) / 1e6 for k in dev if k.name() == name)
+    out: dict = {}
+    for r in ranges:
+        inside = {e.correlation_id() for e in cpu if e.start_thread_id() == r.start_thread_id()
+                  and r.start_ns() <= e.start_ns() and end(e) <= end(r)}
+        mine = [k for i in inside for k in linked.get(i, ())]
+        if not mine:
+            continue
+        lo, hi = min(k.start_ns() for k in mine), max(end(k) for k in mine)
+        for k in dev:
+            if lo <= k.start_ns() and end(k) <= hi and k.name() not in labels:
+                out[k.name()] = out.get(k.name(), 0.0) + (end(k) - k.start_ns()) / 1e6
+    return out, span, len(ranges)
+
+
+def run_observability(dj, dev, topo1, left1, lcnt1, right1, rcnt1, build, probe, expected: int,
+                      ref, rows: int, smi: str) -> dict:
+    """Phase 11 (module docstring): obs on the main path at full width.
+    Returns {path: {odf: launches}} of the healed 4-rank join."""
+    from dj_tpu_torch.parallel.communicator import InProcessTransport
+    from dj_tpu_torch.resilience import ledger
+
+    topo = dj.make_topology([dev] * WORLD)
+    left, lcnt = dj.shard_table(topo, probe)
+    right, rcnt = dj.shard_table(topo, build)
+    cfg = dj.JoinConfig()
+
+    def join1():
+        return dj.distributed_inner_join(topo1, left1, lcnt1, right1, rcnt1, [0], [0], cfg)
+
+    def join4():
+        return dj.distributed_inner_join(topo, left, lcnt, right, rcnt, [0], [0], cfg)
+
+    # (a) the cost of obs on the main path, and no new synchronizing call
+    overhead = {"one_rank": obs_overhead("one_rank", join1),
+                "world4": obs_overhead("world4", join4)}
+    for what, o in overhead.items():
+        log("obs_overhead", smoke_phase="11a", path=what, odf=1, rows=rows,
+            obs_on="obs.enable() (DJT_OBS=1) inside obs.query_ctx", **o, card=smi)
+    torch.cuda.empty_cache()
+
+    # (b) the events and counters of a healed join in 4d's world
+    ledger.reset()
+    a2a = {"all": 0, "rank0": 0}
+    orig = InProcessTransport.all_to_all_start
+
+    def counted(transport, *a, **k):
+        a2a["all"] += 1
+        a2a["rank0"] += transport.rank() == 0
+        return orig(transport, *a, **k)
+
+    tight = dj.JoinConfig(join_out_factor=0.1)
+    with obs_on() as obs:
+        InProcessTransport.all_to_all_start = counted
+        try:
+            reset_launches()
+            with Attempts() as att, obs.query_ctx("q11", tenant="smoke"):
+                with obs.span("query"), obs.span("run"):
+                    t0 = time.perf_counter()
+                    out, counts, info, used = dj.distributed_inner_join_auto(
+                        topo, left, lcnt, right, rcnt, [0], [0], tight)
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) * 1e3
+            launches = read_launches()
+        finally:
+            InProcessTransport.all_to_all_start = orig
+        flags_false("11b", info)
+        flat = dj.unshard_table(out, counts)
+        flat_counts = torch.tensor([flat.capacity])
+        check_rows(flat, flat_counts, build, probe, expected)
+        check_same_rows(sorted_rows(flat, flat_counts), ref, "11b")
+        del out, counts, info, flat
+        tr = obs.query_trace("q11")
+        events = [e for e in tr["events"] if e["type"] != "span"]
+        kinds = [e["phase"] if e["type"] == "phase" else e["type"] for e in events]
+        attempts = att.n
+        want = (["probe", "collectives", "dispatch", "sync", "heal"] * (attempts - 1)
+                + ["probe", "collectives", "dispatch", "sync"])
+        if attempts != 2 or kinds != want:
+            raise AssertionError(f"11b: {attempts} attempts, events {kinds}, not {want}")
+        heals = obs.counter_value("dj_heal_total", flag="join_overflow")
+        queries = obs.counter_value("dj_join_queries_total", path="unprepared")
+        coll = obs.counter_value("dj_collective_launches_total")
+        if heals != attempts - 1 or queries != attempts:
+            raise AssertionError(f"11b: dj_heal_total {heals}, dj_join_queries_total {queries} "
+                                 f"for {attempts} attempts")
+        if coll != a2a["rank0"] or WORLD * coll != a2a["all"]:
+            raise AssertionError(f"11b: dj_collective_launches_total {coll}; the ranks issued "
+                                 f"{a2a['all']} all-to-alls, rank 0 {a2a['rank0']}")
+        export = json.loads(json.dumps(obs.export_trace("q11")))
+        spans = {e["name"]: e for e in export["traceEvents"]
+                 if e["ph"] == "X" and e.get("cat") == "span"}
+        q, r = spans["query"], spans["run"]
+        if not (q["ts"] <= r["ts"] and r["ts"] + r["dur"] <= q["ts"] + q["dur"] + 1.0):
+            raise AssertionError(f"11b: the exported spans do not nest: {q}, {r}")
+        fracs = {f"{e['stage']}:{e['phase']}#{i}": e["roofline_frac"]
+                 for i, e in enumerate(events) if e["type"] == "phase"
+                 and e["roofline_frac"] is not None}
+        if not fracs or not all(0 < f <= 1.05 for f in fracs.values()):
+            raise AssertionError(f"11b: roofline_frac outside (0, 1.05]: {fracs}")
+        phase_s = {f"{e['phase']}#{i}": e["seconds"] for i, e in enumerate(events)
+                   if e["type"] == "phase"}
+        bytes_by_width = obs.counter_series("dj_collective_bytes_total")
+        log("obs_healed_join", smoke_phase="11b", ranks=WORLD, odf=1, attempts=attempts,
+            factors_used={f: getattr(used, f) for f in FACTOR_FIELDS}, events=kinds,
+            dj_heal_total=heals, dj_join_queries_total=queries,
+            dj_collective_launches_total=coll, all_to_alls_all_ranks=a2a["all"],
+            dj_collective_bytes_total={dict(k)["width"]: v for k, v in bytes_by_width.items()},
+            roofline_frac=fracs, phase_seconds=phase_s, trace_events=len(export["traceEvents"]),
+            wall_ms=wall, launches=launches, total=expected, rows_checked=expected, card=smi)
+    ledger.reset()
+    torch.cuda.empty_cache()
+
+    # (c) the profiler's ranges and the kernels inside them
+    with tempfile.TemporaryDirectory() as tmp:
+        with dj.profile(tmp) as prof:
+            res = join4()
+            torch.cuda.synchronize()
+        del res
+        trace_bytes = os.path.getsize(os.path.join(tmp, "trace.json"))
+    ranges = {name: range_kernels(prof, name)
+              for name in ("dj_partition", "dj_exchange", "dj_join", "dj_concat")}
+    missing = [name for name, (_, _, n) in ranges.items() if not n]
+    if missing:
+        raise AssertionError(f"11c: the profiler trace has no {missing} range")
+    inside_join = ranges["dj_join"][0]
+    for kernel in ("join_scans", "expand_values"):
+        if not any(kernel in k for k in inside_join):
+            raise AssertionError(f"11c: no {kernel} kernel inside dj_join: {sorted(inside_join)}")
+    clock = world_phases(join4)["phase_ms"]
+    by_range = {name: {"ranges": n, "kernel_ms": sum(kernels.values()), "device_span_ms": span,
+                       "phase_clock_ms": clock.get(name)}
+                for name, (kernels, span, n) in ranges.items()}
+    from dj_tpu_torch.utils.timing import annotate
+
+    def annotate_us(n: int) -> float:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with annotate("t11", dev):
+                pass
+        return (time.perf_counter() - t0) / n * 1e6
+
+    # One range's host cost with no profiler (an NVTX push and pop) and
+    # under a profiler (record_function as well).
+    us_off = annotate_us(20_000)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        us_on = annotate_us(2_000)
+    log("obs_profile", smoke_phase="11c", ranks=WORLD, odf=1, by_range=by_range,
+        kernels_inside_dj_join={k[:60]: ms for k, ms in sorted(inside_join.items(),
+                                                               key=lambda kv: -kv[1])[:12]},
+        trace_bytes=trace_bytes, annotate_us_per_range_no_profiler=us_off,
+        annotate_us_per_range_under_profiler=us_on, card=smi)
+    del left, lcnt, right, rcnt
+    torch.cuda.empty_cache()
+    return {"world4_auto_obs": {1: launches}}
 
 
 # --- the two-level world and shuffle_on (phases 4e, 4f) ------------------
@@ -3289,8 +3585,6 @@ def run_warmups(dj, dev, smi: str) -> dict:
 def run_pipeline_chain(dj, dev, build, probe, expected: int, ref, rows: int, smi: str) -> dict:
     """Phase 4j: a two-stage chain in 4d's world at odf 1 and 4 (module
     docstring). Returns {path: {odf: launches}}."""
-    from dj_tpu_torch.parallel import dist_join
-
     topo = dj.make_topology([dev] * WORLD)
     left, lcnt, right, rcnt, b2, b2c = chain_tables(dj, topo, build, probe)
     check_colocated("4j build copy", b2, b2c, 1)
@@ -3299,11 +3593,11 @@ def run_pipeline_chain(dj, dev, build, probe, expected: int, ref, rows: int, smi
     launch_table: dict = {}
     for odf in (1, 4):
         cfg = dj.JoinConfig(over_decom_factor=odf)
-        before = dist_join.range_probes
-        plan = dj.plan_pipeline(topo, left, lcnt, stages, cfg)
-        probes = dist_join.range_probes - before
-        dj.plan_pipeline(topo, left, lcnt, stages, cfg)
-        replan_probes = dist_join.range_probes - before - probes
+        with obs_on() as obs:
+            plan = dj.plan_pipeline(topo, left, lcnt, stages, cfg)
+            probes = obs.counter_value("dj_range_probe_total", result="probe")
+            dj.plan_pipeline(topo, left, lcnt, stages, cfg)
+            replan_probes = obs.counter_value("dj_range_probe_total", result="probe") - probes
         if [sp.mode for sp in plan.stage_plans] != ["shuffle", "local"]:
             raise AssertionError(f"4j odf={odf}: plan {plan_view(plan)}")
         # 3 probes at the first plan: the keys of probe, build and the build
@@ -3791,14 +4085,18 @@ def run_coalesced_bucketed(dj, dev, build, probe, rows: int, smi: str) -> dict:
         want.append(pair_words(out, counts, build, probe, expected[q], f"4k singleton {q}"))
     del alone
     s_wall, s_runs, s_peak = warm_walls(singletons)
-    with env_set(DJT_SHAPE_BUCKET="1"):
-        pads = dict(shape_bucket.totals)
+    with env_set(DJT_SHAPE_BUCKET="1"), obs_on() as obs:
+        def totals():
+            return {r: obs.counter_value("dj_shape_bucket_total", result=r)
+                    for r in ("pad", "memo_hit")}
+
+        pads = totals()
         reset_launches()
         with Epochs() as ep:
             per_query, used = dj.distributed_inner_join_coalesced_unprepared(topo, *args)
             torch.cuda.synchronize()
         launches = read_launches()
-        padded = shape_bucket.totals["pad"] - pads["pad"]
+        padded = totals()["pad"] - pads["pad"]
         if ep.n != WORLD or padded != 2 * WORLD:
             raise AssertionError(f"4k: {ep.n} epoch starts (not {WORLD}), {padded} pads (not "
                                  f"{2 * WORLD}, each source once)")
@@ -3813,13 +4111,20 @@ def run_coalesced_bucketed(dj, dev, build, probe, rows: int, smi: str) -> dict:
                 raise AssertionError(f"4k: {kk} launched {launches[kk]} times, not "
                                      f"{WORLD * WORLD} (a member and rank)")
 
-        def coalesced():
-            return dj.distributed_inner_join_coalesced_unprepared(topo, *args)
+    def coalesced():
+        return dj.distributed_inner_join_coalesced_unprepared(topo, *args)
 
+    with env_set(DJT_SHAPE_BUCKET="1"):
+        # Timed with obs off, as the singletons are.
         wall, runs, peak = warm_walls(coalesced)
-        repads = shape_bucket.totals["pad"] - pads["pad"] - padded
+        with obs_on() as obs:
+            res = coalesced()
+            torch.cuda.synchronize()
+            del res
+            repads = obs.counter_value("dj_shape_bucket_total", result="pad")
+            memo_hits = obs.counter_value("dj_shape_bucket_total", result="memo_hit")
         if repads:
-            raise AssertionError(f"4k: the warm calls padded {repads} tables again")
+            raise AssertionError(f"4k: a warm call padded {repads} tables again")
         with env_set(DJT_PLAN_ADAPT="1"):
             try:
                 coalesced()
@@ -3830,8 +4135,8 @@ def run_coalesced_bucketed(dj, dev, build, probe, rows: int, smi: str) -> dict:
     log("coalesced_bucketed", smoke_phase="4k", ranks=WORLD, odf=1, members=WORLD,
         bucket_rows_per_shard=bucket, raw_rows_per_shard=per_shard, raw_rows=sizes,
         pad_fraction=[1 - s / bucket for s in per_shard], totals=expected, flags="all False",
-        members_equal_singletons=True, pads=padded, memo_hits_warm=shape_bucket.totals["memo_hit"]
-        - pads["memo_hit"], epoch_starts=ep.n, launches=launches, wall_ms=wall,
+        members_equal_singletons=True, pads=padded, memo_hits_one_warm_call=memo_hits,
+        wall_obs="off on both sides", epoch_starts=ep.n, launches=launches, wall_ms=wall,
         wall_ms_runs=runs, peak_bytes=peak, four_singletons_wall_ms=s_wall,
         four_singletons_wall_ms_runs=s_runs, four_singletons_peak_bytes=s_peak,
         plan_adapt_refused=refusal, card=smi)
@@ -5050,6 +5355,11 @@ def main() -> int:
 
     # 4d. the main path over a 4-rank world on this card
     world_launches, world_digests = run_world(dj, dev, build, probe, expected, ref, rows, smi)
+    torch.cuda.empty_cache()
+
+    # 11. observability on phase 4's and 4d's joins
+    world_launches.update(run_observability(dj, dev, topo, left, lcnt, right, rcnt, build, probe,
+                                            expected, ref, rows, smi))
     torch.cuda.empty_cache()
 
     # 4e. the same 4 ranks as 2 domains of 2; 4f. shuffle_on

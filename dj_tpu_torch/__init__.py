@@ -82,8 +82,21 @@ serve K same-shaped queries with one exchange epoch a batch;
 ``DJT_SHAPE_BUCKET=1`` (``shape_bucket``) pads near-miss shapes to one
 bucket so they group. ``warmup_all_to_all`` and ``warmup_prepared_join``
 pay the set-up costs before timing.
+
+Observability (``obs``; ``DJT_OBS=1`` or ``DJT_OBS_LOG=<path>``): a
+metrics registry (``obs.metrics_text()``), a flight recorder of every
+heal, ledger hit, plan and prepared tier, codec choice, shape-bucket
+pad, pipeline stage and warmup (``obs.events()``, ``obs.drain()``),
+per-query timelines (``obs.query_ctx``, ``obs.query_trace``,
+``obs.export_trace``) and roofline phases timed with CUDA events on the
+card (``obs.roofline``). ``PhaseTimer``, ``annotate`` and ``profile``
+are the reference's timing helpers (a ``torch.profiler`` trace shows the
+join's phases as ranges). ``knobs`` lists every ``DJT_*`` variable the
+package reads.
 """
 
+from . import knobs  # noqa: F401 - the DJT_* registry
+from . import obs  # noqa: F401 - the metrics/flight-recorder namespace
 from .compress import (
     CascadedOptions,
     ColumnCompressionOptions,
@@ -152,6 +165,7 @@ from .parallel import plan_adapt  # noqa: F401 - the planner's namespace, as in 
 from .parallel import shape_bucket  # noqa: F401 - the shape grid's namespace, as in dj_tpu
 from .parallel.topology import CommunicationGroup, Topology, largest_intra_size, make_topology
 from .parallel.warmup import warmup_all_to_all, warmup_compression, warmup_prepared_join
+from .utils.timing import PhaseTimer, annotate, profile
 from . import resilience
 from .resilience import (
     AdmissionRejected,
@@ -188,6 +202,7 @@ __all__ = [
     "HealBudget",
     "JoinConfig",
     "JoinStage",
+    "PhaseTimer",
     "PlanMismatch",
     "PreparedPlanMismatch",
     "PreparedSide",
@@ -197,6 +212,7 @@ __all__ = [
     "Table",
     "Topology",
     "XlaCommunicator",
+    "annotate",
     "append_to_prepared",
     "broadcast_compression_options",
     "collect_tables",
@@ -229,6 +245,7 @@ __all__ = [
     "prepare_join_side",
     "process_count",
     "process_index",
+    "profile",
     "resilience",
     "shard_table",
     "shard_table_pieces",

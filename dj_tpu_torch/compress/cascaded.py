@@ -29,9 +29,10 @@ RLE decode is ``count_leq_arange`` of the run ends, which is the
 contract of ``ops.expand.expand_ranks``: its CUDA kernel on the card,
 its plain version on the CPU.
 
-Left out, as in the rest of the port: the fault site
-``faults.check("codec")`` and the selector's ``compress_select`` events
-(``obs``), which come with the serving stack (ROADMAP item 10).
+The selector records one ``compress_select`` event a column verdict and
+counts ``dj_compress_select_total{kind,method}``, as dj_tpu's does. The
+fault site ``faults.check("codec")`` comes with the fault ladder
+(ROADMAP item 10b).
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import obs
 from ..core.table import StringColumn, Table, signed_view
 from ..ops.expand import expand_ranks
 
@@ -461,22 +463,40 @@ def selector_sample(data, sample_chunks: int = 100, chunk_elems: int = 1024) -> 
     return sample
 
 
+def _record_select(kind: str, method: str, wire_factor=None, opts=None) -> None:
+    """The selector's verdict on one column, into the flight recorder
+    (dj_tpu's ``_record_select``, compress/cascaded.py:458-472)."""
+    obs.inc("dj_compress_select_total", kind=kind, method=method)
+    fields = dict(kind=kind, method=method)
+    if wire_factor is not None:
+        fields["wire_factor"] = round(float(wire_factor), 4)
+    if opts is not None:
+        fields["cascade"] = f"rle={opts.num_rles},delta={opts.num_deltas},bp={int(opts.use_bp)}"
+    obs.record("compress_select", **fields)
+
+
 def _auto_column_options(col) -> ColumnCompressionOptions:
     if isinstance(col, StringColumn):
         # Compress the sizes sub-buffer, never the chars (the reference's
         # compression.cpp:44-60), with the fixed-width fallback below.
         opts, wf = select_cascaded_options(selector_sample(col.sizes()))
-        sizes_child = (ColumnCompressionOptions(METHOD_NONE) if wf >= 0.95
+        incompressible = wf >= 0.95
+        _record_select("string_sizes", METHOD_NONE if incompressible else METHOD_CASCADED, wf,
+                       None if incompressible else opts)
+        sizes_child = (ColumnCompressionOptions(METHOD_NONE) if incompressible
                        else ColumnCompressionOptions(METHOD_CASCADED, opts, wf))
         return ColumnCompressionOptions(
             METHOD_NONE, children=(sizes_child, ColumnCompressionOptions(METHOD_NONE)))
     if col.dtype.kind == "float":
         # An integer codec: floats ride uncompressed.
+        _record_select("float", METHOD_NONE)
         return ColumnCompressionOptions(METHOD_NONE)
     opts, wf = select_cascaded_options(selector_sample(col.data))
     if wf >= 0.95:
         # Incompressible: the codec would move at least the raw bytes.
+        _record_select("column", METHOD_NONE, wf)
         return ColumnCompressionOptions(METHOD_NONE)
+    _record_select("column", METHOD_CASCADED, wf, opts)
     return ColumnCompressionOptions(METHOD_CASCADED, opts, wf)
 
 

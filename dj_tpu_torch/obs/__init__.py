@@ -1,14 +1,117 @@
-"""dj_tpu_torch.obs: the host-side models the skew-adaptive planner reads.
+"""dj_tpu_torch.obs: the flight recorder, the metrics registry, query
+traces and roofline phases, and the planner's host-side models.
 
-Counterpart of the two pieces of ``dj_tpu/obs/`` that
-``parallel.plan_adapt`` consumes: ``skew.batch_skew`` (the per-batch
-destination skew of a partition-count matrix) and
-``bytemodel.buffer_bytes`` / ``replicated_table_bytes`` (the broadcast
-tier's fit input). Host-only: numpy and tensor shapes, no device work.
-dj_tpu's metrics registry, flight recorder, roofline phases and skew
-observatory have no counterpart here yet.
+Counterpart of ``dj_tpu/obs/``:
+
+- metrics.py: in-process counters, gauges and histograms, with
+  ``metrics_text()`` (Prometheus text) and ``metrics_summary()``; a
+  strict no-op while disabled.
+- recorder.py: the bounded ring of structured events, flushed as JSONL
+  through ``DJT_OBS_LOG=<path>`` or read with ``events()`` / ``drain()``;
+  and the per-query collective counters that the communicators feed.
+- trace.py: ``query_ctx(query_id, tenant)`` stamps every event recorded
+  inside it and feeds a bounded per-query timeline store;
+  ``query_trace`` and ``export_trace`` read one query back.
+- roofline.py: the host-visible phases of every query (probe, dispatch,
+  sync, prep), timed with CUDA events on the card and priced against the
+  ``DJT_PEAK_HBM_GBPS`` / ``DJT_PEAK_WIRE_GBPS`` roofline.
+- skew.py (``batch_skew``) and bytemodel.py (``buffer_bytes``,
+  ``replicated_table_bytes``): what ``parallel.plan_adapt`` reads.
+
+Enable with ``DJT_OBS=1`` or ``DJT_OBS_LOG=<path>`` (or ``enable()``).
+Everything is host-side Python; with obs disabled the join path takes
+no lock of it and makes no call more than without it.
+
+dj_tpu's trace-time compile accounting (``cached_build``,
+``capture_epochs``, ``suppress_epochs``, ``record_epoch``,
+``run_accounted``, ``epoch_total_bytes``, the ``retrace`` and
+``collective_epoch`` events, the build-cache counters) has no jit to
+hook here and is left out. Its skew observatory and XLA truth layer
+come with ROADMAP item 10c, its history, http, fleet and forensics
+modules with 10f.
 """
 
 from . import bytemodel, skew
+from .bytemodel import buffer_bytes
+from .metrics import (
+    clear_prefix,
+    counter_series,
+    counter_value,
+    disable,
+    enable,
+    enabled,
+    gauge_series,
+    gauge_value,
+    histogram_quantile,
+    histogram_raw,
+    inc,
+    metrics_summary,
+    metrics_text,
+    observe,
+    set_gauge,
+)
+from .recorder import (
+    count_collectives,
+    drain,
+    events,
+    mirror_warning,
+    record,
+    reset,
+    ring_capacity,
+    set_log_path,
+    table_sig,
+    write_snapshot,
+)
+from . import roofline  # noqa: E402  (per-query phase attribution)
+from .trace import (
+    blackbox_traces,
+    current_query,
+    export_trace,
+    query_ctx,
+    query_trace,
+    recent_traces,
+    span,
+    span_begin,
+    span_end,
+)
 
-__all__ = ["bytemodel", "skew"]
+__all__ = [
+    "blackbox_traces",
+    "buffer_bytes",
+    "bytemodel",
+    "clear_prefix",
+    "count_collectives",
+    "counter_series",
+    "counter_value",
+    "current_query",
+    "disable",
+    "drain",
+    "enable",
+    "enabled",
+    "events",
+    "export_trace",
+    "gauge_series",
+    "gauge_value",
+    "histogram_quantile",
+    "histogram_raw",
+    "inc",
+    "metrics_summary",
+    "metrics_text",
+    "mirror_warning",
+    "observe",
+    "query_ctx",
+    "query_trace",
+    "recent_traces",
+    "record",
+    "reset",
+    "ring_capacity",
+    "roofline",
+    "set_gauge",
+    "set_log_path",
+    "skew",
+    "span",
+    "span_begin",
+    "span_end",
+    "table_sig",
+    "write_snapshot",
+]

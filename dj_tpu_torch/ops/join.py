@@ -93,13 +93,13 @@ into a prepared batch in place of a fresh prepare.
 
 from __future__ import annotations
 
-import os
 import warnings
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
+from .. import knobs, obs
 from ..core import dtypes as dt
 from ..core.search import count_leq_arange, run_bounds
 from ..core.table import Column, StringColumn, Table, concatenate, gather_fill, take_fill
@@ -382,7 +382,11 @@ _warned_unverified_string_keys = False
 
 def _warn_unverified_string_keys() -> None:
     """Warn once per process that a string-key join without
-    ``return_flags`` skips the collision verifier."""
+    ``return_flags`` skips the collision verifier, and mirror it into the
+    flight recorder (before the warning's own once-guard, so a process
+    that enables obs later still records it)."""
+    obs.mirror_warning("unverified_string_keys", "string join keys with return_flags=False: "
+                                                 "surrogate-collision verifier skipped")
     global _warned_unverified_string_keys
     if _warned_unverified_string_keys:
         return
@@ -439,7 +443,7 @@ def resolve_expand_impl() -> str:
     which are dj_tpu's ``DJ_JOIN_EXPAND`` = "pallas-vmeta", "pallas",
     "hist", "pallas-fused", "pallas-join", "pallas-vcarry" and
     "pallas-vfull")."""
-    impl = os.environ.get("DJT_JOIN_EXPAND", "vmeta")
+    impl = knobs.read("DJT_JOIN_EXPAND")
     if impl not in EXPAND_IMPLS:
         raise ValueError(f"DJT_JOIN_EXPAND={impl!r}: expected one of {EXPAND_IMPLS}")
     return impl
@@ -479,12 +483,12 @@ def effective_plan(
     The prepared join does not read this: see
     ``prepared_effective_plan``."""
     if carry_payloads is None:
-        carry_payloads = os.environ.get("DJT_JOIN_CARRY", "0") == "1"
+        carry_payloads = knobs.read("DJT_JOIN_CARRY") == "1"
     carry = bool(carry_payloads) and single_int_key
     packed = (
         (single_int_key or multi_key_packed)
         and not carry
-        and os.environ.get("DJT_JOIN_PACK", "1") == "1"
+        and knobs.read("DJT_JOIN_PACK") == "1"
     )
     expand = resolve_expand_impl()
     if expand in ("vcarry", "vfull") and not (
@@ -934,7 +938,7 @@ def inner_join(
         # The surrogates span the whole 64-bit range.
         key_range = None
     if verify_string_keys is None:
-        verify_string_keys = os.environ.get("DJT_STRING_VERIFY", "1") == "1"
+        verify_string_keys = knobs.read("DJT_STRING_VERIFY") == "1"
     verify_eligible = (bool(verify_string_keys) and bool(str_pairs)
                        and left.capacity > 0 and right.capacity > 0)
     if verify_eligible and not return_flags:
@@ -1212,7 +1216,7 @@ PROBE_EXPAND_IMPLS = ("segment", "hist", "pallas")
 def resolve_merge_impl() -> str:
     """The prepared join's merge tier: ``DJT_JOIN_MERGE`` ("sort", the
     default; "merge"; or "probe")."""
-    impl = os.environ.get("DJT_JOIN_MERGE", "sort")
+    impl = knobs.read("DJT_JOIN_MERGE")
     if impl not in MERGE_IMPLS:
         raise ValueError(f"DJT_JOIN_MERGE={impl!r}: expected one of {MERGE_IMPLS}")
     return impl
@@ -1224,7 +1228,7 @@ def resolve_probe_expand() -> str:
     default; src from the rank, the offset from the row's exclusive
     csum), "hist" (the same src, the offset from src's run starts) or
     "pallas" (src and offset from ``expand_values``)."""
-    impl = os.environ.get("DJT_PROBE_EXPAND", "segment")
+    impl = knobs.read("DJT_PROBE_EXPAND")
     if impl not in PROBE_EXPAND_IMPLS:
         raise ValueError(f"DJT_PROBE_EXPAND={impl!r}: expected one of {PROBE_EXPAND_IMPLS}")
     return impl

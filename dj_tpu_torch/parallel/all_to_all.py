@@ -484,13 +484,19 @@ def broadcast_table(
         table.columns[i].offsets[count].to(torch.int32) for i in string_cols])
     comm.phase("bc_gather")
     counts_g = comm.all_gather(size_vec)  # [n, 1 + string columns]
+    sent = [size_vec]  # each all-gather's send buffer: one epoch's launches
     gathered = []  # (kind, column, [n, ...] buffer)
     for i, col in enumerate(table.columns):
         if isinstance(col, StringColumn):
-            gathered.append(("sizes", i, comm.all_gather(col.sizes())))
+            sizes = col.sizes()
+            gathered.append(("sizes", i, comm.all_gather(sizes)))
             gathered.append(("chars", i, comm.all_gather(col.chars)))
+            sent += [sizes, col.chars]
         else:
             gathered.append(("col", i, comm.all_gather(col.data)))
+            sent.append(col.data)
+    comm.count_epoch(len(sent), sent)
+    del sent
     comm.phase("bc_compact")
     recv_rows = counts_g[:, 0]
     total = sizes_to_offsets(recv_rows)[-1]

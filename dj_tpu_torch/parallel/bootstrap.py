@@ -23,7 +23,9 @@ Not ported: dj_tpu's ``ensure_async_collectives`` and
 ``setup_compile_cache`` set XLA flags and XLA's compilation cache, which
 PyTorch has no counterpart of (NCCL collectives are asynchronous by
 construction); the observability hooks (the HTTP endpoint and the crash
-black box) come with the serving stack, ROADMAP queue 1 item 10.
+black box) come with the rest of ``obs``, ROADMAP queue 1 item 10f.
+Each retry counts ``dj_init_retry_total{what}`` and records one
+``backoff`` event, as dj_tpu's does.
 """
 
 from __future__ import annotations
@@ -36,18 +38,20 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
+from .. import knobs, obs
 from ..resilience.errors import BackendError
 
 _COORD_VARS = ("DJT_COORDINATOR_ADDRESS",)
 _NPROC_VARS = ("DJT_NUM_PROCESSES",)
 _PID_VARS = ("DJT_PROCESS_ID",)
 
-DEFAULT_TIMEOUT_S = 600.0  # the longest one collective waits
+# The longest one collective waits, unless DJT_COLLECTIVE_TIMEOUT_S says.
+DEFAULT_TIMEOUT_S = knobs.REGISTRY["DJT_COLLECTIVE_TIMEOUT_S"].default
 
 
 def _env_first(names) -> Optional[str]:
     for n in names:
-        v = os.environ.get(n)
+        v = knobs.read(n)
         if v not in (None, ""):
             return v
     return None
@@ -82,9 +86,9 @@ def retry_backoff(
     Exhaustion raises :class:`BackendError` chaining the last failure.
     """
     if attempts is None:
-        attempts = max(1, int(os.environ.get("DJT_INIT_RETRIES", "5")))
+        attempts = max(1, knobs.read_int("DJT_INIT_RETRIES"))
     if base_delay_s is None:
-        base_delay_s = float(os.environ.get("DJT_INIT_BACKOFF_S", "1.0"))
+        base_delay_s = knobs.read_float("DJT_INIT_BACKOFF_S")
     if sleep is None:
         sleep = time.sleep
     last: Optional[BaseException] = None
@@ -95,7 +99,11 @@ def retry_backoff(
             last = e
             if attempt == attempts:
                 break
-            sleep(min(max_delay_s, base_delay_s * 2 ** (attempt - 1)))
+            delay = min(max_delay_s, base_delay_s * 2 ** (attempt - 1))
+            obs.inc("dj_init_retry_total", what=what)
+            obs.record("backoff", what=what, attempt=attempt, delay_s=delay,
+                       error=f"{type(e).__name__}: {str(e)[:200]}")
+            sleep(delay)
     raise BackendError(
         f"{what} failed after {attempts} attempts: {type(last).__name__}: {last}"
     ) from last
@@ -149,7 +157,7 @@ def init_distributed(
     if not 0 <= pid < nproc:
         raise ValueError(f"init_distributed: process id {pid} outside a world of {nproc}")
     be = _backend(backend, device)
-    timeout_s = float(os.environ.get("DJT_COLLECTIVE_TIMEOUT_S", DEFAULT_TIMEOUT_S))
+    timeout_s = knobs.read_float("DJT_COLLECTIVE_TIMEOUT_S")
     if be == "nccl":
         torch.cuda.set_device(local_device_index(pid))
     url = address if "://" in address else f"tcp://{address}"

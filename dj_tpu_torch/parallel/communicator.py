@@ -29,6 +29,16 @@ rotation rounds of ``shift``). Any backend runs over any transport.
 ``wait()`` gives the received buffers, so a caller can issue batch b+1's
 exchange before it joins batch b; over torch.distributed the transfer
 then runs on the backend's stream meanwhile.
+
+Observability. ``Communicator.phase`` marks a rank's phases: each one
+is also a ``utils.timing.annotate`` range (an NVTX range on the card,
+and a ``torch.profiler`` range while a profiler runs) from its mark to
+the next mark, so a profiler trace shows dj_partition, dj_exchange,
+dj_join, a2a_* and bc_* with the kernels launched inside them. ``exchange_start`` counts
+each epoch it issues into ``dj_collective_launches_total`` and
+``dj_collective_bytes_total{width}`` (``obs.recorder.count_collectives``)
+on the communicators whose ``counts_collectives`` is set: one rank a
+process, so a world of threads counts each epoch once.
 """
 
 
@@ -44,6 +54,9 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from ..obs import metrics as _obs_metrics
+from ..obs.recorder import count_collectives
+from ..utils.timing import annotate
 from .topology import INTER, INTRA, CommunicationGroup
 
 
@@ -272,6 +285,31 @@ class DistTransport(Transport):
         return Pending(finish, send, recv)
 
 
+class PhaseRanges:
+    """The open ``annotate`` range of one rank's phase marks, shared by
+    the rank's communicators on every axis (like its PhaseClock): a mark
+    ends the open range and opens the next; ``scope`` names the marks
+    inside a ``phase_scope``."""
+
+    def __init__(self, device=None):
+        self.device = device
+        self.scope: Optional[str] = None
+        self._open = None
+
+    def mark(self, label: str) -> None:
+        self.end()
+        if self.scope is not None:
+            label = f"{self.scope}/{label}"
+        cm = annotate(label, self.device)
+        cm.__enter__()
+        self._open = cm
+
+    def end(self) -> None:
+        if self._open is not None:
+            cm, self._open = self._open, None
+            cm.__exit__(None, None, None)
+
+
 class Communicator(abc.ABC):
     """Collective backend over one communication group, on a transport."""
 
@@ -285,6 +323,10 @@ class Communicator(abc.ABC):
         # {axis name: this rank's communicator on that axis}, set by
         # run_spmd on a two-level topology; empty on a flat one.
         self.axes: dict = {}
+        # This rank's phase ranges (run_spmd shares one among its axes)
+        # and whether its exchanges feed the collective counters.
+        self.ranges = PhaseRanges()
+        self.counts_collectives = True
 
     @property
     def size(self) -> int:
@@ -299,10 +341,16 @@ class Communicator(abc.ABC):
         self.transport.clock = clock
 
     def phase(self, label: str) -> None:
-        """Start phase ``label`` of this rank's work (timed only when a
-        ``clock`` is set)."""
+        """Start phase ``label`` of this rank's work: an ``annotate``
+        range until the next mark (module docstring), timed when a
+        ``clock`` is set."""
         if self.clock is not None:
             self.clock.mark(label)
+        self.ranges.mark(label)
+
+    def end_phases(self) -> None:
+        """End the rank's last phase range."""
+        self.ranges.end()
 
     @contextlib.contextmanager
     def phase_scope(self, label: str):
@@ -313,11 +361,25 @@ class Communicator(abc.ABC):
         clock = self.clock
         if clock is not None:
             clock.scope = label
+        self.ranges.scope = label
         try:
             yield
         finally:
             if clock is not None:
                 clock.scope = None
+            self.ranges.scope = None
+
+    def count_epoch(self, launches: int, buffers: Sequence[torch.Tensor]) -> None:
+        """Count one exchange epoch of ``launches`` collectives moving
+        ``buffers`` (their per-shard send bytes by element width), when
+        this communicator counts and obs is enabled."""
+        if not (self.counts_collectives and _obs_metrics.enabled()):
+            return
+        by_width: dict = {}
+        for b in buffers:
+            k = str(b.element_size())
+            by_width[k] = by_width.get(k, 0) + b.numel() * b.element_size()
+        count_collectives([{"launches": launches, "bytes_by_width": by_width}])
 
     def rank(self) -> int:
         """This rank's index in the group."""
@@ -385,11 +447,15 @@ class Communicator(abc.ABC):
             if b.shape[0] != n:
                 raise ValueError(f"exchange buffer leading axis {b.shape[0]} != group size {n}")
         if not self.fuse_columns or len(bufs) <= 1:
+            self.count_epoch(len(bufs), bufs)
             pend = [self.all_to_all_start(b) for b in bufs]
             return Pending(lambda: [p.wait() for p in pend])
         groups: dict = {}
         for j, b in enumerate(bufs):
             groups.setdefault(b.dtype, []).append(j)
+        # One collective a dtype (dj_tpu fuses a width class: two dtypes
+        # of one width are two launches here, one there).
+        self.count_epoch(len(groups), bufs)
         issued = []
         for idxs in groups.values():
             if len(idxs) == 1:

@@ -54,8 +54,17 @@ rotated windows in the same exchange epoch) or shuffle.
 queried with no collective), salted, or auto. A two-level topology stays
 on shuffle. Every tier returns the shuffle plan's flag keys, so the heal
 is tier-blind. Under ``DJT_SHAPE_BUCKET=1`` (``parallel.shape_bucket``)
-every entry point pads its tables to their shape bucket first. The
-roofline phases and the degradation guard come with the serving stack.
+every entry point pads its tables to their shape bucket first.
+
+A key pair of two element widths (int64 against int32 or uint32, ...)
+raises ValueError on every entry that takes two tables' keys, at every
+world size: the partition hashes a key at its own width, so equal
+values of two widths would land on different ranks.
+
+Every entry point is observed as dj_tpu's (``obs``): the roofline
+``probe``, ``dispatch`` and ``prep`` phases (``_dispatch``), the query,
+plan, tier, range-probe, heal and re-prepare counters and events. The
+degradation guard comes with the fault ladder (ROADMAP item 10b).
 
 The co-partitioned join (``TIER_LOCAL``) and the coalesced dispatches
 (``distributed_inner_join_coalesced`` against a PreparedSide,
@@ -76,7 +85,7 @@ own build stage the same way.
 from __future__ import annotations
 
 import dataclasses
-import os
+import time
 import warnings
 import weakref
 from typing import NamedTuple, Optional, Sequence, Type
@@ -97,6 +106,9 @@ from ..ops.join import (
     plan_prepared_pack,
     prepare_packed_batch,
 )
+from .. import knobs, obs
+from ..obs import recorder as obs_recorder
+from ..obs import roofline as obs_roofline
 from ..obs.bytemodel import replicated_table_bytes
 from ..obs import skew as obs_skew
 from ..ops.partition import (
@@ -131,6 +143,72 @@ _FLAG_KEYS = (
     "surrogate_collision",
     "pack_range_overflow",
 )
+
+
+def _dtype_name(col) -> str:
+    return str(col.data.dtype).removeprefix("torch.")
+
+
+def _check_key_widths(left_cols: Sequence, right_cols: Sequence, left_on: Sequence[int],
+                      right_on: Sequence[int], what: str) -> None:
+    """Refuse a key pair of two element widths with ValueError, naming
+    both dtypes and the pair's columns (of ``left_cols`` and
+    ``right_cols``, two tables' columns). ``hash_partition`` hashes each
+    key column at its own width, so equal values of two widths land on
+    different ranks and their rows go missing without a flag (dj_tpu's
+    unprepared paths do not check; its prepared path refuses differing
+    key dtypes, dj_tpu/parallel/dist_join.py:1463). Pairs of one width
+    (int64 with uint64, int32 with uint32) and string keys pass."""
+    for j, (lc, rc) in enumerate(zip(left_on, right_on)):
+        a, b = left_cols[lc], right_cols[rc]
+        if isinstance(a, StringColumn) or isinstance(b, StringColumn):
+            continue
+        if a.data.element_size() != b.data.element_size():
+            raise ValueError(
+                f"{what}: key pair {j} (left column {lc}, right column {rc}) joins "
+                f"{_dtype_name(a)} with {_dtype_name(b)}: keys of two widths hash to "
+                f"different ranks; cast one side to the other's width"
+            )
+
+
+def _check_table_right(left: Table, right: Table, right_counts, left_on, right_on,
+                       what: str) -> None:
+    """A Table right side's arguments: TypeError without ``right_counts``
+    and ``right_on`` (they default to None only so a PreparedSide can
+    omit them), then ``_check_key_widths``."""
+    if right_counts is None or right_on is None:
+        raise TypeError(
+            f"{what}: right_counts and right_on are required when `right` is a Table (they "
+            f"default to None only so a PreparedSide can omit them)"
+        )
+    _check_key_widths(left.columns, right.columns, left_on, right_on, what)
+
+
+def _dispatch(topology: Topology, stage: str, kind: str, run, path: Optional[str] = None,
+              queries: int = 1, phase: str = "dispatch"):
+    """``run()`` as one dispatch of the ranks, observed as dj_tpu's
+    dispatch is: the roofline ``phase`` ("dispatch"; a prepare's is
+    "prep"), whose wire model is the
+    per-shard send bytes of the exchanges the ranks issued
+    (``obs.recorder.account_epochs``, which also records the query's
+    ``collectives`` event under ``kind``), and with ``path``
+    ``dj_query_dispatch_seconds{path}`` and ``dj_join_queries_total{path}``
+    (``queries`` of them: a pipeline's stage counts none, its chain
+    one). Just ``run()`` while obs is disabled."""
+    if not obs.enabled():
+        return run()
+    wire: dict = {}
+    t0 = time.perf_counter()
+    with obs_roofline.phase(phase, stage=stage, kind="wire", device=topology.device,
+                            bytes_fn=lambda: wire.get("bytes")):
+        with obs_recorder.account_epochs(kind) as acc:
+            out = run()
+        wire["bytes"] = acc["total_bytes"] or None
+    if path is not None:
+        if queries:
+            obs.inc("dj_join_queries_total", queries, path=path)
+        obs.observe("dj_query_dispatch_seconds", time.perf_counter() - t0, path=path)
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -448,7 +526,8 @@ def _resolve_plan_decision(
     revalidated: a broadcast whose side no longer fits the budget, or a
     salt set the current n and odf cannot hold, is demoted to shuffle.
     A two-level topology and the planner off give the shuffle plan. A
-    failure to decide warns and gives the shuffle plan, as dj_tpu's."""
+    failure to decide warns (once a process also into the flight
+    recorder) and gives the shuffle plan, as dj_tpu's."""
     if not plan_adapt.enabled() or topology.is_hierarchical:
         return plan_adapt.SHUFFLE
     sig = dj_ledger.plan_signature(topology, left, right, left_on, right_on, config)
@@ -462,6 +541,8 @@ def _resolve_plan_decision(
                                                       config),
         )
     except Exception as e:  # noqa: BLE001 - planning must not fail a query
+        obs.mirror_warning("plan_adapt_failed", f"plan decision failed ({type(e).__name__}: "
+                                                f"{e}); serving this shape on the shuffle plan")
         warnings.warn(f"plan decision failed ({type(e).__name__}: {e}); this join runs the "
                       f"shuffle plan", RuntimeWarning, stacklevel=3)
         return plan_adapt.SHUFFLE
@@ -527,23 +608,24 @@ def _world_minmax(topology: Optional[Topology], ranges: list) -> list:
 # processes, line up on every process.
 _MINMAX_CACHE: dict = {}
 _MINMAX_CACHE_MAX = 4096
-range_probes = 0  # memo misses: range probes taken (dj_tpu's dj_range_probe_total)
 
 
 def _memo_minmax(data: torch.Tensor, counts: torch.Tensor, w: int,
                  topology: Optional[Topology] = None) -> tuple[int, int]:
     """``_masked_minmax`` of ``data`` over the world, memoized (above).
     A shape-bucket pad resolves to its source column first
-    (``shape_bucket.alias_base``): the pad appends masked rows only."""
-    global range_probes
+    (``shape_bucket.alias_base``): the pad appends masked rows only.
+    Counts ``dj_range_probe_total{result}``: "memo_hit", or "probe" for
+    a miss, which reads the column on the host."""
     base = shape_bucket.alias_base(data)
     if base is not None:
         data = base
     key = (id(data), data._version, id(counts), counts._version, w)
     hit = _MINMAX_CACHE.get(key)
     if hit is not None:
+        obs.inc("dj_range_probe_total", result="memo_hit")
         return hit
-    range_probes += 1
+    obs.inc("dj_range_probe_total", result="probe")
     val = _world_minmax(topology, [_masked_minmax(data, counts, w)])[0]
     if len(_MINMAX_CACHE) < _MINMAX_CACHE_MAX:
         _MINMAX_CACHE[key] = val
@@ -572,9 +654,9 @@ def _resolve_key_range(
     memo (``_memo_minmax``)."""
     if config.key_range is not None:
         return normalize_key_range(config.key_range, len(left_on))
-    if os.environ.get("DJT_JOIN_RANGE_PROBE", "1") != "1":
+    if knobs.read("DJT_JOIN_RANGE_PROBE") != "1":
         return None
-    if os.environ.get("DJT_JOIN_PACK", "1") != "1":
+    if knobs.read("DJT_JOIN_PACK") != "1":
         return None
     cols = []
     for lc, rc in zip(left_on, right_on):
@@ -643,12 +725,7 @@ def distributed_inner_join(
         return _distributed_inner_join_prepared(
             topology, left, left_counts, right, left_on, config
         )
-    if right_counts is None or right_on is None:
-        raise TypeError(
-            "distributed_inner_join: right_counts and right_on are required "
-            "when `right` is a Table (they default to None only so a "
-            "PreparedSide can omit them)"
-        )
+    _check_table_right(left, right, right_counts, left_on, right_on, "distributed_inner_join")
     if config is None:
         config = JoinConfig()
     w = topology.local_ranks
@@ -663,14 +740,18 @@ def distributed_inner_join(
     # bucket before the sizing, the signatures and the range probe.
     left = shape_bucket.bucket_table(topology, left)
     right = shape_bucket.bucket_table(topology, right)
-    key_range = _resolve_key_range(
-        config, left, left_counts, right, right_counts, left_on, right_on, w, topology
-    )
+    with obs_roofline.phase("probe", stage="join"):
+        key_range = _resolve_key_range(
+            config, left, left_counts, right, right_counts, left_on, right_on, w, topology
+        )
     left_on, right_on = tuple(left_on), tuple(right_on)
     decision = _resolve_plan_decision(topology, left, left_counts, right, right_counts, left_on,
                                       right_on, config)
+    if plan_adapt.enabled():
+        obs.inc("dj_plan_dispatch_total", tier=decision.tier)
     return _run_join(topology, decision.tier, left, left_counts, right, right_counts, left_on,
-                     right_on, config, key_range, decision.salt, decision.replicas)
+                     right_on, config, key_range, decision.salt, decision.replicas,
+                     path="unprepared")
 
 
 TIER_LOCAL = "local"  # the pipeline's co-partitioned join (parallel.pipeline)
@@ -679,13 +760,16 @@ TIER_LOCAL = "local"  # the pipeline's co-partitioned join (parallel.pipeline)
 def _run_join(
     topology: Topology, tier: str, left: Table, left_counts: torch.Tensor, right: Table,
     right_counts: torch.Tensor, left_on: tuple, right_on: tuple, config: JoinConfig,
-    key_range: Optional[tuple], salt: tuple = (), replicas: int = 1,
+    key_range: Optional[tuple], salt: tuple = (), replicas: int = 1, *, stage: str = "join",
+    path: Optional[str] = None, queries: int = 1,
 ) -> tuple[Table, torch.Tensor, dict]:
     """One unprepared join's ranks on ``tier``: the shuffle plan
     (``_local_join_pipeline``; salted with a ``salt`` set), the broadcast
     plan (``_broadcast_join_pipeline``) or the co-partitioned local join
-    (``TIER_LOCAL``, ``_copartitioned_join``). Returns (result, counts,
-    info by ``_flag_keys``)."""
+    (``TIER_LOCAL``, ``_copartitioned_join``), as one ``_dispatch``
+    under ``stage``, ``path`` and ``queries``. Its callers have checked
+    the key widths (``_check_key_widths``). Returns (result, counts, info
+    by ``_flag_keys``)."""
     w = topology.local_ranks
     l_cap, r_cap = left.capacity // w, right.capacity // w
     keys = _flag_keys(config)
@@ -701,8 +785,13 @@ def _run_join(
             out, flags = _local_join_pipeline(*args, salt, replicas)
         return out.with_count(None), out.count().reshape(1), _flag_row(flags, keys)
 
-    out, counts, flag_mat = run_spmd(topology, run, left, left_counts, right, right_counts,
-                                     **_backend(config))
+    kind = {plan_adapt.TIER_BROADCAST: "join_broadcast", TIER_LOCAL: "join_local"}.get(
+        tier, "join_salted" if salt else "join")
+    out, counts, flag_mat = _dispatch(
+        topology, stage, kind,
+        lambda: run_spmd(topology, run, left, left_counts, right, right_counts,
+                         **_backend(config)),
+        path=path, queries=queries)
     return out, counts, _flag_info(flag_mat, keys)
 
 
@@ -851,6 +940,9 @@ def distributed_inner_join_auto(
         )
     if config is None:
         config = JoinConfig()
+    # Before the first attempt: keys of two widths are no capacity problem.
+    _check_table_right(left, right, right_counts, left_on, right_on,
+                       "distributed_inner_join_auto")
     state = {"config": config, "dropped_range": False}
 
     def run_attempt(attempt):
@@ -871,6 +963,9 @@ def distributed_inner_join_auto(
                 "range covers the data by construction; this is a bug, not a "
                 "capacity problem"
             )
+        obs.inc("dj_heal_total", flag="pack_range_overflow")
+        obs.record("heal", stage="join", attempt=attempt, flags=["pack_range_overflow"],
+                   action="drop_declared_range", dropped_key_range=cfg.key_range)
         state.update(config=dataclasses.replace(cfg, key_range=None), dropped_range=True)
 
     def _apply_ledger(entry):
@@ -1091,11 +1186,15 @@ def _prepared_salt_ratio() -> float:
     """The heavy-partition threshold of the salted-prepared tier:
     ``DJT_PREPARED_SALT_RATIO``, else (unset or <= 0) the planner's
     ``DJT_SALT_RATIO``."""
-    try:
-        r = float(os.environ.get("DJT_PREPARED_SALT_RATIO") or 0.0)
-    except ValueError:
-        r = 0.0
+    r = knobs.read_float("DJT_PREPARED_SALT_RATIO")
     return r if r > 0 else plan_adapt.salt_ratio()
+
+
+def _record_prepared_tier(sig: str, tier: str, salt: tuple, replicas: int, source: str,
+                          ratio: Optional[float] = None, **extra) -> None:
+    obs.inc("dj_prepared_tier_total", tier=tier, source=source)
+    obs.record("prepared_tier", tier=tier, source=source, salt=[int(p) for p in salt],
+               replicas=int(replicas), ratio=ratio, signature=sig[:200], **extra)
 
 
 def _persist_prepared_tier(sig: str, tier: str, salt: tuple, replicas: int,
@@ -1109,9 +1208,11 @@ def _demote_prepared_tier(sig: str, reason: str) -> tuple:
     """Persist the shuffle tier for prepare signature ``sig``: a
     requested or replayed replication tier that does not fit (broadcast
     budget, salt geometry, a merged size that does not pack) falls
-    back to shuffle-prepared. ``reason`` says which (dj_tpu records it
-    in an event)."""
+    back to shuffle-prepared. ``reason`` says which, in one
+    ``prepared_tier`` event with ``action="demote"``."""
     _persist_prepared_tier(sig, plan_adapt.TIER_SHUFFLE, (), 1)
+    _record_prepared_tier(sig, plan_adapt.TIER_SHUFFLE, (), 1, "demote", action="demote",
+                          reason=str(reason)[:300])
     return _SHUFFLE_TIER
 
 
@@ -1130,27 +1231,33 @@ def _resolve_prepared_tier(
     side's gathered partition counts have a destination at
     ``_prepared_salt_ratio()`` times its batch's mean; auto tries both
     in that order and else stays on shuffle. A fresh decision persists
-    at once."""
+    at once; each decision records one ``prepared_tier`` event and
+    ``dj_prepared_tier_total{tier,source}``, as dj_tpu's."""
     if topology.is_hierarchical:
         return _SHUFFLE_TIER
     n = topology.world_group().size
     odf = config.over_decom_factor
     w = topology.world_size
     salt, replicas = (), 0
-    rec = (dj_ledger.consult(sig) or {}).get(_PREPARED_TIER_KEY)
     if forced is not None:
         requested, source = forced, "forced"
-        if forced == plan_adapt.TIER_SALTED and isinstance(rec, dict):
+        if forced == plan_adapt.TIER_SALTED:
+            rec = (dj_ledger.consult(sig) or {}).get(_PREPARED_TIER_KEY)
+            if isinstance(rec, dict):
+                salt = tuple(int(p) for p in rec.get("salt") or ())
+                replicas = int(rec.get("replicas") or 0)
+    else:
+        rec = (dj_ledger.consult(sig) or {}).get(_PREPARED_TIER_KEY)
+        if isinstance(rec, dict) and rec.get("tier") in _PREPARED_TIERS:
+            requested, source = rec["tier"], "ledger"
             salt = tuple(int(p) for p in rec.get("salt") or ())
             replicas = int(rec.get("replicas") or 0)
-    elif isinstance(rec, dict) and rec.get("tier") in _PREPARED_TIERS:
-        requested, source = rec["tier"], "ledger"
-        salt = tuple(int(p) for p in rec.get("salt") or ())
-        replicas = int(rec.get("replicas") or 0)
-    else:
-        requested = (os.environ.get("DJT_PREPARED_TIER") or "shuffle").strip().lower() or "shuffle"
-        source = "env"
+        else:
+            requested = (knobs.read("DJT_PREPARED_TIER") or "shuffle").strip().lower() or "shuffle"
+            source = "env"
     if requested == plan_adapt.TIER_SHUFFLE:
+        if source == "ledger":
+            _record_prepared_tier(sig, plan_adapt.TIER_SHUFFLE, (), 1, source)
         return _SHUFFLE_TIER
     if requested not in _PREPARED_TIERS + ("auto",):
         raise ValueError(f"DJT_PREPARED_TIER={requested!r}: expected shuffle | broadcast | "
@@ -1161,6 +1268,8 @@ def _resolve_prepared_tier(
         if budget > 0 and rb <= budget:
             if source != "ledger":
                 _persist_prepared_tier(sig, plan_adapt.TIER_BROADCAST, (), 1)
+            _record_prepared_tier(sig, plan_adapt.TIER_BROADCAST, (), 1,
+                                  source if source != "env" else "fit")
             return plan_adapt.TIER_BROADCAST, (), 1
         if requested == plan_adapt.TIER_BROADCAST:
             return _demote_prepared_tier(
@@ -1168,6 +1277,7 @@ def _resolve_prepared_tier(
                      f"budget {budget:.3g} B")
     if source in ("ledger", "forced") and salt and replicas >= 2:
         if replicas <= n and all(0 <= p < n * odf for p in salt):
+            _record_prepared_tier(sig, plan_adapt.TIER_SALTED, salt, replicas, source)
             return plan_adapt.TIER_SALTED, salt, replicas
         return _demote_prepared_tier(
             sig, f"replayed salt set {salt} / replicas {replicas} incompatible with n={n}, "
@@ -1176,6 +1286,7 @@ def _resolve_prepared_tier(
         if requested == plan_adapt.TIER_SALTED:
             return _demote_prepared_tier(sig, "salted-prepared needs a multi-shard group")
         return _SHUFFLE_TIER
+    obs.inc("dj_plan_probe_total")
     counts = _partition_probe_counts(topology, right, right_counts, right_on, odf, config)
     batches = obs_skew.batch_skew(counts, n, odf, topk=plan_adapt.salt_topk())
     threshold = _prepared_salt_ratio()
@@ -1185,11 +1296,14 @@ def _resolve_prepared_tier(
         salt = tuple(sorted(set(heavy)))
         replicas = plan_adapt.salt_replicas(n, worst)
         _persist_prepared_tier(sig, plan_adapt.TIER_SALTED, salt, replicas, float(worst))
+        _record_prepared_tier(sig, plan_adapt.TIER_SALTED, salt, replicas,
+                              source if source == "forced" else "probe", ratio=float(worst))
         return plan_adapt.TIER_SALTED, salt, replicas
     if requested == plan_adapt.TIER_SALTED:
         return _demote_prepared_tier(
             sig, f"no heavy resident partition at ratio >= {threshold:.3g} (worst {worst:.3g})")
     _persist_prepared_tier(sig, plan_adapt.TIER_SHUFFLE, (), 1, float(worst))
+    _record_prepared_tier(sig, plan_adapt.TIER_SHUFFLE, (), 1, "probe", ratio=float(worst))
     return _SHUFFLE_TIER
 
 
@@ -1335,8 +1449,10 @@ def prepare_join_side(
                                                   r_cap_m, salt_now, replicas_now)
             return batches, _flag_row(flags, keys)
 
-        batches, flag_mat = run_spmd(topology, run, right, right_counts,
-                                     **_backend(cfg, flags_at=1))
+        batches, flag_mat = _dispatch(
+            topology, "prepare", "prepare",
+            lambda: run_spmd(topology, run, right, right_counts, **_backend(cfg, flags_at=1)),
+            phase="prep")
         return (batches, plan, n, sizing), _flag_info(flag_mat, keys)
 
     def _heal_range_violation(info, attempt):
@@ -1353,6 +1469,10 @@ def prepare_join_side(
                 "prepare_join_side: declared key_range violated and the "
                 "build side probes empty"
             )
+        obs.inc("dj_heal_total", flag="prep_range_violation")
+        obs.record("heal", stage="prepare", attempt=attempt, flags=["prep_range_violation"],
+                   action="reprobe_declared_range", old_key_range=state["kr"],
+                   new_key_range=new_kr)
         state.update(kr=new_kr, probed=True, reprobed=True)
 
     def _apply_ledger(entry):
@@ -1483,20 +1603,21 @@ def _distributed_inner_join_prepared(
                                     "distributed_inner_join(prepared)")
     left = shape_bucket.bucket_table(topology, left)
     per_query, keys = _run_prepared_queries(topology, [left], [left_counts], prepared, left_on,
-                                            config)
+                                            config, stage="prepared_query", path="prepared")
     out, counts, flag_mat = per_query
     return out[0], counts[0], _flag_info(flag_mat[:, 0], keys)
 
 
 def _run_prepared_queries(
     topology: Topology, lefts: Sequence[Table], left_counts: Sequence[torch.Tensor],
-    prepared: PreparedSide, left_on: tuple, config: JoinConfig,
+    prepared: PreparedSide, left_on: tuple, config: JoinConfig, *, stage: str, path: str,
 ):
     """K same-shaped queries against ``prepared`` in one run: per rank,
     each member's pre-shuffle (two-level topologies), then
     ``_prepared_query`` (every member's batch window in one epoch), or on
-    a broadcast side K local probes with no collective. Returns ((results,
-    counts, the [w, K, k] flag tensor), the flag keys)."""
+    a broadcast side K local probes with no collective; one ``_dispatch``
+    under ``stage`` and ``path``. Returns ((results, counts, the [w, K, k]
+    flag tensor), the flag keys)."""
     odf = config.over_decom_factor
     l_cap = lefts[0].capacity // topology.local_ranks
     _, l_cap_m, bl, out_cap = _prepared_query_sizing(topology, config, l_cap, prepared)
@@ -1520,8 +1641,11 @@ def _run_prepared_queries(
                 tuple(out.count().reshape(1) for out, _ in members),
                 torch.stack([_flag_row(flags, keys)[0] for _, flags in members])[None])
 
-    return run_spmd(topology, run, tuple(lefts), tuple(left_counts), prepared.batches,
-                    **_backend(config)), keys
+    return _dispatch(
+        topology, stage, stage,
+        lambda: run_spmd(topology, run, tuple(lefts), tuple(left_counts), prepared.batches,
+                         **_backend(config)),
+        path=path, queries=len(lefts)), keys
 
 
 def _bc_prepared_query(
@@ -1682,12 +1806,21 @@ def _distributed_inner_join_prepared_auto(
         )
         return (out, counts), info
 
-    def _reprepare_heal(_cause, attempt):
+    def _reprepare_heal(cause, attempt):
         # Left keys outside the prepared anchors (the flag), or a probe
         # side the plan cannot take (the exception): the packed words do
         # not compare, so no other flag of this attempt is trusted.
         new_prepared = _reprepare(topology, left, left_counts, state["prepared"], left_on,
                                   state["config"])
+        structural = isinstance(cause, Exception)
+        reason = "structural" if structural else "plan_mismatch"
+        obs.inc("dj_reprepare_total", reason=reason)
+        fields = dict(stage="join", attempt=attempt, reason=reason,
+                      old_key_range=state["prepared"].key_range,
+                      new_key_range=new_prepared.key_range)
+        if structural:
+            fields["detail"] = str(cause)[:300]
+        obs.record("reprepare", **fields)
         state["prepared"] = new_prepared
         state["config"] = dataclasses.replace(
             state["config"], over_decom_factor=new_prepared.config.over_decom_factor)
@@ -1790,8 +1923,9 @@ def distributed_inner_join_coalesced(
                                     "distributed_inner_join_coalesced")
     config = _ledger_widened(config, dj_ledger.plan_signature(topology, lefts[0], prepared,
                                                               left_on, None, config))
-    (outs, counts, flag_mat), keys = _run_prepared_queries(topology, lefts, left_counts, prepared,
-                                                           left_on, config)
+    (outs, counts, flag_mat), keys = _run_prepared_queries(
+        topology, lefts, left_counts, prepared, left_on, config, stage="coalesced_query",
+        path="coalesced")
     return _members(outs, counts, flag_mat, keys), config
 
 
@@ -1832,6 +1966,8 @@ def distributed_inner_join_coalesced_unprepared(
     if config is None:
         config = JoinConfig()
     what = "distributed_inner_join_coalesced_unprepared"
+    for q, (lt, rt) in enumerate(zip(lefts, rights)):
+        _check_key_widths(lt.columns, rt.columns, left_on, right_on, f"{what} (member {q})")
     if topology.is_hierarchical:
         raise ValueError(f"{what} supports flat topologies only; dispatch two-level queries "
                          f"one at a time")
@@ -1855,11 +1991,12 @@ def distributed_inner_join_coalesced_unprepared(
                          f"to >= 1 row per shard")
     config = _ledger_widened(config, dj_ledger.plan_signature(topology, lefts[0], rights[0],
                                                               left_on, right_on, config))
-    key_range = _union_key_ranges([
-        _resolve_key_range(config, lefts[q], left_counts[q], rights[q], right_counts[q], left_on,
-                           right_on, w, topology)
-        for q in range(k)
-    ])
+    with obs_roofline.phase("probe", stage="join"):
+        key_range = _union_key_ranges([
+            _resolve_key_range(config, lefts[q], left_counts[q], rights[q], right_counts[q],
+                               left_on, right_on, w, topology)
+            for q in range(k)
+        ])
     l_cap, r_cap = lefts[0].capacity // w, rights[0].capacity // w
     keys = _flag_keys(config)
 
@@ -1872,8 +2009,11 @@ def distributed_inner_join_coalesced_unprepared(
                 tuple(out.count().reshape(1) for out, _ in members),
                 torch.stack([_flag_row(flags, keys)[0] for _, flags in members])[None])
 
-    outs, counts, flag_mat = run_spmd(topology, run, tuple(lefts), tuple(left_counts),
-                                      tuple(rights), tuple(right_counts), **_backend(config))
+    outs, counts, flag_mat = _dispatch(
+        topology, "coalesced_join", "coalesced_join",
+        lambda: run_spmd(topology, run, tuple(lefts), tuple(left_counts), tuple(rights),
+                         tuple(right_counts), **_backend(config)),
+        path="coalesced_unprepared", queries=k)
     return _members(outs, counts, flag_mat, keys), config
 
 
@@ -1949,8 +2089,11 @@ def append_to_prepared(
     Raises PreparedPlanMismatch for a hierarchical topology (the rows
     would need the pre-shuffle re-run), a schema other than the source's
     and an appended capacity the tag field cannot hold; ValueError for a
-    shard with zero appended capacity. dj_tpu's ``obs`` counters and
-    ``faults.force_flags`` come with the serving stack."""
+    shard with zero appended capacity. Counts
+    ``dj_prepared_append_total{batches}`` (the merged batches), and a
+    re-prepare records its ``reprepare`` event with
+    ``dj_reprepare_total{reason="append"}``, as dj_tpu does; dj_tpu's
+    ``faults.force_flags`` comes with the fault ladder (ROADMAP 10b)."""
     if topology.is_hierarchical:
         raise PreparedPlanMismatch(
             "append_to_prepared does not support hierarchical topologies (the "
@@ -1979,6 +2122,11 @@ def append_to_prepared(
             left_capacity=prepared.l_cap * topology.world_size, key_range=kr,
             tier=prepared.tier,
         )
+        obs.inc("dj_reprepare_total", reason="append")
+        obs.record("reprepare", stage="append", attempt=1, reason="append",
+                   old_key_range=prepared.key_range, new_key_range=new_prepared.key_range,
+                   detail=f"tier={prepared.tier}")
+        obs.inc("dj_prepared_append_total", batches=str(len(new_prepared.batches)))
         none = torch.zeros(topology.world_size, dtype=torch.bool, device=topology.device)
         info = dict.fromkeys(_APPEND_FLAG_KEYS, none)
         info["touched"] = tuple(range(len(new_prepared.batches)))
@@ -2040,6 +2188,7 @@ def append_to_prepared(
         none = torch.zeros(topology.world_size, dtype=torch.bool, device=topology.device)
         info = dict.fromkeys(_APPEND_FLAG_KEYS, none)
     new_right, new_rc = combine_prepared_source(topology, prepared, rows, rows_counts)
+    obs.inc("dj_prepared_append_total", batches=str(len(touched)))
     info["touched"] = touched
     return dataclasses.replace(
         prepared, batches=tuple(new_batches), right=new_right, right_counts=new_rc,

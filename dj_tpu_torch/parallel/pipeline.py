@@ -55,20 +55,31 @@ probes (memoized) and, in the auto wrapper, the stages' flag matrices.
 overflow of stage i grows stage i's factor under stage i's ledger key
 and runs stage i again on the intermediate it already has, and a
 declared stage range that fires ``pack_range_overflow`` drops for that
-stage alone. dj_tpu's degradation ladder, fault sites, roofline phases,
-events, autotuner and scheduler hooks come with the serving stack;
-``pipeline_signature`` (the autotuner's unit) is here.
+stage alone.
+
+Observed as dj_tpu's: each stage records one ``pipeline`` event (its
+index, the stage count, the mode it ran, whether the exchange was
+elided, where its key range came from) and counts
+``dj_pipeline_stage_total{mode}``; a Table-right stage's run is the
+roofline ``dispatch`` phase with stage ``"pipeline:<i>"``; each chain
+counts ``dj_join_queries_total{path="pipeline"}`` once; a dropped
+declared stage range records its ``heal`` event. Every process plans
+and records alike (the events' fields come from the plan, which every
+process makes from the same inputs). dj_tpu's degradation ladder,
+fault sites, autotuner and scheduler hooks come with the rest of the
+serving stack (ROADMAP items 10b, 10c and 10e); ``pipeline_signature``
+(the autotuner's unit) is here.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from .. import knobs, obs
 from ..core import dtypes as dt
 from ..core.table import Column, Table
 from ..ops.join import canonical_key_range, intersect_key_ranges, normalize_key_range
@@ -99,15 +110,15 @@ _EXPLICIT_MODES = ("auto", MODE_SHUFFLE, MODE_LOCAL, MODE_BROADCAST)
 
 
 def _copart_enabled() -> bool:
-    return os.environ.get("DJT_PIPELINE_COPART", "1") == "1"
+    return knobs.read("DJT_PIPELINE_COPART") == "1"
 
 
 def _broadcast_enabled() -> bool:
-    return os.environ.get("DJT_PIPELINE_BROADCAST", "1") == "1"
+    return knobs.read("DJT_PIPELINE_BROADCAST") == "1"
 
 
 def _range_derive_enabled() -> bool:
-    return os.environ.get("DJT_PIPELINE_RANGE_DERIVE", "1") == "1"
+    return knobs.read("DJT_PIPELINE_RANGE_DERIVE") == "1"
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -225,9 +236,9 @@ def _derive_stage_range(sources, stage, topology: Topology):
         return normalize_key_range(stage.key_range, len(left_on)), "declared", None
     if not _range_derive_enabled():
         return None, "dynamic", None
-    if os.environ.get("DJT_JOIN_RANGE_PROBE", "1") != "1":
+    if knobs.read("DJT_JOIN_RANGE_PROBE") != "1":
         return None, "dynamic", None
-    if os.environ.get("DJT_JOIN_PACK", "1") != "1":
+    if knobs.read("DJT_JOIN_PACK") != "1":
         return None, "dynamic", None
     pairs = []
     for lc, rc in zip(left_on, right_on):
@@ -345,7 +356,10 @@ def plan_pipeline(
 ) -> PipelinePlan:
     """The chain's plan: each stage's mode, key range and output
     partitioning (dj_tpu's ``plan_pipeline``). ``resolve_ranges=False``
-    plans the modes only and reads no data on the device."""
+    plans the modes only and reads no data on the device. A Table
+    stage's key pair of two widths raises ValueError before that stage's
+    range probe (``dist_join._check_key_widths``, on the stage's left
+    columns as the chain builds them)."""
     if not stages:
         raise ValueError("plan_pipeline: at least one JoinStage required")
     if config is None:
@@ -353,7 +367,8 @@ def plan_pipeline(
     left = shape_bucket.bucket_table(topology, left)
     part_cols = None if left_partitioned_by is None else tuple(left_partitioned_by)
     sources = {i: _col_source(left, left_counts, i) for i in range(len(left.columns))}
-    cur_cols = len(left.columns)
+    cols = list(left.columns)
+    cur_cols = len(cols)
     plans = []
     for i, stage in enumerate(stages):
         cfg = stage.config if stage.config is not None else config
@@ -372,6 +387,9 @@ def plan_pipeline(
         if max(stage.left_on) >= cur_cols:
             raise ValueError(f"stage {i}: left_on {tuple(stage.left_on)} out of range for the "
                              f"stage's {cur_cols}-column left side")
+        if not prepared:
+            dj._check_key_widths(cols, stage.right.columns, stage.left_on, stage.right_on,
+                                 f"stage {i}")
         mode = _resolve_mode(stage, part_cols, topology)
         right = stage.right
         key_range, range_source, key_ranges = None, "dynamic", None
@@ -396,12 +414,14 @@ def plan_pipeline(
         ))
         # The intermediate does not exist at plan time: only its column
         # count and sources go on.
+        r_table, r_on = ((stage.right.right, stage.right.right_on) if prepared
+                         else (right, stage.right_on))
         if prepared:
             sources = _advance_sources_prepared(sources, stage, cur_cols)
-            cur_cols += len(stage.right.right.columns) - len(tuple(stage.right.right_on))
         else:
             sources = _advance_sources(sources, stage_b, cur_cols, key_ranges)
-            cur_cols += len(right.columns) - len(tuple(stage.right_on))
+        cols += [c for j, c in enumerate(r_table.columns) if j not in set(r_on)]
+        cur_cols = len(cols)
     return PipelinePlan(left, left_counts, tuple(plans))
 
 
@@ -428,10 +448,11 @@ def pipeline_signature(topology: Topology, plan: PipelinePlan) -> str:
 
 
 def _dispatch_stage(topology: Topology, sp: StagePlan, cur: Table, cur_counts: torch.Tensor,
-                    cfg: JoinConfig, key_range):
-    """One Table-right stage's join on its planned mode. The knobs that
-    turn an elision off are read here, at each attempt, as dj_tpu's
-    attempt reads them (pipeline.py:554-558)."""
+                    cfg: JoinConfig, key_range, n_stages: int):
+    """One Table-right stage's join on its planned mode, and its
+    ``pipeline`` event. The knobs that turn an elision off are read
+    here, at each attempt, as dj_tpu's attempt reads them
+    (pipeline.py:554-558)."""
     mode = sp.mode
     if mode == MODE_LOCAL and not _copart_enabled():
         mode = MODE_SHUFFLE
@@ -439,8 +460,20 @@ def _dispatch_stage(topology: Topology, sp: StagePlan, cur: Table, cur_counts: t
         mode = MODE_SHUFFLE
     tier = {MODE_LOCAL: dj.TIER_LOCAL, MODE_BROADCAST: plan_adapt.TIER_BROADCAST}.get(
         mode, plan_adapt.TIER_SHUFFLE)
-    return dj._run_join(topology, tier, cur, cur_counts, sp.right, sp.right_counts, sp.left_on,
-                        sp.right_on, cfg, key_range)
+    out = dj._run_join(topology, tier, cur, cur_counts, sp.right, sp.right_counts, sp.left_on,
+                       sp.right_on, cfg, key_range, stage=f"pipeline:{sp.index}",
+                       path="pipeline", queries=0)
+    obs.inc("dj_pipeline_stage_total", mode=mode)
+    obs.record("pipeline", stage=sp.index, stages=n_stages, mode=mode,
+               elided=mode in (MODE_LOCAL, MODE_BROADCAST),
+               range=sp.range_source if key_range is not None else "dynamic")
+    return out
+
+
+def _record_prepared_stage(sp: StagePlan, n_stages: int, side) -> None:
+    obs.inc("dj_pipeline_stage_total", mode=MODE_PREPARED)
+    obs.record("pipeline", stage=sp.index, stages=n_stages, mode=MODE_PREPARED,
+               elided=getattr(side, "tier", "") == MODE_BROADCAST, range="declared")
 
 
 def distributed_join_pipeline(
@@ -465,14 +498,17 @@ def distributed_join_pipeline(
                              left_partitioned_by=left_partitioned_by)
     cur, cur_counts = plan.left, plan.left_counts
     infos = []
+    n_stages = len(plan.stage_plans)
     for sp in plan.stage_plans:
         if sp.mode == MODE_PREPARED:
             cur, cur_counts, info = dj._distributed_inner_join_prepared(
                 topology, cur, cur_counts, sp.right, sp.left_on, sp.config)
+            _record_prepared_stage(sp, n_stages, sp.right)
         else:
             cur, cur_counts, info = _dispatch_stage(topology, sp, cur, cur_counts, sp.config,
-                                                    sp.key_range)
+                                                    sp.key_range, n_stages)
         infos.append(info)
+    obs.inc("dj_join_queries_total", path="pipeline")
     return cur, cur_counts, infos
 
 
@@ -505,20 +541,24 @@ def distributed_join_pipeline_auto(
     cur, cur_counts = plan.left, plan.left_counts
     infos, configs = [], []
     budget = dict(max_attempts=max_attempts, growth=growth, max_total_growth=max_total_growth)
+    n_stages = len(plan.stage_plans)
     for sp in plan.stage_plans:
         if sp.mode == MODE_PREPARED:
-            cur, cur_counts, info, cfg_used, _ = dj._distributed_inner_join_prepared_auto(
+            cur, cur_counts, info, cfg_used, side = dj._distributed_inner_join_prepared_auto(
                 topology, cur, cur_counts, sp.right, sp.left_on, sp.config, **budget)
+            _record_prepared_stage(sp, n_stages, side)
         else:
             cur, cur_counts, info, cfg_used = _heal_stage(topology, sp, cur, cur_counts,
-                                                          sp.config, **budget)
+                                                          sp.config, n_stages, **budget)
         infos.append(info)
         configs.append(cfg_used)
+    obs.inc("dj_join_queries_total", path="pipeline")
     return cur, cur_counts, infos, configs
 
 
 def _heal_stage(topology: Topology, sp: StagePlan, cur: Table, cur_counts: torch.Tensor,
-                cfg: JoinConfig, *, max_attempts: int, growth: float, max_total_growth: float):
+                cfg: JoinConfig, n_stages: int, *, max_attempts: int, growth: float,
+                max_total_growth: float):
     """One Table-right stage under the heal engine: only this stage's
     factors grow, under this stage's own ledger key."""
     state = {"config": cfg, "key_range": sp.key_range,
@@ -526,7 +566,7 @@ def _heal_stage(topology: Topology, sp: StagePlan, cur: Table, cur_counts: torch
 
     def run_attempt(attempt):
         out, counts, info = _dispatch_stage(topology, sp, cur, cur_counts, state["config"],
-                                            state["key_range"])
+                                            state["key_range"], n_stages)
         return (out, counts), info
 
     def _heal_pack_range(info, attempt):
@@ -536,6 +576,10 @@ def _heal_stage(topology: Topology, sp: StagePlan, cur: Table, cur_counts: torch
                 "both input sides and cover the data by construction; this is a bug, not a "
                 "capacity problem"
             )
+        obs.inc("dj_heal_total", flag="pack_range_overflow")
+        obs.record("heal", stage=f"pipeline:{sp.index}", attempt=attempt,
+                   flags=["pack_range_overflow"], action="drop_declared_range",
+                   dropped_key_range=state["key_range"])
         state.update(key_range=None, dropped_range=True)
 
     def _apply_ledger(entry):

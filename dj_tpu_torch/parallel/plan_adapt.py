@@ -37,20 +37,25 @@ Knobs: ``DJT_PLAN_ADAPT=1`` arms the planner (default off);
 ``DJT_SALT_RATIO`` (default 2.0) the max / mean ratio that salts;
 ``DJT_SALT_REPLICAS`` (default ceil(ratio), clamped to [2, group size])
 the fan-out; ``DJT_SALT_TOPK`` (default 3) the heavy destinations
-considered a batch. dj_tpu's degradation ladder pin, its
-``broadcast`` / ``salted`` fault sites and its ``plan_adapt`` events and
-counters come with the serving stack.
+considered a batch.
+
+Observed as dj_tpu's: every decision, replayed or fresh, records one
+``plan_adapt`` event and ``dj_plan_adapt_total{tier,source}``, a demote
+with ``action="demote"`` and its reason; each partition-count probe
+counts ``dj_plan_probe_total``. dj_tpu's degradation ladder pin and its
+``broadcast`` / ``salted`` fault sites come with the fault ladder
+(ROADMAP item 10b).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-import os
 from typing import Callable, Optional
 
 import numpy as np
 
+from .. import knobs, obs
 from ..obs import skew as obs_skew
 from ..resilience import ledger as dj_ledger
 
@@ -71,7 +76,6 @@ __all__ = [
     "salt_topk",
 ]
 
-_TRUTHY = ("1", "true", "yes", "on")
 
 TIER_SHUFFLE = "shuffle"
 TIER_BROADCAST = "broadcast"
@@ -98,51 +102,34 @@ SHUFFLE = PlanDecision()
 
 def enabled() -> bool:
     """The planner is armed: ``DJT_PLAN_ADAPT`` is truthy."""
-    return os.environ.get("DJT_PLAN_ADAPT", "").strip().lower() in _TRUTHY
+    return knobs.read_bool("DJT_PLAN_ADAPT")
 
 
 def broadcast_budget_bytes() -> float:
     """The broadcast tier's budget in modeled bytes a rank:
-    ``DJT_BROADCAST_BYTES`` when set, else ``DJT_SERVE_HBM_BUDGET``,
-    else 16e9. A value that does not parse is skipped. <= 0 disables
-    the tier."""
-    for var in ("DJT_BROADCAST_BYTES", "DJT_SERVE_HBM_BUDGET"):
-        raw = os.environ.get(var)
-        if raw is None:
-            continue
+    ``DJT_BROADCAST_BYTES`` when set, else ``DJT_SERVE_HBM_BUDGET``
+    (default 16e9). A value that does not parse is skipped. <= 0
+    disables the tier."""
+    raw = knobs.read("DJT_BROADCAST_BYTES")
+    if raw is not None:
         try:
             return float(raw)
         except ValueError:
-            continue
-    return 16e9
+            pass
+    return knobs.read_float("DJT_SERVE_HBM_BUDGET")
 
 
 def available_broadcast_bytes() -> float:
     """The budget the broadcast fit is judged against. dj_tpu subtracts
     the join-index cache's resident bytes; the port has no such cache
-    yet (it comes with the serving stack), so this is the budget
-    alone."""
+    yet (ROADMAP item 10d), so this is the budget alone."""
     return broadcast_budget_bytes()
-
-
-def _env_float(name: str, default: float) -> float:
-    try:
-        return float(os.environ.get(name, default))
-    except ValueError:
-        return default
-
-
-def _env_int(name: str, default: int) -> int:
-    try:
-        return int(os.environ.get(name, default))
-    except ValueError:
-        return default
 
 
 def salt_ratio() -> float:
     """The max / mean destination ratio that salts (``DJT_SALT_RATIO``,
     default 2.0, at least 1)."""
-    return max(1.0, _env_float("DJT_SALT_RATIO", 2.0))
+    return max(1.0, knobs.read_float("DJT_SALT_RATIO"))
 
 
 def salt_replicas(n: int, ratio: float) -> int:
@@ -150,7 +137,7 @@ def salt_replicas(n: int, ratio: float) -> int:
     bring the hot destination back to about the mean; clamped to [2, n]
     (a row scatters over distinct peers). ``DJT_SALT_REPLICAS`` > 0
     replaces ceil(ratio)."""
-    env = _env_int("DJT_SALT_REPLICAS", 0)
+    env = knobs.read_int("DJT_SALT_REPLICAS")
     if env > 0:
         return max(2, min(n, env))
     return max(2, min(n, math.ceil(ratio)))
@@ -159,7 +146,7 @@ def salt_replicas(n: int, ratio: float) -> int:
 def salt_topk() -> int:
     """The heaviest destinations a batch considered (``DJT_SALT_TOPK``,
     default 3)."""
-    return max(1, _env_int("DJT_SALT_TOPK", 3))
+    return max(1, knobs.read_int("DJT_SALT_TOPK"))
 
 
 def decision_from_entry(entry: Optional[dict]) -> Optional[PlanDecision]:
@@ -182,6 +169,13 @@ def decision_from_entry(entry: Optional[dict]) -> Optional[PlanDecision]:
     if tier == TIER_SALTED and (not salt or replicas < 2):
         return None
     return PlanDecision(tier, salt, replicas, ratio, "ledger")
+
+
+def _record(sig: str, decision: PlanDecision, **extra) -> None:
+    obs.inc("dj_plan_adapt_total", tier=decision.tier, source=decision.source)
+    obs.record("plan_adapt", tier=decision.tier, source=decision.source,
+               ratio=round(decision.ratio, 4), salt=list(decision.salt),
+               replicas=decision.replicas, sig=sig[:200], **extra)
 
 
 def _persist(sig: str, decision: PlanDecision) -> None:
@@ -221,19 +215,23 @@ def decide(
     with n > 1 ranks, ``counts_fn()`` (the [w, n * odf] partition
     counts) gives each batch's destination skew: salted when the worst
     ratio reaches ``salt_ratio()`` and some destination alone does,
-    shuffle otherwise. A fresh decision persists before it returns."""
+    shuffle otherwise. A fresh decision persists before it returns;
+    every decision is recorded (module docstring)."""
     if not enabled():
         return SHUFFLE
-    replayed = decision_from_entry(dj_ledger.consult(sig))
+    replayed = decision_from_entry(dj_ledger.lookup(sig))
     if replayed is not None:
+        _record(sig, replayed)
         return replayed
     budget = available_broadcast_bytes()
     if budget > 0 and float(right_bytes_fn()) <= budget:
         decision = PlanDecision(TIER_BROADCAST, (), 1, 1.0, "fit")
         _persist(sig, decision)
+        _record(sig, decision)
         return decision
     decision = SHUFFLE
     if n > 1:
+        obs.inc("dj_plan_probe_total")
         batches = obs_skew.batch_skew(np.asarray(counts_fn()), n, odf, topk=salt_topk())
         worst = max((b["ratio"] for b in batches), default=1.0)
         threshold = salt_ratio()
@@ -244,14 +242,16 @@ def decide(
         else:
             decision = PlanDecision(TIER_SHUFFLE, (), 1, float(worst), "probe")
     _persist(sig, decision)
+    _record(sig, decision)
     return decision
 
 
 def demote(sig: str, reason: str) -> PlanDecision:
     """Persist the shuffle plan for ``sig`` (source ``demote``): the path
     of a broadcast decision whose side no longer fits, or a salt set the
-    current geometry cannot hold. ``reason`` says which; dj_tpu records
-    it in an event, which the port has not yet."""
+    current geometry cannot hold. ``reason`` says which, in the
+    ``plan_adapt`` event."""
     decision = PlanDecision(TIER_SHUFFLE, (), 1, 1.0, "demote")
     _persist(sig, decision)
+    _record(sig, decision, action="demote", reason=str(reason)[:200])
     return decision

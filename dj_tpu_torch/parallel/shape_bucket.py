@@ -29,22 +29,23 @@ shard).
   The range probe's memo reads a pad's valid-row min/max from its
   source through :func:`alias_base`.
 
-``totals`` counts the pads, the tables already on the grid (each
-distinct source once) and the memo hits: dj_tpu's
-``dj_shape_bucket_total`` counter, whose events and metrics come with
-the serving stack.
+Observed as dj_tpu's: ``dj_shape_bucket_total{result}`` counts the pads
+("pad"), the tables already on the grid ("exact", each distinct source
+once) and the memo hits ("memo_hit"), and each pad records one
+``shape_bucket`` event (raw and bucket rows, the pad fraction, the raw
+and bucket char capacities).
 """
 
 from __future__ import annotations
 
 import math
-import os
 import threading
 import weakref
 from typing import Optional
 
 import torch
 
+from .. import knobs, obs
 from ..core.table import Column, StringColumn, Table
 
 __all__ = [
@@ -56,32 +57,22 @@ __all__ = [
     "table_shape",
 ]
 
-_TRUTHY = ("1", "true", "yes", "on")
-
-totals = {"pad": 0, "exact": 0, "memo_hit": 0}
-
 
 def enabled() -> bool:
-    return os.environ.get("DJT_SHAPE_BUCKET", "").strip().lower() in _TRUTHY
+    return knobs.read_bool("DJT_SHAPE_BUCKET")
 
 
 def grid_ratio() -> float:
     """``DJT_SHAPE_BUCKET_RATIO``; unset, malformed or <= 1 (the grid
-    walk would not advance) gives 1.25."""
-    try:
-        r = float(os.environ.get("DJT_SHAPE_BUCKET_RATIO") or 1.25)
-    except ValueError:
-        r = 1.25
-    return r if r > 1.0 else 1.25
+    walk would not advance) gives the registry's default, 1.25."""
+    r = knobs.read_float("DJT_SHAPE_BUCKET_RATIO")
+    return r if r > 1.0 else knobs.REGISTRY["DJT_SHAPE_BUCKET_RATIO"].default
 
 
 def grid_floor() -> int:
-    """``DJT_SHAPE_BUCKET_MIN`` (at least 1); unset or malformed gives 1024."""
-    try:
-        v = int(os.environ.get("DJT_SHAPE_BUCKET_MIN") or 1024)
-    except ValueError:
-        v = 1024
-    return max(1, v)
+    """``DJT_SHAPE_BUCKET_MIN`` (at least 1); unset or malformed gives
+    the registry's default, 1024."""
+    return max(1, knobs.read_int("DJT_SHAPE_BUCKET_MIN"))
 
 
 def bucket_capacity(raw: int, *, floor: Optional[int] = None, ratio: Optional[float] = None
@@ -224,21 +215,23 @@ def bucket_table(topology, table: Table) -> Table:
                 _EXACT_SEEN.add(key)
                 for b in bufs:
                     weakref.finalize(b, _EXACT_SEEN.discard, key)
-            if not seen:
-                totals["exact"] += 1
+        if not seen:
+            obs.inc("dj_shape_bucket_total", result="exact")
         return table
     key = (_key_of(bufs), w, raw, target, str_raw, str_tgt)
     while True:
         with _pad_lock:
             hit = _PAD_MEMO.get(key)
             if hit is not None:
-                totals["memo_hit"] += 1
-                return hit
+                break
             ev = _PAD_INFLIGHT.get(key)
             if ev is None:
                 _PAD_INFLIGHT[key] = threading.Event()
                 break  # this thread pads
         ev.wait()
+    if hit is not None:
+        obs.inc("dj_shape_bucket_total", result="memo_hit")
+        return hit
     try:
         padded = _pad(table, w, raw, target, tuple(zip(str_raw, str_tgt)))
         # The aliases go in before the memo publishes the pad.
@@ -247,7 +240,6 @@ def bucket_table(topology, table: Table) -> Table:
                 _ALIAS[id(pc.data)] = (weakref.ref(oc.data), oc.data._version, pc.data._version)
                 weakref.finalize(pc.data, _ALIAS.pop, id(pc.data), None)
         with _pad_lock:
-            totals["pad"] += 1
             if len(_PAD_MEMO) < _PAD_MEMO_MAX:
                 _PAD_MEMO[key] = padded
                 for b in bufs:
@@ -257,4 +249,8 @@ def bucket_table(topology, table: Table) -> Table:
             ev = _PAD_INFLIGHT.pop(key, None)
         if ev is not None:
             ev.set()
+    obs.inc("dj_shape_bucket_total", result="pad")
+    obs.record("shape_bucket", raw_rows=raw, bucket_rows=target,
+               pad_fraction=round(1.0 - raw / target, 4), raw_chars=list(str_raw),
+               bucket_chars=list(str_tgt))
     return padded

@@ -18,10 +18,13 @@ heals.
 ``_local_shuffle`` and ``_local_shuffle_pair`` are the per-rank bodies
 that the join's hierarchical pre-shuffle runs over the 'inter' group.
 
-Left out here, as in the rest of the port: dj_tpu's degradation guard
-(``resil.degrade_guard``, whose "wire" tier retries a failing codec
-uncompressed), fault sites (``faults.check``, ``faults.force_flags``)
-and ``obs`` counters, which come with the serving stack (item 10).
+Each ``shuffle_on`` counts ``dj_shuffle_calls_total`` and its
+exchanges' collectives (inside a ``query_ctx``, one ``collectives``
+event), as dj_tpu's does. Left out here, as in the rest of the port:
+dj_tpu's degradation guard (``resil.degrade_guard``, whose "wire" tier
+retries a failing codec uncompressed) and fault sites
+(``faults.check``, ``faults.force_flags``), which come with the fault
+ladder (ROADMAP item 10b).
 """
 
 from __future__ import annotations
@@ -30,7 +33,9 @@ from typing import Optional, Sequence, Type
 
 import torch
 
+from .. import obs
 from ..core.table import Table
+from ..obs.recorder import account_epochs
 from ..ops import hashing
 from ..ops.partition import hash_partition, partition_counts
 from ..resilience import heal as heal_engine
@@ -157,10 +162,12 @@ def shuffle_on(
         return (out.with_count(None), out.count().reshape(1), overflow.reshape(1), split,
                 stat_row)
 
-    out, out_counts, overflow, split_mat, stat_mat = run_spmd(
-        topology, run, table, counts, communicator_cls=communicator_cls,
-        fuse_columns=fuse_columns, gathered=(2, 3, 4),
-    )
+    with account_epochs("shuffle"):
+        out, out_counts, overflow, split_mat, stat_mat = run_spmd(
+            topology, run, table, counts, communicator_cls=communicator_cls,
+            fuse_columns=fuse_columns, gathered=(2, 3, 4),
+        )
+    obs.inc("dj_shuffle_calls_total")
     res = (out, out_counts, overflow)
     if with_stats:
         res = res + ({k: stat_mat[:, j] for j, k in enumerate(STAT_KEYS)},)

@@ -31,7 +31,12 @@ each rank's body on a thread of its own over an ``InProcessTransport``:
 - a rank that raises aborts the world: every rank waiting at a
   collective wakes with ``WorldAborted``, and the caller gets the first
   failing rank's exception. A collective that cannot complete (a rank
-  returned, or ``RENDEZVOUS_TIMEOUT_S`` passed) raises as well.
+  returned, or ``RENDEZVOUS_TIMEOUT_S`` passed) raises as well;
+- each rank runs in a copy of the caller's ``contextvars`` context, so
+  what the caller's context holds (``obs.query_ctx``'s query, an open
+  collective account, ``record_phases``) holds inside the rank; rank 0
+  alone feeds the collective counters, so a query counts its epochs
+  once, as dj_tpu's one controller does.
 
 In a process world (``Topology.is_process_world``) every process calls
 run_spmd with its own block of each sharded argument; the body runs once,
@@ -61,6 +66,7 @@ from .communicator import (
     InProcessTransport,
     InProcessWorld,
     PhaseClock,
+    PhaseRanges,
     SingleRankTransport,
     WorldAborted,
     XlaCommunicator,
@@ -144,6 +150,7 @@ def _stop(comm: Communicator) -> None:
     """End the rank's last phase."""
     if comm.clock is not None:
         comm.clock.pause()
+    comm.end_phases()
 
 
 def _on_device(dev: torch.device):
@@ -151,14 +158,19 @@ def _on_device(dev: torch.device):
 
 
 def _axis_comms(topology: Topology, transports: dict, cls, fuse_columns,
-                clock: Optional[PhaseClock]) -> Communicator:
+                clock: Optional[PhaseClock], lead: bool = True) -> Communicator:
     """The rank's communicator over the main group, given a transport per
     axis ({axis name: transport}); on a two-level topology each knows the
-    other through ``axes``. Every one shares ``clock``."""
+    other through ``axes``. Every one shares ``clock`` and one
+    ``PhaseRanges``; ``lead`` says whether the rank's exchanges feed the
+    collective counters (one rank a process does)."""
     comms = {axis: make_communicator(cls, topology.group(axis), t, fuse_columns)
              for axis, t in transports.items()}
+    ranges = PhaseRanges(topology.device)
     for c in comms.values():
         c.clock = clock
+        c.ranges = ranges
+        c.counts_collectives = lead
         if topology.is_hierarchical:
             c.axes = comms
     return comms[topology.main_group().axis_name]
@@ -187,8 +199,10 @@ def run_spmd(topology: Topology, body: Callable, *sharded, communicator_cls=None
             transports = {topology.axis_name: DistTransport(dev)}
         comm = _axis_comms(topology, transports, cls, fuse_columns, clock)
         with _on_device(dev):
-            out = body(comm, *sharded)
-            _stop(comm)
+            try:
+                out = body(comm, *sharded)
+            finally:
+                _stop(comm)
             if gathered:
                 world = DistTransport(dev) if topology.is_hierarchical else comm.transport
                 out = tuple(_gather(world, x) if i in gathered else x for i, x in enumerate(out))
@@ -201,8 +215,10 @@ def run_spmd(topology: Topology, body: Callable, *sharded, communicator_cls=None
     if w == 1:
         comm = _axis_comms(topology, {topology.axis_name: SingleRankTransport()}, cls,
                            fuse_columns, clocks[0])
-        out = body(comm, *(b[0] for b in blocks))
-        _stop(comm)
+        try:
+            out = body(comm, *(b[0] for b in blocks))
+        finally:
+            _stop(comm)
     else:
         out = _run_threads(topology, body, blocks, clocks, cls, fuse_columns)
     if runs is not None:
@@ -246,12 +262,14 @@ def _run_threads(topology, body, blocks, clocks, cls, fuse_columns):
     errors: list = []
 
     def rank_main(r: int) -> None:
-        comm = _axis_comms(topology, transports[r], cls, fuse_columns, clocks[r])
+        comm = _axis_comms(topology, transports[r], cls, fuse_columns, clocks[r], lead=r == 0)
         with world.cond:
             try:
                 with _on_device(dev):
-                    results[r] = body(comm, *(b[r] for b in blocks))
-                    _stop(comm)
+                    try:
+                        results[r] = body(comm, *(b[r] for b in blocks))
+                    finally:
+                        _stop(comm)
             except BaseException as e:  # re-raised in the caller below
                 errors.append((r, e))
                 world.abort(e)
@@ -259,7 +277,8 @@ def _run_threads(topology, body, blocks, clocks, cls, fuse_columns):
                 world.rank_returned(r)
 
     threads = [
-        threading.Thread(target=rank_main, args=(r,), name=f"dj_tpu_torch-rank-{r}", daemon=True)
+        threading.Thread(target=contextvars.copy_context().run, args=(rank_main, r),
+                         name=f"dj_tpu_torch-rank-{r}", daemon=True)
         for r in range(w)
     ]
     for t in threads:

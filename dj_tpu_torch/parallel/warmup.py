@@ -6,14 +6,17 @@ reference's warmup_all_to_all, all_to_all_comm.cpp:191-233),
 warmup_nvcomp, compression.cpp:170-196). The port compiles no module per
 shape, so what a warmup pays here is the transport's set-up (NCCL builds
 a communicator at its first collective on a group), the kernels' builds
-and loads, and the allocator's first blocks. ``warmup_join_index`` walks
-the join-index cache and comes with the serving stack.
+and loads, and the allocator's first blocks. Each warmup records one
+``warmup`` event and counts ``dj_warmup_total{kind}``, as dj_tpu's do.
+``warmup_join_index`` walks the join-index cache and comes with it
+(ROADMAP item 10d).
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import obs
 from ..compress import cascaded as cz
 from .spmd import run_spmd
 from .topology import Topology
@@ -39,6 +42,8 @@ def warmup_all_to_all(topology: Topology, nbytes: int = 10_000_000) -> None:
             return c.all_to_all(buckets).reshape(-1)
 
         run_spmd(topology, run)
+        obs.record("warmup", kind="all_to_all", axis=axis, nbytes=nbytes)
+        obs.inc("dj_warmup_total", kind="all_to_all")
     _sync(topology.device)
 
 
@@ -50,7 +55,7 @@ def warmup_prepared_join(topology: Topology, prepared, left_example, left_counts
     its shapes and dtypes do. A lease-like object (one with
     ``.prepared`` and no ``.batches``, as dj_tpu's join-index lease) is
     unwrapped first. dj_tpu's degradation guard around the query comes
-    with the serving stack."""
+    with the fault ladder (ROADMAP item 10b)."""
     from .dist_join import distributed_inner_join
 
     if hasattr(prepared, "prepared") and not hasattr(prepared, "batches"):
@@ -58,6 +63,8 @@ def warmup_prepared_join(topology: Topology, prepared, left_example, left_counts
     distributed_inner_join(topology, left_example, left_counts, prepared, None, left_on, None,
                            config)
     _sync(topology.device)
+    obs.record("warmup", kind="prepared_join")
+    obs.inc("dj_warmup_total", kind="prepared_join")
 
 
 def warmup_compression(itemsize: int = 8, bucket_rows: int = 4096, device=None) -> None:
@@ -78,3 +85,5 @@ def warmup_compression(itemsize: int = 8, bucket_rows: int = 4096, device=None) 
     _sync(dev)
     if bool(overflow.any()) or not torch.equal(back, x):
         raise RuntimeError("warmup_compression: the codec's round trip changed its input")
+    obs.record("warmup", kind="compression", itemsize=itemsize, bucket_rows=bucket_rows)
+    obs.inc("dj_warmup_total", kind="compression")

@@ -25,8 +25,14 @@ The budget is an attempt cap and a cap on any one factor's total growth
 flags and factors. With a plan signature the engine consults the
 capacity ledger (:mod:`.ledger`) before the first attempt and updates it
 after each heal. Between attempts it checks the caller's deadline
-(:func:`deadline_scope`). dj_tpu's flight-recorder events, counters and
-its roofline ``sync`` phase have no counterpart here yet.
+(:func:`deadline_scope`).
+
+Observed as dj_tpu's: a ledger hit records one ``ledger`` event (and
+the ledger counts ``dj_ledger_hit_total`` / ``dj_ledger_miss_total``);
+each capacity heal counts ``dj_heal_total{flag}`` per fired flag and
+records one ``heal`` event; the host read of an attempt's flags is the
+roofline ``sync`` phase, after which the query's pending device phases
+resolve (the read has waited for them).
 
 In a process world every process reads the same all-gathered flag
 matrix, so each takes the same heal. The ledger is per process: a world
@@ -48,6 +54,8 @@ from typing import Callable, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import obs
+from ..obs import roofline as _roofline
 from . import ledger as _ledger
 from .errors import CapacityExhausted, DeadlineExceeded
 
@@ -169,13 +177,15 @@ def run_healed(
         _ledger.update(ledger_key, factors=read_factors(), **extra)
 
     if ledger_key is not None:
-        entry = _ledger.lookup(ledger_key)
+        entry = _ledger.consult(ledger_key)
         if entry is not None:
             widened = _ledger.wider_factors(entry.get("factors", {}), read_factors())
             if widened:
                 apply_factors(widened)
             if apply_ledger_entry is not None:
                 apply_ledger_entry(entry)
+            obs.record("ledger", stage=stage, result="hit", applied=widened,
+                       key=ledger_key[:200])
 
     info: dict = {}
     for attempt in range(1, budget.max_attempts + 1):
@@ -189,7 +199,12 @@ def run_healed(
             on_mismatch(e, attempt)
             _ledger_update()
             continue
-        fired_map = summarize_flags(info)
+        # Each flag reduces to a host bool once, in the sync phase: the
+        # host waits for the device here, so the device phases queued
+        # before it have run and resolve without a wait of their own.
+        with _roofline.phase("sync", stage=stage):
+            fired_map = summarize_flags(info)
+            _roofline.resolve()
         # 1) poison flags: nothing else of this attempt is trusted.
         handled = False
         for flag, handler in poison.items():
@@ -202,9 +217,11 @@ def run_healed(
             continue
         # 2) capacity flags: grow exactly the offending factors.
         grew: dict[str, float] = {}
+        fired: list[str] = []
         factors_now = read_factors()
         for flag, fnames in heal_map.items():
             if fired_map.get(flag):
+                fired.append(flag)
                 for f in fnames:
                     grew[f] = factors_now[f] * budget.growth
         if not grew:
@@ -225,6 +242,10 @@ def run_healed(
                     stage=stage, attempts=attempt,
                     flags=summarize_flags(info), factors=factors_now,
                 )
+        for flag in fired:
+            obs.inc("dj_heal_total", flag=flag)
+        obs.record("heal", stage=stage, attempt=attempt, flags=sorted(fired), grew=grew,
+                   growth=budget.growth)
         apply_factors(grew)
         _ledger_update()
     raise CapacityExhausted(

@@ -8,8 +8,10 @@ per-shard capacities) to the factors, and the plan repairs, the engine
 settled on. The engine reads it (:func:`lookup`) before the first
 attempt and updates it after every heal, so a signature pays each heal
 once per process. The skew-adaptive planner keeps its per-signature
-decisions here too (``plan_adapt`` and ``prepared_tier`` records, read
-through :func:`consult`).
+decisions here too (``plan_adapt`` and ``prepared_tier`` records).
+:func:`consult` (the heal engine's and the prepared tier's read) counts
+``dj_ledger_hit_total`` / ``dj_ledger_miss_total``; :func:`lookup`
+(the planner's) does not, as in dj_tpu.
 
 Entries are monotone: a factor update keeps the larger of old and new,
 so an entry can only make first attempts more generous. Other fields
@@ -31,6 +33,9 @@ import threading
 import time
 from typing import Optional
 
+from .. import knobs, obs
+from ..obs.recorder import table_sig
+
 _lock = threading.Lock()
 _entries: dict[str, dict] = {}
 # The DJT_LEDGER path whose file has been replayed into _entries (None:
@@ -40,7 +45,7 @@ _loaded_path: Optional[str] = None
 
 
 def _path() -> Optional[str]:
-    return os.environ.get("DJT_LEDGER") or None
+    return knobs.read("DJT_LEDGER") or None
 
 
 def signature(kind: str, **parts) -> str:
@@ -49,14 +54,6 @@ def signature(kind: str, **parts) -> str:
     never data)."""
     body = ",".join(f"{k}={parts[k]!r}" for k in sorted(parts))
     return f"{kind}|{body}"
-
-
-def table_sig(table) -> tuple:
-    """A table's column schema: each fixed-width column's physical dtype
-    name, "str" for a string column (dj_tpu's ``obs.recorder.table_sig``,
-    duck-typed on ``.chars`` as it is)."""
-    return tuple("str" if hasattr(c, "chars") else str(c.data.dtype).removeprefix("torch.")
-                 for c in table.columns)
 
 
 def table_shape(table, shards: int) -> tuple:
@@ -173,10 +170,13 @@ def lookup(sig: str) -> Optional[dict]:
 
 
 def consult(sig: str) -> Optional[dict]:
-    """A copy of the learned entry of ``sig``, or None: the planner's
-    lookup (dj_tpu/resilience/ledger.py:239-259, without its hit and
-    miss counters and its ``DJ_FLEET_DIR`` refresh)."""
-    return lookup(sig)
+    """A copy of the learned entry of ``sig``, or None, counted in
+    ``dj_ledger_hit_total`` or ``dj_ledger_miss_total``
+    (dj_tpu/resilience/ledger.py:239-259, without its ``DJ_FLEET_DIR``
+    refresh, which comes with fleet coordination)."""
+    entry = lookup(sig)
+    obs.inc("dj_ledger_miss_total" if entry is None else "dj_ledger_hit_total")
+    return entry
 
 
 def update(sig: str, factors: Optional[dict] = None, **extra) -> None:

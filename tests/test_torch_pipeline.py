@@ -47,6 +47,18 @@ def _fresh(monkeypatch):
     torch.set_num_threads(threads)
 
 
+@pytest.fixture
+def probes():
+    """The port's obs on, with a clean registry, for the body; yields
+    the count of range probes taken so far
+    (``dj_range_probe_total{result="probe"}``) as a function."""
+    was = tj.obs.enabled()
+    tj.obs.reset(reenable=True)
+    yield lambda: tj.obs.counter_value("dj_range_probe_total", result="probe")
+    tj.obs.reset(reenable=was)
+    tj.obs.drain()
+
+
 def _knobs(mp, **kv):
     """Each knob in both packages: ``DJ_<name>`` and ``DJT_<name>``."""
     for k, v in kv.items():
@@ -459,7 +471,7 @@ def test_two_level_chain_matches_dj_tpu():
 # -- the range probes -------------------------------------------------------
 
 
-def test_derived_ranges_probe_only_inputs_and_memoize():
+def test_derived_ranges_probe_only_inputs_and_memoize(probes):
     """Planning Q3 probes four input columns (the orderkeys of lineitem
     and orders, O_CUSTKEY and C_CUSTKEY), never an intermediate; a
     re-plan over the same tables probes nothing; a chain of the plan runs
@@ -467,17 +479,17 @@ def test_derived_ranges_probe_only_inputs_and_memoize():
     world = _World(4, _q3_arrays(seed=9))
     cfg = convert.join_config_from(dj_tpu.JoinConfig(**CFG))
     ts = world.stages(Q3)[1]
-    before = tdist.range_probes
+    before = probes()
     plan = tj.plan_pipeline(world.ttopo, *world.t["li"], ts, cfg)
-    assert tdist.range_probes - before == 4
+    assert probes() - before == 4
     assert [sp.range_source for sp in plan.stage_plans] == ["derived", "derived"]
     assert [sp.key_range for sp in plan.stage_plans] == [((0, 255),), ((0, 63),)]
     tj.plan_pipeline(world.ttopo, *world.t["li"], ts, cfg)
     tj.distributed_join_pipeline(world.ttopo, *world.t["li"], ts, cfg, plan=plan)
-    assert tdist.range_probes - before == 4
+    assert probes() - before == 4
 
 
-def test_an_in_place_write_after_a_probe_is_seen():
+def test_an_in_place_write_after_a_probe_is_seen(probes):
     """A join probes the key range of both 64-bit key columns; writing
     new keys (past the probed range) into the tables in place, the next
     join probes again and gives dj_tpu's rows of the new data."""
@@ -485,16 +497,16 @@ def test_an_in_place_write_after_a_probe_is_seen():
     arrays = {"l": [rng.integers(0, 100, 300), np.arange(300, dtype=np.int64)],
               "r": [rng.permutation(120)[:100].astype(np.int64), np.arange(100, dtype=np.int64)]}
     world = _World(2, arrays)
-    before = tdist.range_probes
+    before = probes()
     tj.distributed_inner_join(world.ttopo, *world.t["l"], *world.t["r"], [0], [0])
     tj.distributed_inner_join(world.ttopo, *world.t["l"], *world.t["r"], [0], [0])
-    assert tdist.range_probes - before == 2
+    assert probes() - before == 2
     new_l = arrays["l"][0] * 1000 + 7
     new_r = arrays["r"][0] * 1000 + 7
     world.t["l"][0].columns[0].data.copy_(torch.from_numpy(new_l))
     world.t["r"][0].columns[0].data[:] = torch.from_numpy(new_r)
     tout = tj.distributed_inner_join(world.ttopo, *world.t["l"], *world.t["r"], [0], [0])
-    assert tdist.range_probes - before == 4
+    assert probes() - before == 4
     fresh = _World(2, {"l": [new_l, arrays["l"][1]], "r": [new_r, arrays["r"][1]]})
     jout = dj_tpu.distributed_inner_join(fresh.jtopo, *fresh.j["l"], *fresh.j["r"], [0], [0])
     assert _result(*tout[:2], [tout[2]]) == _result(*jout[:2], [jout[2]])

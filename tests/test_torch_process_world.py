@@ -472,9 +472,16 @@ def test_process_world_key_kinds_match(name, worlds):
     cannot join a uint64 key, and a uint64 key hashes apart from its
     int64 image: the uint64 world is held to dj_tpu's join of the keys
     less 2^63 on the whole result (total, flags and the unsharded row
-    multiset), and shard for shard to the port's world in one process."""
+    multiset), and shard for shard to the port's world in one process.
+    An int16 key against an int64 key hashes the two widths apart, so
+    every process refuses it with a ValueError naming both dtypes."""
     ba, bn, pa, pn, on = W.key_tables()[name]
     results = worlds.results(2)
+    if name == "int16_int64":
+        for res in results:
+            msg = res["keys"][name]["raised"]
+            assert "int16 with int64" in msg and "key pair 0" in msg, msg
+        return
     if name == "uint64":
         image = [(ba[0] ^ np.uint64(2**63)).view(np.int64)] + ba[1:]
         jwant = _jax_keys_join(image, [(pa[0] ^ np.uint64(2**63)).view(np.int64)] + pa[1:], on)
@@ -624,7 +631,9 @@ def test_process_world_pipeline_matches_dj_tpu(chain, worlds):
     the shuffle-then-local chain: every process plans each stage alike
     (modes, derived ranges, sources, partitioning), as dj_tpu plans on 4
     devices, and its shard equals dj_tpu's shard r, strings byte for
-    byte."""
+    byte. Every process records the same ``pipeline`` events (one a
+    stage, its mode the plan's) and counters: the fields come from the
+    plan, which each process makes alike."""
     want = _jax_pipeline()[chain]
     assert [p[0] for p in want["plan"]] == (["shuffle", "broadcast"] if chain == "q3"
                                             else ["shuffle", "local"])
@@ -634,6 +643,11 @@ def test_process_world_pipeline_matches_dj_tpu(chain, worlds):
         assert got["plan"] == want["plan"], r
         assert got["counts"] == [want["counts"][r]] and got["rows"] == [want["rows"][r]], r
         assert got["flags"] == want["flags"], r
+        assert got["events"] == results[0]["pipeline"][chain]["events"], r
+        assert got["counters"] == results[0]["pipeline"][chain]["counters"], r
+    first = results[0]["pipeline"][chain]
+    assert [e["mode"] for e in first["events"]] == [p[0] for p in want["plan"]]
+    assert first["counters"]['dj_join_queries_total{path="pipeline"}'] == 1
     assert not any(any(v) for f in want["flags"] for v in f.values())
 
 

@@ -53,6 +53,25 @@ def _fresh(monkeypatch):
     torch.set_num_threads(threads)
 
 
+@pytest.fixture
+def counted():
+    """The port's obs on, with a clean registry, for the body; yields a
+    function giving ``dj_shape_bucket_total`` by result and the range
+    probes taken (``dj_range_probe_total{result="probe"}``)."""
+    was = tj.obs.enabled()
+    tj.obs.reset(reenable=True)
+
+    def read():
+        out = {r: tj.obs.counter_value("dj_shape_bucket_total", result=r)
+               for r in ("pad", "exact", "memo_hit")}
+        out["probes"] = tj.obs.counter_value("dj_range_probe_total", result="probe")
+        return out
+
+    yield read
+    tj.obs.reset(reenable=was)
+    tj.obs.drain()
+
+
 def _knobs(mp, **kv):
     for k, v in kv.items():
         for prefix in ("DJ_", "DJT_"):
@@ -184,19 +203,22 @@ def test_pad_matches_dj_tpu_leaf_for_leaf(w, n, monkeypatch):
     assert _shard_rows(tp, world.t["t"][1]) == _shard_rows(world.t["t"][0], world.t["t"][1])
 
 
-def test_on_grid_table_and_a_pad_are_not_padded_again(monkeypatch):
+def test_on_grid_table_and_a_pad_are_not_padded_again(monkeypatch, counted):
     _arm(monkeypatch)
     world = _World(4, {"t": _table(256, 3)})  # 64 rows a shard: the floor
     t = world.t["t"][0]
-    before = dict(tsb.totals)
+    before = counted()
     assert tsb.bucket_table(world.ttopo, t) is t
     assert tsb.bucket_table(world.ttopo, t) is t
-    assert tsb.totals["exact"] - before["exact"] == 1 and tsb.totals["pad"] == before["pad"]
+    assert counted()["exact"] - before["exact"] == 1 and counted()["pad"] == before["pad"]
     world = _World(4, {"t": _table(300, 3)})
     p = tsb.bucket_table(world.ttopo, world.t["t"][0])
     assert tsb.bucket_table(world.ttopo, p) is p
     assert tsb.bucket_table(world.ttopo, world.t["t"][0]) is p  # the memo
-    assert tsb.totals["pad"] - before["pad"] == 1 and tsb.totals["memo_hit"] > before["memo_hit"]
+    after = counted()
+    assert after["pad"] - before["pad"] == 1 and after["memo_hit"] > before["memo_hit"]
+    events = tj.obs.events("shape_bucket")
+    assert [(e["raw_rows"], e["bucket_rows"]) for e in events] == [(75, 80)]
 
 
 def test_table_shape_and_signatures_match_dj_tpu(monkeypatch):
@@ -257,13 +279,13 @@ def test_bucketed_join_and_prepared_query_match_dj_tpu(monkeypatch):
     assert got == want and sum(got["counts"]) > 0
 
 
-def test_pad_memo_gives_one_object_to_concurrent_calls(monkeypatch):
+def test_pad_memo_gives_one_object_to_concurrent_calls(monkeypatch, counted):
     """Concurrent first pads of the same source (8 threads) return one
     padded object, padded once (dj_tpu tests/test_shape_bucket.py:361)."""
     _arm(monkeypatch)
     world = _World(8, {"t": _table(410, 90)})
     t = world.t["t"][0]
-    before = tsb.totals["pad"]
+    before = counted()["pad"]
     results, errors = [], []
     barrier = threading.Barrier(8)
 
@@ -282,7 +304,7 @@ def test_pad_memo_gives_one_object_to_concurrent_calls(monkeypatch):
     assert not any(th.is_alive() for th in threads)
     assert not errors and len(results) == 8
     assert all(r is results[0] for r in results)
-    assert tsb.totals["pad"] - before == 1
+    assert counted()["pad"] - before == 1
 
 
 def test_in_place_write_to_a_padded_source_pads_again(monkeypatch):
@@ -307,18 +329,18 @@ def test_in_place_write_to_a_padded_source_pads_again(monkeypatch):
     assert mn >= 10_000
 
 
-def test_range_memo_reads_a_pad_from_its_source(monkeypatch):
+def test_range_memo_reads_a_pad_from_its_source(monkeypatch, counted):
     """The range of a pad's column comes from its source's memo entry:
     no new probe (dj_tpu tests/test_shape_bucket.py:335)."""
     _arm(monkeypatch)
     world = _World(8, {"t": _table(410, 16)})
     t, c = world.t["t"]
     first = tdist._memo_minmax(t.columns[0].data, c, 8)
-    probes = tdist.range_probes
+    probes = counted()["probes"]
     padded = tsb.bucket_table(world.ttopo, t)
     assert padded is not t
     assert tdist._memo_minmax(padded.columns[0].data, c, 8) == first
-    assert tdist.range_probes == probes
+    assert counted()["probes"] == probes
 
 
 # -- the core pieces --------------------------------------------------------

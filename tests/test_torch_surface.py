@@ -13,16 +13,13 @@ import dj_tpu
 import dj_tpu_torch as tj
 
 NOT_YET_PORTED = {
-    # 10: the serving stack and dj_tpu's timing helpers (obs/, utils/timing);
-    # warmup_join_index walks the join-index cache (cache/index.py).
-    "warmup_join_index": "10",
-    "IndexConfig": "10",
-    "JoinIndexCache": "10",
-    "QueryScheduler": "10",
-    "ServeConfig": "10",
-    "PhaseTimer": "10",
-    "annotate": "10",
-    "profile": "10",
+    # 10d: the join-index cache (cache/index.py; warmup_join_index walks it).
+    "warmup_join_index": "10d",
+    "IndexConfig": "10d",
+    "JoinIndexCache": "10d",
+    # 10e: admission and the query scheduler (serve/).
+    "QueryScheduler": "10e",
+    "ServeConfig": "10e",
     # XLA's flags and compilation cache, unported on purpose
     # (dj_tpu_torch/parallel/bootstrap.py).
     "ensure_async_collectives": "never",

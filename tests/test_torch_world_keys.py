@@ -74,8 +74,16 @@ def _port_join(w, left, right, lon, ron, cfg):
 @pytest.mark.parametrize("name", KINDS)
 @pytest.mark.parametrize("w", [1, 4])
 def test_world_key_kind_matches_dj_tpu(w, name, monkeypatch):
+    """A kind through both packages, shard for shard. The mixed kind
+    pairs keys of two widths, which the port refuses at every world
+    (its hash would send equal values to different ranks):
+    ``tests/test_torch_key_widths.py`` holds dj_tpu's row loss."""
     left, right, lon, ron, _, kw = _kind(name)
     cfg = _config(kw, monkeypatch)
+    if name == "mixed_int16_int64":
+        with pytest.raises(ValueError, match=r"key pair 0 .* joins (int16 with int64|int64 with int16)"):
+            _port_join(w, _valid(left), _valid(right), lon, ron, cfg)
+        return
     jout, jcounts, jinfo = _jax_join(w, _valid(left), _valid(right), lon, ron, cfg)
     tout, tcounts, tinfo = _port_join(w, _valid(left), _valid(right), lon, ron, cfg)
     assert tcounts.tolist() == np.asarray(jcounts).tolist() and int(tcounts.sum()) > 0

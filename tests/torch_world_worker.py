@@ -472,13 +472,17 @@ def case_auto(topo):
 
 
 def case_keys(topo):
-    """The distributed join on each of key_tables()'s key kinds."""
+    """The distributed join on each of key_tables()'s key kinds; a kind
+    the join refuses (keys of two widths) gives {"raised": message}."""
     out = {}
     for name, (ba, bn, pa, pn, on) in key_tables().items():
         (tl, tlc) = dj.shard_table(topo, convert.table_from_numpy(pa, pn, device="cpu"))
         (tr, trc) = dj.shard_table(topo, convert.table_from_numpy(ba, bn, device="cpu"))
-        out[name] = _join_result(dj.distributed_inner_join(topo, tl, tlc, tr, trc, on, on,
-                                                           dj.JoinConfig(**KEYS_CONFIG)))
+        try:
+            out[name] = _join_result(dj.distributed_inner_join(topo, tl, tlc, tr, trc, on, on,
+                                                               dj.JoinConfig(**KEYS_CONFIG)))
+        except ValueError as e:
+            out[name] = {"raised": str(e)}
     return out
 
 
@@ -591,8 +595,9 @@ COALESCED_CONFIG = dict(key_range=(0, 191), bucket_factor=4.0, join_out_factor=4
 
 def case_pipeline(topo):
     """Both chains of PIPELINES: each process's plan (modes, ranges,
-    range sources, output partitioning) and its shard; then K = 2
-    coalesced queries against a prepared ``dim``."""
+    range sources, output partitioning), its shard and its ``pipeline``
+    events and counters (obs on for the chain); then K = 2 coalesced
+    queries against a prepared ``dim``."""
     from dj_tpu_torch.parallel.dist_join import MAIN_JOIN_SEED
 
     t = {name: dj.shard_table(topo, convert.table_from_numpy(a, n, device="cpu"))
@@ -605,11 +610,18 @@ def case_pipeline(topo):
         stages = [dj.JoinStage(right=t[r][0], right_counts=t[r][1], left_on=lo, right_on=ro, **kw)
                   for r, lo, ro, kw in specs]
         plan = dj.plan_pipeline(topo, *t["li"], stages, cfg)
+        dj.obs.reset(reenable=True)
+        dj.obs.drain()
         o, c, infos = dj.distributed_join_pipeline(topo, *t["li"], stages, cfg, plan=plan)
+        events = [{k: v for k, v in e.items() if k not in ("seq", "ts")}
+                  for e in dj.obs.drain() if e["type"] == "pipeline"]
+        counters = dj.obs.metrics_summary()["counters"]
+        dj.obs.reset(reenable=False)
         out[name] = {"plan": [(sp.mode, sp.key_range, sp.range_source, sp.out_partitioned_by)
                               for sp in plan.stage_plans],
                      "rows": shard_rows(o, c), "counts": c.tolist(),
-                     "flags": [{k: v.tolist() for k, v in i.items()} for i in infos]}
+                     "flags": [{k: v.tolist() for k, v in i.items()} for i in infos],
+                     "events": events, "counters": counters}
     ccfg = dj.JoinConfig(**COALESCED_CONFIG)
     prep = dj.prepare_join_side(topo, *t["dim"], [0], ccfg, left_capacity=300)
     per_query, _ = dj.distributed_inner_join_coalesced(
