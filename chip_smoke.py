@@ -315,6 +315,28 @@ Phases, each printing its own line(s):
      orderkey, custkey and both strings checked against the tables, no
      all-to-all in stage 1, flags False; heal attempts and factors per
      stage, walls, the peak and the string passes' device ms;
+  12. the degradation ladder (after 8g, on phase 4's tables): each case
+     runs a call unfaulted, with one fault site armed, and unfaulted
+     again after faults.reset() and reset_pins(), with obs on: the rows
+     equal in all three (and phase 4's for a join), both walls, each
+     call's launches and all-to-alls, the fault / degrade / heal /
+     reprepare events, the pins and the knobs after the pin. (a)
+     DJT_FAULT=module_build@call=1000000 around phase 4's join at odf 1:
+     the same launches, no event, no pin; (b) join.join_overflow@call=1
+     through distributed_inner_join_auto in 4d's world: one heal, twice
+     the launches; (c) pallas_merge@call=1 under DJT_JOIN_MERGE=merge on
+     phase 5's prepared side: merge pinned to sort, merge_sorted_u64 not
+     launched by the retry; (d) probe_expand@call=1 under the probe tier
+     and DJT_PROBE_EXPAND=pallas: pinned to hist, no expand_values in the
+     retry; (e) broadcast@call=1 under DJT_PLAN_ADAPT=1 in 4i's world:
+     adapt pinned, the retry issues the shuffle plan's all-to-alls; (f)
+     bc_prepared_query@call=1 on 5e's broadcast side through the auto
+     wrapper: prepared_tier pinned, the side re-prepared on shuffle; (g)
+     codec@call=1 on 4f's compressed shuffle_on_auto (every compressed
+     column under RLE): the wire pinned, no expand_ranks decode in the
+     retry. After every other phase (and in each process of 6b and 6c)
+     no tier may be pinned: a pin means a tier failed on the card and
+     its baseline served the rows, and the run fails with its reason;
   9. timings: the `timings` line (walls, peaks and the main path's sort);
   10. the hardware probes: `python -m dj_tpu_torch.hw.probe_sort` and
      `... .probe_gather` through their main() at the JAX probes' shapes
@@ -4175,6 +4197,266 @@ def first_join_with_warmup(dj, dev, backend: str, build, probe, smi: str) -> dic
     return out
 
 
+# --- the degradation ladder on the card (phase 12) ----------------------------
+
+LADDER_EVENTS = ("fault", "degrade", "heal", "reprepare")
+
+
+def check_no_pins(phase: str) -> None:
+    """After every phase but 12: no tier of the degradation ladder pinned
+    and dj_degrade_total at 0. A pin means a tier failed on the card and
+    the ladder served its baseline instead (the rows would still be
+    right), so the run fails, printing each pin's reason. Pins last until
+    reset_pins(), which phase 12 alone calls, so a pin in any earlier
+    phase shows here; the counter moves only while obs is on."""
+    from dj_tpu_torch import obs, resilience
+
+    pins = resilience.pinned_tiers()
+    moved = obs.counter_value("dj_degrade_total")
+    if pins or moved:
+        for tier, reason in pins.items():
+            print(f"[degrade] phase {phase}: tier {tier} pinned: {reason}", flush=True)
+        for e in obs.events("degrade"):
+            print(f"[degrade] phase {phase}: {json.dumps(e, default=str)}", flush=True)
+        raise AssertionError(f"phase {phase}: the degradation ladder pinned {sorted(pins)} "
+                             f"(dj_degrade_total {moved}): a tier failed on the card")
+
+
+def ladder_case(what: str, call, rows_of, *, spec=None, fault_env=None, env=None, kernel=None,
+                collectives=False) -> dict:
+    """One case of phase 12: ``call()`` unfaulted, then with the fault
+    ``spec`` armed (``faults.configure``) or the variables ``fault_env``
+    set (DJT_FAULT), then unfaulted again after ``faults.reset()`` and
+    ``reset_pins()``; all under the knobs ``env`` and with obs on. Each
+    call's wall (synchronized), kernel launches, in-process collectives
+    and ladder events; ``rows_of(result)`` of each must be equal. With
+    ``kernel`` the tier's kernel must launch in the first and last calls
+    and not in the faulted one (whose failed attempt launches nothing:
+    every fault site is consulted before the ranks start); with
+    ``collectives`` the tier issues no all-to-all and its baseline does.
+    Returns the case's fields; the caller checks the pins and events."""
+    from dj_tpu_torch.resilience import errors, faults
+
+    out: dict = {}
+    faults.reset()
+    with env_set(**(env or {})), obs_on() as obs:
+        for run in ("clean", "faulted", "after_reset"):
+            armed = run == "faulted"
+            if armed and spec is not None:
+                faults.configure(spec)
+            reset_launches()
+            with env_set(**(fault_env if armed and fault_env else {})), Collectives() as coll:
+                t0 = time.perf_counter()
+                res = call()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            rows = rows_of(res)
+            del res
+            out[run] = {"wall_ms": wall, "launches": read_launches(), "collectives": coll.counts,
+                        "events": [{k: v for k, v in e.items() if k not in ("seq", "ts")}
+                                   for e in obs.drain() if e["type"] in LADDER_EVENTS]}
+            if run == "clean":
+                want = rows
+            elif not all(torch.equal(g, w) for g, w in zip(rows, want)):
+                raise AssertionError(f"12 {what}: the {run} call's rows differ from the clean "
+                                     f"call's")
+            if armed:
+                out["pins"] = errors.pinned_tiers()
+                out["knobs_after_pin"] = {k: os.environ.get(k) for k in
+                                          ("DJT_JOIN_MERGE", "DJT_PROBE_EXPAND", "DJT_PLAN_ADAPT",
+                                           "DJT_PREPARED_TIER")}
+                out["degrade_total"] = obs.counter_value("dj_degrade_total")
+                faults.reset()
+                errors.reset_pins()
+        del want
+    if out["after_reset"]["events"] or out["clean"]["events"]:
+        raise AssertionError(f"12 {what}: events outside the faulted call: {out}")
+    if kernel is not None:
+        n = [out[run]["launches"][kernel] for run in ("clean", "faulted", "after_reset")]
+        if not (n[0] >= 1 and n[1] == 0 and n[2] >= 1):
+            raise AssertionError(f"12 {what}: {kernel} launched {n} times (clean, faulted, "
+                                 f"after reset_pins): the retry must not run it")
+    if collectives:
+        n = [out[run]["collectives"]["all_to_all_start"]
+             for run in ("clean", "faulted", "after_reset")]
+        if not (n[0] == 0 and n[1] >= 1 and n[2] == 0):
+            raise AssertionError(f"12 {what}: all-to-alls {n} (clean, faulted, after "
+                                 f"reset_pins): the tier issues none, its baseline does")
+    return out
+
+
+def check_pin(what: str, case: dict, tier: Optional[str], site: str, knob=None) -> None:
+    """The faulted call pinned ``tier`` alone (None: nothing), with one
+    fault event of ``site`` first, one degrade event of ``tier`` and
+    dj_degrade_total 1, and wrote the baseline into ``knob`` (name,
+    value)."""
+    evs = case["faulted"]["events"]
+    if not evs or evs[0] != {"type": "fault", "site": site, "call": 1}:
+        raise AssertionError(f"12 {what}: first event {evs[:1]}, expected the fault of {site}")
+    degrades = [e for e in evs if e["type"] == "degrade"]
+    if tier is None:
+        if case["pins"] or degrades or case["degrade_total"]:
+            raise AssertionError(f"12 {what}: pinned {case['pins']}, expected no pin")
+        return
+    if list(case["pins"]) != [tier] or [e["tier"] for e in degrades] != [tier] \
+            or case["degrade_total"] != 1:
+        raise AssertionError(f"12 {what}: pins {case['pins']}, degrades {degrades}, "
+                             f"dj_degrade_total {case['degrade_total']}; expected {tier}")
+    if knob is not None and case["knobs_after_pin"][knob[0]] != knob[1]:
+        raise AssertionError(f"12 {what}: {knob[0]}={case['knobs_after_pin'][knob[0]]} after "
+                             f"the pin, expected {knob[1]}")
+
+
+def run_ladder(dj, dev, topo1, left1, lcnt1, right1, rcnt1, ref, rows: int, seed: int,
+               smi: str) -> dict:
+    """Phase 12: the degradation ladder and the fault sites on the card,
+    each case a ``ladder_case`` (clean, faulted, after reset_pins) at full
+    width: (a) DJT_FAULT=module_build@call=1000000 around phase 4's join
+    at odf 1 changes no launch and records no event; (b)
+    join.join_overflow@call=1 through distributed_inner_join_auto in 4d's
+    world costs one heal and one more attempt; (c) pallas_merge@call=1
+    under DJT_JOIN_MERGE=merge and (d) probe_expand@call=1 under
+    DJT_JOIN_MERGE=probe and DJT_PROBE_EXPAND=pallas on phase 5's
+    prepared side pin sort / hist, and the retry launches no
+    merge_sorted_u64 / expand_values; (e) broadcast@call=1 under
+    DJT_PLAN_ADAPT=1 on 4i's tables pins DJT_PLAN_ADAPT=0 and the retry
+    issues the shuffle plan's all-to-alls; (f) bc_prepared_query@call=1
+    on 5e's broadcast side pins DJT_PREPARED_TIER=shuffle and the auto
+    wrapper re-prepares on shuffle; (g) codec@call=1 on 4f's compressed
+    shuffle_on_auto (every compressed column under RLE, so its decode
+    launches expand_ranks) pins the wire and the retry decodes nothing.
+    Returns {case: fields}."""
+    from dj_tpu_torch.ops.hashing import DEFAULT_HASH_SEED
+    from dj_tpu_torch.resilience import ledger
+
+    t_phase = time.perf_counter()
+    cases: dict = {}
+
+    def join_rows(res):
+        """A join's rows (one rank's, or a world's unsharded), its flags
+        False and its rows phase 4's."""
+        flags_false("12", res[2])
+        out, counts = res[0], res[1]
+        if counts.shape[0] > 1:
+            out = dj.unshard_table(out, counts)
+            counts = torch.tensor([out.capacity])
+        rows_ = sorted_rows(out, counts)
+        check_same_rows(rows_, ref, "12")
+        return rows_
+
+    # (a) an armed site that never fires.
+    cfg1 = dj.JoinConfig(over_decom_factor=1)
+    a = ladder_case(
+        "(a)", lambda: dj.distributed_inner_join(topo1, left1, lcnt1, right1, rcnt1, [0], [0],
+                                                 cfg1),
+        join_rows, fault_env={"DJT_FAULT": "module_build@call=1000000"})
+    if a["faulted"]["events"] or a["pins"] or a["clean"]["launches"] != a["faulted"]["launches"]:
+        raise AssertionError(f"12 (a): the armed run differs: {a}")
+    cases["a_armed_never_fires"] = a
+
+    topo4 = dj.make_topology([dev] * WORLD)
+    left4, lcnt4 = dj.shard_table(topo4, dj.unshard_table(left1, lcnt1))
+    right4, rcnt4 = dj.shard_table(topo4, dj.unshard_table(right1, rcnt1))
+
+    # (b) a forced overflow through the auto wrapper: one heal.
+    ledger.reset()
+    b = ladder_case(
+        "(b)", lambda: dj.distributed_inner_join_auto(topo4, left4, lcnt4, right4, rcnt4, [0],
+                                                      [0], dj.JoinConfig()),
+        join_rows, spec="join.join_overflow@call=1")
+    ledger.reset()
+    check_pin("(b)", b, None, "join.join_overflow")
+    if [e["type"] for e in b["faulted"]["events"]] != ["fault", "heal"] or \
+            b["faulted"]["launches"]["join_scans"] != 2 * b["clean"]["launches"]["join_scans"]:
+        raise AssertionError(f"12 (b): expected one heal and twice the launches: {b}")
+    cases["b_join_overflow_auto"] = b
+
+    # (c), (d) the merge tier and the probe tier's expansion.
+    cfgp = dj.JoinConfig(over_decom_factor=1, key_range=(0, 2 * rows))
+    prep = dj.prepare_join_side(topo1, right1, rcnt1, [0], cfgp, left_capacity=rows)
+
+    def query():
+        return dj.distributed_inner_join(topo1, left1, lcnt1, prep, None, [0], None, cfgp)
+
+    c = ladder_case("(c)", query, join_rows, spec="pallas_merge@call=1",
+                    env={"DJT_JOIN_MERGE": "merge"}, kernel="merge_sorted_u64")
+    check_pin("(c)", c, "merge", "pallas_merge", ("DJT_JOIN_MERGE", "sort"))
+    cases["c_pallas_merge"] = c
+    d = ladder_case("(d)", query, join_rows, spec="probe_expand@call=1",
+                    env={"DJT_JOIN_MERGE": "probe", "DJT_PROBE_EXPAND": "pallas"},
+                    kernel="expand_values")
+    check_pin("(d)", d, "expand", "probe_expand", ("DJT_PROBE_EXPAND", "hist"))
+    if d["faulted"]["launches"]["expand_ranks"] < 1:
+        raise AssertionError(f"12 (d): the hist retry launched no expand_ranks: {d}")
+    cases["d_probe_expand"] = d
+    del prep
+
+    # (e) the broadcast plan in 4i's world.
+    ledger.reset()
+    e = ladder_case(
+        "(e)", lambda: dj.distributed_inner_join(topo4, left4, lcnt4, right4, rcnt4, [0], [0]),
+        join_rows, spec="broadcast@call=1", env={"DJT_PLAN_ADAPT": "1"}, collectives=True)
+    ledger.reset()
+    check_pin("(e)", e, "adapt", "broadcast", ("DJT_PLAN_ADAPT", "0"))
+    cases["e_broadcast"] = e
+
+    # (f) 5e's broadcast-prepared side.
+    cfgw = dj.JoinConfig(key_range=(0, 2 * rows))
+    with env_set(DJT_PREPARED_TIER="broadcast"):
+        bprep = dj.prepare_join_side(topo4, right4, rcnt4, [0], cfgw, left_capacity=rows)
+    if bprep.tier != "broadcast":
+        raise AssertionError(f"12 (f): the side prepared on {bprep.tier}")
+    sides = []
+
+    def bc_query():
+        res = dj.distributed_inner_join_auto(topo4, left4, lcnt4, bprep, None, [0], None, cfgw)
+        sides.append(res[4].tier)
+        return res
+
+    f = ladder_case("(f)", bc_query, join_rows, spec="bc_prepared_query@call=1",
+                    env={"DJT_PREPARED_TIER": "broadcast"}, collectives=True)
+    check_pin("(f)", f, "prepared_tier", "bc_prepared_query", ("DJT_PREPARED_TIER", "shuffle"))
+    if sides != ["broadcast", "shuffle", "broadcast"] or \
+            [ev["type"] for ev in f["faulted"]["events"]] != ["fault", "degrade", "reprepare"]:
+        raise AssertionError(f"12 (f): sides served {sides}, events {f['faulted']['events']}")
+    cases["f_bc_prepared_query"] = f
+    del bprep, left4, lcnt4, right4, rcnt4
+    ledger.reset()
+    torch.cuda.empty_cache()
+
+    # (g) 4f's compressed shuffle, every compressed column under RLE.
+    import dataclasses
+
+    table = clickstream_table(dj, dev, rows, seed)
+    t4, c4 = dj.shard_table(topo4, table)
+    opts = tuple(
+        dataclasses.replace(o, cascaded=dataclasses.replace(o.cascaded, num_rles=1))
+        if o.method == "cascaded" else o
+        for o in dj.broadcast_compression_options(dj.generate_auto_select_compression_options(t4)))
+
+    def shuffled_rows(res):
+        counts = check_shuffled("12 (g)", res, table,
+                                lambda k, r: key_hash(k, DEFAULT_HASH_SEED) % WORLD == r)
+        return (torch.tensor(counts),)
+
+    g = ladder_case("(g)", lambda: dj.shuffle_on_auto(topo4, t4, c4, [0], compression=opts),
+                    shuffled_rows, spec="codec@call=1", kernel="expand_ranks")
+    ledger.reset()
+    check_pin("(g)", g, "wire", "codec")
+    cases["g_codec"] = g
+    del table, t4, c4
+    for name, case in cases.items():
+        log("ladder", smoke_phase="12", case=name, rows=rows,
+            wall_ms={run: case[run]["wall_ms"] for run in ("clean", "faulted", "after_reset")},
+            launches={run: case[run]["launches"] for run in ("clean", "faulted", "after_reset")},
+            all_to_alls={run: case[run]["collectives"]["all_to_all_start"]
+                         for run in ("clean", "faulted", "after_reset")},
+            faulted_events=case["faulted"]["events"], pins=case["pins"],
+            knobs_after_pin=case["knobs_after_pin"], card=smi)
+    log("ladder_phase", smoke_phase="12", seconds=time.perf_counter() - t_phase, card=smi)
+    return cases
+
+
 # --- process worlds (phases 6a-6c) ---------------------------------------
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -4329,6 +4611,9 @@ def world_rank(spec_json: str) -> int:
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
             result["chain"] = chain_rank(dj, dev, topo, spec)
+        # A tier pinned by this process's degradation ladder (the parent
+        # fails the run on any).
+        result["pinned"] = dj.resilience.pinned_tiers()
         print("RESULT " + json.dumps(result), flush=True)
     finally:
         torch.distributed.destroy_process_group()
@@ -4477,6 +4762,9 @@ def run_process_world(world: int, backend: str, device: str, rows: int, seed: in
         results.append(json.loads(lines[0]))
     if [res["rank"] for res in results] != list(range(world)):
         raise AssertionError(f"ranks {[res['rank'] for res in results]}")
+    pinned = {res["rank"]: res["pinned"] for res in results if res["pinned"]}
+    if pinned:
+        raise AssertionError(f"the degradation ladder pinned tiers in a process: {pinned}")
     if any(res["flags"] != results[0]["flags"] for res in results):
         raise AssertionError("the flag matrices differ between processes")
     if intra and any(res["two_level"]["flags"] != results[0]["two_level"]["flags"]
@@ -5251,6 +5539,8 @@ def main() -> int:
         profile_join(lambda: dj.distributed_inner_join(
             topo, left, lcnt, right, rcnt, [0], [0], cfg), path="unprepared", odf=odf)
 
+    check_no_pins("4")
+
     # 4b. the unprepared path under each other expansion mode
     mode_walls, mode_peaks = {}, {}
     for mode in MODES:
@@ -5293,6 +5583,8 @@ def main() -> int:
             if odf == 1:
                 profile_join(join, path=f"unprepared_{mode}", odf=odf)
     os.environ.pop("DJT_JOIN_EXPAND")
+
+    check_no_pins("4b")
 
     # 4c. the mode kernels against their plain versions
     main_in = carry_inputs(build, probe, dev)
@@ -5348,19 +5640,27 @@ def main() -> int:
     del hot
     torch.cuda.empty_cache()
 
+    check_no_pins("4c")
+
     # 4h. the join's plan knobs
     launch_table.update(run_knobs(dj, topo, left, lcnt, right, rcnt, build, probe, expected, ref,
                                   walls, smi))
     torch.cuda.empty_cache()
 
+    check_no_pins("4h")
+
     # 4d. the main path over a 4-rank world on this card
     world_launches, world_digests = run_world(dj, dev, build, probe, expected, ref, rows, smi)
     torch.cuda.empty_cache()
+
+    check_no_pins("4d")
 
     # 11. observability on phase 4's and 4d's joins
     world_launches.update(run_observability(dj, dev, topo, left, lcnt, right, rcnt, build, probe,
                                             expected, ref, rows, smi))
     torch.cuda.empty_cache()
+
+    check_no_pins("11")
 
     # 4e. the same 4 ranks as 2 domains of 2; 4f. shuffle_on
     two_level_launches, two_level_digests = run_two_level(dj, dev, build, probe, expected, ref,
@@ -5368,6 +5668,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     shuffle_digests = run_shuffle_on(dj, dev, rows, args.seed, smi)
     torch.cuda.empty_cache()
+
+    check_no_pins("4e, 4f")
 
     # 4g. the cascaded codec alone; 4e and 4f again, compressed
     codec = check_codec(dev, 4, min(rows // 100, 1_000_000), args.seed, smi,
@@ -5379,11 +5681,15 @@ def main() -> int:
     run_shuffle_on_compressed(dj, dev, rows, args.seed, smi, shuffle_digests)
     torch.cuda.empty_cache()
 
+    check_no_pins("4g, 4e and 4f compressed")
+
     # 4i. the unprepared plan tiers (broadcast, salted) in 4d's world
     plan_launches, plan_digests = run_plan_tiers(dj, dev, build, probe, expected, ref, rows, smi,
                                                  two_level_digests)
     world_launches.update(plan_launches)
     torch.cuda.empty_cache()
+
+    check_no_pins("4i")
 
     # The warmups; 4j. a two-stage chain with a local stage in 4d's world;
     # 4k. the coalesced unprepared dispatch with shape buckets
@@ -5392,6 +5698,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     world_launches.update(run_coalesced_bucketed(dj, dev, build, probe, rows, smi))
     torch.cuda.empty_cache()
+
+    check_no_pins("warmups, 4j, 4k")
 
     # 5. prepared path: prepare once, query under each merge tier
     prep_walls, query_walls = {}, {}
@@ -5465,9 +5773,13 @@ def main() -> int:
         del prep
         torch.cuda.empty_cache()
 
+    check_no_pins("5, 5d")
+
     # 5d. expand_values on the probe tier's edge cases
     probe_errs = [probe_err] + probe_values_edge_cases(gen, dev, 1_000_000)
     torch.cuda.empty_cache()
+
+    check_no_pins("5d edge cases")
 
     # 5c. appends to the prepared side
     append_launches, append_world = run_appends(dj, dev, gen, topo, left, lcnt, right, rcnt, build,
@@ -5475,19 +5787,27 @@ def main() -> int:
     launch_table.update(append_launches)
     torch.cuda.empty_cache()
 
+    check_no_pins("5c")
+
     # 5e. the broadcast- and salted-prepared build sides in 4d's world
     world_launches.update(run_prepared_tiers(dj, dev, gen, topo, left, lcnt, build, probe,
                                              expected, ref, rows, smi))
     torch.cuda.empty_cache()
+
+    check_no_pins("5e")
 
     # 5f. the coalesced prepared dispatch in 4d's world
     world_launches.update(run_coalesced_prepared(dj, dev, gen, build, probe, expected, ref, rows,
                                                  smi))
     torch.cuda.empty_cache()
 
+    check_no_pins("5f")
+
     # 5b. unsigned keys and payloads
     check_unsigned_path(dj, topo, gen, dev, min(rows, 1_000_000))
     torch.cuda.empty_cache()
+
+    check_no_pins("5b")
 
     # 7a-7c. every fixed-width key kind, float keys' special values, and
     # distributed_inner_join_auto
@@ -5497,11 +5817,15 @@ def main() -> int:
                                    ref, rows, smi))
     torch.cuda.empty_cache()
 
+    check_no_pins("7a-7c")
+
     # 8a-8d. string columns on one GPU's split of TPC-H at scale factor 100
     tpch_launches, tpch_world = run_strings(dj, dev, args.seed, args.orders, smi)
     launch_table.update(tpch_launches)
     world_launches.update(tpch_world)
     world_launches.update(append_world)
+
+    check_no_pins("8a-8d")
 
     # 8e. the prepared side with string columns, on phase 8's split
     orders, lineitem, customer, n_cust = tpch_tables(dj, dev, args.seed, args.orders)
@@ -5512,12 +5836,21 @@ def main() -> int:
     del li_sorted
     torch.cuda.empty_cache()
 
+    check_no_pins("8e")
+
     # 8g. TPC-H Q3's joins as one pipeline, on phase 8's split
     tpch_launches, tpch_world = run_q3_pipeline(dj, dev, orders, lineitem, customer, n_cust, smi)
     launch_table.update(tpch_launches)
     world_launches.update(tpch_world)
     del orders, lineitem, customer
     torch.cuda.empty_cache()
+
+    check_no_pins("8g")
+
+    # 12. the degradation ladder and the fault sites on the card
+    run_ladder(dj, dev, topo, left, lcnt, right, rcnt, ref, rows, args.seed, smi)
+    torch.cuda.empty_cache()
+    check_no_pins("12 (after reset_pins)")
 
     # 6a. a process world of one over NCCL
     process1_launches = process_world_of_one(dj, dev, "nccl", build, probe, expected, ref, rows, smi)
@@ -5528,6 +5861,8 @@ def main() -> int:
     chain_rows = min(CHAIN_ROWS, rows)
     chain_want = chain_in_one_process(dj, dev, chain_rows, args.seed)
     torch.cuda.empty_cache()
+
+    check_no_pins("6a")
 
     # 6b. four processes on this card over gloo, phase 4d's blocks, then
     # the same processes as 2 domains of 2 (4e's join, 4f's shuffle)
@@ -5583,6 +5918,8 @@ def main() -> int:
         comp=[{k: sum(v) for k, v in t["inter_compressed"]["stats"].items()} for t in two][0],
         card=smi)
 
+    check_no_pins("6b")
+
     # 6c. an NCCL world of one process per card, phase 4d's rows a rank,
     # at 4e's intra size when the cards factor by it
     cards = torch.cuda.device_count()
@@ -5612,6 +5949,8 @@ def main() -> int:
             why=f"this machine has {cards} card; an NCCL world of one process per card needs "
                 f"2 or more (NCCL refuses two ranks on one GPU), and its two-level half "
                 f"(intra {INTRA}, NCCL subgroups) {2 * INTRA} or more")
+
+    check_no_pins("6c")
 
     # 6. the prepared path's kernels on edge cases
     merge_errs, ranks_errs = [merge_err], [ranks_err]
@@ -5663,6 +6002,8 @@ def main() -> int:
         ranks_errs.append(compare_ranks(f"S_plus_n_out_is_NV{extra:+d}", dense[:1000],
                                         RANKS_NV - 1000 + extra))
     del hot, dense
+
+    check_no_pins("6 edge cases")
 
     # 9. timings
     S, n_out = timing["S"], timing["n_out"]
@@ -5763,6 +6104,8 @@ def main() -> int:
     gather_plain_ms = probe_gather.graph_ms(lambda: probe_gather.run_plain(gv, gi), 20)
     gather_bound_ms = 12 * gather_probe["n"] / HBM_BYTES_PER_S * 1e3
     del x_probe, gv, gi
+
+    check_no_pins("10, 10b")
 
     def per_query(name, table=launch_table):
         return {path: {f"odf{odf}": c[name] for odf, c in by_odf.items()}

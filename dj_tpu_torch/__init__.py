@@ -63,7 +63,15 @@ source with them). ``distributed_inner_join_auto`` answers any input: it heals
 overflowing capacities, a wrong declared key range and a prepared side
 the probe keys fall outside of, remembering the healed factors in the
 capacity ledger (``resilience``; ``DJT_LEDGER=<path>`` keeps it), and
-raises ``CapacityExhausted`` when its ``HealBudget`` runs out.
+raises ``CapacityExhausted`` when its ``HealBudget`` runs out. A call
+that fails with an optional tier active (the merge and probe tiers, the
+probe tier's expansion, the adaptive plans, the broadcast and salted
+prepared sides, the compressed wire) pins that tier's baseline for the
+process and runs again (``resilience.degrade_guard``;
+``resilience.pinned_tiers()`` says what is pinned); a kernel that does
+not build or launch fails the call instead (``KernelError``), and
+``DJT_FAULT=site@call=N`` makes a named site fail on cue
+(``resilience.faults``).
 
 The skew-adaptive plans (``plan_adapt``): under ``DJT_PLAN_ADAPT=1``
 the unprepared join decides once per signature between the broadcast

@@ -30,9 +30,13 @@ contract of ``ops.expand.expand_ranks``: its CUDA kernel on the card,
 its plain version on the CPU.
 
 The selector records one ``compress_select`` event a column verdict and
-counts ``dj_compress_select_total{kind,method}``, as dj_tpu's does. The
-fault site ``faults.check("codec")`` comes with the fault ladder
-(ROADMAP item 10b).
+counts ``dj_compress_select_total{kind,method}``, as dj_tpu's does.
+dj_tpu's fault site ``codec`` (in its ``compress_buckets``, consulted
+while a module traces) is consulted by the port's dispatching thread,
+once a dispatch attempt whose exchange compresses (:func:`consult_codec`):
+``shuffle_on``, and the joins' and the prepare's pre-shuffle. A fault
+there, or any failure of a compressed call, pins the ladder's ``wire``
+tier (``resilience.errors``) and the call runs again uncompressed.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ import torch.distributed as dist
 from .. import obs
 from ..core.table import StringColumn, Table, signed_view
 from ..ops.expand import expand_ranks
+from ..resilience import faults
 
 HEADER_WORDS = 8
 
@@ -87,6 +92,25 @@ class ColumnCompressionOptions:
 
 
 TableCompressionOptions = tuple[ColumnCompressionOptions, ...]
+
+
+def compresses(tree) -> bool:
+    """Whether a table's options tree (None for a raw table) sends any
+    slot through the codec: a column, or a string column's child, whose
+    method is ``METHOD_CASCADED``."""
+    return tree is not None and any(
+        o is not None and (o.method == METHOD_CASCADED or compresses(o.children)) for o in tree)
+
+
+def consult_codec(group_size: int, *trees) -> None:
+    """Fault site ``codec`` for a dispatch attempt whose exchange over a
+    group of ``group_size`` ranks compresses (more than one rank, and a
+    cascaded slot in one of the options ``trees``): consulted once an
+    attempt, on the dispatching thread, by ``shuffle_on`` and by the
+    joins' and the prepare's pre-shuffle. dj_tpu consults it in
+    ``compress_buckets`` while a module traces."""
+    if group_size > 1 and any(compresses(t) for t in trees):
+        faults.check("codec")
 
 
 def compressed_capacity_words(raw_bytes: int, wire_factor: float) -> int:

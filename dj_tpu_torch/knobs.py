@@ -110,6 +110,8 @@ KNOBS: tuple[Knob, ...] = (
          "the broadcast budget in bytes when DJT_BROADCAST_BYTES is unset", "serve"),
     # --- resilience -------------------------------------------------------
     Knob("DJT_LEDGER", None, "path", "capacity ledger's JSONL file", "resilience"),
+    Knob("DJT_FAULT", None, "str",
+         "deterministic fault sites, site@call=N[,...] (resilience.faults)", "resilience"),
     # --- process worlds ---------------------------------------------------
     Knob("DJT_COORDINATOR_ADDRESS", None, "str",
          "host:port of the process world's rendezvous", "ambient"),

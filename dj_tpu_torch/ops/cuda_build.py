@@ -7,7 +7,9 @@ ctypes; ``csrc/*.cuh`` are headers the sources share. The library's
 file name carries a hash of its source and the headers, so an edited
 source rebuilds and an unchanged one is reused. The first call
 starts one ``nvcc`` per missing source, all at once, and waits for all;
-nothing is compiled when a module is imported.
+nothing is compiled when a module is imported. A kernel that does not
+build, load or launch raises ``resilience.errors.KernelError``, which
+the degradation ladder never turns into a pin.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import pathlib
 import shutil
 import subprocess
 import threading
+
+from ..resilience.errors import KernelError
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / "_build"
@@ -35,7 +39,7 @@ def _nvcc() -> str:
     ):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    raise KernelError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
 def sources() -> list[pathlib.Path]:
@@ -79,7 +83,7 @@ def build_all() -> dict[str, pathlib.Path]:
         (BUILD_DIR / f"{name}.ptxas.txt").write_text(out)
         os.replace(tmp, lib)
     if failures:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+        raise KernelError("kernel build failed:\n" + "\n".join(failures))
     return {name: lib for name, (_, lib) in targets.items()}
 
 
@@ -90,11 +94,14 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _libs:
             for n, path in build_all().items():
                 if n not in _libs:
-                    _libs[n] = ctypes.CDLL(str(path))
+                    try:
+                        _libs[n] = ctypes.CDLL(str(path))
+                    except OSError as e:
+                        raise KernelError(f"{n}: cannot load {path.name}: {e}") from e
         return _libs[name]
 
 
 def check(rc: int, what: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if rc != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")
+        raise KernelError(f"{what}: CUDA launch failed with error {rc}")

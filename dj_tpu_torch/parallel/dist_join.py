@@ -63,8 +63,24 @@ values of two widths would land on different ranks.
 
 Every entry point is observed as dj_tpu's (``obs``): the roofline
 ``probe``, ``dispatch`` and ``prep`` phases (``_dispatch``), the query,
-plan, tier, range-probe, heal and re-prepare counters and events. The
-degradation guard comes with the fault ladder (ROADMAP item 10b).
+plan, tier, range-probe, heal and re-prepare counters and events.
+
+Every dispatch runs under the degradation ladder
+(``resilience.errors.degrade_guard``) with dj_tpu's tiers less its
+``sort``: the unprepared join and the pipeline's stages ("adapt",
+"wire"), the prepare ("wire", "prepared_tier"), the prepared and
+coalesced queries ("merge", "wire", "expand", "prepared_tier") and the
+coalesced unprepared dispatch ("wire"). Each attempt reads the pins
+again (the knobs, ``strip_pinned_wire``), so the retry after a pin runs
+the baseline. The fault sites (``resilience.faults``) are dj_tpu's:
+``module_build`` before every dispatch; ``broadcast`` / ``salted``,
+``prepare_broadcast`` / ``prepare_salted`` and ``bc_prepared_query`` /
+``salted_prepared_query`` on their tiers; ``codec`` when a pre-shuffle
+compresses; ``pallas_merge``, ``probe_merge`` and ``probe_expand`` on a
+prepared query's merge tier (``_merge_tier_sites``), each once an
+attempt on the dispatching thread; and the flag sites ``join.<flag>``,
+``prepare.<flag>``, ``prepared.<flag>`` (once a member of a coalesced
+run) and ``append.<flag>``, forced after the ranks returned.
 
 The co-partitioned join (``TIER_LOCAL``) and the coalesced dispatches
 (``distributed_inner_join_coalesced`` against a PreparedSide,
@@ -95,6 +111,7 @@ import torch.distributed as dist
 
 from ..core import dtypes as dt
 from ..core.table import Column, StringColumn, Table, concatenate
+from ..compress import cascaded as cz
 from ..ops.join import (
     PreparedPackPlan,
     _anchored_pack_word,
@@ -105,6 +122,8 @@ from ..ops.join import (
     normalize_key_range,
     plan_prepared_pack,
     prepare_packed_batch,
+    resolve_merge_impl,
+    resolve_probe_expand,
 )
 from .. import knobs, obs
 from ..obs import recorder as obs_recorder
@@ -118,6 +137,8 @@ from ..ops.partition import (
     partition_ids,
     salted_partition_ids,
 )
+from ..resilience import errors as resil
+from ..resilience import faults
 from ..resilience import heal as heal_engine
 from ..resilience import ledger as dj_ledger
 from ..resilience.errors import PreparedPlanMismatch
@@ -209,6 +230,29 @@ def _dispatch(topology: Topology, stage: str, kind: str, run, path: Optional[str
             obs.inc("dj_join_queries_total", queries, path=path)
         obs.observe("dj_query_dispatch_seconds", time.perf_counter() - t0, path=path)
     return out
+
+
+def _pre_shuffle_codec(topology: Topology, *trees) -> None:
+    """Fault site "codec" for an attempt whose pre-shuffle over 'inter'
+    compresses (``cz.consult_codec``); a flat topology has none."""
+    if topology.is_hierarchical:
+        cz.consult_codec(topology.group(INTER).size, *trees)
+
+
+def _merge_tier_sites() -> None:
+    """The prepared query's tier fault sites, once an attempt on the
+    dispatching thread (dj_tpu consults them while the query module
+    traces): ``pallas_merge`` under ``DJT_JOIN_MERGE=merge`` (the CUDA
+    merge kernel keeps dj_tpu's site name), ``probe_merge`` under
+    ``probe``, then ``probe_expand`` when the probe tier expands by
+    other than ``hist``."""
+    impl = resolve_merge_impl()
+    if impl == "merge":
+        faults.check("pallas_merge")
+    elif impl == "probe":
+        faults.check("probe_merge")
+        if resolve_probe_expand() != "hist":
+            faults.check("probe_expand")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -747,11 +791,30 @@ def distributed_inner_join(
     left_on, right_on = tuple(left_on), tuple(right_on)
     decision = _resolve_plan_decision(topology, left, left_counts, right, right_counts, left_on,
                                       right_on, config)
-    if plan_adapt.enabled():
-        obs.inc("dj_plan_dispatch_total", tier=decision.tier)
-    return _run_join(topology, decision.tier, left, left_counts, right, right_counts, left_on,
-                     right_on, config, key_range, decision.salt, decision.replicas,
-                     path="unprepared")
+
+    def attempt():
+        # The ladder's pins are read again inside the attempt: the wire
+        # tier through the stripped config, the adapt tier through
+        # DJT_PLAN_ADAPT (its pin writes 0 there), so the retry after a
+        # pin runs the baseline plan, a decided broadcast or salted plan
+        # included.
+        cfg = resil.strip_pinned_wire(config)
+        d = decision if plan_adapt.enabled() else plan_adapt.SHUFFLE
+        faults.check("module_build")
+        if d.tier == plan_adapt.TIER_BROADCAST:
+            faults.check("broadcast")
+        elif d.tier == plan_adapt.TIER_SALTED:
+            faults.check("salted")
+        if plan_adapt.enabled():
+            obs.inc("dj_plan_dispatch_total", tier=d.tier)
+        return _run_join(topology, d.tier, left, left_counts, right, right_counts, left_on,
+                         right_on, cfg, key_range, d.salt, d.replicas, path="unprepared")
+
+    out, counts, info = resil.degrade_guard("distributed_inner_join", attempt,
+                                            tiers=("adapt", "wire"), config=config,
+                                            topology=topology)
+    # Fault flag sites join.<flag>: forced on the host after the ranks ran.
+    return out, counts, faults.force_flags("join", info)
 
 
 TIER_LOCAL = "local"  # the pipeline's co-partitioned join (parallel.pipeline)
@@ -768,8 +831,10 @@ def _run_join(
     plan (``_broadcast_join_pipeline``) or the co-partitioned local join
     (``TIER_LOCAL``, ``_copartitioned_join``), as one ``_dispatch``
     under ``stage``, ``path`` and ``queries``. Its callers have checked
-    the key widths (``_check_key_widths``). Returns (result, counts, info
-    by ``_flag_keys``)."""
+    the key widths (``_check_key_widths``) and run it inside their
+    degradation guard; a shuffle or salted plan whose pre-shuffle
+    compresses consults the fault site ``codec`` first. Returns (result,
+    counts, info by ``_flag_keys``)."""
     w = topology.local_ranks
     l_cap, r_cap = left.capacity // w, right.capacity // w
     keys = _flag_keys(config)
@@ -787,6 +852,8 @@ def _run_join(
 
     kind = {plan_adapt.TIER_BROADCAST: "join_broadcast", TIER_LOCAL: "join_local"}.get(
         tier, "join_salted" if salt else "join")
+    if tier not in (plan_adapt.TIER_BROADCAST, TIER_LOCAL):
+        _pre_shuffle_codec(topology, config.left_compression, config.right_compression)
     out, counts, flag_mat = _dispatch(
         topology, stage, kind,
         lambda: run_spmd(topology, run, left, left_counts, right, right_counts,
@@ -1232,8 +1299,9 @@ def _resolve_prepared_tier(
     ``_prepared_salt_ratio()`` times its batch's mean; auto tries both
     in that order and else stays on shuffle. A fresh decision persists
     at once; each decision records one ``prepared_tier`` event and
-    ``dj_prepared_tier_total{tier,source}``, as dj_tpu's."""
-    if topology.is_hierarchical:
+    ``dj_prepared_tier_total{tier,source}``, as dj_tpu's. A pinned
+    ``prepared_tier`` (the degradation ladder) also stays on shuffle."""
+    if topology.is_hierarchical or resil.tier_pinned(_PREPARED_TIER_KEY):
         return _SHUFFLE_TIER
     n = topology.world_group().size
     odf = config.over_decom_factor
@@ -1421,39 +1489,68 @@ def prepare_join_side(
             S = n * (sizing.bl + sizing.br)
         return plan_prepared_pack(state["kr"], dtypes, S), n, sizing, S, r_cap_m
 
-    def run_attempt(attempt):
-        cfg = state["config"]
-        plan, n, sizing, S, r_cap_m = plan_and_sizing(cfg)
+    def packed_plan():
+        """(plan, n, sizing, r_cap_m) of the resolved tier. A broadcast
+        or salted merged size that does not pack demotes this signature
+        to shuffle-prepared; a range that does not pack there either
+        raises ValueError."""
+        plan, n, sizing, S, r_cap_m = plan_and_sizing(state["config"])
         if plan is None and state["tier"] != plan_adapt.TIER_SHUFFLE:
-            # The replicated merged size does not pack: this signature
-            # falls back to shuffle-prepared.
             _demote_prepared_tier(prep_sig, f"merged size S={S} for tier {state['tier']} does "
                                             f"not pack into the 64-bit word")
             state.update(tier=plan_adapt.TIER_SHUFFLE, salt=(), replicas=1)
-            plan, n, sizing, S, r_cap_m = plan_and_sizing(cfg)
+            plan, n, sizing, S, r_cap_m = plan_and_sizing(state["config"])
         if plan is None:
             raise ValueError(
                 f"prepare_join_side: key range {state['kr']} does not pack into "
                 f"the 64-bit word at batch size S={S}; use the unprepared join"
             )
+        return plan, n, sizing, r_cap_m
 
-        keys = _prep_flag_keys(cfg)
-        tier_now, salt_now, replicas_now = state["tier"], state["salt"], state["replicas"]
+    def run_attempt(attempt):
+        # Sized before the guard, so a range that does not pack raises
+        # its ValueError and pins no tier.
+        sized = packed_plan()
 
-        def run(comm, rt, rc):
-            rt = rt.with_count(rc[0])
+        def build_and_run():
+            nonlocal sized
+            cfg = resil.strip_pinned_wire(state["config"])
+            if state["tier"] != plan_adapt.TIER_SHUFFLE and resil.tier_pinned(_PREPARED_TIER_KEY):
+                # A pin landed after the tier was resolved (a retry of
+                # this guard, or another call of the process): build the
+                # shuffle-prepared baseline instead.
+                state.update(tier=plan_adapt.TIER_SHUFFLE, salt=(), replicas=1)
+                sized = packed_plan()
+            b_plan, b_n, b_sizing, b_r_cap_m = sized
+            tier_now, salt_now, replicas_now = state["tier"], state["salt"], state["replicas"]
             if tier_now == plan_adapt.TIER_BROADCAST:
-                batches, flags = _prepare_broadcast(comm, rt, right_on, plan, r_cap)
-            else:
-                batches, flags = _prepare_batches(comm, cfg, rt, right_on, sizing, plan, r_cap,
-                                                  r_cap_m, salt_now, replicas_now)
-            return batches, _flag_row(flags, keys)
+                faults.check("prepare_broadcast")
+            elif tier_now == plan_adapt.TIER_SALTED:
+                faults.check("prepare_salted")
+            faults.check("module_build")
+            _pre_shuffle_codec(topology, cfg.right_compression)
+            keys = _prep_flag_keys(cfg)
 
-        batches, flag_mat = _dispatch(
-            topology, "prepare", "prepare",
-            lambda: run_spmd(topology, run, right, right_counts, **_backend(cfg, flags_at=1)),
-            phase="prep")
-        return (batches, plan, n, sizing), _flag_info(flag_mat, keys)
+            def run(comm, rt, rc):
+                rt = rt.with_count(rc[0])
+                if tier_now == plan_adapt.TIER_BROADCAST:
+                    batches, flags = _prepare_broadcast(comm, rt, right_on, b_plan, r_cap)
+                else:
+                    batches, flags = _prepare_batches(comm, cfg, rt, right_on, b_sizing, b_plan,
+                                                      r_cap, b_r_cap_m, salt_now, replicas_now)
+                return batches, _flag_row(flags, keys)
+
+            batches, flag_mat = _dispatch(
+                topology, "prepare", "prepare",
+                lambda: run_spmd(topology, run, right, right_counts, **_backend(cfg, flags_at=1)),
+                phase="prep")
+            return (batches, b_plan, b_n, b_sizing), _flag_info(flag_mat, keys)
+
+        payload, info = resil.degrade_guard("prepare_join_side", build_and_run,
+                                            tiers=("wire", _PREPARED_TIER_KEY),
+                                            config=state["config"], topology=topology)
+        # Fault flag sites prepare.<flag>: forced on the host after the ranks ran.
+        return payload, faults.force_flags("prepare", info)
 
     def _heal_range_violation(info, attempt):
         # Build keys outside the declared range: the anchored words are
@@ -1602,50 +1699,79 @@ def _distributed_inner_join_prepared(
     left_on = _check_prepared_query(topology, left, prepared, left_on, config,
                                     "distributed_inner_join(prepared)")
     left = shape_bucket.bucket_table(topology, left)
-    per_query, keys = _run_prepared_queries(topology, [left], [left_counts], prepared, left_on,
-                                            config, stage="prepared_query", path="prepared")
-    out, counts, flag_mat = per_query
-    return out[0], counts[0], _flag_info(flag_mat[:, 0], keys)
+    return _run_prepared_queries(topology, [left], [left_counts], prepared, left_on, config,
+                                 stage="prepared_query", path="prepared",
+                                 where="distributed_inner_join(prepared)")[0]
 
 
 def _run_prepared_queries(
     topology: Topology, lefts: Sequence[Table], left_counts: Sequence[torch.Tensor],
     prepared: PreparedSide, left_on: tuple, config: JoinConfig, *, stage: str, path: str,
-):
+    where: str,
+) -> list:
     """K same-shaped queries against ``prepared`` in one run: per rank,
     each member's pre-shuffle (two-level topologies), then
     ``_prepared_query`` (every member's batch window in one epoch), or on
     a broadcast side K local probes with no collective; one ``_dispatch``
-    under ``stage`` and ``path``. Returns ((results, counts, the [w, K, k]
-    flag tensor), the flag keys)."""
+    under ``stage`` and ``path``, guarded by the degradation ladder as
+    ``where`` (the merge, wire, expand and prepared_tier tiers). A
+    broadcast or salted side whose tier the ladder pinned raises
+    PreparedPlanMismatch, so the auto wrapper re-prepares it on shuffle.
+    Returns one (result, counts, info) a member, each member's flags
+    through the ``prepared.<flag>`` fault sites."""
     odf = config.over_decom_factor
     l_cap = lefts[0].capacity // topology.local_ranks
     _, l_cap_m, bl, out_cap = _prepared_query_sizing(topology, config, l_cap, prepared)
     plan = prepared.plan
-    keys = _prepared_flag_keys(config)
 
-    def run(comm, lts, lcs, batches):
-        lts = [lt.with_count(lc[0]) for lt, lc in zip(lts, lcs)]
+    def attempt():
+        if prepared.tier != plan_adapt.TIER_SHUFFLE and resil.tier_pinned(_PREPARED_TIER_KEY):
+            # The ladder pinned shuffle-prepared (a replication tier's
+            # fault, here or in another call): this side's replicated
+            # runs must not serve.
+            raise PreparedPlanMismatch(
+                f"prepared tier {prepared.tier!r} is pinned to the shuffle-prepared baseline; "
+                f"re-prepare"
+            )
+        cfg = resil.strip_pinned_wire(config)
         if prepared.tier == plan_adapt.TIER_BROADCAST:
-            members = [_bc_prepared_query(comm, lt, left_on, batches[0], plan, out_cap,
-                                          config.char_out_factor) for lt in lts]
-        else:
-            pre = [_pre_shuffle_one(comm, config, lt, left_on, l_cap, l_cap_m,
-                                    config.left_compression) for lt in lts]
-            members = _prepared_query(comm, [lt for lt, _, _ in pre], left_on, batches, plan, odf,
-                                      bl, out_cap, config.char_out_factor, prepared.salt,
-                                      prepared.salt_replicas)
-            for (_, flags), (_, pre_ovf, pre_stats) in zip(members, pre):
-                flags.update(pre_shuffle_overflow=pre_ovf, **pre_stats)
-        return (tuple(out.with_count(None) for out, _ in members),
-                tuple(out.count().reshape(1) for out, _ in members),
-                torch.stack([_flag_row(flags, keys)[0] for _, flags in members])[None])
+            faults.check("bc_prepared_query")
+        elif prepared.tier == plan_adapt.TIER_SALTED:
+            faults.check("salted_prepared_query")
+        faults.check("module_build")
+        if prepared.tier != plan_adapt.TIER_BROADCAST:
+            _pre_shuffle_codec(topology, cfg.left_compression)
+        _merge_tier_sites()
+        keys = _prepared_flag_keys(cfg)
 
-    return _dispatch(
-        topology, stage, stage,
-        lambda: run_spmd(topology, run, tuple(lefts), tuple(left_counts), prepared.batches,
-                         **_backend(config)),
-        path=path, queries=len(lefts)), keys
+        def run(comm, lts, lcs, batches):
+            lts = [lt.with_count(lc[0]) for lt, lc in zip(lts, lcs)]
+            if prepared.tier == plan_adapt.TIER_BROADCAST:
+                members = [_bc_prepared_query(comm, lt, left_on, batches[0], plan, out_cap,
+                                              cfg.char_out_factor) for lt in lts]
+            else:
+                pre = [_pre_shuffle_one(comm, cfg, lt, left_on, l_cap, l_cap_m,
+                                        cfg.left_compression) for lt in lts]
+                members = _prepared_query(comm, [lt for lt, _, _ in pre], left_on, batches, plan,
+                                          odf, bl, out_cap, cfg.char_out_factor, prepared.salt,
+                                          prepared.salt_replicas)
+                for (_, flags), (_, pre_ovf, pre_stats) in zip(members, pre):
+                    flags.update(pre_shuffle_overflow=pre_ovf, **pre_stats)
+            return (tuple(out.with_count(None) for out, _ in members),
+                    tuple(out.count().reshape(1) for out, _ in members),
+                    torch.stack([_flag_row(flags, keys)[0] for _, flags in members])[None])
+
+        outs, counts, flag_mat = _dispatch(
+            topology, stage, stage,
+            lambda: run_spmd(topology, run, tuple(lefts), tuple(left_counts), prepared.batches,
+                             **_backend(cfg)),
+            path=path, queries=len(lefts))
+        return outs, counts, flag_mat, keys
+
+    outs, counts, flag_mat, keys = resil.degrade_guard(
+        where, attempt, tiers=("merge", "wire", "expand", _PREPARED_TIER_KEY), config=config,
+        topology=topology)
+    return _members(outs, counts, flag_mat, keys, "prepared")
 
 
 def _bc_prepared_query(
@@ -1883,8 +2009,12 @@ def _ledger_widened(config: JoinConfig, sig: str) -> JoinConfig:
     return config
 
 
-def _members(outs, counts, flag_mat: torch.Tensor, keys) -> list:
-    return [(outs[q], counts[q], _flag_info(flag_mat[:, q], keys)) for q in range(len(outs))]
+def _members(outs, counts, flag_mat: torch.Tensor, keys, stage: str) -> list:
+    """One (result, counts, info) a member of a run; each member's flags
+    go through the fault flag sites ``<stage>.<flag>`` (one consultation
+    a member, as dj_tpu's)."""
+    return [(outs[q], counts[q], faults.force_flags(stage, _flag_info(flag_mat[:, q], keys)))
+            for q in range(len(outs))]
 
 
 def distributed_inner_join_coalesced(
@@ -1923,10 +2053,9 @@ def distributed_inner_join_coalesced(
                                     "distributed_inner_join_coalesced")
     config = _ledger_widened(config, dj_ledger.plan_signature(topology, lefts[0], prepared,
                                                               left_on, None, config))
-    (outs, counts, flag_mat), keys = _run_prepared_queries(
-        topology, lefts, left_counts, prepared, left_on, config, stage="coalesced_query",
-        path="coalesced")
-    return _members(outs, counts, flag_mat, keys), config
+    return _run_prepared_queries(topology, lefts, left_counts, prepared, left_on, config,
+                                 stage="coalesced_query", path="coalesced",
+                                 where="distributed_inner_join_coalesced"), config
 
 
 def _union_key_ranges(ranges):
@@ -1998,23 +2127,32 @@ def distributed_inner_join_coalesced_unprepared(
             for q in range(k)
         ])
     l_cap, r_cap = lefts[0].capacity // w, rights[0].capacity // w
-    keys = _flag_keys(config)
 
-    def run(comm, lts, lcs, rts, rcs):
-        members = _shuffle_join_members(
-            comm, [(lt.with_count(lc[0]), rt.with_count(rc[0]))
-                   for lt, lc, rt, rc in zip(lts, lcs, rts, rcs)],
-            left_on, right_on, config, l_cap, r_cap, key_range)
-        return (tuple(out.with_count(None) for out, _ in members),
-                tuple(out.count().reshape(1) for out, _ in members),
-                torch.stack([_flag_row(flags, keys)[0] for _, flags in members])[None])
+    def attempt():
+        cfg = resil.strip_pinned_wire(config)
+        faults.check("module_build")
+        keys = _flag_keys(cfg)
 
-    outs, counts, flag_mat = _dispatch(
-        topology, "coalesced_join", "coalesced_join",
-        lambda: run_spmd(topology, run, tuple(lefts), tuple(left_counts), tuple(rights),
-                         tuple(right_counts), **_backend(config)),
-        path="coalesced_unprepared", queries=k)
-    return _members(outs, counts, flag_mat, keys), config
+        def run(comm, lts, lcs, rts, rcs):
+            members = _shuffle_join_members(
+                comm, [(lt.with_count(lc[0]), rt.with_count(rc[0]))
+                       for lt, lc, rt, rc in zip(lts, lcs, rts, rcs)],
+                left_on, right_on, cfg, l_cap, r_cap, key_range)
+            return (tuple(out.with_count(None) for out, _ in members),
+                    tuple(out.count().reshape(1) for out, _ in members),
+                    torch.stack([_flag_row(flags, keys)[0] for _, flags in members])[None])
+
+        outs, counts, flag_mat = _dispatch(
+            topology, "coalesced_join", "coalesced_join",
+            lambda: run_spmd(topology, run, tuple(lefts), tuple(left_counts), tuple(rights),
+                             tuple(right_counts), **_backend(cfg)),
+            path="coalesced_unprepared", queries=k)
+        return outs, counts, flag_mat, keys
+
+    outs, counts, flag_mat, keys = resil.degrade_guard(
+        "distributed_inner_join_coalesced_unprepared", attempt, tiers=("wire",), config=config,
+        topology=topology)
+    return _members(outs, counts, flag_mat, keys, "join"), config
 
 
 # --- appends to a prepared side -------------------------------------------
@@ -2092,8 +2230,9 @@ def append_to_prepared(
     shard with zero appended capacity. Counts
     ``dj_prepared_append_total{batches}`` (the merged batches), and a
     re-prepare records its ``reprepare`` event with
-    ``dj_reprepare_total{reason="append"}``, as dj_tpu does; dj_tpu's
-    ``faults.force_flags`` comes with the fault ladder (ROADMAP 10b)."""
+    ``dj_reprepare_total{reason="append"}``, as dj_tpu does. The fault
+    site ``module_build`` is consulted before the merge's first dispatch,
+    and the flags go through the ``append.<flag>`` flag sites."""
     if topology.is_hierarchical:
         raise PreparedPlanMismatch(
             "append_to_prepared does not support hierarchical topologies (the "
@@ -2130,8 +2269,8 @@ def append_to_prepared(
         none = torch.zeros(topology.world_size, dtype=torch.bool, device=topology.device)
         info = dict.fromkeys(_APPEND_FLAG_KEYS, none)
         info["touched"] = tuple(range(len(new_prepared.batches)))
-        return new_prepared, info
-    config = prepared.config
+        return new_prepared, faults.force_flags("append", info)
+    config = resil.strip_pinned_wire(prepared.config)
     right_on, plan, n = prepared.right_on, prepared.plan, prepared.n
     odf = config.over_decom_factor
     m = n * odf
@@ -2143,6 +2282,8 @@ def append_to_prepared(
             f"field (tag_bits={plan.tag_bits}, resident R={R}); re-prepare, or "
             f"append in smaller slices"
         )
+
+    faults.check("module_build")
 
     def probe(comm, at, ac):
         comm.phase("dj_partition")
@@ -2190,6 +2331,8 @@ def append_to_prepared(
     new_right, new_rc = combine_prepared_source(topology, prepared, rows, rows_counts)
     obs.inc("dj_prepared_append_total", batches=str(len(touched)))
     info["touched"] = touched
+    # Fault flag sites append.<flag>: forced on the host after the merge.
+    info = faults.force_flags("append", info)
     return dataclasses.replace(
         prepared, batches=tuple(new_batches), right=new_right, right_counts=new_rc,
         r_cap=prepared.r_cap + a_cap,

@@ -65,10 +65,11 @@ roofline ``dispatch`` phase with stage ``"pipeline:<i>"``; each chain
 counts ``dj_join_queries_total{path="pipeline"}`` once; a dropped
 declared stage range records its ``heal`` event. Every process plans
 and records alike (the events' fields come from the plan, which every
-process makes from the same inputs). dj_tpu's degradation ladder,
-fault sites, autotuner and scheduler hooks come with the rest of the
-serving stack (ROADMAP items 10b, 10c and 10e); ``pipeline_signature``
-(the autotuner's unit) is here.
+process makes from the same inputs). Each Table-right stage runs under
+the degradation ladder with dj_tpu's fault sites (``_dispatch_stage``);
+a prepared stage under the prepared query's. dj_tpu's autotuner and
+scheduler hooks come with the rest of the serving stack (ROADMAP items
+10c and 10e); ``pipeline_signature`` (the autotuner's unit) is here.
 """
 
 from __future__ import annotations
@@ -83,6 +84,8 @@ from .. import knobs, obs
 from ..core import dtypes as dt
 from ..core.table import Column, Table
 from ..ops.join import canonical_key_range, intersect_key_ranges, normalize_key_range
+from ..resilience import errors as resil
+from ..resilience import faults
 from ..resilience import heal as heal_engine
 from ..resilience import ledger as dj_ledger
 from ..resilience.heal import HealBudget
@@ -450,24 +453,39 @@ def pipeline_signature(topology: Topology, plan: PipelinePlan) -> str:
 def _dispatch_stage(topology: Topology, sp: StagePlan, cur: Table, cur_counts: torch.Tensor,
                     cfg: JoinConfig, key_range, n_stages: int):
     """One Table-right stage's join on its planned mode, and its
-    ``pipeline`` event. The knobs that turn an elision off are read
-    here, at each attempt, as dj_tpu's attempt reads them
-    (pipeline.py:554-558)."""
-    mode = sp.mode
-    if mode == MODE_LOCAL and not _copart_enabled():
-        mode = MODE_SHUFFLE
-    if mode == MODE_BROADCAST and not _broadcast_enabled():
-        mode = MODE_SHUFFLE
-    tier = {MODE_LOCAL: dj.TIER_LOCAL, MODE_BROADCAST: plan_adapt.TIER_BROADCAST}.get(
-        mode, plan_adapt.TIER_SHUFFLE)
-    out = dj._run_join(topology, tier, cur, cur_counts, sp.right, sp.right_counts, sp.left_on,
-                       sp.right_on, cfg, key_range, stage=f"pipeline:{sp.index}",
-                       path="pipeline", queries=0)
-    obs.inc("dj_pipeline_stage_total", mode=mode)
-    obs.record("pipeline", stage=sp.index, stages=n_stages, mode=mode,
-               elided=mode in (MODE_LOCAL, MODE_BROADCAST),
-               range=sp.range_source if key_range is not None else "dynamic")
-    return out
+    ``pipeline`` event, under the degradation ladder ("adapt", "wire"),
+    as dj_tpu's ``_dispatch_stage`` (pipeline.py:533-622). The knobs that
+    turn an elision off and the ladder's pins are read inside each
+    attempt, so a retry after a pin runs the baseline: a pinned "adapt"
+    runs a broadcast stage on the shuffle plan. Fault sites:
+    ``module_build`` each attempt, ``broadcast`` on a broadcast stage,
+    and the stage's flags through ``join.<flag>``."""
+
+    def attempt():
+        cfg2 = resil.strip_pinned_wire(cfg)
+        faults.check("module_build")
+        mode = sp.mode
+        if mode == MODE_LOCAL and not _copart_enabled():
+            mode = MODE_SHUFFLE
+        if mode == MODE_BROADCAST and (not _broadcast_enabled() or resil.tier_pinned("adapt")):
+            mode = MODE_SHUFFLE
+        if mode == MODE_BROADCAST:
+            faults.check("broadcast")
+        tier = {MODE_LOCAL: dj.TIER_LOCAL, MODE_BROADCAST: plan_adapt.TIER_BROADCAST}.get(
+            mode, plan_adapt.TIER_SHUFFLE)
+        out = dj._run_join(topology, tier, cur, cur_counts, sp.right, sp.right_counts,
+                           sp.left_on, sp.right_on, cfg2, key_range, stage=f"pipeline:{sp.index}",
+                           path="pipeline", queries=0)
+        obs.inc("dj_pipeline_stage_total", mode=mode)
+        obs.record("pipeline", stage=sp.index, stages=n_stages, mode=mode,
+                   elided=mode in (MODE_LOCAL, MODE_BROADCAST),
+                   range=sp.range_source if key_range is not None else "dynamic")
+        return out
+
+    out, out_counts, info = resil.degrade_guard("distributed_join_pipeline", attempt,
+                                                tiers=("adapt", "wire"), config=cfg,
+                                                topology=topology)
+    return out, out_counts, faults.force_flags("join", info)
 
 
 def _record_prepared_stage(sp: StagePlan, n_stages: int, side) -> None:

@@ -42,9 +42,15 @@ considered a batch.
 Observed as dj_tpu's: every decision, replayed or fresh, records one
 ``plan_adapt`` event and ``dj_plan_adapt_total{tier,source}``, a demote
 with ``action="demote"`` and its reason; each partition-count probe
-counts ``dj_plan_probe_total``. dj_tpu's degradation ladder pin and its
-``broadcast`` / ``salted`` fault sites come with the fault ladder
-(ROADMAP item 10b).
+counts ``dj_plan_probe_total``.
+
+The planner is the degradation ladder's "adapt" tier
+(``resilience.errors``): a broadcast or salted dispatch that fails (the
+fault sites ``broadcast`` / ``salted`` stand in for a failure; a kernel
+that does not launch fails the call instead) pins
+``DJT_PLAN_ADAPT=0``, so :func:`enabled` reads False from then on, and
+the join runs again on the shuffle plan, a decision replayed from the
+ledger included.
 """
 
 from __future__ import annotations

@@ -20,11 +20,14 @@ that the join's hierarchical pre-shuffle runs over the 'inter' group.
 
 Each ``shuffle_on`` counts ``dj_shuffle_calls_total`` and its
 exchanges' collectives (inside a ``query_ctx``, one ``collectives``
-event), as dj_tpu's does. Left out here, as in the rest of the port:
-dj_tpu's degradation guard (``resil.degrade_guard``, whose "wire" tier
-retries a failing codec uncompressed) and fault sites
-(``faults.check``, ``faults.force_flags``), which come with the fault
-ladder (ROADMAP item 10b).
+event), as dj_tpu's does. It runs under the degradation ladder
+(``resilience.errors.degrade_guard``) with the "wire" tier, as dj_tpu's
+(shuffle.py:162-199): a compressed shuffle that fails pins the wire
+tier and runs again uncompressed. Fault sites: ``module_build`` each
+attempt, ``codec`` each attempt whose exchange compresses (dj_tpu
+consults it while the module traces), and the split bits through
+``shuffle.bucket_overflow`` / ``shuffle.out_overflow``; a forced bit
+sets every shard's bit and the overflow.
 """
 
 from __future__ import annotations
@@ -34,10 +37,13 @@ from typing import Optional, Sequence, Type
 import torch
 
 from .. import obs
+from ..compress import cascaded as cz
 from ..core.table import Table
 from ..obs.recorder import account_epochs
 from ..ops import hashing
 from ..ops.partition import hash_partition, partition_counts
+from ..resilience import errors as resil
+from ..resilience import faults
 from ..resilience import heal as heal_engine
 from ..resilience import ledger as dj_ledger
 from .all_to_all import OVF_BUCKET, OVF_OUT, shuffle_table, shuffle_tables
@@ -151,28 +157,45 @@ def shuffle_on(
     out_capacity = max(1, int(cap * out_factor))
     on_columns = tuple(on_columns)
 
-    def run(comm, t, c):
-        out, _, overflow, stats = _local_shuffle(
-            t.with_count(c[0]), comm.sub(axis), on_columns, hash_function, seed,
-            bucket_rows, out_capacity, compression,
-        )
-        split = torch.stack([stats[OVF_BUCKET], stats[OVF_OUT]]).reshape(1, 2)
-        zero = torch.zeros((), dtype=torch.float32, device=overflow.device)
-        stat_row = torch.stack([stats.get(k, zero) for k in STAT_KEYS]).reshape(1, -1)
-        return (out.with_count(None), out.count().reshape(1), overflow.reshape(1), split,
-                stat_row)
+    def attempt():
+        # The wire tier's pin has no knob: the compression is read again
+        # inside the attempt, so the retry after a codec pin runs raw.
+        comp = None if resil.tier_pinned("wire") else compression
+        faults.check("module_build")
+        cz.consult_codec(group.size, comp)
 
-    with account_epochs("shuffle"):
-        out, out_counts, overflow, split_mat, stat_mat = run_spmd(
-            topology, run, table, counts, communicator_cls=communicator_cls,
-            fuse_columns=fuse_columns, gathered=(2, 3, 4),
-        )
+        def run(comm, t, c):
+            out, _, overflow, stats = _local_shuffle(
+                t.with_count(c[0]), comm.sub(axis), on_columns, hash_function, seed,
+                bucket_rows, out_capacity, comp,
+            )
+            split = torch.stack([stats[OVF_BUCKET], stats[OVF_OUT]]).reshape(1, 2)
+            zero = torch.zeros((), dtype=torch.float32, device=overflow.device)
+            stat_row = torch.stack([stats.get(k, zero) for k in STAT_KEYS]).reshape(1, -1)
+            return (out.with_count(None), out.count().reshape(1), overflow.reshape(1), split,
+                    stat_row)
+
+        with account_epochs("shuffle"):
+            return run_spmd(topology, run, table, counts, communicator_cls=communicator_cls,
+                            fuse_columns=fuse_columns, gathered=(2, 3, 4))
+
+    out, out_counts, overflow, split_mat, stat_mat = resil.degrade_guard(
+        "shuffle_on", attempt, tiers=("wire",), compression=compression, topology=topology)
     obs.inc("dj_shuffle_calls_total")
+    split = {"bucket": split_mat[:, 0], "out": split_mat[:, 1]}
+    # Fault flag sites shuffle.bucket_overflow / shuffle.out_overflow,
+    # forced on the host after the ranks ran: a forced bit is set on
+    # every shard, so the flags keep their [world] shape.
+    forced = faults.force_flags("shuffle", {OVF_BUCKET: split["bucket"], OVF_OUT: split["out"]})
+    if forced[OVF_BUCKET] is True or forced[OVF_OUT] is True:
+        split = {k: torch.ones_like(split[k]) if forced[bit] is True else split[k]
+                 for k, bit in (("bucket", OVF_BUCKET), ("out", OVF_OUT))}
+        overflow = torch.ones_like(overflow)
     res = (out, out_counts, overflow)
     if with_stats:
         res = res + ({k: stat_mat[:, j] for j, k in enumerate(STAT_KEYS)},)
     if with_split_overflow:
-        res = res + ({"bucket": split_mat[:, 0], "out": split_mat[:, 1]},)
+        res = res + (split,)
     return res
 
 

@@ -48,6 +48,9 @@ read alike). A two-level process world's communicators run over the
 subgroups' ProcessGroups (``topology.process_subgroups``). A rank that
 raises leaves its peers at their next collective until the process
 group's timeout fails them.
+
+Each call consults the fault site ``communicator``
+(``resilience.faults``) once, before any rank starts.
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from ..core.table import Column, StringColumn, Table
+from ..resilience import faults
 from .communicator import (
     Communicator,
     DistTransport,
@@ -187,6 +191,10 @@ def run_spmd(topology: Topology, body: Callable, *sharded, communicator_cls=None
     buffer (None: the backend's own default). ``gathered`` indexes
     outputs of a tuple result that every process of a process world gets
     whole."""
+    # Fault site "communicator" (dj_tpu's make_communicator, consulted
+    # there while a module traces): once a call, on the calling thread,
+    # before any rank starts, so a thread world counts one consultation.
+    faults.check("communicator")
     cls = XlaCommunicator if communicator_cls is None else communicator_cls
     dev = topology.device
     runs = _phase_runs.get()

@@ -18,6 +18,7 @@ import torch
 
 from .. import obs
 from ..compress import cascaded as cz
+from ..resilience import errors as resil
 from .spmd import run_spmd
 from .topology import Topology
 
@@ -54,15 +55,28 @@ def warmup_prepared_join(topology: Topology, prepared, left_example, left_counts
     loaded and the transport set up. The example's data does not matter,
     its shapes and dtypes do. A lease-like object (one with
     ``.prepared`` and no ``.batches``, as dj_tpu's join-index lease) is
-    unwrapped first. dj_tpu's degradation guard around the query comes
-    with the fault ladder (ROADMAP item 10b)."""
+    unwrapped first.
+
+    The query and its synchronize run under the degradation ladder
+    (``resilience.degrade_guard``, tiers "merge" and "wire"), as
+    dj_tpu's: a tier that fails here pins its baseline, with the
+    ``degrade`` event, and serving starts on the baseline. A kernel that
+    does not build or launch, or a device fault the synchronize reports
+    (the query's launches are asynchronous), fails the warmup instead:
+    no baseline stands in for a broken kernel."""
     from .dist_join import distributed_inner_join
 
     if hasattr(prepared, "prepared") and not hasattr(prepared, "batches"):
         prepared = prepared.prepared
-    distributed_inner_join(topology, left_example, left_counts, prepared, None, left_on, None,
-                           config)
-    _sync(topology.device)
+
+    def attempt():
+        distributed_inner_join(topology, left_example, left_counts, prepared, None, left_on,
+                               None, config)
+        _sync(topology.device)
+
+    resil.degrade_guard("warmup_prepared_join", attempt, tiers=("merge", "wire"),
+                        config=config if config is not None else prepared.config,
+                        topology=topology)
     obs.record("warmup", kind="prepared_join")
     obs.inc("dj_warmup_total", kind="prepared_join")
 

@@ -46,7 +46,7 @@ def test_every_knob_is_documented_in_the_port_section_of_the_readme():
 
 
 def test_registry_shape():
-    assert len(knobs.KNOBS) == len(knobs.REGISTRY) == 34
+    assert len(knobs.KNOBS) == len(knobs.REGISTRY) == 35
     for k in knobs.KNOBS:
         assert k.doc and k.kind in ("bool", "int", "float", "str", "enum", "path")
         assert (k.kind == "enum") == bool(k.choices)
@@ -83,7 +83,7 @@ def test_readers_keep_their_defaults(monkeypatch):
 def test_reset_names_clears_them(monkeypatch):
     names = knobs.reset_names()
     assert {"DJT_PLAN_ADAPT", "DJT_PREPARED_TIER", "DJT_SHAPE_BUCKET", "DJT_LEDGER",
-            "DJT_SERVE_HBM_BUDGET", "DJT_PIPELINE_BROADCAST"} <= set(names)
+            "DJT_SERVE_HBM_BUDGET", "DJT_PIPELINE_BROADCAST", "DJT_FAULT"} <= set(names)
     assert not {"DJT_JOIN_EXPAND", "DJT_OBS", "DJT_COORDINATOR_ADDRESS"} & set(names)
     for n in names:
         monkeypatch.setenv(n, "1")

@@ -61,3 +61,10 @@ def test_the_port_exports_what_it_lists():
     assert sorted(set(dj_tpu.shape_bucket.__all__) - set(dir(tj.shape_bucket))) == []
     assert tj.HASH_MURMUR3 == dj_tpu.HASH_MURMUR3 and tj.HASH_IDENTITY == dj_tpu.HASH_IDENTITY
     assert tj.DEFAULT_HASH_SEED == dj_tpu.DEFAULT_HASH_SEED
+
+
+def test_the_resilience_namespace_lists_what_dj_tpus_lists():
+    """The fault injection and the ladder included (ROADMAP 10b); every
+    listed name resolves."""
+    assert sorted(tj.resilience.__all__) == sorted(dj_tpu.resilience.__all__)
+    assert sorted(n for n in tj.resilience.__all__ if not hasattr(tj.resilience, n)) == []

@@ -471,6 +471,63 @@ def case_auto(topo):
     return out
 
 
+def case_fault(topo):
+    """A fault armed through DJT_FAULT in every process (the spawning
+    test sets join.join_overflow@call=1): the auto join's attempts, heal
+    and fault events, pins and rows, then the same join with nothing
+    armed (the ledger now starts it at the healed factor)."""
+    from dj_tpu_torch import obs
+    from dj_tpu_torch.resilience import errors, faults
+
+    build, probe = join_tables()
+    (tl, tlc), (tr, trc) = _sharded(topo, probe), _sharded(topo, build)
+    cfg = dj.JoinConfig(over_decom_factor=2, bucket_factor=4.0, join_out_factor=4.0)
+    obs.enable()
+    obs.drain()
+    faulted = _counted_auto(topo, tl, tlc, tr, trc, [0], [0], cfg)
+    events = [{k: v for k, v in e.items() if k not in ("seq", "ts")} for e in obs.drain()
+              if e["type"] in ("fault", "degrade", "heal")]
+    faults.configure("")  # an empty spec arms nothing
+    clean = _counted_auto(topo, tl, tlc, tr, trc, [0], [0], cfg)
+    return {"attempts": faulted["attempts"], "clean_attempts": clean["attempts"],
+            "rows": faulted["rows"], "clean_rows": clean["rows"], "flags": faulted["flags"],
+            "events": events, "pinned": errors.pinned_tiers()}
+
+
+def case_peer_fails(topo):
+    """Under an active tier (the spawning test sets DJT_PLAN_ADAPT=1),
+    rank 1's first join attempt raises before its ranks start, while
+    rank 0 goes on into the join's collectives. In a process world the
+    ladder retries only an injected fault: rank 1 reports its failure
+    with no pin and no degrade event, and rank 0 fails in its collective
+    instead of pairing it with a retry."""
+    from dj_tpu_torch.parallel import dist_join
+    from dj_tpu_torch.resilience import errors
+
+    build, probe = join_tables()
+    (tl, tlc), (tr, trc) = _sharded(topo, probe), _sharded(topo, build)
+    dj.obs.enable()
+    dj.obs.drain()
+    if topo.rank != 1:
+        return _join_result(dj.distributed_inner_join(topo, tl, tlc, tr, trc, [0], [0]))
+    real, calls = dist_join._run_join, []
+
+    def fails_once(*a, **k):
+        calls.append(1)
+        if len(calls) == 1:
+            raise RuntimeError("rank 1 fails on purpose")
+        return real(*a, **k)
+
+    dist_join._run_join = fails_once
+    try:
+        dj.distributed_inner_join(topo, tl, tlc, tr, trc, [0], [0])
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    return {"raised": raised, "calls": len(calls), "pinned": errors.pinned_tiers(),
+            "degrades": [e for e in dj.obs.drain() if e["type"] == "degrade"]}
+
+
 def case_keys(topo):
     """The distributed join on each of key_tables()'s key kinds; a kind
     the join refuses (keys of two widths) gives {"raised": message}."""
@@ -733,6 +790,7 @@ CASES = {"collectives": case_collectives, "exchange": case_exchange, "shuffle": 
          "auto": case_auto, "keys": case_keys, "fail": case_fail,
          "ledger_split": case_ledger_split, "strings": case_strings,
          "two_level": case_two_level, "compress": case_compress, "append": case_append,
+         "fault": case_fault, "peer_fails": case_peer_fails,
          "plan_adapt": case_plan_adapt, "pipeline": case_pipeline}
 
 
