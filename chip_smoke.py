@@ -337,6 +337,35 @@ Phases, each printing its own line(s):
      retry. After every other phase (and in each process of 6b and 6c)
      no tier may be pinned: a pin means a tier failed on the card and
      its baseline served the rows, and the run fails with its reason;
+  13. the measurement and control layer (after 12): (a) phase 4's join
+     warm at odf 1 and 4 and phase 5's prepared queries under each merge
+     tier, each with obs.hbm_model_bytes of the plan it ran, its median
+     wall of 3 and model bytes / wall / 3.35 TB/s; prepared_side_bytes of
+     phase 5's side beside the allocator's growth across its prepare; (b)
+     with obs on, obs.truth.sample_device_hbm() for device 0 equal to
+     torch.cuda.memory_allocated(0), its peak at least that, its limit
+     the card's total, both gauges set, and measured_admission(80e9)
+     under DJT_SERVE_MEASURED_HBM=1 equal to budget - in use - margin;
+     (c) DJT_OBS_SKEW=1 in 4d's world at odf 1 and 4: one skew event a
+     batch, one partition-count pass a query, each wire-matrix row equal
+     to dj_collective_bytes_total (a consistency check of the matrix's
+     bookkeeping, which spreads each epoch's bytes over its n links, not
+     a measurement), walls with the probe on and off;
+     DJT_OBS_SKEW_EVERY=4 probing once in four calls; 4i(ii)'s skewed
+     side under DJT_PLAN_ADAPT=1 through the auto wrapper, one pass and
+     one event a query, its ratio above the uniform one; (d)
+     DJT_AUTOTUNE=1 with a DJT_LEDGER file on 4j's chain at odf 1
+     through distributed_join_pipeline_auto: the first call tunes (one
+     tune event, every candidate priced by the byte model, two probe
+     dispatches, their join_scans and expand_values launches logged), the
+     second replays with no probe and an untuned call's launches at the
+     winner's odf, a restart (tuner and in-process ledger cleared)
+     replays from the file, and DJT_FAULT=autotune_probe@call=1 inside
+     degrade_guard(..., tiers=("autotune",)) degrades once and serves
+     the defaults; the rows of every call checked as 4j's; each
+     candidate's price and probe seconds, the winner and the walls of
+     the untuned chain, the tuning call and the replayed call, and stage
+     0 alone at each candidate's odf (did the two probed hold the fastest);
   9. timings: the `timings` line (walls, peaks and the main path's sort);
   10. the hardware probes: `python -m dj_tpu_torch.hw.probe_sort` and
      `... .probe_gather` through their main() at the JAX probes' shapes
@@ -358,7 +387,8 @@ Phases, each printing its own line(s):
 then the `kernels` JSON line (kernel, plain-version and library times
 beside each kernel's bound, launches per query on each path and in the
 4-rank world (the plan tiers of 4i, 5e and 8f and the composition
-layers' 4j, 4k and 5f among its paths), its two-level form and the
+layers' 4j, 4k and 5f and phase 13's tuned chain and probes among its
+paths), its two-level form and the
 process worlds (6b's broadcast run and chain apart), expand_ranks'
 codec decodes in 4g, expand_values' probe-tier call of 5d, and each
 kernel's registers and spills from ptxas; the probes' launches are their
@@ -4457,6 +4487,381 @@ def run_ladder(dj, dev, topo1, left1, lcnt1, right1, rcnt1, ref, rows: int, seed
     return cases
 
 
+# --- the measurement and control layer (phase 13) ---------------------------
+
+PHASE13_ODFS = (1, 4)
+
+
+class CountPasses:
+    """Calls of ``dist_join._partition_probe_counts`` (the partition-count
+    pass of the skew probe and of the plan decision) while active."""
+
+    def __enter__(self):
+        from dj_tpu_torch.parallel import dist_join
+
+        self.mod, self.orig, self.n = dist_join, dist_join._partition_probe_counts, 0
+
+        def counted(*a, **k):
+            self.n += 1
+            return self.orig(*a, **k)
+
+        dist_join._partition_probe_counts = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._partition_probe_counts = self.orig
+
+
+class Probes:
+    """The autotuner's probe dispatches while active: per probe the
+    candidate's odf, host seconds and the kernel launches it made."""
+
+    def __enter__(self):
+        from dj_tpu_torch.parallel import dist_join
+
+        self.mod, self.orig, self.runs = dist_join, dist_join.price_plan_candidate, []
+
+        def priced(*a, **k):
+            price, probe = self.orig(*a, **k)
+            odf = a[7].over_decom_factor
+
+            def counted():
+                before = read_launches()
+                s = probe()
+                after = read_launches()
+                self.runs.append({"odf": odf, "seconds": s,
+                                  "launches": {n: after[n] - before[n] for n in after}})
+                return s
+
+            return price, counted
+
+        dist_join.price_plan_candidate = priced
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.price_plan_candidate = self.orig
+
+
+def roofline_line(what: str, model: int, runs: list) -> dict:
+    wall = statistics.median(runs)
+    return {"case": what, "model_bytes": model, "wall_ms": wall, "wall_ms_runs": runs,
+            "model_gbps": model / (wall * 1e-3) / 1e9,
+            "model_bytes_over_wall_over_hbm": model / (wall * 1e-3) / HBM_BYTES_PER_S}
+
+
+def run_byte_model(dj, dev, topo, left, lcnt, right, rcnt, rows: int, expected: int,
+                   smi: str) -> dict:
+    """Phase 13(a): phase 4's one-rank join warm at odf 1 and 4 and phase
+    5's prepared queries under each merge tier at odf 1, each with
+    hbm_model_bytes of the plan it ran, its median wall of 3 and model
+    bytes / wall / 3.35 TB/s; prepared_side_bytes of phase 5's side
+    beside the growth of torch.cuda.memory_allocated() across its
+    prepare."""
+    from dj_tpu_torch.obs import bytemodel
+    from dj_tpu_torch.ops.join import JoinPlan, join_plan
+    from dj_tpu_torch.parallel import dist_join as dist
+
+    out = {}
+    for odf in PHASE13_ODFS:
+        cfg = dj.JoinConfig(over_decom_factor=odf)
+        kr = dist._resolve_key_range(cfg, left, lcnt, right, rcnt, [0], [0], 1, topo)
+        plan = join_plan(left, right, [0], [0], kr)
+        model = bytemodel.hbm_model_bytes(rows, odf, cfg, expected, plan)
+        _, runs, peak = warm_walls(lambda: dj.distributed_inner_join(
+            topo, left, lcnt, right, rcnt, [0], [0], cfg))
+        out[f"join_odf{odf}"] = line = roofline_line(f"join odf={odf}", model, runs)
+        line.update(plan=list(bytemodel.model_plan(plan)), peak_bytes=peak)
+        log("byte_model", smoke_phase="13a", **line, card=smi)
+    cfg = dj.JoinConfig(over_decom_factor=1, key_range=(0, 2 * rows))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    prep = dj.prepare_join_side(topo, right, rcnt, [0], cfg, left_capacity=rows)
+    torch.cuda.synchronize()
+    grew = torch.cuda.memory_allocated() - before
+    side = bytemodel.prepared_side_bytes(prep)
+    out["prepared_side"] = {"prepared_side_bytes": side, "memory_allocated_growth": grew,
+                            "ratio": side / grew if grew else None}
+    log("byte_model", smoke_phase="13a", case="prepared_side", **out["prepared_side"], card=smi)
+    for tier in TIERS:
+        with env_set(DJT_JOIN_MERGE=tier):
+            model = bytemodel.hbm_model_bytes(rows, 1, cfg, expected, JoinPlan("vmeta", True, False),
+                                              prepared=True, merge_impl=tier)
+            _, runs, peak = warm_walls(lambda: dj.distributed_inner_join(
+                topo, left, lcnt, prep, None, [0], None, cfg))
+        out[f"prepared_{tier}"] = line = roofline_line(f"prepared tier={tier}", model, runs)
+        line["peak_bytes"] = peak
+        log("byte_model", smoke_phase="13a", **line, card=smi)
+    del prep
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_truth(dev, smi: str) -> dict:
+    """Phase 13(b): sample_device_hbm with obs on gives device 0, its
+    bytes_in_use torch.cuda.memory_allocated(0) at that moment, its peak
+    at least that, its limit the card's total memory, and both gauges;
+    measured_admission(80e9) under DJT_SERVE_MEASURED_HBM=1 gives budget
+    - in use - margin."""
+    from dj_tpu_torch.obs import truth
+
+    torch.cuda.synchronize()
+    with obs_on() as obs:
+        sample = truth.sample_device_hbm()
+        allocated = torch.cuda.memory_allocated(0)
+        total = torch.cuda.get_device_properties(0).total_memory
+        s0 = (sample or {}).get("0")
+        if s0 is None or s0["bytes_in_use"] != allocated or \
+                s0["peak_bytes_in_use"] < s0["bytes_in_use"] or s0["bytes_limit"] != total:
+            raise AssertionError(f"13b: sample {sample}, memory_allocated {allocated}, "
+                                 f"total {total}")
+        gauges = {g: obs.gauge_value(g, device="0")
+                  for g in ("dj_device_hbm_in_use_bytes", "dj_device_hbm_peak_bytes")}
+        if gauges["dj_device_hbm_in_use_bytes"] != allocated or \
+                gauges["dj_device_hbm_peak_bytes"] != s0["peak_bytes_in_use"]:
+            raise AssertionError(f"13b: gauges {gauges}, sample {s0}")
+        margin = 1e9
+        with env_set(DJT_SERVE_MEASURED_HBM="1", DJT_SERVE_MEASURED_HBM_HEADROOM=str(margin)):
+            adm = truth.measured_admission(80e9)
+        want = 80e9 - adm["bytes_in_use"] - margin
+        if adm["device"] != "0" or adm["headroom_bytes"] != want or \
+                adm["bytes_in_use"] != torch.cuda.memory_allocated(0):
+            raise AssertionError(f"13b: admission {adm}, expected headroom {want}")
+        summary = truth.truth_summary()
+    out = {"sample": sample, "memory_allocated": allocated, "total_memory": total,
+           "mem_get_info_total": torch.cuda.mem_get_info(0)[1],
+           "gauges": gauges, "admission": adm,
+           "summary_measured_peak": summary["measured_peak_hbm_bytes"]}
+    log("truth", smoke_phase="13b", **out, card=smi)
+    return out
+
+
+def skew_query(what: str, join, odf: int, obs) -> dict:
+    """One query with the skew probe armed: its partition-count passes,
+    skew events and result."""
+    obs.drain()
+    with CountPasses() as passes:
+        res = join()
+        torch.cuda.synchronize()
+    evs = obs.events("skew")
+    if len(evs) != odf:
+        raise AssertionError(f"13c {what}: {len(evs)} skew events, expected one a batch ({odf})")
+    return {"passes": passes.n, "ratios": [e["ratio"] for e in evs],
+            "max_rows": [e["max_rows"] for e in evs], "res": res}
+
+
+def run_skew(dj, dev, build, probe, rows: int, smi: str) -> dict:
+    """Phase 13(c): the skew probe in 4d's world (module docstring)."""
+    from dj_tpu_torch.obs import skew
+    from dj_tpu_torch.resilience import ledger
+
+    topo = dj.make_topology([dev] * WORLD)
+    left, lcnt = dj.shard_table(topo, probe)
+    right, rcnt = dj.shard_table(topo, build)
+    out: dict = {}
+    uniform_ratio = 0.0
+    with obs_on() as obs:
+        for odf in PHASE13_ODFS:
+            cfg = dj.JoinConfig(over_decom_factor=odf)
+
+            def join():
+                return dj.distributed_inner_join(topo, left, lcnt, right, rcnt, [0], [0], cfg)
+
+            obs.reset()
+            with env_set(DJT_OBS_SKEW="1"):
+                q = skew_query(f"odf={odf}", join, odf, obs)
+                flags_false(f"13c odf={odf}", q.pop("res")[2])
+                wm = skew.wire_matrix()
+                sent = sum(obs.counter_series("dj_collective_bytes_total").values())
+                if q["passes"] != 1 or wm["n"] != WORLD or \
+                        any(abs(t - sent) > 1e-6 * sent for t in wm["row_totals"]):
+                    raise AssertionError(f"13c odf={odf}: passes {q['passes']}, wire rows "
+                                         f"{wm['row_totals']} vs collective bytes {sent}")
+                on, on_runs, _ = warm_walls(join)
+            off, off_runs, _ = warm_walls(join)
+            uniform_ratio = max(uniform_ratio, *q["ratios"])
+            out[f"uniform_odf{odf}"] = {**q, "wire_row_totals": wm["row_totals"],
+                                        "collective_bytes": sent, "wall_ms_probe_on": on,
+                                        "wall_ms_probe_off": off, "wall_ms_runs_on": on_runs,
+                                        "wall_ms_runs_off": off_runs}
+            log("skew", smoke_phase="13c", case="uniform", odf=odf, ranks=WORLD,
+                **out[f"uniform_odf{odf}"], card=smi)
+        # DJT_OBS_SKEW_EVERY=4: four calls of one signature probe once.
+        cfg = dj.JoinConfig()
+        with env_set(DJT_OBS_SKEW="1", DJT_OBS_SKEW_EVERY="4"), CountPasses() as passes:
+            skew._clear()
+            for _ in range(4):
+                res = dj.distributed_inner_join(topo, left, lcnt, right, rcnt, [0], [0], cfg)
+                del res
+        if passes.n != 1:
+            raise AssertionError(f"13c: DJT_OBS_SKEW_EVERY=4 probed {passes.n} times in 4 calls")
+        out["every_4"] = {"calls": 4, "passes": passes.n}
+        # 4i(ii)'s skewed probe side under DJT_PLAN_ADAPT=1: each query
+        # (each heal attempt) one pass, shared by the skew probe and the plan.
+        keys = probe.columns[0].data.clone()
+        g = torch.Generator(device=keys.device).manual_seed(14)
+        hot_rows = torch.rand(keys.numel(), generator=g, device=keys.device) < HOT_PROBE_SHARE
+        keys[hot_rows] = build.columns[0].data[7]
+        del hot_rows
+        hot = dj.Table((dj.Column(keys, dj.dtypes.int64), probe.columns[1]))
+        hot_expected = key_matches(build.columns[0].data, keys)
+        del keys
+        hl, hlc = dj.shard_table(topo, hot)
+        ledger.reset()
+        obs.drain()
+        with env_set(DJT_OBS_SKEW="1", DJT_PLAN_ADAPT="1", DJT_BROADCAST_BYTES="0"), \
+                CountPasses() as passes, Attempts() as a:
+            res = dj.distributed_inner_join_auto(topo, hl, hlc, right, rcnt, [0], [0],
+                                                 dj.JoinConfig())
+            torch.cuda.synchronize()
+        flags_false("13c skewed", res[2])
+        if int(res[1].sum()) != hot_expected:
+            raise AssertionError(f"13c skewed: {int(res[1].sum())} rows, expected {hot_expected}")
+        del res
+        evs = obs.events("skew")
+        plans = obs.events("plan_adapt")
+        ratios = [e["ratio"] for e in evs]
+        if passes.n != a.n or len(evs) != a.n or not plans or plans[0]["tier"] != "salted" \
+                or min(ratios) <= uniform_ratio:
+            raise AssertionError(f"13c skewed: {passes.n} passes and {len(evs)} skew events in "
+                                 f"{a.n} queries, plans {plans}, ratios {ratios} vs uniform "
+                                 f"{uniform_ratio}")
+        out["skewed_odf1"] = {"queries": a.n, "passes": passes.n, "ratios": ratios,
+                              "uniform_max_ratio": uniform_ratio, "plan": plans[0]["tier"],
+                              "salt": plans[0].get("salt"), "total": hot_expected}
+        log("skew", smoke_phase="13c", case="skewed", odf=1, ranks=WORLD, **out["skewed_odf1"],
+            every_4=out["every_4"], card=smi)
+    ledger.reset()
+    del hl, hlc, hot, left, right
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_autotune(dj, dev, build, probe, expected: int, ref, rows: int, smi: str) -> dict:
+    """Phase 13(d): the autotuner on 4j's two-stage chain in 4d's world at
+    odf 1 through distributed_join_pipeline_auto (module docstring).
+    Returns {path: {odf: launches}} of the world."""
+    from dj_tpu_torch.parallel import autotune
+    from dj_tpu_torch.resilience import errors, faults, ledger
+
+    topo = dj.make_topology([dev] * WORLD)
+    left, lcnt, right, rcnt, b2, b2c = chain_tables(dj, topo, build, probe)
+    stages = chain_stages(dj, right, rcnt, b2, b2c)
+    cfg = dj.JoinConfig(over_decom_factor=1)
+    table: dict = {}
+
+    def chain(c=cfg):
+        return dj.distributed_join_pipeline_auto(topo, left, lcnt, stages, c)
+
+    def rows_of(what, res):
+        for i, info in enumerate(res[2]):
+            flags_false(f"{what} stage {i}", info)
+        check_same_rows(chain_rows(what, dj, res[0], res[1], build, probe, expected), ref, what)
+
+    autotune._clear()
+    ledger.reset()
+    untuned, untuned_runs, untuned_peak = warm_walls(chain)
+    with tempfile.TemporaryDirectory() as tmp, obs_on() as obs, \
+            env_set(DJT_AUTOTUNE="1", DJT_LEDGER=os.path.join(tmp, "ledger.jsonl")):
+        # The first call tunes: every candidate priced, two probed.
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with Probes() as probes:
+            t0 = time.perf_counter()
+            res = chain()
+            torch.cuda.synchronize()
+            tune_wall = (time.perf_counter() - t0) * 1e3
+        tune_peak = torch.cuda.max_memory_allocated()
+        tune_launches = read_launches()
+        rows_of("13d tuning call", res)
+        del res
+        tunes = obs.events("tune")
+        if len(tunes) != 1 or tunes[0]["action"] != "tune" or len(probes.runs) != 2:
+            raise AssertionError(f"13d: tune events {tunes}, {len(probes.runs)} probes")
+        # The event's sig is cut at 200 characters; the tuner's view has it whole.
+        ((sig, tuned),) = autotune.tunez_summary()["signatures"].items()
+        evidence = tuned["candidates"]
+        n_cands = len(autotune._candidate_space(cfg, prepared=False, sig=sig))
+        if len(evidence) != n_cands or tunes[0]["candidates"] != n_cands or \
+                any(c.get("infeasible") or not c.get("bytes_accessed") for c in evidence):
+            raise AssertionError(f"13d: evidence {evidence} of {n_cands} candidates")
+        winner = tunes[0]["odf"] or cfg.over_decom_factor
+        table["autotune_chain_tuning"] = {1: tune_launches}
+        table["autotune_probes"] = {p["odf"]: p["launches"] for p in probes.runs}
+        # The second call replays the decision: no probe, the launches of an
+        # untuned call at the winner's odf.
+        reset_launches()
+        with Probes() as again:
+            res = chain()
+            torch.cuda.synchronize()
+        replay_launches = read_launches()
+        rows_of("13d second call", res)
+        del res
+        replay, replay_runs, _ = warm_walls(chain)
+        with env_set(DJT_AUTOTUNE="0"):
+            reset_launches()
+            res = chain(dj.JoinConfig(over_decom_factor=winner))
+            torch.cuda.synchronize()
+            want_launches = read_launches()
+            del res
+        if again.runs or len(obs.events("tune")) != 1 or replay_launches != want_launches:
+            raise AssertionError(f"13d second call: {len(again.runs)} probes, launches "
+                                 f"{replay_launches} vs untuned odf {winner} {want_launches}")
+        table["autotune_chain_replay"] = {winner: replay_launches}
+        # A restart: the tuner and the in-process ledger forgotten, the file kept.
+        autotune._clear()
+        ledger.reset()
+        obs.drain()
+        with Probes() as restart:
+            res = chain()
+            torch.cuda.synchronize()
+        rows_of("13d restart", res)
+        del res
+        replays = [e["action"] for e in obs.events("tune")]
+        if restart.runs or replays != ["replay"]:
+            raise AssertionError(f"13d restart: tune events {replays}, {len(restart.runs)} probes")
+    # Stage 0 alone at each candidate's odf, untuned (the probes'
+    # dispatch, median of 3): did the two cheapest by bytes hold the
+    # fastest?
+    stage0 = {}
+    for o in sorted({c.get("odf") or cfg.over_decom_factor for c in evidence}):
+        c0 = dj.JoinConfig(over_decom_factor=o)
+        stage0[o] = warm_walls(lambda: dj.distributed_inner_join(topo, left, lcnt, right, rcnt,
+                                                                 [0], [0], c0))[0]
+    fastest = min(stage0, key=stage0.get)
+    # A faulted probe inside the caller's guard: one degrade, the retry
+    # serves the defaults.
+    autotune._clear()
+    ledger.reset()
+    with obs_on() as obs, env_set(DJT_AUTOTUNE="1"):
+        faults.configure("autotune_probe@call=1")
+        res = errors.degrade_guard("phase 13(d)", chain, tiers=("autotune",))
+        torch.cuda.synchronize()
+        rows_of("13d faulted probe", res)
+        del res
+        degrades = obs.events("degrade")
+        pins = errors.pinned_tiers()
+        if [e["tier"] for e in degrades] != ["autotune"] or list(pins) != ["autotune"] or \
+                autotune.enabled():
+            raise AssertionError(f"13d fault: degrades {degrades}, pins {pins}")
+        faults.reset()
+        errors.reset_pins()
+    autotune._clear()
+    ledger.reset()
+    out = {"candidates": evidence, "winner_odf": winner, "probes": probes.runs,
+           "wall_ms_untuned": untuned, "wall_ms_runs_untuned": untuned_runs,
+           "peak_bytes_untuned": untuned_peak, "wall_ms_tuning_call": tune_wall,
+           "peak_bytes_tuning_call": tune_peak, "wall_ms_replayed": replay,
+           "wall_ms_runs_replayed": replay_runs, "launches_tuning_call": tune_launches,
+           "launches_replayed": replay_launches, "restart_replay_events": 1,
+           "fault_degrades": 1, "winner_slower_than_default": replay > untuned,
+           "stage0_wall_ms_by_odf": stage0, "fastest_odf": fastest,
+           "fastest_odf_probed": fastest in {p["odf"] for p in probes.runs}}
+    log("autotune", smoke_phase="13d", ranks=WORLD, odf=1, rows=rows, **out, card=smi)
+    del left, right, b2, stages
+    torch.cuda.empty_cache()
+    return table
+
+
 # --- process worlds (phases 6a-6c) ---------------------------------------
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -5851,6 +6256,17 @@ def main() -> int:
     run_ladder(dj, dev, topo, left, lcnt, right, rcnt, ref, rows, args.seed, smi)
     torch.cuda.empty_cache()
     check_no_pins("12 (after reset_pins)")
+
+    # 13. the measurement and control layer: the byte model, truth, the
+    # skew probe and the autotuner
+    t_13 = time.perf_counter()
+    run_byte_model(dj, dev, topo, left, lcnt, right, rcnt, rows, expected, smi)
+    run_truth(dev, smi)
+    run_skew(dj, dev, build, probe, rows, smi)
+    world_launches.update(run_autotune(dj, dev, build, probe, expected, ref, rows, smi))
+    torch.cuda.empty_cache()
+    log("measurement_phase", smoke_phase="13", seconds=time.perf_counter() - t_13, card=smi)
+    check_no_pins("13")
 
     # 6a. a process world of one over NCCL
     process1_launches = process_world_of_one(dj, dev, "nccl", build, probe, expected, ref, rows, smi)

@@ -21,6 +21,14 @@ coordinates, the obs sinks, the roofline peaks).
 dj_tpu's ``trace_env_names`` (the builders' cache key) and its
 deprecated aliases have no counterpart: the port builds no module per
 knob setting, and no ``DJT_*`` name was ever renamed.
+
+Left out of dj_tpu's measurement family: ``DJ_OBS_TRUTH``, which arms
+the compiled-module half of ``obs.truth`` (``cost_analysis()`` /
+``memory_analysis()`` of each fresh XLA module), and
+``DJ_SERVE_DRIFT_THRESHOLD``, which bounds that half's model/XLA ratio
+and the scheduler's forecast audit. The port compiles no module, and
+torch has no counterpart of either analysis; the scheduler comes with
+ROADMAP item 10e. The device half of truth needs neither knob.
 """
 
 from __future__ import annotations
@@ -94,6 +102,26 @@ KNOBS: tuple[Knob, ...] = (
          choices=("shuffle", "broadcast", "salted", "auto")),
     Knob("DJT_PREPARED_SALT_RATIO", None, "float",
          "salted-prepared threshold (unset or <= 0: DJT_SALT_RATIO)", "plan"),
+    Knob("DJT_OBS_SKEW", None, "bool",
+         "arm the partition-skew probe (obs on; one skew event a query batch)", "plan"),
+    Knob("DJT_OBS_SKEW_EVERY", 1, "int",
+         "probe a signature's skew every N queries", "plan"),
+    # --- the per-signature autotuner -------------------------------------
+    Knob("DJT_AUTOTUNE", None, "bool",
+         "arm the autotuner (price every candidate, probe the top 2, keep the winner)",
+         "plan"),
+    Knob("DJT_AUTOTUNE_RETUNE_MAX", 1, "int",
+         "re-tunes a signature may take before its record demotes to defaults", "plan"),
+    Knob("DJT_AUTOTUNE_WINDOW", 16, "int",
+         "latency window the regression check reads, in results", "plan"),
+    Knob("DJT_AUTOTUNE_REGRESS", 1.5, "float",
+         "latest / trailing-median latency past which a tuned signature re-tunes", "plan"),
+    Knob("DJT_AUTOTUNE_ODF", "1,2,4", "str",
+         "odf candidates of an unprepared plan (comma-separated)", "plan"),
+    Knob("DJT_AUTOTUNE_MERGE", "sort,probe,merge", "str",
+         "merge-tier candidates of a prepared plan (comma-separated)", "plan"),
+    Knob("DJT_AUTOTUNE_EXPAND", "segment,hist", "str",
+         "probe-expansion candidates on the probe tier (comma-separated)", "plan"),
     # --- the composition layers ----------------------------------------
     Knob("DJT_PIPELINE_COPART", "1", "bool",
          "run a co-partitioned pipeline stage as a local join", "plan"),
@@ -108,6 +136,10 @@ KNOBS: tuple[Knob, ...] = (
     # --- serving ----------------------------------------------------------
     Knob("DJT_SERVE_HBM_BUDGET", 16e9, "float",
          "the broadcast budget in bytes when DJT_BROADCAST_BYTES is unset", "serve"),
+    Knob("DJT_SERVE_MEASURED_HBM", None, "bool",
+         "measured_admission reads the card's allocator (obs.truth)", "serve"),
+    Knob("DJT_SERVE_MEASURED_HBM_HEADROOM", 0.0, "float",
+         "bytes held back from the measured headroom", "serve"),
     # --- resilience -------------------------------------------------------
     Knob("DJT_LEDGER", None, "path", "capacity ledger's JSONL file", "resilience"),
     Knob("DJT_FAULT", None, "str",

@@ -15,24 +15,36 @@ Counterpart of ``dj_tpu/obs/``:
 - roofline.py: the host-visible phases of every query (probe, dispatch,
   sync, prep), timed with CUDA events on the card and priced against the
   ``DJT_PEAK_HBM_GBPS`` / ``DJT_PEAK_WIRE_GBPS`` roofline.
-- skew.py (``batch_skew``) and bytemodel.py (``buffer_bytes``,
-  ``replicated_table_bytes``): what ``parallel.plan_adapt`` reads.
+- bytemodel.py: the byte model (``hbm_model_bytes``,
+  ``pipeline_model_bytes``, ``prepared_side_bytes``) in dj_tpu's terms,
+  and the buffer bytes the collective counters and the broadcast fit
+  count.
+- skew.py: the per-link wire matrix ``dj_wire_bytes_total{src,dst,width}``
+  (fed by the collective counters), the ``DJT_OBS_SKEW=1`` partition-skew
+  probe's ``skew`` events and gauges, and ``fleet_snapshot`` (one
+  gather of every process's phase totals and wire rows, the stragglers).
+- truth.py: the device half of dj_tpu's measured truth: the card's
+  allocator sampled into ``dj_device_hbm_*`` gauges, the
+  ``DJT_SERVE_MEASURED_HBM`` admission input, the forecast scope and the
+  per-tenant view.
 
 Enable with ``DJT_OBS=1`` or ``DJT_OBS_LOG=<path>`` (or ``enable()``).
 Everything is host-side Python; with obs disabled the join path takes
 no lock of it and makes no call more than without it.
 
 dj_tpu's trace-time compile accounting (``cached_build``,
-``capture_epochs``, ``suppress_epochs``, ``record_epoch``,
-``run_accounted``, ``epoch_total_bytes``, the ``retrace`` and
-``collective_epoch`` events, the build-cache counters) has no jit to
-hook here and is left out. Its skew observatory and XLA truth layer
-come with ROADMAP item 10c, its history, http, fleet and forensics
-modules with 10f.
+``capture_epochs``, ``record_epoch``, ``run_accounted``,
+``epoch_total_bytes``, the ``retrace`` and ``collective_epoch`` events,
+the build-cache counters) has no jit to hook here and is left out;
+``recorder.suppress_epochs`` is a scope of the port's own collective
+counting. The compiled-module half of truth (``DJ_OBS_TRUTH``: XLA's
+cost and memory analyses, ``dj_xla_*``, ``dj_model_xla_ratio``) has no
+torch counterpart and is left out too (ROADMAP item 10c). dj_tpu's
+history, http, fleet and forensics modules come with ROADMAP item 10f.
 """
 
 from . import bytemodel, skew
-from .bytemodel import buffer_bytes
+from .bytemodel import buffer_bytes, hbm_model_bytes, prepared_side_bytes
 from .metrics import (
     clear_prefix,
     counter_series,
@@ -63,6 +75,8 @@ from .recorder import (
     write_snapshot,
 )
 from . import roofline  # noqa: E402  (per-query phase attribution)
+from . import truth  # noqa: E402  (the device half of measured truth)
+from .skew import fleet_snapshot
 from .trace import (
     blackbox_traces,
     current_query,
@@ -90,7 +104,9 @@ __all__ = [
     "enabled",
     "events",
     "export_trace",
+    "fleet_snapshot",
     "gauge_series",
+    "hbm_model_bytes",
     "gauge_value",
     "histogram_quantile",
     "histogram_raw",
@@ -99,6 +115,7 @@ __all__ = [
     "metrics_text",
     "mirror_warning",
     "observe",
+    "prepared_side_bytes",
     "query_ctx",
     "query_trace",
     "recent_traces",
@@ -113,5 +130,6 @@ __all__ = [
     "span_begin",
     "span_end",
     "table_sig",
+    "truth",
     "write_snapshot",
 ]

@@ -25,7 +25,13 @@ count each exchange epoch as they issue it (:func:`count_collectives`),
 on one rank a process, so a world of threads counts a query once, as
 dj_tpu's one controller does. :func:`account_epochs` brackets one
 dispatch and gives its epochs to the query's ``collectives`` event and
-to the dispatch phase's wire roofline. The ``retrace`` event, the
+to the dispatch phase's wire roofline. Each epoch also feeds the per-link
+wire matrix (``obs.skew``) through the ``_wire_sink`` hook, as dj_tpu's
+``count_collectives`` does. A :func:`suppress_epochs` scope mutes all of
+it, and the dispatch observation around it (``dist_join._dispatch``):
+the autotuner's probe runs a candidate's real dispatch inside one, so
+tuning counts no collective, query or tenant byte, as dj_tpu's probe of
+an AOT executable counts none. The ``retrace`` event, the
 build-cache and compile counters, the trace-time ``collective_epoch``
 event and ``dj_collective_epochs_traced_total`` have nothing to count
 here and are left out.
@@ -68,6 +74,8 @@ __all__ = [
     "ring_capacity",
     "set_gauge",
     "set_log_path",
+    "suppress_epochs",
+    "suppressed",
     "table_sig",
     "write_snapshot",
 ]
@@ -88,7 +96,13 @@ _ctx_hook = None
 _trace_sink = None
 _trace_clear = None
 
-# Resets of sibling modules (obs.roofline's phase totals), run by reset().
+# Per-link wire-matrix hook, registered by obs.skew at import: receives
+# every epoch count_collectives counts, so the dj_wire_bytes_total matrix
+# and the dj_collective_bytes_total counters are fed alike.
+_wire_sink = None
+
+# Resets of sibling modules (obs.roofline's phase totals, obs.skew's
+# aggregates, the autotuner's state), run by reset().
 _aux_resets: list = []
 
 
@@ -189,14 +203,38 @@ _epochs: contextvars.ContextVar[Optional[dict]] = contextvars.ContextVar(
     "dj_tpu_torch_epochs", default=None)
 
 
+# Open suppress_epochs scopes; rank threads run in a copy of the
+# caller's context, so a scope covers its world's ranks.
+_suppress: contextvars.ContextVar[int] = contextvars.ContextVar(
+    "dj_tpu_torch_suppress_epochs", default=0)
+
+
+@contextlib.contextmanager
+def suppress_epochs():
+    """Mute the collective accounting for the body (module docstring):
+    :func:`count_collectives`, the wire sink, :func:`account_epochs` and
+    with it the tenant bytes, the ``collectives`` event and the dispatch
+    observation of ``dist_join._dispatch``."""
+    token = _suppress.set(_suppress.get() + 1)
+    try:
+        yield
+    finally:
+        _suppress.reset(token)
+
+
+def suppressed() -> bool:
+    """Whether a :func:`suppress_epochs` scope is open."""
+    return _suppress.get() > 0
+
+
 def count_collectives(accts, queries: int = 1) -> None:
-    """Count exchange epochs: each of ``accts`` is one epoch's
-    ``{"launches": collectives after the backend's fusion,
+    """Count exchange epochs: each of ``accts`` is one epoch's ``{"n":
+    the group size, "launches": collectives after the backend's fusion,
     "bytes_by_width": {element width: per-shard send bytes}}``, issued
     ``queries`` times. Adds to ``dj_collective_launches_total`` and
-    ``dj_collective_bytes_total{width}``, and to the open
-    :func:`account_epochs` scope."""
-    if not enabled() or not accts:
+    ``dj_collective_bytes_total{width}``, to the open
+    :func:`account_epochs` scope and to the wire matrix."""
+    if not enabled() or not accts or suppressed():
         return
     acc = _epochs.get()
     for a in accts:
@@ -205,6 +243,8 @@ def count_collectives(accts, queries: int = 1) -> None:
         for w, b in a["bytes_by_width"].items():
             inc("dj_collective_bytes_total", b * queries, width=str(w))
             total += b * queries
+        if _wire_sink is not None:
+            _wire_sink(a, queries)
         if acc is not None:
             acc["epochs"] += queries
             acc["launches"] += a["launches"] * queries
@@ -219,8 +259,9 @@ def account_epochs(stage: str):
     ``query_ctx``, a dispatch that moved anything adds its bytes to
     ``dj_tenant_wire_bytes_total{tenant}`` and records one
     ``collectives`` event (stage, epochs, launches, total_bytes), as
-    dj_tpu's ``run_accounted`` does."""
-    if not enabled():
+    dj_tpu's ``run_accounted`` does. Yields None while obs is disabled
+    or a :func:`suppress_epochs` scope is open."""
+    if not enabled() or suppressed():
         yield None
         return
     acc = {"epochs": 0, "launches": 0, "total_bytes": 0}

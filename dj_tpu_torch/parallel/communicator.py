@@ -379,7 +379,7 @@ class Communicator(abc.ABC):
         for b in buffers:
             k = str(b.element_size())
             by_width[k] = by_width.get(k, 0) + b.numel() * b.element_size()
-        count_collectives([{"launches": launches, "bytes_by_width": by_width}])
+        count_collectives([{"n": self.size, "launches": launches, "bytes_by_width": by_width}])
 
     def rank(self) -> int:
         """This rank's index in the group."""

@@ -88,6 +88,14 @@ The co-partitioned join (``TIER_LOCAL``) and the coalesced dispatches
 each odf batch's K exchanges in one epoch) serve the composition layers
 (``parallel.pipeline``).
 
+With obs on and ``DJT_OBS_SKEW=1``, each unprepared, prepared and
+coalesced query measures its probe side's destination skew
+(``_observe_partition_skew``: one partition-count pass, shared with the
+plan decision in the unprepared join, and one ``skew`` event a batch,
+``obs.skew``). ``price_plan_candidate`` prices one candidate plan for
+the autotuner (``parallel.autotune``) by the byte model and probes it
+with the candidate's real dispatch, its accounting suppressed.
+
 ``distributed_inner_join_auto`` is the entry point that answers any
 input: it runs the join under the heal engine (``resilience.heal``),
 which doubles exactly the factor whose overflow flag fired, drops a
@@ -113,11 +121,14 @@ from ..core import dtypes as dt
 from ..core.table import Column, StringColumn, Table, concatenate
 from ..compress import cascaded as cz
 from ..ops.join import (
+    JoinPlan,
     PreparedPackPlan,
     _anchored_pack_word,
     canonical_key_range,
+    effective_plan,
     inner_join,
     inner_join_prepared,
+    join_plan,
     merge_packed_batch,
     normalize_key_range,
     plan_prepared_pack,
@@ -215,8 +226,10 @@ def _dispatch(topology: Topology, stage: str, kind: str, run, path: Optional[str
     ``collectives`` event under ``kind``), and with ``path``
     ``dj_query_dispatch_seconds{path}`` and ``dj_join_queries_total{path}``
     (``queries`` of them: a pipeline's stage counts none, its chain
-    one). Just ``run()`` while obs is disabled."""
-    if not obs.enabled():
+    one). Just ``run()`` while obs is disabled or the collective
+    accounting is suppressed (the autotuner's probe,
+    ``obs.recorder.suppress_epochs``)."""
+    if not obs.enabled() or obs_recorder.suppressed():
         return run()
     wire: dict = {}
     t0 = time.perf_counter()
@@ -559,9 +572,40 @@ def _global_table_bytes(topology: Topology, table: Table) -> int:
     return replicated_table_bytes(table) * topology.world_size // topology.local_ranks
 
 
+def _observe_partition_skew(
+    topology: Topology, table: Table, counts: torch.Tensor, on: tuple, odf: int, *,
+    stage: str, counts_fn=None, config: Optional[JoinConfig] = None,
+) -> None:
+    """The measured destination skew of one query's probe side
+    (``obs.skew``; dj_tpu/parallel/dist_join.py:776-823): armed by
+    ``DJT_OBS_SKEW=1`` with obs on, sampled a signature by
+    ``DJT_OBS_SKEW_EVERY``; one partition-count pass
+    (``_partition_probe_counts``, or ``counts_fn``: the unprepared join
+    shares one lazy pass with its plan decision) and one ``skew`` event a
+    batch. A two-level topology is skipped: its main stage partitions
+    pre-shuffled rows this probe does not see, and so is the autotuner's
+    probe (``obs.recorder.suppressed``). A failed probe mirrors a warning
+    and never fails the query."""
+    if not obs_skew.probe_enabled() or topology.is_hierarchical or obs_recorder.suppressed():
+        return
+    if not obs_skew.probe_due((stage, id(topology), tuple(on), odf,
+                               obs_recorder.table_sig(table))):
+        return
+    try:
+        n = topology.world_group().size
+        mat = (counts_fn() if counts_fn is not None
+               else _partition_probe_counts(topology, table, counts, on, odf, config))
+        obs_skew.record_partition_skew(mat, n, odf, stage=stage)
+    except Exception as e:  # noqa: BLE001 - observation must not fail a query
+        obs.mirror_warning("skew_probe_failed",
+                           f"partition-skew probe failed ({type(e).__name__}: {e}); skew events "
+                           f"disabled for this process's failing shapes")
+
+
 def _resolve_plan_decision(
     topology: Topology, left: Table, left_counts: torch.Tensor, right: Table,
     right_counts: torch.Tensor, left_on: tuple, right_on: tuple, config: JoinConfig,
+    counts_fn=None,
 ) -> "plan_adapt.PlanDecision":
     """The plan of one unprepared join (dj_tpu/parallel/dist_join.py:
     1207-1287): the signature's decision (``plan_adapt.decide``,
@@ -571,7 +615,9 @@ def _resolve_plan_decision(
     salt set the current n and odf cannot hold, is demoted to shuffle.
     A two-level topology and the planner off give the shuffle plan. A
     failure to decide warns (once a process also into the flight
-    recorder) and gives the shuffle plan, as dj_tpu's."""
+    recorder) and gives the shuffle plan, as dj_tpu's. ``counts_fn``
+    stands in for the partition-count probe: the unprepared join passes
+    the one it shares with the skew observation."""
     if not plan_adapt.enabled() or topology.is_hierarchical:
         return plan_adapt.SHUFFLE
     sig = dj_ledger.plan_signature(topology, left, right, left_on, right_on, config)
@@ -581,8 +627,8 @@ def _resolve_plan_decision(
         decision = plan_adapt.decide(
             sig, n=n, odf=odf,
             right_bytes_fn=lambda: _global_table_bytes(topology, right),
-            counts_fn=lambda: _partition_probe_counts(topology, left, left_counts, left_on, odf,
-                                                      config),
+            counts_fn=counts_fn or (lambda: _partition_probe_counts(
+                topology, left, left_counts, left_on, odf, config)),
         )
     except Exception as e:  # noqa: BLE001 - planning must not fail a query
         obs.mirror_warning("plan_adapt_failed", f"plan decision failed ({type(e).__name__}: "
@@ -723,6 +769,61 @@ def _resolve_key_range(
     return canonical_key_range(tuple(ranges), [dt.numpy_dtype(a.dtype) for a, _ in cols])
 
 
+class _UnpreparedJob(NamedTuple):
+    """One unprepared join's set-up: both tables padded to their shape
+    bucket, the key columns, the resolved key range and the plan
+    decision."""
+
+    left: Table
+    right: Table
+    left_on: tuple
+    right_on: tuple
+    key_range: Optional[tuple]
+    decision: "plan_adapt.PlanDecision"
+
+
+def _unprepared_job(topology: Topology, left: Table, left_counts: torch.Tensor, right: Table,
+                    right_counts: torch.Tensor, left_on: Sequence[int],
+                    right_on: Sequence[int], config: JoinConfig, what: str) -> _UnpreparedJob:
+    """The set-up of one unprepared join, for ``distributed_inner_join``
+    and the autotuner's ``price_plan_candidate`` alike, so a candidate is
+    priced and probed on the plan the real call runs: the structural
+    checks, shape bucketing (``DJT_SHAPE_BUCKET=1``: both tables pad to
+    their bucket before the sizing, the signatures and the range probe),
+    the key range, then the skew observation and the plan decision,
+    which share one lazy partition-count pass (with both armed, a query
+    runs it once)."""
+    _check_table_right(left, right, right_counts, left_on, right_on, what)
+    w = topology.local_ranks
+    if left.capacity < w or right.capacity < w:
+        raise ValueError(
+            f"{what}: table capacity "
+            f"{min(left.capacity, right.capacity)} < {w} shards here "
+            f"leaves at least one shard with zero capacity; pad the "
+            f"table to >= 1 row per shard"
+        )
+    left = shape_bucket.bucket_table(topology, left)
+    right = shape_bucket.bucket_table(topology, right)
+    with obs_roofline.phase("probe", stage="join"):
+        key_range = _resolve_key_range(
+            config, left, left_counts, right, right_counts, left_on, right_on, w, topology
+        )
+    left_on, right_on = tuple(left_on), tuple(right_on)
+    memo: dict = {}
+
+    def shared_counts():
+        if "counts" not in memo:
+            memo["counts"] = _partition_probe_counts(topology, left, left_counts, left_on,
+                                                     config.over_decom_factor, config)
+        return memo["counts"]
+
+    _observe_partition_skew(topology, left, left_counts, left_on, config.over_decom_factor,
+                            stage="join", counts_fn=shared_counts)
+    decision = _resolve_plan_decision(topology, left, left_counts, right, right_counts, left_on,
+                                      right_on, config, counts_fn=shared_counts)
+    return _UnpreparedJob(left, right, left_on, right_on, key_range, decision)
+
+
 def distributed_inner_join(
     topology: Topology,
     left: Table,
@@ -769,28 +870,11 @@ def distributed_inner_join(
         return _distributed_inner_join_prepared(
             topology, left, left_counts, right, left_on, config
         )
-    _check_table_right(left, right, right_counts, left_on, right_on, "distributed_inner_join")
     if config is None:
         config = JoinConfig()
-    w = topology.local_ranks
-    if left.capacity < w or right.capacity < w:
-        raise ValueError(
-            f"distributed_inner_join: table capacity "
-            f"{min(left.capacity, right.capacity)} < {w} shards here "
-            f"leaves at least one shard with zero capacity; pad the "
-            f"table to >= 1 row per shard"
-        )
-    # Shape bucketing (DJT_SHAPE_BUCKET=1): both tables pad to their
-    # bucket before the sizing, the signatures and the range probe.
-    left = shape_bucket.bucket_table(topology, left)
-    right = shape_bucket.bucket_table(topology, right)
-    with obs_roofline.phase("probe", stage="join"):
-        key_range = _resolve_key_range(
-            config, left, left_counts, right, right_counts, left_on, right_on, w, topology
-        )
-    left_on, right_on = tuple(left_on), tuple(right_on)
-    decision = _resolve_plan_decision(topology, left, left_counts, right, right_counts, left_on,
-                                      right_on, config)
+    job = _unprepared_job(topology, left, left_counts, right, right_counts, left_on, right_on,
+                          config, "distributed_inner_join")
+    decision = job.decision
 
     def attempt():
         # The ladder's pins are read again inside the attempt: the wire
@@ -807,8 +891,9 @@ def distributed_inner_join(
             faults.check("salted")
         if plan_adapt.enabled():
             obs.inc("dj_plan_dispatch_total", tier=d.tier)
-        return _run_join(topology, d.tier, left, left_counts, right, right_counts, left_on,
-                         right_on, cfg, key_range, d.salt, d.replicas, path="unprepared")
+        return _run_join(topology, d.tier, job.left, left_counts, job.right, right_counts,
+                         job.left_on, job.right_on, cfg, job.key_range, d.salt, d.replicas,
+                         path="unprepared")
 
     out, counts, info = resil.degrade_guard("distributed_inner_join", attempt,
                                             tiers=("adapt", "wire"), config=config,
@@ -824,7 +909,7 @@ def _run_join(
     topology: Topology, tier: str, left: Table, left_counts: torch.Tensor, right: Table,
     right_counts: torch.Tensor, left_on: tuple, right_on: tuple, config: JoinConfig,
     key_range: Optional[tuple], salt: tuple = (), replicas: int = 1, *, stage: str = "join",
-    path: Optional[str] = None, queries: int = 1,
+    path: Optional[str] = None, queries: int = 1, ladder: bool = True,
 ) -> tuple[Table, torch.Tensor, dict]:
     """One unprepared join's ranks on ``tier``: the shuffle plan
     (``_local_join_pipeline``; salted with a ``salt`` set), the broadcast
@@ -833,8 +918,9 @@ def _run_join(
     under ``stage``, ``path`` and ``queries``. Its callers have checked
     the key widths (``_check_key_widths``) and run it inside their
     degradation guard; a shuffle or salted plan whose pre-shuffle
-    compresses consults the fault site ``codec`` first. Returns (result,
-    counts, info by ``_flag_keys``)."""
+    compresses consults the fault site ``codec`` first, but for the
+    autotuner's probe (``ladder=False``: see ``_prepared_attempt``).
+    Returns (result, counts, info by ``_flag_keys``)."""
     w = topology.local_ranks
     l_cap, r_cap = left.capacity // w, right.capacity // w
     keys = _flag_keys(config)
@@ -852,7 +938,7 @@ def _run_join(
 
     kind = {plan_adapt.TIER_BROADCAST: "join_broadcast", TIER_LOCAL: "join_local"}.get(
         tier, "join_salted" if salt else "join")
-    if tier not in (plan_adapt.TIER_BROADCAST, TIER_LOCAL):
+    if ladder and tier not in (plan_adapt.TIER_BROADCAST, TIER_LOCAL):
         _pre_shuffle_codec(topology, config.left_compression, config.right_compression)
     out, counts, flag_mat = _dispatch(
         topology, stage, kind,
@@ -1696,12 +1782,21 @@ def _distributed_inner_join_prepared(
     probe side is padded to its shape bucket first."""
     if config is None:
         config = prepared.config
-    left_on = _check_prepared_query(topology, left, prepared, left_on, config,
-                                    "distributed_inner_join(prepared)")
-    left = shape_bucket.bucket_table(topology, left)
+    left, left_on = _prepared_query_job(topology, left, prepared, left_on, config,
+                                        "distributed_inner_join(prepared)")
     return _run_prepared_queries(topology, [left], [left_counts], prepared, left_on, config,
                                  stage="prepared_query", path="prepared",
                                  where="distributed_inner_join(prepared)")[0]
+
+
+def _prepared_query_job(topology: Topology, left: Table, prepared: PreparedSide,
+                        left_on: Sequence[int], config: JoinConfig, what: str) -> tuple:
+    """The set-up of one query against ``prepared``, for the entry and
+    the autotuner's ``price_plan_candidate`` alike: the structural fit
+    (``_check_prepared_query``), then the probe side padded to its shape
+    bucket. Returns ``(left, left_on)``."""
+    left_on = _check_prepared_query(topology, left, prepared, left_on, config, what)
+    return shape_bucket.bucket_table(topology, left), left_on
 
 
 def _run_prepared_queries(
@@ -1709,22 +1804,55 @@ def _run_prepared_queries(
     prepared: PreparedSide, left_on: tuple, config: JoinConfig, *, stage: str, path: str,
     where: str,
 ) -> list:
-    """K same-shaped queries against ``prepared`` in one run: per rank,
-    each member's pre-shuffle (two-level topologies), then
-    ``_prepared_query`` (every member's batch window in one epoch), or on
-    a broadcast side K local probes with no collective; one ``_dispatch``
-    under ``stage`` and ``path``, guarded by the degradation ladder as
-    ``where`` (the merge, wire, expand and prepared_tier tiers). A
+    """K same-shaped queries against ``prepared`` in one run
+    (``_prepared_attempt``), guarded by the degradation ladder as
+    ``where`` (the merge, wire, expand and prepared_tier tiers). Each
+    member's probe side is observed for skew under ``path`` as its stage
+    (``_observe_partition_skew``), but on a broadcast side. Returns one
+    (result, counts, info) a member, each member's flags through the
+    ``prepared.<flag>`` fault sites."""
+    sizing = _prepared_query_sizing(topology, config, lefts[0].capacity // topology.local_ranks,
+                                    prepared)
+    if prepared.tier != plan_adapt.TIER_BROADCAST:
+        # A broadcast-prepared query partitions nothing: no skew to see.
+        for lt, lc in zip(lefts, left_counts):
+            _observe_partition_skew(topology, lt, lc, left_on, config.over_decom_factor,
+                                    stage=path, config=config)
+    outs, counts, flag_mat, keys = resil.degrade_guard(
+        where, lambda: _prepared_attempt(topology, lefts, left_counts, prepared, left_on, config,
+                                         sizing, stage=stage, path=path),
+        tiers=("merge", "wire", "expand", _PREPARED_TIER_KEY), config=config,
+        topology=topology)
+    return _members(outs, counts, flag_mat, keys, "prepared")
+
+
+def _prepared_attempt(
+    topology: Topology, lefts: Sequence[Table], left_counts: Sequence[torch.Tensor],
+    prepared: PreparedSide, left_on: tuple, config: JoinConfig, sizing: tuple, *, stage: str,
+    path: str, ladder: bool = True,
+):
+    """One attempt of K queries against ``prepared`` at ``sizing``
+    (``_prepared_query_sizing``): per rank, each member's pre-shuffle
+    (two-level topologies), then ``_prepared_query`` (every member's
+    batch window in one epoch), or on a broadcast side K local probes
+    with no collective; one ``_dispatch`` under ``stage`` and ``path``.
+    Returns ``(outs, counts, flag matrix, flag keys)``.
+
+    With ``ladder`` (a real query) it first reads the ladder: a
     broadcast or salted side whose tier the ladder pinned raises
-    PreparedPlanMismatch, so the auto wrapper re-prepares it on shuffle.
-    Returns one (result, counts, info) a member, each member's flags
-    through the ``prepared.<flag>`` fault sites."""
+    PreparedPlanMismatch, so the auto wrapper re-prepares it on shuffle,
+    and the fault sites of the prepared tiers, ``module_build``,
+    ``codec`` and the merge tier's are consulted. The autotuner's probe
+    passes ``ladder=False``: it times the dispatch alone, consults no
+    site a real query does and so takes no pin inside its candidate's
+    env (its one site is ``autotune_probe``), as dj_tpu's probe runs a
+    compiled executable."""
+    _, l_cap_m, bl, out_cap = sizing
     odf = config.over_decom_factor
     l_cap = lefts[0].capacity // topology.local_ranks
-    _, l_cap_m, bl, out_cap = _prepared_query_sizing(topology, config, l_cap, prepared)
     plan = prepared.plan
-
-    def attempt():
+    cfg = resil.strip_pinned_wire(config)
+    if ladder:
         if prepared.tier != plan_adapt.TIER_SHUFFLE and resil.tier_pinned(_PREPARED_TIER_KEY):
             # The ladder pinned shuffle-prepared (a replication tier's
             # fault, here or in another call): this side's replicated
@@ -1733,7 +1861,6 @@ def _run_prepared_queries(
                 f"prepared tier {prepared.tier!r} is pinned to the shuffle-prepared baseline; "
                 f"re-prepare"
             )
-        cfg = resil.strip_pinned_wire(config)
         if prepared.tier == plan_adapt.TIER_BROADCAST:
             faults.check("bc_prepared_query")
         elif prepared.tier == plan_adapt.TIER_SALTED:
@@ -1742,36 +1869,31 @@ def _run_prepared_queries(
         if prepared.tier != plan_adapt.TIER_BROADCAST:
             _pre_shuffle_codec(topology, cfg.left_compression)
         _merge_tier_sites()
-        keys = _prepared_flag_keys(cfg)
+    keys = _prepared_flag_keys(cfg)
 
-        def run(comm, lts, lcs, batches):
-            lts = [lt.with_count(lc[0]) for lt, lc in zip(lts, lcs)]
-            if prepared.tier == plan_adapt.TIER_BROADCAST:
-                members = [_bc_prepared_query(comm, lt, left_on, batches[0], plan, out_cap,
-                                              cfg.char_out_factor) for lt in lts]
-            else:
-                pre = [_pre_shuffle_one(comm, cfg, lt, left_on, l_cap, l_cap_m,
-                                        cfg.left_compression) for lt in lts]
-                members = _prepared_query(comm, [lt for lt, _, _ in pre], left_on, batches, plan,
-                                          odf, bl, out_cap, cfg.char_out_factor, prepared.salt,
-                                          prepared.salt_replicas)
-                for (_, flags), (_, pre_ovf, pre_stats) in zip(members, pre):
-                    flags.update(pre_shuffle_overflow=pre_ovf, **pre_stats)
-            return (tuple(out.with_count(None) for out, _ in members),
-                    tuple(out.count().reshape(1) for out, _ in members),
-                    torch.stack([_flag_row(flags, keys)[0] for _, flags in members])[None])
+    def run(comm, lts, lcs, batches):
+        lts = [lt.with_count(lc[0]) for lt, lc in zip(lts, lcs)]
+        if prepared.tier == plan_adapt.TIER_BROADCAST:
+            members = [_bc_prepared_query(comm, lt, left_on, batches[0], plan, out_cap,
+                                          cfg.char_out_factor) for lt in lts]
+        else:
+            pre = [_pre_shuffle_one(comm, cfg, lt, left_on, l_cap, l_cap_m,
+                                    cfg.left_compression) for lt in lts]
+            members = _prepared_query(comm, [lt for lt, _, _ in pre], left_on, batches, plan,
+                                      odf, bl, out_cap, cfg.char_out_factor, prepared.salt,
+                                      prepared.salt_replicas)
+            for (_, flags), (_, pre_ovf, pre_stats) in zip(members, pre):
+                flags.update(pre_shuffle_overflow=pre_ovf, **pre_stats)
+        return (tuple(out.with_count(None) for out, _ in members),
+                tuple(out.count().reshape(1) for out, _ in members),
+                torch.stack([_flag_row(flags, keys)[0] for _, flags in members])[None])
 
-        outs, counts, flag_mat = _dispatch(
-            topology, stage, stage,
-            lambda: run_spmd(topology, run, tuple(lefts), tuple(left_counts), prepared.batches,
-                             **_backend(cfg)),
-            path=path, queries=len(lefts))
-        return outs, counts, flag_mat, keys
-
-    outs, counts, flag_mat, keys = resil.degrade_guard(
-        where, attempt, tiers=("merge", "wire", "expand", _PREPARED_TIER_KEY), config=config,
-        topology=topology)
-    return _members(outs, counts, flag_mat, keys, "prepared")
+    outs, counts, flag_mat = _dispatch(
+        topology, stage, stage,
+        lambda: run_spmd(topology, run, tuple(lefts), tuple(left_counts), prepared.batches,
+                         **_backend(cfg)),
+        path=path, queries=len(lefts))
+    return outs, counts, flag_mat, keys
 
 
 def _bc_prepared_query(
@@ -2126,6 +2248,9 @@ def distributed_inner_join_coalesced_unprepared(
                                left_on, right_on, w, topology)
             for q in range(k)
         ])
+    for q in range(k):
+        _observe_partition_skew(topology, lefts[q], left_counts[q], left_on,
+                                config.over_decom_factor, stage="coalesced", config=config)
     l_cap, r_cap = lefts[0].capacity // w, rights[0].capacity // w
 
     def attempt():
@@ -2337,3 +2462,116 @@ def append_to_prepared(
         prepared, batches=tuple(new_batches), right=new_right, right_counts=new_rc,
         r_cap=prepared.r_cap + a_cap,
     ), info
+
+
+# --- candidate pricing (parallel.autotune) ---------------------------------
+
+
+def _candidate_plan(left: Table, right: Table, left_on: tuple, right_on: tuple, key_range):
+    """The ``ops.join.JoinPlan`` an unprepared candidate prices: the
+    join's own (``join_plan``) on fixed-width keys; with a string key
+    pair, the plan of its int64 surrogate beside string payloads (the
+    surrogates are not computed for a price)."""
+    if any(isinstance(left.columns[c], StringColumn) for c in left_on):
+        return effective_plan(1, single_int_key=len(left_on) == 1, has_strings=True)
+    return join_plan(left, right, left_on, right_on, key_range)
+
+
+def price_plan_candidate(
+    topology: Topology,
+    left: Table,
+    left_counts: torch.Tensor,
+    right,
+    right_counts: Optional[torch.Tensor] = None,
+    left_on: Sequence[int] = (),
+    right_on: Optional[Sequence[int]] = None,
+    config: Optional[JoinConfig] = None,
+    *,
+    salt_replicas: Optional[int] = None,
+):
+    """Price ONE candidate plan for the autotuner (dj_tpu's
+    ``price_plan_candidate``, dist_join.py:4147-4261). dj_tpu compiles
+    the candidate's module and reads XLA's cost and memory analyses; the
+    port compiles no module, so the price is the byte model of the
+    candidate's plan: ``bytes_accessed`` is ``obs.bytemodel.
+    hbm_model_bytes`` of its ``JoinPlan``, plan tier (the signature's
+    ``_resolve_plan_decision``, or the prepared side's tier), odf and the
+    shard's row capacities, with the batch sizing's ``out_cap`` as its
+    matches and the main group's size as its world; ``flops``,
+    ``peak_hbm_bytes`` and the argument, output and temp fields are None,
+    so the tuner ranks by bytes.
+
+    The set-up is the real call's (``_unprepared_job``, or
+    ``_prepared_query_job`` and ``_prepared_query_sizing``), so the price
+    and the probe are of the plan the real call runs. Returns ``(price,
+    probe)``: ``probe()`` runs the candidate's dispatch once (``_run_join``
+    on the decided tier, or ``_prepared_attempt`` against a PreparedSide,
+    under the caller's env overrides) without the degradation ladder
+    (``ladder=False``: no pin can be taken inside the candidate's env, and
+    a failure propagates to the tuner's caller, whose guard pins tier
+    ``autotune``), synchronizes the card, frees the output and returns its
+    host-clock seconds. The pricing and
+    the probe run under ``obs.recorder.suppress_epochs``: tuning counts
+    no collective, wire-matrix byte, tenant byte, dispatch or query, and
+    observes no skew, as dj_tpu's probe of an AOT executable counts none.
+
+    ``salt_replicas`` overrides a salted decision's fan-out (the tuner's
+    salt axis); other plans ignore it."""
+    from ..obs.bytemodel import hbm_model_bytes
+
+    if config is None:
+        config = JoinConfig()
+    cfg = resil.strip_pinned_wire(config)
+    w = topology.local_ranks
+    odf = cfg.over_decom_factor
+    with obs_recorder.suppress_epochs():
+        if isinstance(right, PreparedSide):
+            prepared = right
+            left_b, left_on = _prepared_query_job(topology, left, prepared, left_on, cfg,
+                                                  "price_plan_candidate")
+            sizing = _prepared_query_sizing(topology, cfg, left_b.capacity // w, prepared)
+            n, l_cap_m, _, out_cap = sizing
+            model = hbm_model_bytes(
+                l_cap_m, odf, cfg, out_cap, JoinPlan("vmeta", True, False), prepared=True,
+                merge_impl=resolve_merge_impl(), plan_tier=prepared.tier,
+                right_rows=prepared.r_cap, world=n, salt_replicas=prepared.salt_replicas)
+            tier = "prepared"
+
+            def dispatch():
+                return _prepared_attempt(topology, [left_b], [left_counts], prepared, left_on,
+                                         cfg, sizing, stage="prepared_query", path="prepared",
+                                         ladder=False)
+        else:
+            job = _unprepared_job(topology, left, left_counts, right, right_counts, left_on,
+                                  right_on, cfg, "price_plan_candidate")
+            decision = job.decision
+            replicas = decision.replicas
+            if decision.tier == plan_adapt.TIER_SALTED and salt_replicas is not None:
+                replicas = max(2, min(topology.world_group().size, int(salt_replicas)))
+            n, l_cap_m, r_cap_m = _main_group_sizing(topology, cfg, job.left.capacity // w,
+                                                     job.right.capacity // w)
+            out_cap = batch_sizing(cfg, n, l_cap_m, r_cap_m).out_cap
+            model = hbm_model_bytes(
+                l_cap_m, odf, cfg, out_cap,
+                _candidate_plan(job.left, job.right, job.left_on, job.right_on, job.key_range),
+                plan_tier=decision.tier, right_rows=r_cap_m, world=n, salt_replicas=replicas)
+            tier = decision.tier
+
+            def dispatch():
+                return _run_join(topology, decision.tier, job.left, left_counts, job.right,
+                                 right_counts, job.left_on, job.right_on, cfg, job.key_range,
+                                 decision.salt, replicas, ladder=False)
+    price = {"tier": tier, "flops": None, "bytes_accessed": int(model), "argument_bytes": None,
+             "output_bytes": None, "temp_bytes": None, "peak_hbm_bytes": None}
+
+    def probe() -> float:
+        with obs_recorder.suppress_epochs():
+            t0 = time.perf_counter()
+            out = dispatch()
+            if topology.device.type == "cuda":
+                torch.cuda.synchronize(topology.device)
+            seconds = time.perf_counter() - t0
+        del out  # free the probe's output before the next probe
+        return seconds
+
+    return price, probe

@@ -67,9 +67,19 @@ declared stage range records its ``heal`` event. Every process plans
 and records alike (the events' fields come from the plan, which every
 process makes from the same inputs). Each Table-right stage runs under
 the degradation ladder with dj_tpu's fault sites (``_dispatch_stage``);
-a prepared stage under the prepared query's. dj_tpu's autotuner and
-scheduler hooks come with the rest of the serving stack (ROADMAP items
-10c and 10e); ``pipeline_signature`` (the autotuner's unit) is here.
+a prepared stage under the prepared query's.
+
+Under ``DJT_AUTOTUNE=1`` the auto wrapper tunes the chain as one unit
+(``parallel.autotune``, as dj_tpu's pipeline.py:715-745): one
+``autotune.resolve`` on ``pipeline_signature``, whose tuner prices and
+probes stage 0's shape (the fact-side stage), then every stage under
+the decision's ``dispatch_scope`` with its config through
+``apply_config``. In a process world every process takes one common
+decision (``autotune.resolve(..., topology=)``), so the rule above that
+every process plans alike holds for the tuned chain too. The tune is
+not guarded here: a faulted probe
+propagates, and the caller's ``degrade_guard(..., tiers=("autotune",))``
+pins the tier (the scheduler's, ROADMAP item 10e).
 """
 
 from __future__ import annotations
@@ -90,7 +100,7 @@ from ..resilience import heal as heal_engine
 from ..resilience import ledger as dj_ledger
 from ..resilience.heal import HealBudget
 from . import dist_join as dj
-from . import plan_adapt, shape_bucket
+from . import autotune, plan_adapt, shape_bucket
 from .dist_join import JoinConfig, PreparedSide
 from .topology import Topology
 
@@ -551,25 +561,38 @@ def distributed_join_pipeline_auto(
     has. A declared stage ``key_range`` that fires
     ``pack_range_overflow`` drops to the derived or dynamic plan for that
     stage only. A prepared stage heals through the prepared auto path
-    (its re-prepare included)."""
+    (its re-prepare included).
+
+    Under ``DJT_AUTOTUNE=1`` the chain is one tunable unit (module
+    docstring): one resolve on its signature, the decision's odf and
+    env axes applied to every stage."""
     if config is None:
         config = JoinConfig()
     plan = plan_pipeline(topology, left, left_counts, stages, config,
                          left_partitioned_by=left_partitioned_by)
+    decision = None
+    pipe_sig = pipeline_signature(topology, plan)
+    if autotune.enabled():
+        sp0 = plan.stage_plans[0]
+        decision = autotune.resolve(pipe_sig, autotune.make_tuner(
+            topology, plan.left, plan.left_counts, sp0.right, sp0.right_counts, sp0.left_on,
+            sp0.right_on, sp0.config), topology=topology)
     cur, cur_counts = plan.left, plan.left_counts
     infos, configs = [], []
     budget = dict(max_attempts=max_attempts, growth=growth, max_total_growth=max_total_growth)
     n_stages = len(plan.stage_plans)
-    for sp in plan.stage_plans:
-        if sp.mode == MODE_PREPARED:
-            cur, cur_counts, info, cfg_used, side = dj._distributed_inner_join_prepared_auto(
-                topology, cur, cur_counts, sp.right, sp.left_on, sp.config, **budget)
-            _record_prepared_stage(sp, n_stages, side)
-        else:
-            cur, cur_counts, info, cfg_used = _heal_stage(topology, sp, cur, cur_counts,
-                                                          sp.config, n_stages, **budget)
-        infos.append(info)
-        configs.append(cfg_used)
+    with autotune.dispatch_scope(decision, pipe_sig):
+        for sp in plan.stage_plans:
+            cfg = autotune.apply_config(decision, sp.config)
+            if sp.mode == MODE_PREPARED:
+                cur, cur_counts, info, cfg_used, side = dj._distributed_inner_join_prepared_auto(
+                    topology, cur, cur_counts, sp.right, sp.left_on, cfg, **budget)
+                _record_prepared_stage(sp, n_stages, side)
+            else:
+                cur, cur_counts, info, cfg_used = _heal_stage(topology, sp, cur, cur_counts, cfg,
+                                                              n_stages, **budget)
+            infos.append(info)
+            configs.append(cfg_used)
     obs.inc("dj_join_queries_total", path="pipeline")
     return cur, cur_counts, infos, configs
 

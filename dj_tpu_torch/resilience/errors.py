@@ -28,6 +28,7 @@ merge         ``DJT_JOIN_MERGE=sort``        ``resolve_merge_impl()`` is not
 wire          uncompressed                   compression options on the
                                              call or in the JoinConfig
 adapt         ``DJT_PLAN_ADAPT=0``           ``plan_adapt.enabled()``
+autotune      ``DJT_AUTOTUNE=0``             ``autotune.enabled()``
 expand        ``DJT_PROBE_EXPAND=hist``      ``resolve_probe_expand()`` is
                                              not hist
 prepared_tier ``DJT_PREPARED_TIER=shuffle``  the knob is set, not shuffle
@@ -54,9 +55,8 @@ peers' next call's. Every other failure there propagates unchanged.
 
 Left out of dj_tpu's ladder: its ``sort`` tier (``DJ_JOIN_SORT=bucketed``,
 which the port measured slower on the card and did not keep), so every
-guard that names ``sort`` there names the others without it here; the
-``autotune`` and ``fleet`` tiers and their sites, which come with the
-autotuner and the fleet coordination (ROADMAP items 10c and 10d); and
+guard that names ``sort`` there names the others without it here; the ``fleet`` tier,
+which comes with the fleet coordination (ROADMAP item 10d); and
 ``_BUILDER_TIER`` with the ``ContractViolation`` branch of
 ``_culprit_tier``, which read the HLO auditor's verdict on a compiled
 module, and the port compiles none.
@@ -221,6 +221,9 @@ TIER_BASELINE = {
     # knob makes every later plan resolution read disabled and run the
     # shuffle plan.
     "adapt": ("DJT_PLAN_ADAPT", "0"),
+    # The per-signature autotuner (parallel.autotune): 0 in its arming
+    # knob, so every later dispatch serves the hand-tuned defaults.
+    "autotune": ("DJT_AUTOTUNE", "0"),
     # The probe tier's expansion (ops.join.resolve_probe_expand): hist
     # ranks with expand_ranks and takes the offsets from the run starts.
     "expand": ("DJT_PROBE_EXPAND", "hist"),
@@ -241,6 +244,10 @@ _SITE_TIER = {
     "codec": "wire",
     "broadcast": "adapt",
     "salted": "adapt",
+    # Both autotuner sites (the timed probe dispatch, the config's
+    # application) pin the one "autotune" tier.
+    "autotune_probe": "autotune",
+    "autotune_apply": "autotune",
     "probe_expand": "expand",
     "prepare_broadcast": "prepared_tier",
     "prepare_salted": "prepared_tier",
@@ -280,6 +287,33 @@ def pin_baseline(tier: str, reason: str) -> None:
     obs.record("degrade", tier=tier, baseline=baseline, reason=reason)
 
 
+def _knob_tier(knob: str) -> Optional[str]:
+    for tier, (k, _) in TIER_BASELINE.items():
+        if k == knob:
+            return tier
+    return None
+
+
+def knob_pinned(knob: str) -> bool:
+    """Whether the ladder pinned the tier that owns env knob ``knob``."""
+    return _knob_tier(knob) in _pinned
+
+
+def keep_pin_past_scope(knob: str, outer: Optional[str]) -> bool:
+    """A scoped override of ``knob`` ends (the autotuner's candidate and
+    dispatch envs). When the ladder pinned the knob's tier inside the
+    scope, the pin keeps its baseline in the env and takes ``outer``, the
+    value from before the scope, as what :func:`reset_pins` restores:
+    returns True, and the scope must restore nothing. Else False."""
+    tier = _knob_tier(knob)
+    with _pin_lock:
+        pin = _pinned.get(tier)
+        if pin is None:
+            return False
+        pin["prev_env"] = outer
+        return True
+
+
 def reset_pins() -> None:
     """Unpin every tier, restoring the env knobs they overwrote (tests;
     a process that wants to re-qualify a tier)."""
@@ -306,6 +340,10 @@ def _tier_active(tier: str, config, compression) -> bool:
         from ..parallel import plan_adapt  # lazy: keep import order flat
 
         return plan_adapt.enabled()
+    if tier == "autotune":
+        from ..parallel import autotune  # lazy: keep import order flat
+
+        return autotune.enabled()
     if tier == "wire":
         return compression is not None or (
             getattr(config, "left_compression", None) is not None

@@ -40,7 +40,9 @@ Two site families:
   probe tier, the second under a non-``hist`` expansion), ``broadcast``
   / ``salted`` (the skew-adaptive plans) and ``prepare_broadcast`` /
   ``prepare_salted`` / ``bc_prepared_query`` / ``salted_prepared_query``
-  (the prepared build tiers). The degradation ladder
+  (the prepared build tiers), ``autotune_probe`` (each timed probe
+  dispatch of the autotuner) and ``autotune_apply`` (a tuned config's
+  application). The degradation ladder
   (``errors.degrade_guard``) pins the tier a site names.
 
 dj_tpu consults ``communicator``, ``codec``, ``pallas_merge``,

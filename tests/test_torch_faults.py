@@ -47,8 +47,9 @@ TIER_ENV = {
     "prepared_tier": ({"DJ_PREPARED_TIER": "auto"}, {"DJT_PREPARED_TIER": "auto"},
                       ("shuffle", "shuffle")),
     "wire": ({}, {}, ("uncompressed", "uncompressed")),
+    "autotune": ({"DJ_AUTOTUNE": "1"}, {"DJT_AUTOTUNE": "1"}, ("0", "0")),
 }
-LADDER = ("merge", "wire", "expand", "prepared_tier", "adapt")
+LADDER = ("merge", "wire", "expand", "prepared_tier", "adapt", "autotune")
 
 
 @pytest.fixture(autouse=True)
@@ -210,7 +211,7 @@ def test_force_flags_copies(pkg):
 
 
 def test_the_ladder_is_dj_tpus_less_the_unported_tiers():
-    gone = {"sort", "autotune", "fleet"}
+    gone = {"sort", "fleet"}
     assert set(terrors.TIER_BASELINE) == set(jerrors.TIER_BASELINE) - gone
     assert terrors._SITE_TIER == {s: t for s, t in jerrors._SITE_TIER.items() if t not in gone}
     for tier, (knob, baseline) in terrors.TIER_BASELINE.items():

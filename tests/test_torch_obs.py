@@ -52,9 +52,9 @@ JAX_ONLY = frozenset({
     "counter:dj_collective_epochs_traced_total",
     "gauge:dj_build_cache_entries",
 })
-# What dj_tpu records that a later slice of the port brings: the skew
-# observatory's per-link wire matrix (ROADMAP item 10c).
-LATER = frozenset({"counter:dj_wire_bytes_total"})
+# What dj_tpu records that a later slice of the port brings: nothing now
+# (the per-link wire matrix came with ROADMAP item 10c).
+LATER = frozenset()
 # Fields that hold a time, or a fraction of one.
 TIMING_FIELDS = frozenset({"seq", "ts", "seconds", "roofline_frac"})
 
@@ -481,7 +481,7 @@ def test_the_jax_only_set_is_pinned():
         "counter:dj_build_cache_total", "counter:dj_compile_seconds_total",
         "counter:dj_collective_epochs_traced_total", "gauge:dj_build_cache_entries",
     }
-    assert LATER == {"counter:dj_wire_bytes_total"}
+    assert LATER == frozenset()
     assert TIMING_FIELDS == {"seq", "ts", "seconds", "roofline_frac"}
     # The port records none of them.
     assert not hasattr(tobs, "cached_build") and not hasattr(tobs, "record_epoch")
@@ -560,10 +560,11 @@ def test_obs_exports_what_dj_tpu_exports():
     import dj_tpu.obs as jobs
 
     left_out = {"cached_build", "capture_epochs", "record_epoch", "epoch_total_bytes"}
-    later = {"hbm_model_bytes", "prepared_side_bytes", "fleet_snapshot", "truth", "history",
-             "http", "fleet", "forensics"}
+    later = {"history", "http", "fleet", "forensics"}
     assert set(jobs.__all__) - set(tobs.__all__) == left_out | later
     assert all(hasattr(tobs, n) for n in tobs.__all__)
+    for name in ("hbm_model_bytes", "prepared_side_bytes", "fleet_snapshot", "truth"):
+        assert name in tobs.__all__, name
 
 
 @pytest.mark.parametrize("w", [1, 4])

@@ -61,7 +61,7 @@ chip_smoke = _load("chip_smoke", ROOT / "chip_smoke.py")
 
 WORLDS = (2, 4)
 CASES = {2: ["collectives", "exchange", "shuffle", "join", "generate", "auto", "keys", "strings",
-             "append"],
+             "append", "fleet", "autotune"],
          4: ["collectives", "exchange", "shuffle", "join", "prepared", "generate", "two_level",
              "plan_adapt", "pipeline"]}
 
@@ -661,6 +661,54 @@ def test_process_world_coalesced_matches_dj_tpu(worlds):
             got = res["pipeline"]["coalesced"][q]
             assert got["counts"] == [wq["counts"][r]] and got["rows"] == [wq["rows"][r]], (q, r)
             assert got["flags"] == wq["flags"], (q, r)
+
+
+def test_process_world_fleet_snapshot_gathers_every_process(worlds):
+    """obs.fleet_snapshot over gloo: one row a process, in rank order,
+    on every process; each row's wire totals are that process's own
+    matrix (each row of which sums to its collective bytes); the
+    stragglers see rank 1's slow dispatch."""
+    results = worlds.results(2)
+    snaps = [res["fleet"]["snapshot"] for res in results]
+    assert snaps[0]["ranks"] == snaps[1]["ranks"]
+    rows = snaps[0]["ranks"]
+    assert [row["rank"] for row in rows] == [0, 1]
+    for row, res in zip(rows, results):
+        fleet = res["fleet"]
+        assert row["wire_row_totals"] == fleet["own_wire"]["row_totals"]
+        assert row["wire_row_totals"] == [pytest.approx(fleet["sent"])] * 2
+        assert fleet["view"] == fleet["snapshot"]
+        assert fleet["summary"]["ranks"] == 2 and fleet["summary"]["gathered"] is True
+    assert rows[0]["wire_total_bytes"] == rows[1]["wire_total_bytes"] > 0
+    dispatch = snaps[0]["stragglers"]["dispatch"]
+    assert dispatch["slowest_rank"] == 1 and dispatch["ratio"] > 1.0
+
+
+def _union(results, call) -> list:
+    return sorted(row for r in results for row in (r["autotune"][call]["rows"]
+                                                   if call != "untuned"
+                                                   else r["autotune"]["untuned"]))
+
+
+def test_process_world_tuner_makes_one_decision(worlds):
+    """Each process alone would pick another odf; the tuned chain runs
+    one plan on both (the same tune event, evidence and odf), gives the
+    untuned chain's rows, serves the decision again with no event, and
+    after rank 1 forgot its ledger both replay rank 0's record."""
+    results = worlds.results(2)
+    a, b = (r["autotune"] for r in results)
+    assert a["local_pick"] != b["local_pick"]
+    assert a["tuned"]["events"] == b["tuned"]["events"]
+    (event,) = a["tuned"]["events"]
+    assert event["action"] == "tune" and event["candidates"] == 2
+    assert a["tuned"]["odf"] == b["tuned"]["odf"]
+    assert len(set(a["tuned"]["odf"])) == 1
+    assert a["again"]["events"] == b["again"]["events"] == []
+    assert [e["action"] for e in a["replayed"]["events"]] == ["replay"]
+    assert a["replayed"]["events"] == b["replayed"]["events"]
+    assert a["replayed"]["odf"] == b["replayed"]["odf"] == a["tuned"]["odf"]
+    want = _union(results, "untuned")
+    assert want and all(_union(results, call) == want for call in ("tuned", "again", "replayed"))
 
 
 def test_a_ledger_split_world_fails_instead_of_hanging(worlds):

@@ -785,13 +785,95 @@ def case_compress(topo):
     return {"local": local, "agreed": agreed, "shuffle": compress_shuffle(topo, agreed)}
 
 
+def case_fleet(topo):
+    """obs.fleet_snapshot after one join with obs on: every process's
+    row, gathered over gloo (rank 1 also observes a 5 s dispatch phase,
+    so it is the straggler)."""
+    from dj_tpu_torch import obs
+
+    build, probe = join_tables()
+    (tl, tlc), (tr, trc) = _sharded(topo, probe), _sharded(topo, build)
+    obs.reset(reenable=True)
+    dj.distributed_inner_join(topo, tl, tlc, tr, trc, [0], [0])
+    if topo.rank == 1:
+        obs.roofline.observe_phase("dispatch", 5.0)
+    own = obs.skew.wire_matrix()
+    snap = obs.fleet_snapshot(topo)
+    out = {"snapshot": snap, "own_wire": own, "view": obs.skew.fleet_view(),
+           "summary": obs.skew.rank_skew_summary(),
+           "sent": sum(obs.counter_series("dj_collective_bytes_total").values())}
+    obs.reset(reenable=False)
+    return out
+
+
+def case_autotune(topo):
+    """The chain's tuner (``DJT_AUTOTUNE=1``, odf 1 and 2) in a world of
+    processes. Each probe reports its seconds plus 1 s on rank 0's odf 1
+    and on rank 1's odf 2, so each process alone would pick another
+    winner (``local_pick``) and only the processes' agreement gives one
+    plan. Then a second call (no event), and a call after rank 1 forgot
+    its ledger while rank 0 kept it: both replay rank 0's record. Each
+    call's rows are this process's shard; the untuned chain's come
+    first."""
+    from dj_tpu_torch import obs
+    from dj_tpu_torch.parallel import autotune
+    from dj_tpu_torch.parallel import dist_join as tdist
+
+    build, probe = join_tables()
+    (tl, tlc), (tr, trc) = _sharded(topo, probe), _sharded(topo, build)
+    b2, b2c, _ = dj.shuffle_on(topo, tr, trc, [0], seed=tdist.MAIN_JOIN_SEED, out_factor=2.5)
+    stages = [dj.JoinStage(right=tr, right_counts=trc, left_on=(0,), right_on=(0,),
+                           mode="shuffle"),
+              dj.JoinStage(right=b2, right_counts=b2c, left_on=(0,), right_on=(0,),
+                           right_partitioned=True)]
+    cfg = dj.JoinConfig(join_out_factor=2.0)
+    out = {"untuned": shard_rows(*dj.distributed_join_pipeline_auto(topo, tl, tlc, stages,
+                                                                    cfg)[:2])}
+    real, local = tdist.price_plan_candidate, {}
+
+    def skewed(*a, **k):
+        price, run = real(*a, **k)
+        odf = a[7].over_decom_factor
+
+        def timed():
+            s = run() + (1.0 if (odf == 1) == (topo.rank == 0) else 0.0)
+            local[odf] = s
+            return s
+
+        return price, timed
+
+    tdist.price_plan_candidate = skewed
+    os.environ.update(DJT_AUTOTUNE="1", DJT_AUTOTUNE_ODF="1,2")
+    try:
+        obs.reset(reenable=True)
+        obs.drain()
+        for call in ("tuned", "again", "replayed"):
+            if call == "replayed":
+                autotune._clear()
+                if topo.rank == 1:
+                    dj.resilience.ledger.reset()
+            o, c, _, cfgs = dj.distributed_join_pipeline_auto(topo, tl, tlc, stages, cfg)
+            out[call] = {"rows": shard_rows(o, c), "odf": [g.over_decom_factor for g in cfgs],
+                         "events": [{k: v for k, v in e.items() if k not in ("seq", "ts")}
+                                    for e in obs.drain() if e["type"] == "tune"]}
+        out["local_pick"] = min(local, key=local.get)
+    finally:
+        tdist.price_plan_candidate = real
+        for name in ("DJT_AUTOTUNE", "DJT_AUTOTUNE_ODF"):
+            os.environ.pop(name)
+        obs.reset(reenable=False)
+        dj.resilience.ledger.reset()
+    return out
+
+
 CASES = {"collectives": case_collectives, "exchange": case_exchange, "shuffle": case_shuffle,
          "join": case_join, "prepared": case_prepared, "generate": case_generate,
          "auto": case_auto, "keys": case_keys, "fail": case_fail,
          "ledger_split": case_ledger_split, "strings": case_strings,
          "two_level": case_two_level, "compress": case_compress, "append": case_append,
          "fault": case_fault, "peer_fails": case_peer_fails,
-         "plan_adapt": case_plan_adapt, "pipeline": case_pipeline}
+         "plan_adapt": case_plan_adapt, "pipeline": case_pipeline, "fleet": case_fleet,
+         "autotune": case_autotune}
 
 
 def main(spec_json: str, out_dir: str) -> int:
