@@ -366,6 +366,33 @@ Phases, each printing its own line(s):
      candidate's price and probe seconds, the winner and the walls of
      the untuned chain, the tuning call and the replayed call, and stage
      0 alone at each candidate's odf (did the two probed hold the fastest);
+  14. the join-index cache and fleet coordination (after 13, on phase 5's
+     build side): (a) one rank at odf 1: JoinIndexCache().get_or_prepare
+     misses and prepares once (its wall beside phase 5's warm prepare),
+     the hit returns the same side with no launch, dispatch or
+     collective (its wall), resident_bytes equals prepared_side_bytes
+     (beside the allocator's growth across the miss), and a query through
+     lease.prepared under each merge tier, rows checked, launches logged;
+     (b) DJT_INDEX_HBM_BUDGET at 1.5 entries: a second entry evicts the
+     LRU unpinned one (the allocator flat across that insert, which adds
+     a side of the evicted one's size) and shed_bytes drops the
+     allocator by the shed side's bytes, each within 1%; at 2.5
+     entries with two pinned, a third raises AdmissionRejected and the
+     residency stays; (c) at odf 4, 5c's 1% rows through append_rows (one
+     append event; each tier's query equal to a fresh prepare of the
+     combined table), then 1000 rows past the anchored pack's key field
+     (one reprepare event, its query checked); (d) DJT_INDEX_MANIFEST, clear(),
+     a new cache's warm_restart (count, restore events) and
+     warmup_join_index, the first live query's wall beside a warm one's;
+     (e) 4d's world: a cached side at odf 1, a free hit, each tier's rows
+     checked and on their hash's shard; available_broadcast_bytes() the
+     budget less the resident bytes, and DJT_BROADCAST_BYTES between 4i's
+     replicated side and that plus the entry turns 4i's broadcast plan
+     into the shuffle plan (rows checked) while it fits with the cache
+     empty; (f) DJT_FLEET_DIR: a miss holds the prepare lease while the
+     manifest's insert line (with pid and host) is written and releases
+     it after, then DJT_FAULT=fleet.lease_acquire@call=1 degrades once,
+     pins fleet and builds locally (rows checked), and reset_pins();
   9. timings: the `timings` line (walls, peaks and the main path's sort);
   10. the hardware probes: `python -m dj_tpu_torch.hw.probe_sort` and
      `... .probe_gather` through their main() at the JAX probes' shapes
@@ -387,8 +414,8 @@ Phases, each printing its own line(s):
 then the `kernels` JSON line (kernel, plain-version and library times
 beside each kernel's bound, launches per query on each path and in the
 4-rank world (the plan tiers of 4i, 5e and 8f and the composition
-layers' 4j, 4k and 5f and phase 13's tuned chain and probes among its
-paths), its two-level form and the
+layers' 4j, 4k and 5f, phase 13's tuned chain and probes and phase
+14's cached sides among its paths), its two-level form and the
 process worlds (6b's broadcast run and chain apart), expand_ranks'
 codec decodes in 4g, expand_values' probe-tier call of 5d, and each
 kernel's registers and spills from ptxas; the probes' launches are their
@@ -2914,6 +2941,7 @@ def run_prepared_tiers(dj, dev, gen, topo1, left1, lcnt1, build, probe, expected
 
     # (iii) a 1% append to the broadcast side: it re-prepares on its tier.
     n_app = max(1, rows // 100)
+    gen = torch.Generator(device=dev).manual_seed(14)
     keys = absent_keys(gen, dev, build.columns[0].data, 2 * rows, n_app)
     app = appended_table(dj, keys, build.capacity)
     combined = dj.concatenate([build, app]).with_count(None)
@@ -3214,6 +3242,7 @@ def run_appends(dj, dev, gen, topo, left, lcnt, right, rcnt, build, probe, expec
     world_table: dict = {}
     cfg = dj.JoinConfig(over_decom_factor=4, key_range=(0, 2 * rows))
     n_app = max(1, rows // 100)
+    gen = torch.Generator(device=dev).manual_seed(14)
     keys = absent_keys(gen, dev, build.columns[0].data, 2 * rows, n_app)
     app = appended_table(dj, keys, build.capacity)
     combined = dj.concatenate([build, app]).with_count(None)
@@ -4862,6 +4891,405 @@ def run_autotune(dj, dev, build, probe, expected: int, ref, rows: int, smi: str)
     return table
 
 
+# --- the join-index cache and fleet coordination (phase 14) ------------------
+
+
+@contextlib.contextmanager
+def counted_calls(module, name: str):
+    """Calls of ``module.name`` inside the block: yields a one-item list
+    that holds the count."""
+    real = getattr(module, name)
+    box = [0]
+
+    def counted(*a, **k):
+        box[0] += 1
+        return real(*a, **k)
+
+    setattr(module, name, counted)
+    try:
+        yield box
+    finally:
+        setattr(module, name, real)
+
+
+def allocated() -> int:
+    """torch.cuda.memory_allocated() after a synchronize."""
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def index_query(what: str, dj, topo, left, lcnt, side, cfg, build, probe, expected: int,
+                ref, *, w: int = 1, kernels=None):
+    """One query of a cached side: flags False, the rows checked against
+    ``build`` / ``probe`` and (``ref`` given) equal to the default join's,
+    a world's rows on their hash's shard, and each of ``kernels``
+    launched w times a batch. Returns the query's launches."""
+    reset_launches()
+    out, counts, info = dj.distributed_inner_join(topo, left, lcnt, side, None, [0], None, cfg)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    flags_false(what, info)
+    if w > 1:
+        check_colocated(what, out, counts, cfg.over_decom_factor)
+        out = dj.unshard_table(out, counts)
+    counts = torch.tensor([int(counts.sum())])
+    check_rows(out, counts, build, probe, expected)
+    if ref is not None:
+        check_same_rows(sorted_rows(out, counts), ref, what)
+    want = w * cfg.over_decom_factor
+    wrong = {k: launches[k] for k in kernels or () if launches[k] != want}
+    if wrong:
+        raise AssertionError(f"{what}: each of {kernels} must launch {want} times: {wrong}")
+    return launches
+
+
+def run_index_cache(dj, dev, topo, left, lcnt, right, rcnt, build, probe, expected: int,
+                    ref, rows: int, prep_ms: float, query_ms: dict, smi: str) -> tuple:
+    """Phase 14: the join-index cache and fleet coordination on phase 5's
+    build side (module docstring). ``prep_ms`` is phase 5's warm prepare
+    at odf 1 and ``query_ms`` its warm queries by tier. Returns ({path:
+    {odf: launches}} of one rank, the same of 4d's world)."""
+    from dj_tpu_torch import cache as djcache
+    from dj_tpu_torch import fleet
+    from dj_tpu_torch.cache import index as cache_index
+    from dj_tpu_torch.obs import bytemodel
+    from dj_tpu_torch.ops.join import prepared_effective_plan
+    from dj_tpu_torch.parallel import dist_join as dist
+    from dj_tpu_torch.parallel import plan_adapt
+    from dj_tpu_torch.resilience import errors, ledger
+
+    t_phase = time.perf_counter()
+    one_rank: dict = {}
+    world: dict = {}
+    on_card = torch.device(dev).type == "cuda"
+    cfg1 = dj.JoinConfig(key_range=(0, 2 * rows))
+    djcache.reset()
+
+    def get(cache, t=topo, r=(right, rcnt), cfg=cfg1, **kw):
+        return cache.get_or_prepare(t, *r, [0], cfg, left_capacity=rows, **kw)
+
+    # (a) one rank: the miss prepares once, the hit is free, resident bytes
+    # are the side's, a query through the lease under each tier.
+    cache = djcache.JoinIndexCache(djcache.IndexConfig())
+    before = allocated()
+    t0 = time.perf_counter()
+    lease = get(cache, tenant="a")
+    torch.cuda.synchronize()
+    miss_ms = (time.perf_counter() - t0) * 1e3
+    grew = allocated() - before
+    side_bytes = bytemodel.prepared_side_bytes(lease.prepared)
+    if cache.resident_bytes != side_bytes or djcache.resident_bytes() != side_bytes:
+        raise AssertionError(f"14a: resident {cache.resident_bytes} != side {side_bytes}")
+    reset_launches()
+    with counted_calls(dist, "run_spmd") as spmd_calls, Collectives() as coll:
+        t0 = time.perf_counter()
+        hit = get(cache, tenant="a")
+        torch.cuda.synchronize()
+        hit_ms = (time.perf_counter() - t0) * 1e3
+    hit_launches = read_launches()
+    if hit.prepared is not lease.prepared or any(hit_launches.values()) or spmd_calls[0] or \
+            any(coll.counts.values()):
+        raise AssertionError(f"14a: the hit launched {hit_launches}, {spmd_calls[0]} "
+                             f"dispatches, collectives {coll.counts}")
+    hit.release()
+    walls = {}
+    for tier in TIERS:
+        with env_set(DJT_JOIN_MERGE=tier):
+            what = f"14a tier={tier}"
+            one_rank[f"index_prepared_{tier}"] = {1: index_query(
+                what, dj, topo, left, lcnt, lease.prepared, cfg1, build, probe, expected, ref,
+                kernels=prepared_effective_plan(tier))}
+            walls[tier] = warm_walls(lambda: dj.distributed_inner_join(
+                topo, left, lcnt, lease.prepared, None, [0], None, cfg1))[0]
+    lease.release()
+    log("index_cache", smoke_phase="14", case="(a)", ranks=1, odf=1, rows=rows,
+        miss_wall_ms=miss_ms, phase5_warm_prepare_ms=prep_ms, hit_wall_ms=hit_ms,
+        hit_launches=hit_launches, hit_dispatches=0, hit_collectives=coll.counts,
+        resident_bytes=side_bytes, memory_allocated_growth=grew,
+        resident_over_growth=side_bytes / grew if grew else None,
+        query_wall_ms=walls, phase5_query_wall_ms={t: query_ms[(1, t)] for t in TIERS},
+        launches={t: one_rank[f"index_prepared_{t}"][1] for t in TIERS}, card=smi)
+    cache.clear()
+    del lease, hit
+    torch.cuda.empty_cache()
+
+    # (b) the budget: 1.5 entries evict the LRU unpinned one; 2.5 entries
+    # with both pinned reject a third, typed, and keep the residency.
+    with env_set(DJT_INDEX_HBM_BUDGET=str(1.5 * side_bytes)), obs_on() as obs:
+        cache = djcache.JoinIndexCache()
+        a = get(cache, tenant="a")
+        a.release()
+        m0 = allocated()
+        b = get(cache, tenant="b")
+        m1 = allocated()
+        evicts = [e for e in obs.events("index") if e["op"] == "evict"]
+        b_bytes = cache.resident_bytes
+        # b adds one side of a's size and evicts a: the allocator stays flat.
+        insert_change = m1 - m0
+        b.release()
+        freed = cache.shed_bytes(float("inf"))
+        m2 = allocated()
+        drop_b = m1 - m2
+        if [e["tenant"] for e in evicts] != ["a"] or cache.entry_count != 0 or \
+                freed != b_bytes:
+            raise AssertionError(f"14b: evicts {evicts}, entries {cache.entry_count}, "
+                                 f"freed {freed} of {b_bytes}")
+        if on_card and not (abs(insert_change) <= 0.01 * side_bytes
+                            and abs(drop_b - b_bytes) <= 0.01 * b_bytes):
+            raise AssertionError(f"14b: the allocator moved {insert_change} bytes across an "
+                                 f"insert that evicted a side of {side_bytes}, and dropped "
+                                 f"{drop_b} for a shed side of {b_bytes}")
+    with env_set(DJT_INDEX_HBM_BUDGET=str(2.5 * side_bytes)), obs_on() as obs:
+        cache = djcache.JoinIndexCache()
+        x, y = get(cache, tenant="x"), get(cache, tenant="y")
+        resident, m3 = cache.resident_bytes, allocated()
+        try:
+            get(cache, tenant="z")
+        except dj.AdmissionRejected as e:
+            rejected = {"budget_bytes": e.budget_bytes, "forecast_bytes": e.forecast_bytes,
+                        "reserved_bytes": e.reserved_bytes}
+        else:
+            raise AssertionError("14b: a third entry beside two pinned ones was admitted")
+        m4 = allocated()
+        if cache.resident_bytes != resident or obs.counter_value("dj_index_evict_total") or \
+                sorted(v["tenant"] for v in cache.stats().values()) != ["x", "y"]:
+            raise AssertionError(f"14b: the reject changed the residency: {cache.stats()}")
+        x.release()
+        y.release()
+        cache.clear()
+    log("index_cache", smoke_phase="14", case="(b)", budget_entries=1.5, entry_bytes=side_bytes,
+        evicted=[e["tenant"] for e in evicts], allocator_change_across_evicting_insert=insert_change,
+        allocator_drop_on_shed=drop_b, shed_bytes=freed, pinned_budget_entries=2.5,
+        rejected=rejected, resident_bytes_kept=resident,
+        allocator_after_reject_minus_before=m4 - m3, card=smi)
+    del a, b, x, y
+    torch.cuda.empty_cache()
+
+    # (c) appends through the cache at odf 4: 5c's 1% rows incrementally,
+    # then rows past the anchored range through one re-prepare.
+    cfg4 = dj.JoinConfig(over_decom_factor=4, key_range=(0, 2 * rows))
+    cache = djcache.JoinIndexCache()
+    lease = get(cache, cfg=cfg4, tenant="append")
+    n_app = max(1, rows // 100)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    keys = absent_keys(gen, dev, build.columns[0].data, 2 * rows, n_app)
+    app = appended_table(dj, keys, build.capacity)
+    combined = dj.concatenate([build, app]).with_count(None)
+    total = expected + appended_matches(probe, keys)
+    del keys
+    with obs_on() as obs:
+        t0 = time.perf_counter()
+        cache.append_rows(lease.key, *dj.shard_table(topo, app))
+        torch.cuda.synchronize()
+        append_ms = (time.perf_counter() - t0) * 1e3
+        ops = [e["op"] for e in obs.events("index")]
+        touched = [e.get("touched") for e in obs.events("index")]
+    if ops != ["append"]:
+        raise AssertionError(f"14c: the in-range append recorded {ops}")
+    fresh = dj.prepare_join_side(topo, *dj.shard_table(topo, combined), [0], cfg4,
+                                 left_capacity=rows)
+    out, counts, _ = dj.distributed_inner_join(topo, left, lcnt, fresh, None, [0], None, cfg4)
+    fresh_rows = sorted_rows(out, counts)
+    del out, counts, fresh
+    for tier in TIERS:
+        with env_set(DJT_JOIN_MERGE=tier):
+            one_rank[f"index_append_{tier}"] = {4: index_query(
+                f"14c append tier={tier}", dj, topo, left, lcnt, lease.prepared, cfg4, combined,
+                probe, total, fresh_rows, kernels=prepared_effective_plan(tier))}
+    # Past the packed word's key field (the next power of two above the
+    # declared range), which the anchored plan holds.
+    far = appended_table(dj, 8 * rows + torch.arange(1000, device=dev), combined.capacity)
+    combined = dj.concatenate([combined, far]).with_count(None)
+    with obs_on() as obs:
+        t0 = time.perf_counter()
+        cache.append_rows(lease.key, *dj.shard_table(topo, far))
+        torch.cuda.synchronize()
+        reprepare_ms = (time.perf_counter() - t0) * 1e3
+        ops = [e["op"] for e in obs.events("index")]
+    healed = lease.prepared
+    if ops != ["reprepare"] or healed.key_range[0][1] != 8 * rows + 999:
+        raise AssertionError(f"14c: the escaping append recorded {ops}, range "
+                             f"{healed.key_range}")
+    one_rank["index_append_reprepared_sort"] = {4: index_query(
+        "14c escaping append", dj, topo, left, lcnt, healed, healed.config, combined, probe,
+        total, fresh_rows, kernels=prepared_effective_plan("sort"))}
+    log("index_cache", smoke_phase="14", case="(c)", odf=4, appended_rows=n_app,
+        touched=touched, append_wall_ms=append_ms, total=total, rows_checked=total,
+        same_rows_as_fresh_prepare=True, escaping_rows=1000, reprepare_events=1,
+        reprepare_wall_ms=reprepare_ms, key_range=healed.key_range,
+        resident_bytes=cache.resident_bytes, card=smi)
+    lease.release()
+    cache.clear()
+    del lease, healed, app, far, combined, fresh_rows
+    torch.cuda.empty_cache()
+
+    # (d) warm restart from the manifest, then warmup_join_index.
+    with tempfile.TemporaryDirectory() as tmp, \
+            env_set(DJT_INDEX_MANIFEST=os.path.join(tmp, "index.jsonl")):
+        cache = djcache.JoinIndexCache()
+        get(cache, tenant="a", name="build").release()
+        cache.clear()
+        restarted = djcache.JoinIndexCache()
+        with obs_on() as obs:
+            t0 = time.perf_counter()
+            restored = restarted.warm_restart(
+                lambda rec: {"topology": topo, "right": right, "right_counts": rcnt})
+            torch.cuda.synchronize()
+            restart_ms = (time.perf_counter() - t0) * 1e3
+            restores = [e for e in obs.events("index") if e["op"] == "restore"]
+            t0 = time.perf_counter()
+            warmed = dj.warmup_join_index(topo, restarted, left, lcnt, [0], cfg1)
+            warmup_ms = (time.perf_counter() - t0) * 1e3
+        if restored != 1 or len(restores) != 1 or warmed != 1:
+            raise AssertionError(f"14d: restored {restored}, {len(restores)} restore "
+                                 f"events, warmed {warmed}")
+        with get(restarted, tenant="a", name="build") as lease:
+            t0 = time.perf_counter()
+            res = dj.distributed_inner_join(topo, left, lcnt, lease.prepared, None, [0], None,
+                                            cfg1)
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            del res
+            warm, warm_runs, _ = warm_walls(lambda: dj.distributed_inner_join(
+                topo, left, lcnt, lease.prepared, None, [0], None, cfg1))
+        restarted.clear()
+    log("index_cache", smoke_phase="14", case="(d)", restored=restored,
+        restore_events=len(restores), restart_wall_ms=restart_ms, warmed=warmed,
+        warmup_wall_ms=warmup_ms, first_query_wall_ms=first_ms, warm_query_wall_ms=warm,
+        warm_query_wall_ms_runs=warm_runs, card=smi)
+    del lease
+    torch.cuda.empty_cache()
+
+    # (e) 4d's world: a cached side, a free hit, each tier's rows on their
+    # shard; the broadcast fit against the budget less the resident bytes.
+    topo4 = dj.make_topology([dev] * WORLD)
+    left4, lcnt4 = dj.shard_table(topo4, probe)
+    right4, rcnt4 = dj.shard_table(topo4, build)
+    cache = djcache.JoinIndexCache()
+    lease = get(cache, t=topo4, r=(right4, rcnt4), tenant="world")
+    reset_launches()
+    with counted_calls(dist, "run_spmd") as spmd_calls, Collectives() as hit_coll:
+        hit = get(cache, t=topo4, r=(right4, rcnt4), tenant="world")
+        torch.cuda.synchronize()
+    hit_launches = read_launches()
+    if hit.prepared is not lease.prepared or any(hit_launches.values()) or spmd_calls[0] or \
+            any(hit_coll.counts.values()):
+        raise AssertionError(f"14e: the hit launched {hit_launches}, {spmd_calls[0]} "
+                             f"dispatches, collectives {hit_coll.counts}")
+    hit.release()
+    for tier in TIERS:
+        with env_set(DJT_JOIN_MERGE=tier):
+            world[f"index_world_{tier}"] = {1: index_query(
+                f"14e tier={tier}", dj, topo4, left4, lcnt4, lease.prepared, cfg1, build, probe,
+                expected, ref, w=WORLD, kernels=prepared_effective_plan(tier))}
+    lease.release()
+    resident = djcache.resident_bytes()
+    rb = float(dist._global_table_bytes(topo4, right4))
+    budget = rb + resident - 1.0  # fits the side alone, not beside the entry
+    cfg0 = dj.JoinConfig()
+    with env_set(DJT_PLAN_ADAPT="1", DJT_BROADCAST_BYTES=repr(budget)):
+        available = plan_adapt.available_broadcast_bytes()
+        if available != budget - resident or resident != cache.resident_bytes:
+            raise AssertionError(f"14e: available {available}, budget {budget}, resident "
+                                 f"{resident}")
+        ledger.reset()
+        d = dist._resolve_plan_decision(topo4, left4, lcnt4, right4, rcnt4, (0,), (0,), cfg0)
+        if d.tier != "shuffle":
+            raise AssertionError(f"14e: with the entry resident the plan is {d}")
+        reset_launches()
+        with Collectives() as coll:
+            out, counts, info = dj.distributed_inner_join(topo4, left4, lcnt4, right4, rcnt4,
+                                                          [0], [0], cfg0)
+            torch.cuda.synchronize()
+        world["index_world_plan_shuffle"] = {1: read_launches()}
+        flags_false("14e shuffle plan", info)
+        if not coll.counts["all_to_all_start"]:
+            raise AssertionError(f"14e: the shuffle plan issued no all-to-all: {coll.counts}")
+        check_colocated("14e shuffle plan", out, counts, 1)
+        flat = dj.unshard_table(out, counts)
+        flat_counts = torch.tensor([flat.capacity])
+        check_rows(flat, flat_counts, build, probe, expected)
+        check_same_rows(sorted_rows(flat, flat_counts), ref, "14e shuffle plan")
+        del out, counts, info, flat
+        cache.clear()
+        ledger.reset()
+        d_empty = dist._resolve_plan_decision(topo4, left4, lcnt4, right4, rcnt4, (0,), (0,),
+                                              cfg0)
+        if (d_empty.tier, d_empty.source) != ("broadcast", "fit"):
+            raise AssertionError(f"14e: with the cache empty the plan is {d_empty}")
+        ledger.reset()
+    log("index_cache", smoke_phase="14", case="(e)", ranks=WORLD, odf=1, hit_launches=hit_launches,
+        hit_collectives=hit_coll.counts, shuffle_plan_collectives=coll.counts,
+        resident_bytes=resident, replicated_side_bytes=rb,
+        broadcast_bytes=budget, available_broadcast_bytes=available,
+        decision_with_entry=[d.tier, d.source], decision_without=[d_empty.tier, d_empty.source],
+        launches={k: v[1] for k, v in world.items()}, rows_checked=expected, colocated=True,
+        card=smi)
+    del lease, hit, left4, right4
+    torch.cuda.empty_cache()
+
+    # (f) the fleet tier: the prepare lease released after the manifest's
+    # insert line, then a faulted lease degrading once to a local build.
+    with tempfile.TemporaryDirectory() as tmp, \
+            env_set(DJT_FLEET_DIR=os.path.join(tmp, "fleet"),
+                    DJT_INDEX_MANIFEST=os.path.join(tmp, "index.jsonl")), obs_on() as obs:
+        leases_at_line = []
+        real_append = cache_index.dj_ledger.append_line
+
+        def append_line(path, rec):
+            leases_at_line.append(sorted(os.listdir(os.path.join(tmp, "fleet", "leases"))))
+            real_append(path, rec)
+
+        cache_index.dj_ledger.append_line = append_line
+        try:
+            cache = djcache.JoinIndexCache()
+            lease = get(cache, tenant="f", name="fleet")
+        finally:
+            cache_index.dj_ledger.append_line = real_append
+        with open(os.path.join(tmp, "index.jsonl")) as f:
+            lines = [json.loads(x) for x in f]
+        left_after = os.listdir(os.path.join(tmp, "fleet", "leases"))
+        if len(leases_at_line) != 1 or len(leases_at_line[0]) != 1 or left_after or \
+                [(r["op"], r["pid"], r["host"]) for r in lines] != [
+                    ("insert", os.getpid(), socket.gethostname())]:
+            raise AssertionError(f"14f: leases at the line {leases_at_line}, after "
+                                 f"{left_after}, manifest {lines}")
+        with env_set(DJT_JOIN_MERGE="sort"):
+            one_rank["index_fleet_sort"] = {1: index_query(
+                "14f fleet", dj, topo, left, lcnt, lease.prepared, cfg1, build, probe, expected,
+                ref, kernels=prepared_effective_plan("sort"))}
+        lease.release()
+        cache.clear()
+        with env_set(DJT_FAULT="fleet.lease_acquire@call=1"):
+            local = djcache.JoinIndexCache(djcache.IndexConfig())
+            lease = get(local, tenant="g")
+            degrades = obs.events("degrade")
+            pins = errors.pinned_tiers()
+            if [e["tier"] for e in degrades] != ["fleet"] or list(pins) != ["fleet"] or \
+                    fleet.enabled() or os.listdir(os.path.join(tmp, "fleet", "leases")):
+                raise AssertionError(f"14f: degrades {degrades}, pins {pins}")
+            with env_set(DJT_JOIN_MERGE="sort"):
+                one_rank["index_fleet_degraded_sort"] = {1: index_query(
+                    "14f degraded", dj, topo, left, lcnt, lease.prepared, cfg1, build, probe,
+                    expected, ref, kernels=prepared_effective_plan("sort"))}
+            lease.release()
+            local.clear()
+            errors.reset_pins()
+            from dj_tpu_torch.resilience import faults
+
+            faults.reset()
+    log("index_cache", smoke_phase="14", case="(f)", manifest_line={k: lines[0][k] for k in
+                                                               ("op", "tenant", "name", "odf")},
+        lease_held_at_the_line=True, leases_after=0, degrades=[e["tier"] for e in degrades],
+        pinned=list(pins), launches={k: one_rank[k][1] for k in
+                                     ("index_fleet_sort", "index_fleet_degraded_sort")}, card=smi)
+    del lease
+    djcache.reset()
+    torch.cuda.empty_cache()
+    log("index_cache_phase", smoke_phase="14", seconds=time.perf_counter() - t_phase, card=smi)
+    return one_rank, world
+
+
 # --- process worlds (phases 6a-6c) ---------------------------------------
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -6267,6 +6695,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("measurement_phase", smoke_phase="13", seconds=time.perf_counter() - t_13, card=smi)
     check_no_pins("13")
+
+    # 14. the join-index cache and fleet coordination on phase 5's side
+    index_launches, index_world = run_index_cache(dj, dev, topo, left, lcnt, right, rcnt, build,
+                                                  probe, expected, ref, rows, prep_walls[1],
+                                                  query_walls, smi)
+    launch_table.update(index_launches)
+    world_launches.update(index_world)
+    torch.cuda.empty_cache()
+    check_no_pins("14")
 
     # 6a. a process world of one over NCCL
     process1_launches = process_world_of_one(dj, dev, "nccl", build, probe, expected, ref, rows, smi)

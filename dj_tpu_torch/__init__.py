@@ -91,6 +91,14 @@ serve K same-shaped queries with one exchange epoch a batch;
 bucket so they group. ``warmup_all_to_all`` and ``warmup_prepared_join``
 pay the set-up costs before timing.
 
+A server keeps its prepared sides in a ``JoinIndexCache`` (``cache``;
+``IndexConfig``, ``DJT_INDEX_HBM_BUDGET``, ``DJT_INDEX_MANIFEST``): one
+resident side a (tenant, name, dataset, plan signature), refcounted
+leases, LRU eviction of unpinned sides under a byte budget, appends
+through the cache, a JSONL warm restart, and ``warmup_join_index`` over
+the inventory. ``DJT_FLEET_DIR`` coordinates several such workers through
+files (``fleet``: prepare leases, budget rows, a SIGTERM drain).
+
 Observability (``obs``; ``DJT_OBS=1`` or ``DJT_OBS_LOG=<path>``): a
 metrics registry (``obs.metrics_text()``), a flight recorder of every
 heal, ledger hit, plan and prepared tier, codec choice, shape-bucket
@@ -172,7 +180,14 @@ from .parallel.shuffle import shuffle_on, shuffle_on_auto
 from .parallel import plan_adapt  # noqa: F401 - the planner's namespace, as in dj_tpu
 from .parallel import shape_bucket  # noqa: F401 - the shape grid's namespace, as in dj_tpu
 from .parallel.topology import CommunicationGroup, Topology, largest_intra_size, make_topology
-from .parallel.warmup import warmup_all_to_all, warmup_compression, warmup_prepared_join
+from .parallel.warmup import (
+    warmup_all_to_all,
+    warmup_compression,
+    warmup_join_index,
+    warmup_prepared_join,
+)
+from . import cache  # noqa: F401 - the join-index cache namespace, as in dj_tpu
+from .cache import IndexConfig, JoinIndexCache
 from .utils.timing import PhaseTimer, annotate, profile
 from . import resilience
 from .resilience import (
@@ -208,7 +223,9 @@ __all__ = [
     "HASH_IDENTITY",
     "HASH_MURMUR3",
     "HealBudget",
+    "IndexConfig",
     "JoinConfig",
+    "JoinIndexCache",
     "JoinStage",
     "PhaseTimer",
     "PlanMismatch",
@@ -263,5 +280,6 @@ __all__ = [
     "unshard_table",
     "warmup_all_to_all",
     "warmup_compression",
+    "warmup_join_index",
     "warmup_prepared_join",
 ]

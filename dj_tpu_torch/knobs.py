@@ -49,7 +49,7 @@ __all__ = [
     "reset_names",
 ]
 
-RESET_CLASSES = ("serve", "plan", "resilience")
+RESET_CLASSES = ("serve", "index", "plan", "resilience")
 _CLASSES = RESET_CLASSES + ("trace", "ambient")
 _TRUTHY = ("1", "true", "yes", "on")
 
@@ -140,10 +140,33 @@ KNOBS: tuple[Knob, ...] = (
          "measured_admission reads the card's allocator (obs.truth)", "serve"),
     Knob("DJT_SERVE_MEASURED_HBM_HEADROOM", 0.0, "float",
          "bytes held back from the measured headroom", "serve"),
+    Knob("DJT_FLEET_TENANT_WEIGHTS", None, "str",
+         "tenant fair-share weights 'tenantA:2,tenantB:1'", "serve"),
+    Knob("DJT_FLEET_DRAIN_GRACE_S", 30.0, "float",
+         "SIGTERM drain grace: bounded wait for queued and running queries", "serve"),
+    # --- the join-index cache ---------------------------------------------
+    Knob("DJT_INDEX_HBM_BUDGET", 0.0, "float",
+         "resident-index budget in exact bytes (<= 0: unbudgeted)", "index"),
+    Knob("DJT_INDEX_MANIFEST", None, "path", "the cache's warm-restart JSONL manifest",
+         "index"),
     # --- resilience -------------------------------------------------------
     Knob("DJT_LEDGER", None, "path", "capacity ledger's JSONL file", "resilience"),
+    Knob("DJT_LEDGER_FSYNC", "0", "bool",
+         "fsync each ledger and manifest JSONL append", "resilience"),
     Knob("DJT_FAULT", None, "str",
          "deterministic fault sites, site@call=N[,...] (resilience.faults)", "resilience"),
+    # --- fleet coordination (fleet/) ----------------------------------------
+    Knob("DJT_FLEET_DIR", None, "path",
+         "shared coordination directory; arms fleet mode (leases, budget rows, drain)",
+         "resilience"),
+    Knob("DJT_FLEET_LEASE_TTL_S", 30.0, "float",
+         "lease heartbeat staleness horizon: past it a dead owner's lease is reclaimed",
+         "resilience"),
+    Knob("DJT_FLEET_LEASE_WAIT_S", 5.0, "float",
+         "bounded wait for a peer-held lease before proceeding process-locally",
+         "resilience"),
+    Knob("DJT_FLEET_LEASE_POLL_S", 0.05, "float", "poll interval while waiting on a lease",
+         "resilience"),
     # --- process worlds ---------------------------------------------------
     Knob("DJT_COORDINATOR_ADDRESS", None, "str",
          "host:port of the process world's rendezvous", "ambient"),

@@ -103,6 +103,14 @@ def prepared_side_bytes(prepared) -> int:
     return total
 
 
+def source_bytes(prepared) -> int:
+    """Device bytes of a PreparedSide's source table and counts (the
+    join-index cache's ``_source_bytes``): they count into a cache
+    entry's cost once maintenance made the cache the source's owner."""
+    total = buffer_bytes(prepared.right_counts.shape, prepared.right_counts.element_size())
+    return total + sum(_column_bytes(c) for c in prepared.right.columns)
+
+
 def replicated_table_bytes(table) -> int:
     """The buffer bytes of every column of ``table``: what one rank holds
     once the broadcast tier has gathered the table, when ``table`` is

@@ -126,10 +126,22 @@ def broadcast_budget_bytes() -> float:
 
 
 def available_broadcast_bytes() -> float:
-    """The budget the broadcast fit is judged against. dj_tpu subtracts
-    the join-index cache's resident bytes; the port has no such cache
-    yet (ROADMAP item 10d), so this is the budget alone."""
-    return broadcast_budget_bytes()
+    """The budget the broadcast fit is judged against: the budget less
+    the join-index cache's resident bytes (``cache.resident_bytes``). The
+    broadcast fit and the cache spend one device pool: a card whose
+    memory already holds resident sides has that much less room for a
+    replicated build side. A budget <= 0 (the tier off) is returned as
+    it is; a failure to read the cache leaves the budget whole."""
+    budget = broadcast_budget_bytes()
+    if budget <= 0:
+        return budget
+    try:
+        from ..cache import resident_bytes  # lazy, as in dj_tpu: no import cycle
+
+        budget -= float(resident_bytes())
+    except Exception:  # noqa: BLE001 - a cache failure must not fail a plan
+        pass
+    return budget
 
 
 def salt_ratio() -> float:

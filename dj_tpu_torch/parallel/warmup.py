@@ -8,8 +8,8 @@ shape, so what a warmup pays here is the transport's set-up (NCCL builds
 a communicator at its first collective on a group), the kernels' builds
 and loads, and the allocator's first blocks. Each warmup records one
 ``warmup`` event and counts ``dj_warmup_total{kind}``, as dj_tpu's do.
-``warmup_join_index`` walks the join-index cache and comes with it
-(ROADMAP item 10d).
+``warmup_join_index`` warms each resident entry of a join-index cache
+(``cache.JoinIndexCache``) the same way.
 """
 
 from __future__ import annotations
@@ -79,6 +79,39 @@ def warmup_prepared_join(topology: Topology, prepared, left_example, left_counts
                         topology=topology)
     obs.record("warmup", kind="prepared_join")
     obs.inc("dj_warmup_total", kind="prepared_join")
+
+
+def warmup_join_index(topology: Topology, cache, left_example, left_counts, left_on,
+                      config=None) -> int:
+    """Warm every resident entry of the join-index ``cache`` before
+    traffic arrives (the serving bookend of ``cache.warm_restart``, which
+    re-prepares the inventory): one :func:`warmup_prepared_join` an
+    entry, under its own pin (``cache.lease``), so no eviction races the
+    walk. An entry that fails (key dtypes or sizing the example does not
+    fit, a heal out of budget, a transport hiccup) is skipped with a
+    ``warmup`` event and the walk goes on. A kernel that does not build or
+    launch, or a device fault, fails the walk instead, as it fails
+    :func:`warmup_prepared_join`: no skip hides a broken kernel. Returns
+    the number of entries warmed."""
+    warmed = 0
+    for key in cache.keys():
+        try:
+            lease = cache.lease(key)
+        except KeyError:
+            continue  # evicted between keys() and lease()
+        with lease:
+            try:
+                warmup_prepared_join(topology, lease.prepared, left_example, left_counts,
+                                     left_on, config)
+                warmed += 1
+            except Exception as e:  # noqa: BLE001 - the walk survives an entry
+                if resil._kernel_failure(e):
+                    raise
+                obs.record("warmup", kind="join_index_skip", key=key[:200],
+                           error=type(e).__name__)
+    obs.record("warmup", kind="join_index", warmed=warmed)
+    obs.inc("dj_warmup_total", kind="join_index")
+    return warmed
 
 
 def warmup_compression(itemsize: int = 8, bucket_rows: int = 4096, device=None) -> None:

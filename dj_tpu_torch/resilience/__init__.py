@@ -7,14 +7,16 @@ Counterpart of ``dj_tpu/resilience/__init__.py``, with the same
   PlanMismatch, DeadlineExceeded, FaultInjected, ...) and the tier
   degradation ladder (:func:`degrade_guard`): a failing optional tier
   (the CUDA merge kernel, the probe tier's expansion, the compressed
-  wire, the adaptive plans, the prepared build tiers) is pinned to its
-  baseline for the process and the call retried;
+  wire, the adaptive plans, the prepared build tiers, the autotuner,
+  fleet coordination) is pinned to its baseline for the process and the
+  call retried;
 - heal.py: the budgeted heal engine (:func:`run_healed`,
   :class:`HealBudget`, :func:`deadline_scope`) behind
   ``distributed_inner_join_auto``, ``prepare_join_side`` and
   ``shuffle_on_auto``;
 - ledger.py: the capacity ledger, learned factors and plan repairs per
-  workload signature, kept in ``DJT_LEDGER=<path>`` if set;
+  workload signature, kept in ``DJT_LEDGER=<path>`` if set (re-read on a
+  miss under ``DJT_FLEET_DIR``);
 - faults.py: deterministic fault injection (``DJT_FAULT=site@call=N``),
   named host-side sites firing on exact call counts; a strict no-op
   when unset.

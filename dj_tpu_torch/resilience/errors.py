@@ -32,6 +32,8 @@ autotune      ``DJT_AUTOTUNE=0``             ``autotune.enabled()``
 expand        ``DJT_PROBE_EXPAND=hist``      ``resolve_probe_expand()`` is
                                              not hist
 prepared_tier ``DJT_PREPARED_TIER=shuffle``  the knob is set, not shuffle
+fleet         ``DJT_FLEET_DIR`` empty          the knob is set (fleet
+                                             coordination is armed)
 ============= ============================== ===============================
 
 A pin writes the baseline into the tier's knob, which the port reads
@@ -55,8 +57,7 @@ peers' next call's. Every other failure there propagates unchanged.
 
 Left out of dj_tpu's ladder: its ``sort`` tier (``DJ_JOIN_SORT=bucketed``,
 which the port measured slower on the card and did not keep), so every
-guard that names ``sort`` there names the others without it here; the ``fleet`` tier,
-which comes with the fleet coordination (ROADMAP item 10d); and
+guard that names ``sort`` there names the others without it here; and
 ``_BUILDER_TIER`` with the ``ContractViolation`` branch of
 ``_culprit_tier``, which read the HLO auditor's verdict on a compiled
 module, and the port compiles none.
@@ -231,6 +232,10 @@ TIER_BASELINE = {
     # side; a broadcast or salted side already built raises
     # PreparedPlanMismatch at its next query, which re-prepares it.
     "prepared_tier": ("DJT_PREPARED_TIER", "shuffle"),
+    # Fleet coordination (fleet/): an empty arming knob makes every later
+    # lease, budget row and manifest consult see fleet mode off, so a
+    # lost shared directory degrades to process-local serving.
+    "fleet": ("DJT_FLEET_DIR", ""),
 }
 
 # Exception fault sites that name their tier (FaultInjected carries the
@@ -253,6 +258,10 @@ _SITE_TIER = {
     "prepare_salted": "prepared_tier",
     "bc_prepared_query": "prepared_tier",
     "salted_prepared_query": "prepared_tier",
+    # Any faulted lease or budget step pins the one "fleet" tier.
+    "fleet.lease_acquire": "fleet",
+    "fleet.lease_heartbeat": "fleet",
+    "fleet.publish": "fleet",
 }
 
 _pin_lock = threading.Lock()
@@ -355,6 +364,8 @@ def _tier_active(tier: str, config, compression) -> bool:
         return resolve_probe_expand() != "hist"
     if tier == "prepared_tier":
         return knobs.read("DJT_PREPARED_TIER") not in (None, "", "shuffle")
+    if tier == "fleet":
+        return bool(knobs.read("DJT_FLEET_DIR"))
     return False
 
 

@@ -41,8 +41,9 @@ Two site families:
   / ``salted`` (the skew-adaptive plans) and ``prepare_broadcast`` /
   ``prepare_salted`` / ``bc_prepared_query`` / ``salted_prepared_query``
   (the prepared build tiers), ``autotune_probe`` (each timed probe
-  dispatch of the autotuner) and ``autotune_apply`` (a tuned config's
-  application). The degradation ladder
+  dispatch of the autotuner), ``autotune_apply`` (a tuned config's
+  application) and the fleet's ``fleet.lease_acquire``,
+  ``fleet.lease_heartbeat`` and ``fleet.publish``. The degradation ladder
   (``errors.degrade_guard``) pins the tier a site names.
 
 dj_tpu consults ``communicator``, ``codec``, ``pallas_merge``,

@@ -23,6 +23,11 @@ line (one ``os.write`` on an ``O_APPEND`` descriptor, so concurrent
 writers interleave whole lines), and the first use replays the file,
 skipping a torn last line. A missing or unreadable file is an empty
 start; a write that fails is skipped, never raised.
+``DJT_LEDGER_FSYNC=1`` adds an fsync to each appended line (the
+ledger's and the join-index manifest's). Under fleet coordination
+(``DJT_FLEET_DIR``), :func:`consult` re-replays the shared file before it
+declares a miss (:func:`refresh`), so a peer's heal is adopted, not paid
+again.
 """
 
 from __future__ import annotations
@@ -138,17 +143,32 @@ def _ensure_loaded_locked() -> None:
 
 def append_line(path: str, rec: dict) -> None:
     """Append ``rec`` as one JSON line with one ``os.write`` on an
-    ``O_APPEND`` descriptor. A failure is skipped: a broken ledger file
+    ``O_APPEND`` descriptor, so concurrent writers (fleet peers sharing a
+    ledger or a manifest) interleave whole lines; fsync'd under
+    ``DJT_LEDGER_FSYNC``. A failure is skipped: a broken ledger file
     must never take a join down."""
     data = (json.dumps(rec) + "\n").encode("utf-8")
     try:
         fd = os.open(path, os.O_APPEND | os.O_CREAT | os.O_WRONLY, 0o644)
         try:
             os.write(fd, data)
+            if knobs.read_bool("DJT_LEDGER_FSYNC"):
+                os.fsync(fd)
         finally:
             os.close(fd)
     except (OSError, TypeError):
         pass
+
+
+def refresh() -> None:
+    """Replay the ``DJT_LEDGER`` file again now, merging the records
+    other processes appended since the last load (factors merge by max,
+    so a second replay changes nothing else). Fleet mode calls this
+    before declaring a signature unlearned."""
+    global _loaded_path
+    with _lock:
+        _loaded_path = None
+        _ensure_loaded_locked()
 
 
 def wider_factors(learned, current) -> dict:
@@ -171,10 +191,14 @@ def lookup(sig: str) -> Optional[dict]:
 
 def consult(sig: str) -> Optional[dict]:
     """A copy of the learned entry of ``sig``, or None, counted in
-    ``dj_ledger_hit_total`` or ``dj_ledger_miss_total``
-    (dj_tpu/resilience/ledger.py:239-259, without its ``DJ_FLEET_DIR``
-    refresh, which comes with fleet coordination)."""
+    ``dj_ledger_hit_total`` or ``dj_ledger_miss_total``. Under
+    ``DJT_FLEET_DIR`` a miss first re-replays the shared file
+    (:func:`refresh`): a peer may have healed the signature since this
+    process loaded it. Hits stay file-free."""
     entry = lookup(sig)
+    if entry is None and knobs.read("DJT_FLEET_DIR"):
+        refresh()
+        entry = lookup(sig)
     obs.inc("dj_ledger_miss_total" if entry is None else "dj_ledger_hit_total")
     return entry
 

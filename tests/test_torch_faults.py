@@ -48,8 +48,10 @@ TIER_ENV = {
                       ("shuffle", "shuffle")),
     "wire": ({}, {}, ("uncompressed", "uncompressed")),
     "autotune": ({"DJ_AUTOTUNE": "1"}, {"DJT_AUTOTUNE": "1"}, ("0", "0")),
+    "fleet": ({"DJ_FLEET_DIR": "/nonexistent/fleet"}, {"DJT_FLEET_DIR": "/nonexistent/fleet"},
+              ("", "")),
 }
-LADDER = ("merge", "wire", "expand", "prepared_tier", "adapt", "autotune")
+LADDER = ("merge", "wire", "expand", "prepared_tier", "adapt", "autotune", "fleet")
 
 
 @pytest.fixture(autouse=True)
@@ -211,7 +213,7 @@ def test_force_flags_copies(pkg):
 
 
 def test_the_ladder_is_dj_tpus_less_the_unported_tiers():
-    gone = {"sort", "fleet"}
+    gone = {"sort"}
     assert set(terrors.TIER_BASELINE) == set(jerrors.TIER_BASELINE) - gone
     assert terrors._SITE_TIER == {s: t for s, t in jerrors._SITE_TIER.items() if t not in gone}
     for tier, (knob, baseline) in terrors.TIER_BASELINE.items():

@@ -46,7 +46,7 @@ def test_every_knob_is_documented_in_the_port_section_of_the_readme():
 
 
 def test_registry_shape():
-    assert len(knobs.KNOBS) == len(knobs.REGISTRY) == 46
+    assert len(knobs.KNOBS) == len(knobs.REGISTRY) == 55
     for k in knobs.KNOBS:
         assert k.doc and k.kind in ("bool", "int", "float", "str", "enum", "path")
         assert (k.kind == "enum") == bool(k.choices)

@@ -61,7 +61,7 @@ chip_smoke = _load("chip_smoke", ROOT / "chip_smoke.py")
 
 WORLDS = (2, 4)
 CASES = {2: ["collectives", "exchange", "shuffle", "join", "generate", "auto", "keys", "strings",
-             "append", "fleet", "autotune"],
+             "append", "fleet", "autotune", "index"],
          4: ["collectives", "exchange", "shuffle", "join", "prepared", "generate", "two_level",
              "plan_adapt", "pipeline"]}
 
@@ -720,6 +720,44 @@ def test_a_ledger_split_world_fails_instead_of_hanging(worlds):
     (rc0, _, err0), (rc1, _, err1) = worlds.outcome("ledger_split")
     assert rc0 != 0 and rc1 != 0
     assert "collective mismatch" in err0 + err1
+
+
+def test_process_world_index_cache_decides_once_for_the_world(worlds):
+    """Two gloo processes share a DJT_FLEET_DIR and a manifest: every
+    process takes the same miss, hit and replay (the world's own record
+    is never a live peer's, so no process defers to its own world), the
+    leases, budget rows and manifest lines carry process 0's pid, each
+    process's row is charged to no process of the world, the faulted
+    gate pins the fleet tier on both, and every query's shard equals the
+    world in one process's."""
+    results = worlds.results(2)
+    a, b = (r["index"] for r in results)
+    owner = a["pid"]
+    assert a["identity"] == b["identity"] and a["identity"]["pid"] == owner != b["pid"]
+    assert a["events"] == b["events"] and a["counters"] == b["counters"]
+    assert not [e for e in a["events"] if e.get("action") == "peer_defer"]
+    assert [e.get("op") or e.get("action") or e["type"] for e in a["events"]] == [
+        "miss", "insert", "hit", "miss", "replay", "insert", "miss", "degrade", "insert"]
+    assert a["counters"] == {"dj_index_hit_total": 1.0, "dj_index_miss_total": 3.0,
+                             "dj_fleet_replay_total": 1.0, "dj_fleet_peer_defer_total": 0.0}
+    assert a["same_side"] and b["same_side"]
+    assert a["budget_rows"] == b["budget_rows"] == [f"{owner}-r0.json", f"{owner}-r1.json"]
+    assert a["peer_bytes"] == b["peer_bytes"] == 0.0
+    assert a["manifest"] == b["manifest"] and len(a["manifest"]) == 2
+    assert all(rec["pid"] == owner and rec["op"] == "insert" for rec in a["manifest"])
+    assert a["leases_left"] == b["leases_left"] == []
+    assert a["pins"] == b["pins"] == ["fleet"]
+    w = W.prepared_tables(5)
+    topo = tj.make_topology(["cpu"] * 2)
+    (tl, tlc), (tr, trc) = (W._sharded(topo, t) for t in (w[1], w[0]))
+    cfg = tj.JoinConfig(**W.INDEX_CONFIG)
+    prep = tj.prepare_join_side(topo, tr, trc, [0], cfg, left_capacity=3600)
+    want = W._join_result(tj.distributed_inner_join(topo, tl, tlc, prep, None, [0], None, cfg))
+    assert not any(any(v) for v in want["flags"].values())
+    for r, res in enumerate(results):
+        for call in ("miss", "replayed", "faulted"):
+            got = res["index"][call]
+            assert got["rows"] == [want["rows"][r]] and got["flags"] == want["flags"], (r, call)
 
 
 def _counting(monkeypatch):

@@ -13,10 +13,6 @@ import dj_tpu
 import dj_tpu_torch as tj
 
 NOT_YET_PORTED = {
-    # 10d: the join-index cache (cache/index.py; warmup_join_index walks it).
-    "warmup_join_index": "10d",
-    "IndexConfig": "10d",
-    "JoinIndexCache": "10d",
     # 10e: admission and the query scheduler (serve/).
     "QueryScheduler": "10e",
     "ServeConfig": "10e",

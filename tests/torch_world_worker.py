@@ -866,6 +866,80 @@ def case_autotune(topo):
     return out
 
 
+# The per-world output directory (main's), shared by the world's processes.
+OUT_DIR = None
+INDEX_CONFIG = dict(key_range=(0, 7199))
+
+
+def case_index(topo):
+    """The join-index cache in a world of processes sharing one
+    DJT_FLEET_DIR and manifest: a miss (process 0 takes the lease and
+    writes the manifest's line) and its query, a hit of the same side,
+    each process's budget row under the world's owner, a second cache
+    over the same manifest (the world's own record replays: no process
+    defers to its own world), then DJT_FAULT=fleet.lease_acquire@call=1
+    armed in every process: process 0 consults the site, every process
+    pins the fleet tier and the side builds locally."""
+    from dj_tpu_torch import obs
+    from dj_tpu_torch.cache import IndexConfig, JoinIndexCache
+    from dj_tpu_torch.fleet import budget, identity
+    from dj_tpu_torch.resilience import errors, faults
+
+    shared = pathlib.Path(OUT_DIR)
+    manifest = str(shared / "index_manifest.jsonl")
+    os.environ["DJT_FLEET_DIR"] = str(shared / "fleet")
+    build, probe = prepared_tables(5)
+    (tl, tlc), (tr, trc) = _sharded(topo, probe), _sharded(topo, build)
+    cfg = dj.JoinConfig(**INDEX_CONFIG)
+    obs.reset(reenable=True)
+    obs.drain()
+
+    def get(cache, **kw):
+        return cache.get_or_prepare(topo, tr, trc, [0], cfg, tenant="t", name="n",
+                                    left_capacity=3600, **kw)
+
+    def run(side):
+        return _join_result(dj.distributed_inner_join(topo, tl, tlc, side, None, [0], None, cfg))
+
+    out = {"pid": os.getpid()}
+    try:
+        cache = JoinIndexCache(IndexConfig(manifest_path=manifest))
+        lease = get(cache)
+        out["miss"] = run(lease.prepared)
+        with get(cache) as hit:
+            out["same_side"] = hit.prepared is lease.prepared
+        lease.release()
+        out["identity"] = identity()
+        budget.publish(100.0, 50.0)
+        torch.distributed.barrier()
+        out["budget_rows"] = sorted(os.listdir(shared / "fleet" / "budget"))
+        out["peer_bytes"] = budget.peer_bytes()
+        with get(JoinIndexCache(IndexConfig(manifest_path=manifest))) as again:
+            out["replayed"] = run(again.prepared)
+        torch.distributed.barrier()
+        with open(manifest) as f:
+            out["manifest"] = [json.loads(x) for x in f]
+        out["leases_left"] = os.listdir(shared / "fleet" / "leases")
+        faults.configure("fleet.lease_acquire@call=1")
+        with get(JoinIndexCache()) as local:
+            out["faulted"] = run(local.prepared)
+        out["pins"] = sorted(errors.pinned_tiers())
+        out["events"] = [{k: v for k, v in e.items() if k not in ("seq", "ts")}
+                         for e in obs.drain() if e["type"] in ("index", "fleet", "degrade")]
+        out["counters"] = {n: obs.counter_value(n) for n in
+                           ("dj_index_hit_total", "dj_index_miss_total",
+                            "dj_fleet_replay_total", "dj_fleet_peer_defer_total")}
+    finally:
+        faults.reset()
+        errors.reset_pins()
+        dj.cache.reset()
+        dj.fleet.reset()
+        dj.resilience.ledger.reset()
+        obs.reset(reenable=False)
+        os.environ.pop("DJT_FLEET_DIR", None)
+    return out
+
+
 CASES = {"collectives": case_collectives, "exchange": case_exchange, "shuffle": case_shuffle,
          "join": case_join, "prepared": case_prepared, "generate": case_generate,
          "auto": case_auto, "keys": case_keys, "fail": case_fail,
@@ -873,10 +947,12 @@ CASES = {"collectives": case_collectives, "exchange": case_exchange, "shuffle": 
          "two_level": case_two_level, "compress": case_compress, "append": case_append,
          "fault": case_fault, "peer_fails": case_peer_fails,
          "plan_adapt": case_plan_adapt, "pipeline": case_pipeline, "fleet": case_fleet,
-         "autotune": case_autotune}
+         "autotune": case_autotune, "index": case_index}
 
 
 def main(spec_json: str, out_dir: str) -> int:
+    global OUT_DIR
+    OUT_DIR = out_dir
     spec = json.loads(spec_json)
     torch.set_num_threads(1)
     dj.init_distributed(device="cpu")
