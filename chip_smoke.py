@@ -393,6 +393,41 @@ Phases, each printing its own line(s):
      manifest's insert line (with pid and host) is written and releases
      it after, then DJT_FAULT=fleet.lease_acquire@call=1 degrades once,
      pins fleet and builds locally (rows checked), and reset_pins();
+  15. admission and the query scheduler (after 14, on phase 4's and
+     phase 5's tables; DJT_SERVE_HBM_BUDGET set to twice the larger
+     forecast, since dj_tpu's 16e9 default refuses a full-width query):
+     (a) one rank at odf 1 and 4, QueryScheduler with its worker thread:
+     each served query's rows equal phase 4's and its launches the direct
+     distributed_inner_join_auto's; the forecast beside the card's bytes
+     and the allocator's peak, the serve event's queued, run and total
+     seconds, the served wall beside the direct one, and
+     dj_forecast_error_ratio holding every served result; (b) four
+     queries, each on a quarter of the probe table, against phase 5's
+     side under each merge tier: one coalesce event of 4, each member's
+     rows equal to its singleton's, each tier's kernels launched once a
+     member; DJT_FAULT=prepared.join_overflow@call=1 demotes member 0 to
+     the singleton heal, rows checked; (c) a budget one byte under the
+     forecast rejects at submit with no launch, dispatch or collective,
+     and DJT_SERVE_MEASURED_HBM=1 rejects against the allocator's
+     headroom with source measured_hbm and its bytes in use; (d) a
+     deadline expired in the queue sheds "queued" with no launch, and a
+     healing query (join_out_factor 0.01) sheds "healing" after its
+     first attempt; (e) queries priced past the budget walk the pressure
+     ladder: level 1 pins wire, level 2 pins merge (a merge-tier query
+     then launches no merge_sorted_u64, rows checked), level 3 halves an
+     odf-4 query (join_scans and expand_values twice), then reset_pins
+     and reset_pressure; (f) a scheduler with a JoinIndexCache: the
+     second query is an index hit with no prepare, a pinned side's bytes
+     count at the door, and an unpinned one is shed to admit; (g) 4d's
+     world: a served query at odf 1 on the worker, rows checked and on
+     their shard, then fleet.drain.begin(): a new submit raises
+     Draining and the queued query finishes; (h) 40 seeded queries (the
+     four members against a quarter of the build table, unprepared at
+     odf 1 and 4 and through its prepared side) under DJT_FAULT at four
+     sites, over-budget and expired ones among them, on the worker in
+     groups of at most 4: every ticket ends once with a result (rows
+     counted against the member's direct join) or a typed DJError other
+     than BackendError, every query span closed, no pin left;
   9. timings: the `timings` line (walls, peaks and the main path's sort);
   10. the hardware probes: `python -m dj_tpu_torch.hw.probe_sort` and
      `... .probe_gather` through their main() at the JAX probes' shapes
@@ -415,7 +450,7 @@ then the `kernels` JSON line (kernel, plain-version and library times
 beside each kernel's bound, launches per query on each path and in the
 4-rank world (the plan tiers of 4i, 5e and 8f and the composition
 layers' 4j, 4k and 5f, phase 13's tuned chain and probes and phase
-14's cached sides among its paths), its two-level form and the
+14's cached sides and phase 15's served queries among its paths), its two-level form and the
 process worlds (6b's broadcast run and chain apart), expand_ranks'
 codec decodes in 4g, expand_values' probe-tier call of 5d, and each
 kernel's registers and spills from ptxas; the probes' launches are their
@@ -430,8 +465,10 @@ seconds.
 from __future__ import annotations
 
 import argparse
+import collections
 import concurrent.futures
 import contextlib
+import gc
 import io
 import json
 import os
@@ -5290,6 +5327,552 @@ def run_index_cache(dj, dev, topo, left, lcnt, right, rcnt, build, probe, expect
     return one_rank, world
 
 
+# --- admission and the query scheduler (phase 15) ----------------------------
+
+
+CARD_BYTES = 85_017_493_504  # the H100 80GB HBM3's total_memory
+
+
+def served(s, submit_args):
+    """Submit one query to scheduler ``s`` and wait for it: (payload, wall
+    ms from submit to the caller's stream ordered after the result, the
+    ticket)."""
+    t0 = time.perf_counter()
+    t = s.submit(*submit_args)
+    res = t.result(timeout=600)
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) * 1e3, t
+
+
+def rows_of(what: str, out, counts, build, probe, expected: int, ref) -> None:
+    check_rows(out, counts, build, probe, expected)
+    if ref is not None:
+        check_same_rows(sorted_rows(out, counts), ref, what)
+
+
+@contextlib.contextmanager
+def released(phase: str):
+    """The block must give back every device byte it allocates: no
+    scheduler, ticket or error of it may keep memory once its objects are
+    gone (6b's four processes share the card with what this one holds).
+    Reference cycles are collected first: the check is for references."""
+    gc.collect()
+    base = allocated()
+    before = {id(o) for o in gc.get_objects() if isinstance(o, torch.Tensor)}
+    yield
+    gc.collect()
+    torch.cuda.empty_cache()
+    left_over = allocated() - base
+    log("released", smoke_phase=phase, allocated_left_over=left_over,
+        reserved_after=torch.cuda.memory_reserved())
+    if left_over > 64 * 2**20:
+        print_holders(before)
+        raise AssertionError(f"{phase}: {left_over} device bytes still allocated after it")
+
+
+def print_holders(before: set, top: int = 6, depth: int = 10) -> None:
+    """The tensors alive now that were not alive in ``before`` (ids):
+    their count and bytes, and for the largest a chain of what holds
+    each: the diagnosis of a phase that leaves device memory allocated."""
+    import types
+
+    new = [o for o in gc.get_objects() if isinstance(o, torch.Tensor) and id(o) not in before]
+    new.sort(key=lambda t: -t.untyped_storage().nbytes())
+    storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes() for t in new
+                if t.is_cuda}
+    print(f"[holder] {len(new)} new tensors, {len(storages)} CUDA storages of "
+          f"{sum(storages.values())} bytes", flush=True)
+    skip = {id(new), id(storages)}
+    for i in range(min(top, len(new))):
+        o, seen = new[i], set()
+        print(f"[holder] tensor {tuple(o.shape)} {o.dtype} {o.device} "
+              f"{o.untyped_storage().nbytes()} bytes", flush=True)
+        for level in range(depth):
+            refs = [r for r in gc.get_referrers(o) if id(r) not in skip and id(r) not in seen
+                    and not (isinstance(r, types.FrameType) and r.f_code.co_name == "print_holders")]
+            skip.add(id(refs))
+            if not refs:
+                break
+            r = refs[0]
+            seen.add(id(r))
+            if isinstance(r, types.FrameType):
+                what = f"frame {r.f_code.co_name} {r.f_code.co_filename}:{r.f_lineno}"
+            elif isinstance(r, dict) and "__builtins__" in r:
+                what = f"globals of {r.get('__name__')}"
+            elif isinstance(r, dict):
+                what = f"dict keys {list(r)[:8]}"
+            elif isinstance(r, (list, tuple)):
+                what = f"{type(r).__name__} of {len(r)}: {[type(x).__name__ for x in r[:4]]}"
+            else:
+                what = f"{type(r).__module__}.{type(r).__qualname__}"
+            print(f"[holder]   {'  ' * level}<- {what}"[:300], flush=True)
+            o = r
+    del new
+
+
+def run_serve(dj, dev, topo, left, lcnt, right, rcnt, build, probe, expected: int, ref,
+              rows: int, seed: int, smi: str) -> tuple:
+    """Phase 15: the query scheduler on the card, on phase 4's and phase
+    5's tables (module docstring). Returns ({path: {odf: launches}} of
+    one rank, the same of the 4-rank world)."""
+    from dj_tpu_torch import cache as djcache
+    from dj_tpu_torch import fleet, serve
+    from dj_tpu_torch.obs import metrics, truth
+    from dj_tpu_torch.ops.join import prepared_effective_plan
+    from dj_tpu_torch.parallel import dist_join as dist
+    from dj_tpu_torch.resilience import errors, faults
+    from dj_tpu_torch.serve import QueryScheduler, ServeConfig
+
+    t_phase = time.perf_counter()
+    on_card = torch.device(dev).type == "cuda"
+    one_rank: dict = {}
+    world: dict = {}
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory if on_card else CARD_BYTES
+
+    cfgs = {odf: dj.JoinConfig(over_decom_factor=odf) for odf in (1, 4)}
+    fcs = {odf: serve.forecast(topo, left, right, [0], [0], cfgs[odf]) for odf in (1, 4)}
+    # The budget counts modeled bytes, and dj_tpu's 16e9 default refuses
+    # a full-width query: set it from the forecasts.
+    budget = 2.0 * max(fc.bytes for fc in fcs.values())
+    serve.reset()
+
+    # (a) a served join against the direct call, on the worker thread.
+    with env_set(DJT_SERVE_HBM_BUDGET=repr(budget)), obs_on() as obs:
+        sc = ServeConfig.from_env()
+        if sc.hbm_budget_bytes != budget:
+            raise AssertionError(f"15a: ServeConfig.from_env() read {sc.hbm_budget_bytes}")
+        lines = {}
+        with QueryScheduler(sc, worker=True) as s:
+            for odf in (1, 4):
+                what = f"15a odf={odf}"
+                args = (topo, left, lcnt, right, rcnt, [0], [0], cfgs[odf])
+                walls = {"direct": [], "served": []}
+                for _ in range(2):  # the first warms up
+                    reset_launches()
+                    torch.cuda.reset_peak_memory_stats()
+                    t0 = time.perf_counter()
+                    out, counts, info, _ = dj.distributed_inner_join_auto(*args)
+                    torch.cuda.synchronize()
+                    walls["direct"].append((time.perf_counter() - t0) * 1e3)
+                    direct_launches, direct_peak = read_launches(), torch.cuda.max_memory_allocated()
+                    del out, counts, info
+                    reset_launches()
+                    torch.cuda.reset_peak_memory_stats()
+                    (out, counts, info, used), wall, _ = served(s, args)
+                    walls["served"].append(wall)
+                    launches, peak = read_launches(), torch.cuda.max_memory_allocated()
+                    flags_false(what, info)
+                    rows_of(what, out, counts, build, probe, expected, ref)
+                    del out, counts, info
+                    if launches != direct_launches:
+                        raise AssertionError(f"{what}: served launches {launches} != the direct "
+                                             f"call's {direct_launches}")
+                    if min(launches["join_scans"], launches["expand_values"]) != odf:
+                        raise AssertionError(f"{what}: rows 1-2 launched {launches}")
+                serves = [e for e in obs.events("serve") if e["outcome"] == "result"]
+                last = serves[-1]
+                one_rank.setdefault("served_unprepared", {})[odf] = launches
+                lines[odf] = dict(
+                    forecast_bytes=fcs[odf].bytes, card_bytes=card_bytes,
+                    forecast_over_card=fcs[odf].bytes / card_bytes, peak_allocated=peak,
+                    direct_peak_allocated=direct_peak,
+                    forecast_over_peak=fcs[odf].bytes / peak if peak else None,
+                    queued_s=last["queued_s"], run_s=last["run_s"], total_s=last["total_s"],
+                    served_wall_ms=walls["served"][-1], direct_wall_ms=walls["direct"][-1],
+                    served_wall_ms_runs=walls["served"], direct_wall_ms_runs=walls["direct"],
+                    launches=launches, direct_launches=direct_launches,
+                    worker_thread=True, used_odf=used.over_decom_factor)
+        ratio = metrics.histogram_raw("dj_forecast_error_ratio")
+        if ratio is None or ratio[3] != 4:
+            raise AssertionError(f"15c: dj_forecast_error_ratio holds {ratio}, not the 4 served "
+                                 f"results")
+        for odf, line in lines.items():
+            log("serve", smoke_phase="15", case="(a)", ranks=1, odf=odf, rows=rows,
+                budget_bytes=budget, rows_checked=expected, same_rows_as_phase_4=True,
+                forecast_error_ratio_count=ratio[3],
+                forecast_error_ratio_p50=metrics.histogram_quantile("dj_forecast_error_ratio",
+                                                                    0.5),
+                **line, card=smi)
+    torch.cuda.empty_cache()
+
+    # (b) coalescing: four queries on a quarter of the probe table each,
+    # against phase 5's side (5f's member slack), on each merge tier.
+    m = rows // 4
+    members = [dj.shard_table(topo, slice_rows(dj, probe, q * m, (q + 1) * m)) for q in range(4)]
+    pcfg = dj.JoinConfig(key_range=(0, 2 * rows), join_out_factor=0.25)
+    prep = dj.prepare_join_side(topo, right, rcnt, [0], pcfg, left_capacity=m)
+    member_want = []
+    for q, (lq, lcq) in enumerate(members):
+        out, counts, info = dj.distributed_inner_join(topo, lq, lcq, prep, None, [0], None, pcfg)
+        flags_false(f"15b singleton {q}", info)
+        member_want.append(member_rows(f"15b singleton {q}", dj, out, counts, build, probe, ref,
+                                       q * m, (q + 1) * m))
+        del out, counts, info
+    if sum(g[0].shape[0] for g in member_want) != expected:
+        raise AssertionError("15b: the singletons' rows do not sum to the join's")
+    with obs_on() as obs:
+        for tier in TIERS:
+            what = f"15b tier={tier}"
+            with env_set(DJT_JOIN_MERGE=tier), QueryScheduler(ServeConfig(hbm_budget_bytes=0),
+                                                              worker=False) as s:
+                ts = [s.submit(topo, lq, lcq, prep, None, [0], None, pcfg) for lq, lcq in members]
+                reset_launches()
+                t0 = time.perf_counter()
+                got = [t.result(timeout=600) for t in ts]
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                launches = read_launches()
+            for q, (r, t) in enumerate(zip(got, ts)):
+                if not t.coalesced:
+                    raise AssertionError(f"{what}: member {q} did not coalesce")
+                flags_false(f"{what} member {q}", r[2])
+                check_same_rows(member_rows(f"{what} member {q}", dj, r[0], r[1], build, probe,
+                                            ref, q * m, (q + 1) * m), member_want[q], what)
+            del got
+            coal = obs.events("coalesce")
+            bad = {k: launches[k] for k in prepared_effective_plan(tier) if launches[k] != 4}
+            if [e["size"] for e in coal] != [4] or bad:
+                raise AssertionError(f"{what}: coalesce events {coal}, launches {bad} (4 each: "
+                                     f"a member)")
+            obs.drain()
+            one_rank.setdefault(f"served_coalesced_{tier}", {})[1] = launches
+            log("serve", smoke_phase="15", case="(b)", tier=tier, members=4, member_rows=m,
+                coalesce_events=1, members_equal_singletons=True, launches=launches,
+                wall_ms=wall, card=smi)
+        # Member 0's flag forced: it demotes to the singleton heal.
+        faults.configure("prepared.join_overflow@call=1")
+        try:
+            with QueryScheduler(ServeConfig(hbm_budget_bytes=0), worker=False) as s:
+                ts = [s.submit(topo, lq, lcq, prep, None, [0], None, pcfg) for lq, lcq in members]
+                got = [t.result(timeout=600) for t in ts]
+        finally:
+            faults.reset()
+        for q, (r, t) in enumerate(zip(got, ts)):
+            check_same_rows(member_rows(f"15b demote {q}", dj, r[0], r[1], build, probe, ref,
+                                        q * m, (q + 1) * m), member_want[q], "15b demote")
+        if [t.coalesced for t in ts] != [False, True, True, True] or \
+                obs.counter_value("dj_serve_coalesced_total") != 3 * 4 + 4:
+            raise AssertionError(f"15b: demotion {[t.coalesced for t in ts]}")
+        single_factor = got[0][3].join_out_factor
+        del got
+        log("serve", smoke_phase="15", case="(b) demote", demoted=[0],
+            singleton_join_out_factor=single_factor, coalesced=[t.coalesced for t in ts],
+            rows_checked=expected, card=smi)
+    torch.cuda.empty_cache()
+
+    # (c) admission: a budget one byte under the forecast, then the
+    # measured gate against the allocator.
+    with obs_on() as obs:
+        fc = fcs[1]
+        args = (topo, left, lcnt, right, rcnt, [0], [0], cfgs[1])
+        reset_launches()
+        with counted_calls(dist, "run_spmd") as spmd_calls, Collectives() as coll, \
+                QueryScheduler(ServeConfig(hbm_budget_bytes=fc.bytes - 1), worker=False) as s:
+            try:
+                s.submit(*args)
+            except dj.AdmissionRejected as e:
+                reject = {"forecast_bytes": e.forecast_bytes, "budget_bytes": e.budget_bytes}
+            else:
+                raise AssertionError("15c: a budget one byte under the forecast admitted")
+        launches = read_launches()
+        if any(launches.values()) or spmd_calls[0] or any(coll.counts.values()):
+            raise AssertionError(f"15c: the reject launched {launches}, {spmd_calls[0]} "
+                                 f"dispatches, collectives {coll.counts}")
+        in_use = torch.cuda.memory_allocated()
+        with env_set(DJT_SERVE_MEASURED_HBM="1",
+                     DJT_SERVE_MEASURED_HBM_HEADROOM=repr(budget - in_use - fc.bytes / 2)), \
+                QueryScheduler(ServeConfig(hbm_budget_bytes=budget), worker=False) as s:
+            try:
+                s.submit(*args)
+            except dj.AdmissionRejected as e:
+                measured = e.measured
+            else:
+                raise AssertionError("15c: the measured gate admitted past its headroom")
+        evt = [e for e in obs.events("admission") if e.get("source") == "measured_hbm"]
+        if measured is None or measured["bytes_in_use"] != in_use or len(evt) != 1 or \
+                obs.counter_value("dj_serve_rejected_total", reason="measured_hbm") != 1:
+            raise AssertionError(f"15c: measured {measured}, allocator {in_use}, events {evt}")
+        log("serve", smoke_phase="15", case="(c)", one_byte_under=reject, launches=0,
+            dispatches=0, collectives=0, measured=measured, allocator_bytes_in_use=in_use,
+            card=smi)
+
+    # (d) deadlines: expired in the queue, then between heal attempts.
+    with obs_on() as obs:
+        with QueryScheduler(ServeConfig(hbm_budget_bytes=0), worker=False) as s:
+            t = s.submit(topo, left, lcnt, right, rcnt, [0], [0], cfgs[1], deadline_s=0.0)
+            reset_launches()
+            time.sleep(0.001)
+            try:
+                t.result(timeout=60)
+            except dj.DeadlineExceeded as e:
+                queued = e.where
+            else:
+                raise AssertionError("15d: an expired query ran")
+            if queued != "queued" or any(read_launches().values()):
+                raise AssertionError(f"15d: shed {queued}, launches {read_launches()}")
+            # join_out_factor 0.01 overflows on attempt 1; the deadline is
+            # half of (a)'s direct wall, so it passes during attempt 1.
+            deadline_s = lines[1]["direct_wall_ms"] / 2e3
+            hcfg = dj.JoinConfig(join_out_factor=0.01)
+            t = s.submit(topo, left, lcnt, right, rcnt, [0], [0], hcfg, deadline_s=deadline_s)
+            reset_launches()
+            try:
+                t.result(timeout=600)
+            except dj.DeadlineExceeded as e:
+                healing = e.where
+            else:
+                raise AssertionError("15d: the healing query finished past its deadline")
+            heals = len(obs.events("heal"))
+            if healing != "healing" or heals < 1 or read_launches()["join_scans"] < 1:
+                raise AssertionError(f"15d: shed {healing}, {heals} heals")
+        log("serve", smoke_phase="15", case="(d)", queued_shed="queued", queued_launches=0,
+            healing_shed=healing, deadline_s=deadline_s, heals=heals,
+            attempt_launches=read_launches(), card=smi)
+    torch.cuda.empty_cache()
+
+    # (e) the pressure ladder, walked by queries priced past the budget.
+    big = dj.JoinConfig(join_out_factor=1e6)
+    with env_set(DJT_JOIN_MERGE="merge"), obs_on() as obs, \
+            QueryScheduler(ServeConfig(hbm_budget_bytes=budget, pressure_window=4),
+                           worker=False) as s:
+
+        def push(level):
+            while s.pressure_level < level:
+                try:
+                    s.submit(topo, left, lcnt, right, rcnt, [0], [0], big)
+                except dj.AdmissionRejected:
+                    continue
+                raise AssertionError("15e: a query priced past the budget was admitted")
+            return sorted(errors.pinned_tiers())
+
+        pins = {1: push(1), 2: push(2)}
+        lq, lcq = members[0]
+        reset_launches()
+        r = s.submit(topo, lq, lcq, prep, None, [0], None, pcfg).result(timeout=600)
+        merge_launches = read_launches()
+        check_same_rows(member_rows("15e level 2", dj, r[0], r[1], build, probe, ref, 0, m),
+                        member_want[0], "15e level 2")
+        del r
+        pins[3] = push(3)
+        reset_launches()
+        r = s.submit(topo, left, lcnt, right, rcnt, [0], [0], cfgs[4]).result(timeout=600)
+        halved = read_launches()
+        rows_of("15e level 3", r[0], r[1], build, probe, expected, ref)
+        used_odf = r[3].over_decom_factor
+        del r
+        events = [(e["level"], e["action"]) for e in obs.events("pressure")]
+        if pins[1] != ["wire"] or pins[2] != ["merge", "wire"] or \
+                merge_launches["merge_sorted_u64"] != 0 or merge_launches["join_scans"] != 1 or \
+                halved["join_scans"] != 2 or halved["expand_values"] != 2 or used_odf != 2 or \
+                events != [(1, "drop_compressed_wire"), (2, "drop_optional_tiers"),
+                           (3, "halve_odf")]:
+            raise AssertionError(f"15e: pins {pins}, merge tier {merge_launches}, level 3 "
+                                 f"{halved} at odf {used_odf}, events {events}")
+        one_rank.setdefault("served_pressure_merge_pinned", {})[1] = merge_launches
+        one_rank.setdefault("served_pressure_halved", {})[4] = halved
+        errors.reset_pins()
+        s.reset_pressure()
+        log("serve", smoke_phase="15", case="(e)", pins_by_level=pins, pressure_events=events,
+            level2_merge_tier_launches=merge_launches, level3_odf4_launches=halved,
+            level3_used_odf=used_odf, card=smi)
+    check_no_pins("15e")
+
+    # (f) the cache and the fleet through the door.
+    with obs_on() as obs:
+        cache = djcache.JoinIndexCache(djcache.IndexConfig())
+        icfg = dj.JoinConfig(key_range=(0, 2 * rows))
+        args = (topo, left, lcnt, right, rcnt, [0], [0], icfg)
+        with QueryScheduler(ServeConfig(hbm_budget_bytes=0), worker=False, index=cache) as s:
+            r = s.submit(*args, tenant="f").result(timeout=600)
+            rows_of("15f miss", r[0], r[1], build, probe, expected, ref)
+            del r
+            reset_launches()
+            with counted_calls(dist, "prepare_join_side") as prepares:
+                r = s.submit(*args, tenant="f").result(timeout=600)
+            hit_launches = read_launches()
+            rows_of("15f hit", r[0], r[1], build, probe, expected, ref)
+            del r
+        if prepares[0] or obs.counter_value("dj_index_hit_total") != 1 or \
+                hit_launches["merge_sorted_u64"] or hit_launches["join_scans"] != 1:
+            raise AssertionError(f"15f: {prepares[0]} prepares, launches {hit_launches}")
+        one_rank.setdefault("served_index_hit", {})[1] = hit_launches
+        resident = djcache.resident_bytes()
+        fc = serve.forecast(topo, left, right, [0], [0], icfg)
+        # Pinned: the door's arithmetic counts the resident side.
+        lease = cache.get_or_prepare(topo, right, rcnt, [0], icfg, tenant="f",
+                                     left_capacity=left.capacity)
+        with QueryScheduler(ServeConfig(hbm_budget_bytes=fc.bytes + resident / 2),
+                            worker=False) as s:
+            try:
+                s.submit(*args)
+            except dj.AdmissionRejected as e:
+                pinned_reserved = e.reserved_bytes
+            else:
+                raise AssertionError("15f: a pinned side's bytes were not counted")
+        lease.release()
+        del lease
+        # Unpinned: only shed_bytes can make room, and the query admits.
+        with QueryScheduler(ServeConfig(hbm_budget_bytes=fc.bytes + resident / 2),
+                            worker=False) as s:
+            r = s.submit(*args).result(timeout=600)
+            rows_of("15f shed", r[0], r[1], build, probe, expected, ref)
+            del r
+        evicts = [e.get("reason") for e in obs.events("index") if e["op"] == "evict"]
+        if pinned_reserved != resident or evicts != ["serve_pressure"] or \
+                djcache.resident_bytes() != 0:
+            raise AssertionError(f"15f: reserved {pinned_reserved} of {resident}, evicts "
+                                 f"{evicts}")
+        log("serve", smoke_phase="15", case="(f)", index_hit_prepares=0,
+            hit_launches=hit_launches, resident_bytes=resident, forecast_bytes=fc.bytes,
+            reject_reserved_bytes=pinned_reserved, shed_to_admit=evicts, card=smi)
+        cache.clear()
+        del cache
+    torch.cuda.empty_cache()
+
+    # (g) 4d's world in one process: a served query on the worker, then a
+    # drain that rejects new work and finishes the queue.
+    topo4 = dj.make_topology([dev] * WORLD)
+    left4, lcnt4 = dj.shard_table(topo4, probe)
+    right4, rcnt4 = dj.shard_table(topo4, build)
+    args4 = (topo4, left4, lcnt4, right4, rcnt4, [0], [0], cfgs[1])
+
+    def world_rows(what, r):
+        flags_false(what, r[2])
+        check_colocated(what, r[0], r[1], 1)
+        flat = dj.unshard_table(r[0], r[1])
+        flat_counts = torch.tensor([flat.capacity])
+        rows_of(what, flat, flat_counts, build, probe, expected, ref)
+
+    with obs_on() as obs:
+        with QueryScheduler(ServeConfig(hbm_budget_bytes=0), worker=True) as s:
+            reset_launches()
+            with Collectives() as coll:
+                r, wall, _ = served(s, args4)
+            launches = read_launches()
+            world_rows("15g", r)
+            del r
+        if launches["join_scans"] != WORLD or not coll.counts["all_to_all_start"]:
+            raise AssertionError(f"15g: launches {launches}, collectives {coll.counts}")
+        world["served_world"] = {1: launches}
+        with QueryScheduler(ServeConfig(hbm_budget_bytes=0), worker=False) as s:
+            t = s.submit(*args4)
+            flipped = fleet.drain.begin(reason="chip_smoke")
+            try:
+                s.submit(*args4)
+            except dj.resilience.Draining:
+                pass
+            else:
+                raise AssertionError("15g: a draining scheduler admitted")
+            world_rows("15g drained", t.result(timeout=600))
+            if s not in flipped or not s.drained() or not fleet.drain.wait_quiesced(1.0):
+                raise AssertionError("15g: the drain did not flip or finish")
+        phases = [e["phase"] for e in obs.events("drain")]
+        fleet.reset()
+        log("serve", smoke_phase="15", case="(g)", ranks=WORLD, odf=1, served_wall_ms=wall,
+            launches=launches, collectives=coll.counts, rows_checked=expected, colocated=True,
+            drain_phases=phases, card=smi)
+    del left4, right4
+    torch.cuda.empty_cache()
+
+    # (h) a short seeded soak under faults: every query ends once. The
+    # members probe a quarter of the build table (unprepared, and its own
+    # prepared side): at full width the results that the worker finishes
+    # ahead of the checks, and the failed queries' tracebacks, outgrow
+    # the card beside this phase's tables.
+    sright, srcnt = dj.shard_table(topo, slice_rows(dj, build, 0, m))
+    scfg = dj.JoinConfig(key_range=(0, 2 * rows))
+    sprep = dj.prepare_join_side(topo, sright, srcnt, [0], scfg, left_capacity=m)
+    soak_want = []
+    for q, (lq, lcq) in enumerate(members):
+        out, counts, info = dj.distributed_inner_join(topo, lq, lcq, sright, srcnt, [0], [0],
+                                                      cfgs[1])
+        flags_false(f"15h reference {q}", info)
+        soak_want.append(int(counts.sum()))
+        del out, counts, info
+    rng = torch.Generator().manual_seed(seed + 15)
+    spec = "module_build@call=3,join.join_overflow@call=5,prepared.join_overflow@call=4," \
+           "pallas_merge@call=2"
+    outcomes: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    soak_base = torch.cuda.memory_allocated()
+    with env_set(DJT_JOIN_MERGE="merge"), obs_on() as obs:
+        faults.configure(spec)
+        pending, rejected, done, causes = collections.deque(), [], [], []
+        try:
+            # Room for every query queued at once (each reserves its
+            # forecast until its terminal); the big ones still do not fit.
+            # Groups of at most (b)'s 4: eight members against the whole
+            # resident side hold more than the card beside this phase's
+            # tables.
+            with QueryScheduler(ServeConfig(hbm_budget_bytes=64 * budget, max_attempts=3,
+                                            coalesce_max=4), worker=True) as s:
+                for i in range(40):
+                    kind = int(torch.randint(0, 5, (1,), generator=rng))
+                    q = i % 4
+                    lq, lcq = members[q]
+                    try:
+                        if kind == 0:
+                            t = s.submit(topo, lq, lcq, sright, srcnt, [0], [0], cfgs[1])
+                        elif kind == 1:
+                            t = s.submit(topo, lq, lcq, sright, srcnt, [0], [0], cfgs[4])
+                        elif kind == 2:
+                            t = s.submit(topo, lq, lcq, sprep, None, [0], None, scfg)
+                        elif kind == 3:
+                            t = s.submit(topo, lq, lcq, sprep, None, [0], None, scfg,
+                                         deadline_s=0.0)
+                        else:
+                            t = s.submit(topo, lq, lcq, sright, srcnt, [0], [0], big)
+                    except dj.DJError as e:
+                        rejected.append((type(e).__name__, e.query_id))
+                        continue
+                    pending.append((kind, q, t))
+                while pending:
+                    kind, q, t = pending.popleft()
+                    try:
+                        r = t.result(timeout=600)
+                        n = int(r[1].sum())
+                        del r
+                        if n != soak_want[q]:
+                            raise AssertionError(f"15h: a result of kind {kind} holds {n} "
+                                                 f"rows, not {soak_want[q]}")
+                    except dj.DJError as e:
+                        if isinstance(e, dj.BackendError):
+                            causes.append(f"{type(e.__cause__).__name__}: {e}"[:300])
+                    outcomes[t.outcome] = outcomes.get(t.outcome, 0) + 1
+                    # Not the error itself: raised in this frame, its
+                    # traceback holds the frame, a cycle of its locals.
+                    done.append((t.query_id, t.done,
+                                 t.error is None or isinstance(t.error, dj.DJError)))
+                    del t  # the ticket holds its result
+        finally:
+            faults.reset()
+        for name, _ in rejected:
+            outcomes[name] = outcomes.get(name, 0) + 1
+        qids = [qid for qid, _, _ in done] + [qid for _, qid in rejected]
+        open_spans = [qid for qid in qids if not obs.query_trace(qid)["complete"]]
+        bad = [qid for qid, is_done, typed in done if not is_done or not typed]
+        serves = obs.events("serve")
+        pinned = sorted(errors.pinned_tiers())
+        # A BackendError is an unexpected failure wrapped on the serve
+        # path: none may arise here.
+        if bad or open_spans or causes or len(serves) != len(done) or \
+                sum(outcomes.values()) != 40 or outcomes.get("result", 0) < 10:
+            raise AssertionError(f"15h: outcomes {outcomes}, bad {bad}, open {open_spans}, "
+                                 f"{len(serves)} serve events for {len(done)} tickets, "
+                                 f"BackendError causes {causes}")
+        errors.reset_pins()
+        log("serve", smoke_phase="15", case="(h)", queries=40, faults=spec,
+            outcomes=outcomes, serve_events=len(serves), door_rejects=len(rejected),
+            open_query_spans=0, pins_during=pinned, allocated_before=soak_base,
+            peak_allocated=torch.cuda.max_memory_allocated(), card=smi)
+    check_no_pins("15h")
+    del prep, sprep, sright, members, member_want
+    serve.reset()
+    torch.cuda.empty_cache()
+    log("serve_phase", smoke_phase="15", seconds=time.perf_counter() - t_phase, card=smi)
+    return one_rank, world
+
+
 # --- process worlds (phases 6a-6c) ---------------------------------------
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -6704,6 +7287,15 @@ def main() -> int:
     world_launches.update(index_world)
     torch.cuda.empty_cache()
     check_no_pins("14")
+
+    # 15. admission and the query scheduler on phase 4's and 5's tables
+    with released("15"):
+        serve_launches, serve_world = run_serve(dj, dev, topo, left, lcnt, right, rcnt, build,
+                                                probe, expected, ref, rows, args.seed, smi)
+    launch_table.update(serve_launches)
+    world_launches.update(serve_world)
+    torch.cuda.empty_cache()
+    check_no_pins("15")
 
     # 6a. a process world of one over NCCL
     process1_launches = process_world_of_one(dj, dev, "nccl", build, probe, expected, ref, rows, smi)

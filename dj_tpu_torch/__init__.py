@@ -97,7 +97,11 @@ resident side a (tenant, name, dataset, plan signature), refcounted
 leases, LRU eviction of unpinned sides under a byte budget, appends
 through the cache, a JSONL warm restart, and ``warmup_join_index`` over
 the inventory. ``DJT_FLEET_DIR`` coordinates several such workers through
-files (``fleet``: prepare leases, budget rows, a SIGTERM drain).
+files (``fleet``: prepare leases, budget rows, a SIGTERM drain). In front
+of it all, ``QueryScheduler`` (``serve``; ``ServeConfig``,
+``DJT_SERVE_HBM_BUDGET`` and its family) admits each query against a byte-model forecast,
+queues it with a deadline, walks a pressure ladder over the degradation
+tiers and coalesces same-signature queries into one dispatch.
 
 Observability (``obs``; ``DJT_OBS=1`` or ``DJT_OBS_LOG=<path>``): a
 metrics registry (``obs.metrics_text()``), a flight recorder of every
@@ -188,6 +192,8 @@ from .parallel.warmup import (
 )
 from . import cache  # noqa: F401 - the join-index cache namespace, as in dj_tpu
 from .cache import IndexConfig, JoinIndexCache
+from . import serve  # noqa: F401 - the scheduler's namespace, as in dj_tpu
+from .serve import QueryScheduler, ServeConfig
 from .utils.timing import PhaseTimer, annotate, profile
 from . import resilience
 from .resilience import (
@@ -231,8 +237,10 @@ __all__ = [
     "PlanMismatch",
     "PreparedPlanMismatch",
     "PreparedSide",
+    "QueryScheduler",
     "QueueFull",
     "RingCommunicator",
+    "ServeConfig",
     "StringColumn",
     "Table",
     "Topology",

@@ -80,6 +80,10 @@ from .. import fleet as _fleet
 from .. import knobs, obs
 from ..obs.bytemodel import prepared_side_bytes
 from ..obs.bytemodel import source_bytes as _source_bytes
+from ..parallel.agree import dist_world as _dist_world
+from ..parallel.agree import from_rank0 as _from_rank0
+from ..parallel.agree import gather as _gather
+from ..parallel.agree import multi_process as _multi
 from ..resilience import errors as resil
 from ..resilience import ledger as dj_ledger
 from ..resilience.errors import AdmissionRejected, PlanMismatch
@@ -192,37 +196,6 @@ def _table_ident(table, counts) -> str:
         else:
             ids.append(id(c.data))
     return "%012x" % (hash(tuple(ids)) & 0xFFFFFFFFFFFF)
-
-
-def _multi(topology) -> bool:
-    """A process world of more than one process: decisions are shared."""
-    return (topology is not None and topology.is_process_world
-            and topology.process_count > 1)
-
-
-def _gather(obj) -> list:
-    """Every process's ``obj``, in rank order, over the default group."""
-    import torch.distributed as dist
-
-    out = [None] * dist.get_world_size()
-    dist.all_gather_object(out, obj)
-    return out
-
-
-def _from_rank0(obj):
-    """Process 0's ``obj`` on every process of the default group."""
-    import torch.distributed as dist
-
-    box = [obj]
-    dist.broadcast_object_list(box, src=0)
-    return box[0]
-
-
-def _dist_world() -> bool:
-    """A ``torch.distributed`` world of more than one process is live."""
-    import torch.distributed as dist
-
-    return dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
 
 
 class _Entry:

@@ -7,12 +7,11 @@ running queries reach their usual terminals, and once the process
 quiesces (or ``DJT_FLEET_DRAIN_GRACE_S`` runs out: the wait is bounded)
 the worker's budget row is withdrawn so peers stop charging its bytes.
 
-The schedulers live in :data:`_SCHEDULERS`, a weak registry that the query
-scheduler of ROADMAP item 10e joins (:func:`register`) and that nothing
-joins before it: until then :func:`begin` flips no door and
-:func:`wait_quiesced` returns at once. A registered object has
-``drain()`` (flip the door) and ``drained()`` (nothing queued or
-running).
+The schedulers live in :data:`_SCHEDULERS`, a weak registry that every
+``serve.QueryScheduler`` joins at construction (:func:`register`); with
+none alive :func:`begin` flips no door and :func:`wait_quiesced` returns
+at once. A registered object has ``drain()`` (flip the door) and
+``drained()`` (nothing queued or running).
 
 The handler runs first and, after the quiesce or the grace, calls the
 disposition installed before it (a crash recorder's, say), so the process

@@ -24,11 +24,11 @@ knob setting, and no ``DJT_*`` name was ever renamed.
 
 Left out of dj_tpu's measurement family: ``DJ_OBS_TRUTH``, which arms
 the compiled-module half of ``obs.truth`` (``cost_analysis()`` /
-``memory_analysis()`` of each fresh XLA module), and
-``DJ_SERVE_DRIFT_THRESHOLD``, which bounds that half's model/XLA ratio
-and the scheduler's forecast audit. The port compiles no module, and
-torch has no counterpart of either analysis; the scheduler comes with
-ROADMAP item 10e. The device half of truth needs neither knob.
+``memory_analysis()`` of each fresh XLA module). The port compiles no
+module, and torch has no counterpart of either analysis. The drift
+threshold ``DJT_SERVE_DRIFT_THRESHOLD`` is kept: the scheduler's drift
+audit is ``serve.admission.reprice`` over the byte model (the forecast
+against the config the query ran with), which needs no XLA analysis.
 """
 
 from __future__ import annotations
@@ -135,7 +135,26 @@ KNOBS: tuple[Knob, ...] = (
     Knob("DJT_SHAPE_BUCKET_MIN", 1024, "int", "shape grid's floor in rows a shard", "plan"),
     # --- serving ----------------------------------------------------------
     Knob("DJT_SERVE_HBM_BUDGET", 16e9, "float",
-         "the broadcast budget in bytes when DJT_BROADCAST_BYTES is unset", "serve"),
+         "admission budget in modeled bytes (also the broadcast budget when "
+         "DJT_BROADCAST_BYTES is unset)", "serve"),
+    Knob("DJT_SERVE_QUEUE_DEPTH", 64, "int", "bounded FIFO depth (past it: QueueFull)",
+         "serve"),
+    Knob("DJT_SERVE_DEADLINE_S", None, "float", "default per-query deadline in seconds",
+         "serve"),
+    Knob("DJT_SERVE_COALESCE", "1", "bool", "coalesce queued same-signature queries",
+         "serve"),
+    Knob("DJT_SERVE_COALESCE_MAX", 8, "int", "most queries a coalesced dispatch", "serve"),
+    Knob("DJT_SERVE_PRESSURE_WINDOW", 32, "int", "submissions a pressure-ladder window",
+         "serve"),
+    Knob("DJT_SERVE_PRESSURE_REJECT_RATE", 0.5, "float",
+         "rejected and shed share that steps the pressure ladder down", "serve"),
+    Knob("DJT_SERVE_MATCH_FACTOR", 1.0, "float",
+         "admission's estimate of matches a probe row", "serve"),
+    Knob("DJT_SERVE_SLO_WINDOW", 128, "int", "terminal queries the dj_slo_* gauges cover",
+         "serve"),
+    Knob("DJT_SERVE_DRIFT_THRESHOLD", 2.0, "float",
+         "forecast-drift bound: a repriced/forecast ratio outside [1/t, t] is drift",
+         "serve"),
     Knob("DJT_SERVE_MEASURED_HBM", None, "bool",
          "measured_admission reads the card's allocator (obs.truth)", "serve"),
     Knob("DJT_SERVE_MEASURED_HBM_HEADROOM", 0.0, "float",

@@ -4,8 +4,8 @@ Counterpart of ``dj_tpu/obs/bytemodel.py``. Two models live here:
 
 1. :func:`hbm_model_bytes`, the least HBM traffic of one join as
    configured (``pipeline_model_bytes`` sums it over a chain's stages),
-   and :func:`prepared_side_bytes`, what a prepared side pins. Admission
-   (ROADMAP item 10e) and the autotuner's price
+   and :func:`prepared_side_bytes`, what a prepared side pins. The query
+   scheduler's admission (``serve.admission``) and the autotuner's price
    (``dist_join.price_plan_candidate``) read them.
 2. :func:`buffer_bytes` and :func:`replicated_table_bytes`: the bytes of
    the buffers an exchange or a broadcast moves, in which the collective

@@ -47,6 +47,13 @@ HIST_BUCKETS = (
     1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
 )
 
+# Bounds for dimensionless ratios centered on 1.0 (the scheduler's
+# forecast-drift audit, ``dj_forecast_error_ratio``): fine around "the
+# model was right", coarse tails for "off by 2-8x".
+RATIO_BUCKETS = (
+    0.25, 0.5, 0.8, 0.9, 1.0, 1.1, 1.25, 1.5, 2.0, 4.0, 8.0,
+)
+
 
 # obs.roofline's resolve of its pending device phases, run before a read
 # of the histograms (the recorder's readers run it too). Set at import of

@@ -18,8 +18,8 @@ budget, the autotuner's candidates) trusts modeled bytes
   CUDA device the seam (:func:`_device_list`) yields nothing and both
   return None, dj_tpu's documented no-op on a CPU backend.
 - **The forecast scope** (:func:`forecast_scope`): the admission
-  forecast of the dispatch running on this thread, for the consumers of
-  ROADMAP item 10e.
+  forecast of the dispatch running on this thread: the query scheduler
+  opens it around each dispatch (``serve.scheduler``).
 - **Per-tenant accounting** (:func:`tenant_summary`): the tenant-labeled
   families (``dj_tenant_wire_bytes_total``, device seconds, prepares,
   index bytes, the per-tenant latency histogram) in one view.

@@ -32,7 +32,7 @@ replays after a restart with no probe, and a torn tail of the ledger
 file is skipped.
 
 **Drift demotes.** A model excursion (:func:`note_drift`, fed by the
-serving stack of ROADMAP item 10e) or a regression in the signature's
+query scheduler's drift audit, ``serve.admission.reprice``) or a regression in the signature's
 latency window (:func:`note_latency`: the latest result above
 ``DJT_AUTOTUNE_REGRESS`` times the trailing median of
 ``DJT_AUTOTUNE_WINDOW`` results) flags the signature; its next resolve
@@ -82,6 +82,8 @@ from ..obs import roofline as obs_roofline
 from ..resilience import errors as resil
 from ..resilience import faults
 from ..resilience import ledger as dj_ledger
+from .agree import gather as _gather
+from .agree import multi_process as _multi_process
 
 __all__ = [
     "TunedDecision",
@@ -296,20 +298,6 @@ def _score(price: dict) -> float:
         if v is not None:
             return float(v)
     return float("inf")
-
-
-def _multi_process(topology) -> bool:
-    return (topology is not None and topology.is_process_world
-            and topology.process_count > 1)
-
-
-def _gather(obj) -> list:
-    """Every process's ``obj``, in rank order, over the default group."""
-    import torch.distributed as dist
-
-    out = [None] * dist.get_world_size()
-    dist.all_gather_object(out, obj)
-    return out
 
 
 def _worst(values: list) -> list:

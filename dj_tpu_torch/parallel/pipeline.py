@@ -78,8 +78,10 @@ the decision's ``dispatch_scope`` with its config through
 decision (``autotune.resolve(..., topology=)``), so the rule above that
 every process plans alike holds for the tuned chain too. The tune is
 not guarded here: a faulted probe
-propagates, and the caller's ``degrade_guard(..., tiers=("autotune",))``
-pins the tier (the scheduler's, ROADMAP item 10e).
+propagates, and a caller's ``degrade_guard(..., tiers=("autotune",))``
+pins the tier. The query scheduler dispatches a chain outside such a
+guard, as dj_tpu's does: a faulted tune ends that query with its typed
+error.
 """
 
 from __future__ import annotations

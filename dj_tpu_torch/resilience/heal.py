@@ -81,19 +81,26 @@ class HealBudget:
 
 
 # The deadline of the heal loops on this thread: (monotonic deadline,
-# submitted budget, start), or None.
+# submitted budget, start, shared), or None.
 _deadline_tls = threading.local()
 
 
 @contextlib.contextmanager
-def deadline_scope(deadline: Optional[float], deadline_s: Optional[float] = None):
+def deadline_scope(deadline: Optional[float], deadline_s: Optional[float] = None, *,
+                   shared: bool = False):
     """Make ``deadline`` (absolute ``time.monotonic()`` seconds; None:
     none) visible to every ``run_healed`` loop on this thread for the
     body. Between heal attempts the engine raises
     :class:`~.errors.DeadlineExceeded` (``where="healing"``) once the
-    clock passes it. Scopes nest; the previous one returns on exit."""
+    clock passes it. Scopes nest; the previous one returns on exit.
+
+    ``shared``: every process of a process world runs this scope around
+    the same heal loop (the query scheduler's dispatch), and process 0's
+    clock decides each check for all of them (one object broadcast a
+    check), so no process stops healing while another goes on."""
     prev = getattr(_deadline_tls, "scope", None)
-    _deadline_tls.scope = None if deadline is None else (deadline, deadline_s, time.monotonic())
+    _deadline_tls.scope = (None if deadline is None
+                           else (deadline, deadline_s, time.monotonic(), shared))
     try:
         yield
     finally:
@@ -102,13 +109,19 @@ def deadline_scope(deadline: Optional[float], deadline_s: Optional[float] = None
 
 def check_deadline(where: str) -> None:
     """Raise DeadlineExceeded if this thread's deadline_scope has
-    expired; a no-op outside a scope."""
+    expired (process 0's verdict in a shared scope); a no-op outside a
+    scope."""
     scope = getattr(_deadline_tls, "scope", None)
     if scope is None:
         return
-    deadline, deadline_s, start = scope
+    deadline, deadline_s, start, shared = scope
     now = time.monotonic()
-    if now > deadline:
+    expired = now > deadline
+    if shared:
+        from ..parallel.agree import from_rank0
+
+        expired = from_rank0(expired)
+    if expired:
         raise DeadlineExceeded(
             f"deadline expired {where} (budget "
             f"{deadline_s if deadline_s is not None else deadline - start:g}s,"

@@ -19,7 +19,7 @@ drain registry the scheduler joins, and the same kernel launches and
 collectives with the fleet on and off (dj_tpu holds its compiled modules
 equal there, ``test_fleet.py:745``; the port compiles none). The
 scheduler's cases (``test_fleet.py:536``, ``:575``, ``:616``, ``:644``,
-``:681``) wait for ROADMAP item 10e.
+``:681``) run in ``test_torch_serve.py``.
 """
 
 import json
@@ -559,7 +559,7 @@ class _Sched:
 
 
 def test_the_drain_walks_the_schedulers_that_registered(port):
-    """The registry 10e's scheduler joins: begin flips each registered
+    """The registry the query scheduler joins: begin flips each registered
     door once, wait_quiesced waits (bounded) for each to drain, and a
     scheduler registered while the process drains is flipped at once."""
     P = port

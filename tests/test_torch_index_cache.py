@@ -16,8 +16,8 @@ is skipped; ``available_broadcast_bytes`` with an entry resident flipping a
 broadcast decision. The port's own cases: an evicted side's memory is
 released (nothing else of the port keeps its tensors), and a kernel
 failure under the cache propagates. dj_tpu's scheduler cases
-(``test_index_cache.py:205``, ``:499``, ``:547``) wait for the query
-scheduler (ROADMAP item 10e).
+(``test_index_cache.py:205``, ``:499``, ``:547``) run in
+``test_torch_serve.py``.
 """
 
 import gc
@@ -47,7 +47,7 @@ class Pkg:
         self.name = name
         if name == "jax":
             import dj_tpu as m
-            from dj_tpu import cache, fleet, obs
+            from dj_tpu import cache, fleet, obs, serve
             from dj_tpu.fleet import budget, drain, leases
             from dj_tpu.parallel import dist_join, plan_adapt
             from dj_tpu.parallel.api import shard_table
@@ -59,7 +59,7 @@ class Pkg:
             self._shard = shard_table
         else:
             import dj_tpu_torch as m
-            from dj_tpu_torch import cache, fleet, obs
+            from dj_tpu_torch import cache, fleet, obs, serve
             from dj_tpu_torch.fleet import budget, drain, leases
             from dj_tpu_torch.parallel import dist_join, plan_adapt
             from dj_tpu_torch.resilience import errors, faults, ledger
@@ -68,8 +68,8 @@ class Pkg:
             self.make_topology = lambda w: m.make_topology(["cpu"] * w)
             self._shard = m.shard_table
         self.m = m
-        for k, v in dict(cache=cache, fleet=fleet, obs=obs, budget=budget, drain=drain,
-                         leases=leases, dist_join=dist_join, plan_adapt=plan_adapt,
+        for k, v in dict(cache=cache, fleet=fleet, obs=obs, serve=serve, budget=budget,
+                         drain=drain, leases=leases, dist_join=dist_join, plan_adapt=plan_adapt,
                          errors=errors, faults=faults, ledger=ledger).items():
             setattr(self, k, v)
 
@@ -90,6 +90,7 @@ class Pkg:
         self.faults.reset()
         self.errors.reset_pins()
         self.ledger.reset()
+        self.serve.reset()
         self.cache.reset()
         self.fleet.reset()
         self.obs.reset(reenable=True)

@@ -46,7 +46,7 @@ def test_every_knob_is_documented_in_the_port_section_of_the_readme():
 
 
 def test_registry_shape():
-    assert len(knobs.KNOBS) == len(knobs.REGISTRY) == 55
+    assert len(knobs.KNOBS) == len(knobs.REGISTRY) == 64
     for k in knobs.KNOBS:
         assert k.doc and k.kind in ("bool", "int", "float", "str", "enum", "path")
         assert (k.kind == "enum") == bool(k.choices)
@@ -55,6 +55,14 @@ def test_registry_shape():
     assert obs_names <= set(knobs.REGISTRY)
     assert knobs.REGISTRY["DJT_PEAK_HBM_GBPS"].default == 3350.0
     assert knobs.REGISTRY["DJT_PEAK_WIRE_GBPS"].default == 450.0
+    # The scheduler's family carries dj_tpu's defaults (dj_tpu/knobs.py:208-232).
+    serve = {"DJT_SERVE_HBM_BUDGET": 16e9, "DJT_SERVE_QUEUE_DEPTH": 64,
+             "DJT_SERVE_DEADLINE_S": None, "DJT_SERVE_COALESCE": "1",
+             "DJT_SERVE_COALESCE_MAX": 8, "DJT_SERVE_PRESSURE_WINDOW": 32,
+             "DJT_SERVE_PRESSURE_REJECT_RATE": 0.5, "DJT_SERVE_MATCH_FACTOR": 1.0,
+             "DJT_SERVE_SLO_WINDOW": 128, "DJT_SERVE_DRIFT_THRESHOLD": 2.0}
+    assert {n: knobs.REGISTRY[n].default for n in serve} == serve
+    assert all(knobs.REGISTRY[n].cleanup == "serve" for n in serve)
 
 
 def test_readers_keep_their_defaults(monkeypatch):

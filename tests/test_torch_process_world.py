@@ -61,7 +61,7 @@ chip_smoke = _load("chip_smoke", ROOT / "chip_smoke.py")
 
 WORLDS = (2, 4)
 CASES = {2: ["collectives", "exchange", "shuffle", "join", "generate", "auto", "keys", "strings",
-             "append", "fleet", "autotune", "index"],
+             "append", "fleet", "autotune", "index", "serve"],
          4: ["collectives", "exchange", "shuffle", "join", "prepared", "generate", "two_level",
              "plan_adapt", "pipeline"]}
 
@@ -758,6 +758,39 @@ def test_process_world_index_cache_decides_once_for_the_world(worlds):
         for call in ("miss", "replayed", "faulted"):
             got = res["index"][call]
             assert got["rows"] == [want["rows"][r]] and got["flags"] == want["flags"], (r, call)
+
+
+def test_process_world_scheduler_decides_once_for_the_world(worlds):
+    """Two gloo processes serve the same queries, each decision taken
+    once for the world (serve/scheduler.py's docstring): no case hangs,
+    both processes see the same outcomes, the rejecting process's
+    evidence, process 0's clock and process 0's dispatch group, and each
+    served query's shard equals the world in one process's."""
+    a, b = (r["serve"] for r in worlds.results(2))
+    for k in ("worker", "measured", "peer", "late0", "healing", "coalesced", "events", "pins"):
+        assert a[k] == b[k], k
+    assert a["worker"] == ["ValueError", True]
+    assert a["measured"] == ["AdmissionRejected", int(16e9), 0]
+    assert a["peer"][0] == "AdmissionRejected" and a["peer"][1] >= 1e15 and a["peer"][2] == 0
+    assert a["late0"] == ["DeadlineExceeded", "queued"]
+    assert a["healing"][:2] == ["DeadlineExceeded", "healing"] and a["healing"][2] >= 1
+    assert a["coalesced"] == [True, True]
+    assert [e["size"] for e in a["events"] if e["type"] == "coalesce"] == [2]
+    assert a["pins"] == []
+    w = W.prepared_tables(5)
+    topo = tj.make_topology(["cpu"] * 2)
+    (tl, tlc), (tr, trc) = (W._sharded(topo, t) for t in (w[1], w[0]))
+    cfg = tj.JoinConfig(**W.SERVE_CONFIG)
+    want = W._join_result(tj.distributed_inner_join(topo, tl, tlc, tr, trc, [0], [0], cfg))
+    prep = tj.prepare_join_side(topo, tr, trc, [0], cfg, left_capacity=3600)
+    want_prep = W._join_result(tj.distributed_inner_join(topo, tl, tlc, prep, None, [0], None,
+                                                         cfg))
+    for r, res in enumerate((a, b)):
+        assert isinstance(res["late1"], dict), res["late1"]
+        assert res["late1"]["rows"] == [want["rows"][r]]
+        for got in res["group"]:
+            assert got["rows"] == [want_prep["rows"][r]]
+            assert got["flags"] == want_prep["flags"]
 
 
 def _counting(monkeypatch):

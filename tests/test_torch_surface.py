@@ -13,9 +13,6 @@ import dj_tpu
 import dj_tpu_torch as tj
 
 NOT_YET_PORTED = {
-    # 10e: admission and the query scheduler (serve/).
-    "QueryScheduler": "10e",
-    "ServeConfig": "10e",
     # XLA's flags and compilation cache, unported on purpose
     # (dj_tpu_torch/parallel/bootstrap.py).
     "ensure_async_collectives": "never",

@@ -19,6 +19,7 @@ import os
 import pathlib
 import pickle
 import sys
+import time
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
@@ -940,6 +941,129 @@ def case_index(topo):
     return out
 
 
+SERVE_CONFIG = dict(over_decom_factor=2, bucket_factor=4.0, join_out_factor=4.0,
+                    key_range=(0, 7199))
+
+
+class _Dev:
+    """A card whose allocator holds the whole budget (the measured gate)."""
+
+    id = 0
+
+    def memory_stats(self):
+        return {"bytes_in_use": int(16e9), "peak_bytes_in_use": int(16e9),
+                "bytes_limit": int(80e9)}
+
+
+def case_serve(topo):
+    """The query scheduler in a world of processes: each decision that
+    depends on one process's clock, allocator, fleet view or config is
+    taken once for the world. worker=True raises; a measured reject on
+    process 1 alone and peer bytes on process 0 alone reject on both,
+    with the rejecting process's evidence; a deadline that expired on one
+    process's clock only follows process 0's (dispatched, then shed); the
+    heal deadline follows process 0's clock; process 0's coalescing
+    choice dispatches the group on both; every row on its shard."""
+    from dj_tpu_torch import obs
+    from dj_tpu_torch.obs import truth
+    from dj_tpu_torch.parallel import dist_join
+    from dj_tpu_torch.resilience import errors, faults
+    from dj_tpu_torch.serve import QueryScheduler, ServeConfig, scheduler
+
+    rank = topo.rank
+    build, probe = prepared_tables(5)
+    (tl, tlc), (tr, trc) = _sharded(topo, probe), _sharded(topo, build)
+    cfg = dj.JoinConfig(**SERVE_CONFIG)
+    obs.reset(reenable=True)
+    obs.drain()
+    out = {}
+
+    def err(fn):
+        try:
+            fn()
+        except Exception as e:  # noqa: BLE001
+            return e
+        return None
+
+    try:
+        e = err(lambda: QueryScheduler(ServeConfig(), worker=True))
+        out["worker"] = [type(e).__name__, "pump()" in str(e)]
+        # A measured reject on process 1 alone.
+        with QueryScheduler(ServeConfig(), worker=False) as s:
+            real = truth._device_list
+            if rank == 1:
+                os.environ["DJT_SERVE_MEASURED_HBM"] = "1"
+                truth._device_list = lambda: [_Dev()]
+            try:
+                e = err(lambda: s.submit(topo, tl, tlc, tr, trc, [0], [0], cfg))
+            finally:
+                truth._device_list = real
+                os.environ.pop("DJT_SERVE_MEASURED_HBM", None)
+            out["measured"] = [type(e).__name__, (e.measured or {}).get("bytes_in_use"),
+                               s.queue_depth]
+            # Live peer bytes on process 0 alone.
+            real_peer = scheduler._fleet.peer_bytes_guarded
+            if rank == 0:
+                scheduler._fleet.peer_bytes_guarded = lambda: 1e15
+            try:
+                e = err(lambda: s.submit(topo, tl, tlc, tr, trc, [0], [0], cfg))
+            finally:
+                scheduler._fleet.peer_bytes_guarded = real_peer
+            out["peer"] = [type(e).__name__, e.reserved_bytes, s.queue_depth]
+        # A queued deadline that expired on one process's clock only.
+        for late in (1, 0):
+            with QueryScheduler(ServeConfig(), worker=False) as s:
+                t = s.submit(topo, tl, tlc, tr, trc, [0], [0], cfg, deadline_s=0.3)
+                if rank == late:
+                    time.sleep(0.6)
+                e = err(lambda: t.result(timeout=60))
+                out[f"late{late}"] = ([type(e).__name__, e.where] if e is not None
+                                      else _join_result(t.result()[:3]))
+        # The heal deadline: every attempt overflows; process 1 lags 0.5 s
+        # after each attempt, so its clock alone would shed one check
+        # before process 0's.
+        faults.configure(",".join(f"join.join_overflow@call={i}" for i in range(1, 9)))
+        real_spmd = dist_join.run_spmd
+
+        def lagging(*a, **k):
+            res = real_spmd(*a, **k)
+            time.sleep(0.5)
+            return res
+
+        if rank == 1:
+            dist_join.run_spmd = lagging
+        try:
+            with QueryScheduler(ServeConfig(), worker=False) as s:
+                t = s.submit(topo, tl, tlc, tr, trc, [0], [0], cfg, deadline_s=0.3)
+                e = err(lambda: t.result(timeout=60))
+        finally:
+            dist_join.run_spmd = real_spmd
+            faults.reset()
+        out["healing"] = [type(e).__name__, e.where,
+                          len([x for x in obs.events("heal")])]
+        dj.resilience.ledger.reset()
+        # Coalescing chosen by process 0: process 1 alone would not group.
+        prep = dj.prepare_join_side(topo, tr, trc, [0], cfg, left_capacity=3600)
+        with QueryScheduler(ServeConfig(coalesce=rank == 0), worker=False) as s:
+            ts = [s.submit(topo, tl, tlc, prep, None, [0], None, cfg) for _ in range(2)]
+            res = [t.result(timeout=60) for t in ts]
+            out["coalesced"] = [t.coalesced for t in ts]
+            out["group"] = [_join_result(r[:3]) for r in res]
+        out["events"] = [{k: v for k, v in x.items()
+                          if k not in ("seq", "ts", "queued_s", "run_s", "total_s", "query_id",
+                                       "members", "elapsed_s", "t")}
+                         for x in obs.drain()
+                         if x["type"] in ("admission", "shed", "coalesce", "serve")]
+        out["pins"] = sorted(errors.pinned_tiers())
+    finally:
+        faults.reset()
+        errors.reset_pins()
+        dj.serve.reset()
+        dj.resilience.ledger.reset()
+        obs.reset(reenable=False)
+    return out
+
+
 CASES = {"collectives": case_collectives, "exchange": case_exchange, "shuffle": case_shuffle,
          "join": case_join, "prepared": case_prepared, "generate": case_generate,
          "auto": case_auto, "keys": case_keys, "fail": case_fail,
@@ -947,7 +1071,7 @@ CASES = {"collectives": case_collectives, "exchange": case_exchange, "shuffle": 
          "two_level": case_two_level, "compress": case_compress, "append": case_append,
          "fault": case_fault, "peer_fails": case_peer_fails,
          "plan_adapt": case_plan_adapt, "pipeline": case_pipeline, "fleet": case_fleet,
-         "autotune": case_autotune, "index": case_index}
+         "autotune": case_autotune, "index": case_index, "serve": case_serve}
 
 
 def main(spec_json: str, out_dir: str) -> int:
