@@ -376,7 +376,9 @@ Phases, each printing its own line(s):
      (b) DJT_INDEX_HBM_BUDGET at 1.5 entries: a second entry evicts the
      LRU unpinned one (the allocator flat across that insert, which adds
      a side of the evicted one's size) and shed_bytes drops the
-     allocator by the shed side's bytes, each within 1%; at 2.5
+     allocator by the shed side's bytes, each within 1% plus the
+     allocator's rounding of the side's blocks (1 MiB + 512 bytes a
+     block), the requested bytes by the side within 1%; at 2.5
      entries with two pinned, a third raises AdmissionRejected and the
      residency stays; (c) at odf 4, 5c's 1% rows through append_rows (one
      append event; each tier's query equal to a fresh prepare of the
@@ -428,6 +430,34 @@ Phases, each printing its own line(s):
      groups of at most 4: every ticket ends once with a result (rows
      counted against the member's direct join) or a typed DJError other
      than BackendError, every query span closed, no pin left;
+  16. the observatory (after 15, on phase 4's and 5's tables and 4d's
+     world): (a) phase 4's join served 3 times warm (worker=False) with
+     the endpoint off, then with DJT_OBS_HTTP=0 started through
+     init_distributed's hook (history sampler at DJT_OBS_HISTORY_S=0.25)
+     and a thread scraping every route in a loop: median walls and their
+     ratio, each route's scrapes and median ms, launches of join_scans
+     and expand_values and the synchronizing calls (sync debug mode)
+     equal off and on, every route 200 but /tracez without q and
+     /profilez without its directory (400), /metrics Prometheus text with
+     dj_serve_latency_seconds buckets, /healthz's device_hbm equal to
+     memory_allocated() read around it; (b) with DJT_OBS_PROFILE_DIR set,
+     /profilez?secs=2 on a live server while its worker thread serves
+     phase 5's side on the sort, merge and probe tiers: a second request
+     answers 409, the written Chrome trace names join_scans_kernel,
+     expand_values_kernel, merge_splits_kernel, merge_kernel,
+     ranks_partition, ranks_merge and CUB's radix sort among its CUDA
+     kernels, a query's wall inside the capture beside one outside; (c)
+     served queries and queued deadline sheds on sample_now(now=) ticks:
+     the fast deadline_miss window fires before the slow one, one
+     slo_alert event a transition, /trendz holds the snapshots with the
+     allocator's sample; (d) 4d's join with DJT_OBS_SKEW=1 and
+     DJT_FLEET_DIR: the fleet snapshots feed the anomaly window through
+     skew's hook, /fleetz shows the window, thresholds, scores and the
+     coordination block, and no anomaly fires; (e) `python -m
+     dj_tpu_torch.scripts.chaos_soak --hard-death` at this run's rows on
+     the card: the child dies by SIGTERM with 4 queries in flight and
+     the audit of its bundle passes; the phase leaves no device bytes and
+     no dj-obs thread behind;
   9. timings: the `timings` line (walls, peaks and the main path's sort);
   10. the hardware probes: `python -m dj_tpu_torch.hw.probe_sort` and
      `... .probe_gather` through their main() at the JAX probes' shapes
@@ -450,7 +480,8 @@ then the `kernels` JSON line (kernel, plain-version and library times
 beside each kernel's bound, launches per query on each path and in the
 4-rank world (the plan tiers of 4i, 5e and 8f and the composition
 layers' 4j, 4k and 5f, phase 13's tuned chain and probes and phase
-14's cached sides and phase 15's served queries among its paths), its two-level form and the
+14's cached sides, phase 15's served queries and phase 16's served, profiled
+and 4-rank queries among its paths), its two-level form and the
 process worlds (6b's broadcast run and chain apart), expand_ranks'
 codec decodes in 4g, expand_values' probe-tier call of 5d, and each
 kernel's registers and spills from ptxas; the probes' launches are their
@@ -478,6 +509,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from typing import Optional
 
@@ -4955,6 +4987,16 @@ def allocated() -> int:
     return torch.cuda.memory_allocated()
 
 
+def pool_stats() -> dict:
+    """The caching allocator's current bytes, blocks and segments by pool
+    (``torch.cuda.memory_stats()``): what memory_allocated() sums, and
+    what the callers asked for (``requested_bytes``) beside it."""
+    st = torch.cuda.memory_stats()
+    return {k: st.get(f"{k}.current", 0) for k in (
+        "allocated_bytes.all", "requested_bytes.all", "allocated_bytes.large_pool",
+        "allocated_bytes.small_pool", "active.all", "segment.all", "reserved_bytes.all")}
+
+
 def index_query(what: str, dj, topo, left, lcnt, side, cfg, build, probe, expected: int,
                 ref, *, w: int = 1, kernels=None):
     """One query of a cached side: flags False, the rows checked against
@@ -5056,26 +5098,40 @@ def run_index_cache(dj, dev, topo, left, lcnt, right, rcnt, build, probe, expect
         cache = djcache.JoinIndexCache()
         a = get(cache, tenant="a")
         a.release()
-        m0 = allocated()
+        gc.collect()
+        held = {id(o) for o in gc.get_objects() if isinstance(o, torch.Tensor)}
+        m0, s0 = allocated(), pool_stats()
         b = get(cache, tenant="b")
-        m1 = allocated()
+        m1, s1 = allocated(), pool_stats()
         evicts = [e for e in obs.events("index") if e["op"] == "evict"]
         b_bytes = cache.resident_bytes
         # b adds one side of a's size and evicts a: the allocator stays flat.
         insert_change = m1 - m0
         b.release()
         freed = cache.shed_bytes(float("inf"))
-        m2 = allocated()
+        m2, s2 = allocated(), pool_stats()
         drop_b = m1 - m2
         if [e["tenant"] for e in evicts] != ["a"] or cache.entry_count != 0 or \
                 freed != b_bytes:
             raise AssertionError(f"14b: evicts {evicts}, entries {cache.entry_count}, "
                                  f"freed {freed} of {b_bytes}")
-        if on_card and not (abs(insert_change) <= 0.01 * side_bytes
-                            and abs(drop_b - b_bytes) <= 0.01 * b_bytes):
+        # memory_allocated() counts whole blocks: the large pool rounds a
+        # block to 512 bytes and leaves a remainder of up to 1 MiB unsplit,
+        # so each of the side's blocks may hold that much beyond its
+        # tensor. That residue does not grow with the side; the bytes the
+        # callers asked for (requested_bytes) must move by the side alone.
+        blocks = s1["active.all"] - s2["active.all"]
+        residue = blocks * (2**20 + 512)
+        asked = s1["requested_bytes.all"] - s2["requested_bytes.all"]
+        if on_card and not (abs(insert_change) <= 0.01 * side_bytes + residue
+                            and abs(drop_b - b_bytes) <= 0.01 * b_bytes + residue
+                            and abs(asked - b_bytes) <= 0.01 * b_bytes):
+            gc.collect()
+            print_holders(held)
             raise AssertionError(f"14b: the allocator moved {insert_change} bytes across an "
                                  f"insert that evicted a side of {side_bytes}, and dropped "
-                                 f"{drop_b} for a shed side of {b_bytes}")
+                                 f"{drop_b} ({asked} requested, {blocks} blocks) for a shed "
+                                 f"side of {b_bytes}")
     with env_set(DJT_INDEX_HBM_BUDGET=str(2.5 * side_bytes)), obs_on() as obs:
         cache = djcache.JoinIndexCache()
         x, y = get(cache, tenant="x"), get(cache, tenant="y")
@@ -5096,7 +5152,9 @@ def run_index_cache(dj, dev, topo, left, lcnt, right, rcnt, build, probe, expect
         cache.clear()
     log("index_cache", smoke_phase="14", case="(b)", budget_entries=1.5, entry_bytes=side_bytes,
         evicted=[e["tenant"] for e in evicts], allocator_change_across_evicting_insert=insert_change,
-        allocator_drop_on_shed=drop_b, shed_bytes=freed, pinned_budget_entries=2.5,
+        allocator_drop_on_shed=drop_b, requested_drop_on_shed=asked, shed_blocks=blocks,
+        block_residue_bound=residue, pool_before_insert=s0, pool_after_insert=s1,
+        pool_after_shed=s2, shed_bytes=freed, pinned_budget_entries=2.5,
         rejected=rejected, resident_bytes_kept=resident,
         allocator_after_reject_minus_before=m4 - m3, card=smi)
     del a, b, x, y
@@ -5870,6 +5928,418 @@ def run_serve(dj, dev, topo, left, lcnt, right, rcnt, build, probe, expected: in
     serve.reset()
     torch.cuda.empty_cache()
     log("serve_phase", smoke_phase="15", seconds=time.perf_counter() - t_phase, card=smi)
+    return one_rank, world
+
+
+# --- the observatory on the card (phase 16) ----------------------------------
+
+
+# Every route of the endpoint, as a scraper asks for it: /tracez without q
+# and /profilez without DJT_OBS_PROFILE_DIR answer 400, the rest 200.
+OBS_ROUTES = ("/", "/metrics", "/healthz", "/queryz", "/varz", "/skewz", "/rooflinez",
+              "/tenantz", "/trendz", "/knobz", "/tunez", "/tracez", "/fleetz", "/profilez")
+OBS_BAD_REQUEST = ("/tracez", "/profilez")
+OBS_THREADS = ("dj-obs-http", "dj-obs-history", "dj-obs-profile")
+# The __global__ symbols a /profilez capture of the sort, merge and probe
+# tiers' queries must hold, with the source of each (RadixSort: CUB's sort).
+PROFILED_KERNELS = {"join_scans_kernel": "csrc/join_scans.cu",
+                    "expand_values_kernel": "csrc/expand_values.cu",
+                    "merge_splits_kernel": "csrc/merge_sorted_u64.cu",
+                    "merge_kernel": "csrc/merge_sorted_u64.cu",
+                    "ranks_partition": "csrc/expand_ranks.cu",
+                    "ranks_merge": "csrc/expand_ranks.cu",
+                    "RadixSort": "torch.sort (CUB)"}
+
+
+def scrape(base: str, route: str) -> tuple:
+    """GET ``base + route``: (status, content type, body, ms)."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(base + route, timeout=120) as r:
+            code, ctype, body = r.status, r.headers.get("Content-Type", ""), r.read().decode()
+    except urllib.error.HTTPError as e:
+        code, ctype, body = e.code, e.headers.get("Content-Type", ""), e.read().decode()
+    return code, ctype, body, (time.perf_counter() - t0) * 1e3
+
+
+class Scraper:
+    """A thread that GETs every route of OBS_ROUTES in turn, round after
+    round, until the block ends (the last round is finished):
+    ``by_route`` = {route: [(status, ms), ...]}."""
+
+    def __init__(self, base: str):
+        self.base, self.by_route, self.error = base, {}, None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, name="smoke-scraper", daemon=True)
+
+    def _loop(self):
+        try:
+            while not self._stop.is_set():
+                for route in OBS_ROUTES:
+                    code, _, _, ms = scrape(self.base, route)
+                    self.by_route.setdefault(route, []).append((code, ms))
+        except Exception as e:  # noqa: BLE001 - re-raised by the block's owner
+            self.error = e
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=300)
+        if self._thread.is_alive():
+            raise AssertionError("16: the scraper did not finish its round")
+        if self.error is not None:
+            raise AssertionError(f"16: a scrape failed: {self.error!r}")
+
+
+def parse_prometheus(text: str) -> dict:
+    """{series: value} of a Prometheus text exposition; a line that is
+    neither blank, a comment nor ``name{labels} value`` fails."""
+    import re
+
+    pat = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{.*\})? (\S+)$")
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = pat.match(line)
+        if m is None:
+            raise AssertionError(f"16a: /metrics is not Prometheus text: {line!r}")
+        out[m.group(1) + (m.group(2) or "")] = float(m.group(3))
+    return out
+
+
+def obs_threads() -> list:
+    return sorted(t.name for t in threading.enumerate() if t.name in OBS_THREADS)
+
+
+def kernel_names(trace: dict) -> set:
+    """The names of the CUDA kernels in a Chrome trace, as the profiler
+    demangles them (``(anonymous namespace)::k(args)``, ``void ns::k<...>(args)``)."""
+    return {str(e.get("name", "")) for e in trace.get("traceEvents", [])
+            if e.get("cat") == "kernel"}
+
+
+def has_kernel(names: set, symbol: str) -> bool:
+    """Whether a kernel whose symbol is ``symbol`` is among ``names``
+    (``RadixSort``: any CUB radix-sort kernel)."""
+    import re
+
+    if symbol == "RadixSort":
+        return any("RadixSort" in n for n in names)
+    pat = re.compile(rf"(^|[\s:]){re.escape(symbol)}[(<]")
+    return any(pat.search(n) for n in names)
+
+
+def run_observatory(dj, dev, topo, left, lcnt, right, rcnt, build, probe, expected: int, ref,
+                    rows: int, smi: str) -> tuple:
+    """Phase 16: the endpoint, /profilez, the history's burn-rate alerts,
+    the anomaly window and the black box on the card (module docstring).
+    Returns ({path: {odf: launches}} of one rank, the same of 4d's world)."""
+    import shutil
+
+    from dj_tpu_torch import fleet
+    from dj_tpu_torch.obs import history
+    from dj_tpu_torch.obs import http as obs_http
+    from dj_tpu_torch.serve import QueryScheduler, ServeConfig
+
+    t_phase = time.perf_counter()
+    on_card = torch.device(dev).type == "cuda"
+    one_rank: dict = {}
+    world: dict = {}
+    cfg = dj.JoinConfig()
+    args = (topo, left, lcnt, right, rcnt, [0], [0], cfg)
+    if obs_threads():
+        raise AssertionError(f"16: obs threads alive before the phase: {obs_threads()}")
+
+    # (a) the endpoint's cost: phase 4's join served with the endpoint off,
+    # then up (through init_distributed's hook) and scraped in a loop.
+    def serve3(s, what):
+        res, _, _ = served(s, args)  # warm
+        flags_false(what, res[2])
+        rows_of(what, res[0], res[1], build, probe, expected, ref)
+        del res
+        reset_launches()
+        walls = [served(s, args)[1] for _ in range(3)]
+        launches = read_launches()
+        syncs = sync_calls(lambda: served(s, args))
+        return walls, launches, syncs
+
+    t_case = time.perf_counter()
+    with obs_on() as obs, QueryScheduler(ServeConfig(hbm_budget_bytes=0), worker=False) as s:
+        off_walls, off_launches, off_syncs = serve3(s, "16a endpoint off")
+        with env_set(DJT_OBS_HTTP="0", DJT_OBS_HISTORY_S="0.25"):
+            dj.init_distributed()
+        addr = obs_http.server_address()
+        if addr is None or not {"dj-obs-http", "dj-obs-history"} <= set(obs_threads()):
+            raise AssertionError(f"16a: init_distributed started {addr}, {obs_threads()}")
+        base = f"http://{addr[0]}:{addr[1]}"
+        try:
+            idle_walls = serve3(s, "16a endpoint idle")[0]  # up, its sampler alone
+            with Scraper(base) as scraper:
+                on_walls, on_launches, on_syncs = serve3(s, "16a endpoint on")
+            code, ctype, text, _ = scrape(base, "/metrics")
+            series = parse_prometheus(text)
+            buckets = [k for k in series if k.startswith("dj_serve_latency_seconds_bucket")]
+            before = allocated()
+            _, _, body, _ = scrape(base, "/healthz")
+            after = allocated()
+            hbm = json.loads(body)["device_hbm"]
+            sampled = (None if hbm is None
+                       else hbm[str(torch.device(dev).index or 0)]["bytes_in_use"])
+            port_gauge = obs.gauge_value("dj_obs_http_port")
+            t_wait = time.monotonic()
+            while history.snapshot_count() < 1 and time.monotonic() - t_wait < 30:
+                time.sleep(0.05)  # the sampler's first tick
+            snaps = history.snapshot_count()
+        finally:
+            obs_http.stop()
+    codes = {r: sorted({c for c, _ in v}) for r, v in scraper.by_route.items()}
+    want = {r: [400] if r in OBS_BAD_REQUEST else [200] for r in OBS_ROUTES}
+    if codes != want:
+        raise AssertionError(f"16a: route answers {codes}, not {want}")
+    if on_launches != off_launches or on_launches["join_scans"] != 3 or \
+            on_launches["expand_values"] != 3 or on_syncs != off_syncs:
+        raise AssertionError(f"16a: launches {off_launches} off, {on_launches} on; synchronizing "
+                             f"calls {off_syncs} off, {on_syncs} on")
+    if code != 200 or not ctype.startswith("text/plain") or not buckets:
+        raise AssertionError(f"16a: /metrics answered {code} {ctype} with {len(buckets)} "
+                             f"dj_serve_latency_seconds buckets")
+    if on_card and not before == sampled == after:
+        raise AssertionError(f"16a: /healthz sampled {sampled}, memory_allocated() {before} "
+                             f"before and {after} after")
+    if port_gauge != addr[1] or snaps < 1:
+        raise AssertionError(f"16a: dj_obs_http_port {port_gauge} for {addr}, {snaps} snapshots")
+    one_rank["observatory_served"] = {1: on_launches}
+    log("observatory", smoke_phase="16", case="(a)", seconds=time.perf_counter() - t_case,
+        rows=rows, odf=1,
+        off_wall_ms=statistics.median(off_walls), on_wall_ms=statistics.median(on_walls),
+        on_over_off=statistics.median(on_walls) / statistics.median(off_walls),
+        idle_wall_ms=statistics.median(idle_walls),
+        idle_over_off=statistics.median(idle_walls) / statistics.median(off_walls),
+        off_wall_ms_runs=off_walls, on_wall_ms_runs=on_walls, idle_wall_ms_runs=idle_walls,
+        launches=on_launches,
+        launches_equal=True, sync_calls=on_syncs, sync_calls_equal=True,
+        scrapes={r: {"n": len(v), "median_ms": statistics.median(ms for _, ms in v),
+                     "status": codes[r]} for r, v in scraper.by_route.items()},
+        latency_buckets=len(buckets), healthz_device_hbm=sampled,
+        memory_allocated=before, history_snapshots=snaps, card=smi)
+    torch.cuda.empty_cache()
+
+    # (b) /profilez on a live server: a capture while the worker thread
+    # serves phase 5's side on each merge tier.
+    t_case = time.perf_counter()
+    pcfg = dj.JoinConfig(key_range=(0, 2 * rows))
+    prep = dj.prepare_join_side(topo, right, rcnt, [0], pcfg, left_capacity=rows)
+    pargs = (topo, left, lcnt, prep, None, [0], None, pcfg)
+    pdir = tempfile.mkdtemp(prefix="smoke-profilez-")
+    try:
+        with obs_on() as obs, env_set(DJT_OBS_PROFILE_DIR=pdir), \
+                QueryScheduler(ServeConfig(hbm_budget_bytes=0), worker=True) as s:
+            host, port = obs_http.start(0)
+            base = f"http://{host}:{port}"
+            try:
+                with env_set(DJT_JOIN_MERGE="sort"):
+                    for _ in range(2):  # the first warms up
+                        res, outside_ms, _ = served(s, pargs)
+                        flags_false("16b outside", res[2])
+                        rows_of("16b outside", res[0], res[1], build, probe, expected, ref)
+                        del res
+                code, _, body, _ = scrape(base, "/profilez?secs=2")
+                started = json.loads(body)
+                busy, _, busy_body, _ = scrape(base, "/profilez?secs=2")
+                inside, walls = {}, {}
+                reset_launches()
+                for tier in TIERS:
+                    with env_set(DJT_JOIN_MERGE=tier):
+                        res, walls[tier], _ = served(s, pargs)
+                        flags_false(f"16b tier={tier}", res[2])
+                        rows_of(f"16b tier={tier}", res[0], res[1], build, probe, expected, ref)
+                        del res
+                launches = read_launches()
+                t_wait = time.monotonic()
+                while not [e for e in obs.events("profile") if e["state"] != "started"]:
+                    if time.monotonic() - t_wait > 300:
+                        raise AssertionError("16b: the capture never ended")
+                    time.sleep(0.05)
+                for th in threading.enumerate():
+                    if th.name == "dj-obs-profile":
+                        th.join(timeout=60)
+            finally:
+                obs_http.stop()
+            ends = [e["state"] for e in obs.events("profile")]
+            captures = obs.counter_value("dj_profile_captures_total")
+        if code != 200 or not started.get("ok") or busy != 409 or \
+                not json.loads(busy_body).get("busy") or ends != ["started", "stopped"] or \
+                captures != 1:
+            raise AssertionError(f"16b: /profilez answered {code} {started}, then {busy} "
+                                 f"{busy_body}; events {ends}, captures {captures}")
+        with open(started["path"]) as f:
+            trace_bytes = f.seek(0, 2)
+            f.seek(0)
+            prof = json.load(f)
+        names = kernel_names(prof)
+        found = {k: has_kernel(names, k) for k in PROFILED_KERNELS}
+        if on_card and not all(found.values()):
+            raise AssertionError(f"16b: the capture lacks {[k for k, v in found.items() if not v]}"
+                                 f" among its {len(names)} kernel names: {sorted(names)[:40]}")
+        if not prof.get("traceEvents"):
+            raise AssertionError("16b: the capture holds no event")
+        want = {"join_scans": 2, "expand_values": 2, "merge_sorted_u64": 1, "expand_ranks": 1}
+        if {k: launches[k] for k in want} != want:
+            raise AssertionError(f"16b: the tiers launched {launches}, not {want}")
+    finally:
+        shutil.rmtree(pdir, ignore_errors=True)
+    one_rank["observatory_profiled"] = {1: launches}
+    log("observatory", smoke_phase="16", case="(b)", seconds=time.perf_counter() - t_case,
+        rows=rows, odf=1, capture_s=2,
+        busy_status=busy, kernels_found=found, kernel_names=len(names),
+        trace_events=len(prof["traceEvents"]), trace_bytes=trace_bytes,
+        query_inside_capture_ms=walls, query_outside_capture_ms=outside_ms, launches=launches,
+        card=smi)
+    del prep, prof
+    torch.cuda.empty_cache()
+
+    # (c) the history and the burn-rate alerts over served queries and
+    # queued deadline sheds, on a timeline of sample_now(now=) ticks.
+    t_case = time.perf_counter()
+    with obs_on() as obs, env_set(DJT_SLO_BURN_FAST_S="60", DJT_SLO_BURN_SLOW_S="600",
+                                  DJT_SLO_BURN_RATE="0.3", DJT_OBS_HISTORY_S="3600"), \
+            QueryScheduler(ServeConfig(hbm_budget_bytes=0), worker=False) as s:
+        history.reset()
+        host, port = obs_http.start(0)  # its sampler waits an hour: the ticks are ours
+        try:
+            t0 = 1_000_000.0
+            for k in range(11):  # healthy ticks spanning the slow window
+                res, _, _ = served(s, args)
+                del res
+                history.sample_now(now=t0 + 60 * k)
+            if obs.events("slo_alert"):
+                raise AssertionError(f"16c: healthy ticks fired {obs.events('slo_alert')}")
+            sheds = 0
+            for k in range(1, 12):  # the storm: two queued deadline sheds a tick
+                for _ in range(2):
+                    t = s.submit(*args, deadline_s=0.0)
+                    time.sleep(0.001)
+                    try:
+                        t.result(timeout=60)
+                    except dj.DeadlineExceeded:
+                        sheds += 1
+                    else:
+                        raise AssertionError("16c: an expired query ran")
+                    del t
+                history.sample_now(now=t0 + 600 + 60 * k)
+                firing = [(e["slo"], e["window"]) for e in obs.events("slo_alert")
+                          if e["state"] == "firing"]
+                if ("deadline_miss", "slow") in firing:
+                    break
+            _, _, body, _ = scrape(f"http://{host}:{port}", "/trendz?n=64")
+            trend = json.loads(body)
+        finally:
+            obs_http.stop()
+        alerts = [(e["slo"], e["window"], e["state"]) for e in obs.events("slo_alert")]
+        totals = {w: obs.counter_value("dj_slo_alert_total", slo="deadline_miss", window=w)
+                  for w in ("fast", "slow")}
+    last = trend["snapshots"][-1] if trend["snapshots"] else {}
+    if alerts != [("deadline_miss", "fast", "firing"), ("deadline_miss", "slow", "firing")] or \
+            totals != {"fast": 1, "slow": 1} or len(trend["snapshots"]) < 8 or \
+            trend["alerts"].get("deadline_miss:fast") is not True or \
+            (on_card and not last.get("device_hbm")) or last.get("deadline_shed") != sheds:
+        raise AssertionError(f"16c: alerts {alerts}, totals {totals}, /trendz "
+                             f"{len(trend['snapshots'])} snapshots, alerts {trend['alerts']}, "
+                             f"last {last}")
+    log("observatory", smoke_phase="16", case="(c)", seconds=time.perf_counter() - t_case,
+        served=11, deadline_sheds=sheds,
+        alerts=alerts, alert_totals=totals, trendz_snapshots=len(trend["snapshots"]),
+        trendz_alerts=trend["alerts"], last_device_hbm=last.get("device_hbm"), card=smi)
+
+    # (d) /fleetz and the anomaly window: 4d's join with the skew probe.
+    t_case = time.perf_counter()
+    fdir = tempfile.mkdtemp(prefix="smoke-fleet-")
+    topo4 = dj.make_topology([dev] * WORLD)
+    l4, l4c = dj.shard_table(topo4, probe)
+    r4, r4c = dj.shard_table(topo4, build)
+    try:
+        with obs_on() as obs, env_set(DJT_OBS_SKEW="1", DJT_FLEET_DIR=fdir):
+            host, port = obs_http.start(0)
+            try:
+                reset_launches()
+                out, counts, info = dj.distributed_inner_join(topo4, l4, l4c, r4, r4c, [0], [0],
+                                                              cfg)
+                torch.cuda.synchronize()
+                launches4 = read_launches()
+                flags_false("16d", info)
+                check_colocated("16d", out, counts, 1)
+                out = dj.unshard_table(out, counts)
+                counts = torch.tensor([int(counts.sum())])
+                rows_of("16d", out, counts, build, probe, expected, ref)
+                del out, counts, info
+                obs.fleet_snapshot()
+                _, _, body, _ = scrape(f"http://{host}:{port}", "/fleetz")
+                fz = json.loads(body)
+            finally:
+                obs_http.stop()
+            skews = len(obs.events("skew"))
+            anomalies = obs.events("anomaly")
+    finally:
+        fleet.reset()
+        shutil.rmtree(fdir, ignore_errors=True)
+    phases = sorted({r["phase"] for r in fz["scores"]})
+    coord = fz["coordination"] or {}
+    if fz["window"]["stored"] < 2 or fz["window"]["capacity"] != 16 or \
+            fz["thresholds"] != {"ratio": 2.0, "z": 2.0} or "wire" not in phases or \
+            len(phases) < 2 or fz["anomalous"] or anomalies or skews < 1 or \
+            not coord.get("enabled") or coord.get("dir") != fdir or \
+            min(launches4["join_scans"], launches4["expand_values"]) != WORLD:
+        raise AssertionError(f"16d: /fleetz {json.dumps(fz)[:2000]}, anomalies {anomalies}, "
+                             f"{skews} skew events, launches {launches4}")
+    world["observatory_fleet"] = {1: launches4}
+    log("observatory", smoke_phase="16", case="(d)", seconds=time.perf_counter() - t_case,
+        ranks=WORLD, odf=1,
+        window=fz["window"], thresholds=fz["thresholds"], scored_phases=phases,
+        scores=len(fz["scores"]), max_ratio=max(r["ratio"] for r in fz["scores"]),
+        anomalous=fz["anomalous"], fleet_ranks=len(fz["fleet"]["ranks"]), skew_events=skews,
+        coordination_enabled=coord.get("enabled"), launches=launches4, card=smi)
+    del l4, l4c, r4, r4c, topo4
+    torch.cuda.empty_cache()
+
+    # (e) the black box under SIGTERM: the soak's hard-death arm, its
+    # child serving on this card at this run's rows.
+    t_case = time.perf_counter()
+    bdir = tempfile.mkdtemp(prefix="smoke-blackbox-")
+    try:
+        p = subprocess.run(
+            [sys.executable, "-m", "dj_tpu_torch.scripts.chaos_soak", "--hard-death",
+             "--device", "cuda" if on_card else "cpu", "--rows", str(rows),
+             "--blackbox-dir", bdir],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+    finally:
+        shutil.rmtree(bdir, ignore_errors=True)
+    lines = [ln for ln in p.stdout.splitlines() if ln.startswith("{")]
+    summary = json.loads(lines[-1]) if lines else {}
+    if p.returncode != 0 or not summary.get("ok") or \
+            summary.get("serve_queued", 0) + summary.get("serve_reserved_bytes", 0) <= 0:
+        raise AssertionError(f"16e: the hard-death arm exited {p.returncode}: {summary}; "
+                             f"stderr {p.stderr[-2000:]}")
+    log("observatory", smoke_phase="16", case="(e)", seconds=time.perf_counter() - t_case,
+        rows=rows, device=summary["device"],
+        child_exit=summary["child_exit"],
+        child_imported_s=summary["child_imported_s"],
+        child_to_kill_s=summary["child_to_kill_s"], child_wall_s=summary["elapsed_s"],
+        bundle_bytes=summary["bundle_bytes"],
+        bundle_sections=summary["bundle_sections"], open_timelines=summary["open_timelines"],
+        serve_queued=summary["serve_queued"], serve_reserved_bytes=summary["serve_reserved_bytes"],
+        card=smi)
+
+    history.reset()
+    if obs_threads():
+        raise AssertionError(f"16: obs threads alive after the phase: {obs_threads()}")
+    log("observatory_phase", smoke_phase="16", seconds=time.perf_counter() - t_phase, card=smi)
     return one_rank, world
 
 
@@ -7296,6 +7766,16 @@ def main() -> int:
     world_launches.update(serve_world)
     torch.cuda.empty_cache()
     check_no_pins("15")
+
+    # 16. the observatory: the endpoint, /profilez, the history, the
+    # anomaly window and the black box
+    with released("16"):
+        obs_launches, obs_world = run_observatory(dj, dev, topo, left, lcnt, right, rcnt, build,
+                                                  probe, expected, ref, rows, smi)
+    launch_table.update(obs_launches)
+    world_launches.update(obs_world)
+    torch.cuda.empty_cache()
+    check_no_pins("16")
 
     # 6a. a process world of one over NCCL
     process1_launches = process_world_of_one(dj, dev, "nccl", build, probe, expected, ref, rows, smi)

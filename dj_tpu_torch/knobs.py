@@ -202,6 +202,41 @@ KNOBS: tuple[Knob, ...] = (
     Knob("DJT_OBS_LOG", None, "path", "JSONL event sink (also enables obs)", "ambient"),
     Knob("DJT_OBS_RING", 1024, "int", "flight recorder's ring capacity in events", "ambient"),
     Knob("DJT_OBS_TRACES", 256, "int", "query timelines kept", "ambient"),
+    Knob("DJT_OBS_HISTORY", 512, "int",
+         "retained registry and SLO snapshot ring capacity (obs.history)", "ambient"),
+    Knob("DJT_OBS_HISTORY_S", 10.0, "float",
+         "snapshot sampler interval in seconds (the thread starts with the DJT_OBS_HTTP "
+         "server)", "ambient"),
+    Knob("DJT_SLO_BURN_FAST_S", 60.0, "float",
+         "fast burn-rate alert window in seconds (obs.history)", "ambient"),
+    Knob("DJT_SLO_BURN_SLOW_S", 600.0, "float",
+         "slow burn-rate alert window in seconds (obs.history)", "ambient"),
+    Knob("DJT_SLO_BURN_RATE", 0.1, "float",
+         "burn-rate alert threshold: the deadline-miss or shed share of a window at which "
+         "slo_alert fires", "ambient"),
+    Knob("DJT_OBS_ANOMALY_WINDOW", 16, "int",
+         "fleet-snapshot window the rank anomaly detector scores over (obs.fleet; min 2)",
+         "ambient"),
+    Knob("DJT_OBS_ANOMALY_RATIO", 2.0, "float",
+         "a rank's windowed work over the fleet median at which a (rank, phase) anomaly "
+         "fires (<= 0 disables)", "ambient"),
+    Knob("DJT_OBS_ANOMALY_Z", 2.0, "float",
+         "fleet z-score an anomaly must also reach on fleets of 4 or more ranks", "ambient"),
+    Knob("DJT_OBS_HTTP", None, "int",
+         "live telemetry endpoint port (also enables obs; 0 binds an ephemeral port, "
+         "published as the dj_obs_http_port gauge and the obs_http event)", "ambient"),
+    Knob("DJT_OBS_HTTP_HOST", "127.0.0.1", "str", "telemetry endpoint bind host",
+         "ambient"),
+    Knob("DJT_OBS_PROFILE_DIR", None, "path",
+         "torch.profiler capture directory of the /profilez route (unset: /profilez "
+         "answers 400)", "ambient"),
+    Knob("DJT_OBS_BLACKBOX", None, "path",
+         "crash black-box directory: arms excepthook, SIGTERM and atexit handlers that dump "
+         "a per-rank JSONL bundle (also enables obs; read with python -m "
+         "dj_tpu_torch.scripts.blackbox_read)", "ambient"),
+    Knob("DJT_OBS_BLACKBOX_TRACES", 8, "int",
+         "closed query timelines kept in a black-box bundle (open ones always dump)",
+         "ambient"),
     Knob("DJT_PEAK_HBM_GBPS", 3350.0, "float",
          "HBM peak of the roofline in GB/s (H100 80GB HBM3)", "ambient"),
     Knob("DJT_PEAK_WIRE_GBPS", 450.0, "float",

@@ -27,6 +27,13 @@ Counterpart of ``dj_tpu/obs/``:
   allocator sampled into ``dj_device_hbm_*`` gauges, the
   ``DJT_SERVE_MEASURED_HBM`` admission input, the forecast scope and the
   per-tenant view.
+- history.py: the snapshot ring (``sample_now``, a sampler thread) and
+  the multi-window burn-rate alerts (``slo_alert``).
+- fleet.py: the rank anomaly detector over the fleet snapshots, fed by
+  ``skew``'s hook, and ``fleet_health``.
+- http.py: the ``DJT_OBS_HTTP`` endpoint (``/metrics``, ``/healthz``,
+  ``/trendz``, ``/fleetz``, ``/profilez`` and the rest).
+- forensics.py: the ``DJT_OBS_BLACKBOX`` crash black box.
 
 Enable with ``DJT_OBS=1`` or ``DJT_OBS_LOG=<path>`` (or ``enable()``).
 Everything is host-side Python; with obs disabled the join path takes
@@ -39,8 +46,8 @@ the build-cache counters) has no jit to hook here and is left out;
 ``recorder.suppress_epochs`` is a scope of the port's own collective
 counting. The compiled-module half of truth (``DJ_OBS_TRUTH``: XLA's
 cost and memory analyses, ``dj_xla_*``, ``dj_model_xla_ratio``) has no
-torch counterpart and is left out too (ROADMAP item 10c). dj_tpu's
-history, http, fleet and forensics modules come with ROADMAP item 10f.
+torch counterpart and is left out too (ROADMAP item 10c); so are the
+fields of the endpoint's payloads that read them.
 """
 
 from . import bytemodel, skew
@@ -76,6 +83,10 @@ from .recorder import (
 )
 from . import roofline  # noqa: E402  (per-query phase attribution)
 from . import truth  # noqa: E402  (the device half of measured truth)
+from . import history  # noqa: E402  (snapshot ring and burn-rate alerts)
+from . import fleet  # noqa: E402  (rank anomaly detection)
+from . import http  # noqa: E402  (the DJT_OBS_HTTP endpoint)
+from . import forensics  # noqa: E402  (the crash black box)
 from .skew import fleet_snapshot
 from .trace import (
     blackbox_traces,
@@ -104,12 +115,16 @@ __all__ = [
     "enabled",
     "events",
     "export_trace",
+    "fleet",
     "fleet_snapshot",
+    "forensics",
     "gauge_series",
     "hbm_model_bytes",
     "gauge_value",
     "histogram_quantile",
     "histogram_raw",
+    "history",
+    "http",
     "inc",
     "metrics_summary",
     "metrics_text",

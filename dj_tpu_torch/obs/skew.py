@@ -29,9 +29,9 @@ NCCL, on the CPU under gloo; one process returns its own row), derives
 the stragglers (``dj_rank_phase_seconds{rank,phase}`` and the per-phase
 max / median ``dj_rank_skew_ratio{phase}``) and keeps the merged view
 for :func:`fleet_view` and :func:`rank_skew_summary`, which never enter
-a collective. dj_tpu's ``/skewz`` and ``/rooflinez`` routes and the
-``obs.fleet`` anomaly detector behind ``_fleet_sink`` come with ROADMAP
-item 10f; the hook is here, empty.
+a collective (the endpoint's ``/skewz``, ``/rooflinez`` and ``/fleetz``
+read them). Every merged view also reaches ``_fleet_sink``, which
+``obs.fleet`` sets to its anomaly window's ``note_snapshot``.
 """
 
 from __future__ import annotations
@@ -73,8 +73,8 @@ _last_fleet: Optional[dict] = None
 # does not fit drops fields (never bytes) until it does.
 _FLEET_MSG_BYTES = 8192
 
-# Fleet-snapshot consumer hook (dj_tpu's obs.fleet anomaly detector,
-# ROADMAP item 10f): called with every merged view when set.
+# The fleet-snapshot consumer: obs.fleet's note_snapshot (set when
+# obs.fleet is imported), called with every merged view.
 _fleet_sink = None
 
 

@@ -22,10 +22,13 @@ waiting forever on a rank that died.
 Not ported: dj_tpu's ``ensure_async_collectives`` and
 ``setup_compile_cache`` set XLA flags and XLA's compilation cache, which
 PyTorch has no counterpart of (NCCL collectives are asynchronous by
-construction); the observability hooks (the HTTP endpoint and the crash
-black box) come with the rest of ``obs``, ROADMAP queue 1 item 10f.
-Each retry counts ``dj_init_retry_total{what}`` and records one
-``backoff`` event, as dj_tpu's does.
+construction). Every call first starts the ``DJT_OBS_HTTP`` endpoint
+(``obs.http.maybe_start_from_env``) and then arms the
+``DJT_OBS_BLACKBOX`` crash black box
+(``obs.forensics.maybe_arm_from_env``), as dj_tpu's does; each is a
+no-op while its knob is unset. Each retry counts
+``dj_init_retry_total{what}`` and records one ``backoff`` event, as
+dj_tpu's does.
 """
 
 from __future__ import annotations
@@ -138,7 +141,10 @@ def init_distributed(
     configured. A malformed process count or id fails at once, outside
     the retries. On a CUDA rank the current device becomes
     ``cuda:LOCAL_RANK`` before the group starts, so NCCL binds each
-    process to its own card."""
+    process to its own card. The endpoint and the black box start first
+    (module docstring), in every case."""
+    obs.http.maybe_start_from_env()
+    obs.forensics.maybe_arm_from_env()
     if is_distributed_initialized():
         return True
     address = coordinator_address or _env_first(_COORD_VARS) or _torchrun_address()

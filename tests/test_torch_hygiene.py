@@ -38,7 +38,8 @@ def test_importing_every_module_loads_no_jax():
     for m in ("ops.scan", "convert", "ops.merge", "ops.expand", "resilience.errors",
               "hw.probe_sort", "hw.probe_gather", "parallel.spmd", "parallel.communicator",
               "parallel.bootstrap", "parallel.topology", "data.generator",
-              "compress.cascaded", "parallel.warmup"):
+              "compress.cascaded", "parallel.warmup", "obs.history", "obs.fleet", "obs.http",
+              "obs.forensics", "scripts.blackbox_read", "scripts.chaos_soak"):
         assert f"dj_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -46,7 +46,7 @@ def test_every_knob_is_documented_in_the_port_section_of_the_readme():
 
 
 def test_registry_shape():
-    assert len(knobs.KNOBS) == len(knobs.REGISTRY) == 64
+    assert len(knobs.KNOBS) == len(knobs.REGISTRY) == 77
     for k in knobs.KNOBS:
         assert k.doc and k.kind in ("bool", "int", "float", "str", "enum", "path")
         assert (k.kind == "enum") == bool(k.choices)
@@ -63,6 +63,19 @@ def test_registry_shape():
              "DJT_SERVE_SLO_WINDOW": 128, "DJT_SERVE_DRIFT_THRESHOLD": 2.0}
     assert {n: knobs.REGISTRY[n].default for n in serve} == serve
     assert all(knobs.REGISTRY[n].cleanup == "serve" for n in serve)
+    # The observatory's family carries dj_tpu's defaults and kinds
+    # (dj_tpu/knobs.py:328-373).
+    observatory = {"DJT_OBS_HISTORY": (512, "int"), "DJT_OBS_HISTORY_S": (10.0, "float"),
+                   "DJT_SLO_BURN_RATE": (0.1, "float"), "DJT_SLO_BURN_FAST_S": (60.0, "float"),
+                   "DJT_SLO_BURN_SLOW_S": (600.0, "float"),
+                   "DJT_OBS_ANOMALY_WINDOW": (16, "int"),
+                   "DJT_OBS_ANOMALY_RATIO": (2.0, "float"), "DJT_OBS_ANOMALY_Z": (2.0, "float"),
+                   "DJT_OBS_HTTP": (None, "int"), "DJT_OBS_HTTP_HOST": ("127.0.0.1", "str"),
+                   "DJT_OBS_PROFILE_DIR": (None, "path"), "DJT_OBS_BLACKBOX": (None, "path"),
+                   "DJT_OBS_BLACKBOX_TRACES": (8, "int")}
+    assert {n: (knobs.REGISTRY[n].default, knobs.REGISTRY[n].kind)
+            for n in observatory} == observatory
+    assert all(knobs.REGISTRY[n].cleanup == "ambient" for n in observatory)
 
 
 def test_readers_keep_their_defaults(monkeypatch):

@@ -556,11 +556,11 @@ def test_bootstrap_retries_match_dj_tpu(obs_capture, port_obs):
 
 def test_obs_exports_what_dj_tpu_exports():
     """The port's obs exports dj_tpu's names, but those left out (no
-    jit to hook) and those of later slices."""
+    jit to hook); no later slice owes one."""
     import dj_tpu.obs as jobs
 
     left_out = {"cached_build", "capture_epochs", "record_epoch", "epoch_total_bytes"}
-    later = {"history", "http", "fleet", "forensics"}
+    later = set()
     assert set(jobs.__all__) - set(tobs.__all__) == left_out | later
     assert all(hasattr(tobs, n) for n in tobs.__all__)
     for name in ("hbm_model_bytes", "prepared_side_bytes", "fleet_snapshot", "truth"):

@@ -61,7 +61,7 @@ chip_smoke = _load("chip_smoke", ROOT / "chip_smoke.py")
 
 WORLDS = (2, 4)
 CASES = {2: ["collectives", "exchange", "shuffle", "join", "generate", "auto", "keys", "strings",
-             "append", "fleet", "autotune", "index", "serve"],
+             "append", "fleet", "autotune", "index", "serve", "blackbox"],
          4: ["collectives", "exchange", "shuffle", "join", "prepared", "generate", "two_level",
              "plan_adapt", "pipeline"]}
 
@@ -791,6 +791,24 @@ def test_process_world_scheduler_decides_once_for_the_world(worlds):
         for got in res["group"]:
             assert got["rows"] == [want_prep["rows"][r]]
             assert got["flags"] == want_prep["flags"]
+
+
+def test_process_world_leaves_one_black_box_a_process(worlds):
+    """Two gloo processes armed into one directory leave two bundles
+    that do not overwrite each other: each named and stamped with its own
+    rank, which the process group gives when DJT_PROCESS_ID is unset."""
+    got = [r["blackbox"] for r in worlds.results(2)]
+    paths = [pathlib.Path(g["path"]) for g in got]
+    assert [pathlib.Path(g["armed"]) for g in got] == paths
+    assert sorted(paths[0].parent.glob("blackbox-*.jsonl")) == sorted(paths)
+    for r, (g, path) in enumerate(zip(got, paths)):
+        assert path.name.startswith(f"blackbox-r{r}-p") and g["rank_from_group"] == r
+        sections = {}
+        for line in path.read_text().splitlines():
+            obj = json.loads(line)
+            sections[obj.pop("section")] = obj
+        assert sections["meta"]["rank"] == r and sections["meta"]["reason"] == "case"
+        assert [t["query_id"] for t in sections["traces"]["open"]] == [f"{r}:q-bb"]
 
 
 def _counting(monkeypatch):

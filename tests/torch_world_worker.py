@@ -1064,6 +1064,31 @@ def case_serve(topo):
     return out
 
 
+def case_blackbox(topo):
+    """Arm the black box into a directory every process of the world
+    shares, dump this process's bundle with an open query, and read the
+    rank the bundle name takes from the process group alone
+    (DJT_PROCESS_ID unset for the read)."""
+    from dj_tpu_torch import obs
+    from dj_tpu_torch.obs import forensics
+
+    was = obs.enabled()
+    armed = forensics.arm(str(pathlib.Path(OUT_DIR) / "blackbox"))
+    try:
+        with obs.query_ctx(f"{topo.rank}:q-bb"):
+            obs.span_begin("query")
+        path = forensics.dump("case")
+        pid = os.environ.pop("DJT_PROCESS_ID")
+        try:
+            from_group = forensics._rank()
+        finally:
+            os.environ["DJT_PROCESS_ID"] = pid
+    finally:
+        forensics.disarm()
+        obs.reset(reenable=was)
+    return {"armed": armed, "path": path, "rank_from_group": from_group}
+
+
 CASES = {"collectives": case_collectives, "exchange": case_exchange, "shuffle": case_shuffle,
          "join": case_join, "prepared": case_prepared, "generate": case_generate,
          "auto": case_auto, "keys": case_keys, "fail": case_fail,
@@ -1071,7 +1096,8 @@ CASES = {"collectives": case_collectives, "exchange": case_exchange, "shuffle": 
          "two_level": case_two_level, "compress": case_compress, "append": case_append,
          "fault": case_fault, "peer_fails": case_peer_fails,
          "plan_adapt": case_plan_adapt, "pipeline": case_pipeline, "fleet": case_fleet,
-         "autotune": case_autotune, "index": case_index, "serve": case_serve}
+         "autotune": case_autotune, "index": case_index, "serve": case_serve,
+         "blackbox": case_blackbox}
 
 
 def main(spec_json: str, out_dir: str) -> int:
