@@ -458,6 +458,29 @@ Phases, each printing its own line(s):
      the card: the child dies by SIGTERM with 4 queries in flight and
      the audit of its bundle passes; the phase leaves no device bytes and
      no dj-obs thread behind;
+  17. the soak on the card (after 16): (a) the soak's main walk,
+     chaos_soak.main_walk (the default arm of `python -m
+     dj_tpu_torch.scripts.chaos_soak`), at 1M rows (--rows, if smaller)
+     in a 4-rank world on this card: every spec of FAULT_WALK under the
+     scheduler with the planner, the skew probe, the probe tier, the
+     measured gate (budget: the card's bytes), the prepared tiers and the
+     tuner armed; every ticket ends once, rows checked, one pin of each
+     faulted tier's own, the collective audits pass (the walk's stand-in
+     for dj_tpu's HLO audit) and /healthz's allocator sample equals
+     memory_allocated(); join_scans, expand_values, expand_ranks and
+     merge_sorted_u64 each launched; (b) the fleet drill (--fleet) at
+     the same rows in 8-rank worlds: three peers in processes of their
+     own, each with its own CUDA context on this card, one defer, one
+     reclaim, a replay with no prepare heal; (c) the native host runtime built from
+     native/dj_native.cpp into dj_tpu_torch/_build/ (no fallback):
+     native.murmur3_32 of phase 4's build keys on the host equal to the
+     port's hash of them on the card at seeds 0 and 12345678, and a 10M x
+     10M pair from native.generate_build_probe (selectivity 0.3, unique
+     build keys) joined on one rank: the count native.expected_match_count
+     exactly, every flag False. The phase leaves no device bytes, no pin,
+     no child process and no dj-obs thread; it logs its seconds, peak
+     and each part's launches. The parquet reader (data/io.py) is not
+     driven: the card's machine has no pyarrow;
   9. timings: the `timings` line (walls, peaks and the main path's sort);
   10. the hardware probes: `python -m dj_tpu_torch.hw.probe_sort` and
      `... .probe_gather` through their main() at the JAX probes' shapes
@@ -481,7 +504,8 @@ beside each kernel's bound, launches per query on each path and in the
 4-rank world (the plan tiers of 4i, 5e and 8f and the composition
 layers' 4j, 4k and 5f, phase 13's tuned chain and probes and phase
 14's cached sides, phase 15's served queries and phase 16's served, profiled
-and 4-rank queries among its paths), its two-level form and the
+and 4-rank queries among its paths), phase 17's (the walk, the drill's
+parent and the native-generated join), its two-level form and the
 process worlds (6b's broadcast run and chain apart), expand_ranks'
 codec decodes in 4g, expand_values' probe-tier call of 5d, and each
 kernel's registers and spills from ptxas; the probes' launches are their
@@ -702,25 +726,17 @@ def check_rows(out, counts, build, probe, expected: int) -> None:
 TIERS = ("sort", "merge", "probe")
 MODES = ("ranks", "fused", "join", "vcarry", "vfull")  # besides the default vmeta
 # Each kernel's launch counter in dj_tpu_torch.ops.expand.
-EXPAND_COUNTERS = {"expand_values": "launches", "expand_ranks": "ranks_launches",
-                   "expand_gather": "gather_launches", "expand_join": "join_launches",
-                   "expand_carry": "carry_launches", "expand_vfull": "vfull_launches"}
-
-
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
-    from dj_tpu_torch.ops import expand, merge, scan
+    from dj_tpu_torch.ops import reset_kernel_launches
 
-    scan.launches = merge.launches = 0
-    for counter in EXPAND_COUNTERS.values():
-        setattr(expand, counter, 0)
+    reset_kernel_launches()
 
 
 def read_launches() -> dict:
-    from dj_tpu_torch.ops import expand, merge, scan
+    from dj_tpu_torch.ops import kernel_launches
 
-    return {"join_scans": scan.launches, "merge_sorted_u64": merge.launches,
-            **{name: getattr(expand, c) for name, c in EXPAND_COUNTERS.items()}}
+    return kernel_launches()
 
 
 def carry_inputs(build, probe, device):
@@ -2644,19 +2660,11 @@ class Collectives:
             setattr(self.cls, name, fn)
 
 
-@contextlib.contextmanager
 def env_set(**kv):
     """The DJT_* variables ``kv`` set inside the block, restored after."""
-    old = {k: os.environ.get(k) for k in kv}
-    os.environ.update(kv)
-    try:
-        yield
-    finally:
-        for k, v in old.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+    from dj_tpu_torch import knobs
+
+    return knobs.scoped(kv)
 
 
 def salt_rule(counts, n: int, odf: int, threshold: float = 2.0, topk: int = 3):
@@ -6343,6 +6351,136 @@ def run_observatory(dj, dev, topo, left, lcnt, right, rcnt, build, probe, expect
     return one_rank, world
 
 
+# --- phase 17: the soak on the card ------------------------------------------
+
+SOAK_ROWS = 1_000_000  # the walk's and the drill's rows (PERF.md §4: the cut and why)
+SOAK_WORLD = 4
+# The drill's world: at 4 ranks the one-key build side of its phase 3
+# fits bucket_factor 4 (rows / 4 a destination), its prepare heals
+# nothing and the replay check is vacuous; dj_tpu's drill runs 8.
+DRILL_WORLD = 8
+NATIVE_ROWS = 10_000_000
+PATH_KERNELS = ("join_scans", "expand_values", "expand_ranks", "merge_sorted_u64")
+
+
+def child_pids() -> list:
+    """The live child processes of this one (from /proc)."""
+    me, out = os.getpid(), []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[1]) == me and fields[0] != "Z":
+            out.append(int(d))
+    return out
+
+
+def run_soak(dj, dev, build, rows: int, seed: int, smi: str) -> dict:
+    """Phase 17: the soak's walk and fleet drill on the card, then the
+    native host runtime (module docstring). Returns each part's kernel
+    launches, counted from 0 just before it."""
+    import numpy as np
+
+    from dj_tpu_torch import native
+    from dj_tpu_torch.parallel.dist_join import MAIN_JOIN_SEED
+    from dj_tpu_torch.scripts import chaos_soak
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    n = min(SOAK_ROWS, rows)
+    device = torch.device(dev).type  # "cuda"; "cpu" in a CPU rehearsal
+    launches: dict = {}
+    if child_pids() or obs_threads():
+        raise AssertionError(f"17: children {child_pids()} or obs threads {obs_threads()} "
+                             f"alive before the phase")
+
+    # (a) the walk: every spec of FAULT_WALK under the scheduler, in a
+    # 4-rank world on this card.
+    with obs_on():
+        reset_launches()
+        walk = chaos_soak.main_walk(device, n, SOAK_WORLD)
+        launches["walk"] = read_launches()
+    print(json.dumps(walk), flush=True)
+    if not walk["ok"]:
+        raise AssertionError(f"17(a): the walk broke {len(walk['violations'])} invariant(s): "
+                             f"{walk['violations'][:10]}")
+    if walk["traces_complete"] != f"{walk['queries']}/{walk['queries']}" or \
+            walk["sites"] != len(chaos_soak.FAULT_WALK):
+        raise AssertionError(f"17(a): not every ticket ended once: {walk['traces_complete']} "
+                             f"of {walk['queries']}, {walk['sites']} sites")
+    missing = [k for k in PATH_KERNELS if not launches["walk"][k]]
+    if missing:
+        raise AssertionError(f"17(a): the walk launched no {missing}: {launches['walk']}")
+    log("soak", smoke_phase="17", case="(a) walk", rows=n, ranks=SOAK_WORLD,
+        seconds=walk["elapsed_s"], queries=walk["queries"], outcomes=walk["outcomes"],
+        traces_complete=walk["traces_complete"], truth=walk["truth"],
+        audits=walk["collective_audits"]["verdicts"], launches=launches["walk"], card=smi)
+    check_no_pins("17(a)")
+
+    # (b) the fleet drill: three peers in processes of their own, each
+    # with its own CUDA context on this card.
+    with obs_on():
+        reset_launches()
+        drill = chaos_soak.fleet_drill(device, n, DRILL_WORLD)
+        launches["drill"] = read_launches()
+    print(json.dumps(drill), flush=True)
+    if not drill["ok"]:
+        raise AssertionError(f"17(b): the drill broke {drill['violations']}")
+    log("soak", smoke_phase="17", case="(b) drill", rows=n, ranks=DRILL_WORLD,
+        seconds=drill["elapsed_s"], phases=drill["phases"], launches=launches["drill"], card=smi)
+    check_no_pins("17(b)")
+
+    # (c) the native runtime, built from this checkout's source.
+    t_case = time.perf_counter()
+    if not native.build(force=True) or not native.is_available():
+        raise AssertionError("17(c): the native runtime did not build (no g++)")
+    build_s = time.perf_counter() - t_case
+    keys = build.columns[0].data
+    hashes = {}
+    for hseed in (dj.DEFAULT_HASH_SEED, MAIN_JOIN_SEED):  # 0, and the partition's 12345678
+        host = native.murmur3_32(keys.cpu().numpy(), hseed)
+        card = dj.murmur3_32(keys, hseed).cpu().numpy()
+        if not np.array_equal(host.astype(np.int64), card):
+            bad = int(np.flatnonzero(host.astype(np.int64) != card)[0])
+            raise AssertionError(f"17(c): murmur3 seed {hseed} differs at row {bad}: host "
+                                 f"{host[bad]}, card {card[bad]}")
+        hashes[hseed] = int(host.size)
+    del host, card
+    b, p = native.generate_build_probe(NATIVE_ROWS, NATIVE_ROWS, 0.3, 2 * NATIVE_ROWS,
+                                       unique_build=True, seed=seed)
+    want = native.expected_match_count(NATIVE_ROWS, 0.3, seed=seed)
+    topo1 = dj.make_topology([dev])
+    ids = np.arange(NATIVE_ROWS, dtype=np.int64)
+    right, rcnt = dj.shard_table(topo1, dj.from_arrays(b, ids, device=dev))
+    left, lcnt = dj.shard_table(topo1, dj.from_arrays(p, ids, device=dev))
+    del b, p, ids
+    reset_launches()
+    out, counts, info = dj.distributed_inner_join(topo1, left, lcnt, right, rcnt, [0], [0],
+                                                  dj.JoinConfig())
+    launches["native_join"] = read_launches()
+    flags_false("17(c)", info)
+    total = int(counts.sum())
+    if total != want:
+        raise AssertionError(f"17(c): the native-generated join gave {total} rows, "
+                             f"expected_match_count {want}")
+    del out, counts, info, left, right
+    log("soak", smoke_phase="17", case="(c) native", build_s=build_s, murmur3_rows=hashes,
+        native_rows=NATIVE_ROWS, matches=total, expected_match_count=want,
+        launches=launches["native_join"], seconds=time.perf_counter() - t_case, card=smi)
+
+    torch.cuda.synchronize(dev)
+    if child_pids() or obs_threads():
+        raise AssertionError(f"17: children {child_pids()} or obs threads {obs_threads()} "
+                             f"alive after the phase")
+    log("soak_phase", smoke_phase="17", seconds=time.perf_counter() - t_phase,
+        peak_bytes=torch.cuda.max_memory_allocated(dev), launches=launches, card=smi)
+    return launches
+
+
 # --- process worlds (phases 6a-6c) ---------------------------------------
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -7777,6 +7915,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_no_pins("16")
 
+    # 17. the soak on the card: the fault walk, the fleet drill and the
+    # native host runtime
+    with released("17"):
+        soak_launches = run_soak(dj, dev, build, rows, args.seed, smi)
+    torch.cuda.empty_cache()
+    check_no_pins("17")
+
     # 6a. a process world of one over NCCL
     process1_launches = process_world_of_one(dj, dev, "nccl", build, probe, expected, ref, rows, smi)
     del ref
@@ -8181,6 +8326,10 @@ def main() -> int:
         if process_n is not None:
             k["launches_process_nccl_by_rank"] = (
                 [res["launches"][k["name"]] for res in process_n] if on_path else [])
+        # Phase 17: the walk (4-rank world), the drill's parent, the
+        # native-generated join (one rank), each counted from 0.
+        k["launches_phase17"] = ({part: c[k["name"]] for part, c in soak_launches.items()}
+                                 if on_path else {})
         k["ptxas"] = ptxas_resources(k["source"])
     log("total", seconds=round(time.perf_counter() - t_start, 1), card=smi)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -33,6 +33,7 @@ against the config the query ran with), which needs no XLA analysis.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 
@@ -47,6 +48,7 @@ __all__ = [
     "read_int",
     "registry_snapshot",
     "reset_names",
+    "scoped",
 ]
 
 RESET_CLASSES = ("serve", "index", "plan", "resilience")
@@ -252,6 +254,29 @@ def reset_names() -> tuple[str, ...]:
     """The knobs of the reset classes (module docstring), in
     registration order: the names a test fixture clears."""
     return tuple(k.name for k in KNOBS if k.cleanup in RESET_CLASSES)
+
+
+@contextlib.contextmanager
+def scoped(values: dict, keep=None):
+    """Each variable of ``values`` set for the body (None unsets it), and
+    restored after, except a name for which ``keep(name, previous)``
+    says the body's value stays."""
+    old = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in old.items():
+            if keep is not None and keep(k, v):
+                continue
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def read(name: str, default: object = "__registry__") -> object:

@@ -21,8 +21,17 @@ metrics, knobs, serve, ledger, fleet (the last gathered view only: a
 death handler never enters a collective) and coordination. Each line is
 flushed as it is written and each section is guarded: a failing section
 leaves a stub line ``{"section": name, "error": type}``, and a dump torn
-mid-write loses only its tail. ``python -m
-dj_tpu_torch.scripts.blackbox_read`` reads it.
+mid-write loses only its tail. The SIGTERM handler runs on the main
+thread, which the signal may have caught holding one of the plain locks
+of ``metrics``, ``recorder``, ``trace``, ``roofline`` or the ledger. So
+the dump records the device phases that have finished (a resolve takes
+the first four locks) only when all four are free, without waiting for
+the rest, and reads every section with resolving held off; it takes each lock a section reads with a short timeout
+(``LOCK_TIMEOUT_S``) first, and a section whose lock stays held is
+written as ``{"section": name, "incomplete": "lock held"}``, so the
+process still dies by the signal. Its own ``blackbox`` event carries no
+query id, so it never enters a timeline.
+``python -m dj_tpu_torch.scripts.blackbox_read`` reads it.
 
 Arming enables obs, is idempotent and is wired into
 ``init_distributed`` through :func:`maybe_arm_from_env`. The SIGTERM
@@ -46,6 +55,7 @@ from typing import Optional
 from .. import knobs as _knobs
 from . import metrics as _metrics
 from . import recorder as _recorder
+from . import roofline as _roofline
 from . import skew as _skew
 from . import trace as _trace
 
@@ -59,6 +69,16 @@ __all__ = [
 ]
 
 _lock = threading.Lock()
+# How long the dump waits for an obs lock a section reads. A lock the
+# interrupted main thread holds never frees while its handler runs.
+LOCK_TIMEOUT_S = 0.5
+# The plain locks each section takes while resolving is held off (the
+# serve section's rank-skew summary reads the phase totals).
+_SECTION_LOCKS = {"traces": ("trace",), "ring": ("recorder",), "metrics": ("metrics",),
+                  "serve": ("roofline",), "ledger": ("ledger",)}
+# What resolving the pending device phases takes: observe_phase's totals
+# and histograms, its event, and that event's timeline.
+_RESOLVE_LOCKS = ("roofline", "metrics", "recorder", "trace")
 _dir: Optional[str] = None
 _dumped = False  # a crash or SIGTERM dump happened: atexit stands down
 _prev_excepthook = None
@@ -148,26 +168,49 @@ def _sections(reason: str, exc: Optional[BaseException]) -> list:
     ]
 
 
+def _free(names) -> bool:
+    """Whether each lock of ``names`` can be taken within
+    ``LOCK_TIMEOUT_S`` (taken and given back at once)."""
+    from ..resilience import ledger
+
+    locks = {"metrics": _metrics._lock, "recorder": _recorder._rlock,
+             "trace": _trace._traces_lock, "roofline": _roofline._lock,
+             "ledger": ledger._lock}
+    for name in names:
+        if not locks[name].acquire(timeout=LOCK_TIMEOUT_S):
+            return False
+        locks[name].release()
+    return True
+
+
 def dump(reason: str, exc: Optional[BaseException] = None) -> Optional[str]:
     """Write this process's bundle (the newest dump replaces an older
     one) and return its path; None when disarmed or the file cannot be
     opened. One section a line, flushed a line; a failing section writes
-    its stub line and the dump goes on."""
+    its stub line, a section whose lock stays held its ``incomplete``
+    line, and the dump goes on."""
     global _dumped
     path = bundle_path()
     if path is None:
         return None
+    # The device phases that have finished, without waiting for the rest.
+    if _free(_RESOLVE_LOCKS):
+        _roofline.resolve()
     # Into the ring before the ring section reads it: the bundle's last
     # event is its own cause.
-    _recorder.record("blackbox", action="dump", reason=reason, path=path)
+    if _free(("recorder",)):
+        _recorder.record("blackbox", _ids=None, action="dump", reason=reason, path=path)
     try:
         f = open(path, "w", buffering=1)
     except OSError:
         return None
-    with f:
+    with f, _roofline._deferred():
         for name, thunk in _sections(reason, exc):
             try:
-                line = json.dumps({"section": name, **_recorder._jsonable(thunk())})
+                if _free(_SECTION_LOCKS.get(name, ())):
+                    line = json.dumps({"section": name, **_recorder._jsonable(thunk())})
+                else:
+                    line = json.dumps({"section": name, "incomplete": "lock held"})
             except Exception as e:  # noqa: BLE001 - the dump must finish
                 line = json.dumps({"section": name, "error": type(e).__name__})
             try:

@@ -90,6 +90,9 @@ _lock = threading.Lock()
 # Device phases not yet resolved, oldest first: (start event, end event,
 # host end ts, (query_id, tenant) or None, observe_phase arguments).
 _pending: list = []
+# Threads on which resolve() leaves the pending phases as they are (see
+# _deferred).
+_defer = threading.local()
 
 
 def hbm_peak_gbps() -> float:
@@ -146,9 +149,12 @@ def observe_phase(
 def resolve(wait: bool = False) -> int:
     """Record the pending device phases whose end event has completed
     (all of them with ``wait``, which synchronizes each one's end event
-    first). Returns how many stay pending."""
+    first). Returns how many stay pending; under :func:`_deferred` on
+    this thread, resolves none."""
     if not _pending:
         return 0
+    if getattr(_defer, "on", False):
+        return len(_pending)
     with _lock:
         todo = list(_pending)
         _pending.clear()
@@ -236,6 +242,20 @@ def phase_totals() -> dict:
     resolve(wait=True)
     with _lock:
         return {k: v / 1e3 for k, v in _timer.phases.items()}
+
+
+@contextlib.contextmanager
+def _deferred():
+    """On this thread, for the body, every resolve (a reader's hook
+    included) leaves the pending phases pending: a resolve takes this
+    module's, the registry's, the ring's and the timelines' locks, which
+    a crash dump on an interrupted main thread must not wait for."""
+    prev = getattr(_defer, "on", False)
+    _defer.on = True
+    try:
+        yield
+    finally:
+        _defer.on = prev
 
 
 def summary() -> dict:

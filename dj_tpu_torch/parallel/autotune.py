@@ -69,7 +69,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import os
 import statistics
 import threading
 from collections import deque
@@ -233,16 +232,8 @@ def _env_override(name: str, value: Optional[str]):
     if value is None or resil.knob_pinned(name):
         yield
         return
-    prev = os.environ.get(name)
-    os.environ[name] = value
-    try:
+    with knobs.scoped({name: value}, keep=resil.keep_pin_past_scope):
         yield
-    finally:
-        if not resil.keep_pin_past_scope(name, prev):
-            if prev is None:
-                os.environ.pop(name, None)
-            else:
-                os.environ[name] = prev
 
 
 def _candidate_env(cand: dict):

@@ -2550,7 +2550,15 @@ def price_plan_candidate(
                 replicas = max(2, min(topology.world_group().size, int(salt_replicas)))
             n, l_cap_m, r_cap_m = _main_group_sizing(topology, cfg, job.left.capacity // w,
                                                      job.right.capacity // w)
-            out_cap = batch_sizing(cfg, n, l_cap_m, r_cap_m).out_cap
+            if decision.tier in (plan_adapt.TIER_BROADCAST, TIER_LOCAL):
+                # One join of the shard against the gathered (or the
+                # co-partitioned) build side, at the output capacity its
+                # run gives it, which no over-decomposition splits: the
+                # candidates' odf leaves the plan, and its price, as is.
+                other = r_cap_m * (n if decision.tier == plan_adapt.TIER_BROADCAST else 1)
+                out_cap = max(1, int(cfg.join_out_factor * max(l_cap_m, other)))
+            else:
+                out_cap = batch_sizing(cfg, n, l_cap_m, r_cap_m).out_cap
             model = hbm_model_bytes(
                 l_cap_m, odf, cfg, out_cap,
                 _candidate_plan(job.left, job.right, job.left_on, job.right_on, job.key_range),

@@ -154,6 +154,8 @@ def print_bundle(path, sections, torn, out, ring_tail=16):
     for name, body in sections.items():
         if "error" in body and set(body) == {"error"}:
             out.write(f"  section {name}: FAILED at dump time ({body['error']})\n")
+        elif set(body) == {"incomplete"}:
+            out.write(f"  section {name}: INCOMPLETE at dump time ({body['incomplete']})\n")
 
 
 def bundle_paths(target):

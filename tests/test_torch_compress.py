@@ -664,7 +664,7 @@ def test_chip_smoke_compressed_phases_rehearse_on_cpu(monkeypatch, capsys):
     import importlib.util
     import types
 
-    from dj_tpu_torch.ops import join as tjoin, merge, scan
+    from dj_tpu_torch.ops import KERNEL_COUNTERS, join as tjoin, merge, scan
 
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
@@ -675,8 +675,8 @@ def test_chip_smoke_compressed_phases_rehearse_on_cpu(monkeypatch, capsys):
                      ("memory_allocated", lambda *a, **k: 0),
                      ("empty_cache", lambda: None)):
         monkeypatch.setattr(torch.cuda, name, fn)
-    counters = [("join_scans", scan, "launches"), ("merge_sorted_u64", merge, "launches")] + [
-        (name, expand, c) for name, c in cs.EXPAND_COUNTERS.items()]
+    mods = {"scan": scan, "merge": merge, "expand": expand}
+    counters = [(name, mods[m], c) for name, (m, c) in KERNEL_COUNTERS.items()]
     for name, module, counter in counters:
         real = getattr(tjoin, name)
 

@@ -275,7 +275,12 @@ def test_hard_death_arm_on_the_cpu(tmp_path):
     assert summary["serve_queued"] + summary["serve_reserved_bytes"] > 0
 
 
-def test_soak_without_an_arm_refuses(capsys):
+def test_soak_help_names_its_three_arms(capsys):
+    """The walk is the default arm; --fleet and --hard-death the others."""
     with pytest.raises(SystemExit) as e:
-        chaos_soak.main([])
-    assert e.value.code == 2 and "--hard-death" in capsys.readouterr().err
+        chaos_soak.main(["--help"])
+    out = " ".join(capsys.readouterr().out.split())
+    assert e.value.code == 0
+    assert "the main walk (the default)" in out
+    assert "--fleet" in out and "fleet drill" in out
+    assert "--hard-death" in out and "hard-death arm" in out

@@ -1,7 +1,8 @@
 """Import hygiene of dj_tpu_torch and chip_smoke.py.
 
 The port must not use JAX or anything of the JAX package: importing all
-of its modules pulls in neither, and no module (nor chip_smoke.py) names
+of its modules pulls in neither (nor pyarrow, which only the parquet
+reader's functions import), and no module (nor chip_smoke.py) names
 them in an import. chip_smoke.py must fail, printing no result, without
 a CUDA device and without the package beside it.
 """
@@ -39,14 +40,15 @@ def test_importing_every_module_loads_no_jax():
               "hw.probe_sort", "hw.probe_gather", "parallel.spmd", "parallel.communicator",
               "parallel.bootstrap", "parallel.topology", "data.generator",
               "compress.cascaded", "parallel.warmup", "obs.history", "obs.fleet", "obs.http",
-              "obs.forensics", "scripts.blackbox_read", "scripts.chaos_soak"):
+              "obs.forensics", "scripts.blackbox_read", "scripts.chaos_soak", "data.io",
+              "native"):
         assert f"dj_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {FORBIDDEN!r})\n"
+        f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {FORBIDDEN + ('pyarrow',)!r})\n"
         "print(bad)\n"
     )
     r = _run(["-c", code], ROOT)

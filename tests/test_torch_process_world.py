@@ -814,7 +814,7 @@ def test_process_world_leaves_one_black_box_a_process(worlds):
 def _counting(monkeypatch):
     """Make the kernel wrappers that ops.join calls count their plain
     calls, as their CUDA launches count on the card."""
-    from dj_tpu_torch.ops import expand, join, merge, scan
+    from dj_tpu_torch.ops import KERNEL_COUNTERS, expand, join, merge, scan
 
     def wrap(name, mod, counter):
         fn = getattr(join, name)
@@ -825,10 +825,9 @@ def _counting(monkeypatch):
 
         monkeypatch.setattr(join, name, counted)
 
-    wrap("join_scans", scan, "launches")
-    wrap("merge_sorted_u64", merge, "launches")
-    for name, counter in chip_smoke.EXPAND_COUNTERS.items():
-        wrap(name, expand, counter)
+    mods = {"scan": scan, "merge": merge, "expand": expand}
+    for name, (m, counter) in KERNEL_COUNTERS.items():
+        wrap(name, mods[m], counter)
 
 
 def test_chip_smoke_process_world_helpers_rehearse_with_gloo(monkeypatch):
