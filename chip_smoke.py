@@ -1469,6 +1469,7 @@ def world_phases(fn) -> dict:
     """One call of fn with each rank's device time by phase (CUDA events
     on the stream the ranks share), summed over the ranks."""
     from dj_tpu_torch.parallel import spmd
+    from dj_tpu_torch.utils.timing import is_span_key
 
     with spmd.record_phases() as runs:
         t0 = time.perf_counter()
@@ -1481,7 +1482,7 @@ def world_phases(fn) -> dict:
     for phases in by_rank:
         for k, v in phases.items():
             total[k] = total.get(k, 0.0) + v
-    busy = sum(total.values())
+    busy = sum(v for k, v in total.items() if not is_span_key(k))
     return {"wall_ms": wall, "phase_ms": total, "in_phases_ms": busy,
             "outside_phases_ms": wall - busy, "phase_ms_by_rank": by_rank}
 
@@ -1912,8 +1913,11 @@ def check_two_level_placed(what: str, out, counts, odf: int) -> None:
 def pre_shuffle_ms(phases: dict) -> dict:
     """The pre-shuffle's device ms of one {phase: ms}: its own phase (the
     partition over 'inter') and the bucketize, exchange and compact
-    marked inside it, summed."""
-    return sum(v for k, v in phases.items() if k.startswith("dj_pre_shuffle"))
+    marked inside it, summed (the spans inside them are already in them)."""
+    from dj_tpu_torch.utils.timing import is_span_key
+
+    return sum(v for k, v in phases.items()
+               if k.startswith("dj_pre_shuffle") and not is_span_key(k))
 
 
 def check_two_level(dj, what: str, res, odf: int, kernels, build, probe, expected: int, ref,
@@ -3484,7 +3488,7 @@ def run_prepared_strings(dj, dev, orders, lineitem, li_sorted, smi: str) -> tupl
 
     def query_checked(what, t, w, odf, l_side, prep, cfg):
         reset_launches()
-        with PassTimer() as timer:
+        with StringPasses() as timer:
             out, counts, info = dj.distributed_inner_join(t, *l_side, prep, None, [0], None, cfg)
             torch.cuda.synchronize()
         launches = read_launches()
@@ -3990,7 +3994,7 @@ def run_q3_pipeline(dj, dev, orders, lineitem, customer, n_cust: int, smi: str):
         what = f"8g world {w}"
         ledger.reset()
         reset_launches()
-        with StageCalls() as calls, PassTimer() as timer:
+        with StageCalls() as calls, StringPasses() as timer:
             t0 = time.perf_counter()
             out, counts, infos, cfgs = dj.distributed_join_pipeline_auto(topo, *li, stages, cfg)
             torch.cuda.synchronize()
@@ -7039,52 +7043,36 @@ CHAR_FIT_KEYS = 2.0  # 8c: each customer's segment is copied ~1.25 times
 CHAR_FIT_Q3 = 6.0  # 8g: customer's char capacity over its bytes (each segment copied ~5 times)
 
 
-class PassTimer:
-    """Device ms of the string passes inside one call: each wrapped
-    function's work is bracketed by CUDA events on the current stream
-    (in the in-process world only one rank issues work at a time, so the
-    events bracket that call's kernels alone)."""
+# The string passes of a call as the program's phase record names them:
+# the spans strings (offsets and char gather), string_hash and verify
+# under any phase, and the exchange's bucketize and compact phases.
+STRING_PASSES = ("strings", "string_hash", "verify", "a2a_bucketize", "a2a_compact")
 
-    def __init__(self):
-        from dj_tpu_torch.core import table
-        from dj_tpu_torch.ops import hashing, join
-        from dj_tpu_torch.parallel import all_to_all
 
-        self.targets = [("string_take", table.StringColumn, "take"),
-                        ("string_hash", hashing, "_string_hashes"),
-                        ("verify", join, "_verify_string_pairs"),
-                        ("char_bucketize", all_to_all, "bucketize"),
-                        ("char_compact", all_to_all, "compact")]
+class StringPasses:
+    """Device ms of the string passes in the calls made inside the block,
+    read from ``spmd.record_phases`` (summed over the calls, the ranks and
+    the phases a span nests in): ``ms()`` gives {pass: ms}."""
 
     def __enter__(self):
-        self.events, self.orig = [], {}
-        for label, owner, name in self.targets:
-            fn = getattr(owner, name)
-            self.orig[(owner, name)] = fn
-            setattr(owner, name, self._timed(label, fn))
+        from dj_tpu_torch.parallel import spmd
+
+        self._record = spmd.record_phases()
+        self.runs = self._record.__enter__()
         return self
 
-    def _timed(self, label, fn):
-        def timed(*a, **k):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*a, **k)
-            end.record()
-            self.events.append((label, start, end))
-            return out
-        return timed
-
     def __exit__(self, *exc):
-        for (owner, name), fn in self.orig.items():
-            setattr(owner, name, fn)
+        self._record.__exit__(*exc)
 
     def ms(self) -> dict:
-        torch.cuda.synchronize()
         out: dict = {}
-        for label, start, end in self.events:
-            ms, n = out.get(label, (0.0, 0))
-            out[label] = (ms + start.elapsed_time(end), n + 1)
-        return {k: {"ms": ms, "calls": n} for k, (ms, n) in out.items()}
+        for ranks in self.runs:
+            for phases in ranks:
+                for key, ms in phases.items():
+                    name = key.rsplit("/", 1)[-1]
+                    if name in STRING_PASSES:
+                        out[name] = out.get(name, 0.0) + ms
+        return out
 
 
 def word_codes(col, words) -> torch.Tensor:
@@ -7186,7 +7174,7 @@ def run_strings(dj, dev, seed: int, n_orders: int, smi: str, verifier_rows: int 
     def joined(what, topo, left, right, cfg, kernels_each):
         """One join, its flags, launches and string passes."""
         reset_launches()
-        with PassTimer() as timer:
+        with StringPasses() as timer:
             res = dj.distributed_inner_join(topo, *left, *right, [0], [0], cfg)
             torch.cuda.synchronize()
         launches = read_launches()

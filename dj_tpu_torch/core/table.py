@@ -19,6 +19,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils.timing import span
 from . import dtypes as dt
 from .search import interval_of_arange
 
@@ -130,26 +131,27 @@ class StringColumn:
         bytes do not fit, so ``char_overflow()`` detects the truncation.
         Each output byte finds its row by ``interval_of_arange`` over the
         new offsets and reads the source byte at the row's start plus
-        its place in the row."""
+        its place in the row. The span ``strings``."""
         cap = self.chars.shape[0] if out_char_capacity is None else out_char_capacity
         if indices.shape[0] == 0:
             return StringColumn(torch.zeros(1, dtype=torch.int32, device=self.device),
                                 torch.zeros(cap, dtype=torch.uint8, device=self.device),
                                 self.dtype)
-        sizes = take_fill(self.sizes(), indices)
-        new_offsets = sizes_to_offsets(sizes)
-        del sizes
-        starts = take_fill(self.offsets, indices)
-        pos = torch.arange(cap, dtype=torch.int32, device=self.device)
-        row = interval_of_arange(new_offsets, cap, indices.shape[0])
-        src = starts[row]
-        src += pos
-        src -= new_offsets[row]
-        del row, starts
-        beyond = pos >= new_offsets[-1]
-        del pos
-        chars = take_fill(self.chars, src).masked_fill_(beyond, 0)
-        return StringColumn(new_offsets, chars, self.dtype)
+        with span("strings"):
+            sizes = take_fill(self.sizes(), indices)
+            new_offsets = sizes_to_offsets(sizes)
+            del sizes
+            starts = take_fill(self.offsets, indices)
+            pos = torch.arange(cap, dtype=torch.int32, device=self.device)
+            row = interval_of_arange(new_offsets, cap, indices.shape[0])
+            src = starts[row]
+            src += pos
+            src -= new_offsets[row]
+            del row, starts
+            beyond = pos >= new_offsets[-1]
+            del pos
+            chars = take_fill(self.chars, src).masked_fill_(beyond, 0)
+            return StringColumn(new_offsets, chars, self.dtype)
 
     def char_overflow(self) -> torch.Tensor:
         """True if the offsets claim more bytes than chars holds (the

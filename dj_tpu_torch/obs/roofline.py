@@ -22,6 +22,9 @@ what fraction of peak.
   module) has no counterpart: the port builds no module per shape.
   The finer phases inside a rank (partition, exchange, join, ...) are
   ``timing.annotate`` ranges in a profiler trace, not phases here.
+- :func:`observe_events` records a phase between two CUDA events its
+  caller recorded: the scheduler's ``run`` (its ``serve_run`` span), whose
+  resolved seconds also feed ``dj_tenant_device_seconds_total``.
 
 The clock. Given a CUDA ``device``, :func:`phase` brackets the body with
 two CUDA events on the current stream and adds no synchronize: the
@@ -64,6 +67,7 @@ __all__ = [
     "PENDING_MAX",
     "clear",
     "hbm_peak_gbps",
+    "observe_events",
     "observe_phase",
     "pending_count",
     "phase",
@@ -88,7 +92,8 @@ PENDING_MAX = 4096
 _timer = PhaseTimer()
 _lock = threading.Lock()
 # Device phases not yet resolved, oldest first: (start event, end event,
-# host end ts, (query_id, tenant) or None, observe_phase arguments).
+# host end ts, (query_id, tenant) or None, observe_phase arguments[, a
+# callable given the seconds once resolved]).
 _pending: list = []
 # Threads on which resolve() leaves the pending phases as they are (see
 # _deferred).
@@ -160,7 +165,7 @@ def resolve(wait: bool = False) -> int:
         _pending.clear()
     keep = []
     for item in todo:
-        start, end, ts, ids, (name, kw) = item
+        start, end, ts, ids, (name, kw), *then = item
         if not end.query():
             if not wait:
                 keep.append(item)
@@ -169,6 +174,8 @@ def resolve(wait: bool = False) -> int:
         seconds = start.elapsed_time(end) / 1e3
         # Stamped with the query the phase ran in, not the ambient one.
         observe_phase(name, seconds, **kw, ts=ts, _ids=ids)
+        for fn in then:
+            fn(seconds)
     if keep:
         with _lock:
             _pending[:0] = keep
@@ -222,13 +229,34 @@ def phase(
         else:
             end = torch.cuda.Event(enable_timing=True)
             end.record(torch.cuda.current_stream(dev))
-            ids = _recorder._ctx_hook() if _recorder._ctx_hook is not None else None
-            with _lock:
-                _pending.append((start, end, round(time.time(), 6), ids, (name, kw)))
-                dropped = _pending[:-PENDING_MAX]
-                del _pending[:-PENDING_MAX]
-            for item in dropped:
-                _metrics.inc("dj_phase_dropped_total", phase=item[4][0])
+            _push(start, end, name, kw)
+
+
+def _push(start, end, name: str, kw: dict, then=None) -> None:
+    """A device phase pending until ``end`` completes (``resolve``),
+    stamped with the ambient query."""
+    ids = _recorder._ctx_hook() if _recorder._ctx_hook is not None else None
+    item = (start, end, round(time.time(), 6), ids, (name, kw)) + ((then,) if then else ())
+    with _lock:
+        _pending.append(item)
+        dropped = _pending[:-PENDING_MAX]
+        del _pending[:-PENDING_MAX]
+    for old in dropped:
+        _metrics.inc("dj_phase_dropped_total", phase=old[4][0])
+
+
+def observe_events(name: str, start, end, *, then=None, model_bytes: Optional[float] = None,
+                   kind: str = "hbm", stage: Optional[str] = None, **fields) -> None:
+    """Record phase ``name`` between two CUDA events the caller recorded
+    (both with timing), as :func:`phase` records its own: pending until
+    ``end`` has completed, then observed with its device seconds;
+    ``then(seconds)``, when given, runs once it is. A no-op while obs is
+    disabled."""
+    if not _metrics.enabled():
+        return
+    resolve()
+    _push(start, end, name, dict(model_bytes=model_bytes, kind=kind, stage=stage, **fields),
+          then)
 
 
 def query_timer(**timer_kwargs) -> PhaseTimer:

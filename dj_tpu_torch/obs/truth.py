@@ -191,7 +191,10 @@ def _by_tenant(series: dict) -> dict:
 def tenant_summary() -> dict:
     """Per tenant: wire bytes, device seconds, prepares, resident index
     bytes and the result-latency count, p50 and p95. A tenant appears
-    once any of its families holds a value."""
+    once any of its families holds a value. Pending device phases are
+    resolved first (a served run's device seconds arrive with them), as
+    the latency quantiles below would."""
+    _metrics._resolve_pending()
     wire = _by_tenant(_metrics.counter_series("dj_tenant_wire_bytes_total"))
     secs = _by_tenant(_metrics.counter_series("dj_tenant_device_seconds_total"))
     preps = _by_tenant(_metrics.counter_series("dj_tenant_prepares_total"))

@@ -21,6 +21,7 @@ from typing import Sequence
 import torch
 
 from ..core.table import Column, StringColumn, Table, take_fill
+from ..utils.timing import span
 
 M32 = 0xFFFFFFFF
 
@@ -127,29 +128,31 @@ def _string_hashes(col: StringColumn, seeds: Sequence[int],
     order, a 1-3 byte tail mixes without the h-rotate step, and the true
     length is XORed in before the final mix. Words past the longest
     string's prefix change no hash and are not walked (one host read of
-    that length)."""
-    true_sizes = col.sizes().to(torch.int64)
-    n = true_sizes.shape[0]
-    sizes = true_sizes.clamp_max(max_len)
-    full_blocks = sizes // 4
-    tail_len = sizes % 4
-    starts = col.offsets[:-1].to(torch.int64)
-    nwords = -(-min(max_len, int(sizes.max())) // 4) if n else 0
-    hs = [torch.full((n,), int(s) & M32, dtype=torch.int64, device=col.device) for s in seeds]
-    tail = torch.zeros(n, dtype=torch.int64, device=col.device)
-    for w in range(nwords):
-        word = torch.zeros(n, dtype=torch.int64, device=col.device)
-        for b in range(4):
-            j = 4 * w + b
-            byte = take_fill(col.chars, starts + j).to(torch.int64)
-            word |= byte.masked_fill_(sizes <= j, 0) << (8 * b)
-        is_block = w < full_blocks
-        hs = [torch.where(is_block, _mix_block(h, word), h) for h in hs]
-        tail = torch.where(full_blocks == w, word, tail)
-    has_tail = tail_len > 0
-    k1 = tail & ((1 << (8 * tail_len)) - 1)
-    k1 = _mul32(_rotl32(_mul32(k1, _C1), 15), _C2)
-    return [_fmix32(torch.where(has_tail, h ^ k1, h) ^ (true_sizes & M32)) for h in hs]
+    that length). The span ``string_hash``."""
+    with span("string_hash"):
+        true_sizes = col.sizes().to(torch.int64)
+        n = true_sizes.shape[0]
+        sizes = true_sizes.clamp_max(max_len)
+        full_blocks = sizes // 4
+        tail_len = sizes % 4
+        starts = col.offsets[:-1].to(torch.int64)
+        nwords = -(-min(max_len, int(sizes.max())) // 4) if n else 0
+        hs = [torch.full((n,), int(s) & M32, dtype=torch.int64, device=col.device)
+              for s in seeds]
+        tail = torch.zeros(n, dtype=torch.int64, device=col.device)
+        for w in range(nwords):
+            word = torch.zeros(n, dtype=torch.int64, device=col.device)
+            for b in range(4):
+                j = 4 * w + b
+                byte = take_fill(col.chars, starts + j).to(torch.int64)
+                word |= byte.masked_fill_(sizes <= j, 0) << (8 * b)
+            is_block = w < full_blocks
+            hs = [torch.where(is_block, _mix_block(h, word), h) for h in hs]
+            tail = torch.where(full_blocks == w, word, tail)
+        has_tail = tail_len > 0
+        k1 = tail & ((1 << (8 * tail_len)) - 1)
+        k1 = _mul32(_rotl32(_mul32(k1, _C1), 15), _C2)
+        return [_fmix32(torch.where(has_tail, h ^ k1, h) ^ (true_sizes & M32)) for h in hs]
 
 
 def _string_hash(col: StringColumn, seed: int, max_len: int = SURROGATE_MAX_LEN

@@ -103,6 +103,7 @@ from .. import knobs, obs
 from ..core import dtypes as dt
 from ..core.search import count_leq_arange, run_bounds
 from ..core.table import Column, StringColumn, Table, concatenate, gather_fill, take_fill
+from ..utils.timing import span
 from . import hashing
 from .expand import (
     expand_carry,
@@ -361,20 +362,21 @@ def _verify_string_pairs(left: Table, right: Table, str_pairs, li: torch.Tensor,
     range (slots past the total) read as empty on both sides. dj_tpu
     compares a dense [slots, max_len] window; here one byte position at
     a time, up to the longest window either side holds."""
-    bad = torch.zeros((), dtype=torch.bool, device=li.device)
-    for lc, rc in str_pairs:
-        sides = []
-        for col, rows in ((left.columns[lc], li), (right.columns[rc], rrow)):
-            starts = take_fill(col.offsets[:-1], rows).to(torch.int64)
-            sizes = take_fill(col.sizes(), rows)
-            sides.append((col, starts, sizes, sizes.clamp_max(max_len)))
-        (lcol, ls, lsz, lw), (rcol, rs, rsz, rw) = sides
-        diff = lsz != rsz
-        width = int(torch.maximum(lw.max(), rw.max())) if li.shape[0] else 0
-        for j in range(width):
-            diff |= _window_byte(lcol, ls, lw, j) != _window_byte(rcol, rs, rw, j)
-        bad = bad | diff.any()
-    return bad
+    with span("verify"):
+        bad = torch.zeros((), dtype=torch.bool, device=li.device)
+        for lc, rc in str_pairs:
+            sides = []
+            for col, rows in ((left.columns[lc], li), (right.columns[rc], rrow)):
+                starts = take_fill(col.offsets[:-1], rows).to(torch.int64)
+                sizes = take_fill(col.sizes(), rows)
+                sides.append((col, starts, sizes, sizes.clamp_max(max_len)))
+            (lcol, ls, lsz, lw), (rcol, rs, rsz, rw) = sides
+            diff = lsz != rsz
+            width = int(torch.maximum(lw.max(), rw.max())) if li.shape[0] else 0
+            for j in range(width):
+                diff |= _window_byte(lcol, ls, lw, j) != _window_byte(rcol, rs, rw, j)
+            bad = bad | diff.any()
+        return bad
 
 
 _warned_unverified_string_keys = False
@@ -420,9 +422,12 @@ def _take_output(c, rows: torch.Tensor, side_capacity: int, out_capacity: int,
                  char_out_factor: float):
     """Column ``c`` gathered at ``rows`` (out-of-range rows give 0 or
     empty strings): a string column into ``char_out_factor`` times its
-    char capacity, and all-fill from a capacity-0 side."""
+    char capacity, and all-fill from a capacity-0 side. A fixed-width
+    column's gather is the span ``take``, a string column's
+    ``strings`` (``StringColumn.take``)."""
     if not isinstance(c, StringColumn):
-        return c.take(rows)
+        with span("take"):
+            return c.take(rows)
     if side_capacity == 0:
         return _fill_column(c, out_capacity)
     return c.take(rows, max(1, int(c.chars.shape[0] * char_out_factor)))
@@ -932,8 +937,9 @@ def inner_join(
                     f"{tbl.num_columns} columns"
                 )
     key_range = normalize_key_range(key_range, len(left_on))
-    left, right, left_on, right_on, l_drop, r_drop, str_pairs = _surrogate_string_keys(
-        left, right, left_on, right_on)
+    with span("pack"):
+        left, right, left_on, right_on, l_drop, r_drop, str_pairs = _surrogate_string_keys(
+            left, right, left_on, right_on)
     if str_pairs:
         # The surrogates span the whole 64-bit range.
         key_range = None
@@ -985,44 +991,52 @@ def inner_join(
 
     # The merged sort: packed words, or the unpacked sort's words and
     # permutation; the carry families also sort their keys and slots.
-    packed = None
-    if plan.packed and single:
-        lk, rk = pairs[0]
-        packed = _single_key_pack(lk, rk, l_count, r_count, tag_bits, static_fit)
-        flags["pack_range_overflow"] = packed.pack_ovf
-        if packed.word is None:
-            packed = None
-    slots = _union_slots(l_carry, r_fixed, L, R, dev) if carried else []
-    if packed is not None and carried:
-        sp, key, sslots = _carry_sorted(packed, pairs[0][0].dtype, tag_bits, slots)
-    elif packed is not None:
-        sp = sort_u64(packed.word)
-    elif plan.packed and not single:
-        word, ok = _multi_key_pack_word(left, right, left_on, right_on, pack_plan, l_count,
-                                        r_count, tag_bits)
-        flags["pack_range_overflow"] = ~ok
-        sp = sort_u64(word)
-    else:
-        images, floats = _key_images(left, right, left_on, right_on)
-        sp, perm = _unpacked_words(images, floats, l_count, r_count, L, R, tag_bits)
-        if carried:
+    # Spans: pack (key images, words, fit check), sort, expand (scans
+    # and expansion), take and strings (the output gathers).
+    packed = word = images = None
+    with span("pack"):
+        if plan.packed and single:
             lk, rk = pairs[0]
-            key = _to_u64(torch.cat([rk, lk]))[perm]
-            sslots = _gather_slots(slots, perm)
-        del perm
-    del packed
+            packed = _single_key_pack(lk, rk, l_count, r_count, tag_bits, static_fit)
+            flags["pack_range_overflow"] = packed.pack_ovf
+            if packed.word is None:
+                packed = None
+        slots = _union_slots(l_carry, r_fixed, L, R, dev) if carried else []
+        if packed is None and plan.packed and not single:
+            word, ok = _multi_key_pack_word(left, right, left_on, right_on, pack_plan, l_count,
+                                            r_count, tag_bits)
+            flags["pack_range_overflow"] = ~ok
+        elif packed is None:
+            images, floats = _key_images(left, right, left_on, right_on)
+    with span("sort"):
+        if packed is not None and carried:
+            sp, key, sslots = _carry_sorted(packed, pairs[0][0].dtype, tag_bits, slots)
+        elif packed is not None:
+            sp = sort_u64(packed.word)
+        elif word is not None:
+            sp = sort_u64(word)
+        else:
+            sp, perm = _unpacked_words(images, floats, l_count, r_count, L, R, tag_bits)
+            if carried:
+                lk, rk = pairs[0]
+                key = _to_u64(torch.cat([rk, lk]))[perm]
+                sslots = _gather_slots(slots, perm)
+            del perm
+    del packed, word, images
     words = [sp]
     del sp
 
     if carried:
-        key_j, lpay, rpay, total, rows = _carry_expand(
-            words, key, sslots, l_count, r_count, tag_bits, L, R, out_capacity, mode
-        )
+        with span("expand"):
+            key_j, lpay, rpay, total, rows = _carry_expand(
+                words, key, sslots, l_count, r_count, tag_bits, L, R, out_capacity, mode
+            )
         del key, sslots
         # Slots past the total read 0 in every column, the key included
         # (dj_tpu/ops/join.py:1703-1716, 1763-1775); the column order is
         # the contract's (1743-1751).
-        valid_out = torch.arange(out_capacity, device=dev) < total
+        with span("take"):
+            valid_out = torch.arange(out_capacity, device=dev) < total
         lbits = {left_on[0]: key_j} | {i: b for (i, _), b in zip(l_carry, lpay)}
         rbits = {i: b for (i, _), b in zip(r_fixed, rpay)}
         li, rrow = rows if rows is not None else (None, None)
@@ -1030,14 +1044,17 @@ def inner_join(
         def out_col(i, c, bits, side_rows, cap):
             if isinstance(c, StringColumn):
                 return _take_output(c, side_rows, cap, out_capacity, char_out_factor)
-            return Column(_from_u64(torch.where(valid_out, bits[i], 0), c.data.dtype), c.dtype)
+            with span("take"):
+                return Column(_from_u64(torch.where(valid_out, bits[i], 0), c.data.dtype),
+                              c.dtype)
 
         cols = ([out_col(i, c, lbits, li, L) for i, c in l_out]
                 + [out_col(i, c, rbits, rrow, R) for i, c in r_out])
     else:
-        li, rrow, total = _expand_matches(
-            words, l_count, r_count, tag_bits, L, R, out_capacity, mode
-        )
+        with span("expand"):
+            li, rrow, total = _expand_matches(
+                words, l_count, r_count, tag_bits, L, R, out_capacity, mode
+            )
         cols = ([_take_output(c, li, L, out_capacity, char_out_factor) for _, c in l_out]
                 + [_take_output(c, rrow, R, out_capacity, char_out_factor) for _, c in r_out])
     if verify_eligible and return_flags:
@@ -1142,20 +1159,26 @@ def prepare_packed_batch(
     dj_tpu."""
     R = right.capacity
     r_count = right.count()
-    words, ok = _anchored_pack_word(right, right_on, plan, 0)
-    sw, perm = torch.sort(words.bitwise_xor_(INT64_MIN))
-    del words
-    sw.bitwise_xor_(INT64_MIN)
-    mask = (1 << plan.tag_bits) - 1
-    rank = torch.arange(R, device=sw.device)
-    invalid = rank >= r_count  # valid words sort below the sentinel
-    words_out = ((sw & ~mask) | rank).masked_fill_(invalid, -1)
-    cols = tuple(
-        c.take(perm.masked_fill(invalid, R)) if isinstance(c, StringColumn)
-        else Column(gather_fill(c.data, perm, invalid), c.dtype)
-        for i, c in enumerate(right.columns) if i not in set(right_on)
-    )
-    return words_out, Table(cols, r_count), ok
+    with span("pack"):
+        words, ok = _anchored_pack_word(right, right_on, plan, 0)
+    with span("sort"):
+        sw, perm = torch.sort(words.bitwise_xor_(INT64_MIN))
+        del words
+        sw.bitwise_xor_(INT64_MIN)
+        mask = (1 << plan.tag_bits) - 1
+        rank = torch.arange(R, device=sw.device)
+        invalid = rank >= r_count  # valid words sort below the sentinel
+        words_out = ((sw & ~mask) | rank).masked_fill_(invalid, -1)
+    cols = []
+    for i, c in enumerate(right.columns):
+        if i in set(right_on):
+            continue
+        if isinstance(c, StringColumn):
+            cols.append(c.take(perm.masked_fill(invalid, R)))
+        else:
+            with span("take"):
+                cols.append(Column(gather_fill(c.data, perm, invalid), c.dtype))
+    return words_out, Table(tuple(cols), r_count), ok
 
 
 def merge_packed_batch(
@@ -1187,13 +1210,14 @@ def merge_packed_batch(
     overflow = new_count > R
     right_on_set = set(right_on)
     pay_idx = [i for i in range(appended.num_columns) if i not in right_on_set]
-    sw = sort_u64(torch.cat([words, a_words]))[:R]
-    mask = (1 << plan.tag_bits) - 1
-    rank = torch.arange(R, device=sw.device)
-    invalid = rank >= new_count
-    src = (sw & mask).masked_fill_(invalid, R + A)
-    words_out = ((sw & ~mask) | rank).masked_fill_(invalid, -1)
-    del sw, rank
+    with span("sort"):
+        sw = sort_u64(torch.cat([words, a_words]))[:R]
+        mask = (1 << plan.tag_bits) - 1
+        rank = torch.arange(R, device=sw.device)
+        invalid = rank >= new_count
+        src = (sw & mask).masked_fill_(invalid, R + A)
+        words_out = ((sw & ~mask) | rank).masked_fill_(invalid, -1)
+        del sw, rank
     cols = []
     str_perm = None
     for pc, i in zip(payload.columns, pay_idx):
@@ -1204,8 +1228,10 @@ def merge_packed_batch(
             both = concatenate([Table((pc,), pcnt), Table((ac,), acnt)]).columns[0]
             cols.append(both.take(str_perm, both.chars.shape[0]))
         else:
-            both = torch.cat([pc.data, ac.data])
-            cols.append(Column(gather_fill(both, src.clamp_max(R + A - 1), invalid), pc.dtype))
+            with span("take"):
+                both = torch.cat([pc.data, ac.data])
+                cols.append(Column(gather_fill(both, src.clamp_max(R + A - 1), invalid),
+                                   pc.dtype))
     return words_out, Table(tuple(cols), new_count), new_count, overflow
 
 
@@ -1318,14 +1344,18 @@ def inner_join_prepared(
         return inner_join_probe(left, left_on, pwords, right_payload, plan, out_capacity,
                                 char_out_factor)
     l_count, r_count = left.count(), right_payload.count()
-    w_l, ok = _anchored_pack_word(left, left_on, plan, R)
-    flags = {"prepared_plan_mismatch": ~(ok | (r_count == 0))}
-    if merge_impl == "merge":
-        words = [merge_sorted_u64(pwords, sort_u64(w_l))]
-    else:
-        words = [sort_u64(torch.cat([pwords, w_l]))]
-    del w_l
-    li, rrow, total = _expand_matches(words, l_count, r_count, plan.tag_bits, L, R, out_capacity)
+    with span("pack"):
+        w_l, ok = _anchored_pack_word(left, left_on, plan, R)
+        flags = {"prepared_plan_mismatch": ~(ok | (r_count == 0))}
+    with span("sort"):
+        if merge_impl == "merge":
+            words = [merge_sorted_u64(pwords, sort_u64(w_l))]
+        else:
+            words = [sort_u64(torch.cat([pwords, w_l]))]
+        del w_l
+    with span("expand"):
+        li, rrow, total = _expand_matches(words, l_count, r_count, plan.tag_bits, L, R,
+                                          out_capacity)
     cols = _gather_prepared_output(left, right_payload, li, rrow, out_capacity, char_out_factor)
     count = torch.minimum(total, torch.tensor(out_capacity, device=total.device)).to(torch.int32)
     return Table(tuple(cols), count), total, flags
@@ -1396,24 +1426,26 @@ def inner_join_probe(
     probe_expand = resolve_probe_expand()
     l_count, r_count = left.count(), right_payload.count()
     dev = pwords.device
-    w_l, ok = _anchored_pack_word(left, left_on, plan, R)
-    flags = {"prepared_plan_mismatch": ~(ok | (r_count == 0))}
+    with span("pack"):
+        w_l, ok = _anchored_pack_word(left, left_on, plan, R)
+        flags = {"prepared_plan_mismatch": ~(ok | (r_count == 0))}
     if L == 0 or R == 0:
         # A capacity-0 side joins empty.
         total = torch.zeros((), dtype=torch.int64, device=dev)
         li = torch.full((out_capacity,), L, dtype=torch.int32, device=dev)
         rrow = torch.full((out_capacity,), R, dtype=torch.int32, device=dev)
     else:
-        lo, cnt = _probe_counts(pwords, w_l, l_count, r_count, plan.tag_bits)
-        del w_l
-        # int64 cumsum cut to int32: the int32 wraparound of jnp.cumsum.
-        csum = torch.cumsum(cnt, 0, dtype=torch.int64).to(torch.int32)
-        total = cnt.sum(dtype=torch.int64)
-        src, t = _probe_expand(csum, cnt, L, out_capacity, probe_expand)
-        del csum, cnt
-        valid_out = torch.arange(out_capacity, device=dev) < total
-        li = torch.where(valid_out, src, L)
-        rrow = torch.where(valid_out, lo[src] + t, R)
+        with span("expand"):
+            lo, cnt = _probe_counts(pwords, w_l, l_count, r_count, plan.tag_bits)
+            del w_l
+            # int64 cumsum cut to int32: the int32 wraparound of jnp.cumsum.
+            csum = torch.cumsum(cnt, 0, dtype=torch.int64).to(torch.int32)
+            total = cnt.sum(dtype=torch.int64)
+            src, t = _probe_expand(csum, cnt, L, out_capacity, probe_expand)
+            del csum, cnt
+            valid_out = torch.arange(out_capacity, device=dev) < total
+            li = torch.where(valid_out, src, L)
+            rrow = torch.where(valid_out, lo[src] + t, R)
     cols = _gather_prepared_output(left, right_payload, li, rrow, out_capacity, char_out_factor)
     count = torch.minimum(total, torch.tensor(out_capacity, device=dev)).to(torch.int32)
     return Table(tuple(cols), count), total, flags

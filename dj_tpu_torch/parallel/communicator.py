@@ -34,7 +34,10 @@ Observability. ``Communicator.phase`` marks a rank's phases: each one
 is also a ``utils.timing.annotate`` range (an NVTX range on the card,
 and a ``torch.profiler`` range while a profiler runs) from its mark to
 the next mark, so a profiler trace shows dj_partition, dj_exchange,
-dj_join, a2a_* and bc_* with the kernels launched inside them. ``exchange_start`` counts
+dj_join, a2a_* and bc_* with the kernels launched inside them. A
+``span`` (``utils.timing.span``) names a stage inside the
+open phase (``dj_join/sort``, ...); both are timed on the rank's
+``PhaseClock`` while ``spmd.record_phases`` records. ``exchange_start`` counts
 each epoch it issues into ``dj_collective_launches_total`` and
 ``dj_collective_bytes_total{width}`` (``obs.recorder.count_collectives``)
 on the communicators whose ``counts_collectives`` is set: one rank a
@@ -68,13 +71,21 @@ class PhaseClock:
     ``resume()`` starts the same phase again. A phase's time is the sum
     of the gaps from each of its marks to the next mark: CUDA events on
     the device's current stream, or the host clock on the CPU, where
-    every op has finished when it returns."""
+    every op has finished when it returns.
+
+    Spans (``utils.timing.span``) nest in the phases: ``open(key)``
+    stamps a span's start and ``close`` its end, and a span's time is
+    the sum of its start-to-end gaps, on the same stamps. A call's root
+    clock (``spmd.call_span``) holds spans alone, its first the call's
+    own, which ``uncovered_ms`` measures the rest against."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.label: Optional[str] = None
         self.scope: Optional[str] = None  # set: marks are named "<scope>/<label>"
         self._marks: list = []
+        self._spans: list = []  # [key, start stamp, end stamp], in opening order
+        self._open: set = set()  # keys of the spans open now
 
     def _stamp(self):
         if self.device.type != "cuda":
@@ -82,6 +93,9 @@ class PhaseClock:
         ev = torch.cuda.Event(enable_timing=True)
         ev.record(torch.cuda.current_stream(self.device))
         return ev
+
+    def _gap(self, a, b) -> float:
+        return a.elapsed_time(b) if self.device.type == "cuda" else (b - a) * 1e3
 
     def mark(self, label: str) -> None:
         if self.scope is not None:
@@ -96,17 +110,54 @@ class PhaseClock:
         if self.label is not None:
             self._marks.append((self.label, self._stamp()))
 
+    def open(self, key: str) -> Optional[list]:
+        """Start span ``key``; None (nothing timed) while a span of that
+        key is open already."""
+        if key in self._open:
+            return None
+        self._open.add(key)
+        rec = [key, self._stamp(), None]
+        self._spans.append(rec)
+        return rec
+
+    def close(self, rec: list) -> None:
+        rec[2] = self._stamp()
+        self._open.discard(rec[0])
+
+    def _intervals(self) -> list:
+        """(key, start stamp, end stamp) of every phase run (mark to the
+        next mark) and every closed span."""
+        out = [(label, a, b) for (label, a), (_, b) in zip(self._marks, self._marks[1:])
+               if label is not None]
+        return out + [tuple(rec) for rec in self._spans if rec[2] is not None]
+
     def ms(self) -> dict:
-        """{phase: ms}; waits for the device to run the marked work."""
+        """{phase or span key: ms}; waits for the device to run the
+        marked work."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         out: dict = {}
-        for (label, a), (_, b) in zip(self._marks, self._marks[1:]):
-            if label is None:
-                continue
-            gap = a.elapsed_time(b) if self.device.type == "cuda" else (b - a) * 1e3
-            out[label] = out.get(label, 0.0) + gap
+        for label, a, b in self._intervals():
+            out[label] = out.get(label, 0.0) + self._gap(a, b)
         return out
+
+    def uncovered_ms(self, others: Sequence["PhaseClock"]) -> float:
+        """The ms of this clock's first span that no other span of it
+        and no phase or span of ``others`` covers (an interval union on
+        the shared stream's stamps); call after ``ms``."""
+        (_, origin, end), *rest = self._spans
+        total = self._gap(origin, end)
+        inner = [tuple(rec) for rec in rest if rec[2] is not None]
+        inner += [iv for c in others for iv in c._intervals()]
+        ivs = sorted((max(0.0, self._gap(origin, a)), min(total, self._gap(origin, b)))
+                     for _, a, b in inner)
+        covered, reach = 0.0, 0.0
+        for a, b in ivs:
+            a = max(a, reach)
+            if b > a:
+                covered += b - a
+                reach = b
+        return max(0.0, total - covered)
 
 
 class Pending:
@@ -289,11 +340,15 @@ class PhaseRanges:
     """The open ``annotate`` range of one rank's phase marks, shared by
     the rank's communicators on every axis (like its PhaseClock): a mark
     ends the open range and opens the next; ``scope`` names the marks
-    inside a ``phase_scope``."""
+    inside a ``phase_scope``. It is also what a ``span`` opened in the
+    rank nests in: ``label`` names the open phase and ``clock`` is the
+    rank's PhaseClock (None while nothing records)."""
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, clock: Optional[PhaseClock] = None):
         self.device = device
+        self.clock = clock
         self.scope: Optional[str] = None
+        self.label: Optional[str] = None
         self._open = None
 
     def mark(self, label: str) -> None:
@@ -303,11 +358,13 @@ class PhaseRanges:
         cm = annotate(label, self.device)
         cm.__enter__()
         self._open = cm
+        self.label = label
 
     def end(self) -> None:
         if self._open is not None:
             cm, self._open = self._open, None
             cm.__exit__(None, None, None)
+        self.label = None
 
 
 class Communicator(abc.ABC):

@@ -155,11 +155,12 @@ from ..resilience import ledger as dj_ledger
 from ..resilience.errors import PreparedPlanMismatch
 from ..resilience.heal import HealBudget
 from ..ops import hashing
+from ..utils.timing import span
 from . import plan_adapt, shape_bucket
 from .all_to_all import broadcast_table, shuffle_table, shuffle_tables_start
 from .communicator import Communicator, XlaCommunicator
 from .shuffle import STAT_KEYS, _local_shuffle, _local_shuffle_pair
-from .spmd import run_spmd
+from .spmd import call_span, run_spmd
 from .topology import INTER, Topology
 
 # The reference's two-level seed split: the inter-domain pre-shuffle and
@@ -804,7 +805,7 @@ def _unprepared_job(topology: Topology, left: Table, left_counts: torch.Tensor, 
         )
     left = shape_bucket.bucket_table(topology, left)
     right = shape_bucket.bucket_table(topology, right)
-    with obs_roofline.phase("probe", stage="join"):
+    with obs_roofline.phase("probe", stage="join"), span("dj_range_probe"):
         key_range = _resolve_key_range(
             config, left, left_counts, right, right_counts, left_on, right_on, w, topology
         )
@@ -872,34 +873,36 @@ def distributed_inner_join(
         )
     if config is None:
         config = JoinConfig()
-    job = _unprepared_job(topology, left, left_counts, right, right_counts, left_on, right_on,
-                          config, "distributed_inner_join")
-    decision = job.decision
+    with call_span("dj_call", topology.device):
+        job = _unprepared_job(topology, left, left_counts, right, right_counts, left_on,
+                              right_on, config, "distributed_inner_join")
+        decision = job.decision
 
-    def attempt():
-        # The ladder's pins are read again inside the attempt: the wire
-        # tier through the stripped config, the adapt tier through
-        # DJT_PLAN_ADAPT (its pin writes 0 there), so the retry after a
-        # pin runs the baseline plan, a decided broadcast or salted plan
-        # included.
-        cfg = resil.strip_pinned_wire(config)
-        d = decision if plan_adapt.enabled() else plan_adapt.SHUFFLE
-        faults.check("module_build")
-        if d.tier == plan_adapt.TIER_BROADCAST:
-            faults.check("broadcast")
-        elif d.tier == plan_adapt.TIER_SALTED:
-            faults.check("salted")
-        if plan_adapt.enabled():
-            obs.inc("dj_plan_dispatch_total", tier=d.tier)
-        return _run_join(topology, d.tier, job.left, left_counts, job.right, right_counts,
-                         job.left_on, job.right_on, cfg, job.key_range, d.salt, d.replicas,
-                         path="unprepared")
+        def attempt():
+            # The ladder's pins are read again inside the attempt: the wire
+            # tier through the stripped config, the adapt tier through
+            # DJT_PLAN_ADAPT (its pin writes 0 there), so the retry after a
+            # pin runs the baseline plan, a decided broadcast or salted plan
+            # included.
+            cfg = resil.strip_pinned_wire(config)
+            d = decision if plan_adapt.enabled() else plan_adapt.SHUFFLE
+            faults.check("module_build")
+            if d.tier == plan_adapt.TIER_BROADCAST:
+                faults.check("broadcast")
+            elif d.tier == plan_adapt.TIER_SALTED:
+                faults.check("salted")
+            if plan_adapt.enabled():
+                obs.inc("dj_plan_dispatch_total", tier=d.tier)
+            return _run_join(topology, d.tier, job.left, left_counts, job.right, right_counts,
+                             job.left_on, job.right_on, cfg, job.key_range, d.salt, d.replicas,
+                             path="unprepared")
 
-    out, counts, info = resil.degrade_guard("distributed_inner_join", attempt,
-                                            tiers=("adapt", "wire"), config=config,
-                                            topology=topology)
-    # Fault flag sites join.<flag>: forced on the host after the ranks ran.
-    return out, counts, faults.force_flags("join", info)
+        out, counts, info = resil.degrade_guard("distributed_inner_join", attempt,
+                                                tiers=("adapt", "wire"), config=config,
+                                                topology=topology)
+        # Fault flag sites join.<flag>: forced on the host after the ranks ran.
+        with span("dj_flags"):
+            return out, counts, faults.force_flags("join", info)
 
 
 TIER_LOCAL = "local"  # the pipeline's co-partitioned join (parallel.pipeline)
@@ -1010,8 +1013,9 @@ def _flag_row(flags: dict, keys) -> torch.Tensor:
 def _flag_info(flag_mat: torch.Tensor, keys) -> dict:
     """{key: bool[world]} for each flag and {key: float32[world]} for each
     compression counter, from the ranks' stacked rows."""
-    return {k: flag_mat[:, i] if k.startswith(_STAT_PREFIX) else flag_mat[:, i] != 0
-            for i, k in enumerate(keys)}
+    with span("dj_flags"):
+        return {k: flag_mat[:, i] if k.startswith(_STAT_PREFIX) else flag_mat[:, i] != 0
+                for i, k in enumerate(keys)}
 
 
 # Which JoinConfig factor heals which overflow flag: the heal loop grows
@@ -1782,11 +1786,12 @@ def _distributed_inner_join_prepared(
     probe side is padded to its shape bucket first."""
     if config is None:
         config = prepared.config
-    left, left_on = _prepared_query_job(topology, left, prepared, left_on, config,
-                                        "distributed_inner_join(prepared)")
-    return _run_prepared_queries(topology, [left], [left_counts], prepared, left_on, config,
-                                 stage="prepared_query", path="prepared",
-                                 where="distributed_inner_join(prepared)")[0]
+    with call_span("dj_call", topology.device):
+        left, left_on = _prepared_query_job(topology, left, prepared, left_on, config,
+                                            "distributed_inner_join(prepared)")
+        return _run_prepared_queries(topology, [left], [left_counts], prepared, left_on, config,
+                                     stage="prepared_query", path="prepared",
+                                     where="distributed_inner_join(prepared)")[0]
 
 
 def _prepared_query_job(topology: Topology, left: Table, prepared: PreparedSide,
@@ -2135,8 +2140,9 @@ def _members(outs, counts, flag_mat: torch.Tensor, keys, stage: str) -> list:
     """One (result, counts, info) a member of a run; each member's flags
     go through the fault flag sites ``<stage>.<flag>`` (one consultation
     a member, as dj_tpu's)."""
-    return [(outs[q], counts[q], faults.force_flags(stage, _flag_info(flag_mat[:, q], keys)))
-            for q in range(len(outs))]
+    with span("dj_flags"):
+        return [(outs[q], counts[q], faults.force_flags(stage, _flag_info(flag_mat[:, q], keys)))
+                for q in range(len(outs))]
 
 
 def distributed_inner_join_coalesced(
@@ -2169,15 +2175,16 @@ def distributed_inner_join_coalesced(
     if not lefts or len(left_counts) != len(lefts):
         raise ValueError("distributed_inner_join_coalesced: one count vector per left table, "
                          "and at least one left table")
-    lefts = [shape_bucket.bucket_table(topology, t) for t in lefts]
-    _same_shape(lefts, "distributed_inner_join_coalesced")
-    left_on = _check_prepared_query(topology, lefts[0], prepared, left_on, config,
-                                    "distributed_inner_join_coalesced")
-    config = _ledger_widened(config, dj_ledger.plan_signature(topology, lefts[0], prepared,
-                                                              left_on, None, config))
-    return _run_prepared_queries(topology, lefts, left_counts, prepared, left_on, config,
-                                 stage="coalesced_query", path="coalesced",
-                                 where="distributed_inner_join_coalesced"), config
+    with call_span("dj_call", topology.device):
+        lefts = [shape_bucket.bucket_table(topology, t) for t in lefts]
+        _same_shape(lefts, "distributed_inner_join_coalesced")
+        left_on = _check_prepared_query(topology, lefts[0], prepared, left_on, config,
+                                        "distributed_inner_join_coalesced")
+        config = _ledger_widened(config, dj_ledger.plan_signature(topology, lefts[0], prepared,
+                                                                  left_on, None, config))
+        return _run_prepared_queries(topology, lefts, left_counts, prepared, left_on, config,
+                                     stage="coalesced_query", path="coalesced",
+                                     where="distributed_inner_join_coalesced"), config
 
 
 def _union_key_ranges(ranges):
@@ -2216,68 +2223,69 @@ def distributed_inner_join_coalesced_unprepared(
     ``(per_query, config_used)`` as ``distributed_inner_join_coalesced``."""
     if config is None:
         config = JoinConfig()
-    what = "distributed_inner_join_coalesced_unprepared"
-    for q, (lt, rt) in enumerate(zip(lefts, rights)):
-        _check_key_widths(lt.columns, rt.columns, left_on, right_on, f"{what} (member {q})")
-    if topology.is_hierarchical:
-        raise ValueError(f"{what} supports flat topologies only; dispatch two-level queries "
-                         f"one at a time")
-    if plan_adapt.enabled():
-        raise ValueError(f"{what} requires the adaptive planner off (DJT_PLAN_ADAPT): its "
-                         f"broadcast and salted tiers are per-query plan decisions that one "
-                         f"shuffle dispatch cannot honor; dispatch one at a time")
-    k = len(lefts)
-    if not k or len(rights) != k or len(left_counts) != k or len(right_counts) != k:
-        raise ValueError(f"{what}: as many right tables and count vectors as left tables, and "
-                         f"at least one")
-    lefts = [shape_bucket.bucket_table(topology, t) for t in lefts]
-    rights = [shape_bucket.bucket_table(topology, t) for t in rights]
-    _same_shape(lefts, what)
-    _same_shape(rights, what)
-    left_on, right_on = tuple(left_on), tuple(right_on)
-    w = topology.local_ranks
-    if lefts[0].capacity < w or rights[0].capacity < w:
-        raise ValueError(f"{what}: table capacity {min(lefts[0].capacity, rights[0].capacity)} "
-                         f"< {w} shards here leaves a shard with zero capacity; pad the tables "
-                         f"to >= 1 row per shard")
-    config = _ledger_widened(config, dj_ledger.plan_signature(topology, lefts[0], rights[0],
-                                                              left_on, right_on, config))
-    with obs_roofline.phase("probe", stage="join"):
-        key_range = _union_key_ranges([
-            _resolve_key_range(config, lefts[q], left_counts[q], rights[q], right_counts[q],
-                               left_on, right_on, w, topology)
-            for q in range(k)
-        ])
-    for q in range(k):
-        _observe_partition_skew(topology, lefts[q], left_counts[q], left_on,
-                                config.over_decom_factor, stage="coalesced", config=config)
-    l_cap, r_cap = lefts[0].capacity // w, rights[0].capacity // w
+    with call_span("dj_call", topology.device):
+        what = "distributed_inner_join_coalesced_unprepared"
+        for q, (lt, rt) in enumerate(zip(lefts, rights)):
+            _check_key_widths(lt.columns, rt.columns, left_on, right_on, f"{what} (member {q})")
+        if topology.is_hierarchical:
+            raise ValueError(f"{what} supports flat topologies only; dispatch two-level queries "
+                             f"one at a time")
+        if plan_adapt.enabled():
+            raise ValueError(f"{what} requires the adaptive planner off (DJT_PLAN_ADAPT): its "
+                             f"broadcast and salted tiers are per-query plan decisions that one "
+                             f"shuffle dispatch cannot honor; dispatch one at a time")
+        k = len(lefts)
+        if not k or len(rights) != k or len(left_counts) != k or len(right_counts) != k:
+            raise ValueError(f"{what}: as many right tables and count vectors as left tables, and "
+                             f"at least one")
+        lefts = [shape_bucket.bucket_table(topology, t) for t in lefts]
+        rights = [shape_bucket.bucket_table(topology, t) for t in rights]
+        _same_shape(lefts, what)
+        _same_shape(rights, what)
+        left_on, right_on = tuple(left_on), tuple(right_on)
+        w = topology.local_ranks
+        if lefts[0].capacity < w or rights[0].capacity < w:
+            raise ValueError(f"{what}: table capacity {min(lefts[0].capacity, rights[0].capacity)} "
+                             f"< {w} shards here leaves a shard with zero capacity; pad the tables "
+                             f"to >= 1 row per shard")
+        config = _ledger_widened(config, dj_ledger.plan_signature(topology, lefts[0], rights[0],
+                                                                  left_on, right_on, config))
+        with obs_roofline.phase("probe", stage="join"), span("dj_range_probe"):
+            key_range = _union_key_ranges([
+                _resolve_key_range(config, lefts[q], left_counts[q], rights[q], right_counts[q],
+                                   left_on, right_on, w, topology)
+                for q in range(k)
+            ])
+        for q in range(k):
+            _observe_partition_skew(topology, lefts[q], left_counts[q], left_on,
+                                    config.over_decom_factor, stage="coalesced", config=config)
+        l_cap, r_cap = lefts[0].capacity // w, rights[0].capacity // w
 
-    def attempt():
-        cfg = resil.strip_pinned_wire(config)
-        faults.check("module_build")
-        keys = _flag_keys(cfg)
+        def attempt():
+            cfg = resil.strip_pinned_wire(config)
+            faults.check("module_build")
+            keys = _flag_keys(cfg)
 
-        def run(comm, lts, lcs, rts, rcs):
-            members = _shuffle_join_members(
-                comm, [(lt.with_count(lc[0]), rt.with_count(rc[0]))
-                       for lt, lc, rt, rc in zip(lts, lcs, rts, rcs)],
-                left_on, right_on, cfg, l_cap, r_cap, key_range)
-            return (tuple(out.with_count(None) for out, _ in members),
-                    tuple(out.count().reshape(1) for out, _ in members),
-                    torch.stack([_flag_row(flags, keys)[0] for _, flags in members])[None])
+            def run(comm, lts, lcs, rts, rcs):
+                members = _shuffle_join_members(
+                    comm, [(lt.with_count(lc[0]), rt.with_count(rc[0]))
+                           for lt, lc, rt, rc in zip(lts, lcs, rts, rcs)],
+                    left_on, right_on, cfg, l_cap, r_cap, key_range)
+                return (tuple(out.with_count(None) for out, _ in members),
+                        tuple(out.count().reshape(1) for out, _ in members),
+                        torch.stack([_flag_row(flags, keys)[0] for _, flags in members])[None])
 
-        outs, counts, flag_mat = _dispatch(
-            topology, "coalesced_join", "coalesced_join",
-            lambda: run_spmd(topology, run, tuple(lefts), tuple(left_counts), tuple(rights),
-                             tuple(right_counts), **_backend(cfg)),
-            path="coalesced_unprepared", queries=k)
-        return outs, counts, flag_mat, keys
+            outs, counts, flag_mat = _dispatch(
+                topology, "coalesced_join", "coalesced_join",
+                lambda: run_spmd(topology, run, tuple(lefts), tuple(left_counts), tuple(rights),
+                                 tuple(right_counts), **_backend(cfg)),
+                path="coalesced_unprepared", queries=k)
+            return outs, counts, flag_mat, keys
 
-    outs, counts, flag_mat, keys = resil.degrade_guard(
-        "distributed_inner_join_coalesced_unprepared", attempt, tiers=("wire",), config=config,
-        topology=topology)
-    return _members(outs, counts, flag_mat, keys, "join"), config
+        outs, counts, flag_mat, keys = resil.degrade_guard(
+            "distributed_inner_join_coalesced_unprepared", attempt, tiers=("wire",), config=config,
+            topology=topology)
+        return _members(outs, counts, flag_mat, keys, "join"), config
 
 
 # --- appends to a prepared side -------------------------------------------

@@ -76,6 +76,7 @@ from .communicator import (
     XlaCommunicator,
     make_communicator,
 )
+from ..utils.timing import _span_target, span, span_target
 from .topology import INTER, INTRA, Topology, process_subgroups
 
 RENDEZVOUS_TIMEOUT_S = 600.0  # the longest one rank waits at one collective
@@ -83,20 +84,101 @@ RENDEZVOUS_TIMEOUT_S = 600.0  # the longest one rank waits at one collective
 _phase_runs: contextvars.ContextVar[Optional[list]] = contextvars.ContextVar(
     "dj_tpu_torch_phase_runs", default=None
 )
+# The record of the top-level call being timed (``call_span``), if any.
+_call: contextvars.ContextVar[Optional["_Call"]] = contextvars.ContextVar(
+    "dj_tpu_torch_phase_call", default=None
+)
 
 
 @contextlib.contextmanager
 def record_phases():
-    """Time every rank's phases in the run_spmd calls made inside the
-    block: yields a list that gets, per call, one {phase: ms} per rank
-    (``Communicator.phase`` names the phases; on the card the times are
-    the device's, from CUDA events on the shared stream)."""
+    """Time every rank's phases and spans in the calls made inside the
+    block: yields a list that gets, per call, one {key: ms} per rank of
+    this process (on the card the times are the device's, from CUDA
+    events on the shared stream).
+
+    A call is a top-level entry's root span (``call_span``: ``dj_call``
+    for a join, ``serve_run`` for a served dispatch), which folds every
+    run_spmd inside it into one entry; a run_spmd outside any root is a
+    call of its own. The keys are the phases that ``Communicator.phase``
+    marks (each the sum of its mark-to-mark gaps) and the spans
+    (``utils.timing.span``), each keyed ``"<open phase>/<name>"``: the
+    local join's ``dj_join/pack``, ``/sort``, ``/expand``, ``/take``,
+    ``/strings``, ``/string_hash`` and ``/verify``. A root adds its own
+    key, the host stages outside the ranks (``dj_range_probe``,
+    ``dj_flags``, a nested root's ``dj_call``) and ``untraced`` (the
+    root's ms that no other span or phase covers, by the union of their
+    intervals: in a world of threads every rank's, which share the
+    stream the root spans) to rank 0's dict."""
     runs: list = []
     token = _phase_runs.set(runs)
     try:
         yield runs
     finally:
         _phase_runs.reset(token)
+
+
+class _Call:
+    """One top-level call under ``record_phases``: the root's clock (its
+    own span and the host stages outside the ranks, keyed by their
+    names) and the clocks of this process's ranks in each run_spmd."""
+
+    def __init__(self, device: torch.device):
+        self.clock = PhaseClock(device)
+        self.target = PhaseRanges(device, self.clock)  # no phase opens on it
+        self.rank_clocks: list = []  # per run_spmd, one clock a rank here
+
+    def entry(self) -> list:
+        """One {key: ms} a rank, each rank's summed over the run_spmd
+        calls, the root's spans and ``untraced`` in rank 0's."""
+        ranks: list = []
+        for clocks in self.rank_clocks:
+            for r, c in enumerate(clocks):
+                if r == len(ranks):
+                    ranks.append({})
+                for k, v in c.ms().items():
+                    ranks[r][k] = ranks[r].get(k, 0.0) + v
+        if not ranks:
+            ranks.append({})
+        for k, v in self.clock.ms().items():
+            ranks[0][k] = ranks[0].get(k, 0.0) + v
+        ranks[0]["untraced"] = self.clock.uncovered_ms(
+            [c for clocks in self.rank_clocks for c in clocks])
+        return ranks
+
+
+@contextlib.contextmanager
+def call_span(name: str, device):
+    """The root span ``name`` of one top-level call (module docstring of
+    ``record_phases``): while a record is open and no other call or rank
+    is, the body's spans and run_spmd calls make one entry of the
+    record; inside a call or a rank, or with nothing recording, it is a
+    ``span`` (a nested root is a child of the outermost)."""
+    runs = _phase_runs.get()
+    if runs is None or _span_target.get() is not None:
+        with span(name):
+            yield
+        return
+    call = _Call(torch.device(device))
+    token = _call.set(call)
+    try:
+        with span_target(call.target), span(name):
+            yield
+    finally:
+        _call.reset(token)
+    runs.append(call.entry())
+
+
+def _record(runs: Optional[list], clocks: list) -> None:
+    """A run_spmd's rank clocks: into the open call's entry, else an
+    entry of their own."""
+    if runs is None:
+        return
+    call = _call.get()
+    if call is not None:
+        call.rank_clocks.append(clocks)
+    else:
+        runs.append([c.ms() for c in clocks])
 
 
 def _split(x, w: int) -> list:
@@ -170,7 +252,7 @@ def _axis_comms(topology: Topology, transports: dict, cls, fuse_columns,
     collective counters (one rank a process does)."""
     comms = {axis: make_communicator(cls, topology.group(axis), t, fuse_columns)
              for axis, t in transports.items()}
-    ranges = PhaseRanges(topology.device)
+    ranges = PhaseRanges(topology.device, clock)
     for c in comms.values():
         c.clock = clock
         c.ranges = ranges
@@ -208,14 +290,16 @@ def run_spmd(topology: Topology, body: Callable, *sharded, communicator_cls=None
         comm = _axis_comms(topology, transports, cls, fuse_columns, clock)
         with _on_device(dev):
             try:
-                out = body(comm, *sharded)
+                with span_target(comm.ranges):
+                    out = body(comm, *sharded)
             finally:
                 _stop(comm)
             if gathered:
                 world = DistTransport(dev) if topology.is_hierarchical else comm.transport
-                out = tuple(_gather(world, x) if i in gathered else x for i, x in enumerate(out))
-        if runs is not None:
-            runs.append([clock.ms()])
+                with span("dj_flags"):
+                    out = tuple(_gather(world, x) if i in gathered else x
+                                for i, x in enumerate(out))
+        _record(runs, [clock])
         return out
     w = topology.world_size
     blocks = [_split(a, w) for a in sharded]
@@ -224,13 +308,13 @@ def run_spmd(topology: Topology, body: Callable, *sharded, communicator_cls=None
         comm = _axis_comms(topology, {topology.axis_name: SingleRankTransport()}, cls,
                            fuse_columns, clocks[0])
         try:
-            out = body(comm, *(b[0] for b in blocks))
+            with span_target(comm.ranges):
+                out = body(comm, *(b[0] for b in blocks))
         finally:
             _stop(comm)
     else:
         out = _run_threads(topology, body, blocks, clocks, cls, fuse_columns)
-    if runs is not None:
-        runs.append([c.ms() for c in clocks])
+    _record(runs, clocks)
     return out
 
 
@@ -271,6 +355,7 @@ def _run_threads(topology, body, blocks, clocks, cls, fuse_columns):
 
     def rank_main(r: int) -> None:
         comm = _axis_comms(topology, transports[r], cls, fuse_columns, clocks[r], lead=r == 0)
+        _span_target.set(comm.ranges)  # this rank's own context
         with world.cond:
             try:
                 with _on_device(dev):

@@ -57,7 +57,11 @@ Counters ``dj_serve_admitted_total``, ``dj_serve_rejected_total{reason}``
 ``dj_serve_reserved_bytes``, ``dj_serve_pressure_level``, the
 ``dj_slo_*`` family and ``dj_device_hbm_*`` (sampled at dispatch and
 terminal); histograms ``dj_serve_latency_seconds`` and
-``dj_forecast_error_ratio``, and ``dj_roofline_frac{phase="run"}``.
+``dj_forecast_error_ratio``, and ``dj_roofline_frac{phase="run"}``. A
+dispatch is the span ``serve_run`` (``parallel.spmd.call_span``); on the
+card the ``run`` phase and ``dj_tenant_device_seconds_total`` take its
+device time, from two CUDA events resolved without a synchronize
+(``obs.roofline.observe_events``), and on the CPU dispatch to terminal.
 Events ``admission`` (rejects; a measured one carries
 ``source="measured_hbm"`` and the allocator's evidence), ``shed``,
 ``pressure``, ``coalesce``, ``drift``, ``drain``, ``span`` and one
@@ -110,6 +114,7 @@ from ..obs import skew as _skew
 from ..obs import trace
 from ..obs import truth as _truth
 from ..parallel import agree
+from ..parallel.spmd import call_span
 from ..resilience import errors as resil
 from ..resilience import heal as heal_engine
 from ..resilience.errors import (
@@ -286,7 +291,7 @@ class Ticket:
     __slots__ = (
         "args", "config", "deadline", "deadline_s", "forecast", "coalesced", "submit_t",
         "start_t", "_event", "_payload", "_error", "_done", "_scheduler", "seq", "tenant",
-        "lease", "query_id", "_queued_open", "_run_open", "stages", "_ready",
+        "lease", "query_id", "_queued_open", "_run_open", "stages", "_ready", "_run_events",
     )
 
     def __init__(self, scheduler, seq, args, config, deadline, deadline_s, forecast,
@@ -320,6 +325,9 @@ class Ticket:
         # A CUDA event recorded on the dispatching thread's stream at the
         # terminal; result() orders the caller's stream after it.
         self._ready = None
+        # (start, end) CUDA events of the dispatch's serve_run span, with
+        # obs enabled on the card: the run's device time (_finish).
+        self._run_events = None
 
     @property
     def done(self) -> bool:
@@ -1159,6 +1167,32 @@ class QueryScheduler:
         with autotune.dispatch_scope(decision, sig):
             return self._run_auto(ticket, cfg)
 
+    @contextlib.contextmanager
+    def _serve_run(self, tickets: list):
+        """The dispatch's span ``serve_run`` (``spmd.call_span``): under
+        ``record_phases`` the root of one record entry, from dispatch to
+        the end of its work on the stream. With obs enabled on the card
+        two CUDA events bracket it too, which ``_finish`` hands to
+        ``obs.roofline`` as the ``run`` phase and the tenant's device
+        seconds (each coalesced member gets the group's)."""
+        topology = tickets[0].args[0]
+        dev = _cuda_device(topology) if _metrics.enabled() else None
+        start = None
+        for t in tickets:
+            t._run_events = None
+        if dev is not None:
+            import torch
+
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(torch.cuda.current_stream(dev))
+        with call_span("serve_run", topology.device):
+            yield
+        if start is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(torch.cuda.current_stream(dev))
+            for t in tickets:
+                t._run_events = (start, end)
+
     def _mark_dispatched(self, ticket: Ticket, *, coalesced: bool = False) -> None:
         """Close ``queued`` and open ``run``, each once a query (caller
         holds the ticket's query_ctx)."""
@@ -1190,16 +1224,17 @@ class QueryScheduler:
         base = ticket.args[3] if ticket.lease is not None else None
         try:
             cfg = self._dispatch_config(ticket)
-            if ticket.stages is not None:
-                payload = self._run_pipeline(ticket, cfg)
-            elif autotune.enabled():
-                # A faulted probe or apply pins the autotune tier, and the
-                # retry serves the hand-tuned defaults.
-                payload = resil.degrade_guard(
-                    "serve_autotune", lambda: self._run_autotuned(ticket, cfg),
-                    tiers=("autotune",), topology=ticket.args[0])
-            else:
-                payload = self._run_auto(ticket, cfg)
+            with self._serve_run([ticket]):
+                if ticket.stages is not None:
+                    payload = self._run_pipeline(ticket, cfg)
+                elif autotune.enabled():
+                    # A faulted probe or apply pins the autotune tier, and the
+                    # retry serves the hand-tuned defaults.
+                    payload = resil.degrade_guard(
+                        "serve_autotune", lambda: self._run_autotuned(ticket, cfg),
+                        tiers=("autotune",), topology=ticket.args[0])
+                else:
+                    payload = self._run_auto(ticket, cfg)
         except DeadlineExceeded as e:
             self._shed_deadline(ticket, e.where or "healing", err=e)
             return
@@ -1270,7 +1305,8 @@ class QueryScheduler:
         try:
             # One run for the group: its heal and collective events go to
             # the head's timeline (the coalesce event names the members).
-            with trace.query_ctx(head.query_id, head.tenant), self._group_scopes(group):
+            with trace.query_ctx(head.query_id, head.tenant), self._group_scopes(group), \
+                    self._serve_run(group):
                 per_query, config_used = distributed_inner_join_coalesced(
                     topology, [t.args[1] for t in group], [t.args[2] for t in group], prepared,
                     left_on, config)
@@ -1304,7 +1340,8 @@ class QueryScheduler:
         topology, _, _, _, _, left_on, right_on = head.args
         config = self._dispatch_config(head)
         try:
-            with trace.query_ctx(head.query_id, head.tenant), self._group_scopes(group):
+            with trace.query_ctx(head.query_id, head.tenant), self._group_scopes(group), \
+                    self._serve_run(group):
                 per_query, config_used = distributed_inner_join_coalesced_unprepared(
                     topology, [t.args[1] for t in group], [t.args[2] for t in group],
                     [t.args[3] for t in group], [t.args[4] for t in group], left_on, right_on,
@@ -1369,11 +1406,20 @@ class QueryScheduler:
         with trace.query_ctx(ticket.query_id, ticket.tenant):
             self._audit_forecast(ticket, payload, error)
             if start is not None:
-                # Dispatch to terminal against the forecast's modeled bytes
-                # (results only): one phase event, dj_roofline_frac{run}.
-                _roofline.observe_phase("run", end - start,
-                                        model_bytes=(ticket.forecast.bytes if error is None
-                                                     else None), kind="hbm", stage="serve")
+                # The run against the forecast's modeled bytes (results
+                # only): one phase event, dj_roofline_frac{run}. Its
+                # device time where serve_run's events bracket it (obs
+                # enabled on the card), else dispatch to terminal.
+                run_kw = dict(model_bytes=ticket.forecast.bytes if error is None else None,
+                              kind="hbm", stage="serve")
+                if ticket._run_events is not None:
+                    tenant = ticket.tenant
+                    _roofline.observe_events(
+                        "run", *ticket._run_events, **run_kw,
+                        then=lambda s: obs.inc("dj_tenant_device_seconds_total", s,
+                                               tenant=tenant))
+                else:
+                    _roofline.observe_phase("run", end - start, **run_kw)
             obs.record(
                 "serve", outcome=ticket.outcome, tenant=ticket.tenant,
                 queued_s=round((start if start is not None else end) - ticket.submit_t, 6),
@@ -1389,7 +1435,7 @@ class QueryScheduler:
             trace.span_end("query", outcome=ticket.outcome)
         obs.observe("dj_serve_latency_seconds", total_s, tenant=ticket.tenant,
                     outcome=ticket.outcome)
-        if start is not None:
+        if start is not None and ticket._run_events is None:
             # Coalesced members each count the group's shared wall.
             obs.inc("dj_tenant_device_seconds_total", end - start, tenant=ticket.tenant)
         _truth.sample_device_hbm()

@@ -9,7 +9,10 @@ mechanisms on PyTorch:
    the kernels launched inside it); with no profiler running that op is
    not opened, since it costs microseconds a range. The join pipeline's
    phases, which ``Communicator.phase`` names (dj_partition, dj_exchange,
-   dj_join, dj_concat, a2a_*, bc_*, ...), each open one.
+   dj_join, dj_concat, a2a_*, bc_*, ...), each open one, and so does
+   each :class:`span`, a named stage inside the open phase (the local
+   join's pack, sort, expand, take, strings, ...), which the phase
+   clock of ``parallel.spmd.record_phases`` also times.
 2. cudaProfilerStart/Stop brackets -> :func:`profile`: a
    ``torch.profiler.profile`` bracket (CPU and, with a card, CUDA
    activities) that writes a chrome trace into a directory.
@@ -20,13 +23,25 @@ mechanisms on PyTorch:
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import os
 import time
 from typing import Iterator, Optional
 
 import torch
 
-__all__ = ["PhaseTimer", "annotate", "profile"]
+__all__ = ["PhaseTimer", "annotate", "profile", "span"]
+
+# What a span opened here nests in: the rank's phase ranges inside a
+# ``run_spmd`` body, the call's root outside the ranks
+# (``parallel.spmd.call_span``), None elsewhere. The object has ``label``
+# (the open phase's name, or None), ``device`` and ``clock`` (the phase
+# clock that times spans, None while nothing records).
+_span_target: contextvars.ContextVar = contextvars.ContextVar(
+    "dj_tpu_torch_span_target", default=None)
+# Every span name a clock has timed in this process: the keys of a phase
+# record that are spans and not mark-to-mark phases (``is_span_key``).
+_span_names: set = {"untraced"}
 
 
 def _nvtx(device) -> bool:
@@ -70,6 +85,58 @@ class annotate:
             rf, self._rf = self._rf, None
             rf.__exit__(*exc)
         return False
+
+
+class span:
+    """A named stage of the work, as a context manager: an
+    :class:`annotate` range keyed ``"<open phase>/<name>"`` (``name``
+    where no phase is open: outside the ranks, under the call's root),
+    timed on the phase clock of the rank or root it runs in while
+    ``parallel.spmd.record_phases`` records. With nothing recording it
+    is the range alone: no CUDA event, no synchronize, no device work.
+    A span inside an open span of the same key counts once."""
+
+    __slots__ = ("name", "_range", "_clock", "_rec")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> None:
+        target = _span_target.get()
+        if target is None:
+            key, device, self._clock = self.name, None, None
+        else:
+            key = self.name if target.label is None else f"{target.label}/{self.name}"
+            device, self._clock = target.device, target.clock
+        self._range = annotate(key, device)
+        self._range.__enter__()
+        self._rec = None
+        if self._clock is not None:
+            _span_names.add(self.name)
+            self._rec = self._clock.open(key)
+
+    def __exit__(self, *exc) -> bool:
+        if self._rec is not None:
+            self._clock.close(self._rec)
+        self._range.__exit__(*exc)
+        return False
+
+
+@contextlib.contextmanager
+def span_target(target) -> Iterator[None]:
+    """Spans opened in the body nest in ``target`` (``_span_target``)."""
+    token = _span_target.set(target)
+    try:
+        yield
+    finally:
+        _span_target.reset(token)
+
+
+def is_span_key(key: str) -> bool:
+    """Whether a phase record's ``key`` is a span's (or ``untraced``),
+    which nests in a phase, and not a mark-to-mark phase, which tiles
+    the rank's time with the others."""
+    return key.rsplit("/", 1)[-1] in _span_names
 
 
 @contextlib.contextmanager
