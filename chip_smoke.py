@@ -315,6 +315,16 @@ Phases, each printing its own line(s):
      orderkey, custkey and both strings checked against the tables, no
      all-to-all in stage 1, flags False; heal attempts and factors per
      stage, walls, the peak and the string passes' device ms;
+  8h. string_gather, the char gather of StringColumn.take, against its
+     plain version through take on the card and on the CPU (offsets,
+     every byte and char_overflow equal): a cap below, at and above the
+     need and off the 16-byte word, duplicated, negative and
+     out-of-range indices, a run of 9000 empty rows in one tile (past
+     the rows a block stages), rows longer than a tile, zero
+     rows, a total of 0; then 8a's output gather with its rows shuffled
+     (75M indices into the 18.75M priorities, cap 5 times their chars),
+     the kernel and the plain version equal on the card, both timed
+     beside the whole take and the kernel's byte bound;
   12. the degradation ladder (after 8g, on phase 4's tables): each case
      runs a call unfaulted, with one fault site armed, and unfaulted
      again after faults.reset() and reset_pins(), with obs on: the rows
@@ -7395,6 +7405,133 @@ def run_strings(dj, dev, seed: int, n_orders: int, smi: str, verifier_rows: int 
     return launch_table, world_table
 
 
+def gather_windows(new_offsets, cap: int) -> tuple[int, int]:
+    """(most rows, blocks with more than WIN rows) over the string_gather
+    blocks that own a byte below the total: block b owns bytes [b * TILE,
+    j_end), rows lo to hi, those of its first and last byte, and stages
+    them in shared memory when they are at most WIN."""
+    from dj_tpu_torch.ops.strings import TILE, WIN
+
+    total = min(int(new_offsets[-1]), cap)
+    j0 = torch.arange(0, max(total, 0), TILE, dtype=torch.int64, device=new_offsets.device)
+    if not j0.numel():
+        return 0, 0
+    j_end = torch.clamp_max(j0 + TILE, total)
+    offs = new_offsets.to(torch.int64)
+    nrows = (torch.searchsorted(offs, j_end - 1, right=True)
+             - torch.searchsorted(offs, j0, right=True) + 1)
+    return int(nrows.max()), int((nrows > WIN).sum())
+
+
+def string_gather_cases(dj) -> dict:
+    """{case: (column, indices, cap)} on the CPU: string_gather's edge
+    cases. Each cap below, at or above the need, one off the 16-byte
+    word; duplicated, negative and out-of-range indices; a run of 9000
+    empty rows inside one tile; rows longer than a tile; zero rows; a
+    total of 0."""
+    from dj_tpu_torch.core.table import sizes_to_offsets, take_fill
+
+    gen = torch.Generator().manual_seed(26)
+
+    def column(sizes):
+        offsets = sizes_to_offsets(torch.as_tensor(sizes, dtype=torch.int32))
+        chars = torch.randint(0, 256, (int(offsets[-1]) + 7,), generator=gen,
+                              dtype=torch.int32).to(torch.uint8)
+        return dj.StringColumn(offsets, chars)
+
+    def need(col, idx):
+        return int(take_fill(col.sizes(), idx).sum())
+
+    n = 5000
+    base = column(torch.randint(0, 31, (n,), generator=gen))
+    idx = torch.randint(-3, n + 200, (20_000,), generator=gen)
+    idx[:7] = torch.tensor([3, 3, 3, 0, n, n - 1, -1])
+    total = need(base, idx)
+    cases = {f"cap_{name}": (base, idx, cap) for name, cap in (
+        ("below_need", total - 1000), ("at_need", total), ("above_need", total + 3 * 4096 + 16),
+        ("need_minus_3", total - 3), ("need_plus_5", total + 5))}
+    run = torch.cat([torch.randint(0, n, (300,), generator=gen), torch.full((9000,), n + 5),
+                     torch.randint(0, n, (300,), generator=gen)])
+    cases["empty_run_9000"] = (base, run, need(base, run) + 100)
+    sizes = torch.randint(0, 31, (n,), generator=gen)
+    sizes[7], sizes[11] = 10_000, 4097
+    long_rows = column(sizes)
+    li = torch.cat([torch.tensor([7, 1, 11, 7, 2, 3, 7]), torch.randint(0, n, (500,), generator=gen)])
+    cases["rows_longer_than_a_tile"] = (long_rows, li, need(long_rows, li) + 21)
+    cases["zero_rows"] = (base, torch.zeros(0, dtype=torch.int64), 4100)
+    cases["total_0"] = (base, torch.full((600,), n + 1), 5000)
+    return cases
+
+
+def check_string_gather(dj, dev, priorities, n_rows: int, smi: str) -> dict:
+    """Phase 8h: string_gather (csrc/string_gather.cu) against its plain
+    version. Each edge case of ``string_gather_cases`` is taken through
+    ``StringColumn.take`` on the card (the kernel) and on the CPU (the
+    plain version): offsets, every byte of chars and ``char_overflow()``
+    equal. Then ``n_rows`` shuffled indices into ``priorities`` (one
+    GPU's O_ORDERPRIORITY) into CHAR_FIT times its chars: the kernel and
+    ``string_gather_plain`` on the same card tensors, equal and timed,
+    with the whole take. Returns the timing."""
+    from dj_tpu_torch.core.table import sizes_to_offsets, take_fill
+    from dj_tpu_torch.ops import strings
+
+    launches0 = strings.launches
+    cases = string_gather_cases(dj)
+    for case, (col, idx, cap) in cases.items():
+        want = col.take(idx, cap)
+        card = dj.StringColumn(col.offsets.to(dev), col.chars.to(dev))
+        before = strings.launches
+        got = card.take(idx.to(dev), cap)
+        torch.cuda.synchronize()
+        if strings.launches - before != 1:
+            raise AssertionError(f"8h {case}: {strings.launches - before} string_gather launches "
+                                 f"in one take on the card")
+        for leaf in ("offsets", "chars"):
+            if not torch.equal(getattr(got, leaf).cpu(), getattr(want, leaf)):
+                raise AssertionError(f"8h {case}: the {leaf} differ from the plain version's")
+        overflow = bool(got.char_overflow())
+        if overflow != bool(want.char_overflow()):
+            raise AssertionError(f"8h {case}: char_overflow {overflow} differs from the plain version's")
+        most_rows, over_win = gather_windows(want.offsets, cap)
+        if case == "empty_run_9000" and not over_win:
+            raise AssertionError(f"8h {case}: no block holds more than WIN rows (most {most_rows})")
+        log("kernels_vs_plain", smoke_phase="8h", case=case, kernel="string_gather",
+            rows=idx.shape[0], total=int(want.offsets[-1]), cap=cap, cap_mod_16=cap % 16,
+            char_overflow=overflow, most_rows=most_rows, blocks_over_win=over_win,
+            bytes_equal=cap, max_abs_err=0)
+
+    # The TPC-H cell's output gather, with the rows shuffled.
+    idx = (torch.arange(n_rows, device=dev) % priorities.size)[torch.randperm(n_rows, device=dev)]
+    cap = int(priorities.chars.shape[0] * CHAR_FIT)
+    new_offsets = sizes_to_offsets(take_fill(priorities.sizes(), idx))
+    starts = take_fill(priorities.offsets, idx)
+    total = int(new_offsets[-1])
+    got = strings.string_gather(new_offsets, starts, priorities.chars, cap)
+    want = strings.string_gather_plain(new_offsets, starts, priorities.chars, cap)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"8h tpch: string_gather differs from the plain version at "
+                             f"{int((got != want).sum())} of {cap} bytes")
+    del got, want
+    most_rows, over_win = gather_windows(new_offsets, cap)
+    # Least bytes: new_offsets and starts read, each gathered byte read
+    # once, the cap output bytes written.
+    nbytes = 4 * (n_rows + 1) + 4 * n_rows + total + cap
+    t = {"rows": n_rows, "source_rows": priorities.size, "total": total, "cap": cap,
+         "ms": cuda_ms(lambda: strings.string_gather(new_offsets, starts, priorities.chars, cap), 5),
+         "plain_ms": cuda_ms(lambda: strings.string_gather_plain(new_offsets, starts,
+                                                                  priorities.chars, cap), 2),
+         "take_ms": cuda_ms(lambda: priorities.take(idx, cap), 5),
+         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
+         "most_rows": most_rows, "blocks_over_win": over_win}
+    t["launches"] = strings.launches - launches0
+    log("string_gather", smoke_phase="8h", case="tpch_priorities_shuffled", max_abs_err=0,
+        bytes_equal=cap, **t, card=smi)
+    del idx, new_offsets, starts
+    torch.cuda.empty_cache()
+    return t
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=100_000_000,
@@ -7854,10 +7991,17 @@ def main() -> int:
     tpch_launches, tpch_world = run_q3_pipeline(dj, dev, orders, lineitem, customer, n_cust, smi)
     launch_table.update(tpch_launches)
     world_launches.update(tpch_world)
-    del orders, lineitem, customer
+    del customer
     torch.cuda.empty_cache()
 
     check_no_pins("8g")
+
+    # 8h. the char gather against its plain version, then at 8a's size
+    gather_timing = check_string_gather(dj, dev, orders.columns[2], lineitem.capacity, smi)
+    del orders, lineitem
+    torch.cuda.empty_cache()
+
+    check_no_pins("8h")
 
     # 12. the degradation ladder and the fault sites on the card
     run_ladder(dj, dev, topo, left, lcnt, right, rcnt, ref, rows, args.seed, smi)
@@ -8270,6 +8414,17 @@ def main() -> int:
             "library_ms": mode_timing["searchsorted_ms"],
             "library_call": "torch.searchsorted(csum, arange(n_out), right=True, out_int32=True), src only",
         })
+    kernels.append({
+        "name": "string_gather", "route": "cuda", "source": "dj_tpu_torch/csrc/string_gather.cu",
+        "replaces": "none: dj_tpu/core/table.py:77-108 (StringColumn.take) is plain jnp",
+        "launches": launch_table["tpch_orders_lineitem"][1]["string_gather"],
+        "launches_odf4": launch_table["tpch_orders_lineitem"][4]["string_gather"],
+        "launches_per_query": per_query("string_gather"),
+        "max_abs_err": 0, "ms": gather_timing["ms"], "plain_ms": gather_timing["plain_ms"],
+        "take_ms": gather_timing["take_ms"], "bound_ms": gather_timing["bound_ms"],
+        "bound_by": "bytes", "library_ms": None, "rows": gather_timing["rows"],
+        "cap": gather_timing["cap"],
+    })
     kernels.append({
         "name": "tile_sort", "route": "cuda", "source": "dj_tpu_torch/csrc/tile_sort.cu",
         "replaces": "scripts/hw/probe_sort.py:25",

@@ -5,7 +5,8 @@ tensor code is PyTorch; each TPU kernel of the JAX package has a
 hand-written CUDA counterpart in ``csrc/``, built with nvcc at first
 use: the join's join_scans, expand_values, expand_ranks,
 merge_sorted_u64, expand_carry, expand_gather, expand_join and
-expand_vfull, and the hardware probes' tile_sort and gathers
+expand_vfull, the string columns' string_gather (which replaces plain
+jnp, not a TPU kernel), and the hardware probes' tile_sort and gathers
 (take_gather, cluster_gather). Entry points run on the current CUDA
 device unless given CPU tensors or a CPU topology, where each kernel's
 plain PyTorch version runs instead.

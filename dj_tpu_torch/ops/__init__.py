@@ -19,6 +19,7 @@ KERNEL_COUNTERS = {
     "expand_join": ("expand", "join_launches"),
     "expand_carry": ("expand", "carry_launches"),
     "expand_vfull": ("expand", "vfull_launches"),
+    "string_gather": ("strings", "launches"),
 }
 
 

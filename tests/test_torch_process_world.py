@@ -812,20 +812,22 @@ def test_process_world_leaves_one_black_box_a_process(worlds):
 
 
 def _counting(monkeypatch):
-    """Make the kernel wrappers that ops.join calls count their plain
-    calls, as their CUDA launches count on the card."""
-    from dj_tpu_torch.ops import KERNEL_COUNTERS, expand, join, merge, scan
+    """Make the kernel wrappers count their plain calls, as their CUDA
+    launches count on the card: ops.join calls its kernels by name,
+    StringColumn.take calls string_gather through its module."""
+    from dj_tpu_torch.ops import KERNEL_COUNTERS, expand, join, merge, scan, strings
 
     def wrap(name, mod, counter):
-        fn = getattr(join, name)
+        owner = join if hasattr(join, name) else mod
+        fn = getattr(owner, name)
 
         def counted(*a, **k):
             setattr(mod, counter, getattr(mod, counter) + 1)
             return fn(*a, **k)
 
-        monkeypatch.setattr(join, name, counted)
+        monkeypatch.setattr(owner, name, counted)
 
-    mods = {"scan": scan, "merge": merge, "expand": expand}
+    mods = {"scan": scan, "merge": merge, "expand": expand, "strings": strings}
     for name, (m, counter) in KERNEL_COUNTERS.items():
         wrap(name, mods[m], counter)
 

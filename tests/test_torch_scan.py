@@ -104,17 +104,19 @@ def test_cpu_route_launches_no_kernel():
 
 
 def test_kernel_sources_carry_their_note():
-    """Each CUDA source names the TPU kernel it replaces, its bound on
-    the card and its design."""
+    """Each CUDA source names the TPU kernel it replaces (or says it
+    replaces none, and what it replaces instead), its bound on the card
+    and its design."""
     names = {p.stem for p in cuda_build.sources()}
     assert names == {
         "join_scans", "expand_values", "merge_sorted_u64", "expand_ranks",
         "expand_gather", "expand_join", "expand_carry", "expand_vfull",
-        "tile_sort", "cluster_gather", "take_gather",
+        "tile_sort", "cluster_gather", "take_gather", "string_gather",
     }
     for p in cuda_build.sources():
         text = p.read_text()
         assert ("Replaces the TPU kernel dj_tpu/ops/" in text
-                or "Replaces the TPU kernel scripts/hw/" in text)
+                or "Replaces the TPU kernel scripts/hw/" in text
+                or "Replaces no TPU kernel: the JAX package's" in text)
         assert "Bound on this card" in text and "Design:" in text
         assert "extern \"C\" int dj_" in text

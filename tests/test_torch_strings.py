@@ -139,28 +139,41 @@ def test_from_strings_to_strings_round_trip():
     np.testing.assert_array_equal(col.sizes().numpy(), [len(s) for s in want])
 
 
-@pytest.mark.parametrize("out_cap", [None, 7, 10_000])
+@pytest.mark.parametrize("out_cap", [None, 7, 10_000, "total", "all_out_of_range",
+                                     "row_longer_than_a_tile"])
 def test_take_matches_dj_tpu(out_cap):
     """Duplicated rows, out-of-range indices (the row count and past
-    it), and output char capacities below, at and above the need.
-    Indices are non-negative: JAX wraps a negative index, the port's
-    gathers (``take_fill``) fill it; no join passes one."""
+    it), and output char capacities below, at, exactly at and above the
+    need; every index out of range; a row longer than string_gather's
+    tile, gathered several times. Indices are non-negative: JAX wraps a
+    negative index, the port's gathers (``take_fill``) fill it; no join
+    passes one."""
     rng = np.random.default_rng(1)
     strs = _random_strings(rng, 200, max_len=30)
+    if out_cap == "row_longer_than_a_tile":
+        strs[5] = rng.integers(0, 256, 5000).astype(np.uint8).tobytes()
     off, chars = _str_arrays(strs, char_pad=17)
     jc = jT.StringColumn(jnp.asarray(off), jnp.asarray(chars))
     tc = tT.StringColumn(torch.from_numpy(off), torch.from_numpy(chars))
     idx = rng.integers(0, 210, 400).astype(np.int32)
     idx[:6] = [3, 3, 3, 0, 200, 199]
+    if out_cap == "all_out_of_range":
+        idx = rng.integers(200, 400, 400).astype(np.int32)
+        out_cap = 64
+    elif out_cap == "row_longer_than_a_tile":
+        idx[6:10] = 5
+        out_cap = 30_000
+    elif out_cap == "total":
+        out_cap = int(sum(len(strs[i]) for i in idx if i < 200))
     want = jc.take(jnp.asarray(idx), out_cap)
     got = tc.take(torch.from_numpy(idx), out_cap)
     _assert_same_column(got, want)
     assert bool(got.char_overflow()) == bool(want.char_overflow())
+    keep = [strs[i] if 0 <= i < 200 else b"" for i in idx]
     if out_cap == 7:
         assert bool(got.char_overflow())
-    if out_cap == 10_000:
+    if out_cap is not None and out_cap >= sum(map(len, keep)):
         assert not bool(got.char_overflow())
-        keep = [strs[i] if 0 <= i < 200 else b"" for i in idx]
         assert tj.to_strings(got) == keep
     # No rows at all: empty offsets, zero chars.
     none = tc.take(torch.zeros(0, dtype=torch.int32), 5)

@@ -607,7 +607,7 @@ def test_chip_smoke_two_level_phases_rehearse_on_cpu(monkeypatch, capsys):
     import pathlib
     import types
 
-    from dj_tpu_torch.ops import KERNEL_COUNTERS, expand, join as tjoin, merge, scan
+    from dj_tpu_torch.ops import KERNEL_COUNTERS, expand, join as tjoin, merge, scan, strings
 
     root = pathlib.Path(__file__).resolve().parents[1]
     spec = importlib.util.spec_from_file_location("chip_smoke", root / "chip_smoke.py")
@@ -619,16 +619,19 @@ def test_chip_smoke_two_level_phases_rehearse_on_cpu(monkeypatch, capsys):
                      ("memory_allocated", lambda *a, **k: 0),
                      ("empty_cache", lambda: None)):
         monkeypatch.setattr(torch.cuda, name, fn)
-    mods = {"scan": scan, "merge": merge, "expand": expand}
+    mods = {"scan": scan, "merge": merge, "expand": expand, "strings": strings}
     counters = [(name, mods[m], c) for name, (m, c) in KERNEL_COUNTERS.items()]
     for name, module, counter in counters:
-        real = getattr(tjoin, name)
+        # ops.join calls its kernels by name, StringColumn.take calls
+        # string_gather through its module.
+        owner = tjoin if hasattr(tjoin, name) else module
+        real = getattr(owner, name)
 
         def counted(*a, _real=real, _m=module, _c=counter, **k):
             setattr(_m, _c, getattr(_m, _c) + 1)
             return _real(*a, **k)
 
-        monkeypatch.setattr(tjoin, name, counted)
+        monkeypatch.setattr(owner, name, counted)
     rows = 8000
     gen = torch.Generator().manual_seed(0)
     build, probe, expected = tj.generate_build_probe_tables(
