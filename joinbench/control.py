@@ -1,10 +1,11 @@
 """The controls: the plain reference in the program's place, breaking one
 guarantee of the configuration, must come out not correct.
 
-The configuration states an exact inner join of int64 keys with its
-payloads carried whole (``guarantees`` in its file). Each configuration
-names its control: ``hash32_keys`` matches rows on 32 bits of a hash of
-the keys, unverified (the precision below the stated int64 keys);
+The configuration states an exact inner join with its payloads carried
+whole (``guarantees`` in its file). Each configuration names its
+control, which its kind answers (``kinds/<kind>.py``: ``control``):
+``hash32_keys`` matches rows on 32 bits of a hash of the keys,
+unverified (the precision below the stated int64 keys);
 ``truncate_strings`` carries a string payload in a fixed 8-byte field.
 ``Control`` answers a join so, ``ControlServer`` serves queries so, and
 ``WorldControl`` answers a rank's probe rows against the whole world's
@@ -31,20 +32,13 @@ import torch
 if __name__ == "__main__":
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
-from joinbench import reference  # noqa: E402
 from joinbench.system import Answer  # noqa: E402
 
 
-def control_answer(mode: str, left: list, right: list) -> Answer:
-    """The reference's join of ``left`` and ``right`` under ``mode``."""
-    if mode == "hash32_keys":
-        cols = reference.join_rows(left[0], left[1], right[0], right[1], reference.hash32)
-    elif mode == "truncate_strings":
-        li, _ = reference.match_pairs(left[0], right[0])
-        off, chars = left[1]
-        cols = [left[0][li], reference.truncate_strings(off, chars, li)]
-    else:
-        raise ValueError(f"unknown control {mode!r}")
+def control_answer(kind, mode: str, left: list, right: list) -> Answer:
+    """The reference's join of ``left`` and ``right`` under ``mode``, as
+    the configuration's ``kind`` module answers it."""
+    cols = kind.control(mode, left, right)
     n = cols[0].shape[0]
     dev = cols[0].device
     return Answer(cols, torch.tensor(n, dtype=torch.int64, device=dev),
@@ -54,7 +48,8 @@ def control_answer(mode: str, left: list, right: list) -> Answer:
 class Control:
     """A system whose joins are the control's."""
 
-    def __init__(self, mode: str, device):
+    def __init__(self, kind, mode: str, device):
+        self.kind = kind
         self.mode = mode
         self.device = torch.device(device)
         self.port = self
@@ -68,10 +63,11 @@ class Control:
     def phases(self):
         return contextlib.nullcontext([])
 
-    def join_cols(self, left: list, right: list, config) -> Answer:
-        return control_answer(self.mode, left, right)
+    def join_cols(self, left: list, right: list, config, left_on=(0,), right_on=(0,)) -> Answer:
+        return control_answer(self.kind, self.mode, left, right)
 
-    def serve(self, build: list, config, serve_settings: dict) -> "ControlServer":
+    def serve(self, build: list, config, serve_settings: dict,
+              on: tuple = ((0,), (0,))) -> "ControlServer":
         return ControlServer(self, build)
 
 
@@ -100,7 +96,7 @@ class ControlServer:
         return t
 
     def warm(self, left: list) -> None:
-        control_answer(self.port.mode, left, self.build)
+        control_answer(self.port.kind, self.port.mode, left, self.build)
 
     def pump(self, timeout: float) -> int:
         if not self.queue:
@@ -108,7 +104,7 @@ class ControlServer:
             return 0
         t = self.queue.pop(0)
         t.start_t = time.monotonic()
-        t.answer = control_answer(self.port.mode, t.left, self.build)
+        t.answer = control_answer(self.port.kind, self.port.mode, t.left, self.build)
         t.left = None
         t.done = True
         return 1
@@ -129,14 +125,12 @@ class WorldControl(Control):
     """The control on one rank of a world: this rank's probe rows joined
     against the whole world's build side, drawn again from the seed."""
 
-    def __init__(self, device, seed: int, world: int, rows: int):
-        from joinbench import datagen
+    def __init__(self, kind, cfg: dict, device, seed: int, world: int):
+        super().__init__(kind, cfg["control"], device)
+        self.build = kind.world_build_side(cfg, seed, world, self.device)
 
-        super().__init__("hash32_keys", device)
-        self.build = datagen.world_build_side(self.device, seed, world, rows)
-
-    def join_cols(self, left: list, right: list, config) -> Answer:
-        return control_answer(self.mode, left, list(self.build))
+    def join_cols(self, left: list, right: list, config, left_on=(0,), right_on=(0,)) -> Answer:
+        return control_answer(self.kind, self.mode, left, self.build)
 
 
 def main(argv=None) -> int:
@@ -155,7 +149,7 @@ def main(argv=None) -> int:
                                world_options={"system": "control"})
         else:
             res = run.run_cell(cell, seed, args.seconds, False,
-                               system=Control(cell.config["control"], "cuda"))
+                               system=Control(cell.kind, cell.config["control"], "cuda"))
         print(json.dumps({"seed": seed, **res}), flush=True)
     return 0
 

@@ -70,11 +70,12 @@ class Faulty:
     def phases(self):
         return self.port.phases()
 
-    def join_cols(self, left: list, right: list, config) -> Answer:
-        return _broken(self.kind, left, self.port.join_cols(left, right, config))
+    def join_cols(self, left: list, right: list, config, left_on=(0,), right_on=(0,)) -> Answer:
+        return _broken(self.kind, left,
+                       self.port.join_cols(left, right, config, left_on, right_on))
 
-    def serve(self, build: tuple, config, serve_settings: dict):
-        server = self.port.serve(build, config, serve_settings)
+    def serve(self, build: tuple, config, serve_settings: dict, on: tuple = ((0,), (0,))):
+        server = self.port.serve(build, config, serve_settings, on)
         kind, answer = self.kind, server.answer
 
         def broken(ticket):

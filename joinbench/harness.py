@@ -14,10 +14,10 @@ waits up to ``wait_after_close_s`` past the window for the last.
 The window keeps, from the seed, a sample of its answers (the valid
 rows, copied), every answer's row count and flags. Once the window has
 closed and the program's state is freed, the reference joins the
-sample's inputs again and the answers are compared row for row
-(``reference``), every count is held to the exact match count, and no
-flag may have fired. Each compared number and its limit go into the
-result line's last key, ``checks``.
+sample's inputs again and the answers are compared row for row (the
+configuration's kind, ``kinds/<kind>.py``), every count is held to the
+exact match count, and no flag may have fired. Each compared number
+and its limit go into the result line's last key, ``checks``.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from . import datagen, profiling, reference
+from . import datagen, profiling
 from .readers import percentile
 
 WARMUP_CALLS = 2
@@ -54,52 +54,6 @@ def fresh(cols: list) -> list:
 def nbytes(cols: list) -> int:
     return sum(sum(t.numel() * t.element_size() for t in (c if isinstance(c, tuple) else (c,)))
                for c in cols)
-
-
-# -- the configurations' data -------------------------------------------------------------
-
-
-def make_inputs(config: dict, seed: int, device: torch.device, probe: bool = True) -> dict:
-    """The cell's tables on one rank, drawn from ``seed`` (``probe``
-    False: the build side alone, for a cell that draws its probe tables
-    query by query)."""
-    kind = config["kind"]
-    if kind == "int64":
-        return datagen.build_probe(datagen.generator(device, seed, 0), config["build_rows"],
-                                   config["probe_rows"] if probe else 0,
-                                   config["selectivity"], config["rand_max"])
-    if kind == "tpch":
-        return datagen.tpch_split(datagen.generator(device, seed, 0), config["split"],
-                                  config["orders_rows"], config["lineitems_min"],
-                                  config["lineitems_max"])
-    raise ValueError(f"unknown configuration kind {kind!r}")
-
-
-def sides(kind: str, inputs: dict) -> tuple:
-    """(left columns, right columns) of the cell's join: probe JOIN build
-    (int64), orders JOIN lineitem on the orderkey (tpch)."""
-    if kind == "int64":
-        return ([inputs["probe_keys"], inputs["probe_payload"]],
-                [inputs["build_keys"], inputs["build_payload"]])
-    return [inputs["o_orderkey"], inputs["o_orderpriority"]], [inputs["l_orderkey"]]
-
-
-def expected_count(kind: str, inputs: dict) -> int:
-    """The exact number of rows the join gives."""
-    if kind == "int64":
-        return int(inputs["matches"])
-    return int(inputs["l_orderkey"].shape[0])
-
-
-def rows_wrong(kind: str, inputs: dict, got: list) -> int:
-    """Rows of the answer ``got`` (valid rows) that differ from the
-    reference's join of ``inputs``."""
-    if kind == "int64":
-        return reference.rows_wrong_int(got, reference.expected_rows(kind, inputs))
-    keys, (off, chars) = got
-    want_keys, want_view = reference.expected_rows(kind, inputs)
-    view = (off, chars, torch.arange(keys.shape[0], device=keys.device))
-    return reference.keyed_string_rows_wrong(keys, view, want_keys, want_view)
 
 
 def device_info(device: torch.device, count: int) -> dict:
@@ -129,8 +83,9 @@ def free_memory(device: torch.device) -> None:
 def closed_loop(system, left: list, right: list, join_config, device: torch.device,
                 seconds: float, trace: bool, sample_seed: int,
                 keep_going: Optional[Callable[[bool], bool]] = None,
-                stretch_calls: int = 3) -> dict:
-    """Join ``left`` and ``right`` back to back for ``seconds``. Returns
+                stretch_calls: int = 3, on: tuple = ((0,), (0,))) -> dict:
+    """Join ``left`` and ``right`` on the key columns ``on`` (left's,
+    right's) back to back for ``seconds``. Returns
     the window's joins and seconds, each join's count and flag (device
     tensors), the valid rows of one join drawn from ``sample_seed``
     (a reservoir of one over the window), the peak, and with ``trace``
@@ -141,7 +96,7 @@ def closed_loop(system, left: list, right: list, join_config, device: torch.devi
     from .system import valid_rows
 
     def call():
-        ans = system.join_cols(fresh(left), fresh(right), join_config)
+        ans = system.join_cols(fresh(left), fresh(right), join_config, *on)
         sync(device)
         return ans
 
@@ -309,19 +264,19 @@ def sample_indices(seed: int, sizes: np.ndarray, k: int) -> set:
     return picked
 
 
-def probe_cols(inputs: dict, device, seed: int, stream: tuple, rows: int, selectivity: float):
-    """A query's probe table, drawn from its own ``stream`` of ``seed``
-    ((2, i) for the window's query i): (columns, exact matches)."""
-    keys, matches = datagen.draw_probe(datagen.generator(device, seed, *stream),
-                                       inputs["build_keys"], inputs["complement"], rows,
-                                       selectivity)
-    return [keys, torch.arange(rows, dtype=torch.int64, device=device)], matches
+def probe_query(kind, inputs: dict, device, seed: int, stream: tuple, rows: int,
+                selectivity: float) -> dict:
+    """The inputs of a query (``kind.probe``): a probe table of ``rows``
+    rows drawn from its own ``stream`` of ``seed`` ((2, i) for the
+    window's query i) against the resident build side of ``inputs``."""
+    return kind.probe(inputs, datagen.generator(device, seed, *stream), rows, selectivity)
 
 
-def open_loop(server, inputs: dict, traffic: dict, device: torch.device, seed: int,
+def open_loop(server, kind, inputs: dict, traffic: dict, device: torch.device, seed: int,
               seconds: float, trace: bool, phases_cm=None) -> dict:
-    """Serve the window's schedule (``serve_schedule``) and wait for
-    every answer, at most ``wait_after_close_s`` past the window. With
+    """Serve the window's schedule (``serve_schedule``) of queries drawn
+    by ``kind`` against the build side of ``inputs``, and wait for every
+    answer, at most ``wait_after_close_s`` past the window. With
     ``trace`` the window ends in two stretches of ``trace_stretch_s``:
     the program's phase clock (``phases_cm``, which synchronizes each
     query to read its events), then the profiler alone, until the last
@@ -355,7 +310,9 @@ def open_loop(server, inputs: dict, traffic: dict, device: torch.device, seed: i
         wait = t0 + off - time.monotonic()
         if wait > 0:
             time.sleep(wait)
-        cols, matches[i] = probe_cols(inputs, device, seed, (2, i), int(rows), sel)
+        query = probe_query(kind, inputs, device, seed, (2, i), int(rows), sel)
+        cols, matches[i] = kind.sides(query)[0], kind.expected_count(query)
+        del query
         try:
             ticket = server.submit(server.port.table(cols))
         except Exception as e:  # noqa: BLE001 - a refused query is a failed one

@@ -43,8 +43,25 @@ def hash32(keys: torch.Tensor) -> torch.Tensor:
     return _mix64(keys) & 0xFFFFFFFF
 
 
-def match_pairs(left_keys: torch.Tensor, right_keys: torch.Tensor) -> tuple:
-    """(left row, right row) of every pair of equal keys, int64."""
+def _key_ids(left_keys, right_keys) -> tuple:
+    """One int64 key a row for each side: a single key column as it is,
+    several columns as the rank of each row's tuple among both sides'
+    distinct tuples (a plain lexicographic sort), so that equal tuples
+    get equal ids."""
+    if isinstance(left_keys, torch.Tensor):
+        return left_keys, right_keys
+    if len(left_keys) == 1:
+        return left_keys[0], right_keys[0]
+    both = torch.stack([torch.cat([a, b]) for a, b in zip(left_keys, right_keys)], dim=1)
+    ids = torch.unique(both, dim=0, return_inverse=True)[1]
+    n = left_keys[0].shape[0]
+    return ids[:n], ids[n:]
+
+
+def match_pairs(left_keys, right_keys) -> tuple:
+    """(left row, right row) of every pair of equal keys, int64. A side's
+    keys are one tensor or a list of key columns, matched together."""
+    left_keys, right_keys = _key_ids(left_keys, right_keys)
     dev = left_keys.device
     order = torch.argsort(right_keys)
     sorted_r = right_keys[order]
@@ -71,10 +88,10 @@ def join_rows(left_keys, left_payload, right_keys, right_payload, key_map=None) 
 
 
 def canonical_order(cols: list) -> torch.Tensor:
-    """The permutation that sorts int64 rows by column 1, then column 2,
-    then column 0 (a multiset's canonical order)."""
+    """The permutation that sorts int64 rows by column 1, then column 2
+    and each later one, then column 0 (a multiset's canonical order)."""
     order = torch.argsort(cols[0], stable=True)
-    for c in (cols[2], cols[1]) if len(cols) > 2 else cols[1:]:
+    for c in reversed(cols[1:]):
         order = order[torch.argsort(c[order], stable=True)]
     return order
 
@@ -151,15 +168,3 @@ def truncate_strings(offsets: torch.Tensor, chars: torch.Tensor, rows: torch.Ten
                                   output_size=nbytes)
     pos = torch.arange(nbytes, device=offsets.device) - out_off[row]
     return out_off.to(torch.int32), chars[start[row] + pos]
-
-
-def expected_rows(kind: str, inputs: dict):
-    """The reference's answer to one join of the benchmark's inputs:
-    ``int64`` rows [key, probe payload, build payload]; ``tpch`` (the
-    orderkey of each lineitem's order, a string view of its priority)."""
-    if kind == "int64":
-        return join_rows(inputs["probe_keys"], inputs["probe_payload"], inputs["build_keys"],
-                         inputs["build_payload"])
-    li, _ = match_pairs(inputs["o_orderkey"], inputs["l_orderkey"])
-    off, chars = inputs["o_orderpriority"]
-    return inputs["o_orderkey"][li], (off, chars, li)

@@ -93,12 +93,11 @@ def run_closed(cell, seed: int, seconds: float, trace: bool, device, system=None
         from joinbench.system import Port
 
         system = Port(device)
-    cfg = cell.config
-    kind = cfg["kind"]
+    cfg, kind = cell.config, cell.kind
     stage("program imported")
-    inputs = harness.make_inputs(cfg, seed, device)
-    expected = harness.expected_count(kind, inputs)
-    left, right = harness.sides(kind, inputs)
+    inputs = kind.inputs(cfg, seed, device)
+    expected = int(kind.expected_count(inputs))
+    left, right = kind.sides(inputs)
     join_config = system.config({**cfg["join_config"], **cell.traffic.get("join_config", {})})
     stage("tables drawn")
     if device.type == "cuda":
@@ -107,13 +106,14 @@ def run_closed(cell, seed: int, seconds: float, trace: bool, device, system=None
         build_kernels()
         stage("kernels built")
     loop = harness.closed_loop(system, left, right, join_config, device, seconds, trace,
-                               sub_seed(seed, 5), stretch_calls=cell.traffic["trace_calls"])
+                               sub_seed(seed, 5), stretch_calls=cell.traffic["trace_calls"],
+                               on=kind.on(cfg))
     setup_s = loop["t_window"] - t_start
     counts = torch.stack(loop["counts"]).cpu().tolist()
     flags = torch.stack(loop["flags"]).cpu().tolist()
     del loop["counts"], loop["flags"]
     harness.free_memory(device)
-    rows = harness.rows_wrong(kind, inputs, loop["sample"])
+    rows = kind.rows_wrong(inputs, loop["sample"])
     bad = [c != expected or f for c, f in zip(counts, flags)]
     checks = {"count_off": (sum(c != expected for c in counts), 0),
               "flagged": (sum(flags), 0), "rows_wrong": (rows, 0)}
@@ -148,27 +148,28 @@ def run_open(cell, seed: int, seconds: float, trace: bool, device, system=None,
         from joinbench.system import Port
 
         system = Port(device)
-    cfg, traffic = cell.config, cell.traffic
+    cfg, traffic, kind = cell.config, cell.traffic, cell.kind
     stage("program imported")
-    inputs = harness.make_inputs(cfg, seed, device, probe=False)
-    build = [inputs["build_keys"], inputs["build_payload"]]
+    inputs = kind.inputs(cfg, seed, device, probe=False)
+    build = kind.sides(inputs)[1]
     join_config = system.config({**cfg["join_config"], **traffic.get("join_config", {}),
-                                 "key_range": (0, cfg["rand_max"])})
+                                 "key_range": kind.key_range(cfg)})
     stage("tables drawn")
     if device.type == "cuda":
         from joinbench.system import build_kernels
 
         build_kernels()
         stage("kernels built")
-    server = system.serve(system.table(build), join_config, traffic["serve"])
+    server = system.serve(system.table(build), join_config, traffic["serve"], kind.on(cfg))
     sizes = [traffic["probe_rows_max"], traffic["probe_rows_min"],
              (traffic["probe_rows_min"] + traffic["probe_rows_max"]) // 2]
     for i, rows in enumerate(sizes):
-        cols, _ = harness.probe_cols(inputs, device, seed, (6, i), rows, traffic["selectivity"])
-        server.warm(system.table(cols))
+        query = harness.probe_query(kind, inputs, device, seed, (6, i), rows,
+                                    traffic["selectivity"])
+        server.warm(system.table(kind.sides(query)[0]))
         stage(f"warm query {i} of {rows} rows answered")
     harness.free_memory(device)
-    loop = harness.open_loop(server, inputs, traffic, device, seed, seconds, trace,
+    loop = harness.open_loop(server, kind, inputs, traffic, device, seed, seconds, trace,
                              system.phases)
     setup_s = loop["t_window"] - t_start
     server.close()
@@ -183,11 +184,9 @@ def run_open(cell, seed: int, seconds: float, trace: bool, device, system=None,
     harness.free_memory(device)
     rows = 0
     for i, got in sorted(loop["samples"].items()):
-        cols, _ = harness.probe_cols(inputs, device, seed, (2, i), int(loop["sizes"][i]),
-                                     traffic["selectivity"])
-        probe = {"probe_keys": cols[0], "probe_payload": cols[1],
-                 "build_keys": inputs["build_keys"], "build_payload": inputs["build_payload"]}
-        rows += harness.rows_wrong("int64", probe, got)
+        query = harness.probe_query(kind, inputs, device, seed, (2, i), int(loop["sizes"][i]),
+                                    traffic["selectivity"])
+        rows += kind.rows_wrong(query, got)
     unanswered = loop["n"] - len(answered)
     count_off = sum(c != w for c, w in zip(counts, want))
     checks = {"unanswered": (unanswered, 0), "count_off": (count_off, 0),
@@ -246,16 +245,18 @@ def main(argv=None) -> int:
     set_cache_dirs()
     from joinbench import spec
 
-    cell = spec.resolve(args.workload)
+    cell = spec.find(args.workload)
     if cell.traffic["ranks"] > 1:
         from joinbench import world
 
+        # Each rank checks the cell against its kind: this parent never imports torch.
         try:
             result = run_cell(cell, args.seed, args.seconds, bool(args.trace))
         except world.RankFailed as e:
             print(f"joinbench: {args.workload}: {e}; no result", file=sys.stderr)
             return e.code
     else:
+        spec.check(cell.config, cell.traffic, cell.here)
         import torch
 
         found = torch.cuda.device_count() if torch.cuda.is_available() else 0

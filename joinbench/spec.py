@@ -2,16 +2,49 @@
 
 ``BENCHMARK.json`` at the checkout's root names each cell's
 configuration, traffic mix and chips; each configuration is
-``configs/<name>.json``, each mix ``traffic/<name>.json`` and each
-per-layer metric's reader ``metrics/<name>.py`` beside this file. A
-later cell, mix or metric is a new file and a new entry: nothing here
-lists them.
+``configs/<name>.json``, its kind ``kinds/<kind>.py``, each mix
+``traffic/<name>.json`` and each per-layer metric's reader
+``metrics/<name>.py`` beside this file. A later cell, kind, mix or
+metric is a new file and a new entry: nothing here lists them.
+
+A kind module draws a configuration's tables and judges the answers
+to them; it imports torch, numpy and ``joinbench.datagen`` /
+``joinbench.reference`` only, never the program. It gives:
+
+- ``KEYS``: the configuration keys it reads, None for any value or a
+  tuple of the values it implements (``control`` among them);
+- ``CONTROLS`` and ``control(mode, left, right)``: the columns the
+  control answers the join of ``left`` and ``right`` with;
+- ``check(cfg, traffic)``: its own consistency checks (raises
+  ``ValueError``);
+- ``inputs(cfg, seed, device, probe=True)``: the tables on one rank,
+  drawn from the seed (``probe`` False: the build side alone);
+- ``sides(inputs)``: (left columns, right columns) of the join;
+- ``on(cfg)``: (left key columns, right key columns);
+- ``expected_count(inputs)``: the exact rows of the join (an int or a
+  0-d int64 tensor, which may stay on the device);
+- ``rows_wrong(inputs, got)``: rows of the answer ``got`` (its valid
+  rows) that differ from the reference's;
+- ``tiny(cfg, rows)``: the configuration cut to a CPU test's size.
+
+An open loop also needs ``OPEN_HOOKS``: ``probe(inputs, gen, rows,
+selectivity)``, the inputs of one query against the resident build side
+(a probe table of ``rows`` rows drawn from ``gen``), and
+``key_range(cfg)``, the key range the resident side declares. A world
+of ranks needs ``WORLD_HOOKS``: ``world_inputs(cfg, seed, rank, world,
+device)``, rank ``rank``'s share of one draw over the world;
+``world_build_side(cfg, seed, world, device)``, the whole world's build
+side drawn again; ``world_owner(cfg, got)``, the rank that owns each
+row of an answer; and ``world_rows_wrong(inputs, build, got)``, rows of
+what a rank owns that differ from the reference's join of its probe
+side against ``build``.
 
 ``check`` refuses a configuration or mix that sets a key the harness
-does not read, or a value it does not implement (``CONFIG_KEYS``,
-``TRAFFIC_KEYS``): a file asking for, say, on-off arrivals or repeated
-build keys would otherwise run the old traffic under a new name. Such a
-cell needs a generator in the harness first.
+does not read, or a value it does not implement (the kind's ``KEYS``,
+``TRAFFIC_KEYS``), and a kind that lacks a hook its loop or its ranks
+need: a file asking for, say, on-off arrivals or repeated build keys
+would otherwise run the old traffic under a new name. Such a cell needs
+a generator in the harness first.
 """
 
 from __future__ import annotations
@@ -20,6 +53,7 @@ import dataclasses
 import importlib.util
 import json
 import pathlib
+from types import ModuleType
 from typing import Callable, Optional
 
 HERE = pathlib.Path(__file__).resolve().parent
@@ -27,17 +61,8 @@ ROOT = HERE.parent
 
 # Keys that describe a configuration or mix and are read by no code.
 TEXT_KEYS = frozenset({"source", "guarantees", "payload", "inputs", "reduced", "assumed"})
-# What the harness reads, by a configuration's ``kind`` and a mix's ``loop``: None takes any
-# value, a tuple only the values the harness implements.
-CONFIG_KEYS = {
-    "int64": {"kind": None, "build_rows": None, "probe_rows": None, "selectivity": None,
-              "rand_max": None, "join_config": None, "control": ("hash32_keys",),
-              "key_type": ("int64",), "payload_type": ("int64",),
-              "unique_build_keys": (True,)},
-    "tpch": {"kind": None, "scale_factor": None, "splits": None, "split": None,
-             "orders_rows": None, "lineitems_min": None, "lineitems_max": None,
-             "key_type": ("int64",), "join_config": None, "control": ("truncate_strings",)},
-}
+# What the harness reads of a mix, by its ``loop``: None takes any value, a tuple only the
+# values the harness implements.
 TRAFFIC_KEYS = {
     "closed": {"loop": None, "ranks": None, "clients": (1,), "trace_calls": None,
                "join_config": None},
@@ -47,7 +72,10 @@ TRAFFIC_KEYS = {
              "serve": None, "sample_answers": None, "wait_after_close_s": None,
              "trace_stretch_s": None, "join_config": None},
 }
-TPCH_ORDERS_A_SCALE = 1_500_000
+KIND_HOOKS = ("KEYS", "CONTROLS", "check", "inputs", "sides", "on", "expected_count",
+              "rows_wrong", "control", "tiny")
+OPEN_HOOKS = ("probe", "key_range")
+WORLD_HOOKS = ("world_inputs", "world_build_side", "world_owner", "world_rows_wrong")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +86,12 @@ class Cell:
     traffic: dict
     end_to_end: tuple  # the end-to-end metric entries this cell reports
     per_layer: tuple  # the per-layer metric entries this cell reports
+    here: pathlib.Path = HERE  # the benchmark's directory: its kinds, configurations, mixes
+
+    @property
+    def kind(self) -> ModuleType:
+        """The configuration's kind module (``load_kind``)."""
+        return load_kind(self.config["kind"], self.here)
 
 
 def load_benchmark(root: pathlib.Path = ROOT) -> dict:
@@ -76,17 +110,36 @@ def load_traffic(name: str, here: pathlib.Path = HERE) -> dict:
     return mix
 
 
+def _load_path(path: pathlib.Path, mod_name: str) -> ModuleType:
+    spec = importlib.util.spec_from_file_location(mod_name, path)
+    if spec is None or spec.loader is None or not path.is_file():
+        raise FileNotFoundError(path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _mod_name(prefix: str, name: str) -> str:
+    return prefix + name.replace(".", "_").replace("-", "_")
+
+
 def load_reader(metric: str, here: pathlib.Path = HERE) -> Callable[[dict], Optional[float]]:
     """The ``read(ctx)`` function of ``metrics/<metric>.py``, loaded by
     path (a metric's name may hold dots)."""
     path = here / "metrics" / f"{metric}.py"
-    mod_name = "joinbench_metric_" + metric.replace(".", "_").replace("-", "_")
-    spec = importlib.util.spec_from_file_location(mod_name, path)
-    if spec is None or spec.loader is None:
-        raise FileNotFoundError(f"no reader for metric {metric} at {path}")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    try:
+        return _load_path(path, _mod_name("joinbench_metric_", metric)).read
+    except FileNotFoundError:
+        raise FileNotFoundError(f"no reader for metric {metric} at {path}") from None
+
+
+def load_kind(kind: str, here: pathlib.Path = HERE) -> ModuleType:
+    """The module ``kinds/<kind>.py``, loaded by path; ``ValueError``
+    where the benchmark has no such kind."""
+    path = here / "kinds" / f"{kind}.py"
+    if not isinstance(kind, str) or not path.is_file():
+        raise ValueError(f"unknown configuration kind {kind!r}: no {path}")
+    return _load_path(path, _mod_name("joinbench_kind_", kind))
 
 
 def _check_keys(what: str, data: dict, allowed: dict) -> None:
@@ -100,26 +153,32 @@ def _check_keys(what: str, data: dict, allowed: dict) -> None:
                              f"(only {list(allowed[key])})")
 
 
-def check(cfg: dict, traffic: dict) -> None:
-    """Refuse a configuration or mix the harness would not run as it says."""
-    kind, loop = cfg.get("kind"), traffic.get("loop")
-    if kind not in CONFIG_KEYS:
-        raise ValueError(f"configuration {cfg.get('name')}: unknown kind {kind!r}")
+def check_traffic(traffic: dict) -> None:
+    """Refuse a mix the harness would not run as it says."""
+    loop = traffic.get("loop")
     if loop not in TRAFFIC_KEYS:
         raise ValueError(f"mix {traffic.get('name')}: unknown loop {loop!r}")
-    _check_keys(f"configuration {cfg.get('name')}", cfg, CONFIG_KEYS[kind])
     _check_keys(f"mix {traffic.get('name')}", traffic, TRAFFIC_KEYS[loop])
-    if kind == "tpch":
-        if cfg["orders_rows"] != TPCH_ORDERS_A_SCALE * cfg["scale_factor"] // cfg["splits"]:
-            raise ValueError("orders_rows is not the scale's orders over its splits")
-        if not 0 <= cfg["split"] < cfg["splits"]:
-            raise ValueError("split lies outside the splits")
+
+
+def check(cfg: dict, traffic: dict, here: pathlib.Path = HERE) -> ModuleType:
+    """Refuse a configuration or mix the harness would not run as it
+    says; returns the configuration's kind module."""
+    check_traffic(traffic)
+    kind = load_kind(cfg.get("kind"), here)
+    what = f"configuration {cfg.get('name')} (kind {cfg['kind']})"
+    missing = [h for h in KIND_HOOKS if not hasattr(kind, h)]
+    if traffic["loop"] == "open":
+        missing += [h for h in OPEN_HOOKS if not hasattr(kind, h)]
     if traffic.get("ranks", 1) > 1:
-        if kind != "int64":
-            raise ValueError("a world of ranks draws int64 tables only")
-        if cfg["rand_max"] != 2 * cfg["build_rows"]:
-            raise ValueError("a world draws its keys from [0, 2 x its build rows]: "
-                             "rand_max must be 2 x build_rows")
+        missing += [h for h in WORLD_HOOKS if not hasattr(kind, h)]
+    if missing:
+        raise ValueError(f"{what}: its kind lacks {missing}, which the {traffic['loop']} loop "
+                         f"of mix {traffic.get('name')} at {traffic.get('ranks', 1)} rank(s) "
+                         "needs")
+    _check_keys(what, cfg, kind.KEYS)
+    kind.check(cfg, traffic)
+    return kind
 
 
 def _reported(metric: dict, cell: str, e2e_names: set) -> bool:
@@ -133,9 +192,11 @@ def _reported(metric: dict, cell: str, e2e_names: set) -> bool:
     return moves is None or moves in e2e_names
 
 
-def resolve(workload: str, bench: Optional[dict] = None, here: pathlib.Path = HERE) -> Cell:
+def find(workload: str, bench: Optional[dict] = None, here: pathlib.Path = HERE) -> Cell:
     """The cell named ``workload``, with its configuration, mix and
-    metrics read from their files."""
+    metrics read from their files and its mix checked. Its kind is not
+    loaded (a kind imports torch, which the parent of a world never
+    does): ``check`` or ``resolve`` checks it."""
     bench = load_benchmark(here.parent) if bench is None else bench
     cells = {w["name"]: w for w in bench["workloads"]}
     if workload not in cells:
@@ -143,8 +204,15 @@ def resolve(workload: str, bench: Optional[dict] = None, here: pathlib.Path = HE
     w = cells[workload]
     cfg = load_config(w["config"], here)
     traffic = load_traffic(w["traffic"], here)
-    check(cfg, traffic)
+    check_traffic(traffic)
     e2e = tuple(m for m in bench["end_to_end"] if _reported(m, workload, set()))
     names = {m["name"] for m in e2e}
     layer = tuple(m for m in bench["per_layer"] if _reported(m, workload, names))
-    return Cell(workload, int(w["chips"]), cfg, traffic, e2e, layer)
+    return Cell(workload, int(w["chips"]), cfg, traffic, e2e, layer, here)
+
+
+def resolve(workload: str, bench: Optional[dict] = None, here: pathlib.Path = HERE) -> Cell:
+    """The cell named ``workload`` (``find``), checked against its kind."""
+    cell = find(workload, bench, here)
+    check(cell.config, cell.traffic, here)
+    return cell

@@ -24,11 +24,11 @@ if __name__ == "__main__":
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 
-def sweep_rate(server, inputs, traffic: dict, device, seed: int, seconds: float,
+def sweep_rate(server, kind, inputs, traffic: dict, device, seed: int, seconds: float,
                dump: list = None) -> dict:
     from joinbench import harness
 
-    loop = harness.open_loop(server, inputs, traffic, device, seed, seconds, False)
+    loop = harness.open_loop(server, kind, inputs, traffic, device, seed, seconds, False)
     if dump is not None:
         dump.append([[i, float(loop["due"][i]), int(loop["sizes"][i]), r["start"] - loop["t0"],
                       r["end"] - loop["t0"], r["queued_s"]]
@@ -65,19 +65,19 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     port = Port(device)
-    cfg, traffic = cell.config, cell.traffic
-    inputs = harness.make_inputs(cfg, args.seed, device, probe=False)
+    cfg, traffic, kind = cell.config, cell.traffic, cell.kind
+    inputs = kind.inputs(cfg, args.seed, device, probe=False)
     build_kernels()
-    join_config = port.config({**cfg["join_config"], "key_range": (0, cfg["rand_max"])})
-    server = port.serve(port.table([inputs["build_keys"], inputs["build_payload"]]),
-                        join_config, traffic["serve"])
-    cols, _ = harness.probe_cols(inputs, device, args.seed, (6, 0), traffic["probe_rows_max"],
-                                 traffic["selectivity"])
-    server.warm(port.table(cols))
+    join_config = port.config({**cfg["join_config"], "key_range": kind.key_range(cfg)})
+    server = port.serve(port.table(kind.sides(inputs)[1]), join_config, traffic["serve"],
+                        kind.on(cfg))
+    query = harness.probe_query(kind, inputs, device, args.seed, (6, 0),
+                                traffic["probe_rows_max"], traffic["selectivity"])
+    server.warm(port.table(kind.sides(query)[0]))
     dump = [] if args.dump else None
     for k, rate in enumerate(float(r) for r in args.rates.split(",")):
         tr = dict(traffic, rate_per_s=rate)
-        row = sweep_rate(server, inputs, tr, device, args.seed + k, args.seconds, dump)
+        row = sweep_rate(server, kind, inputs, tr, device, args.seed + k, args.seconds, dump)
         print("SWEEP " + json.dumps(row), flush=True)
         server.sched.reset_pressure()
     server.close()

@@ -72,8 +72,8 @@ class Port:
         self.topology = _dj().make_topology([self.device])
 
     def table(self, cols: list) -> tuple:
-        """A one-shard table of ``cols`` (int64 tensors or (offsets,
-        chars) pairs) and its [1] count."""
+        """A one-shard table of ``cols`` (tensors, each column of its
+        tensor's dtype, or (offsets, chars) pairs) and its [1] count."""
         dj = _dj()
         made = []
         n = None
@@ -82,23 +82,26 @@ class Port:
                 made.append(dj.StringColumn(c[0], c[1]))
                 n = c[0].shape[0] - 1 if n is None else n
             else:
-                made.append(dj.Column(c, dj.dtypes.int64))
+                made.append(dj.Column(c, dj.dtypes.from_torch(c.dtype)))
                 n = c.shape[0]
         return dj.Table(tuple(made)), torch.full((1,), n, dtype=torch.int32, device=self.device)
 
     def config(self, settings: dict):
         return _dj().JoinConfig(**settings)
 
-    def join(self, left: tuple, right: tuple, config) -> Answer:
-        """``distributed_inner_join`` of (table, counts) pairs on their
-        first columns."""
+    def join(self, left: tuple, right: tuple, config, left_on=(0,), right_on=(0,)) -> Answer:
+        """``distributed_inner_join`` of (table, counts) pairs on the key
+        columns ``left_on`` and ``right_on``."""
         out, counts, info = _dj().distributed_inner_join(
-            self.topology, left[0], left[1], right[0], right[1], [0], [0], config)
+            self.topology, left[0], left[1], right[0], right[1], list(left_on), list(right_on),
+            config)
         return answer_of(out, counts, info)
 
-    def join_cols(self, left_cols: list, right_cols: list, config) -> Answer:
+    def join_cols(self, left_cols: list, right_cols: list, config, left_on=(0,),
+                  right_on=(0,)) -> Answer:
         """The join of two tables given as columns (``table``)."""
-        return self.join(self.table(left_cols), self.table(right_cols), config)
+        return self.join(self.table(left_cols), self.table(right_cols), config, left_on,
+                         right_on)
 
     @contextlib.contextmanager
     def phases(self):
@@ -109,36 +112,40 @@ class Port:
         with spmd.record_phases() as runs:
             yield runs
 
-    def serve(self, build: tuple, config, serve_settings: dict):
+    def serve(self, build: tuple, config, serve_settings: dict, on: tuple = ((0,), (0,))):
         """A scheduler in front of a join-index cache, dispatched by the
-        caller (``worker=False``: the harness's dispatcher thread pumps)."""
+        caller (``worker=False``: the harness's dispatcher thread pumps);
+        queries join on the key columns ``on`` (the query's, the build
+        side's)."""
         dj = _dj()
         cache = dj.JoinIndexCache(dj.IndexConfig())
         sched = dj.QueryScheduler(dj.ServeConfig(**serve_settings), worker=False, index=cache)
-        return Server(self, sched, cache, build, config)
+        return Server(self, sched, cache, build, config, on)
 
 
 class Server:
     """Submits probe tables against one resident build side."""
 
-    def __init__(self, port: Port, sched, cache, build: tuple, config):
+    def __init__(self, port: Port, sched, cache, build: tuple, config,
+                 on: tuple = ((0,), (0,))):
         self.port = port
         self.sched = sched
         self.cache = cache
         self.build = build
         self.config = config
+        self.left_on, self.right_on = (list(k) for k in on)
 
     def submit(self, left: tuple):
         """A ticket for ``left`` JOIN the build side (the index resolves
         the build side to its resident prepared side)."""
         return self.sched.submit(self.port.topology, left[0], left[1], self.build[0],
-                                 self.build[1], [0], [0], self.config)
+                                 self.build[1], self.left_on, self.right_on, self.config)
 
     def warm(self, left: tuple) -> None:
         """One query answered before the window (the first pays the
         prepare); raises if it ended in an error."""
         self.sched.submit(self.port.topology, left[0], left[1], self.build[0], self.build[1],
-                          [0], [0], self.config).result()
+                          self.left_on, self.right_on, self.config).result()
 
     def pump(self, timeout: float) -> int:
         return self.sched.pump(block=True, timeout=timeout)

@@ -8,11 +8,13 @@ import itertools
 import pytest
 import torch
 
-from joinbench import datagen, harness, reference
+from joinbench import datagen, reference, spec
 from joinbench.control import control_answer
 from joinbench.system import Port, valid_rows
 
 CPU = torch.device("cpu")
+INT64 = spec.load_kind("int64")
+TPCH = spec.load_kind("tpch")
 
 
 def brute_force(lk, lp, rk, rp) -> list:
@@ -55,23 +57,23 @@ def test_world_shares_draw_one_world():
 def test_port_agrees_with_the_reference_int64(seed):
     inputs = datagen.build_probe(datagen.generator(CPU, seed, 0), 20_000, 20_000, 0.3, 40_000)
     port = Port(CPU)
-    left, right = harness.sides("int64", inputs)
+    left, right = INT64.sides(inputs)
     ans = port.join_cols(left, right, port.config({"over_decom_factor": 1}))
     assert not bool(ans.flagged)
     assert int(ans.count) == int(inputs["matches"])
-    assert harness.rows_wrong("int64", inputs, valid_rows(ans)) == 0
+    assert INT64.rows_wrong(inputs, valid_rows(ans)) == 0
 
 
 @pytest.mark.parametrize("odf", [1, 4])
 def test_port_agrees_with_the_reference_tpch(odf):
     inputs = datagen.tpch_split(datagen.generator(CPU, 3, 0), 1, 4000, 1, 7)
     port = Port(CPU)
-    left, right = harness.sides("tpch", inputs)
+    left, right = TPCH.sides(inputs)
     ans = port.join_cols(left, right, port.config({"over_decom_factor": odf,
                                                     "char_out_factor": 5.0}))
     assert not bool(ans.flagged)
     assert int(ans.count) == inputs["l_orderkey"].shape[0]
-    assert harness.rows_wrong("tpch", inputs, valid_rows(ans)) == 0
+    assert TPCH.rows_wrong(inputs, valid_rows(ans)) == 0
 
 
 def test_tpch_split_keeps_tpch_laws():
@@ -88,7 +90,7 @@ def test_tpch_split_keeps_tpch_laws():
 
 def test_comparisons_see_one_altered_byte_or_row():
     inputs = datagen.tpch_split(datagen.generator(CPU, 5, 0), 0, 2000, 1, 7)
-    keys, view = reference.expected_rows("tpch", inputs)
+    keys, view = TPCH.expected_rows(inputs)
     off, chars, rows = view
     got_off, got_chars = reference.truncate_strings(off, chars, rows, width=64)
     assert reference.keyed_string_rows_wrong(keys, (got_off, got_chars, torch.arange(
@@ -109,15 +111,15 @@ def test_int64_control_fails_at_a_size_a_test_holds():
     """32 bits of a hash over 1M x 1M rows: a few hundred false pairs."""
     inputs = datagen.build_probe(datagen.generator(CPU, 21, 0), 1_000_000, 1_000_000, 0.3,
                                  2_000_000)
-    left, right = harness.sides("int64", inputs)
-    ans = control_answer("hash32_keys", left, right)
+    left, right = INT64.sides(inputs)
+    ans = control_answer(INT64, "hash32_keys", left, right)
     assert int(ans.count) > int(inputs["matches"])
-    assert harness.rows_wrong("int64", inputs, valid_rows(ans)) > 0
+    assert INT64.rows_wrong(inputs, valid_rows(ans)) > 0
 
 
 def test_tpch_control_fails():
     inputs = datagen.tpch_split(datagen.generator(CPU, 22, 0), 0, 4000, 1, 7)
-    left, right = harness.sides("tpch", inputs)
-    ans = control_answer("truncate_strings", left, right)
+    left, right = TPCH.sides(inputs)
+    ans = control_answer(TPCH, "truncate_strings", left, right)
     assert int(ans.count) == inputs["l_orderkey"].shape[0]
-    assert harness.rows_wrong("tpch", inputs, valid_rows(ans)) > 0
+    assert TPCH.rows_wrong(inputs, valid_rows(ans)) > 0

@@ -82,7 +82,7 @@ def test_a_planted_fault_is_not_correct(name, fault):
 def test_tpch_control_is_not_correct():
     cell = tiny("tpch-sf100-split8.join")
     res = run.run_cell(cell, 4000000009, 0.2, False, device="cpu",
-                       system=Control(cell.config["control"], "cpu"))
+                       system=Control(cell.kind, cell.config["control"], "cpu"))
     assert res["correct"] is False
 
 
@@ -90,7 +90,7 @@ def test_tpch_control_is_not_correct():
 def test_int64_control_is_not_correct_at_a_million_rows(name):
     cell = tiny(name, rows=1_000_000, rate_per_s=4.0)
     res = run.run_cell(cell, 4000000011, 0.5, False, device="cpu",
-                       system=Control(cell.config["control"], "cpu"))
+                       system=Control(cell.kind, cell.config["control"], "cpu"))
     assert res["correct"] is False
     assert res["checks"]["rows_wrong"]["value"] > 0
 

@@ -19,7 +19,7 @@ ROOT = HERE.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "dj_tpu"}
 # Modules that judge or feed the program, and so import nothing of it.
 INDEPENDENT = ("reference.py", "datagen.py", "roofline.py", "readers.py", "profiling.py",
-               "spec.py")
+               "spec.py", *sorted(str(p.relative_to(HERE)) for p in HERE.glob("kinds/*.py")))
 
 
 def _imports(path: pathlib.Path) -> set:
@@ -104,6 +104,8 @@ def test_the_reference_side_imports_nothing_of_the_program(name):
 
 def test_importing_the_reference_loads_no_program_module():
     code = ("import sys; import joinbench.reference, joinbench.datagen, joinbench.roofline; "
+            "from joinbench import spec; "
+            "[spec.load_kind(p.stem) for p in (spec.HERE / 'kinds').glob('*.py')]; "
             "print(sorted({m.split('.')[0] for m in sys.modules} & "
             "{'dj_tpu_torch', 'dj_tpu', 'jax', 'jaxlib', 'flax'}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -144,7 +146,7 @@ def test_benchmark_file_keeps_the_contract_shape():
 def test_the_world_parent_imports_neither_torch_nor_the_program():
     """A world's parent only starts its ranks and joins their reports."""
     code = ("import sys; import joinbench.run, joinbench.world, joinbench.profiling, "
-            "joinbench.spec, joinbench.readers; "
+            "joinbench.spec, joinbench.readers; joinbench.spec.find('int64-100m.join.w4'); "
             "[spec_.load_reader(m['name']) for spec_ in [joinbench.spec] "
             "for m in spec_.load_benchmark()['per_layer']]; "
             "print(sorted({m.split('.')[0] for m in sys.modules} & {'torch', 'dj_tpu_torch'}))")

@@ -4,19 +4,22 @@
 one process a rank (``python -m joinbench.world <spec>``, from the
 checkout's root, the card ``LOCAL_RANK``), waits for all and joins their
 reports into the result line. Each rank first looks for the world's
-cards (none: it exits ``NO_CARDS``, and the parent prints no result);
-rank 0 builds the program's kernels where the checkout lacks them
-before it joins the world, so the other ranks, held at a barrier once
-they have joined, find them built. Each rank joins the process world through a file store
-under ``TMPDIR`` (a fresh file a run, removed after), draws its share
-of the world's tables from the seed
-(``datagen.world_build_probe``: build keys unique over the world, probe
-rows matching build rows on every rank), runs the closed loop in
-lockstep (rank 0's clock decides when the window ends) and checks its
-answers: each row of the sampled join goes to the rank that owns its
-probe row, which compares what it received with the reference's join
-of its probe rows against the whole world's build side; every join's
-row count, summed over the ranks, is held to the world's exact count.
+cards (none: it exits ``NO_CARDS``, and the parent prints no result)
+and checks the cell against its configuration's kind (``spec.check``:
+the parent loads no kind, which imports torch); rank 0 builds the
+program's kernels where the checkout lacks them before it joins the
+world, so the other ranks, held at a barrier once they have joined,
+find them built. Each rank joins the process world through a file
+store under ``TMPDIR`` (a fresh file a run, removed after), draws its
+share of the world's tables from the seed (the kind's ``world_inputs``;
+int64: build keys unique over the world, probe rows matching build rows
+on every rank), runs the closed loop in lockstep (rank 0's clock
+decides when the window ends) and checks its answers: each row of the
+sampled join goes to the rank that owns it (``world_owner``), which
+compares what it received with the reference's join of its probe rows
+against the whole world's build side (``world_rows_wrong``); every
+join's row count, summed over the ranks, is held to the world's exact
+count.
 """
 
 from __future__ import annotations
@@ -101,9 +104,9 @@ def run(cell, seed: int, seconds: float, trace: bool, wall_start: float, *,
     fd, store = tempfile.mkstemp(prefix="joinbench-store-")
     os.close(fd)
     os.unlink(store)
-    spec = {"workload": cell.name, "config": cell.config, "traffic": cell.traffic,
-            "seed": seed, "seconds": seconds, "trace": trace, "world": world,
-            "address": "file://" + store, "device": device, "backend": backend,
+    spec = {"workload": cell.name, "here": str(cell.here), "config": cell.config,
+            "traffic": cell.traffic, "seed": seed, "seconds": seconds, "trace": trace,
+            "world": world, "address": "file://" + store, "device": device, "backend": backend,
             "system": system, "wall_start": wall_start}
     try:
         reports = _wait(_spawn(spec, world), timeout)
@@ -143,7 +146,7 @@ def run(cell, seed: int, seconds: float, trace: bool, wall_start: float, *,
                        bd)
 
 
-def _system(name: str, device, seed: int, world: int, rows: int):
+def _system(name: str, kind, cfg: dict, device, seed: int, world: int):
     from joinbench.system import Port
 
     if name == "port":
@@ -151,7 +154,7 @@ def _system(name: str, device, seed: int, world: int, rows: int):
     if name == "control":
         from joinbench.control import WorldControl
 
-        return WorldControl(device, seed, world, rows)
+        return WorldControl(kind, cfg, device, seed, world)
     from joinbench.faults import make as make_fault
 
     return make_fault(name, Port(device))
@@ -200,9 +203,13 @@ def rank_main(spec: dict) -> dict:
         torch.cuda.set_device(device)
     else:
         device = torch.device("cpu")
-    from joinbench import datagen, harness, reference
+    from joinbench import datagen, harness
+    from joinbench.spec import check, find
     from joinbench.system import build_kernels, close_world, init_world
 
+    here = pathlib.Path(spec["here"])
+    cell = find(spec["workload"], here=here)
+    kind = check(cell.config, cell.traffic, here)
     _stage(rank, "program imported", wall_start)
     if spec["device"] == "cuda" and rank == 0:
         build_kernels()
@@ -212,13 +219,11 @@ def rank_main(spec: dict) -> dict:
     _stage(rank, "world joined", wall_start)
     try:
         cfg, traffic, seed = spec["config"], spec["traffic"], spec["seed"]
-        rows = cfg["build_rows"]
-        inputs = datagen.world_build_probe(device, seed, rank, world, rows, cfg["probe_rows"],
-                                           cfg["selectivity"])
+        inputs = kind.world_inputs(cfg, seed, rank, world, device)
         harness.free_memory(device)
         _stage(rank, "tables drawn", wall_start)
-        system = _system(spec["system"], device, seed, world, rows)
-        left, right = harness.sides("int64", inputs)
+        system = _system(spec["system"], kind, cfg, device, seed, world)
+        left, right = kind.sides(inputs)
         join_config = system.config({**cfg["join_config"], **traffic.get("join_config", {})})
 
         def keep_going(want: bool) -> bool:
@@ -228,24 +233,24 @@ def rank_main(spec: dict) -> dict:
 
         loop = harness.closed_loop(system, left, right, join_config, device, spec["seconds"],
                                    spec["trace"], datagen.sub_seed(seed, 5), keep_going,
-                                   stretch_calls=traffic["trace_calls"])
+                                   stretch_calls=traffic["trace_calls"], on=kind.on(cfg))
         counts = torch.stack(loop["counts"])
         dist.all_reduce(counts)
         flags = torch.stack(loop["flags"]).to(torch.int64)
         dist.all_reduce(flags)
-        matches = inputs["matches"].reshape(1).clone()
+        matches = torch.as_tensor(kind.expected_count(inputs), dtype=torch.int64,
+                                  device=device).reshape(1).clone()
         dist.all_reduce(matches)
         want = int(matches)
         counts, flags = counts.cpu().tolist(), flags.cpu().tolist()
         del loop["counts"], loop["flags"]
         harness.free_memory(device)
-        got = _route_to_owners(loop["sample"], loop["sample"][1] // cfg["probe_rows"], world,
+        got = _route_to_owners(loop["sample"], kind.world_owner(cfg, loop["sample"]), world,
                                device)
         del loop["sample"]
-        build_keys, build_ids = datagen.world_build_side(device, seed, world, rows)
-        wrong = torch.tensor([reference.rows_wrong_int(
-            got, reference.join_rows(inputs["probe_keys"], inputs["probe_payload"], build_keys,
-                                     build_ids))], dtype=torch.int64, device=device)
+        build = kind.world_build_side(cfg, seed, world, device)
+        wrong = torch.tensor([kind.world_rows_wrong(inputs, build, got)], dtype=torch.int64,
+                             device=device)
         dist.all_reduce(wrong)
         checks = {"count_off": (sum(c != want for c in counts), 0),
                   "flagged": (sum(f > 0 for f in flags), 0), "rows_wrong": (int(wrong), 0)}
