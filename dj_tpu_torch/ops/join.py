@@ -28,7 +28,15 @@ total comes back beside it, so a caller can detect overflow.
      first, compose the lexicographic order (valid rows first, then the
      keys, refs before queries). The dense run id and the row re-pack
      into ascending words ``run_id << tag_bits | row``, padding
-     all-ones, so the scans below read every path alike.
+     all-ones, so the scans below read every path alike. Its per-column
+     passes are the span ``lex_sort``, the run ids and the re-pack the
+     span ``run_ids``, both inside ``sort``'s time.
+
+   Each local join counts the form it sorts by in
+   ``dj_join_sort_total{form}`` (on the host, once a join; beside
+   ``parallel/dist_join.py``'s ``dj_range_probe_total{result}``):
+   "packed", "multi_packed", "unpacked", or "carry" where the payloads
+   ride the sort.
 2. ``ops.scan.join_scans`` (CUDA kernel) turns the sorted words into
    (stag, run_start, cnt, csum).
 3. The duplicate expansion (``ops/expand.py``, one CUDA kernel per
@@ -677,25 +685,28 @@ def _unpacked_words(
     )
     del j, i
     first = None
-    for k in reversed(range(len(images))):
-        v = images[k][perm].masked_fill_(pad, INT64_MAX)
-        v, p = torch.sort(v, stable=True)
-        perm = perm[p]
-        del p
-        first = v
-    boundary = torch.zeros(S, dtype=torch.bool, device=dev)
-    boundary[0] = True
-    for k, img in enumerate(images):
-        s = first if k == 0 else img[perm]
-        boundary[1:] |= s[1:] != s[:-1]
-        if float_keys[k]:
-            boundary |= s == INT64_MAX
-    images.clear()
-    del first
-    words = torch.cumsum(boundary, 0).sub_(1)
-    del boundary
-    words.bitwise_left_shift_(tag_bits).bitwise_or_(perm)
-    return words.masked_fill_(pad, -1), perm
+    with span("lex_sort"):
+        for k in reversed(range(len(images))):
+            v = images[k][perm].masked_fill_(pad, INT64_MAX)
+            v, p = torch.sort(v, stable=True)
+            perm = perm[p]
+            del p
+            first = v
+    with span("run_ids"):
+        boundary = torch.zeros(S, dtype=torch.bool, device=dev)
+        boundary[0] = True
+        for k, img in enumerate(images):
+            s = first if k == 0 else img[perm]
+            boundary[1:] |= s[1:] != s[:-1]
+            if float_keys[k]:
+                boundary |= s == INT64_MAX
+        images.clear()
+        del first
+        words = torch.cumsum(boundary, 0).sub_(1)
+        del boundary
+        words.bitwise_left_shift_(tag_bits).bitwise_or_(perm)
+        words.masked_fill_(pad, -1)
+    return words, perm
 
 
 def _key_images(left: Table, right: Table, left_on, right_on) -> tuple[list, list]:
@@ -1008,6 +1019,8 @@ def inner_join(
             flags["pack_range_overflow"] = ~ok
         elif packed is None:
             images, floats = _key_images(left, right, left_on, right_on)
+    obs.inc("dj_join_sort_total", form="carry" if carried else "packed" if packed is not None
+            else "multi_packed" if word is not None else "unpacked")
     with span("sort"):
         if packed is not None and carried:
             sp, key, sslots = _carry_sorted(packed, pairs[0][0].dtype, tag_bits, slots)

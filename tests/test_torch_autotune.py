@@ -243,9 +243,18 @@ def case_candidate_axes(p, mp, tmp):
 CASES = {n[5:]: f for n, f in globals().items() if n.startswith("case_")}
 
 
+# The port's own counter of its merged sort's form, which dj_tpu does not keep.
+PORT_ONLY_COUNTERS = ("dj_join_sort_total",)
+
+
+def _counters(obs) -> dict:
+    return {k: v for k, v in obs.metrics_summary()["counters"].items()
+            if not k.startswith(PORT_ONLY_COUNTERS)}
+
+
 def _recorded(obs) -> tuple:
     events = [{k: v for k, v in e.items() if k not in DROP} for e in obs.drain()]
-    return events, obs.metrics_summary()["counters"]
+    return events, _counters(obs)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -362,7 +371,7 @@ def test_a_tuned_pipeline_at_world_2(pkgs, monkeypatch):
                for c in evidence)
     dj_tpu.distributed_join_pipeline_auto(jtopo, jl, jlc, jstages,
                                           dj_tpu.JoinConfig(join_out_factor=2.0))
-    jcounters, tcounters = (p.obs.metrics_summary()["counters"] for p in pkgs)
+    jcounters, tcounters = (_counters(p.obs) for p in pkgs)
     jcounters = {k: v for k, v in jcounters.items()
                  if not k.startswith(("dj_build_cache_total", "dj_compile_seconds_total",
                                       "dj_collective_epochs_traced_total"))}

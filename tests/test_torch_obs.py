@@ -55,6 +55,9 @@ JAX_ONLY = frozenset({
 # What dj_tpu records that a later slice of the port brings: nothing now
 # (the per-link wire matrix came with ROADMAP item 10c).
 LATER = frozenset()
+# What the port records and dj_tpu does not: the merged sort's form, counted
+# once a local join (dj_tpu picks its sort inside a traced module).
+PORT_ONLY = frozenset({"counter:dj_join_sort_total"})
 # Fields that hold a time, or a fraction of one.
 TIMING_FIELDS = frozenset({"seq", "ts", "seconds", "roofline_frac"})
 
@@ -432,7 +435,7 @@ def _recorded(obs) -> dict:
     def keep(kind, series):
         if 'phase="build"' in series:
             return False  # the histograms of the build phase
-        return f"{kind}:{series.split('{')[0]}" not in JAX_ONLY | LATER
+        return f"{kind}:{series.split('{')[0]}" not in JAX_ONLY | LATER | PORT_ONLY
 
     return {
         "events": events,
@@ -482,6 +485,7 @@ def test_the_jax_only_set_is_pinned():
         "counter:dj_collective_epochs_traced_total", "gauge:dj_build_cache_entries",
     }
     assert LATER == frozenset()
+    assert PORT_ONLY == {"counter:dj_join_sort_total"}
     assert TIMING_FIELDS == {"seq", "ts", "seconds", "roofline_frac"}
     # The port records none of them.
     assert not hasattr(tobs, "cached_build") and not hasattr(tobs, "record_epoch")
