@@ -20,7 +20,8 @@ Phases, each printing its own line(s):
      (selectivity 0.3, unique build keys), shard, distributed_inner_join
      at over_decom_factor 1 and 4; every flag False, total equal to the
      generator's expected count, every output row checked against the
-     inputs, and both kernels launched by the join itself;
+     inputs, and both kernels launched by the join itself (partition_ids
+     none at odf 1, where m = 1, and once a side at odf 4);
   4b. expansion modes: the same join under each other DJT_JOIN_EXPAND
      mode (ranks, fused, join, vcarry, vfull) at odf 1 and 4, each
      checked as in 4, with the same row multiset as the default (vmeta)
@@ -45,7 +46,8 @@ Phases, each printing its own line(s):
      every row checked against the inputs and co-located (a row on shard r
      has murmur3(key, 12345678) % (4 odf) % 4 == r), the row multiset
      equal to phase 4's, and each expected kernel launched 4 odf times by
-     the rank threads; median walls of warm runs, peak memory, and each
+     the rank threads (partition_ids 8 times at odf 1 and 4: each rank's
+     two sides once); median walls of warm runs, peak memory, and each
      rank's device time by phase (partition, bucketize, the exchange's
      copies, compact, join; CUDA events on the shared stream) beside a
      profiler breakdown by kernel at odf 1;
@@ -325,6 +327,15 @@ Phases, each printing its own line(s):
      (75M indices into the 18.75M priorities, cap 5 times their chars),
      the kernel and the plain version equal on the card, both timed
      beside the whole take and the kernel's byte bound;
+  8i. murmur3_partition_ids, the hash partition's ids and counts, against
+     its plain version on the card and on the CPU (every id and count
+     equal): every key dtype with its extremes, floats with -0.0,
+     subnormals, infinities and NaN, two- and three-column keys, keys
+     off the kernel's vector alignment, padding rows, a count of 0 and
+     past the rows, 0 to 256 and 10,007 rows, m from 1 to SHARED_M + 1
+     (each counting path); a string key and the identity hash launch
+     nothing; then 4's keys at m = 4, equal and timed beside the plain
+     version and the byte bound;
   12. the degradation ladder (after 8g, on phase 4's tables): each case
      runs a call unfaulted, with one fault site armed, and unfaulted
      again after faults.reset() and reset_pins(), with obs on: the rows
@@ -1541,6 +1552,10 @@ def run_world(dj, dev, build, probe, expected: int, ref, rows: int, smi: str):
         reset_launches()
         res = join()
         launches, counts = check(what, res, odf, ("join_scans", "expand_values"))
+        # Each rank hashes its two sides once (m = WORLD * odf).
+        if launches["partition_ids"] != 2 * WORLD:
+            raise AssertionError(f"{what}: {launches['partition_ids']} partition_ids launches, "
+                                 f"not {2 * WORLD}")
         if odf == 1:
             digests = shard_digests(res[0], res[1])
         del res
@@ -7532,6 +7547,159 @@ def check_string_gather(dj, dev, priorities, n_rows: int, smi: str) -> dict:
     return t
 
 
+def partition_ids_cases() -> dict:
+    """{case: (key tensors on the CPU, valid count, npartitions, seed,
+    offset)}: murmur3_partition_ids's edge cases. Every key dtype of
+    ``partition.KEY_DTYPES`` with its extremes, and float keys with
+    -0.0, +0.0, the subnormals, the least normal, infinities, NaN and
+    random bit patterns; two- and three-column keys; 10,007 rows (the
+    last warp's 128 rows partial), 1, 129 and 256 rows and none; the
+    count below the rows, 0 and past them; m of 1, 2, 4, 16, 1024,
+    SMALL_M + 1 and SHARED_M + 1 (each counting path); seeds 0, the
+    join's, 2^32 - 1 and -1 (taken mod 2^32). ``offset`` starts each key that many elements
+    into its device buffer, off the kernel's vector alignment."""
+    from dj_tpu_torch.ops.partition import KEY_DTYPES, SHARED_M, SMALL_M
+
+    gen = torch.Generator().manual_seed(29)
+    n = 10_007
+
+    def bits64(rows):
+        return torch.randint(-2**63, 2**63 - 1, (rows,), generator=gen, dtype=torch.int64)
+
+    def key(dtype, rows=n):
+        if dtype == torch.bool:
+            return torch.randint(0, 2, (rows,), generator=gen).to(torch.bool)
+        if dtype.is_floating_point:
+            width = torch.finfo(dtype).bits
+            raw = bits64(rows)
+            x = (raw.view(torch.float64) if width == 64
+                 else raw.to(torch.int32).view(torch.float32)).clone()
+            x[: rows // 2] = torch.randn(rows // 2, generator=gen, dtype=torch.float64).to(dtype) * 1e6
+            sub = 2.0 ** (-1074 if width == 64 else -149)
+            tiny = torch.finfo(dtype).tiny
+            specials = torch.tensor([-0.0, 0.0, sub, -sub, tiny - sub, -(tiny - sub), tiny, -tiny,
+                                     float("inf"), float("-inf"), float("nan")], dtype=dtype)
+            x[: min(rows, specials.numel())] = specials[:rows]
+            return x
+        x = bits64(rows)
+        if dtype == torch.uint64:
+            return x.view(torch.uint64)
+        info = torch.iinfo(dtype)
+        if dtype != torch.int64:
+            x = (x % (info.max - info.min + 1) + info.min).to(dtype)
+        x[:4] = torch.tensor([info.min, info.max, 0, 1]).to(dtype)[:rows]
+        return x
+
+    from dj_tpu_torch.parallel.dist_join import MAIN_JOIN_SEED
+
+    ms = [2, 4, 16, 1024, SMALL_M + 1, SHARED_M + 1]
+    seeds = [0, MAIN_JOIN_SEED, 2**32 - 1]
+    cases = {}
+    for i, dtype in enumerate(KEY_DTYPES):
+        m = ms[i % len(ms)]
+        cases[f"{str(dtype).removeprefix('torch.')}_m{m}"] = ([key(dtype)], n - 37, m,
+                                                              seeds[i % 3], 0)
+    cases["int64_m4_join_seed"] = ([key(torch.int64)], n, 4, MAIN_JOIN_SEED, 0)
+    cases["two_columns_int64_int32"] = ([key(torch.int64), key(torch.int32)], n - 1, 16,
+                                        MAIN_JOIN_SEED, 0)
+    cases["three_columns_uint16_float64_bool"] = (
+        [key(torch.uint16), key(torch.float64), key(torch.bool)], n - 300, 1024, 7, 0)
+    cases["three_columns_misaligned"] = (
+        [key(torch.int8), key(torch.float32), key(torch.int64)], n, SMALL_M + 1, 0, 1)
+    cases["int64_misaligned"] = ([key(torch.int64)], n - 5, 4, MAIN_JOIN_SEED, 1)
+    cases["int16_misaligned"] = ([key(torch.int16)], n, 2, 0, 1)
+    cases["count_0"] = ([key(torch.int64)], 0, 4, 0, 0)
+    cases["count_past_rows"] = ([key(torch.int64)], n + 5, 16, 0, 0)
+    cases["m_1"] = ([key(torch.int64)], n - 2, 1, MAIN_JOIN_SEED, 0)
+    cases["seed_negative"] = ([key(torch.int64)], n, 16, -1, 0)
+    cases["m_small_max"] = ([key(torch.uint32)], n, SMALL_M, 0, 0)
+    cases["m_shared_max"] = ([key(torch.int32)], n, SHARED_M, 0, 0)
+    for rows in (1, 129, 256):
+        cases[f"rows_{rows}"] = ([key(torch.int64, rows), key(torch.uint8, rows)], rows, 4, 0, 0)
+    cases["rows_0"] = ([key(torch.int64, 0)], 0, 4, 0, 0)
+    return cases
+
+
+def check_partition_ids(dj, dev, n_rows: int, smi: str) -> dict:
+    """Phase 8i: murmur3_partition_ids (csrc/partition_ids.cu) against its
+    plain version. Each case of ``partition_ids_cases``: the kernel on
+    the card equal, id for id and count for count, to the plain version
+    on the card and on the CPU, one launch a case. A string key and the
+    identity hash take the plain route through partition_ids_and_counts
+    and launch nothing. Then ``n_rows`` int64 keys at m = 4 under the
+    join's seed (the odf4 cell's partition of a side): equal, and the
+    kernel timed beside the plain version and its byte bound. Returns
+    the timing."""
+    from dj_tpu_torch.ops import partition
+    from dj_tpu_torch.parallel.dist_join import MAIN_JOIN_SEED
+
+    launches0 = partition.launches
+    for case, (keys, count, m, seed, offset) in partition_ids_cases().items():
+        want_pid, want_counts = partition.murmur3_partition_ids_plain(
+            keys, torch.tensor(count, dtype=torch.int32), m, seed)
+        card = [torch.cat([k[:offset], k]).to(dev)[offset:] for k in keys]
+        card_count = torch.tensor(count, dtype=torch.int32, device=dev)
+        plain_pid, plain_counts = partition.murmur3_partition_ids_plain(card, card_count, m, seed)
+        before = partition.launches
+        pid, counts = partition.murmur3_partition_ids(card, card_count, m, seed)
+        torch.cuda.synchronize()
+        if partition.launches - before != 1:
+            raise AssertionError(f"8i {case}: {partition.launches - before} partition_ids "
+                                 f"launches in one call on the card")
+        for what, got, plain, want in (("ids", pid, plain_pid, want_pid),
+                                       ("counts", counts, plain_counts, want_counts)):
+            if not (torch.equal(got.cpu(), want) and torch.equal(plain.cpu(), want)):
+                raise AssertionError(f"8i {case}: the {what} differ from the plain version's at "
+                                     f"{int((got.cpu() != want).sum())} of {want.numel()}")
+        log("kernels_vs_plain", smoke_phase="8i", case=case, kernel="partition_ids",
+            dtypes=[str(k.dtype).removeprefix("torch.") for k in keys], rows=keys[0].numel(),
+            count=count, m=m, seed=seed, misaligned=bool(offset), ids_equal=keys[0].numel(),
+            counts_equal=m, max_abs_err=0)
+
+    # The two routes that keep the plain hash: a string key, the identity hash.
+    ints = torch.arange(300, dtype=torch.int64, device=dev)
+    words = dj.from_strings([b"k%d" % (i % 17) for i in range(300)], device=dev)
+    for case, table, hash_function in (
+            ("string_key", dj.Table((words, dj.Column(ints, dj.dtypes.int64))),
+             partition.hashing.HASH_MURMUR3),
+            ("identity_hash", dj.Table((dj.Column(ints, dj.dtypes.int64),)),
+             partition.hashing.HASH_IDENTITY)):
+        before = partition.launches
+        pid, counts = partition.partition_ids_and_counts(table, [0], 4, 0, hash_function)
+        if partition.launches != before:
+            raise AssertionError(f"8i {case}: partition_ids launched on the plain route")
+        if not torch.equal(counts, partition.partition_counts_from_ids(pid, 4)):
+            raise AssertionError(f"8i {case}: counts differ from the ids' bincount")
+        log("kernels_vs_plain", smoke_phase="8i", case=case, kernel="none (plain route)",
+            launches=0)
+
+    # The odf4 cell's partition of one side: 100M int64 keys, m = 4.
+    gen = torch.Generator(device=dev).manual_seed(29)
+    keys = [torch.randint(0, 2 * n_rows, (n_rows,), generator=gen, device=dev)]
+    count = torch.tensor(n_rows, dtype=torch.int32, device=dev)
+    pid, counts = partition.murmur3_partition_ids(keys, count, 4, MAIN_JOIN_SEED)
+    want_pid, want_counts = partition.murmur3_partition_ids_plain(keys, count, 4, MAIN_JOIN_SEED)
+    torch.cuda.synchronize()
+    if not (torch.equal(pid, want_pid) and torch.equal(counts, want_counts)):
+        raise AssertionError(f"8i int64_{n_rows}: partition_ids differs from the plain version "
+                             f"at {int((pid != want_pid).sum())} of {n_rows} ids")
+    del pid, want_pid, want_counts
+    # Least bytes: each key read once, each id written once.
+    nbytes = 12 * n_rows
+    t = {"rows": n_rows, "m": 4,
+         "ms": cuda_ms(lambda: partition.murmur3_partition_ids(keys, count, 4, MAIN_JOIN_SEED), 20),
+         "plain_ms": cuda_ms(lambda: partition.murmur3_partition_ids_plain(
+             keys, count, 4, MAIN_JOIN_SEED), 2),
+         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
+         "counts": counts.tolist()}
+    t["launches"] = partition.launches - launches0
+    log("partition_ids", smoke_phase="8i", case=f"int64_{n_rows}_m4", max_abs_err=0,
+        ids_equal=n_rows, **t, card=smi)
+    del keys, count, counts
+    torch.cuda.empty_cache()
+    return t
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=100_000_000,
@@ -7668,6 +7836,9 @@ def main() -> int:
         check_rows(out, counts, build, probe, expected)
         if min(launches["join_scans"], launches["expand_values"]) < 1:
             raise AssertionError(f"odf={odf}: a kernel was not launched: {launches}")
+        # One rank partitions nothing at odf 1 (m = 1); each side once at odf 4.
+        if launches["partition_ids"] != (0 if odf == 1 else 2):
+            raise AssertionError(f"odf={odf}: {launches['partition_ids']} partition_ids launches")
         launch_table["unprepared"][odf] = launches
         if ref is None:
             ref = sorted_rows(out, counts)
@@ -8002,6 +8173,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     check_no_pins("8h")
+
+    # 8i. the hash partition's ids and counts against their plain version, then at 4's size
+    partition_timing = check_partition_ids(dj, dev, rows, smi)
+    check_no_pins("8i")
 
     # 12. the degradation ladder and the fault sites on the card
     run_ladder(dj, dev, topo, left, lcnt, right, rcnt, ref, rows, args.seed, smi)
@@ -8424,6 +8599,17 @@ def main() -> int:
         "take_ms": gather_timing["take_ms"], "bound_ms": gather_timing["bound_ms"],
         "bound_by": "bytes", "library_ms": None, "rows": gather_timing["rows"],
         "cap": gather_timing["cap"],
+    })
+    kernels.append({
+        "name": "partition_ids", "route": "cuda", "source": "dj_tpu_torch/csrc/partition_ids.cu",
+        "replaces": "none: dj_tpu/ops/hashing.py:67 (murmur3_32) and dj_tpu/ops/partition.py:30 "
+                    "(partition_ids) are plain jnp",
+        "launches": launch_table["unprepared"][1]["partition_ids"],
+        "launches_odf4": launch_table["unprepared"][4]["partition_ids"],
+        "launches_per_query": per_query("partition_ids"),
+        "max_abs_err": 0, "ms": partition_timing["ms"], "plain_ms": partition_timing["plain_ms"],
+        "bound_ms": partition_timing["bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "rows": partition_timing["rows"], "m": partition_timing["m"],
     })
     kernels.append({
         "name": "tile_sort", "route": "cuda", "source": "dj_tpu_torch/csrc/tile_sort.cu",

@@ -20,6 +20,7 @@ KERNEL_COUNTERS = {
     "expand_carry": ("expand", "carry_launches"),
     "expand_vfull": ("expand", "vfull_launches"),
     "string_gather": ("strings", "launches"),
+    "partition_ids": ("partition", "launches"),
 }
 
 

@@ -144,8 +144,8 @@ from ..obs import skew as obs_skew
 from ..ops.partition import (
     hash_partition,
     partition_by_ids,
-    partition_counts_from_ids,
     partition_ids,
+    partition_ids_and_counts,
     salted_partition_ids,
 )
 from ..resilience import errors as resil
@@ -559,8 +559,8 @@ def _partition_probe_counts(
 
     def run(comm, t, c):
         comm.phase("dj_skew_probe")
-        pid = partition_ids(t.with_count(c[0]), on, m, seed=MAIN_JOIN_SEED)
-        return (partition_counts_from_ids(pid, m).reshape(1, m),)
+        _, pcounts = partition_ids_and_counts(t.with_count(c[0]), on, m, seed=MAIN_JOIN_SEED)
+        return (pcounts.reshape(1, m),)
 
     (mat,) = run_spmd(topology, run, table, counts,
                       **_backend(config or JoinConfig(), flags_at=0))

@@ -664,7 +664,7 @@ def test_chip_smoke_compressed_phases_rehearse_on_cpu(monkeypatch, capsys):
     import importlib.util
     import types
 
-    from dj_tpu_torch.ops import KERNEL_COUNTERS, join as tjoin, merge, scan, strings
+    from dj_tpu_torch.ops import KERNEL_COUNTERS, join as tjoin, merge, partition, scan, strings
 
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
@@ -675,7 +675,8 @@ def test_chip_smoke_compressed_phases_rehearse_on_cpu(monkeypatch, capsys):
                      ("memory_allocated", lambda *a, **k: 0),
                      ("empty_cache", lambda: None)):
         monkeypatch.setattr(torch.cuda, name, fn)
-    mods = {"scan": scan, "merge": merge, "expand": expand, "strings": strings}
+    mods = {"scan": scan, "merge": merge, "expand": expand, "strings": strings,
+            "partition": partition}
     counters = [(name, mods[m], c) for name, (m, c) in KERNEL_COUNTERS.items()]
     for name, module, counter in counters:
         # ops.join calls its kernels by name, StringColumn.take calls

@@ -815,7 +815,7 @@ def _counting(monkeypatch):
     """Make the kernel wrappers count their plain calls, as their CUDA
     launches count on the card: ops.join calls its kernels by name,
     StringColumn.take calls string_gather through its module."""
-    from dj_tpu_torch.ops import KERNEL_COUNTERS, expand, join, merge, scan, strings
+    from dj_tpu_torch.ops import KERNEL_COUNTERS, expand, join, merge, partition, scan, strings
 
     def wrap(name, mod, counter):
         owner = join if hasattr(join, name) else mod
@@ -827,7 +827,8 @@ def _counting(monkeypatch):
 
         monkeypatch.setattr(owner, name, counted)
 
-    mods = {"scan": scan, "merge": merge, "expand": expand, "strings": strings}
+    mods = {"scan": scan, "merge": merge, "expand": expand, "strings": strings,
+            "partition": partition}
     for name, (m, counter) in KERNEL_COUNTERS.items():
         wrap(name, mods[m], counter)
 

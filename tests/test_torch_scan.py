@@ -111,7 +111,7 @@ def test_kernel_sources_carry_their_note():
     assert names == {
         "join_scans", "expand_values", "merge_sorted_u64", "expand_ranks",
         "expand_gather", "expand_join", "expand_carry", "expand_vfull",
-        "tile_sort", "cluster_gather", "take_gather", "string_gather",
+        "tile_sort", "cluster_gather", "take_gather", "string_gather", "partition_ids",
     }
     for p in cuda_build.sources():
         text = p.read_text()

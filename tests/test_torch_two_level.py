@@ -607,7 +607,8 @@ def test_chip_smoke_two_level_phases_rehearse_on_cpu(monkeypatch, capsys):
     import pathlib
     import types
 
-    from dj_tpu_torch.ops import KERNEL_COUNTERS, expand, join as tjoin, merge, scan, strings
+    from dj_tpu_torch.ops import (KERNEL_COUNTERS, expand, join as tjoin, merge, partition, scan,
+                                  strings)
 
     root = pathlib.Path(__file__).resolve().parents[1]
     spec = importlib.util.spec_from_file_location("chip_smoke", root / "chip_smoke.py")
@@ -619,7 +620,8 @@ def test_chip_smoke_two_level_phases_rehearse_on_cpu(monkeypatch, capsys):
                      ("memory_allocated", lambda *a, **k: 0),
                      ("empty_cache", lambda: None)):
         monkeypatch.setattr(torch.cuda, name, fn)
-    mods = {"scan": scan, "merge": merge, "expand": expand, "strings": strings}
+    mods = {"scan": scan, "merge": merge, "expand": expand, "strings": strings,
+            "partition": partition}
     counters = [(name, mods[m], c) for name, (m, c) in KERNEL_COUNTERS.items()]
     for name, module, counter in counters:
         # ops.join calls its kernels by name, StringColumn.take calls
